@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of emg3d_tpu_torch on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Builds the package's CUDA kernels from ``emg3d_tpu_torch/csrc`` with
+nvcc, holds each against its plain PyTorch version on the card, and
+drives the port's main path — ``solve`` on the 64³ fullspace
+configuration of ``bench.py`` (64³ cells of 100 m, 1 Ω·m, 1 Hz x-source
+at the centre, F-cycles to tol 1e-6) — through the kernels.  Phases:
+
+1. environment (torch, CUDA, nvcc, Triton, the card's name and power
+   limit);
+2. kernel build, timed, with ptxas' register/spill report;
+3. each kernel against its plain version on the same card, at
+   (2,2,2), (4,4,4), (7,5,9) and 64³: every single colour step (run
+   twice, must be bitwise equal) and a full nu=3 sweep, within
+   max|Δ| ≤ 1e-12·max|e| (fp64, a different summation order); median
+   time per colour step at 64³, kernel beside plain;
+4. the main path: the default solve of that configuration, CONVERGED,
+   and of the same fullspace on the smallest of LARGE_SHAPES whose
+   finest-level factor stack does not fit the card's FACTOR_SHARE, so
+   that the solver takes the fused kernel there and the factored one
+   below; then a warm second solve at 64³;
+5. the 64³ solve with the fused kernel pinned: same it_mg, field
+   within a relative 1e-9 of phase 4;
+6. a heterogeneous tri-axial model on stretched 64×48×40 cells, solved
+   through the kernels and through the plain torch path on the card:
+   same it_mg, fields within a relative 1e-9.
+
+The launch counters are reset just before the two main-path solves of
+phase 4 and read just after them: that count is ``launches`` in the
+result line.  Phase 5's pinned solve is counted apart
+(``pinned_launches``).  Any failure raises and the exit code is not 0.
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+holds ``nvidia-smi``'s name and power limit, and before that one JSON
+line with the kernels' readings.  Needs one card and no network.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
+TOL_SOLVE = 1e-9       # relative field difference between two solves
+SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (64, 64, 64))
+KERNELS = {
+    'factored': dict(name='point_gs_factored',
+                     replaces='emg3d_tpu/ops/pallas_gs.py:958'),
+    'fused': dict(name='point_gs_fused',
+                  replaces='emg3d_tpu/ops/pallas_gs.py:1048'),
+}
+SOURCE = 'emg3d_tpu_torch/csrc/point_gs.cu'
+# Fullspace shapes (100 m cells) for the main path's second solve, in
+# order of size; good multigrid numbers (p·2^k, p ≤ 3).
+LARGE_SHAPES = ((512, 384, 384), (512, 512, 384), (512, 512, 512))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+class Phase:
+    """Prints one line per phase with its seconds."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"== phase {self.name}")
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"== phase {self.name}: ok "
+                f"({time.perf_counter() - self.t0:.2f} s)")
+        return False
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_environment(torch):
+    from emg3d_tpu_torch.ops import _build
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+    nvcc = _build._nvcc()
+    ver = subprocess.run([nvcc, '--version'], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    log(f"nvcc {nvcc}: {ver.strip().splitlines()[-1]}")
+    try:
+        import triton
+        log(f"triton {triton.__version__}")
+    except ImportError:
+        log("triton: not installed (not used by this package)")
+    log(f"device count {torch.cuda.device_count()}, "
+        f"device 0: {torch.cuda.get_device_name(0)}")
+    log(nvidia_smi())
+
+
+def phase_build():
+    from emg3d_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    path, text = _build.build()
+    _build.library()
+    log(f"built {path} in {time.perf_counter() - t0:.2f} s")
+    for line in text.splitlines():
+        if 'registers' in line or 'spill' in line or 'Compiling' in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+def _level(shape, seed, device):
+    """Level tensors of a random stretched anisotropic model."""
+    import torch
+    from emg3d_tpu_torch import TensorMesh, Model, VolumeModel, SourceField
+    from emg3d_tpu_torch.ops import point_gs
+    rng = np.random.default_rng(seed)
+    grid = TensorMesh([rng.uniform(50, 150, n) for n in shape])
+    model = Model(grid, *(rng.uniform(0.3, 30, shape) for _ in range(3)))
+    sfield = SourceField.zeros(grid, frequency=1.0)
+    vm = VolumeModel(grid, model, sfield)
+    cplx = dict(dtype=torch.complex128, device=device)
+    real = dict(dtype=torch.float64, device=device)
+    arrays = tuple(torch.tensor(np.asarray(a), **cplx)
+                   for a in (vm.eta_x, vm.eta_y, vm.eta_z)) + tuple(
+        torch.tensor(np.asarray(a), **real)
+        for a in (vm.zeta, *grid.h))
+    edges = (grid.shape_edges_x, grid.shape_edges_y, grid.shape_edges_z)
+
+    def rand():
+        return tuple(torch.tensor(rng.standard_normal(sh)
+                                  + 1j * rng.standard_normal(sh), **cplx)
+                     for sh in edges)
+    state = point_gs.point_state(arrays, shape, factored=True)
+    return state, rand(), rand()
+
+
+def _maxdiff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _maxabs(a):
+    return max(float(x.abs().max()) for x in a)
+
+
+def _time_steps(torch, fn, reps=20):
+    """Median ms of one colour step, from reps sweeps of 8 steps."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / 8)
+    return float(np.median(times))
+
+
+def phase_kernels(torch, results):
+    from emg3d_tpu_torch.ops import point_gs
+    dev = torch.device('cuda')
+    for shape in SHAPES:
+        state, e0, s = _level(shape, seed=sum(shape), device=dev)
+        for mode in KERNELS:
+            errs = []
+            for color in range(8):
+                outs = []
+                for _ in range(2):
+                    e = tuple(t.clone() for t in e0)
+                    point_gs.gauss_seidel_point(e, s, state, 1, _mode=mode,
+                                                _seq=(color,))
+                    outs.append(e)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(
+                        f"{mode} {shape} colour {color}: two runs differ")
+                ref = tuple(t.clone() for t in e0)
+                point_gs.gauss_seidel_point_plain(ref, s, state, 1,
+                                                  _mode=mode, _seq=(color,))
+                errs.append((_maxdiff(outs[0], ref), _maxabs(ref)))
+            e = tuple(t.clone() for t in e0)
+            point_gs.gauss_seidel_point(e, s, state, 3, _mode=mode)
+            ref = tuple(t.clone() for t in e0)
+            point_gs.gauss_seidel_point_plain(ref, s, state, 3, _mode=mode)
+            torch.cuda.synchronize()
+            errs.append((_maxdiff(e, ref), _maxabs(ref)))
+            abs_err = max(a for a, _ in errs)
+            worst = max(a / m for a, m in errs)
+            log(f"{KERNELS[mode]['name']} {shape}: max|Δ|/max|e| "
+                f"{worst:.3e} (single colours and nu=3; repeat bitwise "
+                f"equal)")
+            if not worst <= TOL_KERNEL:
+                raise AssertionError(f"{mode} {shape}: {worst:.3e} > "
+                                     f"{TOL_KERNEL}")
+            res = results.setdefault(mode, {'max_abs_err': 0.0})
+            res['max_abs_err'] = max(res['max_abs_err'], abs_err)
+            if shape == (64, 64, 64):
+                seq = tuple(range(8))
+                ek = tuple(t.clone() for t in e0)
+                ep = tuple(t.clone() for t in e0)
+                res['ms'] = _time_steps(torch, lambda: point_gs.
+                                        gauss_seidel_point(
+                                            ek, s, state, 1, _mode=mode,
+                                            _seq=seq))
+                res['plain_ms'] = _time_steps(torch, lambda: point_gs.
+                                              gauss_seidel_point_plain(
+                                                  ep, s, state, 1,
+                                                  _mode=mode, _seq=seq))
+                log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per "
+                    f"colour step; plain torch {res['plain_ms']:.4f} ms")
+
+
+def bench_problem(shape=(64, 64, 64)):
+    """bench.py's configuration (bench.py:37-52), in the port."""
+    from emg3d_tpu_torch import TensorMesh, Model, SourceField
+    grid = TensorMesh([np.full(n, 100.) for n in shape])
+    model = Model(grid, property_x=1.0, mapping='Resistivity')
+    sfield = SourceField.zeros(grid, frequency=1.0)
+    np.asarray(sfield.fx)[tuple(n // 2 for n in shape)] = 1.0
+    return grid, model, sfield
+
+
+def large_shape(torch):
+    """First of LARGE_SHAPES whose finest factor stack does not fit."""
+    from emg3d_tpu_torch.ops import point_gs
+    for shape in LARGE_SHAPES:
+        if not point_gs.factors_fit(shape, torch.device('cuda')):
+            return shape
+    raise AssertionError("every shape of LARGE_SHAPES fits the factored "
+                         "kernel on this card")
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a.field - b.field) /
+                 np.linalg.norm(b.field))
+
+
+def _solve(torch, grid, model, sfield, **kw):
+    from emg3d_tpu_torch import solve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e, info = solve(grid, model, sfield, cycle='F', tol=1e-6, verb=1,
+                    return_info=True, device='cuda', **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if info['exit_message'] != 'CONVERGED':
+        raise AssertionError(f"solve {kw}: {info['exit_message']}")
+    if not all(np.isfinite(f).all() for f in (e.fx, e.fy, e.fz)):
+        raise AssertionError(f"solve {kw}: non-finite field")
+    return e, info, wall
+
+
+def heterogeneous_problem(seed=64):
+    """Tri-axial random model on stretched 64×48×40 cells."""
+    from emg3d_tpu_torch import TensorMesh, Model, get_source_field
+    rng = np.random.default_rng(seed)
+    shape = (64, 48, 40)
+    h = [100. * 1.04 ** np.abs(np.arange(n) - (n - 1) / 2) for n in shape]
+    grid = TensorMesh(h, origin=tuple(-hh.sum() / 2 for hh in h))
+    rho_x = 10 ** rng.uniform(0, 1, shape)
+    model = Model(grid, rho_x, rho_x * rng.uniform(1, 2, shape),
+                  rho_x * rng.uniform(1, 3, shape), mapping='Resistivity')
+    sfield = get_source_field(grid, (-50., 50., 0., 0., 0., 0.), 1.0)
+    return grid, model, sfield
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card.", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from emg3d_tpu_torch.ops import point_gs
+
+    results = {}
+    with Phase('1 environment'):
+        phase_environment(torch)
+    with Phase('2 build'):
+        phase_build()
+    with Phase('3 kernels vs plain'):
+        phase_kernels(torch, results)
+
+    grid, model, sfield = bench_problem()
+    big = large_shape(torch)
+    big_problem = bench_problem(big)
+    point_gs.reset_launches()
+    with Phase('4 main path: solve 64³ and '
+               f'{"x".join(map(str, big))}, default kernels'):
+        e4, info4, wall_cold = _solve(torch, grid, model, sfield)
+        k64 = dict(point_gs.LAUNCHES)
+        log(f"64³: it_mg {info4['it_mg']}, rel_error "
+            f"{info4['rel_error']:.3e}, wall {wall_cold:.3f} s (first "
+            f"solve), launches {k64}")
+        if k64['factored'] == 0:
+            raise AssertionError("the default solve launched no factored "
+                                 "kernel")
+        eb, infob, wallb = _solve(torch, *big_problem)
+        launches = dict(point_gs.LAUNCHES)
+        kbig = {k: launches[k] - k64[k] for k in launches}
+        log(f"{big}: it_mg {infob['it_mg']}, rel_error "
+            f"{infob['rel_error']:.3e}, wall {wallb:.3f} s (first solve), "
+            f"launches {kbig}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eb
+        if kbig['fused'] == 0 or kbig['factored'] == 0:
+            raise AssertionError(f"{big}: expected the fused kernel on the "
+                                 f"finest level and the factored one below")
+    with Phase('4b warm solve 64³, default kernels'):
+        e4b, info4b, wall_warm = _solve(torch, grid, model, sfield)
+        log(f"it_mg {info4b['it_mg']}, warm wall {wall_warm:.3f} s, "
+            f"|Δ|/|e| vs phase 4 {_rel(e4b, e4):.3e}")
+    with Phase('5 solve 64³, fused kernel pinned'):
+        point_gs.reset_launches()
+        e5, info5, wall5 = _solve(torch, grid, model, sfield,
+                                  _mode='fused')
+        pinned = dict(point_gs.LAUNCHES)
+        rel = _rel(e5, e4)
+        log(f"it_mg {info5['it_mg']}, rel_error {info5['rel_error']:.3e}, "
+            f"wall {wall5:.3f} s, |e5-e4|/|e4| {rel:.3e}, "
+            f"launches {pinned}")
+        if info5['it_mg'] != info4['it_mg'] or not rel <= TOL_SOLVE:
+            raise AssertionError("fused-kernel solve differs from the "
+                                 "factored one")
+    with Phase('6 heterogeneous tri-axial 64x48x40: kernels vs plain'):
+        hg, hm, hs = heterogeneous_problem()
+        ek, ik, wk = _solve(torch, hg, hm, hs)
+        ep, ip, wp = _solve(torch, hg, hm, hs, _mode='plain')
+        rel = _rel(ek, ep)
+        log(f"kernels: it_mg {ik['it_mg']}, rel_error "
+            f"{ik['rel_error']:.3e}, wall {wk:.3f} s; plain: it_mg "
+            f"{ip['it_mg']}, wall {wp:.3f} s; |Δ|/|e| {rel:.3e}")
+        if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
+            raise AssertionError("kernel and plain solves differ")
+
+    kernels = []
+    for mode, meta in KERNELS.items():
+        r = results[mode]
+        kernels.append({'name': meta['name'], 'route': 'cuda',
+                        'source': SOURCE, 'replaces': meta['replaces'],
+                        'launches': launches[mode],
+                        'pinned_launches': pinned[mode],
+                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                        'plain_ms': r['plain_ms']})
+    log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
+        f"{wall_warm:.3f} s")
+    print(json.dumps({'kernels': kernels}))
+    print(nvidia_smi())
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

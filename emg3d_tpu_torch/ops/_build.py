@@ -1,0 +1,96 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+The kernels in ``emg3d_tpu_torch/csrc/*.cu`` have a plain C interface,
+so they build in seconds with ``nvcc`` alone (no PyTorch headers) into
+one shared library.  The library lands in ``build/emg3d_tpu_torch/``
+beside the package, in a folder keyed by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing is compiled at import: the first kernel launch builds.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ['library', 'build']
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
+FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+LIBNAME = 'libemg3d_tpu_torch.so'
+
+_LIB = []   # the loaded library, once built
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = []
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, 'bin', 'nvcc'))
+    found = shutil.which('nvcc')
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the CUDA "
+                       "kernels of emg3d_tpu_torch cannot be built.")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob('*.cu'))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    return srcs
+
+
+def build():
+    """Compile ``csrc/*.cu`` (if not yet built); return (path, log).
+
+    ``log`` is nvcc's output, with ptxas' register and spill report
+    per kernel.
+    """
+    srcs = _sources()
+    h = hashlib.sha256(' '.join(FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in ('.cu', '.cuh'):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / LIBNAME
+    log = out_dir / 'nvcc.log'
+    if lib.is_file():
+        return lib, log.read_text() if log.is_file() else ''
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Build under a temporary name and rename: concurrent processes never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *FLAGS, '-o', tmp, *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{text}")
+    log.write_text(text)
+    os.replace(tmp, lib)
+    return lib, text
+
+
+def library():
+    """The loaded kernel library (built at first use), with argtypes set."""
+    if not _LIB:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        P = ctypes.c_void_p
+        I = ctypes.c_int
+        fn = lib.emg3d_point_gs_step
+        fn.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
+        fn.restype = I
+        _LIB.append(lib)
+    return _LIB[0]

@@ -1,0 +1,149 @@
+"""The matrix-free curl-curl + iωμσ̃ operator as torch ops.
+
+Counterpart of ``emg3d_tpu/ops/stencil.py``: the operator
+
+    A e = V (iωμ0 σ̃ e − ∇ × μr⁻¹ ∇ × e)          [Muld06 Eq. 2]
+
+evaluated matrix-free on the staggered Yee grid, with PEC rows zeroed,
+as whole-tensor first-curl (faces), ζ face-weighting, second-curl
+(edges) and η edge-averaging.  Complex tensors are native
+(complex128), not split re/im pairs.
+
+Tensor layout (C-order, indexed [ix, iy, iz]):
+  ex (nx, ny+1, nz+1), ey (nx+1, ny, nz+1), ez (nx+1, ny+1, nz)
+  eta_x/eta_y/eta_z/zeta (nx, ny, nz);  hx (nx,), hy (ny,), hz (nz,)
+"""
+import torch
+
+__all__ = ['curl_factors', 'amat', 'residual_parts', 'pec_mask_apply',
+           'zeta_face_weights', 'eta_edge_sums']
+
+
+def _adjpair(a, axis):
+    """Adjacent-pair sum along ``axis`` (length n -> n-1)."""
+    n = a.shape[axis]
+    return a.narrow(axis, 0, n - 1) + a.narrow(axis, 1, n - 1)
+
+
+def _edgepad_pair(a, axis):
+    """Edge-replicate-pad by one on both ends, then adjacent-pair sum.
+
+    Result has length n+1 along ``axis``: entry i = a[clip(i-1)] +
+    a[clip(i)], matching the reference's clamped ixm/iym/izm indexing.
+    """
+    n = a.shape[axis]
+    p = torch.cat([a.narrow(axis, 0, 1), a, a.narrow(axis, n - 1, 1)],
+                  dim=axis)
+    return _adjpair(p, axis)
+
+
+def zeta_face_weights(zeta):
+    """ζ-sums of the two cells adjacent to each face, per direction.
+
+    Returns (wx, wy, wz):
+      wx (nx+1, ny, nz) : weights on x-faces (for the curl x-component)
+      wy (nx, ny+1, nz) : weights on y-faces
+      wz (nx, ny, nz+1) : weights on z-faces
+    Boundary faces use the clamped (doubled) single-cell value.
+    """
+    return (_edgepad_pair(zeta, 0), _edgepad_pair(zeta, 1),
+            _edgepad_pair(zeta, 2))
+
+
+def eta_edge_sums(eta_x, eta_y, eta_z):
+    """4-cell η sums at interior edges (NOT divided by 4).
+
+    Returns (stx, sty, stz):
+      stx (nx, ny-1, nz-1) for x-edges at interior (iy, iz),
+      sty (nx-1, ny, nz-1), stz (nx-1, ny-1, nz).
+    """
+    stx = _adjpair(_adjpair(eta_x, 1), 2)
+    sty = _adjpair(_adjpair(eta_y, 0), 2)
+    stz = _adjpair(_adjpair(eta_z, 0), 1)
+    return stx, sty, stz
+
+
+def _inverse_widths(hx, hy, hz):
+    return ((1.0 / hx)[:, None, None], (1.0 / hy)[None, :, None],
+            (1.0 / hz)[None, None, :])
+
+
+def curl_factors(ex, ey, ez, zeta, hx, hy, hz):
+    """ζ-weighted curl on cell faces: u = (ζ_left + ζ_right) · (∇×E).
+
+    Returns (u1, u2, u3) with shapes
+      u1 (nx+1, ny, nz), u2 (nx, ny+1, nz), u3 (nx, ny, nz+1).
+
+    (The conventional factor ½ of the ζ-average is applied later, in
+    :func:`amat`, as in the reference.)
+    """
+    ihx, ihy, ihz = _inverse_widths(hx, hy, hz)
+
+    v1 = torch.diff(ez, dim=1) * ihy - torch.diff(ey, dim=2) * ihz
+    v2 = torch.diff(ex, dim=2) * ihz - torch.diff(ez, dim=0) * ihx
+    v3 = torch.diff(ey, dim=0) * ihx - torch.diff(ex, dim=1) * ihy
+
+    wx, wy, wz = zeta_face_weights(zeta)
+    return v1 * wx, v2 * wy, v3 * wz
+
+
+def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
+    """Interior (non-PEC) rows of A e, unpadded.
+
+    Shapes: ax (nx, ny-1, nz-1), ay (nx-1, ny, nz-1),
+    az (nx-1, ny-1, nz).
+    """
+    ihx, ihy, ihz = _inverse_widths(hx, hy, hz)
+
+    u1, u2, u3 = curl_factors(ex, ey, ez, zeta, hx, hy, hz)
+
+    # Second curl, interior edges only.
+    rrx = (torch.diff(u3[:, :, 1:-1] * ihy, dim=1)
+           - torch.diff(u2[:, 1:-1, :] * ihz, dim=2))
+    rry = (torch.diff(u1[1:-1, :, :] * ihz, dim=2)
+           - torch.diff(u3[:, :, 1:-1] * ihx, dim=0))
+    rrz = (torch.diff(u2[:, 1:-1, :] * ihx, dim=0)
+           - torch.diff(u1[1:-1, :, :] * ihy, dim=1))
+
+    # η-terms (4-cell averages; /4 folded into the 0.25 factor).
+    stx, sty, stz = eta_edge_sums(eta_x, eta_y, eta_z)
+
+    ax = 0.5 * rrx - 0.25 * stx * ex[:, 1:-1, 1:-1]
+    ay = 0.5 * rry - 0.25 * sty * ey[1:-1, :, 1:-1]
+    az = 0.5 * rrz - 0.25 * stz * ez[1:-1, 1:-1, :]
+    return ax, ay, az
+
+
+def amat(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
+    """Apply the operator: returns (A e)_x, (A e)_y, (A e)_z.
+
+    PEC rows (tangential boundary edges) are zero.
+    """
+    ax, ay, az = amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta,
+                               hx, hy, hz)
+    pad = torch.nn.functional.pad
+    # F.pad lists the last dimension first: (z_lo, z_hi, y_lo, y_hi, ...).
+    ax = pad(ax, (1, 1, 1, 1, 0, 0))
+    ay = pad(ay, (1, 1, 0, 0, 1, 1))
+    az = pad(az, (0, 0, 1, 1, 1, 1))
+    return ax, ay, az
+
+
+def residual_parts(sx, sy, sz, ex, ey, ez, eta_x, eta_y, eta_z, zeta,
+                   hx, hy, hz):
+    """Residual r = s − A e (component tensors)."""
+    ax, ay, az = amat(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz)
+    return sx - ax, sy - ay, sz - az
+
+
+def pec_mask_apply(fx, fy, fz):
+    """Zero tangential boundary edges (PEC), in place; returns the tensors.
+
+    The JAX counterpart returns new arrays; every caller here owns the
+    tensors it masks, so the port writes into them.
+    """
+    for f, axes in ((fx, (1, 2)), (fy, (0, 2)), (fz, (0, 1))):
+        for ax in axes:
+            f.select(ax, 0).zero_()
+            f.select(ax, -1).zero_()
+    return fx, fy, fz

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Device profile of one warm solve of emg3d_tpu_torch on a CUDA card.
+
+    python3 profile_solve.py [--mode factored|fused|plain] [--out DIR]
+
+Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
+1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
+warm up, once more on the host clock alone, and once under
+``torch.profiler`` with CPU and CUDA activities.  ``--mode`` pins the
+point-smoother kernel, or runs the plain torch smoother; by default the
+solver picks.  Prints:
+
+- the warm wall time (host clock, ending in a synchronize), without
+  and with the profiler;
+- device busy time, the union of the trace's kernel, memcpy and memset
+  intervals, and the idle share 1 − busy / profiled wall;
+- device time and count per kernel name (top 12) and per copy kind;
+- the point-smoother launches of the profiled solve;
+- the card's name and power limit.
+
+The Chrome trace goes to ``DIR/trace.json`` (default
+``build/profile``).
+"""
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def busy_union(intervals):
+    """Total length of the union of (start, end) intervals."""
+    busy, end = 0.0, float('-inf')
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--mode', choices=('factored', 'fused', 'plain'))
+    ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_solve: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bench_problem, nvidia_smi
+    from emg3d_tpu_torch import solve
+    from emg3d_tpu_torch.ops import point_gs
+
+    grid, model, sfield = bench_problem()
+    kw = dict(cycle='F', tol=1e-6, verb=0, return_info=True,
+              device='cuda', _mode=args.mode)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = solve(grid, model, sfield, **kw)
+        torch.cuda.synchronize()
+        if info['exit_message'] != 'CONVERGED':
+            raise AssertionError(info['exit_message'])
+        return time.perf_counter() - t0, info
+
+    for _ in range(2):
+        timed()
+    wall, info = timed()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    point_gs.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_prof, _ = timed()
+    launches = dict(point_gs.LAUNCHES)
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / 'trace.json'
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())['traceEvents']
+              if e.get('ph') == 'X' and e.get('cat') in DEVICE_CATS]
+    busy = busy_union([(e['ts'], e['ts'] + e['dur']) for e in events]) / 1e6
+    per = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        key = e['name'] if e['cat'] == 'kernel' else f"[{e['cat']}] " \
+            f"{e['name']}"
+        per[key][0] += e['dur'] / 1e3
+        per[key][1] += 1
+
+    print(f"mode {args.mode or 'default'}: it_mg {info['it_mg']}, warm "
+          f"wall {wall:.4f} s; profiled wall {wall_prof:.4f} s")
+    print(f"device busy {busy:.4f} s over {len(events)} device events; "
+          f"idle share {1 - busy / wall_prof:.4f}")
+    print(f"point-smoother launches {launches}")
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    copies = [kv for kv in ranked if kv[0].startswith('[')]
+    kernels = [kv for kv in ranked if not kv[0].startswith('[')]
+    for name, (ms, n) in kernels[:12] + copies:
+        print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
+    print(f"trace: {trace}")
+    print(nvidia_smi())
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

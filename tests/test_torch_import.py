@@ -1,0 +1,150 @@
+"""emg3d_tpu_torch: imports without JAX, device policy, launch geometry."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import emg3d_tpu_torch as pt
+from emg3d_tpu_torch.ops import _build, point_gs
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / 'emg3d_tpu_torch'
+
+
+def test_import_without_jax():
+    code = (
+        "import sys\n"
+        "import emg3d_tpu_torch\n"
+        "from emg3d_tpu_torch import solve, convert\n"
+        "from emg3d_tpu_torch.ops import point_gs, _build, smoothers\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
+        "       or m.startswith('emg3d_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert callable(solve)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                   check=True, timeout=300)
+
+
+def test_no_module_imports_jax_or_emg3d_tpu():
+    pat = re.compile(r'^\s*(import|from)\s+(jax|emg3d_tpu)(\.|\s|$)',
+                     re.MULTILINE)
+    files = sorted(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py',
+                                          REPO / 'profile_solve.py']
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def _tiny_problem():
+    grid = pt.TensorMesh([np.full(4, 100.)] * 3, origin=(-200.,) * 3)
+    model = pt.Model(grid, property_x=1.0)
+    sfield = pt.get_source_field(grid, (0, 0, 0, 0, 0), 1.0)
+    return grid, model, sfield
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    grid, model, sfield = _tiny_problem()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pt.solve(grid, model, sfield, verb=0)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pt.solve(grid, model, sfield, verb=0, device='cuda')
+
+
+def test_unported_options_raise():
+    grid, model, sfield = _tiny_problem()
+    for kw in ({'sslsolver': True}, {'linerelaxation': True}):
+        with pytest.raises(NotImplementedError):
+            pt.solve(grid, model, sfield, verb=0, device='cpu', **kw)
+    with pytest.raises(ValueError):
+        pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
+
+
+def _cpu_state(shape, factored=True):
+    rng = np.random.default_rng(0)
+    cells = rng.uniform(1, 2, shape)
+    arrays = (torch.tensor(cells + 1j * cells),) * 3 + (
+        torch.tensor(cells), *(torch.tensor(rng.uniform(50, 150, n))
+                               for n in shape))
+    st = point_gs.point_state(arrays, shape, factored=factored)
+    e = tuple(torch.zeros(sh, dtype=torch.complex128)
+              for sh in ((shape[0], shape[1] + 1, shape[2] + 1),
+                         (shape[0] + 1, shape[1], shape[2] + 1),
+                         (shape[0] + 1, shape[1] + 1, shape[2])))
+    s = tuple(torch.ones_like(t) for t in e)
+    return st, e, s
+
+
+def test_cpu_wrapper_never_builds(monkeypatch):
+    """On CPU tensors the wrapper runs the plain version only."""
+    def boom():
+        raise AssertionError("kernel library requested for CPU tensors")
+    monkeypatch.setattr(_build, 'library', boom)
+    point_gs.reset_launches()
+    st, e, s = _cpu_state((4, 4, 4))
+    out = point_gs.gauss_seidel_point(e, s, st, 1)
+    assert out[0] is e[0]                      # updated in place
+    assert float(e[0].abs().max()) > 0
+    assert point_gs.LAUNCHES == {'factored': 0, 'fused': 0}
+
+
+def test_wrapper_checks(monkeypatch):
+    st, e, s = _cpu_state((4, 4, 4), factored=False)
+    with pytest.raises(ValueError, match='factored'):
+        point_gs.gauss_seidel_point(e, s, st, 1, _mode='factored')
+    with pytest.raises(ValueError, match='shape'):
+        point_gs.gauss_seidel_point(e[::-1], s, st, 1)
+    meta = tuple(t.to('meta') for t in e)
+    with pytest.raises(ValueError):
+        point_gs.gauss_seidel_point(meta, tuple(t.to('meta') for t in s),
+                                    st, 1)
+
+
+@pytest.mark.parametrize('group', ['arrays', 'st', 'w', 'ih', 'factors'])
+def test_wrapper_checks_state_shapes(group):
+    """A state whose tensors disagree with its shape is refused."""
+    st, e, s = _cpu_state((4, 4, 4))
+    other, _, _ = _cpu_state((4, 5, 4))
+    bad = st._replace(**{group: getattr(other, group)})
+    with pytest.raises(ValueError, match=f'{group}: shape'):
+        point_gs.gauss_seidel_point(e, s, bad, 1)
+
+
+@pytest.mark.parametrize('shape', [(2, 2, 2), (3, 5, 7), (4, 4, 4),
+                                   (64, 64, 64)])
+def test_launch_geometry(shape):
+    n_interior = np.prod([n - 1 for n in shape])
+    seen = 0
+    for color in range(8):
+        first, counts, blocks, threads = point_gs.launch_geometry(shape,
+                                                                  color)
+        parity = (color % 2, (color // 2) % 2, color // 4)
+        total = int(np.prod(counts))
+        seen += total
+        for f, c, n, p in zip(first, counts, shape, parity):
+            assert f % 2 == p and f >= 1
+            if c:                              # clamped to the level
+                assert f + 2 * (c - 1) <= n - 1 < f + 2 * c
+        if total == 0:
+            assert (blocks, threads) == (0, 0)
+        else:
+            assert threads % 32 == 0 and 32 <= threads <= 256
+            assert blocks * threads >= total > (blocks - 1) * threads
+    assert seen == n_interior
+    if shape == (2, 2, 2):
+        # One interior node, of colour 7.
+        assert point_gs.launch_geometry(shape, 7)[1] == (1, 1, 1)
+
+
+def test_build_flags():
+    assert 'arch=compute_90a,code=sm_90a' in _build.FLAGS
+    assert [p.name for p in _build._sources()] == ['point_gs.cu']
