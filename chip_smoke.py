@@ -5,19 +5,30 @@
 
 Builds the package's CUDA kernels from ``emg3d_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card, and
-drives the port's main path — ``solve`` on the 64³ fullspace
-configuration of ``bench.py`` (64³ cells of 100 m, 1 Ω·m, 1 Hz x-source
-at the centre, F-cycles to tol 1e-6) — through the kernels.  Phases:
+drives the port's two paths through the kernels: ``solve`` with point
+smoothing on the 64³ fullspace configuration of ``bench.py`` (64³ cells
+of 100 m, 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6),
+and the production configuration (semicoarsening and line relaxation,
+standalone and MG-preconditioned BiCGSTAB/CGS) on the same fullspace.
+Phases:
 
 1. environment (torch, CUDA, nvcc, Triton, the card's name and power
    limit);
 2. kernel build, timed, with ptxas' register/spill report;
-3. each kernel against its plain version on the same card, at
+3. each point kernel against its plain version on the same card, at
    (2,2,2), (4,4,4), (7,5,9) and 64³: every single colour step (run
    twice, must be bitwise equal) and a full nu=3 sweep, within
    max|Δ| ≤ 1e-12·max|e| (fp64, a different summation order); median
    time per colour step at 64³, kernel beside plain;
-4. the main path: the default solve of that configuration, CONVERGED,
+3b. the line kernels the same way, at (3,3,3), (7,5,9), (9,7,9) and
+   64³, lines along x, y and z: the residual kernel against
+   ``stencil.residual_parts``, the Thomas kernel against
+   ``smoothers.line_thomas_x`` on the same residual, every colour step
+   through the wrapper (twice, bitwise equal) and a nu=2 sweep against
+   the plain version; median ms per launch at 64³; then at 256³, lines
+   along x, the residual kernel and the Thomas kernel (colours 0 and 3)
+   alone against their plain versions, with ms per launch;
+4. the point path: the default solve of that configuration, CONVERGED,
    and of the same fullspace on the smallest of LARGE_SHAPES whose
    finest-level factor stack does not fit the card's FACTOR_SHARE, so
    that the solver takes the fused kernel there and the factored one
@@ -26,12 +37,23 @@ at the centre, F-cycles to tol 1e-6) — through the kernels.  Phases:
    within a relative 1e-9 of phase 4;
 6. a heterogeneous tri-axial model on stretched 64×48×40 cells, solved
    through the kernels and through the plain torch path on the card:
-   same it_mg, fields within a relative 1e-9.
+   same it_mg, fields within a relative 1e-9;
+7. the production path ("sclr64"): the 64³ fullspace with
+   semicoarsening and line relaxation, standalone, with BiCGSTAB
+   (``sslsolver=True``, Simulation's default) and with CGS, each
+   CONVERGED; cold solves, then warm ones;
+8. "sclr256": the same fullspace at 256³ cells, standalone, CONVERGED,
+   with its peak device memory;
+9. the model of phase 6 with semicoarsening and line relaxation,
+   through the kernels and through the plain torch path: same it_mg,
+   fields within a relative 1e-9.
 
-The launch counters are reset just before the two main-path solves of
-phase 4 and read just after them: that count is ``launches`` in the
-result line.  Phase 5's pinned solve is counted apart
-(``pinned_launches``).  Any failure raises and the exit code is not 0.
+The launch counters are reset just before the two point-path solves of
+phase 4 and read just after them, and reset just before the three cold
+solves of phase 7 and read just after them: those counts are
+``launches`` in the result line.  Phase 5's pinned solve is counted
+apart (``pinned_launches``).  Any failure raises and the exit code is
+not 0.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds ``nvidia-smi``'s name and power limit, and before that one JSON
 line with the kernels' readings.  Needs one card and no network.
@@ -47,13 +69,24 @@ import numpy as np
 TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
 TOL_SOLVE = 1e-9       # relative field difference between two solves
 SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (64, 64, 64))
+LINE_SHAPES = ((3, 3, 3), (7, 5, 9), (9, 7, 9), (64, 64, 64))
+# sclr256's finest level: each kernel alone against its plain version
+# (lines along x), where the kernels' int64 offsets are largest.
+LINE_LARGE = (256, 256, 256)
+POINT_SRC = 'emg3d_tpu_torch/csrc/point_gs.cu'
+LINE_SRC = 'emg3d_tpu_torch/csrc/line_gs.cu'
 KERNELS = {
-    'factored': dict(name='point_gs_factored',
+    'factored': dict(name='point_gs_factored', source=POINT_SRC,
                      replaces='emg3d_tpu/ops/pallas_gs.py:958'),
-    'fused': dict(name='point_gs_fused',
+    'fused': dict(name='point_gs_fused', source=POINT_SRC,
                   replaces='emg3d_tpu/ops/pallas_gs.py:1048'),
+    'line_residual': dict(name='line_residual', source=LINE_SRC,
+                          replaces='emg3d_tpu/ops/pallas_lr.py:846'),
+    'line_thomas': dict(name='line_thomas', source=LINE_SRC,
+                        replaces='emg3d_tpu/ops/pallas_lr.py:885'),
 }
-SOURCE = 'emg3d_tpu_torch/csrc/point_gs.cu'
+SCLR = dict(semicoarsening=True, linerelaxation=True)
+POINT_MODES = ('factored', 'fused')
 # Fullspace shapes (100 m cells) for the main path's second solve, in
 # order of size; good multigrid numbers (p·2^k, p ≤ 3).
 LARGE_SHAPES = ((512, 384, 384), (512, 512, 384), (512, 512, 512))
@@ -118,7 +151,7 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def _level(shape, seed, device):
+def _level(shape, seed, device, factored=True):
     """Level tensors of a random stretched anisotropic model."""
     import torch
     from emg3d_tpu_torch import TensorMesh, Model, VolumeModel, SourceField
@@ -140,7 +173,7 @@ def _level(shape, seed, device):
         return tuple(torch.tensor(rng.standard_normal(sh)
                                   + 1j * rng.standard_normal(sh), **cplx)
                      for sh in edges)
-    state = point_gs.point_state(arrays, shape, factored=True)
+    state = point_gs.point_state(arrays, shape, factored=factored)
     return state, rand(), rand()
 
 
@@ -152,9 +185,9 @@ def _maxabs(a):
     return max(float(x.abs().max()) for x in a)
 
 
-def _time_steps(torch, fn, reps=20):
-    """Median ms of one colour step, from reps sweeps of 8 steps."""
-    for _ in range(3):
+def _time_steps(torch, fn, reps=20, per=8, warm=3):
+    """Median ms of one step, from reps calls of ``per`` steps each."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -165,7 +198,7 @@ def _time_steps(torch, fn, reps=20):
         fn()
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / 8)
+        times.append(t0.elapsed_time(t1) / per)
     return float(np.median(times))
 
 
@@ -174,7 +207,7 @@ def phase_kernels(torch, results):
     dev = torch.device('cuda')
     for shape in SHAPES:
         state, e0, s = _level(shape, seed=sum(shape), device=dev)
-        for mode in KERNELS:
+        for mode in POINT_MODES:
             errs = []
             for color in range(8):
                 outs = []
@@ -221,6 +254,137 @@ def phase_kernels(torch, results):
                                                   _mode=mode, _seq=seq))
                 log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per "
                     f"colour step; plain torch {res['plain_ms']:.4f} ms")
+
+
+def _clone(f):
+    return tuple(t.clone() for t in f)
+
+
+def _check_kernel(name, shape, errs):
+    """errs: (max|Δ|, max|ref|) pairs; returns the largest max|Δ|."""
+    worst = max(a / m for a, m in errs)
+    log(f"{name} {shape}: max|Δ|/max|ref| {worst:.3e}")
+    if not worst <= TOL_KERNEL:
+        raise AssertionError(f"{name} {shape}: {worst:.3e} > {TOL_KERNEL}")
+    return max(a for a, _ in errs)
+
+
+def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
+                       large=LINE_LARGE):
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    dev = torch.device(device)
+    res = {k: results.setdefault(k, {'max_abs_err': 0.0})
+           for k in ('line_residual', 'line_thomas')}
+    for shape in shapes:
+        pstate, e0, s = _level(shape, seed=sum(shape) + 1, device=dev)
+        errs = {'line_residual': [], 'line_thomas': []}
+        for axis in range(3):
+            st = line_gs.line_state(pstate.arrays, shape, axis)
+            er = tuple(t.contiguous() for t in
+                       smoothers.rotate_fields(e0, axis))
+            sr = tuple(t.contiguous() for t in
+                       smoothers.rotate_fields(s, axis))
+            # K3 alone against stencil.residual_parts.
+            rk = line_gs.residual(er, sr, st,
+                                  tuple(torch.empty_like(t) for t in er))
+            rp = stencil.residual_parts(*sr, *er, *st.arrays)
+            torch.cuda.synchronize()
+            errs['line_residual'].append((_maxdiff(rk, rp), _maxabs(rp)))
+            # K4 alone against line_thomas_x, from the same residual.
+            for color in range(4):
+                ek = line_gs.thomas(_clone(er), rp, st.factors, st, color)
+                ep = smoothers.line_thomas_x(er, rp, st.factors, color)
+                torch.cuda.synchronize()
+                errs['line_thomas'].append((_maxdiff(ek, ep), _maxabs(ep)))
+            # Colour steps through the wrapper (K3 + K4): twice, bitwise
+            # equal; against the plain version; then a nu=2 sweep.
+            for seq in [(c,) for c in range(4)] + [None]:
+                nu = 2 if seq is None else 1
+                outs = []
+                for _ in range(2):
+                    e = _clone(e0)
+                    line_gs.line_relaxation(e, s, st, nu, _seq=seq)
+                    outs.append(e)
+                ref = _clone(e0)
+                line_gs.line_relaxation_plain(ref, s, st, nu, _seq=seq)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(f"line {shape} axis {axis} "
+                                         f"{seq}: two runs differ")
+                errs['line_thomas'].append((_maxdiff(outs[0], ref),
+                                            _maxabs(ref)))
+            if shape == (64, 64, 64) and axis == 0:
+                res['line_residual']['ms'] = _time_steps(
+                    torch, lambda: line_gs.residual(er, sr, st, rk),
+                    reps=50, per=1)
+                res['line_residual']['plain_ms'] = _time_steps(
+                    torch, lambda: stencil.residual_parts(*sr, *er,
+                                                          *st.arrays),
+                    reps=20, per=1)
+                ek = _clone(er)
+                zs = torch.empty((shape[0], 5, (shape[1] // 2) *
+                                  (shape[2] // 2)), dtype=er[0].dtype,
+                                 device=dev)
+                res['line_thomas']['ms'] = _time_steps(
+                    torch, lambda: line_gs.thomas(ek, rp, st.factors, st, 0,
+                                                  zs), reps=50, per=1)
+                res['line_thomas']['plain_ms'] = _time_steps(
+                    torch, lambda: smoothers.line_thomas_x(
+                        er, rp, st.factors, 0), reps=5, per=1, warm=1)
+                e = _clone(e0)
+                step_ms = _time_steps(torch, lambda: line_gs.line_relaxation(
+                    e, s, st, 1), reps=20, per=4)
+                step_plain = _time_steps(
+                    torch, lambda: line_gs.line_relaxation_plain(
+                        e, s, st, 1, _seq=(0,)), reps=5, per=1, warm=1)
+                res['line_thomas']['step_ms'] = step_ms
+                res['line_thomas']['step_plain_ms'] = step_plain
+                log(f"64³ x-lines, ms per launch: line_residual "
+                    f"{res['line_residual']['ms']:.4f} (plain "
+                    f"{res['line_residual']['plain_ms']:.4f}), line_thomas "
+                    f"{res['line_thomas']['ms']:.4f} (plain "
+                    f"{res['line_thomas']['plain_ms']:.4f}); colour step "
+                    f"{step_ms:.4f} (plain {step_plain:.4f})")
+        for k, v in errs.items():
+            res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
+                                        _check_kernel(k, shape, v))
+    if large is not None:
+        _line_kernels_large(torch, res, large, dev)
+
+
+def _line_kernels_large(torch, res, shape, dev):
+    """K3 and K4 alone against their plain versions on x-lines."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    pstate, e, s = _level(shape, seed=7, device=dev, factored=False)
+    st = line_gs.line_state(pstate.arrays, shape, 0)
+    rk = line_gs.residual(e, s, st, tuple(torch.empty_like(t) for t in e))
+    rp = stencil.residual_parts(*s, *e, *st.arrays)
+    torch.cuda.synchronize()
+    errs = {'line_residual': [(_maxdiff(rk, rp), _maxabs(rp))],
+            'line_thomas': []}
+    del rk
+    for color in (0, 3):
+        ek = line_gs.thomas(_clone(e), rp, st.factors, st, color)
+        ep = smoothers.line_thomas_x(e, rp, st.factors, color)
+        torch.cuda.synchronize()
+        errs['line_thomas'].append((_maxdiff(ek, ep), _maxabs(ep)))
+        del ek, ep
+    for k, v in errs.items():
+        res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
+                                    _check_kernel(k, shape, v))
+    out = tuple(torch.empty_like(t) for t in e)
+    res['line_residual']['ms_256'] = _time_steps(
+        torch, lambda: line_gs.residual(e, s, st, out), reps=10, per=1)
+    zs = torch.empty((shape[0], 5, (shape[1] // 2) * (shape[2] // 2)),
+                     dtype=e[0].dtype, device=dev)
+    res['line_thomas']['ms_256'] = _time_steps(
+        torch, lambda: line_gs.thomas(e, rp, st.factors, st, 0, zs),
+        reps=10, per=1)
+    log(f"256³ x-lines, ms per launch: line_residual "
+        f"{res['line_residual']['ms_256']:.4f}, line_thomas "
+        f"{res['line_thomas']['ms_256']:.4f}")
+    del pstate, st, e, s, rp, out, zs
+    torch.cuda.empty_cache()
 
 
 def bench_problem(shape=(64, 64, 64)):
@@ -277,6 +441,30 @@ def heterogeneous_problem(seed=64):
     return grid, model, sfield
 
 
+def phase_sclr64(torch, grid, model, sfield):
+    """The production path, cold (launches counted) then warm."""
+    from emg3d_tpu_torch.ops import line_gs
+    runs = (('standalone', False), ('bicgstab', True), ('cgs', 'cgs'))
+    line_gs.reset_launches()
+    cold = {}
+    for name, ssl in runs:
+        cold[name] = _solve(torch, grid, model, sfield, sslsolver=ssl,
+                            **SCLR)
+    launches = dict(line_gs.LAUNCHES)
+    log(f"sclr64 launches of the three cold solves: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError("the sc+lr solves launched no line kernel")
+    for name, ssl in runs:
+        _, info, wall = cold[name]
+        _, winfo, warm = _solve(torch, grid, model, sfield, sslsolver=ssl,
+                                **SCLR)
+        log(f"sclr64 {name}: it_mg {info['it_mg']}, it_ssl "
+            f"{info['it_ssl']}, rel_error {info['rel_error']:.3e}, cold "
+            f"wall {wall:.3f} s, warm wall {warm:.3f} s (it_mg "
+            f"{winfo['it_mg']})")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -284,15 +472,17 @@ def main():
               "needs a CUDA card.", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from emg3d_tpu_torch.ops import point_gs
+    from emg3d_tpu_torch.ops import line_gs, point_gs
 
     results = {}
     with Phase('1 environment'):
         phase_environment(torch)
     with Phase('2 build'):
         phase_build()
-    with Phase('3 kernels vs plain'):
+    with Phase('3 point kernels vs plain'):
         phase_kernels(torch, results)
+    with Phase('3b line kernels vs plain'):
+        phase_line_kernels(torch, results)
 
     grid, model, sfield = bench_problem()
     big = large_shape(torch)
@@ -345,16 +535,42 @@ def main():
             f"{ip['it_mg']}, wall {wp:.3f} s; |Δ|/|e| {rel:.3e}")
         if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
             raise AssertionError("kernel and plain solves differ")
+    with Phase('7 main path: sclr64 (sc+lr), standalone, bicgstab, cgs'):
+        launches.update(phase_sclr64(torch, grid, model, sfield))
+    with Phase('8 sclr256: sc+lr standalone at 256³'):
+        line_gs.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        e8, info8, wall8 = _solve(torch, *bench_problem((256,) * 3), **SCLR)
+        del e8
+        log(f"256³: it_mg {info8['it_mg']}, rel_error "
+            f"{info8['rel_error']:.3e}, wall {wall8:.3f} s (first solve), "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"launches {dict(line_gs.LAUNCHES)}")
+    with Phase('9 heterogeneous tri-axial 64x48x40, sc+lr: kernels vs '
+               'plain'):
+        ek, ik, wk = _solve(torch, hg, hm, hs, **SCLR)
+        ep, ip, wp = _solve(torch, hg, hm, hs, _mode='plain', **SCLR)
+        rel = _rel(ek, ep)
+        log(f"kernels: it_mg {ik['it_mg']}, rel_error "
+            f"{ik['rel_error']:.3e}, wall {wk:.3f} s; plain: it_mg "
+            f"{ip['it_mg']}, wall {wp:.3f} s; |Δ|/|e| {rel:.3e}")
+        if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
+            raise AssertionError("kernel and plain sc+lr solves differ")
 
     kernels = []
-    for mode, meta in KERNELS.items():
-        r = results[mode]
-        kernels.append({'name': meta['name'], 'route': 'cuda',
-                        'source': SOURCE, 'replaces': meta['replaces'],
-                        'launches': launches[mode],
-                        'pinned_launches': pinned[mode],
-                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-                        'plain_ms': r['plain_ms']})
+    for key, meta in KERNELS.items():
+        r = results[key]
+        entry = {'name': meta['name'], 'route': 'cuda',
+                 'source': meta['source'], 'replaces': meta['replaces'],
+                 'launches': launches[key],
+                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                 'plain_ms': r['plain_ms']}
+        if key in pinned:
+            entry['pinned_launches'] = pinned[key]
+        entry.update({k: v for k, v in r.items()
+                      if k.startswith('step') or k == 'ms_256'})
+        kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")
     print(json.dumps({'kernels': kernels}))

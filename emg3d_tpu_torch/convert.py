@@ -12,10 +12,12 @@ import torch
 from .dtypes import COMPLEX, REAL
 from .meshes import TensorMesh
 from .models import Model
+from .ops.smoothers import LINE_BKEYS, NLINE
 
 __all__ = ['params_to_torch', 'params_to_numpy', 'fields_to_torch',
            'fields_to_numpy', 'mesh_to_torch', 'mesh_to_numpy',
-           'model_to_torch', 'model_to_numpy']
+           'model_to_torch', 'model_to_numpy', 'line_factors_to_torch',
+           'line_factors_to_numpy']
 
 
 def _tensor(a, dtype, device):
@@ -76,3 +78,43 @@ def model_to_torch(model):
 def model_to_numpy(model):
     """A model as the dict its ``from_dict`` (in either package) takes."""
     return model.to_dict(copy=True)
+
+
+def line_factors_to_torch(L_all, d_all, Bent, device='cpu'):
+    """The port's line factor stack from the JAX package's entries.
+
+    ``L_all`` (10 strict-lower LDLᵀ entries), ``d_all`` (5 inverse
+    diagonals) and ``Bent`` (dict of the 8 B entries) are ``(S, ny-1,
+    nz-1)`` arrays, as ``block_tridiag_factor_entries`` of
+    ``_line_entries_x`` returns them.  Returns the ``(S, NLINE, 2, 2,
+    ny2, nz2)`` complex128 stack of ``ops.smoothers.line_factor_stack``;
+    padded lines get identity factors (dinv 1, L and B 0).
+    """
+    planes = [*L_all, *d_all, *(Bent[k] for k in LINE_BKEYS)]
+    S, nyn, nzn = np.shape(planes[0])
+    ny2, nz2 = -(-nyn // 2), -(-nzn // 2)
+    full = np.zeros((S, NLINE, 2 * ny2, 2 * nz2), dtype=np.complex128)
+    full[:, 10:15] = 1.0
+    for p, v in enumerate(planes):
+        full[:, p, :nyn, :nzn] = np.broadcast_to(np.asarray(v),
+                                                 (S, nyn, nzn))
+    quarters = full.reshape(S, NLINE, ny2, 2, nz2, 2).transpose(
+        0, 1, 3, 5, 2, 4)
+    return torch.tensor(np.ascontiguousarray(quarters), dtype=COMPLEX,
+                        device=device)
+
+
+def line_factors_to_numpy(fac, shape):
+    """Inverse of :func:`line_factors_to_torch`: ``(L_all, d_all, Bent)``.
+
+    ``shape`` is the cell shape of the frame whose x-lines the stack
+    solves (the rotated frame for y/z-lines).
+    """
+    _, ny, nz = shape
+    a = fac.detach().cpu().numpy()
+    S, n, _, _, ny2, nz2 = a.shape
+    full = a.transpose(0, 1, 4, 2, 5, 3).reshape(S, n, 2 * ny2, 2 * nz2)
+    planes = [np.ascontiguousarray(full[:, p, :ny - 1, :nz - 1])
+              for p in range(n)]
+    return (planes[:10], planes[10:15],
+            dict(zip(LINE_BKEYS, planes[15:])))

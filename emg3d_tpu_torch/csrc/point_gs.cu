@@ -43,41 +43,14 @@
 // overhead of the many tiny coarse-level steps per F-cycle are the
 // known costs; they are left for later work.
 //
-// Complex products are complex-SYMMETRIC (no conjugation anywhere), as
-// in blocksolve.py.  The complex reciprocal follows the scaled
-// (Smith) division that PyTorch uses, so the kernel and the plain torch
-// version agree to rounding.
+// The complex arithmetic and the residual at an edge are in
+// stencil.cuh, shared with the line kernels (line_gs.cu).
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "stencil.cuh"
+
+using namespace emg3d;
 
 namespace {
-
-__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
-  return make_double2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ double2 csub(double2 a, double2 b) {
-  return make_double2(a.x - b.x, a.y - b.y);
-}
-// Complex product without conjugation.
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ double2 cscale(double2 a, double s) {
-  return make_double2(a.x * s, a.y * s);
-}
-// 1 / (c + d i) by the scaled division of c10::complex.
-__device__ __forceinline__ double2 crecip(double2 z) {
-  const double c = z.x, d = z.y;
-  if (fabs(c) >= fabs(d)) {
-    const double rat = d / c;
-    const double scl = 1.0 / (c + d * rat);
-    return make_double2(scl, -rat * scl);
-  }
-  const double rat = c / d;
-  const double scl = 1.0 / (d + c * rat);
-  return make_double2(rat * scl, -scl);
-}
 
 // Structure of the 6×6 node block (coeffs.node_block_entries): the
 // strict lower entries present in A, and in L (A's plus the (3,2) and
@@ -117,71 +90,6 @@ struct Args {
   int x0, y0, z0;       // first active node index per axis
   int cnx, cny, cnz;    // active nodes per axis
 };
-
-__device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
-  return (static_cast<int64_t>(i) * n1 + j) * n2 + k;
-}
-
-// Field, source and parameter accessors in global edge/face indices.
-#define EX(i, j, k) a.ex[at(i, j, k, a.ny + 1, a.nz + 1)]
-#define EY(i, j, k) a.ey[at(i, j, k, a.ny, a.nz + 1)]
-#define EZ(i, j, k) a.ez[at(i, j, k, a.ny + 1, a.nz)]
-#define WX(i, j, k) a.wx[at(i, j, k, a.ny, a.nz)]
-#define WY(i, j, k) a.wy[at(i, j, k, a.ny + 1, a.nz)]
-#define WZ(i, j, k) a.wz[at(i, j, k, a.ny, a.nz + 1)]
-
-// ζ-weighted curls on faces (stencil.curl_factors).
-// u1: x-face at x-node i of cell (j, k).
-__device__ __forceinline__ double2 u1(const Args& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EZ(i, j + 1, k), EZ(i, j, k)), a.ihy[j]),
-                         cscale(csub(EY(i, j, k + 1), EY(i, j, k)), a.ihz[k]));
-  return cscale(v, WX(i, j, k));
-}
-// u2: y-face at y-node j of cell (i, k).
-__device__ __forceinline__ double2 u2(const Args& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EX(i, j, k + 1), EX(i, j, k)), a.ihz[k]),
-                         cscale(csub(EZ(i + 1, j, k), EZ(i, j, k)), a.ihx[i]));
-  return cscale(v, WY(i, j, k));
-}
-// u3: z-face at z-node k of cell (i, j).
-__device__ __forceinline__ double2 u3(const Args& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EY(i + 1, j, k), EY(i, j, k)), a.ihx[i]),
-                         cscale(csub(EX(i, j + 1, k), EX(i, j, k)), a.ihy[j]));
-  return cscale(v, WZ(i, j, k));
-}
-
-// Residual r = s − A e at one interior edge (stencil.amat_interior):
-// A e = ½·(second curl) − ¼·(η edge sum)·e.
-__device__ double2 res_x(const Args& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u3(a, i, j, k), a.ihy[j]),
-           cscale(u3(a, i, j - 1, k), a.ihy[j - 1])),
-      csub(cscale(u2(a, i, j, k), a.ihz[k]),
-           cscale(u2(a, i, j, k - 1), a.ihz[k - 1])));
-  const double2 st = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EX(i, j, k)));
-  return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
-}
-__device__ double2 res_y(const Args& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u1(a, i, j, k), a.ihz[k]),
-           cscale(u1(a, i, j, k - 1), a.ihz[k - 1])),
-      csub(cscale(u3(a, i, j, k), a.ihx[i]),
-           cscale(u3(a, i - 1, j, k), a.ihx[i - 1])));
-  const double2 st = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
-  const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EY(i, j, k)));
-  return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
-}
-__device__ double2 res_z(const Args& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u2(a, i, j, k), a.ihx[i]),
-           cscale(u2(a, i - 1, j, k), a.ihx[i - 1])),
-      csub(cscale(u1(a, i, j, k), a.ihy[j]),
-           cscale(u1(a, i, j - 1, k), a.ihy[j - 1])));
-  const double2 st = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
-  const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EZ(i, j, k)));
-  return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
-}
 
 // K2: assemble the node block (coeffs.node_coefficients and
 // node_block_entries, in the face-weight form of pallas_gs.py:345-371)

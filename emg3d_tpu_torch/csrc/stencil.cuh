@@ -1,0 +1,118 @@
+// Complex128 helpers and the curl-curl residual at one edge, shared by
+// the point (point_gs.cu) and line (line_gs.cu) kernels.
+//
+// The residual functions take any argument struct ``a`` with the members
+// ex, ey, ez (edge fields), sx, sy, sz (source), stx, sty, stz (η edge
+// sums, stencil.eta_edge_sums), wx, wy, wz (ζ face weights,
+// stencil.zeta_face_weights), ihx, ihy, ihz (inverse widths) and the
+// level's cell shape nx, ny, nz.  All tensors are C-ordered, unpadded.
+//
+// Complex products are complex-SYMMETRIC (no conjugation anywhere), as
+// in blocksolve.py.  The complex reciprocal follows the scaled (Smith)
+// division that PyTorch uses, so the kernels and the plain torch
+// versions agree to rounding.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace emg3d {
+
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+// Complex product without conjugation.
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ double2 cscale(double2 a, double s) {
+  return make_double2(a.x * s, a.y * s);
+}
+// 1 / (c + d i) by the scaled division of c10::complex.
+__device__ __forceinline__ double2 crecip(double2 z) {
+  const double c = z.x, d = z.y;
+  if (fabs(c) >= fabs(d)) {
+    const double rat = d / c;
+    const double scl = 1.0 / (c + d * rat);
+    return make_double2(scl, -rat * scl);
+  }
+  const double rat = c / d;
+  const double scl = 1.0 / (d + c * rat);
+  return make_double2(rat * scl, -scl);
+}
+
+__device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
+  return (static_cast<int64_t>(i) * n1 + j) * n2 + k;
+}
+
+// Field, source and parameter accessors in global edge/face indices.
+#define EX(i, j, k) a.ex[emg3d::at(i, j, k, a.ny + 1, a.nz + 1)]
+#define EY(i, j, k) a.ey[emg3d::at(i, j, k, a.ny, a.nz + 1)]
+#define EZ(i, j, k) a.ez[emg3d::at(i, j, k, a.ny + 1, a.nz)]
+#define WX(i, j, k) a.wx[emg3d::at(i, j, k, a.ny, a.nz)]
+#define WY(i, j, k) a.wy[emg3d::at(i, j, k, a.ny + 1, a.nz)]
+#define WZ(i, j, k) a.wz[emg3d::at(i, j, k, a.ny, a.nz + 1)]
+
+// ζ-weighted curls on faces (stencil.curl_factors).
+// u1: x-face at x-node i of cell (j, k).
+template <class A>
+__device__ __forceinline__ double2 u1(const A& a, int i, int j, int k) {
+  const double2 v = csub(cscale(csub(EZ(i, j + 1, k), EZ(i, j, k)), a.ihy[j]),
+                         cscale(csub(EY(i, j, k + 1), EY(i, j, k)), a.ihz[k]));
+  return cscale(v, WX(i, j, k));
+}
+// u2: y-face at y-node j of cell (i, k).
+template <class A>
+__device__ __forceinline__ double2 u2(const A& a, int i, int j, int k) {
+  const double2 v = csub(cscale(csub(EX(i, j, k + 1), EX(i, j, k)), a.ihz[k]),
+                         cscale(csub(EZ(i + 1, j, k), EZ(i, j, k)), a.ihx[i]));
+  return cscale(v, WY(i, j, k));
+}
+// u3: z-face at z-node k of cell (i, j).
+template <class A>
+__device__ __forceinline__ double2 u3(const A& a, int i, int j, int k) {
+  const double2 v = csub(cscale(csub(EY(i + 1, j, k), EY(i, j, k)), a.ihx[i]),
+                         cscale(csub(EX(i, j + 1, k), EX(i, j, k)), a.ihy[j]));
+  return cscale(v, WZ(i, j, k));
+}
+
+// Residual r = s − A e at one interior edge (stencil.amat_interior):
+// A e = ½·(second curl) − ¼·(η edge sum)·e.
+template <class A>
+__device__ double2 res_x(const A& a, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u3(a, i, j, k), a.ihy[j]),
+           cscale(u3(a, i, j - 1, k), a.ihy[j - 1])),
+      csub(cscale(u2(a, i, j, k), a.ihz[k]),
+           cscale(u2(a, i, j, k - 1), a.ihz[k - 1])));
+  const double2 st = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
+  const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EX(i, j, k)));
+  return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
+}
+template <class A>
+__device__ double2 res_y(const A& a, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u1(a, i, j, k), a.ihz[k]),
+           cscale(u1(a, i, j, k - 1), a.ihz[k - 1])),
+      csub(cscale(u3(a, i, j, k), a.ihx[i]),
+           cscale(u3(a, i - 1, j, k), a.ihx[i - 1])));
+  const double2 st = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
+  const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EY(i, j, k)));
+  return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
+}
+template <class A>
+__device__ double2 res_z(const A& a, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u2(a, i, j, k), a.ihx[i]),
+           cscale(u2(a, i - 1, j, k), a.ihx[i - 1])),
+      csub(cscale(u1(a, i, j, k), a.ihy[j]),
+           cscale(u1(a, i, j - 1, k), a.ihy[j - 1])));
+  const double2 st = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
+  const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EZ(i, j, k)));
+  return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
+}
+
+}  // namespace emg3d

@@ -1,11 +1,12 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 The kernels in ``emg3d_tpu_torch/csrc/*.cu`` have a plain C interface,
-so they build in seconds with ``nvcc`` alone (no PyTorch headers) into
-one shared library.  The library lands in ``build/emg3d_tpu_torch/``
-beside the package, in a folder keyed by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing is compiled at import: the first kernel launch builds.
+so they build in seconds with ``nvcc`` alone (no PyTorch headers): one
+``nvcc -c`` per source, all started together, then one link into a
+shared library.  The library lands in ``build/emg3d_tpu_torch/`` beside
+the package, in a folder keyed by a hash of the sources and the flags,
+so an edited source rebuilds and an unchanged one is reused.  Nothing
+is compiled at import: the first kernel launch builds.
 """
 import ctypes
 import hashlib
@@ -20,7 +21,7 @@ __all__ = ['library', 'build']
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+         '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 LIBNAME = 'libemg3d_tpu_torch.so'
 
 _LIB = []   # the loaded library, once built
@@ -66,19 +67,30 @@ def build():
     if lib.is_file():
         return lib, log.read_text() if log.is_file() else ''
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename: concurrent processes never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, '-o', tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{text}")
-    log.write_text(text)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # Build in a temporary folder and rename the library into place:
+    # concurrent processes never load a half-written one.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, p.stem + '.o') for p in srcs]
+        cmds = [[nvcc, *FLAGS, '-c', '-o', o, str(p)]
+                for p, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        so = os.path.join(tmp, LIBNAME)
+        link = [nvcc, '-shared', '-o', so, *objs]
+        text = ''.join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            text += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            if proc.returncode != 0:
+                failed = [link]
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        log.write_text(text)
+        os.replace(so, lib)
     return lib, text
 
 
@@ -89,8 +101,14 @@ def library():
         lib = ctypes.CDLL(str(path))
         P = ctypes.c_void_p
         I = ctypes.c_int
-        fn = lib.emg3d_point_gs_step
-        fn.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
-        fn.restype = I
+        argtypes = {
+            'emg3d_point_gs_step': [I] + [P] * 16 + [I] * 11 + [P],
+            'emg3d_line_residual': [P] * 18 + [I] * 5 + [P],
+            'emg3d_line_thomas': [P] * 8 + [I] * 9 + [P],
+        }
+        for name, types in argtypes.items():
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = I
         _LIB.append(lib)
     return _LIB[0]

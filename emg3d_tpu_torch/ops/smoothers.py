@@ -9,17 +9,29 @@ block-Gauss-Seidel step.  All node systems of a colour are solved at
 once by the batched sparse 6×6 LDLᵀ.
 
 This is the math that the CUDA kernels of :mod:`.point_gs` are held
-to; their wrapper runs it for CPU tensors.  The line-relaxation half of
-the JAX module belongs to a later slice of the port.
+to; their wrapper runs it for CPU tensors.
+
+The second half is line relaxation (``emg3d_tpu/ops/smoothers.py:
+245-482``): 4-colour x-line Gauss-Seidel, each line a 5×5
+block-tridiagonal system solved by the sparse-entry block-Thomas of
+:mod:`.blocksolve`; y- and z-lines run the x-line code in a cyclically
+rotated frame.  The field-independent factor stack is one tensor
+(:func:`line_factor_stack`), which the line kernels of :mod:`.line_gs`
+read as it is; :func:`line_color_steps` is the math they are held to.
 """
 import torch
 
 from . import stencil
-from .blocksolve import ldl_factor_sparse, ldl_solve_factored
+from .blocksolve import (block_tridiag_factor_entries,
+                         block_tridiag_solve_entries, ldl_factor_sparse,
+                         ldl_solve_factored)
 from .coeffs import node_coefficients, node_block_entries
 
 __all__ = ['gauss_seidel_point', 'color_sequence', 'color_steps',
-           'node_factors']
+           'node_factors', 'line_relaxation', 'line_color_sequence',
+           'line_color_steps', 'line_factor_stack', 'rotate_arrays',
+           'rotate_fields', 'unrotate_fields', 'rotate_shape',
+           'line_thomas_x', 'LINE_BKEYS', 'NLINE']
 
 
 def color_sequence(nu):
@@ -111,3 +123,278 @@ def gauss_seidel_point(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     # outside the color sweep.
     return color_steps((ex, ey, ez), (sx, sy, sz), par,
                        color_sequence(nu), fact=node_factors(par))
+
+
+# ----------------------------------------------------------------------
+# Line relaxation
+# ----------------------------------------------------------------------
+
+# Entry planes of the line factor stack (S, NLINE, 2, 2, ny2, nz2): the
+# strict-lower LDLᵀ factors of the eliminated station blocks C_i in
+# _lower_keys(5) order (planes 0-9), their inverse diagonals (10-14) and
+# the sparse sub-diagonal coupling blocks B_i (15-22, LINE_BKEYS order).
+# The order of the JAX package's Pallas stack (_LORD, dinv, _BORD of
+# pallas_lr.py:71-74) and of the line kernel.
+LINE_BKEYS = ((0, 1), (0, 2), (0, 3), (0, 4), (1, 1), (2, 2), (3, 3),
+              (4, 4))
+NLINE = 10 + 5 + len(LINE_BKEYS)
+
+# Station-block entry (a, b) of the x-line system <- node-block entry.
+_D_MAP = {(0, 0): (0, 0), (1, 1): (2, 2), (2, 2): (3, 3),
+          (3, 3): (4, 4), (4, 4): (5, 5), (1, 0): (2, 0),
+          (2, 0): (3, 0), (3, 0): (4, 0), (4, 0): (5, 0),
+          (3, 1): (4, 2), (4, 1): (5, 2), (3, 2): (4, 3),
+          (4, 2): (5, 3)}
+
+
+def _pad(a, widths):
+    """Zero-pad the leading axes: ``widths`` = ((lo, hi), ...) per axis."""
+    flat = [0, 0] * (a.ndim - len(widths))   # F.pad lists the last axis first
+    for lo, hi in reversed(widths):
+        flat += [lo, hi]
+    return torch.nn.functional.pad(a, flat)
+
+
+def _line_entries_x_parity(c, nx, ny2, nz2):
+    """Station-block entries of the x-line system, parity-split layout.
+
+    Each entry is one ``(nx, 2, 2, ny2, nz2)`` stack: axes 1/2 are the
+    transverse (y, z) parity of the line, axes 3/4 its index within
+    that parity (line (j0, k0), zero-based, sits at
+    ``[j0 % 2, k0 % 2, j0 // 2, k0 // 2]``).  Padded lines and the
+    ex-only last station's transverse rows get identity diagonals.
+    Reference parity: ``emg3d_tpu/ops/smoothers.py:245-321``.
+    """
+    ent = node_block_entries(c)
+    nsh = ent[(0, 0)].shape  # (nx-1, nyn, nzn)
+    nyn, nzn = nsh[1], nsh[2]
+    dev = ent[(0, 0)].device
+
+    def quarters(v):
+        """full(v) -> zero-padded (n, 2, 2, ny2, nz2) parities."""
+        v = torch.broadcast_to(v, nsh)
+        rows = []
+        for py in (0, 1):
+            row = []
+            for pz in (0, 1):
+                q = v[:, py::2, pz::2]
+                row.append(_pad(q, ((0, 0), (0, ny2 - q.shape[1]),
+                                    (0, nz2 - q.shape[2]))))
+            rows.append(torch.stack(row, dim=1))
+        return torch.stack(rows, dim=1)
+
+    # pm (2, 2, ny2, nz2): 1 at padded (out-of-range) lines.
+    jj = (2 * torch.arange(ny2, device=dev)[None, None, :, None]
+          + torch.arange(2, device=dev)[:, None, None, None])
+    kk = (2 * torch.arange(nz2, device=dev)[None, None, None, :]
+          + torch.arange(2, device=dev)[None, :, None, None])
+    pm = ((jj >= nyn) | (kk >= nzn)).to(c.ihxm.dtype)
+
+    Dent = {}
+    for (a, b), key in _D_MAP.items():
+        body = quarters(ent[key])
+        if a == b:
+            body = body + pm[None]
+            if a == 0:
+                last = quarters(ent[(1, 1)])[-1:] + pm[None]
+            else:
+                last = torch.zeros_like(body[:1]) + 1.0
+            Dent[(a, b)] = torch.cat([body, last], dim=0)
+        else:
+            Dent[(a, b)] = _pad(body, ((0, 1),))
+
+    byy_m = -(c.mzxLym * c.ihxm)
+    byy_p = -(c.mzxLyp * c.ihxm)
+    bzz_m = -(c.myxLzm * c.ihxm)
+    bzz_p = -(c.myxLzp * c.ihxm)
+    Bent = {(0, 1): _pad(quarters(ent[(2, 1)]), ((1, 0),)),
+            (0, 2): _pad(quarters(ent[(3, 1)]), ((1, 0),)),
+            (0, 3): _pad(quarters(ent[(4, 1)]), ((1, 0),)),
+            (0, 4): _pad(quarters(ent[(5, 1)]), ((1, 0),)),
+            (1, 1): _pad(quarters(byy_m)[1:], ((1, 1),)),
+            (2, 2): _pad(quarters(byy_p)[1:], ((1, 1),)),
+            (3, 3): _pad(quarters(bzz_m)[1:], ((1, 1),)),
+            (4, 4): _pad(quarters(bzz_p)[1:], ((1, 1),))}
+    return Dent, Bent
+
+
+def line_factor_stack(arrays, shape):
+    """Factor stack ``(nx, NLINE, 2, 2, ny2, nz2)`` of the x-lines.
+
+    Field-independent: the block-Thomas elimination of every line of
+    the level (all four parities), complex128, written station by
+    station into one tensor (no second copy is ever held).  Lines are
+    the fastest-varying axes, so the threads of one colour read
+    neighbouring addresses.  ``arrays``/``shape`` are those of the
+    (rotated) frame whose x-lines are solved.
+    """
+    nx, ny, nz = shape
+    ny2, nz2 = ny // 2, nz // 2          # = ceil((n-1)/2) interior lines
+    Dent, Bent = _line_entries_x_parity(node_coefficients(*arrays), nx,
+                                        ny2, nz2)
+    dtype = torch.promote_types(Dent[(0, 0)].dtype, torch.complex64)
+    out = torch.empty((nx, NLINE, 2, 2, ny2, nz2), dtype=dtype,
+                      device=Dent[(0, 0)].device)
+    block_tridiag_factor_entries(5, Dent, Bent, out=out[:, :15])
+    for p, k in enumerate(LINE_BKEYS):
+        out[:, 15 + p] = Bent[k]
+    return out
+
+
+def _parity_pick(a, cy, cz, ny2, nz2):
+    """(S, Ny, Nz) -> the (cy, cz)-parity quarter (S, ny2, nz2)."""
+    S, n1, n2 = a.shape
+    a = _pad(a, ((0, 0), (0, 2 * ny2 - n1), (0, 2 * nz2 - n2)))
+    return a.reshape(S, ny2, 2, nz2, 2)[:, :, cy, :, cz]
+
+
+def _parity_embed(d, cy, cz, nyn, nzn):
+    """Inverse of :func:`_parity_pick`: quarter -> (S, nyn, nzn), zeros
+    at the three inactive parities."""
+    S, ny2, nz2 = d.shape
+    full = torch.zeros((S, ny2, 2, nz2, 2), dtype=d.dtype, device=d.device)
+    full[:, :, cy, :, cz] = d
+    return full.reshape(S, 2 * ny2, 2 * nz2)[:, :nyn, :nzn]
+
+
+def _line_color_update_x(e, s, par, fac, color):
+    """One colour of the 4-colour x-line update (returns new tensors).
+
+    ``color`` = cy + 2·cz selects the lines whose transverse parity is
+    (cy, cz); adjacent and diagonal lines are coupled through the
+    operator, so only full transverse-parity separation makes the
+    simultaneous update a true block-GS step.  Reference parity:
+    ``emg3d_tpu/ops/smoothers.py:347-400``.
+    """
+    return line_thomas_x(e, _residual(e, s, par), fac, color)
+
+
+def line_thomas_x(e, r, fac, color):
+    """The block-Thomas half of a colour step, given the residual ``r``.
+
+    Solves every line of the colour against the factor stack and adds
+    δ into the line's ex and its adjacent ey/ez edges (new tensors).
+    """
+    ex, ey, ez = e
+    rx, ry, rz = r
+    ny2, nz2 = fac.shape[-2:]
+    nyn = rx.shape[1] - 2          # interior node counts
+    nzn = rx.shape[2] - 2
+    cy, cz = color % 2, color // 2
+
+    # Station residuals (5 component stacks), parity-picked.
+    px = ((0, 1),)
+    rq = [_parity_pick(a, cy, cz, ny2, nz2) for a in (
+        rx[:, 1:-1, 1:-1],
+        _pad(ry[1:-1, :-1, 1:-1], px), _pad(ry[1:-1, 1:, 1:-1], px),
+        _pad(rz[1:-1, 1:-1, :-1], px), _pad(rz[1:-1, 1:-1, 1:], px))]
+
+    q = fac[:, :, cy, cz]
+    facts = ([q[:, p] for p in range(10)], [q[:, 10 + p] for p in range(5)])
+    Bent = {k: q[:, 15 + p] for p, k in enumerate(LINE_BKEYS)}
+    delta = block_tridiag_solve_entries(5, facts, Bent, rq)
+    dm = [_parity_embed(d, cy, cz, nyn, nzn) for d in delta]
+
+    ex, ey, ez = ex.clone(), ey.clone(), ez.clone()
+    ex[:, 1:-1, 1:-1] += dm[0]
+    ey[1:-1, :-1, 1:-1] += dm[1][:-1]
+    ey[1:-1, 1:, 1:-1] += dm[2][:-1]
+    ez[1:-1, 1:-1, :-1] += dm[3][:-1]
+    ez[1:-1, 1:-1, 1:] += dm[4][:-1]
+    return ex, ey, ez
+
+
+def line_color_sequence(nu):
+    """Colours 0..3 on even sweeps and 3..0 on odd sweeps."""
+    seq = []
+    for it in range(nu):
+        seq.extend(range(4) if it % 2 == 0 else range(3, -1, -1))
+    return seq
+
+
+def line_color_steps(e, s, par, fac, seq):
+    """x-line colour steps in the order of ``seq`` (new tensors)."""
+    for color in seq:
+        e = _line_color_update_x(e, s, par, fac, color)
+    return e
+
+
+def _rot_fwd(a):
+    """Cyclic axis rotation x→y→z→x (tensor axes (1, 2, 0))."""
+    return a.permute(1, 2, 0)
+
+
+def _rot_bwd(a):
+    return a.permute(2, 0, 1)
+
+
+def rotate_arrays(arrays, axis):
+    """Model parameters in the frame whose x-lines are ``axis``-lines.
+
+    Contiguous copies; η tensors shared in ``arrays`` stay shared.
+    Reference parity: ``emg3d_tpu/ops/pallas_lr.py:908-925``.
+    """
+    if axis == 0:
+        return tuple(arrays)
+    eta_x, eta_y, eta_z, zeta, hx, hy, hz = arrays
+    rot = _rot_fwd if axis == 1 else _rot_bwd
+    done = {}
+
+    def r(a):
+        if id(a) not in done:
+            done[id(a)] = rot(a).contiguous()
+        return done[id(a)]
+
+    if axis == 1:
+        return (r(eta_y), r(eta_z), r(eta_x), r(zeta), hy, hz, hx)
+    if axis == 2:
+        return (r(eta_z), r(eta_x), r(eta_y), r(zeta), hz, hx, hy)
+    raise ValueError(f"axis must be 0, 1, or 2; got {axis}.")
+
+
+def rotate_shape(shape, axis):
+    return tuple(shape[(axis + i) % 3] for i in range(3))
+
+
+def rotate_fields(f, axis):
+    """Edge fields (fx, fy, fz) in the rotated frame of ``axis`` (views)."""
+    fx, fy, fz = f
+    if axis == 0:
+        return (fx, fy, fz)
+    if axis == 1:
+        # new-x = old-y: fields (fy, fz, fx).
+        return (_rot_fwd(fy), _rot_fwd(fz), _rot_fwd(fx))
+    if axis == 2:
+        # new-x = old-z: fields (fz, fx, fy).
+        return (_rot_bwd(fz), _rot_bwd(fx), _rot_bwd(fy))
+    raise ValueError(f"axis must be 0, 1, or 2; got {axis}.")
+
+
+def unrotate_fields(f, axis):
+    """Inverse of :func:`rotate_fields` (views)."""
+    if axis == 0:
+        return tuple(f)
+    if axis == 1:
+        return (_rot_bwd(f[2]), _rot_bwd(f[0]), _rot_bwd(f[1]))
+    if axis == 2:
+        return (_rot_fwd(f[1]), _rot_fwd(f[2]), _rot_fwd(f[0]))
+    raise ValueError(f"axis must be 0, 1, or 2; got {axis}.")
+
+
+def line_relaxation(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                    hx, hy, hz, nu, axis):
+    """nu sweeps of 4-colour line relaxation along ``axis`` (0=x,1=y,2=z).
+
+    Returns new tensors.  The y/z variants run the x-line code in a
+    cyclically rotated frame (exact: the Yee discretization is symmetric
+    under x→y→z→x with simultaneous rotation of field components and
+    model parameters).  The factor stack is built here, once per call,
+    as the JAX package's XLA path does (smoothers.py:403-438).
+    """
+    par = rotate_arrays((eta_x, eta_y, eta_z, zeta, hx, hy, hz), axis)
+    shape = rotate_shape(tuple(eta_x.shape), axis)
+    e = tuple(t.contiguous() for t in rotate_fields((ex, ey, ez), axis))
+    s = tuple(t.contiguous() for t in rotate_fields((sx, sy, sz), axis))
+    out = line_color_steps(e, s, par, line_factor_stack(par, shape),
+                           line_color_sequence(nu))
+    return unrotate_fields(out, axis)

@@ -1,22 +1,28 @@
-"""Standalone multigrid solve (the JAX package's solver.py, in torch).
+"""Multigrid solve and MG-preconditioned Krylov (the JAX package's
+solver.py, in torch).
 
-Counterpart of ``emg3d_tpu/solver.py`` for the main path: ``solve``
-with ``sslsolver=False`` and point smoothing (``linerelaxation=False``),
-any ``cycle`` ('F', 'V', 'W') and ``semicoarsening``.
+Counterpart of ``emg3d_tpu/solver.py``: ``solve`` with any ``cycle``
+('F', 'V', 'W'), ``semicoarsening`` and ``linerelaxation`` (fixed or
+rotating schedules), standalone or as the preconditioner of
+``sslsolver`` 'bicgstab' (True) or 'cgs'.
 
 - The level hierarchy (coarse η/ζ, cell widths, transfer weights) is
-  built at solve start, on the device.  The point smoother's
-  field-independent state (η edge sums, ζ face weights, inverse widths
-  and the node-block LDLᵀ factors) is built once per level and solve.
+  built at solve start, on the device, once per semicoarsening
+  direction.  The smoothers' field-independent state (point: η edge
+  sums, ζ face weights, node-block LDLᵀ factors; line: rotated
+  parameters and block-Thomas factor stacks) is built lazily, once per
+  level (and axis) and solve; the finest level's line state is shared
+  by all hierarchies, and factor stacks are cached only up to a share
+  of the card (:data:`.ops.line_gs.LINE_SHARE`).
 - The V/W/F recursion (including the ``cycmax − it`` F-cycle trick) runs
   eagerly, cycle by cycle, as the JAX package does on the CPU; PyTorch
   needs no jit, chunked dispatch or compile probes.
 - The host loop pulls one residual norm per cycle and applies the
   reference's termination logic (CONVERGED / DIVERGED / STAGNATED /
-  MAX-IT).
+  MAX-IT); the Krylov solvers take the JAX package's host-scalar route.
 
-Krylov solvers, line relaxation and batched solves belong to later
-slices of the port and raise ``NotImplementedError``.
+GCROT(m,k) and batched solves belong to later slices of the port and
+raise ``NotImplementedError``.
 """
 import itertools
 import math
@@ -27,9 +33,9 @@ import torch
 
 from . import fields, models, utils
 from .dtypes import COMPLEX, REAL
-from .ops import point_gs, stencil, transfers
+from .ops import line_gs, point_gs, stencil, transfers
 
-__all__ = ['solve', 'multigrid', 'MGParameters']
+__all__ = ['solve', 'multigrid', 'krylov', 'MGParameters']
 
 
 # ======================================================================
@@ -281,6 +287,30 @@ def _coarsen_flags(sc_dir):
             sc_dir not in [3, 4, 5])
 
 
+def _current_lr_dir(lr_dir, shape):
+    """Suppress line relaxation along 2-cell dimensions."""
+    lr_dir = int(lr_dir)
+    if shape[0] == 2:
+        lr_dir = {1: 0, 5: 3, 6: 2, 7: 4}.get(lr_dir, lr_dir)
+    if shape[1] == 2:
+        lr_dir = {2: 0, 4: 3, 6: 1, 7: 5}.get(lr_dir, lr_dir)
+    if shape[2] == 2:
+        lr_dir = {3: 0, 4: 2, 5: 1, 7: 6}.get(lr_dir, lr_dir)
+    return lr_dir
+
+
+def _lr_axes(lr_dir):
+    """Line-relaxation axes for an lr_dir code (in x, y, z order)."""
+    axes = []
+    if lr_dir in [1, 5, 6, 7]:
+        axes.append(0)
+    if lr_dir in [2, 4, 6, 7]:
+        axes.append(1)
+    if lr_dir in [3, 4, 5, 7]:
+        axes.append(2)
+    return tuple(axes)
+
+
 # ======================================================================
 # Level hierarchy
 # ======================================================================
@@ -289,9 +319,9 @@ class _Level:
     """Per-level data: model parameters, widths, transfer weights."""
 
     __slots__ = ('shape', 'arrays', 'coarsen', 'rweights', 'pweights',
-                 'nodes', 'h_np', 'pstate')
+                 'nodes', 'h_np', 'pstate', 'lstate', 'meter')
 
-    def __init__(self, shape, arrays, h_np, nodes):
+    def __init__(self, shape, arrays, h_np, nodes, meter):
         self.shape = shape          # cell shape
         self.arrays = arrays        # (eta_x, eta_y, eta_z, zeta, hx, hy, hz)
         self.h_np = h_np            # numpy widths (for weight building)
@@ -300,13 +330,16 @@ class _Level:
         self.rweights = None
         self.pweights = None
         self.pstate = None          # point-smoother state (built lazily)
+        self.lstate = {}            # axis -> line state (built lazily)
+        self.meter = meter          # cached factor bytes, solve-wide
 
 
-def build_levels(grid, vmodel, sc_dir, clevel, device):
+def build_levels(grid, vmodel, sc_dir, clevel, device, meter):
     """Build the full level hierarchy for one top-level sc_dir.
 
     η is complex128 on ``device`` (a real Laplace-domain η is promoted;
     its imaginary part stays exactly zero), ζ and the widths float64.
+    ``meter`` is the solve's ``{'bytes': n}`` of cached line factors.
     """
     def tens(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -323,7 +356,7 @@ def build_levels(grid, vmodel, sc_dir, clevel, device):
              for h, o in zip(h_np, grid.origin)]
     shape = tuple(grid.shape_cells)
     arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, REAL) for h in h_np])
-    levels = [_Level(shape, arrays, h_np, nodes)]
+    levels = [_Level(shape, arrays, h_np, nodes, meter)]
 
     for _ in range(clevel):
         cur = levels[-1]
@@ -360,7 +393,7 @@ def build_levels(grid, vmodel, sc_dir, clevel, device):
             transfers.restrict_model_parameter(a[2], coarsen)
         czeta = transfers.restrict_model_parameter(a[3], coarsen)
         carrays = (cex, cey, cez, czeta, *[tens(h, REAL) for h in ch_np])
-        levels.append(_Level(cshape, carrays, ch_np, cnodes))
+        levels.append(_Level(cshape, carrays, ch_np, cnodes, meter))
     return levels
 
 
@@ -386,21 +419,50 @@ def _level_state(lev, mode):
     return lev.pstate
 
 
-def _smooth(e, s, lev, nu, lr_dir, mode=None):
-    """Smoothing dispatch (reference parity: solver.py:738-799).
+def _line_state(lev, axis):
+    """The level's ``axis``-line state, built once per level and solve.
 
-    Point smoothing only: line relaxation is a later slice of the port.
-    Updates ``e`` in place and returns it.
+    Memory rule: the factor stack is kept only while the solve's cached
+    stacks stay within :func:`.ops.line_gs.cache_budget`; otherwise the
+    state holds none and every smoothing call rebuilds it (the JAX
+    package's ``()`` sentinel, solver.py:697-719).  The numbers are the
+    same either way.
+    """
+    state = lev.lstate.get(axis)
+    if state is None:
+        nbytes = line_gs.factor_bytes(lev.shape, axis)
+        keep = (lev.meter['bytes'] + nbytes
+                <= line_gs.cache_budget(lev.arrays[0].device))
+        state = line_gs.line_state(lev.arrays, lev.shape, axis,
+                                   factors=keep)
+        if keep:
+            lev.meter['bytes'] += nbytes
+        lev.lstate[axis] = state
+    return state
+
+
+def _smooth(e, s, lev, nu, lr_dir, mode=None):
+    """Smoothing dispatch (reference parity: solver.py:461-523).
+
+    Point smoothing where the level's lr_dir is 0, else line relaxation
+    along each of its axes in turn.  Updates ``e`` in place and returns
+    it.
     """
     if nu <= 0:
         return e
-    if int(lr_dir) != 0:
-        raise NotImplementedError(
-            "line relaxation is not ported to emg3d_tpu_torch yet")
-    state = _level_state(lev, mode)
-    if mode == 'plain':
-        return point_gs.gauss_seidel_point_plain(e, s, state, nu)
-    return point_gs.gauss_seidel_point(e, s, state, nu)
+    lr = _current_lr_dir(lr_dir, lev.shape)
+    if lr == 0:
+        state = _level_state(lev, mode)
+        if mode == 'plain':
+            return point_gs.gauss_seidel_point_plain(e, s, state, nu)
+        return point_gs.gauss_seidel_point(e, s, state, nu)
+    for ax in _lr_axes(lr):
+        state = _line_state(lev, ax)
+        if mode == 'plain':
+            e = line_gs.line_relaxation_plain(e, s, state, nu)
+        else:
+            e = line_gs.line_relaxation(e, s, state, nu)
+    return e
 
 
 def _residual_e(e, s, arrays):
@@ -519,27 +581,43 @@ class _SolveContext:
                                     device=device)
                        for f in (efield.fx, efield.fy, efield.fz))
         self._levels = {}
+        self.meter = {'bytes': 0}
 
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
             clevel = int(self.var.clevel[int(sc_dir)])
-            self._levels[sc_dir] = build_levels(
-                self.grid, self.vmodel, int(sc_dir), clevel, self.device)
+            levels = build_levels(self.grid, self.vmodel, int(sc_dir),
+                                  clevel, self.device, self.meter)
+            if self._levels:
+                # The finest level is the same in every hierarchy: share
+                # its parameters and line states (no number changes).
+                fine = next(iter(self._levels.values()))[0]
+                levels[0].arrays = fine.arrays
+                levels[0].lstate = fine.lstate
+            self._levels[sc_dir] = levels
         return self._levels[sc_dir]
 
 
-def multigrid(ctx, var):
+def multigrid(ctx, var, e=None, s=None, track=True):
     """Run MG cycles with the reference's termination logic.
 
-    One cycle at a time, as the JAX package does on the CPU (its
-    chunked and pipelined dispatch exist only for the TPU).  Stores the
-    solution in ``ctx.e``.
+    If ``e``/``s`` are given, runs on those fields (the Krylov
+    preconditioner); else on ctx.e/ctx.s (standalone; stores the
+    solution in ``ctx.e``).  One cycle at a time, as the JAX package
+    does on the CPU (its chunked and pipelined dispatch exist only for
+    the TPU).  ``track`` records the per-cycle runtime and error and
+    logs each cycle.
     """
-    e, s = ctx.e, ctx.s
+    standalone = e is None
+    if standalone:
+        e, s = ctx.e, ctx.s
     fine = ctx.levels(int(var.sc_dir))[0]
     l2_last = residual_norm(e, s, fine.arrays)
     l2_prev = None
     l2_stag = np.ones(var._maxcycle) * l2_last
+    # As a Krylov preconditioner the rhs is a Krylov vector, not the
+    # source: judge convergence against this call's own rhs norm.
+    refe = var.l2_refe if standalone else l2_last
 
     dbg = var if var.verb > 4 else None
     if dbg is not None:
@@ -581,17 +659,19 @@ def multigrid(ctx, var):
         l2_prev = l2_last
         l2_last = l2
 
-        var.runtime_at_cycle = np.r_[var.runtime_at_cycle,
-                                     var.time.elapsed]
-        var.error_at_cycle = np.r_[var.error_at_cycle, l2_last]
-        _print_cycle_info(var, l2_last, l2_prev)
+        if track:
+            var.runtime_at_cycle = np.r_[var.runtime_at_cycle,
+                                         var.time.elapsed]
+            var.error_at_cycle = np.r_[var.error_at_cycle, l2_last]
+            _print_cycle_info(var, l2_last, l2_prev)
 
         if _terminate(var, l2_last, l2_stag[(it - 1) % var._maxcycle],
-                      it):
+                      it, refe=refe):
             break
 
     var.l2 = l2_last
-    ctx.e = e
+    if standalone:
+        ctx.e = e
     return e
 
 
@@ -663,10 +743,18 @@ def _print_cycle_info(var, l2_last, l2_prev):
     var.cprint(info, 3)
 
 
-def _terminate(var, l2_last, l2_stag, it):
-    """Termination criteria (reference parity: solver.py:1682-1744)."""
-    refe = var.l2_refe
+def _terminate(var, l2_last, l2_stag, it, refe=None):
+    """Termination criteria (reference parity: solver.py:1908-1941).
+
+    ``refe`` overrides the reference norm (preconditioner calls judge
+    against their own rhs norm, see :func:`multigrid`).  Under a Krylov
+    solver, DIVERGED and STAGNATED raise :class:`_ConvergenceError`, and
+    reaching ``maxit`` ends the preconditioner call without a message.
+    """
+    if refe is None:
+        refe = var.l2_refe
     finished = False
+    sslabort = False
 
     if l2_last < var.tol * refe:
         var.exit_message = "CONVERGED"
@@ -674,17 +762,188 @@ def _terminate(var, l2_last, l2_stag, it):
     elif l2_last > 10 * refe or not math.isfinite(l2_last):
         var.exit_message = "DIVERGED"
         finished = True
+        sslabort = True
     elif it > 2 and l2_last >= l2_stag:
         var.exit_message = "STAGNATED"
         finished = True
+        sslabort = True
     elif it == var.maxit:
-        var.exit_message = "MAX. ITERATION REACHED, NOT CONVERGED"
+        if not var.sslsolver:
+            var.exit_message = "MAX. ITERATION REACHED, NOT CONVERGED"
         finished = True
 
     if finished:
-        add = "\n" if var.verb < 5 else ""
-        var.cprint(add + "   > " + var.exit_message, 2)
+        if var.sslsolver and sslabort:
+            raise _ConvergenceError
+        elif not var.sslsolver:
+            add = "\n" if var.verb < 5 else ""
+            var.cprint(add + "   > " + var.exit_message, 2)
     return finished
+
+
+class _ConvergenceError(Exception):
+    """Raised to abort the Krylov loop on divergence/stagnation."""
+
+
+# ======================================================================
+# Krylov (reference parity: solver.py:1948-2124, 2669-2750)
+# ======================================================================
+
+def _dot(a, b):
+    """Standard complex inner product <a, b> = sum(conj(a)*b)."""
+    tot = 0j
+    for x, y in zip(a, b):
+        tot = tot + complex(torch.vdot(x.reshape(-1), y.reshape(-1)))
+    return tot
+
+
+def _axpy(alpha, x, y):
+    return tuple(yy + alpha * xx for xx, yy in zip(x, y))
+
+
+def krylov(ctx, var):
+    """MG-preconditioned BiCGSTAB/CGS (reference: solver.py:1965-2124).
+
+    scipy's algorithms with host scalars, so iteration counts are
+    comparable; the right preconditioner M is :func:`multigrid` on a
+    zero field (up to ``var.maxit`` cycles, with the sc/lr schedules
+    advancing one step per cycle).  A diverging or stagnating
+    preconditioner aborts with a zero field.
+    """
+    fine = ctx.levels(int(var.sc_dir))[0]
+    arrays = fine.arrays
+    s = ctx.s
+    x = ctx.e
+
+    def matvec(e):
+        return stencil.amat(*e, *arrays)
+
+    def precond(r):
+        ez = tuple(torch.zeros_like(c) for c in r)
+        return multigrid(ctx, var, e=ez, s=r, track=False)
+
+    def callback(xk):
+        var._ssl_it += 1
+        var.runtime_at_cycle = np.r_[var.runtime_at_cycle,
+                                     var.time.elapsed]
+        var.l2 = residual_norm(xk, s, arrays)
+        var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
+        if var.verb > 3:
+            log = f"   [{var.time.now}]   {var.l2/var.l2_refe:.3e} "
+            log += f" after {var._ssl_it:3} {var.sslsolver}-cycles"
+            var.cprint(log, 3)
+        elif var.verb < 0:
+            var.one_liner(var.l2)
+
+    bnorm = float(_norm(*s))
+    atol = max(float(var.tol) * bnorm, 1e-30)
+    solver = _bicgstab if var.sslsolver == 'bicgstab' else _cgs
+    try:
+        x, info = solver(matvec, precond, s, x, atol, var.ssl_maxit,
+                         callback)
+    except _ConvergenceError:
+        info = -1
+        x = tuple(torch.zeros_like(c) for c in s)
+        var.exit_message += " (returned field is zero)"
+
+    pre = "\n   > "
+    if info < 0:
+        if var.exit_message == '':
+            var.exit_message = f"Error in {var.sslsolver} ({info})"
+        pre = "\n* ERROR   :: "
+    elif info > 0:
+        var.exit_message = "MAX. ITERATION REACHED, NOT CONVERGED"
+    else:
+        var.exit_message = "CONVERGED"
+    var.cprint(pre + var.exit_message, 2)
+
+    ctx.e = x
+    var.l2 = residual_norm(x, s, arrays)
+    return x
+
+
+def _bicgstab(matvec, precond, b, x, atol, maxiter, callback):
+    """Right-preconditioned BiCGSTAB (scipy-compatible formulation)."""
+    r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
+    rtilde = r
+    rho_prev, alpha, omega = 1.0, 1.0, 1.0
+    v = p = None
+
+    for it in range(maxiter):
+        if float(_norm(*r)) <= atol:
+            return x, 0
+        rho = _dot(rtilde, r)
+        if rho == 0:
+            return x, -10
+        if it == 0:
+            p = r
+        else:
+            beta = (rho / rho_prev) * (alpha / omega)
+            p = tuple(rr + beta * (pp - omega * vv)
+                      for rr, pp, vv in zip(r, p, v))
+        phat = precond(p)
+        v = matvec(phat)
+        denom = _dot(rtilde, v)
+        if denom == 0:
+            return x, -11
+        alpha = rho / denom
+        sres = tuple(rr - alpha * vv for rr, vv in zip(r, v))
+        if float(_norm(*sres)) <= atol:
+            x = _axpy(alpha, phat, x)
+            callback(x)
+            return x, 0
+        shat = precond(sres)
+        t = matvec(shat)
+        tt = _dot(t, t)
+        if tt == 0:
+            return x, -12
+        omega = _dot(t, sres) / tt
+        x = _axpy(alpha, phat, x)
+        x = _axpy(omega, shat, x)
+        r = tuple(ss - omega * ttt for ss, ttt in zip(sres, t))
+        rho_prev = rho
+        callback(x)
+        if omega == 0:
+            return x, -13
+    return x, maxiter
+
+
+def _cgs(matvec, precond, b, x, atol, maxiter, callback):
+    """Preconditioned CGS."""
+    r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
+    rtilde = r
+    rho_prev = 1.0
+    u = p = q = None
+
+    for it in range(maxiter):
+        if float(_norm(*r)) <= atol:
+            return x, 0
+        rho = _dot(rtilde, r)
+        if rho == 0:
+            return x, -10
+        if it == 0:
+            u = r
+            p = r
+        else:
+            beta = rho / rho_prev
+            u = tuple(rr + beta * qq for rr, qq in zip(r, q))
+            p = tuple(uu + beta * (qq + beta * pp)
+                      for uu, qq, pp in zip(u, q, p))
+        phat = precond(p)
+        vhat = matvec(phat)
+        denom = _dot(rtilde, vhat)
+        if denom == 0:
+            return x, -11
+        alpha = rho / denom
+        q = tuple(uu - alpha * vv for uu, vv in zip(u, vhat))
+        uq = tuple(uu + qq for uu, qq in zip(u, q))
+        uqhat = precond(uq)
+        x = _axpy(alpha, uqhat, x)
+        w = matvec(uqhat)
+        r = tuple(rr - alpha * ww for rr, ww in zip(r, w))
+        rho_prev = rho
+        callback(x)
+    return x, maxiter
 
 
 def _resolve_device(device):
@@ -713,9 +972,10 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     efield : Field, optional — initial guess; updated in place (host
         arrays); if provided, nothing is returned (unless return_info).
     cycle : {'F', 'V', 'W'}
-    sslsolver : False (Krylov solvers are not ported yet)
+    sslsolver : {False, True, 'bicgstab', 'cgs'} ('gcrotmk' is not
+        ported yet)
     semicoarsening : bool/int/digit-cycle
-    linerelaxation : False (line relaxation is not ported yet)
+    linerelaxation : bool/int/digit-cycle
     verb : int
     device : torch device or str, optional — where the solve runs.
         None means ``'cuda'`` and raises when no CUDA device exists;
@@ -738,12 +998,11 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         verb=verb, cycle=cycle, sslsolver=sslsolver,
         linerelaxation=linerelaxation, semicoarsening=semicoarsening,
         shape_cells=tuple(grid.shape_cells), **kwargs)
-    if var.sslsolver:
+    if var.sslsolver == 'gcrotmk':
         raise NotImplementedError(
-            "sslsolver (Krylov) is not ported to emg3d_tpu_torch yet")
-    if var.linerelaxation or var.lr_cycle:
-        raise NotImplementedError(
-            "line relaxation is not ported to emg3d_tpu_torch yet")
+            "sslsolver='gcrotmk' is not ported to emg3d_tpu_torch yet; "
+            "it comes with the GCROT(m,k) slice of the port (use "
+            "'bicgstab' or 'cgs').")
 
     do_return = True
 
@@ -767,7 +1026,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
                              mode)
         fine = ctx0.levels(int(var.sc_dir))[0]
         l2 = residual_norm(ctx0.e, ctx0.s, fine.arrays)
-        if l2 < var.tol * var.l2_refe:
+        if l2 < var.tol * var.l2_refe and not var.sslsolver:
             var.exit_message = "CONVERGED"
             var.cprint("   > NOTHING DONE (provided efield already "
                        "converged)\n", 2)
@@ -794,7 +1053,12 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         return z
 
     ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode)
-    multigrid(ctx, var)
+    # krylov() catches _ConvergenceError itself, and standalone multigrid
+    # never raises it.
+    if var.sslsolver:
+        krylov(ctx, var)
+    else:
+        multigrid(ctx, var)
 
     var.runtime_at_cycle = np.r_[var.runtime_at_cycle, var.time.elapsed]
     var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]

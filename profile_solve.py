@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Device profile of one warm solve of emg3d_tpu_torch on a CUDA card.
 
-    python3 profile_solve.py [--mode factored|fused|plain] [--out DIR]
+    python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
+                             [--ssl bicgstab|cgs] [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
 warm up, once more on the host clock alone, and once under
 ``torch.profiler`` with CPU and CUDA activities.  ``--mode`` pins the
-point-smoother kernel, or runs the plain torch smoother; by default the
-solver picks.  Prints:
+point-smoother kernel, or runs the plain torch smoothers; by default
+the solver picks.  ``--sclr`` solves with semicoarsening and line
+relaxation (the production configuration), ``--ssl`` wraps the
+multigrid in BiCGSTAB or CGS.  Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
   and with the profiler;
 - device busy time, the union of the trace's kernel, memcpy and memset
   intervals, and the idle share 1 − busy / profiled wall;
 - device time and count per kernel name (top 12) and per copy kind;
-- the point-smoother launches of the profiled solve;
+- the smoother kernels' launches of the profiled solve, and the host
+  seconds of the unprofiled warm solve spent building line states
+  (rotated parameters and block-Thomas factor stacks);
 - the card's name and power limit.
 
 The Chrome trace goes to ``DIR/trace.json`` (default
@@ -45,6 +50,8 @@ def busy_union(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--mode', choices=('factored', 'fused', 'plain'))
+    ap.add_argument('--sclr', action='store_true')
+    ap.add_argument('--ssl', choices=('bicgstab', 'cgs'), default=False)
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
 
@@ -55,11 +62,12 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from chip_smoke import bench_problem, nvidia_smi
     from emg3d_tpu_torch import solve
-    from emg3d_tpu_torch.ops import point_gs
+    from emg3d_tpu_torch.ops import line_gs, point_gs
 
     grid, model, sfield = bench_problem()
     kw = dict(cycle='F', tol=1e-6, verb=0, return_info=True,
-              device='cuda', _mode=args.mode)
+              device='cuda', _mode=args.mode, sslsolver=args.ssl,
+              semicoarsening=args.sclr, linerelaxation=args.sclr)
 
     def timed():
         torch.cuda.synchronize()
@@ -72,14 +80,27 @@ def main(argv=None):
 
     for _ in range(2):
         timed()
+    build = [0.0]
+    line_state = line_gs.line_state
+
+    def timed_state(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = line_state(*a, **k)
+        torch.cuda.synchronize()
+        build[0] += time.perf_counter() - t0
+        return out
+    line_gs.line_state = timed_state
     wall, info = timed()
+    line_gs.line_state = line_state
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     point_gs.reset_launches()
+    line_gs.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof, _ = timed()
-    launches = dict(point_gs.LAUNCHES)
+    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -95,11 +116,13 @@ def main(argv=None):
         per[key][0] += e['dur'] / 1e3
         per[key][1] += 1
 
-    print(f"mode {args.mode or 'default'}: it_mg {info['it_mg']}, warm "
-          f"wall {wall:.4f} s; profiled wall {wall_prof:.4f} s")
+    print(f"mode {args.mode or 'default'}, sclr {args.sclr}, sslsolver "
+          f"{args.ssl}: it_mg {info['it_mg']}, it_ssl {info['it_ssl']}, "
+          f"warm wall {wall:.4f} s; profiled wall {wall_prof:.4f} s")
     print(f"device busy {busy:.4f} s over {len(events)} device events; "
           f"idle share {1 - busy / wall_prof:.4f}")
-    print(f"point-smoother launches {launches}")
+    print(f"smoother launches {launches}; line-state builds "
+          f"{build[0]:.4f} s of the unprofiled warm wall")
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     copies = [kv for kv in ranked if kv[0].startswith('[')]
     kernels = [kv for kv in ranked if not kv[0].startswith('[')]

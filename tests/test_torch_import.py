@@ -23,7 +23,8 @@ def test_import_without_jax():
         "import sys\n"
         "import emg3d_tpu_torch\n"
         "from emg3d_tpu_torch import solve, convert\n"
-        "from emg3d_tpu_torch.ops import point_gs, _build, smoothers\n"
+        "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
+        "smoothers\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
@@ -62,9 +63,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_unported_options_raise():
     grid, model, sfield = _tiny_problem()
-    for kw in ({'sslsolver': True}, {'linerelaxation': True}):
-        with pytest.raises(NotImplementedError):
-            pt.solve(grid, model, sfield, verb=0, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='gcrotmk'):
+        pt.solve(grid, model, sfield, verb=0, device='cpu',
+                 sslsolver='gcrotmk')
     with pytest.raises(ValueError):
         pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
 
@@ -147,4 +148,6 @@ def test_launch_geometry(shape):
 
 def test_build_flags():
     assert 'arch=compute_90a,code=sm_90a' in _build.FLAGS
-    assert [p.name for p in _build._sources()] == ['point_gs.cu']
+    assert [p.name for p in _build._sources()] == ['line_gs.cu',
+                                                   'point_gs.cu']
+    assert '-shared' not in _build.FLAGS        # one object per source
