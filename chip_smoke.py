@@ -21,13 +21,17 @@ Phases:
    max|Δ| ≤ 1e-12·max|e| (fp64, a different summation order); median
    time per colour step at 64³, kernel beside plain;
 3b. the line kernels the same way, at (3,3,3), (7,5,9), (9,7,9) and
-   64³, lines along x, y and z: the residual kernel against
-   ``stencil.residual_parts``, the Thomas kernel against
-   ``smoothers.line_thomas_x`` on the same residual, every colour step
-   through the wrapper (twice, bitwise equal) and a nu=2 sweep against
-   the plain version; median ms per launch at 64³; then at 256³, lines
-   along x, the residual kernel and the Thomas kernel (colours 0 and 3)
-   alone against their plain versions, with ms per launch;
+   64³, lines along x, y and z: the factor kernel against
+   ``smoothers.line_factor_stack`` plane by plane (run twice, bitwise
+   equal), the residual kernel against ``stencil.residual_parts``, the
+   Thomas kernel against ``smoothers.line_thomas_x`` on the same
+   residual, every colour step through the wrapper (twice, bitwise
+   equal) and a nu=2 sweep against the plain version; median ms per
+   launch at 64³; then at 256³, lines along x, the three kernels alone
+   against their plain versions, with ms per launch; and the Thomas
+   kernel under every launch plan (1-32 lines per block, z in shared
+   or global memory) at 64³, PLAN_SHAPE and 256³, colours 0 and 3,
+   each twice (bitwise equal) against the plain version and timed;
 4. the point path: the default solve of that configuration, CONVERGED,
    and of the same fullspace on the smallest of LARGE_SHAPES whose
    finest-level factor stack does not fit the card's FACTOR_SHARE, so
@@ -41,24 +45,30 @@ Phases:
 7. the production path ("sclr64"): the 64³ fullspace with
    semicoarsening and line relaxation, standalone, with BiCGSTAB
    (``sslsolver=True``, Simulation's default) and with CGS, each
-   CONVERGED; cold solves, then warm ones;
+   CONVERGED; cold solves, then warm ones, each with the host seconds
+   spent building line states (factor stacks);
 8. "sclr256": the same fullspace at 256³ cells, standalone, CONVERGED,
-   with its peak device memory;
+   with its peak device memory and line-state seconds;
 9. the model of phase 6 with semicoarsening and line relaxation,
-   through the kernels and through the plain torch path: same it_mg,
-   fields within a relative 1e-9.
+   through the kernels (K5, K3, K4) and through the plain torch path
+   (plain elimination and plain smoother): same it_mg, fields within a
+   relative 1e-9.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
 solves of phase 7 and read just after them: those counts are
 ``launches`` in the result line.  Phase 5's pinned solve is counted
-apart (``pinned_launches``).  Any failure raises and the exit code is
-not 0.
+apart (``pinned_launches``).  Each kernel's ``bound_ms`` is the least
+time the card could take for the timed call (its bytes over 3.35 TB/s
+or its fp64 operations over 34 TFLOP/s, whichever is larger), counted
+from the call's shapes by the ``*_work`` functions below.  Any failure
+raises and the exit code is not 0.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds ``nvidia-smi``'s name and power limit, and before that one JSON
 line with the kernels' readings.  Needs one card and no network.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -73,6 +83,10 @@ LINE_SHAPES = ((3, 3, 3), (7, 5, 9), (9, 7, 9), (64, 64, 64))
 # sclr256's finest level: each kernel alone against its plain version
 # (lines along x), where the kernels' int64 offsets are largest.
 LINE_LARGE = (256, 256, 256)
+# Short lines (32 stations) of many lines: the only shape where z of 16
+# and 32 lines per block fits a block's shared memory.  K4 runs every
+# launch plan here, at 64³ and at LINE_LARGE.
+PLAN_SHAPE = (32, 256, 256)
 POINT_SRC = 'emg3d_tpu_torch/csrc/point_gs.cu'
 LINE_SRC = 'emg3d_tpu_torch/csrc/line_gs.cu'
 KERNELS = {
@@ -84,7 +98,13 @@ KERNELS = {
                           replaces='emg3d_tpu/ops/pallas_lr.py:846'),
     'line_thomas': dict(name='line_thomas', source=LINE_SRC,
                         replaces='emg3d_tpu/ops/pallas_lr.py:885'),
+    'line_factor': dict(name='line_factor', source=LINE_SRC,
+                        replaces='emg3d_tpu/ops/blocksolve.py:305'),
 }
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): memory
+# bandwidth, and fp64 outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FP64 = 34e12
 SCLR = dict(semicoarsening=True, linerelaxation=True)
 POINT_MODES = ('factored', 'fused')
 # Fullspace shapes (100 m cells) for the main path's second solve, in
@@ -185,13 +205,83 @@ def _maxabs(a):
     return max(float(x.abs().max()) for x in a)
 
 
-def _time_steps(torch, fn, reps=20, per=8, warm=3):
-    """Median ms of one step, from reps calls of ``per`` steps each."""
+def bound(nbytes, flops):
+    """bound_ms and bound_by of a call that must move ``nbytes`` and do
+    ``flops`` fp64 operations."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FP64
+    return {'bound_ms': max(tb, tf) * 1e3,
+            'bound_by': 'bytes' if tb >= tf else 'operations'}
+
+
+# Work of one call of each kernel: bytes with each input read once and
+# each output written once; fp64 operations counting a complex product
+# as 6, a complex sum as 2 and a complex reciprocal as 7.
+
+def point_work(shape, mode):
+    """(bytes, flops) of one point colour step, the mean of 8 colours.
+
+    Per active node: the six block edges' e read and written, s and η
+    edge sums read, and 20 factors (K1) or 12 ζ face weights (K2).  The
+    residual stencil's other e values are not counted (so the bound is
+    low).  ~730 FLOP per node (six edge residuals, the 6×6
+    substitution); K2 ~1590 with the block's assembly and LDLᵀ.
+    """
+    from emg3d_tpu_torch.ops import point_gs
+    nodes = sum(int(np.prod(point_gs.launch_geometry(shape, c)[1]))
+                for c in range(8)) / 8
+    if mode == 'factored':
+        return nodes * 44 * 16, nodes * 730
+    return nodes * (24 * 16 + 12 * 8), nodes * 1590
+
+
+def residual_work(shape):
+    """(bytes, flops) of K3: e and s read and r written on every edge,
+    η edge sums and ζ face weights read; ~76 FLOP per interior edge."""
+    nx, ny, nz = shape
+    edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
+             + (nx + 1) * (ny + 1) * nz)
+    inner = ((nx * (ny - 1) * (nz - 1)) + (nx - 1) * ny * (nz - 1)
+             + (nx - 1) * (ny - 1) * nz)
+    faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
+    return 3 * edges * 16 + inner * 16 + faces * 8, inner * 76
+
+
+def thomas_work(shape, color):
+    """(bytes, flops) of K4 on one colour: per line and station 23
+    factors, and 5 residuals read and 5 field values read and written
+    (1 at the last station); ~530 FLOP per line-station."""
+    from emg3d_tpu_torch.ops import line_gs
+    nx = shape[0]
+    g = line_gs.launch_geometry(shape, color)
+    lines = g.counts[0] * g.counts[1]
+    return (lines * (23 * nx + 3 * (5 * (nx - 1) + 1)) * 16,
+            lines * nx * 530)
+
+
+def factor_work(shape):
+    """(bytes, flops) of K5 on the stack of a rotated level: per line of
+    the four parities 13 D planes read and 15 factor planes written at
+    station 0, 21 read and 15 written at the others; ~430 FLOP at
+    station 0 (the LDLᵀ), ~1550 at the others (five solves with
+    C_{i-1}, the update of C_i, its LDLᵀ)."""
+    nx, ny, nz = shape
+    lines = 4 * (ny // 2) * (nz // 2)
+    return (lines * (28 + 36 * (nx - 1)) * 16,
+            lines * (430 + 1550 * (nx - 1)))
+
+
+def _time_steps(torch, fn, reps=20, per=8, warm=3, prep=None):
+    """Median ms of one step, from reps calls of ``per`` steps each;
+    ``prep`` runs before each call, outside the timed events."""
     for _ in range(warm):
+        if prep is not None:
+            prep()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if prep is not None:
+            prep()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -252,8 +342,10 @@ def phase_kernels(torch, results):
                                               gauss_seidel_point_plain(
                                                   ep, s, state, 1,
                                                   _mode=mode, _seq=seq))
+                res.update(bound(*point_work(shape, mode)))
                 log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per "
-                    f"colour step; plain torch {res['plain_ms']:.4f} ms")
+                    f"colour step; plain torch {res['plain_ms']:.4f} ms; "
+                    f"bound {res['bound_ms']:.4f} ms")
 
 
 def _clone(f):
@@ -269,17 +361,56 @@ def _check_kernel(name, shape, errs):
     return max(a for a, _ in errs)
 
 
+def _check_stack(shape, got, ref):
+    """Per-plane max|Δ|/max|ref| of two factor stacks, each ≤ TOL_KERNEL;
+    returns (worst ratio, max|Δ|)."""
+    dims = (0, 2, 3, 4, 5)
+    d = (got - ref).abs().amax(dim=dims).tolist()
+    m = ref.abs().amax(dim=dims).tolist()
+    ratios = [a / b if b > 0 else (0.0 if a == 0 else math.inf)
+              for a, b in zip(d, m)]
+    worst = max(ratios)
+    log(f"line_factor {shape}: max over planes of max|Δ|/max|ref| "
+        f"{worst:.3e} (repeat bitwise equal)")
+    if not worst <= TOL_KERNEL:
+        bad = [p for p, r in enumerate(ratios) if not r <= TOL_KERNEL]
+        raise AssertionError(f"line_factor {shape}: planes {bad} exceed "
+                             f"{TOL_KERNEL}")
+    return worst, max(d)
+
+
+def _factor_twice(torch, st):
+    """K5 twice on the packed entries of a state; bitwise equal."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers
+    outs = [line_gs.factor(smoothers.pack_line_entries(st.arrays, st.shape))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(*outs):
+        raise AssertionError(f"line_factor {st.shape}: two runs differ")
+    return outs[0]
+
+
 def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
-                       large=LINE_LARGE):
+                       plan_shape=PLAN_SHAPE, large=LINE_LARGE):
     from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
     dev = torch.device(device)
     res = {k: results.setdefault(k, {'max_abs_err': 0.0})
-           for k in ('line_residual', 'line_thomas')}
+           for k in ('line_residual', 'line_thomas', 'line_factor')}
     for shape in shapes:
         pstate, e0, s = _level(shape, seed=sum(shape) + 1, device=dev)
         errs = {'line_residual': [], 'line_thomas': []}
         for axis in range(3):
             st = line_gs.line_state(pstate.arrays, shape, axis)
+            # K5 against the plain elimination on the same card.
+            ref = smoothers.line_factor_stack(st.arrays, st.shape)
+            fk = _factor_twice(torch, st)
+            if not torch.equal(fk, st.factors):
+                raise AssertionError(f"line_factor {shape}: line_state's "
+                                     f"stack differs from K5's")
+            _, dmax = _check_stack((*shape, 'axis', axis), fk, ref)
+            res['line_factor']['max_abs_err'] = max(
+                res['line_factor']['max_abs_err'], dmax)
+            del fk, ref
             er = tuple(t.contiguous() for t in
                        smoothers.rotate_fields(e0, axis))
             sr = tuple(t.contiguous() for t in
@@ -314,77 +445,173 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
                 errs['line_thomas'].append((_maxdiff(outs[0], ref),
                                             _maxabs(ref)))
             if shape == (64, 64, 64) and axis == 0:
-                res['line_residual']['ms'] = _time_steps(
-                    torch, lambda: line_gs.residual(er, sr, st, rk),
-                    reps=50, per=1)
-                res['line_residual']['plain_ms'] = _time_steps(
-                    torch, lambda: stencil.residual_parts(*sr, *er,
-                                                          *st.arrays),
-                    reps=20, per=1)
-                ek = _clone(er)
-                zs = torch.empty((shape[0], 5, (shape[1] // 2) *
-                                  (shape[2] // 2)), dtype=er[0].dtype,
-                                 device=dev)
-                res['line_thomas']['ms'] = _time_steps(
-                    torch, lambda: line_gs.thomas(ek, rp, st.factors, st, 0,
-                                                  zs), reps=50, per=1)
-                res['line_thomas']['plain_ms'] = _time_steps(
-                    torch, lambda: smoothers.line_thomas_x(
-                        er, rp, st.factors, 0), reps=5, per=1, warm=1)
-                e = _clone(e0)
-                step_ms = _time_steps(torch, lambda: line_gs.line_relaxation(
-                    e, s, st, 1), reps=20, per=4)
-                step_plain = _time_steps(
-                    torch, lambda: line_gs.line_relaxation_plain(
-                        e, s, st, 1, _seq=(0,)), reps=5, per=1, warm=1)
-                res['line_thomas']['step_ms'] = step_ms
-                res['line_thomas']['step_plain_ms'] = step_plain
-                log(f"64³ x-lines, ms per launch: line_residual "
-                    f"{res['line_residual']['ms']:.4f} (plain "
-                    f"{res['line_residual']['plain_ms']:.4f}), line_thomas "
-                    f"{res['line_thomas']['ms']:.4f} (plain "
-                    f"{res['line_thomas']['plain_ms']:.4f}); colour step "
-                    f"{step_ms:.4f} (plain {step_plain:.4f})")
+                _time_line_64(torch, res, shape, st, e0, s, er, sr, rk, rp)
+                thomas_plans(torch, res, st, er, rp, colors=(0, 3), reps=20)
         for k, v in errs.items():
             res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
                                         _check_kernel(k, shape, v))
+    if plan_shape is not None:
+        pstate, e, s = _level(plan_shape, seed=5, device=dev,
+                              factored=False)
+        st = line_gs.line_state(pstate.arrays, plan_shape, 0)
+        r = stencil.residual_parts(*s, *e, *st.arrays)
+        thomas_plans(torch, res, st, e, r, colors=(0, 3), reps=10)
+        del pstate, e, s, st, r
     if large is not None:
         _line_kernels_large(torch, res, large, dev)
 
 
+def _time_line_64(torch, res, shape, st, e0, s, er, sr, rk, rp):
+    """ms per launch of K3, K4 and K5 at 64³ (x-lines), beside plain."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    res['line_residual']['ms'] = _time_steps(
+        torch, lambda: line_gs.residual(er, sr, st, rk), reps=50, per=1)
+    res['line_residual']['plain_ms'] = _time_steps(
+        torch, lambda: stencil.residual_parts(*sr, *er, *st.arrays),
+        reps=20, per=1)
+    res['line_residual'].update(bound(*residual_work(shape)))
+    ek = _clone(er)
+    zs = line_gs._scratch(st.shape, er[0])
+    res['line_thomas']['ms'] = _time_steps(
+        torch, lambda: line_gs.thomas(ek, rp, st.factors, st, 0, zs),
+        reps=50, per=1)
+    res['line_thomas']['plain_ms'] = _time_steps(
+        torch, lambda: smoothers.line_thomas_x(er, rp, st.factors, 0),
+        reps=5, per=1, warm=1)
+    res['line_thomas'].update(bound(*thomas_work(shape, 0)))
+    e = _clone(e0)
+    step_ms = _time_steps(torch, lambda: line_gs.line_relaxation(
+        e, s, st, 1), reps=20, per=4)
+    step_plain = _time_steps(
+        torch, lambda: line_gs.line_relaxation_plain(
+            e, s, st, 1, _seq=(0,)), reps=5, per=1, warm=1)
+    res['line_thomas']['step_ms'] = step_ms
+    res['line_thomas']['step_plain_ms'] = step_plain
+    # K5 in place on a copy of the packed entries, refreshed before each
+    # call outside the timed events; the plain version on fresh entries.
+    entries = smoothers.pack_line_entries(st.arrays, st.shape)
+    packed = torch.empty_like(entries)
+    res['line_factor']['ms'] = _time_steps(
+        torch, lambda: line_gs.factor(packed), reps=20, per=1,
+        prep=lambda: packed.copy_(entries))
+    res['line_factor']['plain_ms'] = _time_steps(
+        torch, lambda: smoothers.line_factor_stack(st.arrays, st.shape),
+        reps=3, per=1, warm=1)
+    res['line_factor'].update(bound(*factor_work(st.shape)))
+    log(f"64³ x-lines, ms per launch: line_factor "
+        f"{res['line_factor']['ms']:.4f} (plain, entries included, "
+        f"{res['line_factor']['plain_ms']:.4f}), line_residual "
+        f"{res['line_residual']['ms']:.4f} (plain "
+        f"{res['line_residual']['plain_ms']:.4f}), line_thomas "
+        f"{res['line_thomas']['ms']:.4f} (plain "
+        f"{res['line_thomas']['plain_ms']:.4f}); colour step "
+        f"{step_ms:.4f} (plain {step_plain:.4f}); bounds "
+        f"{res['line_factor']['bound_ms']:.4f}, "
+        f"{res['line_residual']['bound_ms']:.4f}, "
+        f"{res['line_thomas']['bound_ms']:.4f}")
+
+
 def _line_kernels_large(torch, res, shape, dev):
-    """K3 and K4 alone against their plain versions on x-lines."""
+    """K5, K3 and K4 alone against their plain versions on x-lines."""
     from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
     pstate, e, s = _level(shape, seed=7, device=dev, factored=False)
     st = line_gs.line_state(pstate.arrays, shape, 0)
+    fk = _factor_twice(torch, st)
+    if not torch.equal(fk, st.factors):
+        raise AssertionError(f"line_factor {shape}: line_state's stack "
+                             f"differs from K5's")
+    del fk
+    ref = smoothers.line_factor_stack(st.arrays, st.shape)
+    _, dmax = _check_stack(shape, st.factors, ref)
+    res['line_factor']['max_abs_err'] = max(
+        res['line_factor']['max_abs_err'], dmax)
+    del ref
+    torch.cuda.empty_cache()
     rk = line_gs.residual(e, s, st, tuple(torch.empty_like(t) for t in e))
     rp = stencil.residual_parts(*s, *e, *st.arrays)
     torch.cuda.synchronize()
-    errs = {'line_residual': [(_maxdiff(rk, rp), _maxabs(rp))],
-            'line_thomas': []}
+    errs = [(_maxdiff(rk, rp), _maxabs(rp))]
     del rk
-    for color in (0, 3):
-        ek = line_gs.thomas(_clone(e), rp, st.factors, st, color)
-        ep = smoothers.line_thomas_x(e, rp, st.factors, color)
-        torch.cuda.synchronize()
-        errs['line_thomas'].append((_maxdiff(ek, ep), _maxabs(ep)))
-        del ek, ep
-    for k, v in errs.items():
-        res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
-                                    _check_kernel(k, shape, v))
+    res['line_residual']['max_abs_err'] = max(
+        res['line_residual']['max_abs_err'],
+        _check_kernel('line_residual', shape, errs))
+    thomas_plans(torch, res, st, e, rp, colors=(0, 3), reps=5)
     out = tuple(torch.empty_like(t) for t in e)
     res['line_residual']['ms_256'] = _time_steps(
         torch, lambda: line_gs.residual(e, s, st, out), reps=10, per=1)
-    zs = torch.empty((shape[0], 5, (shape[1] // 2) * (shape[2] // 2)),
-                     dtype=e[0].dtype, device=dev)
+    res['line_residual']['bound_ms_256'] = bound(
+        *residual_work(shape))['bound_ms']
+    zs = line_gs._scratch(st.shape, e[0])
     res['line_thomas']['ms_256'] = _time_steps(
         torch, lambda: line_gs.thomas(e, rp, st.factors, st, 0, zs),
         reps=10, per=1)
-    log(f"256³ x-lines, ms per launch: line_residual "
-        f"{res['line_residual']['ms_256']:.4f}, line_thomas "
-        f"{res['line_thomas']['ms_256']:.4f}")
-    del pstate, st, e, s, rp, out, zs
+    res['line_thomas']['bound_ms_256'] = bound(
+        *thomas_work(shape, 0))['bound_ms']
+    del out, zs, rp
     torch.cuda.empty_cache()
+    entries = smoothers.pack_line_entries(st.arrays, st.shape)
+    packed = torch.empty_like(entries)
+    res['line_factor']['ms_256'] = _time_steps(
+        torch, lambda: line_gs.factor(packed), reps=5, per=1, warm=1,
+        prep=lambda: packed.copy_(entries))
+    res['line_factor']['bound_ms_256'] = bound(
+        *factor_work(st.shape))['bound_ms']
+    log(f"256³ x-lines, ms per launch: line_factor "
+        f"{res['line_factor']['ms_256']:.4f} (bound "
+        f"{res['line_factor']['bound_ms_256']:.4f}), line_residual "
+        f"{res['line_residual']['ms_256']:.4f} (bound "
+        f"{res['line_residual']['bound_ms_256']:.4f}), line_thomas "
+        f"{res['line_thomas']['ms_256']:.4f} (bound "
+        f"{res['line_thomas']['bound_ms_256']:.4f})")
+    del pstate, st, e, s, packed, entries
+    torch.cuda.empty_cache()
+
+
+def thomas_plans(torch, res, st, e, r, colors, reps):
+    """K4 under every launch plan of the x-line state ``st``: 1-32 lines
+    per block with z in global memory and, where it fits the block, in
+    shared memory; each run twice (bitwise equal) and held against
+    ``smoothers.line_thomas_x`` from the same residual ``r``, and timed
+    (median ms per launch) on the first colour."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers
+    shape = st.shape
+    zs = line_gs._scratch(shape, e[0])
+    errs = []
+    for color in colors:
+        pick = line_gs.launch_geometry(shape, color)
+        ep = smoothers.line_thomas_x(e, r, st.factors, color)
+        for lpb in (1, 2, 4, 8, 16, 32):
+            for z_shared in (True, False):
+                try:
+                    g = line_gs.launch_geometry(shape, color, lpb, z_shared)
+                except ValueError:       # z does not fit the block
+                    continue
+                outs = [line_gs.thomas(_clone(e), r, st.factors, st, color,
+                                       zs, g) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(f"line_thomas {shape} colour "
+                                         f"{color} plan {g}: two runs "
+                                         f"differ")
+                errs.append((_maxdiff(outs[0], ep), _maxabs(ep)))
+                del outs
+                msg = (f"line_thomas {shape} colour {color}, {lpb:2d} lines "
+                       f"per block, z {'shared' if z_shared else 'global'}"
+                       f"{' (chosen)' if g == pick else ''}: max|Δ|/max|ref| "
+                       f"{errs[-1][0] / errs[-1][1]:.3e}")
+                if color == colors[0]:
+                    et = _clone(e)
+                    ms = _time_steps(torch, lambda: line_gs.thomas(
+                        et, r, st.factors, st, color, zs, g), reps=reps,
+                        per=1)
+                    msg += (f", {ms:.4f} ms, {g.blocks} blocks, "
+                            f"{g.smem_bytes} B shared")
+                    del et
+                log(msg)
+        del ep
+    res['line_thomas']['max_abs_err'] = max(
+        res['line_thomas']['max_abs_err'],
+        _check_kernel('line_thomas plans', shape, errs))
 
 
 def bench_problem(shape=(64, 64, 64)):
@@ -441,6 +668,34 @@ def heterogeneous_problem(seed=64):
     return grid, model, sfield
 
 
+class LineStateClock:
+    """Host seconds spent in ``line_gs.line_state`` (the line states'
+    parameters and factor stacks) while active, each build ending in a
+    synchronize.  The solver calls it through the module, so patching
+    the module's attribute sees every build."""
+
+    def __enter__(self):
+        from emg3d_tpu_torch.ops import line_gs
+        import torch
+        self.seconds, self.builds = 0.0, 0
+        self._mod, self._real = line_gs, line_gs.line_state
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._real(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.builds += 1
+            return out
+        line_gs.line_state = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.line_state = self._real
+        return False
+
+
 def phase_sclr64(torch, grid, model, sfield):
     """The production path, cold (launches counted) then warm."""
     from emg3d_tpu_torch.ops import line_gs
@@ -448,19 +703,23 @@ def phase_sclr64(torch, grid, model, sfield):
     line_gs.reset_launches()
     cold = {}
     for name, ssl in runs:
-        cold[name] = _solve(torch, grid, model, sfield, sslsolver=ssl,
-                            **SCLR)
+        with LineStateClock() as clock:
+            cold[name] = (*_solve(torch, grid, model, sfield, sslsolver=ssl,
+                                  **SCLR), clock)
     launches = dict(line_gs.LAUNCHES)
     log(f"sclr64 launches of the three cold solves: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError("the sc+lr solves launched no line kernel")
     for name, ssl in runs:
-        _, info, wall = cold[name]
-        _, winfo, warm = _solve(torch, grid, model, sfield, sslsolver=ssl,
-                                **SCLR)
+        _, info, wall, cclock = cold[name]
+        with LineStateClock() as clock:
+            _, winfo, warm = _solve(torch, grid, model, sfield,
+                                    sslsolver=ssl, **SCLR)
         log(f"sclr64 {name}: it_mg {info['it_mg']}, it_ssl "
             f"{info['it_ssl']}, rel_error {info['rel_error']:.3e}, cold "
-            f"wall {wall:.3f} s, warm wall {warm:.3f} s (it_mg "
+            f"wall {wall:.3f} s ({cclock.seconds:.4f} s in "
+            f"{cclock.builds} line-state builds), warm wall {warm:.3f} s "
+            f"({clock.seconds:.4f} s in {clock.builds} builds; it_mg "
             f"{winfo['it_mg']})")
     return launches
 
@@ -540,10 +799,13 @@ def main():
     with Phase('8 sclr256: sc+lr standalone at 256³'):
         line_gs.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        e8, info8, wall8 = _solve(torch, *bench_problem((256,) * 3), **SCLR)
+        with LineStateClock() as clock:
+            e8, info8, wall8 = _solve(torch, *bench_problem((256,) * 3),
+                                      **SCLR)
         del e8
         log(f"256³: it_mg {info8['it_mg']}, rel_error "
-            f"{info8['rel_error']:.3e}, wall {wall8:.3f} s (first solve), "
+            f"{info8['rel_error']:.3e}, wall {wall8:.3f} s (first solve; "
+            f"{clock.seconds:.4f} s in {clock.builds} line-state builds), "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"launches {dict(line_gs.LAUNCHES)}")
@@ -565,11 +827,12 @@ def main():
                  'source': meta['source'], 'replaces': meta['replaces'],
                  'launches': launches[key],
                  'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-                 'plain_ms': r['plain_ms']}
+                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                 'bound_by': r['bound_by'], 'library_ms': None}
         if key in pinned:
             entry['pinned_launches'] = pinned[key]
         entry.update({k: v for k, v in r.items()
-                      if k.startswith('step') or k == 'ms_256'})
+                      if k.startswith('step') or k.endswith('_256')})
         kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")

@@ -1,9 +1,10 @@
-// Line Gauss-Seidel colour step for Hopper (sm_90a), complex128.
+// Line Gauss-Seidel for Hopper (sm_90a), complex128.
 //
 // Replaces the two Pallas line-smoother kernels of the JAX package,
 // emg3d_tpu/ops/pallas_lr.py, launched once each per colour step as the
-// Pallas pair is (ops/line_gs.py runs them in the rotated frame whose
-// x-lines are the lines being relaxed):
+// Pallas pair is, and the lax.scan that builds their factor stack
+// (ops/line_gs.py runs them in the rotated frame whose x-lines are the
+// lines being relaxed):
 //
 //   K3  line_residual <- _kernel_res (457-568): the curl-curl residual
 //       r = s − A e of the whole level, one thread per edge, into a
@@ -11,40 +12,70 @@
 //       get r = s).  Pallas tiled x (and y) slabs and blended the owned
 //       rows into an aliased (8,128)-padded stack; here every thread
 //       owns its edge, so there is nothing to blend.
-//   K4  line_thomas <- _kernel_thomas (591-790): one thread per line of
-//       the colour runs the block-tridiagonal substitution along x,
+//   K4  line_thomas <- _kernel_thomas (591-790): the block-tridiagonal
+//       substitution of every line of the colour along x,
 //         forward   y_i = r_i − B_i z_{i-1},  z_i = C_i⁻¹ y_i,
 //         backward  δ_{S-1} = z_{S-1},  δ_i = z_i − C_i⁻¹ B_{i+1}ᵀ δ_{i+1},
-//       against the factor stack built once per (level, axis)
-//       (smoothers.line_factor_stack: LDLᵀ of the eliminated station
-//       blocks C_i and the sparse B_i), and adds δ into the line's
+//       against the factor stack (K5), adding δ into the line's
 //       ex(i, j, k) and its adjacent ey(i+1, j-1|j, k), ez(i+1, j,
 //       k-1|k) edges in place.  Station i's unknowns are those five
 //       edges (smoothers.py:372-399 of the JAX package); the last
-//       station has ex only.  z_i goes to a global scratch.
-//
-// Races: K4 reads only r (K3's buffer) and the factors, never e.  Lines
-// of one colour share transverse parity, so they are two apart in y or
-// z and touch disjoint edges: the in-place update is race-free and a
-// colour step is deterministic.
+//       station has ex only.
+//   K5  line_factor <- the block-Thomas elimination that
+//       pallas_lr.line_factors (356-450) runs as one lax.scan
+//       (emg3d_tpu/ops/blocksolve.py:305): per line, C_0 = D_0 and
+//       C_i = D_i − B_i C_{i-1}⁻¹ B_iᵀ, and the sparse LDLᵀ of every C_i,
+//       in place on the packed entries (smoothers.pack_line_entries).
 //
 // Layout: the factor stack is (nx, 23, 2, 2, ny2, nz2), with the lines
-// of one transverse parity fastest-varying; consecutive threads of a
-// colour take consecutive lines, so each factor load of a warp is one
-// contiguous run.  The scratch z is (nx, 5, ny2·nz2), the same way.
-// The residual and field accesses of a colour are stride 2 along z
-// (half-used sectors); that is left for later work.
+// of one transverse parity fastest-varying: planes 0-9 L (_lower_keys(5)
+// order), 10-14 the inverse diagonal, 15-22 B (LINE_BKEYS order).
+// Consecutive threads (K5) or lanes (K4) take consecutive lines, so each
+// plane load of a warp is one contiguous run.
 //
-// Bound on this card: memory and latency.  K4 streams 23 complex128
-// factors (368 B) per line-station twice (forward and backward), plus
-// the scratch z; the arithmetic is ~600 FLOP per line-station.  A
-// colour has only a quarter of the (ny-1)(nz-1) lines as threads (~1k
-// at 64³, ~16k at 256³), each a sequential chain of nx stations, so at
-// small levels the kernel is latency-bound.  wgmma and TMA do not apply
-// (no matrix product; the recurrence is sequential along the line).
-// The operation order is that of blocksolve.block_tridiag_solve_entries
-// (and of the JAX package), so kernel and plain version agree to
-// rounding.
+// Bounds on this card (3.35 TB/s, 34 TFLOP/s fp64 outside the tensor
+// cores), each input byte read once and each output written once:
+//   K5  21 entry planes read and 15 written per line-station (576 B),
+//       ~1.5 kFLOP: memory-bound, 45 µs per stack at 64³, 2.9 ms at
+//       256³.  One thread per line over all four parities (4·ny2·nz2),
+//       stations in a loop, C_{i-1}'s 15 factors in registers; each
+//       station's 21 loads are independent of the recurrence, so they
+//       are issued one station ahead, and with 4k-65k lines in flight
+//       the loads of many lines overlap.
+//   K4  23 factors, 5 residuals and 5 field reads and writes per
+//       line-station (608 B): memory-bound, 11.9 µs per colour at 64³,
+//       0.76 ms at 256³.  What held the first design back was not the
+//       bytes but latency: one thread per line on 128-thread blocks
+//       left the card almost empty at 64³ (8 blocks for 132 SMs), and
+//       every station waited on its 23 factor loads.  Now a block is one
+//       warp that owns LPB lines (a power of two ≤ 32, a template
+//       parameter chosen in Python: 4 at 64³, so a colour spreads over
+//       256 blocks; 32 at 256³, where the kernel is bound by bandwidth
+//       and a warp's plane runs are 512 B).  All 32 lanes fill a ring of
+//       kStages station slots in shared memory with cp.async, kAhead
+//       stations ahead of the lanes that compute (lane l < lines per
+//       block runs line l); a slot holds the station's 23 factor planes
+//       and its 5 residuals (forward) or 5 field values and, where z is
+//       not on chip, 5 z values (backward).  z stays in shared memory
+//       where it fits (Python decides: 5 KB per line at 64³; timed on the
+//       card, z on chip saves ~10 % at 4-16 lines per block of 32-128
+//       stations, and costs where its bytes cut the blocks per SM), else
+//       it goes to a global scratch.  The station arithmetic is not
+//       split across lanes: in the operation order kept here the backward
+//       LDLᵀ substitution is a chain of ten dependent steps, and a
+//       shuffle per step would lengthen it.
+// The residual and field accesses of a colour are stride 2 along z
+// (half-used sectors).  wgmma and TMA tiles do not apply (no matrix
+// product; the recurrences are sequential along the line).  The
+// operation orders are those of blocksolve.block_tridiag_factor_entries,
+// ldl_factor_sparse and block_tridiag_solve_entries (and of the JAX
+// package), so kernels and plain versions agree to rounding.
+//
+// Races: K4 reads only r (K3's buffer), the factors and the e values of
+// its own lines.  Lines of one colour share transverse parity, so they
+// are two apart in y or z and touch disjoint edges: the in-place update
+// is race-free and a colour step is deterministic.  K5 reads and writes
+// only its own line's planes.
 
 #include "stencil.cuh"
 
@@ -56,6 +87,9 @@ constexpr int kNent = 23;      // factor-stack planes per station
 constexpr int kDinv = 10;      // first inverse-diagonal plane
 constexpr int kB = 15;         // first B plane: (0,1) (0,2) (0,3) (0,4)
                                //   (1,1) (2,2) (3,3) (4,4)
+constexpr int kWarp = 32;      // K4: one warp per block
+constexpr int kStages = 6;     // K4's ring of station slots
+constexpr int kAhead = kStages - 2;   // stations loaded ahead
 
 struct ResArgs {
   double2* rx;          // residual out, same shapes as e
@@ -113,46 +147,38 @@ line_residual(ResArgs a) {
   }
 }
 
-struct ThomasArgs {
-  double2* ex;          // fields, updated in place
-  double2* ey;
-  double2* ez;
-  const double2* rx;    // residual of the colour step (K3)
-  const double2* ry;
-  const double2* rz;
-  const double2* fac;   // (nx, 23, 2, 2, ny2, nz2)
-  double2* zs;          // scratch (nx, 5, ny2*nz2)
-  int nx, ny, nz;
-  int cy, cz;           // the colour's transverse parity
-  int cny, cnz;         // active lines per transverse axis
-};
-
-#define RX(i, j, k) a.rx[at(i, j, k, a.ny + 1, a.nz + 1)]
-#define RY(i, j, k) a.ry[at(i, j, k, a.ny, a.nz + 1)]
-#define RZ(i, j, k) a.rz[at(i, j, k, a.ny + 1, a.nz)]
-
 // Plane of L(i, k), i > k, in _lower_keys(5) order.
 __host__ __device__ constexpr int l_plane(int i, int k) {
   return i * (i - 1) / 2 + k;
 }
 
-// y ← C⁻¹ y with the LDLᵀ factors of one station
+// Station-block entries absent from D (zeros in the packed stack).
+__host__ __device__ constexpr bool d_absent(int a, int b) {
+  return (a == 2 && b == 1) || (a == 4 && b == 3);
+}
+
+// ---------------------------------------------------------------------
+// K5: block-Thomas elimination, in place
+// ---------------------------------------------------------------------
+
+struct FactorArgs {
+  double2* fac;         // (nx, 23, 4·P): packed entries in, factors out
+  int64_t lines;        // 4·P = 4·ny2·nz2, the plane stride
+  int nx;
+};
+
+// y ← C⁻¹ y with dense LDLᵀ factors in registers
 // (blocksolve.ldl_solve_factored, all ten L entries, same order).
-__device__ __forceinline__ void ldl_solve5(const double2* f, int64_t pstride,
-                                           double2 (&y)[5]) {
-  double2 L[5][5];
-#pragma unroll
-  for (int i = 1; i < 5; ++i) {
-#pragma unroll
-    for (int k = 0; k < i; ++k) L[i][k] = f[l_plane(i, k) * pstride];
-  }
+__device__ __forceinline__ void ldl_solve_reg(const double2 (&L)[5][5],
+                                              const double2 (&dinv)[5],
+                                              double2 (&y)[5]) {
 #pragma unroll
   for (int i = 1; i < 5; ++i) {
 #pragma unroll
     for (int k = 0; k < i; ++k) y[i] = csub(y[i], cmul(L[i][k], y[k]));
   }
 #pragma unroll
-  for (int i = 0; i < 5; ++i) y[i] = cmul(y[i], f[(kDinv + i) * pstride]);
+  for (int i = 0; i < 5; ++i) y[i] = cmul(y[i], dinv[i]);
 #pragma unroll
   for (int i = 3; i >= 0; --i) {
 #pragma unroll
@@ -161,100 +187,394 @@ __device__ __forceinline__ void ldl_solve5(const double2* f, int64_t pstride,
 }
 
 __global__ void __launch_bounds__(128)
-line_thomas(ThomasArgs a) {
+line_factor(FactorArgs a) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (t >= static_cast<int64_t>(a.cny) * a.cnz) return;
-  const int q = static_cast<int>(t / a.cnz);
-  const int r = static_cast<int>(t % a.cnz);
+  if (t >= a.lines) return;
+  const int64_t ps = a.lines;
+  double2 L[5][5];      // factors of the previous station, then this one
+  double2 dinv[5];
+  // Station i's entries, loaded one station ahead (the loads do not
+  // depend on the recurrence): D (lower triangle; the absent (2,1) and
+  // (4,3) are not read) and B_i's row 0 (0, b0[1..4]) and diagonal
+  // bd[1..4].
+  double2 Dn[5][5], b0n[5], bdn[5];
+  auto load = [&](int i) {
+    const double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + t;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      Dn[r][r] = s[(kDinv + r) * ps];
+#pragma unroll
+      for (int c = 0; c < r; ++c) {
+        Dn[r][c] = d_absent(r, c) ? make_double2(0.0, 0.0)
+                                  : s[l_plane(r, c) * ps];
+      }
+    }
+#pragma unroll
+    for (int m = 1; m < 5; ++m) {
+      b0n[m] = i > 0 ? s[(kB + m - 1) * ps] : make_double2(0.0, 0.0);
+      bdn[m] = i > 0 ? s[(kB + 3 + m) * ps] : make_double2(0.0, 0.0);
+    }
+  };
+  load(0);
+  for (int i = 0; i < a.nx; ++i) {
+    double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + t;
+    // C ← D, from the planes where its factors go.
+    double2 C[5][5], b0[5], bd[5];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+#pragma unroll
+      for (int c = 0; c <= r; ++c) C[r][c] = Dn[r][c];
+    }
+#pragma unroll
+    for (int m = 1; m < 5; ++m) {
+      b0[m] = b0n[m];
+      bd[m] = bdn[m];
+    }
+    if (i + 1 < a.nx) load(i + 1);
+    if (i > 0) {
+      // Column b of C_{i-1}⁻¹ B_iᵀ (row b of B_i solved), then column b
+      // of C_i = D_i − B_i (C_{i-1}⁻¹ B_iᵀ).
+#pragma unroll
+      for (int b = 0; b < 5; ++b) {
+        double2 col[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          col[k] = make_double2(0.0, 0.0);
+          if (b == 0 && k > 0) col[k] = b0[k];
+          if (b > 0 && k == b) col[k] = bd[b];
+        }
+        ldl_solve_reg(L, dinv, col);
+        if (b == 0) {
+#pragma unroll
+          for (int k = 1; k < 5; ++k) {
+            C[0][0] = csub(C[0][0], cmul(b0[k], col[k]));
+          }
+        }
+#pragma unroll
+        for (int r = 1; r < 5; ++r) {
+          if (r < b) continue;
+          const double2 tt = cmul(bd[r], col[r]);
+          C[r][b] = d_absent(r, b) ? make_double2(-tt.x, -tt.y)
+                                   : csub(C[r][b], tt);
+        }
+      }
+    }
+    // Sparse LDLᵀ of C (blocksolve.ldl_factor_sparse, same order; every
+    // entry is present from station 1 on, and at station 0 an absent
+    // D entry gives 0 − s there as here).
+    double2 D[5];   // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      double2 acc = C[c][c];
+#pragma unroll
+      for (int m = 0; m < c; ++m) {
+        acc = csub(acc, cmul(cmul(L[c][m], L[c][m]), D[m]));
+      }
+      dinv[c] = crecip(acc);
+      D[c] = crecip(dinv[c]);
+#pragma unroll
+      for (int r = c + 1; r < 5; ++r) {
+        double2 val = C[r][c];
+        if (c > 0) {
+          double2 sum = cmul(cmul(L[r][0], L[c][0]), D[0]);
+#pragma unroll
+          for (int m = 1; m < c; ++m) {
+            sum = cadd(sum, cmul(cmul(L[r][m], L[c][m]), D[m]));
+          }
+          val = csub(val, sum);
+        }
+        L[r][c] = cmul(val, dinv[c]);
+      }
+    }
+#pragma unroll
+    for (int r = 1; r < 5; ++r) {
+#pragma unroll
+      for (int c = 0; c < r; ++c) s[l_plane(r, c) * ps] = L[r][c];
+    }
+#pragma unroll
+    for (int r = 0; r < 5; ++r) s[(kDinv + r) * ps] = dinv[r];
+  }
+}
+
+// ---------------------------------------------------------------------
+// K4: block-Thomas substitution of one colour, in place
+// ---------------------------------------------------------------------
+
+struct ThomasArgs {
+  double2* ex;          // fields, updated in place
+  double2* ey;
+  double2* ez;
+  const double2* rx;    // residual of the colour step (K3)
+  const double2* ry;
+  const double2* rz;
+  const double2* fac;   // (nx, 23, 2, 2, ny2, nz2)
+  double2* zs;          // global scratch (nx, 5, ny2·nz2) if !zshared
+  int nx, ny, nz;
+  int cy, cz;           // the colour's transverse parity
+  int cny, cnz;         // active lines per transverse axis
+  int zshared;          // 1: z in shared memory after the ring
+  int planes;           // ring planes per slot: 28, or 33 with global z
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead));
+}
+
+// y ← C⁻¹ y with the LDLᵀ factors of one station at f[p·stride]
+// (blocksolve.ldl_solve_factored, all ten L entries, same order).
+__device__ __forceinline__ void ldl_solve5(const double2* f, int stride,
+                                           double2 (&y)[5]) {
+#pragma unroll
+  for (int i = 1; i < 5; ++i) {
+#pragma unroll
+    for (int k = 0; k < i; ++k) {
+      y[i] = csub(y[i], cmul(f[l_plane(i, k) * stride], y[k]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 5; ++i) y[i] = cmul(y[i], f[(kDinv + i) * stride]);
+#pragma unroll
+  for (int i = 3; i >= 0; --i) {
+#pragma unroll
+    for (int k = i + 1; k < 5; ++k) {
+      y[i] = csub(y[i], cmul(f[l_plane(k, i) * stride], y[k]));
+    }
+  }
+}
+
+// The ring copies of one lane.  Lane ``lane`` loads, for line
+// l = lane mod LPB, the slot planes p0, p0 + kStep, ... (kStep =
+// 32 / LPB): the factor planes among them at one address step each, the
+// others (residuals r_i forward; field values e_i and, with global z,
+// z_i backward) from a table of station-0 addresses and strides set once
+// per sweep.  All trip counts are compile-time, so the copies of lanes
+// that own different planes unroll into predicated instructions instead
+// of diverging.  The last station has an ex residual and edge only
+// (``last`` bits).
+template <int kStep>
+struct Copies {
+  static constexpr int kF = (kNent + kStep - 1) / kStep;   // factor, max
+  static constexpr int kX = (10 + kStep - 1) / kStep;      // others, max
+  const double2* f;     // factor plane p0 of station 0
+  int nf;               // factor planes of this lane
+  int px;               // first non-factor plane of this lane
+  int nx_;              // non-factor planes of this lane
+  unsigned last;        // bit n: table entry n skipped at the last station
+  const double2* base[kX];
+  int64_t stride[kX];
+};
+
+template <int kStep>
+__device__ __forceinline__ Copies<kStep> plan_copies(
+    const ThomasArgs& a, bool forward, int p0, int j, int k, int64_t fline,
+    int64_t zline, int64_t pstride, int64_t P) {
+  Copies<kStep> c;
+  const int nplanes = forward ? kNent + 5 : a.planes;
+  c.f = a.fac + p0 * pstride + fline;
+  c.nf = p0 < kNent ? (kNent - 1 - p0) / kStep + 1 : 0;
+  c.px = p0 + c.nf * kStep;
+  c.nx_ = 0;
+  c.last = 0;
+  const double2* fx = forward ? a.rx : a.ex;
+  const double2* fy = forward ? a.ry : a.ey;
+  const double2* fz = forward ? a.rz : a.ez;
+#pragma unroll
+  for (int n = 0; n < Copies<kStep>::kX; ++n) {
+    const int m = c.px + n * kStep - kNent;
+    c.base[n] = nullptr;
+    c.stride[n] = 0;
+    if (m >= nplanes - kNent) continue;
+    // Station i's edges: ex(i, j, k), ey(i+1, j-1|j, k), ez(i+1, j,
+    // k-1|k); the bases are station 0's.
+    if (m == 0) {
+      c.base[n] = fx + at(0, j, k, a.ny + 1, a.nz + 1);
+      c.stride[n] = static_cast<int64_t>(a.ny + 1) * (a.nz + 1);
+    } else if (m < 3) {
+      c.base[n] = fy + at(1, j - 2 + m, k, a.ny, a.nz + 1);
+      c.stride[n] = static_cast<int64_t>(a.ny) * (a.nz + 1);
+    } else if (m < 5) {
+      c.base[n] = fz + at(1, j, k - 4 + m, a.ny + 1, a.nz);
+      c.stride[n] = static_cast<int64_t>(a.ny + 1) * a.nz;
+    } else {
+      c.base[n] = a.zs + (m - 5) * P + zline;
+      c.stride[n] = 5 * P;
+    }
+    if (m > 0 && m < 5) c.last |= 1u << n;
+    c.nx_ = n + 1;
+  }
+  return c;
+}
+
+template <int LPB>
+__global__ void __launch_bounds__(kWarp)
+line_thomas(ThomasArgs a) {
+  extern __shared__ double2 smem[];
+  const int lane = threadIdx.x;
+  constexpr int lpb = LPB, kStep = kWarp / LPB;
+  const int64_t nlines = static_cast<int64_t>(a.cny) * a.cnz;
+  const int nz2 = a.nz / 2;
+  const int64_t P = static_cast<int64_t>(a.ny / 2) * nz2;
+  const int64_t pstride = 4 * P;   // consecutive planes of one station
+  const int64_t quarter = (a.cy * 2 + a.cz) * P;
+  const int slot_size = a.planes * lpb;
+  double2* zsm = smem + kStages * slot_size;   // (nx, 5, lpb) if zshared
+
+  // The line this lane loads for, and the one it computes if lane < lpb
+  // (the same: l = lane mod lpb).
+  const int l = lane & (lpb - 1);
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * lpb + l;
+  const bool valid = g < nlines;
+  const int q = valid ? static_cast<int>(g / a.cnz) : 0;
+  const int r = valid ? static_cast<int>(g % a.cnz) : 0;
   const int j = 1 + a.cy + 2 * q;          // the line's y- and z-node
   const int k = 1 + a.cz + 2 * r;
-  const int nz2 = a.nz / 2;
-  // Entry n of station i of this line: fac[(i*23 + n)*4*P + quarter*P
-  // + line]; consecutive planes are 4*P apart.
-  const int64_t P = static_cast<int64_t>(a.ny / 2) * nz2;
-  const int64_t line = static_cast<int64_t>(q) * nz2 + r;
-  const int64_t pstride = 4 * P;
-  const double2* fq = a.fac + (a.cy * 2 + a.cz) * P + line;
-  double2* zq = a.zs + line;
+  const int64_t zline = static_cast<int64_t>(q) * nz2 + r;
+  const int64_t fline = quarter + zline;
+  const int p0 = lane / lpb;
+  const bool active = valid && lane < lpb;
   const int nx = a.nx;
+
+  auto slot = [&](int i) { return smem + (i % kStages) * slot_size; };
+  Copies<kStep> cp;
+  auto fill = [&](int i) {
+    if (valid && i >= 0 && i < nx) {
+      double2* dst = slot(i) + l;
+      const double2* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
+#pragma unroll
+      for (int n = 0; n < Copies<kStep>::kF; ++n) {
+        if (n < cp.nf) {
+          cp_async16(dst + (p0 + n * kStep) * lpb, f + n * kStep * pstride);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < Copies<kStep>::kX; ++n) {
+        if (n < cp.nx_ && !(i == nx - 1 && ((cp.last >> n) & 1u))) {
+          cp_async16(dst + (cp.px + n * kStep) * lpb,
+                     cp.base[n] + i * cp.stride[n]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
 
   // Forward: y_i = r_i − B_i z_{i-1} (no B term at station 0),
   // z_i = C_i⁻¹ y_i.
   double2 zp[5];
+  cp = plan_copies<kStep>(a, true, p0, j, k, fline, zline, pstride, P);
+  for (int i = 0; i < kAhead; ++i) fill(i);
   for (int i = 0; i < nx; ++i) {
-    const double2* f = fq + static_cast<int64_t>(i) * kNent * pstride;
-    double2 y[5];
-    y[0] = RX(i, j, k);
-    if (i < nx - 1) {
-      y[1] = RY(i + 1, j - 1, k);
-      y[2] = RY(i + 1, j, k);
-      y[3] = RZ(i + 1, j, k - 1);
-      y[4] = RZ(i + 1, j, k);
-    } else {
+    fill(i + kAhead);
+    cp_async_wait_ahead();
+    __syncwarp();
+    if (active) {
+      const double2* f = slot(i) + lane;
+      double2 y[5];
 #pragma unroll
-      for (int m = 1; m < 5; ++m) y[m] = make_double2(0.0, 0.0);
-    }
-    if (i > 0) {
-#pragma unroll
-      for (int m = 1; m < 5; ++m) {
-        y[0] = csub(y[0], cmul(f[(kB + m - 1) * pstride], zp[m]));
+      for (int m = 0; m < 5; ++m) {
+        y[m] = (m == 0 || i < nx - 1) ? f[(kNent + m) * lpb]
+                                      : make_double2(0.0, 0.0);
       }
+      if (i > 0) {
 #pragma unroll
-      for (int m = 1; m < 5; ++m) {
-        y[m] = csub(y[m], cmul(f[(kB + 3 + m) * pstride], zp[m]));
+        for (int m = 1; m < 5; ++m) {
+          y[0] = csub(y[0], cmul(f[(kB + m - 1) * lpb], zp[m]));
+        }
+#pragma unroll
+        for (int m = 1; m < 5; ++m) {
+          y[m] = csub(y[m], cmul(f[(kB + 3 + m) * lpb], zp[m]));
+        }
+      }
+      ldl_solve5(f, lpb, y);
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        if (a.zshared) {
+          zsm[(i * 5 + m) * lpb + lane] = y[m];
+        } else {
+          a.zs[(static_cast<int64_t>(i) * 5 + m) * P + zline] = y[m];
+        }
+        zp[m] = y[m];
       }
     }
-    ldl_solve5(f, pstride, y);
-#pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      zq[(static_cast<int64_t>(i) * 5 + m) * P] = y[m];
-      zp[m] = y[m];
-    }
+    __syncwarp();
   }
+  // The global z of the forward sweep is read back through the ring.
+  __threadfence_block();
+  __syncwarp();
 
   // Backward: δ_{S-1} = z_{S-1}; δ_i = z_i − C_i⁻¹ (B_{i+1}ᵀ δ_{i+1}),
   // each δ_i added into the line's edges as soon as it is known.
   double2 dn[5];
+  cp = plan_copies<kStep>(a, false, p0, j, k, fline, zline, pstride,
+                          P);
+  for (int n = 0; n < kAhead; ++n) fill(nx - 1 - n);
   for (int i = nx - 1; i >= 0; --i) {
-    double2 d[5];
-    if (i == nx - 1) {
+    fill(i - kAhead);
+    cp_async_wait_ahead();
+    __syncwarp();
+    if (active) {
+      const double2* f = slot(i) + lane;
+      double2 d[5];
+      if (i == nx - 1) {
 #pragma unroll
-      for (int m = 0; m < 5; ++m) d[m] = zp[m];
-    } else {
-      const double2* f = fq + static_cast<int64_t>(i) * kNent * pstride;
-      const double2* fn = f + kNent * pstride;   // station i+1
-      // (Bᵀ)_{ak} = B_{ka}: row 0 of Bᵀ is zero.
-      double2 u[5];
-      u[0] = make_double2(0.0, 0.0);
+        for (int m = 0; m < 5; ++m) d[m] = zp[m];
+      } else {
+        const double2* fn = slot(i + 1) + lane;   // station i+1
+        // (Bᵀ)_{ak} = B_{ka}: row 0 of Bᵀ is zero.
+        double2 u[5];
+        u[0] = make_double2(0.0, 0.0);
 #pragma unroll
-      for (int m = 1; m < 5; ++m) {
-        u[m] = cadd(cmul(fn[(kB + m - 1) * pstride], dn[0]),
-                    cmul(fn[(kB + 3 + m) * pstride], dn[m]));
+        for (int m = 1; m < 5; ++m) {
+          u[m] = cadd(cmul(fn[(kB + m - 1) * lpb], dn[0]),
+                      cmul(fn[(kB + 3 + m) * lpb], dn[m]));
+        }
+        ldl_solve5(f, lpb, u);
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          const double2 z = a.zshared ? zsm[(i * 5 + m) * lpb + lane]
+                                      : f[(kNent + 5 + m) * lpb];
+          d[m] = csub(z, u[m]);
+        }
       }
-      ldl_solve5(f, pstride, u);
-#pragma unroll
-      for (int m = 0; m < 5; ++m) {
-        d[m] = csub(zq[(static_cast<int64_t>(i) * 5 + m) * P], u[m]);
+      EX(i, j, k) = cadd(f[kNent * lpb], d[0]);
+      if (i < nx - 1) {
+        EY(i + 1, j - 1, k) = cadd(f[(kNent + 1) * lpb], d[1]);
+        EY(i + 1, j, k) = cadd(f[(kNent + 2) * lpb], d[2]);
+        EZ(i + 1, j, k - 1) = cadd(f[(kNent + 3) * lpb], d[3]);
+        EZ(i + 1, j, k) = cadd(f[(kNent + 4) * lpb], d[4]);
       }
-    }
-    EX(i, j, k) = cadd(EX(i, j, k), d[0]);
-    if (i < nx - 1) {
-      EY(i + 1, j - 1, k) = cadd(EY(i + 1, j - 1, k), d[1]);
-      EY(i + 1, j, k) = cadd(EY(i + 1, j, k), d[2]);
-      EZ(i + 1, j, k - 1) = cadd(EZ(i + 1, j, k - 1), d[3]);
-      EZ(i + 1, j, k) = cadd(EZ(i + 1, j, k), d[4]);
-    }
 #pragma unroll
-    for (int m = 0; m < 5; ++m) dn[m] = d[m];
+      for (int m = 0; m < 5; ++m) dn[m] = d[m];
+    }
+    __syncwarp();
   }
+}
+
+template <int LPB>
+int launch_thomas(const ThomasArgs& a, int blocks, int smem,
+                  cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        line_thomas<LPB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  line_thomas<LPB><<<blocks, kWarp, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by emg3d_tpu_torch/ops/line_gs.py.
 // Each launches one kernel on ``stream`` and returns cudaGetLastError()
-// (0 on success); ``blocks`` and ``threads`` come from the Python
+// (0 on success); the launch geometry comes from the Python
 // launch-geometry functions, which skip colours without lines.
 extern "C" int emg3d_line_residual(
     void* rx, void* ry, void* rz, const void* ex, const void* ey,
@@ -289,11 +609,19 @@ extern "C" int emg3d_line_residual(
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``stages`` and ``threads`` must equal kStages and kWarp (the Python
+// geometry's constants); ``smem`` is the block's dynamic shared memory.
 extern "C" int emg3d_line_thomas(
     void* ex, void* ey, void* ez, const void* rx, const void* ry,
     const void* rz, const void* fac, void* zs, int nx, int ny, int nz,
-    int cy, int cz, int cny, int cnz, int blocks, int threads,
-    void* stream) {
+    int cy, int cz, int cny, int cnz, int lpb, int zshared, int planes,
+    int stages, int blocks, int threads, int smem, void* stream) {
+  if (stages != kStages || threads != kWarp ||
+      lpb < 1 || lpb > kWarp || (lpb & (lpb - 1)) != 0 ||
+      (planes != kNent + 5 && planes != kNent + 10) ||
+      (!zshared && planes != kNent + 10)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ThomasArgs a;
   a.ex = static_cast<double2*>(ex);
   a.ey = static_cast<double2*>(ey);
@@ -310,6 +638,25 @@ extern "C" int emg3d_line_thomas(
   a.cz = cz;
   a.cny = cny;
   a.cnz = cnz;
-  line_thomas<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.zshared = zshared;
+  a.planes = planes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lpb) {
+    case 1: return launch_thomas<1>(a, blocks, smem, st);
+    case 2: return launch_thomas<2>(a, blocks, smem, st);
+    case 4: return launch_thomas<4>(a, blocks, smem, st);
+    case 8: return launch_thomas<8>(a, blocks, smem, st);
+    case 16: return launch_thomas<16>(a, blocks, smem, st);
+    default: return launch_thomas<32>(a, blocks, smem, st);
+  }
+}
+
+extern "C" int emg3d_line_factor(void* fac, int nx, long long lines,
+                                 int blocks, int threads, void* stream) {
+  FactorArgs a;
+  a.fac = static_cast<double2*>(fac);
+  a.lines = lines;
+  a.nx = nx;
+  line_factor<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'build']
+__all__ = ['library', 'build', 'ARGTYPES']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
@@ -25,6 +25,17 @@ FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 LIBNAME = 'libemg3d_tpu_torch.so'
 
 _LIB = []   # the loaded library, once built
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# The C entry points of csrc/*.cu and their argument types; each
+# returns a cudaError_t as int.
+ARGTYPES = {
+    'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
+    'emg3d_line_residual': [_P] * 18 + [_I] * 5 + [_P],
+    'emg3d_line_thomas': [_P] * 8 + [_I] * 14 + [_P],
+    'emg3d_line_factor': [_P, _I, ctypes.c_longlong, _I, _I, _P],
+}
 
 
 def _nvcc():
@@ -99,16 +110,9 @@ def library():
     if not _LIB:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        argtypes = {
-            'emg3d_point_gs_step': [I] + [P] * 16 + [I] * 11 + [P],
-            'emg3d_line_residual': [P] * 18 + [I] * 5 + [P],
-            'emg3d_line_thomas': [P] * 8 + [I] * 9 + [P],
-        }
-        for name, types in argtypes.items():
+        for name, types in ARGTYPES.items():
             fn = getattr(lib, name)
             fn.argtypes = types
-            fn.restype = I
+            fn.restype = _I
         _LIB.append(lib)
     return _LIB[0]

@@ -18,8 +18,9 @@ ported (ROADMAP).
 The matrices are complex-*symmetric* (A = Aᵀ, not hermitian): the
 factorization is A = L D Lᵀ without conjugation, as in [Muld07].  The
 CUDA point kernels (``csrc/point_gs.cu``) repeat this arithmetic in
-registers, in the same order, and so does the line kernel
-(``csrc/line_gs.cu``) for the block-Thomas substitution.
+registers, in the same order, and so do the line kernels
+(``csrc/line_gs.cu``) for the block-Thomas elimination (K5) and
+substitution (K4).
 """
 import torch
 

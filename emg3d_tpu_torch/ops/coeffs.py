@@ -50,9 +50,14 @@ def node_coefficients(eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     interior node at once.
     """
     m, p = slice(None, -1), slice(1, None)
+    # The eight corner views of ζ, each sliced once (48 uses below).
+    corners = {}
 
     def Z(a, b, c):
-        return zeta[a, b, c]
+        key = (a is p, b is p, c is p)
+        if key not in corners:
+            corners[key] = zeta[a, b, c]
+        return corners[key]
 
     kx = (0.5 / hx)
     ky = (0.5 / hy)

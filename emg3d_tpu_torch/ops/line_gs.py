@@ -1,26 +1,34 @@
-"""Line relaxation on Hopper: wrapper, line state and plain version.
+"""Line relaxation on Hopper: wrappers, line state and plain versions.
 
-Replaces the Pallas line smoother of ``emg3d_tpu/ops/pallas_lr.py``
-with two hand-written CUDA kernels (``csrc/line_gs.cu``), launched once
-each per colour step, as the Pallas pair is:
+Replaces the Pallas line smoother of ``emg3d_tpu/ops/pallas_lr.py``,
+and the ``lax.scan`` that builds its factor stack, with three
+hand-written CUDA kernels (``csrc/line_gs.cu``):
 
+- ``line_factor`` (K5) replaces the block-Thomas elimination of
+  ``pallas_lr.line_factors`` (``emg3d_tpu/ops/blocksolve.py:305``): one
+  thread per line runs it along the stations, in place on the packed
+  entries of :func:`.smoothers.pack_line_entries` (the math of
+  :func:`.smoothers.factor_line_stack_`, its plain version).
 - ``line_residual`` (K3) replaces ``_kernel_res``: the residual
   ``s − A e`` of the whole level (the math of
   :func:`.stencil.residual_parts`, its plain version), one thread per
   edge, into a residual buffer of the wrapper.
-- ``line_thomas`` (K4) replaces ``_kernel_thomas``: one thread per line
-  of the colour runs the block-Thomas substitution along the line
-  against the factor stack and adds δ into the line's edges in place
-  (the math of :func:`.smoothers.line_thomas_x`, its plain version).
+- ``line_thomas`` (K4) replaces ``_kernel_thomas``: one warp per block
+  of lines of the colour runs the block-Thomas substitution along the
+  lines against the factor stack, loading stations ahead into shared
+  memory, and adds δ into the lines' edges in place (the math of
+  :func:`.smoothers.line_thomas_x`, its plain version).
 
-y- and z-lines run the x-line kernels in a cyclically rotated frame:
-the fields are transposed on the way in and out, and the rotated model
-parameters, the residual kernel's η edge sums and ζ face weights and
-the factor stack are field-independent and live in a :class:`LineState`
-per (level, axis).  :func:`line_relaxation` runs the kernels for CUDA
-tensors and :func:`line_relaxation_plain`, the plain version of the
-whole smoothing call (``smoothers.line_color_steps``), for CPU tensors;
-for a CUDA tensor it launches or raises, it never falls back.
+K3 and K4 are launched once each per colour step, as the Pallas pair
+is; K5 once per factor stack.  y- and z-lines run the x-line kernels in
+a cyclically rotated frame: the fields are transposed on the way in and
+out, and the rotated model parameters, the residual kernel's η edge
+sums and ζ face weights and the factor stack are field-independent and
+live in a :class:`LineState` per (level, axis).
+:func:`line_relaxation` runs the kernels for CUDA tensors and
+:func:`line_relaxation_plain`, the plain version of the whole smoothing
+call (``smoothers.line_color_steps``), for CPU tensors; for a CUDA
+tensor it launches or raises, it never falls back.
 """
 import ctypes
 import math
@@ -31,10 +39,11 @@ import torch
 from . import smoothers, stencil
 from .smoothers import NLINE
 
-__all__ = ['LineState', 'line_state', 'line_factors', 'line_relaxation',
-           'line_relaxation_plain', 'residual', 'thomas', 'launch_geometry',
-           'residual_geometry', 'factor_bytes', 'cache_budget', 'LAUNCHES',
-           'reset_launches', 'LINE_SHARE']
+__all__ = ['LineState', 'line_state', 'line_factors', 'factor',
+           'line_relaxation', 'line_relaxation_plain', 'residual', 'thomas',
+           'launch_geometry', 'factor_geometry', 'residual_geometry',
+           'factor_bytes', 'cache_budget', 'LAUNCHES', 'reset_launches',
+           'LINE_SHARE', 'SMEM_MAX']
 
 # Share of the card's memory that the cached factor stacks of one solve
 # may take together (all levels, axes and semicoarsening hierarchies).
@@ -43,10 +52,34 @@ __all__ = ['LineState', 'line_state', 'line_factors', 'line_relaxation',
 LINE_SHARE = 0.5
 
 # Launches of each kernel since the last reset_launches().
-LAUNCHES = {'line_residual': 0, 'line_thomas': 0}
+LAUNCHES = {'line_factor': 0, 'line_residual': 0, 'line_thomas': 0}
 
 MAX_THREADS = 256
-THOMAS_THREADS = 128
+FACTOR_THREADS = 128
+# K4: one warp per block and a ring of THOMAS_STAGES station slots in
+# shared memory (csrc/line_gs.cu: kWarp, kStages).  Lines per block (a
+# power of two ≤ THOMAS_WARP) are chosen so that a colour spreads over
+# about THOMAS_BLOCKS blocks (two per SM of an H100) or more; z stays
+# in shared memory while the block's bytes stay within THOMAS_ZSHARED.
+# The values come from timing every plan on the card at 64³, 128³,
+# 32×256² and 256³ (chip_smoke.thomas_plans; PERF.md §6).
+THOMAS_WARP = 32
+THOMAS_STAGES = 6
+THOMAS_BLOCKS = 256
+THOMAS_ZSHARED = 96 * 1024
+SMEM_MAX = 232448          # shared memory one block may use (H100)
+_PLANES = NLINE + 5        # ring planes per slot: factors, r or e
+_PLANES_GZ = NLINE + 10    # ... and z, when z is in global memory
+
+ThomasGeometry = namedtuple('ThomasGeometry', [
+    'cy', 'cz',            # the colour's transverse parity
+    'counts',              # active lines per transverse axis
+    'blocks', 'threads',   # the launch (blocks == 0: no line)
+    'lines_per_block',     # lines one block (one warp) runs
+    'z_shared',            # z in shared memory (else global scratch)
+    'planes',              # ring planes per station slot
+    'smem_bytes',          # dynamic shared memory per block
+])
 
 LineState = namedtuple('LineState', [
     'axis',       # 0, 1, 2: the lines' direction in the level's frame
@@ -85,21 +118,33 @@ def cache_budget(device):
     return LINE_SHARE * total
 
 
+def _stack(ar, rs, plain):
+    """Factor stack of the rotated frame: K5 on the card, else plain."""
+    if plain or ar[0].device.type == 'cpu':
+        return smoothers.line_factor_stack(ar, rs)
+    return factor(smoothers.pack_line_entries(ar, rs))
+
+
 def line_factors(arrays, shape, axis):
-    """Factor stack of ``axis``-lines of a level (rotated frame)."""
-    return smoothers.line_factor_stack(
-        smoothers.rotate_arrays(arrays, axis),
-        smoothers.rotate_shape(shape, axis))
+    """Factor stack of ``axis``-lines of a level (rotated frame).
+
+    CPU tensors take the plain elimination
+    (:func:`.smoothers.line_factor_stack`), CUDA tensors K5.
+    """
+    return _stack(smoothers.rotate_arrays(arrays, axis),
+                  smoothers.rotate_shape(shape, axis), False)
 
 
-def line_state(arrays, shape, axis, factors=True):
+def line_state(arrays, shape, axis, factors=True, plain=False):
     """Field-independent state of ``axis``-line relaxation on a level.
 
     The counterpart of the JAX package's per-(level, axis) cache
     (``_level_fstacks``: ``rotate_arrays``, ``line_params`` and
     ``line_factors``), unpadded.  Without ``factors`` the stack is not
     kept: each smoothing call rebuilds it (the memory rule of the
-    solver).
+    solver).  ``plain`` builds the stack with the plain elimination on
+    any device (comparisons on the card); otherwise CPU tensors take
+    the plain elimination and CUDA tensors K5.
     """
     ar = smoothers.rotate_arrays(arrays, axis)
     rs = smoothers.rotate_shape(shape, axis)
@@ -108,8 +153,47 @@ def line_state(arrays, shape, axis, factors=True):
                stencil.eta_edge_sums(eta_x, eta_y, eta_z))
     w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
     ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
-    fac = smoothers.line_factor_stack(ar, rs) if factors else None
+    fac = _stack(ar, rs, plain) if factors else None
     return LineState(int(axis), rs, ar, st, w, ih, fac)
+
+
+def factor_geometry(stack_shape):
+    """(lines, blocks, threads) of K5 on a ``(nx, NLINE, 2, 2, ny2,
+    nz2)`` stack: one thread per line of all four parities."""
+    lines = 4 * stack_shape[-2] * stack_shape[-1]
+    if lines == 0 or stack_shape[0] == 0:
+        return lines, 0, 0
+    threads = min(FACTOR_THREADS, -(-lines // 32) * 32)
+    return lines, -(-lines // threads), threads
+
+
+def factor(stack):
+    """Block-Thomas elimination of a packed stack in place (K5).
+
+    ``stack`` is :func:`.smoothers.pack_line_entries`' output, a
+    contiguous complex128 CUDA tensor; its planes 0-14 are overwritten
+    with the factors.  The plain version is
+    :func:`.smoothers.factor_line_stack_`.  Returns ``stack``.
+    """
+    _cuda(stack)
+    if (stack.ndim != 6 or stack.shape[1:4] != (NLINE, 2, 2)
+            or stack.dtype != torch.complex128
+            or not stack.is_contiguous()):
+        raise ValueError(f"factor: expected a contiguous complex128 "
+                         f"(nx, {NLINE}, 2, 2, ny2, nz2) stack; got "
+                         f"{stack.dtype} {tuple(stack.shape)}")
+    lines, blocks, threads = factor_geometry(tuple(stack.shape))
+    if blocks == 0:
+        return stack
+    from ._build import library
+    err = library().emg3d_line_factor(_ptr(stack), stack.shape[0], lines,
+                                      blocks, threads,
+                                      _stream(stack.device))
+    if err != 0:
+        raise RuntimeError(f"line_factor kernel launch failed: cudaError "
+                           f"{err} (stack {tuple(stack.shape)})")
+    LAUNCHES['line_factor'] += 1
+    return stack
 
 
 def residual_geometry(shape):
@@ -120,25 +204,47 @@ def residual_geometry(shape):
     return -(-total // MAX_THREADS), MAX_THREADS
 
 
-def launch_geometry(shape, color):
+def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
     """Active lines of one colour and the Thomas launch that covers them.
 
     ``shape`` is the rotated-frame cell shape (lines along x).  Interior
     lines are (j, k) with j in 1..ny-1, k in 1..nz-1; colour
-    ``cy + 2·cz`` takes those with (j-1) % 2 == cy and (k-1) % 2 == cz.
-    Returns ``(cy, cz, counts, blocks, threads)``: ``counts`` = active
-    lines per transverse axis, and a 1-D launch of ``blocks`` ×
-    ``threads`` (``blocks == 0`` when the colour has no line, e.g.
-    colours 1 and 3 on a level with one interior y-line).
+    ``cy + 2·cz`` takes those with (j-1) % 2 == cy and (k-1) % 2 == cz,
+    line (1 + cy + 2q, 1 + cz + 2r) at index q·counts[1] + r.  Returns a
+    :data:`ThomasGeometry`: block b (one warp) runs lines
+    b·lines_per_block onwards; lines per block is the power of two
+    ≤ ``THOMAS_WARP`` that spreads the colour over about
+    ``THOMAS_BLOCKS`` blocks (or more, at large levels), and z stays in
+    shared memory while the block's bytes stay within
+    ``THOMAS_ZSHARED``.  ``lines_per_block`` and ``z_shared`` force
+    another plan (checks and timings on the card); a plan beyond the
+    block's shared memory raises.  ``blocks == 0`` when the colour has
+    no line (e.g. colours 1 and 3 on a level with one interior y-line).
     """
-    _, ny, nz = shape
+    nx, ny, nz = shape
     cy, cz = color % 2, color // 2
     counts = ((ny - cy) // 2, (nz - cz) // 2)
     total = counts[0] * counts[1]
     if total == 0:
-        return cy, cz, counts, 0, 0
-    threads = min(THOMAS_THREADS, -(-total // 32) * 32)
-    return cy, cz, counts, -(-total // threads), threads
+        return ThomasGeometry(cy, cz, counts, 0, 0, 0, False, 0, 0)
+    lpb = lines_per_block
+    if lpb is None:
+        want = -(-total // THOMAS_BLOCKS)
+        lpb = min(THOMAS_WARP, 1 << (want - 1).bit_length())
+    elif lpb not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lines_per_block {lpb}: a power of two ≤ "
+                         f"{THOMAS_WARP}")
+    ring = THOMAS_STAGES * _PLANES * lpb * 16
+    zbytes = nx * 5 * lpb * 16
+    if z_shared is None:
+        z_shared = ring + zbytes <= THOMAS_ZSHARED
+    elif z_shared and ring + zbytes > SMEM_MAX:
+        raise ValueError(f"z of {lpb} lines of {nx} stations does not fit "
+                         f"a block's shared memory")
+    planes = _PLANES if z_shared else _PLANES_GZ
+    smem = THOMAS_STAGES * planes * lpb * 16 + (zbytes if z_shared else 0)
+    return ThomasGeometry(cy, cz, counts, -(-total // lpb), THOMAS_WARP,
+                          lpb, z_shared, planes, smem)
 
 
 def _level_shape(state):
@@ -214,27 +320,30 @@ def residual(e, s, state, out):
     return out
 
 
-def thomas(e, r, fac, state, color, zs=None):
+def thomas(e, r, fac, state, color, zs=None, geometry=None):
     """Block-Thomas update of one colour's lines, in place (K4).
 
     ``e``/``r`` are rotated-frame edge tensors, ``fac`` the factor stack
     and ``zs`` an optional ``(nx, 5, ny2·nz2)`` complex scratch for the
-    forward sweep, all on the card.  The plain version is
+    forward sweep where z does not fit the block's shared memory, all
+    on the card.  ``geometry`` is a forced :func:`launch_geometry` of
+    the colour (default: the one it picks).  The plain version is
     :func:`.smoothers.line_thomas_x`.  Returns ``e``.
     """
     _cuda(e[0])
-    nx = state.shape[0]
-    ny2, nz2 = _line_dims(state.shape)
-    cy, cz, counts, blocks, threads = launch_geometry(state.shape, color)
-    if blocks == 0:
+    g = launch_geometry(state.shape, color) if geometry is None else geometry
+    if g.blocks == 0:
         return tuple(e)
-    if zs is None:
-        zs = torch.empty((nx, 5, ny2 * nz2), dtype=e[0].dtype,
-                         device=e[0].device)
+    if g.z_shared:
+        zp = ctypes.c_void_p(None)    # z stays in shared memory
+    else:
+        zp = _ptr(_scratch(state.shape, e[0]) if zs is None else zs)
     from ._build import library
     err = library().emg3d_line_thomas(
-        *(_ptr(t) for t in (*e, *r, fac, zs)), *state.shape, cy, cz,
-        *counts, blocks, threads, _stream(e[0].device))
+        *(_ptr(t) for t in (*e, *r, fac)), zp, *state.shape, g.cy, g.cz,
+        *g.counts, g.lines_per_block, int(g.z_shared), g.planes,
+        THOMAS_STAGES, g.blocks, g.threads, g.smem_bytes,
+        _stream(e[0].device))
     if err != 0:
         raise RuntimeError(f"line_thomas kernel launch failed: cudaError "
                            f"{err} (colour {color}, shape {state.shape})")
@@ -255,23 +364,32 @@ def _write_back(e, out, axis):
     return tuple(e)
 
 
-def _factors(state):
+def _scratch(shape, like):
+    """K4's global z scratch ``(nx, 5, ny2·nz2)`` of a rotated level."""
+    ny2, nz2 = _line_dims(shape)
+    return torch.empty((shape[0], 5, ny2 * nz2), dtype=like.dtype,
+                       device=like.device)
+
+
+def _factors(state, plain=False):
     if state.factors is not None:
         return state.factors
-    return smoothers.line_factor_stack(state.arrays, state.shape)
+    return _stack(state.arrays, state.shape, plain)
 
 
 def line_relaxation_plain(e, s, state, nu, _seq=None):
     """Plain PyTorch version of the colour steps, on any device.
 
     :func:`.smoothers.line_color_steps` in the state's rotated frame,
-    with its cached factor stack; writes the result into ``e`` in
-    place, as the kernels do.
+    with its cached factor stack (a stack it does not cache is rebuilt
+    by the plain elimination); writes the result into ``e`` in place,
+    as the kernels do.
     """
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
     a = state.axis
     out = smoothers.line_color_steps(_rotated(e, a), _rotated(s, a),
-                                     state.arrays, _factors(state), seq)
+                                     state.arrays,
+                                     _factors(state, plain=True), seq)
     return _write_back(e, out, a)
 
 
@@ -284,8 +402,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
     _seq : explicit colour sequence (tests).
 
     CPU tensors run :func:`line_relaxation_plain`; for CUDA tensors each
-    colour step is :func:`residual` (K3) then :func:`thomas` (K4).
-    Returns ``e``.
+    colour step is :func:`residual` (K3) then :func:`thomas` (K4), and
+    a stack the state does not cache is rebuilt by K5.  Returns ``e``.
     """
     _check(e, s, state)
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
@@ -297,9 +415,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
     sr = _rotated(s, a)
     fac = _factors(state)
     r = tuple(torch.empty_like(t) for t in er)
-    ny2, nz2 = _line_dims(state.shape)
-    zs = torch.empty((state.shape[0], 5, ny2 * nz2), dtype=er[0].dtype,
-                     device=er[0].device)
+    zs = None if launch_geometry(state.shape, 0).z_shared else _scratch(
+        state.shape, er[0])
     for color in seq:
         residual(er, sr, state, r)
         thomas(er, r, fac, state, color, zs)

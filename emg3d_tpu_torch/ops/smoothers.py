@@ -16,8 +16,11 @@ The second half is line relaxation (``emg3d_tpu/ops/smoothers.py:
 block-tridiagonal system solved by the sparse-entry block-Thomas of
 :mod:`.blocksolve`; y- and z-lines run the x-line code in a cyclically
 rotated frame.  The field-independent factor stack is one tensor
-(:func:`line_factor_stack`), which the line kernels of :mod:`.line_gs`
-read as it is; :func:`line_color_steps` is the math they are held to.
+(:func:`line_factor_stack`: the packed entries of
+:func:`pack_line_entries`, eliminated in place by
+:func:`factor_line_stack_`), which the line kernels of :mod:`.line_gs`
+build and read as it is; :func:`factor_line_stack_` and
+:func:`line_color_steps` are the math they are held to.
 """
 import torch
 
@@ -29,7 +32,8 @@ from .coeffs import node_coefficients, node_block_entries
 
 __all__ = ['gauss_seidel_point', 'color_sequence', 'color_steps',
            'node_factors', 'line_relaxation', 'line_color_sequence',
-           'line_color_steps', 'line_factor_stack', 'rotate_arrays',
+           'line_color_steps', 'line_factor_stack', 'pack_line_entries',
+           'factor_line_stack_', 'rotate_arrays',
            'rotate_fields', 'unrotate_fields', 'rotate_shape',
            'line_thomas_x', 'LINE_BKEYS', 'NLINE']
 
@@ -155,90 +159,96 @@ def _pad(a, widths):
     return torch.nn.functional.pad(a, flat)
 
 
-def _line_entries_x_parity(c, nx, ny2, nz2):
-    """Station-block entries of the x-line system, parity-split layout.
+def _l_plane(a, b):
+    """Plane of L(a, b), a > b, in ``_lower_keys(5)`` order."""
+    return a * (a - 1) // 2 + b
 
-    Each entry is one ``(nx, 2, 2, ny2, nz2)`` stack: axes 1/2 are the
-    transverse (y, z) parity of the line, axes 3/4 its index within
-    that parity (line (j0, k0), zero-based, sits at
-    ``[j0 % 2, k0 % 2, j0 // 2, k0 // 2]``).  Padded lines and the
-    ex-only last station's transverse rows get identity diagonals.
-    Reference parity: ``emg3d_tpu/ops/smoothers.py:245-321``.
+
+def pack_line_entries(arrays, shape):
+    """Station entries of the x-lines, packed where their factors go.
+
+    Returns the ``(nx, NLINE, 2, 2, ny2, nz2)`` stack before the
+    elimination: the 13 present entries D(a, b) of the station blocks
+    at the plane of L(a, b) (a > b) or of the inverse diagonal
+    (10 + a), zeros at the absent (2, 1) and (4, 3), and the B entries
+    at planes 15-22 as in the finished stack.  The elimination
+    (:func:`factor_line_stack_`, or the line kernel K5) then overwrites
+    planes 0-14 station by station, in place.
     """
+    nx, ny, nz = shape
+    ny2, nz2 = ny // 2, nz // 2          # = ceil((n-1)/2) interior lines
+    c = node_coefficients(*arrays)
     ent = node_block_entries(c)
-    nsh = ent[(0, 0)].shape  # (nx-1, nyn, nzn)
-    nyn, nzn = nsh[1], nsh[2]
+    nsh = ent[(0, 0)].shape              # (nx-1, nyn, nzn) interior nodes
     dev = ent[(0, 0)].device
-
-    def quarters(v):
-        """full(v) -> zero-padded (n, 2, 2, ny2, nz2) parities."""
-        v = torch.broadcast_to(v, nsh)
-        rows = []
-        for py in (0, 1):
-            row = []
-            for pz in (0, 1):
-                q = v[:, py::2, pz::2]
-                row.append(_pad(q, ((0, 0), (0, ny2 - q.shape[1]),
-                                    (0, nz2 - q.shape[2]))))
-            rows.append(torch.stack(row, dim=1))
-        return torch.stack(rows, dim=1)
-
+    dtype = torch.promote_types(ent[(0, 0)].dtype, torch.complex64)
+    # The station entries (emg3d_tpu/ops/smoothers.py:245-321), split
+    # into the four line parities at once: (K, nx-1, nyn, nzn) ->
+    # (K, nx-1, 2, 2, ny2, nz2); line (j0, k0), zero-based, sits at
+    # [j0 % 2, k0 % 2, j0 // 2, k0 // 2].  Padded lines get identity
+    # diagonals, the ex-only last station identity transverse rows.
+    diag = [(0, 0), (2, 2), (3, 3), (4, 4), (5, 5)]          # planes 10-14
+    off = {_l_plane(a, b): k for (a, b), k in _D_MAP.items() if a != b}
+    bmix = [(2, 1), (3, 1), (4, 1), (5, 1)]                  # planes 15-18
+    bdiag = [c.mzxLym, c.mzxLyp, c.myxLzm, c.myxLzp]         # planes 19-22
+    vals = ([ent[k] for k in diag] + [ent[off[p]] for p in sorted(off)]
+            + [ent[k] for k in bmix] + [-(m * c.ihxm) for m in bdiag]
+            + [ent[(1, 1)]])
+    real = c.ihxm.dtype
+    del c, ent, bdiag
+    # Zero-padded to even transverse extents, then viewed by parity.
+    q = torch.zeros((len(vals), nsh[0], 2 * ny2, 2 * nz2), dtype=dtype,
+                    device=dev)
+    body = q[:, :, :nsh[1], :nsh[2]]
+    for n in range(len(vals)):
+        body[n] = vals[n]
+        vals[n] = None
+    q = q.reshape(-1, nsh[0], ny2, 2, nz2, 2).permute(0, 1, 3, 5, 2, 4)
     # pm (2, 2, ny2, nz2): 1 at padded (out-of-range) lines.
     jj = (2 * torch.arange(ny2, device=dev)[None, None, :, None]
           + torch.arange(2, device=dev)[:, None, None, None])
     kk = (2 * torch.arange(nz2, device=dev)[None, None, None, :]
           + torch.arange(2, device=dev)[None, :, None, None])
-    pm = ((jj >= nyn) | (kk >= nzn)).to(c.ihxm.dtype)
+    pm = ((jj >= nsh[1]) | (kk >= nsh[2])).to(real)
 
-    Dent = {}
-    for (a, b), key in _D_MAP.items():
-        body = quarters(ent[key])
-        if a == b:
-            body = body + pm[None]
-            if a == 0:
-                last = quarters(ent[(1, 1)])[-1:] + pm[None]
-            else:
-                last = torch.zeros_like(body[:1]) + 1.0
-            Dent[(a, b)] = torch.cat([body, last], dim=0)
-        else:
-            Dent[(a, b)] = _pad(body, ((0, 1),))
+    out = torch.zeros((nx, NLINE, 2, 2, ny2, nz2), dtype=dtype, device=dev)
+    lo = sorted(off)
+    out[:-1, 10:15] = q[:5].transpose(0, 1) + pm
+    out[:-1, lo] = q[5:13].transpose(0, 1)
+    # The ex-only last station: (1, 1) of the last node, identity rows.
+    out[-1, 10] = q[21, -1] + pm
+    out[-1, 11:15] = 1.0
+    out[1:, 15:19] = q[13:17].transpose(0, 1)
+    out[1:-1, 19:23] = q[17:21, 1:].transpose(0, 1)
+    return out
 
-    byy_m = -(c.mzxLym * c.ihxm)
-    byy_p = -(c.mzxLyp * c.ihxm)
-    bzz_m = -(c.myxLzm * c.ihxm)
-    bzz_p = -(c.myxLzp * c.ihxm)
-    Bent = {(0, 1): _pad(quarters(ent[(2, 1)]), ((1, 0),)),
-            (0, 2): _pad(quarters(ent[(3, 1)]), ((1, 0),)),
-            (0, 3): _pad(quarters(ent[(4, 1)]), ((1, 0),)),
-            (0, 4): _pad(quarters(ent[(5, 1)]), ((1, 0),)),
-            (1, 1): _pad(quarters(byy_m)[1:], ((1, 1),)),
-            (2, 2): _pad(quarters(byy_p)[1:], ((1, 1),)),
-            (3, 3): _pad(quarters(bzz_m)[1:], ((1, 1),)),
-            (4, 4): _pad(quarters(bzz_p)[1:], ((1, 1),))}
-    return Dent, Bent
+
+def factor_line_stack_(stack):
+    """Block-Thomas elimination of a packed stack, in place (plain).
+
+    ``stack`` is :func:`pack_line_entries`' output; the D entries are
+    read from their planes (the absent (2, 1) and (4, 3) stay absent)
+    before each station's factors overwrite them.  The plain version
+    of the line kernel K5.  Returns ``stack``.
+    """
+    Dent = {(a, b): stack[:, 10 + a if a == b else _l_plane(a, b)]
+            for (a, b) in _D_MAP}
+    Bent = {k: stack[:, 15 + p] for p, k in enumerate(LINE_BKEYS)}
+    block_tridiag_factor_entries(5, Dent, Bent, out=stack[:, :15])
+    return stack
 
 
 def line_factor_stack(arrays, shape):
     """Factor stack ``(nx, NLINE, 2, 2, ny2, nz2)`` of the x-lines.
 
     Field-independent: the block-Thomas elimination of every line of
-    the level (all four parities), complex128, written station by
-    station into one tensor (no second copy is ever held).  Lines are
-    the fastest-varying axes, so the threads of one colour read
+    the level (all four parities), written station by station into the
+    packed entries (no second stack is ever held).  Lines are the
+    fastest-varying axes, so the threads of one colour read
     neighbouring addresses.  ``arrays``/``shape`` are those of the
     (rotated) frame whose x-lines are solved.
     """
-    nx, ny, nz = shape
-    ny2, nz2 = ny // 2, nz // 2          # = ceil((n-1)/2) interior lines
-    Dent, Bent = _line_entries_x_parity(node_coefficients(*arrays), nx,
-                                        ny2, nz2)
-    dtype = torch.promote_types(Dent[(0, 0)].dtype, torch.complex64)
-    out = torch.empty((nx, NLINE, 2, 2, ny2, nz2), dtype=dtype,
-                      device=Dent[(0, 0)].device)
-    block_tridiag_factor_entries(5, Dent, Bent, out=out[:, :15])
-    for p, k in enumerate(LINE_BKEYS):
-        out[:, 15 + p] = Bent[k]
-    return out
+    return factor_line_stack_(pack_line_entries(arrays, shape))
 
 
 def _parity_pick(a, cy, cz, ny2, nz2):

@@ -419,14 +419,15 @@ def _level_state(lev, mode):
     return lev.pstate
 
 
-def _line_state(lev, axis):
+def _line_state(lev, axis, mode=None):
     """The level's ``axis``-line state, built once per level and solve.
 
     Memory rule: the factor stack is kept only while the solve's cached
     stacks stay within :func:`.ops.line_gs.cache_budget`; otherwise the
     state holds none and every smoothing call rebuilds it (the JAX
     package's ``()`` sentinel, solver.py:697-719).  The numbers are the
-    same either way.
+    same either way.  ``mode='plain'`` builds the stack with the plain
+    elimination (no kernel), as the plain smoothers run.
     """
     state = lev.lstate.get(axis)
     if state is None:
@@ -434,7 +435,7 @@ def _line_state(lev, axis):
         keep = (lev.meter['bytes'] + nbytes
                 <= line_gs.cache_budget(lev.arrays[0].device))
         state = line_gs.line_state(lev.arrays, lev.shape, axis,
-                                   factors=keep)
+                                   factors=keep, plain=mode == 'plain')
         if keep:
             lev.meter['bytes'] += nbytes
         lev.lstate[axis] = state
@@ -457,7 +458,7 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None):
             return point_gs.gauss_seidel_point_plain(e, s, state, nu)
         return point_gs.gauss_seidel_point(e, s, state, nu)
     for ax in _lr_axes(lr):
-        state = _line_state(lev, ax)
+        state = _line_state(lev, ax, mode)
         if mode == 'plain':
             e = line_gs.line_relaxation_plain(e, s, state, nu)
         else:

@@ -60,7 +60,7 @@ def main(argv=None):
         print("profile_solve: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import bench_problem, nvidia_smi
+    from chip_smoke import LineStateClock, bench_problem, nvidia_smi
     from emg3d_tpu_torch import solve
     from emg3d_tpu_torch.ops import line_gs, point_gs
 
@@ -80,19 +80,8 @@ def main(argv=None):
 
     for _ in range(2):
         timed()
-    build = [0.0]
-    line_state = line_gs.line_state
-
-    def timed_state(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = line_state(*a, **k)
-        torch.cuda.synchronize()
-        build[0] += time.perf_counter() - t0
-        return out
-    line_gs.line_state = timed_state
-    wall, info = timed()
-    line_gs.line_state = line_state
+    with LineStateClock() as clock:
+        wall, info = timed()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -122,7 +111,8 @@ def main(argv=None):
     print(f"device busy {busy:.4f} s over {len(events)} device events; "
           f"idle share {1 - busy / wall_prof:.4f}")
     print(f"smoother launches {launches}; line-state builds "
-          f"{build[0]:.4f} s of the unprofiled warm wall")
+          f"{clock.seconds:.4f} s ({clock.builds} builds) of the "
+          f"unprofiled warm wall")
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     copies = [kv for kv in ranked if kv[0].startswith('[')]
     kernels = [kv for kv in ranked if not kv[0].startswith('[')]

@@ -10,7 +10,8 @@
 - The plain version in complex64 against the JAX Pallas line kernels in
   interpret mode on float32 split inputs from the same seed, atol 2e-5
   (float32 rounding), as tests/test_pallas_lr.py:19-47 runs them.
-- The Thomas launch geometry, the memory rule of the line state
+- The Thomas launch geometry (tests/test_torch_line_factor.py holds
+  its shared-memory plan), the memory rule of the line state
   (identical fields whether factor stacks are cached or rebuilt) and
   the wrapper's checks.
 """
@@ -138,8 +139,8 @@ def test_launch_geometry(shape):
     _, ny, nz = shape
     seen = set()
     for color in range(4):
-        cy, cz, counts, blocks, threads = line_gs.launch_geometry(shape,
-                                                                  color)
+        g = line_gs.launch_geometry(shape, color)
+        cy, cz, counts, blocks = g.cy, g.cz, g.counts, g.blocks
         assert cy + 2 * cz == color
         lines = {(j, k) for j in range(1, ny) for k in range(1, nz)
                  if (j - 1) % 2 == cy and (k - 1) % 2 == cz}
@@ -149,10 +150,12 @@ def test_launch_geometry(shape):
                          for q in range(counts[0]) for r in range(counts[1])}
         seen |= lines
         if not lines:
-            assert (blocks, threads) == (0, 0)
+            assert (blocks, g.threads) == (0, 0)
         else:
-            assert threads % 32 == 0 and 32 <= threads <= 128
-            assert blocks * threads >= len(lines) > (blocks - 1) * threads
+            # One warp per block, lines_per_block lines each.
+            lpb = g.lines_per_block
+            assert g.threads == 32 and lpb in (1, 2, 4, 8, 16, 32)
+            assert blocks * lpb >= len(lines) > (blocks - 1) * lpb
             # Within the factor stack's parity quarter.
             assert counts[0] <= ny // 2 and counts[1] <= nz // 2
     assert len(seen) == (ny - 1) * (nz - 1)
@@ -241,7 +244,8 @@ def test_cpu_wrapper_never_builds(monkeypatch):
     par, e, s = _inputs(shape, seed=1)
     state = line_gs.line_state(convert.params_to_torch(par), shape, 1)
     line_gs.line_relaxation(_t(e), _t(s), state, 1)
-    assert line_gs.LAUNCHES == {'line_residual': 0, 'line_thomas': 0}
+    assert line_gs.LAUNCHES == {'line_factor': 0, 'line_residual': 0,
+                                'line_thomas': 0}
 
 
 def test_wrapper_checks():
