@@ -16,27 +16,38 @@ Phases:
    limit);
 2. kernel build, timed, with ptxas' register/spill report;
 3. each point kernel against its plain version on the same card, at
-   (2,2,2), (4,4,4), (7,5,9) and 64³: every single colour step (run
-   twice, must be bitwise equal) and a full nu=3 sweep, within
-   max|Δ| ≤ 1e-12·max|e| (fp64, a different summation order); median
-   time per colour step at 64³, kernel beside plain;
+   (2,2,2), (4,4,4), (7,5,9), 8³, 16³, 32³, 64³ and 128³: every single
+   colour step and a full nu=3 sweep, each run twice (must be bitwise
+   equal), within max|Δ| ≤ 1e-12·max|e| (fp64, a different summation
+   order); the factored kernel under every launch plan its level
+   admits (``point_gs.sweep_plan``), each bitwise equal to its
+   ``step`` plan; the table of ms per nu=3 smoothing call by plan and
+   level, the readings behind ``sweep_plan``'s rule; median time per
+   colour step at 64³, kernel beside plain;
 3b. the line kernels the same way, at (3,3,3), (7,5,9), (9,7,9) and
    64³, lines along x, y and z: the factor kernel against
    ``smoothers.line_factor_stack`` plane by plane (run twice, bitwise
-   equal), the residual kernel against ``stencil.residual_parts``, the
+   equal), the residual kernel for each of the four colours against
+   ``line_gs.residual_plain`` (``stencil.residual_parts`` restricted to
+   ``line_gs.colour_edges``) into a NaN-filled buffer (twice, bitwise
+   equal; every entry off the colour's edges must stay NaN), the
    Thomas kernel against ``smoothers.line_thomas_x`` on the same
    residual, every colour step through the wrapper (twice, bitwise
-   equal) and a nu=2 sweep against the plain version; median ms per
-   launch at 64³; then at 256³, lines along x, the three kernels alone
-   against their plain versions, with ms per launch; and the Thomas
-   kernel under every launch plan (1-32 lines per block, z in shared
-   or global memory) at 64³, PLAN_SHAPE and 256³, colours 0 and 3,
-   each twice (bitwise equal) against the plain version and timed;
+   equal; its residual buffer NaN-filled, the result finite) and a
+   nu=2 sweep against the plain version; median ms per launch at 64³
+   and the residual kernel under several slab geometries; then at
+   256³, lines along x, the three kernels alone against their plain
+   versions, with ms per launch; and the Thomas kernel under every
+   launch plan (1-32 lines per block, z in shared or global memory) at
+   64³, PLAN_SHAPE and 256³, colours 0 and 3, each twice (bitwise
+   equal) against the plain version and timed;
 4. the point path: the default solve of that configuration, CONVERGED,
-   and of the same fullspace on the smallest of LARGE_SHAPES whose
-   finest-level factor stack does not fit the card's FACTOR_SHARE, so
-   that the solver takes the fused kernel there and the factored one
-   below; then a warm second solve at 64³;
+   with the factored kernel's launches equal to the number enumerated
+   on the CPU from ``sweep_plan`` (:func:`point_cycle_calls`, per
+   cycle) times ``it_mg``, and of the same fullspace on the smallest of
+   LARGE_SHAPES whose finest-level factor stack does not fit the
+   card's FACTOR_SHARE, so that the solver takes the fused kernel there
+   and the factored one below; then a warm second solve at 64³;
 5. the 64³ solve with the fused kernel pinned: same it_mg, field
    within a relative 1e-9 of phase 4;
 6. a heterogeneous tri-axial model on stretched 64×48×40 cells, solved
@@ -57,12 +68,16 @@ Phases:
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
 solves of phase 7 and read just after them: those counts are
-``launches`` in the result line.  Phase 5's pinned solve is counted
-apart (``pinned_launches``).  Each kernel's ``bound_ms`` is the least
-time the card could take for the timed call (its bytes over 3.35 TB/s
-or its fp64 operations over 34 TFLOP/s, whichever is larger), counted
-from the call's shapes by the ``*_work`` functions below.  Any failure
-raises and the exit code is not 0.
+``launches`` in the result line; the factored kernel also reports the
+colour ``steps`` those launches ran and the ``plan`` it runs at 64³.
+Phase 5's pinned solve is counted apart (``pinned_launches``).  Each
+kernel's ``bound_ms`` is the least time the card could take for the
+timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
+TFLOP/s, whichever is larger), counted from the call's shapes by the
+``*_work`` functions below; the residual kernel's is that of the
+colour's own edges (:func:`colour_residual_work`), with the whole
+level's (:func:`residual_work`) beside it as ``bound_ms_full``.  Any
+failure raises and the exit code is not 0.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds ``nvidia-smi``'s name and power limit, and before that one JSON
 line with the kernels' readings.  Needs one card and no network.
@@ -78,7 +93,14 @@ import numpy as np
 
 TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
 TOL_SOLVE = 1e-9       # relative field difference between two solves
-SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (64, 64, 64))
+SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (8, 8, 8), (16, 16, 16),
+          (32, 32, 32), (64, 64, 64), (128, 128, 128))
+# K3's slab geometries timed at 64³ and 256³: (line rows, z-lines,
+# stations) per block, e staged in shared memory or read directly.
+RES_GEOMETRIES = ((2, 16, 1, False), (2, 16, 2, False), (2, 16, 4, False),
+                  (2, 16, 2, True), (2, 16, 4, True), (2, 16, 8, True),
+                  (2, 16, 16, True), (4, 8, 1, False), (4, 8, 4, True),
+                  (4, 8, 16, True))
 LINE_SHAPES = ((3, 3, 3), (7, 5, 9), (9, 7, 9), (64, 64, 64))
 # sclr256's finest level: each kernel alone against its plain version
 # (lines along x), where the kernels' int64 offsets are largest.
@@ -105,6 +127,9 @@ KERNELS = {
 # bandwidth, and fp64 outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP64 = 34e12
+# Cycles per second of torch.cuda._sleep's spin (the H100's highest SM
+# clock; a lower clock only spins longer).
+SPIN_HZ = 1.98e9
 SCLR = dict(semicoarsening=True, linerelaxation=True)
 POINT_MODES = ('factored', 'fused')
 # Fullspace shapes (100 m cells) for the main path's second solve, in
@@ -246,6 +271,40 @@ def residual_work(shape):
     return 3 * edges * 16 + inner * 16 + faces * 8, inner * 76
 
 
+def colour_residual_work(shape, color):
+    """(bytes, flops) of K3 on one colour of a rotated level: r written,
+    s and η edge sums read at the colour's edges
+    (``line_gs.colour_edges``), and every e value and ζ face weight
+    their residuals need read once; ~76 FLOP per edge."""
+    import torch
+    from emg3d_tpu_torch.ops import line_gs
+    nx, ny, nz = shape
+    mx, my, mz = line_gs.colour_edge_masks(shape, color)
+    n = int(mx.sum() + my.sum() + mz.sum())
+    # Faces whose ζ-weighted curls the edges' residuals take.
+    f1 = torch.zeros((nx + 1, ny, nz), dtype=torch.bool)
+    f2 = torch.zeros((nx, ny + 1, nz), dtype=torch.bool)
+    f3 = torch.zeros((nx, ny, nz + 1), dtype=torch.bool)
+    f3 |= mx[:, :ny] | mx[:, 1:]
+    f2 |= mx[:, :, :nz] | mx[:, :, 1:]
+    f1 |= my[:, :, :nz] | my[:, :, 1:]
+    f3 |= my[:nx] | my[1:]
+    f2 |= mz[:nx] | mz[1:]
+    f1 |= mz[:, :ny] | mz[:, 1:]
+    # The e values of those curls.
+    ex = torch.zeros((nx, ny + 1, nz + 1), dtype=torch.bool)
+    ey = torch.zeros((nx + 1, ny, nz + 1), dtype=torch.bool)
+    ez = torch.zeros((nx + 1, ny + 1, nz), dtype=torch.bool)
+    for a, b in ((ez[:, :ny], f1), (ez[:, 1:], f1), (ey[:, :, :nz], f1),
+                 (ey[:, :, 1:], f1), (ex[:, :, :nz], f2), (ex[:, :, 1:], f2),
+                 (ez[:nx], f2), (ez[1:], f2), (ey[:nx], f3), (ey[1:], f3),
+                 (ex[:, :ny], f3), (ex[:, 1:], f3)):
+        a |= b
+    reads = int(ex.sum() + ey.sum() + ez.sum())
+    faces = int(f1.sum() + f2.sum() + f3.sum())
+    return 3 * n * 16 + reads * 16 + faces * 8, n * 76
+
+
 def thomas_work(shape, color):
     """(bytes, flops) of K4 on one colour: per line and station 23
     factors, and 5 residuals read and 5 field values read and written
@@ -271,14 +330,26 @@ def factor_work(shape):
 
 
 def _time_steps(torch, fn, reps=20, per=8, warm=3, prep=None):
-    """Median ms of one step, from reps calls of ``per`` steps each;
-    ``prep`` runs before each call, outside the timed events."""
-    for _ in range(warm):
+    """Median device ms of one step, from reps calls of ``per`` steps
+    each; ``prep`` runs before each call, outside the timed events.
+
+    A spin kernel holds the stream while every call is enqueued, so the
+    events time the card's work and not the host's dispatch (which
+    would dominate a small level's launch).
+    """
+    def once():
         if prep is not None:
             prep()
         fn()
+    for _ in range(warm):
+        once()
     torch.cuda.synchronize()
-    times = []
+    t = time.perf_counter()
+    once()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * reps * host + 2e-3) * SPIN_HZ))
+    events = []
     for _ in range(reps):
         if prep is not None:
             prep()
@@ -287,65 +358,118 @@ def _time_steps(torch, fn, reps=20, per=8, warm=3, prep=None):
         t0.record()
         fn()
         t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / per)
-    return float(np.median(times))
+        events.append((t0, t1))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) / per for a, b in events]))
 
 
-def phase_kernels(torch, results):
+def _sweep(torch, gs, e0, s, state, nu, mode, plan=None, seq=None):
+    """Two runs of one smoothing call from ``e0``; bitwise equal."""
+    outs = []
+    for _ in range(2):
+        e = tuple(t.clone() for t in e0)
+        gs(e, s, state, nu, _mode=mode, _seq=seq, _plan=plan)
+        outs.append(e)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{mode} {state.shape} plan {plan} seq {seq}: "
+                             f"two runs differ")
+    return outs[0]
+
+
+def phase_kernels(torch, results, shapes=SHAPES):
+    """K1 under every plan its levels admit, and K2, against the plain
+    version; K1's plans bitwise equal to its step plan; the plan table
+    (ms per nu=3 smoothing call)."""
     from emg3d_tpu_torch.ops import point_gs
     dev = torch.device('cuda')
-    for shape in SHAPES:
+    gs = point_gs.gauss_seidel_point
+    log(f"point_gs grid plan: {point_gs.grid_capacity()} co-resident "
+        f"blocks (GRID_BLOCKS {point_gs.GRID_BLOCKS})")
+    if point_gs.grid_capacity() < point_gs.GRID_BLOCKS:
+        raise AssertionError("GRID_BLOCKS exceeds the co-resident blocks")
+    table = {}
+    for shape in shapes:
         state, e0, s = _level(shape, seed=sum(shape), device=dev)
         for mode in POINT_MODES:
+            plans = point_gs.plans_admitted(shape) if mode == 'factored' \
+                else (None,)
             errs = []
-            for color in range(8):
-                outs = []
-                for _ in range(2):
-                    e = tuple(t.clone() for t in e0)
-                    point_gs.gauss_seidel_point(e, s, state, 1, _mode=mode,
-                                                _seq=(color,))
-                    outs.append(e)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(*outs)):
-                    raise AssertionError(
-                        f"{mode} {shape} colour {color}: two runs differ")
+            # Single colours, a nu=3 call and, at 8³, nu=9: more colour
+            # steps than one sweep launch takes (consecutive launches).
+            calls = [(1, (c,)) for c in range(8)] + [(3, None)]
+            if shape == (8, 8, 8):
+                calls.append((9, None))
+            for nu, seq in calls:
                 ref = tuple(t.clone() for t in e0)
-                point_gs.gauss_seidel_point_plain(ref, s, state, 1,
-                                                  _mode=mode, _seq=(color,))
-                errs.append((_maxdiff(outs[0], ref), _maxabs(ref)))
-            e = tuple(t.clone() for t in e0)
-            point_gs.gauss_seidel_point(e, s, state, 3, _mode=mode)
-            ref = tuple(t.clone() for t in e0)
-            point_gs.gauss_seidel_point_plain(ref, s, state, 3, _mode=mode)
-            torch.cuda.synchronize()
-            errs.append((_maxdiff(e, ref), _maxabs(ref)))
+                point_gs.gauss_seidel_point_plain(ref, s, state, nu,
+                                                  _mode=mode, _seq=seq)
+                outs = {p: _sweep(torch, gs, e0, s, state, nu, mode, p, seq)
+                        for p in plans}
+                base = outs[plans[0]]
+                for p, out in outs.items():
+                    if not all(torch.equal(a, b) for a, b in zip(out, base)):
+                        raise AssertionError(
+                            f"{mode} {shape} seq {seq}: plan {p} differs "
+                            f"from plan {plans[0]}")
+                errs.append((_maxdiff(base, ref), _maxabs(ref)))
             abs_err = max(a for a, _ in errs)
             worst = max(a / m for a, m in errs)
+            nus = ', '.join(f"nu={nu}" for nu, seq in calls if seq is None)
             log(f"{KERNELS[mode]['name']} {shape}: max|Δ|/max|e| "
-                f"{worst:.3e} (single colours and nu=3; repeat bitwise "
-                f"equal)")
+                f"{worst:.3e} (single colours, {nus}; plans "
+                f"{', '.join(map(str, plans))} bitwise equal; repeat "
+                f"bitwise equal)")
             if not worst <= TOL_KERNEL:
                 raise AssertionError(f"{mode} {shape}: {worst:.3e} > "
                                      f"{TOL_KERNEL}")
             res = results.setdefault(mode, {'max_abs_err': 0.0})
             res['max_abs_err'] = max(res['max_abs_err'], abs_err)
-            if shape == (64, 64, 64):
-                seq = tuple(range(8))
+            if mode == 'factored':
                 ek = tuple(t.clone() for t in e0)
-                ep = tuple(t.clone() for t in e0)
-                res['ms'] = _time_steps(torch, lambda: point_gs.
-                                        gauss_seidel_point(
-                                            ek, s, state, 1, _mode=mode,
-                                            _seq=seq))
-                res['plain_ms'] = _time_steps(torch, lambda: point_gs.
-                                              gauss_seidel_point_plain(
-                                                  ep, s, state, 1,
-                                                  _mode=mode, _seq=seq))
-                res.update(bound(*point_work(shape, mode)))
-                log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per "
-                    f"colour step; plain torch {res['plain_ms']:.4f} ms; "
-                    f"bound {res['bound_ms']:.4f} ms")
+                for p in plans:
+                    table[shape, p] = _time_steps(
+                        torch, lambda: gs(ek, s, state, 3, _plan=p),
+                        reps=20, per=1)
+            if shape == (64, 64, 64):
+                _time_point_64(torch, res, mode, state, e0, s)
+        del state, e0, s
+    plans = point_gs.PLANS
+    log("K1 ms per nu=3 smoothing call (24 colour steps), by plan; * = "
+        "sweep_plan's choice:")
+    log("  shape          " + "".join(f"{p:>10}" for p in plans))
+    for shape in shapes:
+        pick = point_gs.sweep_plan(shape, 3).plan
+        cells = [f"{table[shape, p]:9.4f}{'*' if p == pick else ' '}"
+                 if (shape, p) in table else f"{'-':>9} " for p in plans]
+        log(f"  {'x'.join(map(str, shape)):14} " + "".join(cells))
+    results['factored']['plan_ms'] = {
+        f"{'x'.join(map(str, sh))}/{p}": v for (sh, p), v in table.items()}
+
+
+def _time_point_64(torch, res, mode, state, e0, s):
+    """ms per colour step at 64³: the kernel (K1 under its chosen plan,
+    per nu=3 call / 24) beside the plain version."""
+    from emg3d_tpu_torch.ops import point_gs
+    ek = tuple(t.clone() for t in e0)
+    ep = tuple(t.clone() for t in e0)
+    if mode == 'factored':
+        plan = point_gs.sweep_plan(state.shape, 3)
+        res['plan'] = plan.plan
+        res['ms'] = _time_steps(torch, lambda: point_gs.gauss_seidel_point(
+            ek, s, state, 3), reps=20, per=plan.steps)
+    else:
+        seq = tuple(range(8))
+        res['ms'] = _time_steps(torch, lambda: point_gs.gauss_seidel_point(
+            ek, s, state, 1, _mode=mode, _seq=seq))
+    res['plain_ms'] = _time_steps(torch, lambda: point_gs.
+                                  gauss_seidel_point_plain(
+                                      ep, s, state, 1, _mode=mode,
+                                      _seq=tuple(range(8))))
+    res.update(bound(*point_work(state.shape, mode)))
+    log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per colour "
+        f"step; plain torch {res['plain_ms']:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms")
 
 
 def _clone(f):
@@ -415,12 +539,11 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
                        smoothers.rotate_fields(e0, axis))
             sr = tuple(t.contiguous() for t in
                        smoothers.rotate_fields(s, axis))
-            # K3 alone against stencil.residual_parts.
-            rk = line_gs.residual(er, sr, st,
-                                  tuple(torch.empty_like(t) for t in er))
+            # K3 alone, per colour, against the restricted plain residual.
+            for color in range(4):
+                errs['line_residual'].append(
+                    _check_residual(torch, st, er, sr, color))
             rp = stencil.residual_parts(*sr, *er, *st.arrays)
-            torch.cuda.synchronize()
-            errs['line_residual'].append((_maxdiff(rk, rp), _maxabs(rp)))
             # K4 alone against line_thomas_x, from the same residual.
             for color in range(4):
                 ek = line_gs.thomas(_clone(er), rp, st.factors, st, color)
@@ -442,10 +565,15 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
                 if not all(torch.equal(a, b) for a, b in zip(*outs)):
                     raise AssertionError(f"line {shape} axis {axis} "
                                          f"{seq}: two runs differ")
+                if not all(bool(torch.isfinite(t).all()) for t in outs[0]):
+                    raise AssertionError(f"line {shape} axis {axis} {seq}: "
+                                         f"non-finite field (a read of the "
+                                         f"residual off the colour's edges)")
                 errs['line_thomas'].append((_maxdiff(outs[0], ref),
                                             _maxabs(ref)))
             if shape == (64, 64, 64) and axis == 0:
-                _time_line_64(torch, res, shape, st, e0, s, er, sr, rk, rp)
+                _time_line_64(torch, res, shape, st, e0, s, er, sr, rp)
+                residual_plans(torch, st, er, sr, reps=20)
                 thomas_plans(torch, res, st, er, rp, colors=(0, 3), reps=20)
         for k, v in errs.items():
             res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
@@ -461,15 +589,93 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
         _line_kernels_large(torch, res, large, dev)
 
 
-def _time_line_64(torch, res, shape, st, e0, s, er, sr, rk, rp):
-    """ms per launch of K3, K4 and K5 at 64³ (x-lines), beside plain."""
+def _nan_like(f):
+    import torch
+    return tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in f)
+
+
+def _check_residual(torch, st, e, s, color):
+    """K3 on one colour into a NaN-filled buffer, twice (bitwise equal),
+    against ``line_gs.residual_plain`` into one: the same entries NaN
+    (nothing written off the colour's edges), the others finite.
+    Returns (max|Δ|, max|ref|) over the colour's edges."""
+    from emg3d_tpu_torch.ops import line_gs
+    outs = [line_gs.residual(e, s, st, color, _nan_like(e))
+            for _ in range(2)]
+    ref = line_gs.residual_plain(e, s, st, color, _nan_like(e))
+    torch.cuda.synchronize()
+    where = f"line_residual {st.shape} axis {st.axis} colour {color}"
+    for a, b, p in zip(*outs, ref):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)) or \
+                not torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)]):
+            raise AssertionError(f"{where}: two runs differ")
+        if not torch.equal(torch.isnan(a), torch.isnan(p)):
+            raise AssertionError(f"{where}: entries written are not the "
+                                 f"colour's edges")
+    on = [(a[~torch.isnan(p)], p[~torch.isnan(p)]) for a, p in
+          zip(outs[0], ref)]
+    if not all(bool(torch.isfinite(a).all()) for a, _ in on):
+        raise AssertionError(f"{where}: non-finite residual")
+    return (max((float((a - p).abs().max()) if a.numel() else 0.0)
+                for a, p in on),
+            max((float(p.abs().max()) if p.numel() else 0.0)
+                for _, p in on))
+
+
+def residual_plans(torch, st, e, s, reps, geometries=RES_GEOMETRIES):
+    """K3 under each slab geometry on the x-line state ``st``: bitwise
+    equal to the default one on every colour, and timed (median ms per
+    launch over the four colours)."""
+    from emg3d_tpu_torch.ops import line_gs
+    shape = st.shape
+    base = [line_gs.residual(e, s, st, c, _nan_like(e)) for c in range(4)]
+    default = line_gs.residual_geometry(shape, 0)
+    for rows, lines, xplanes, staged in geometries:
+        gs = [line_gs.residual_geometry(shape, c, rows, lines, xplanes,
+                                        staged) for c in range(4)]
+        for c, g in enumerate(gs):
+            out = line_gs.residual(e, s, st, c, _nan_like(e), g)
+            torch.cuda.synchronize()
+            if not all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                       for a, b in zip(out, base[c])):
+                raise AssertionError(f"line_residual {shape} colour {c}: "
+                                     f"geometry {g} differs from default")
+        out = _nan_like(e)
+        ms = _time_steps(torch, lambda: [line_gs.residual(e, s, st, c, out,
+                                                          g)
+                                         for c, g in enumerate(gs)],
+                         reps=reps, per=4)
+        chosen = gs[0] == default
+        log(f"line_residual {shape}, {rows} rows × {lines} lines × "
+            f"{xplanes} stations per block, e "
+            f"{'staged' if staged else 'direct'}"
+            f"{' (chosen)' if chosen else ''}: {ms:.4f} ms per launch, "
+            f"{gs[0].blocks} blocks of {gs[0].threads} threads, "
+            f"{gs[0].smem_bytes} B shared; bitwise equal to the default")
+
+
+def _colour_bound(shape):
+    """K3's bound_ms averaged over the four colours, its bound_by, and
+    the whole level's bound_ms (``bound_ms_full``)."""
+    work = [bound(*colour_residual_work(shape, c)) for c in range(4)]
+    return {'bound_ms': sum(w['bound_ms'] for w in work) / 4,
+            'bound_by': work[0]['bound_by'],
+            'bound_ms_full': bound(*residual_work(shape))['bound_ms']}
+
+
+def _time_line_64(torch, res, shape, st, e0, s, er, sr, rp):
+    """ms per launch of K3 (mean of the four colours), K4 and K5 at 64³
+    (x-lines), beside plain."""
     from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    rk = _nan_like(er)
     res['line_residual']['ms'] = _time_steps(
-        torch, lambda: line_gs.residual(er, sr, st, rk), reps=50, per=1)
+        torch, lambda: [line_gs.residual(er, sr, st, c, rk)
+                        for c in range(4)], reps=50, per=4)
+    rq = _nan_like(er)
     res['line_residual']['plain_ms'] = _time_steps(
-        torch, lambda: stencil.residual_parts(*sr, *er, *st.arrays),
-        reps=20, per=1)
-    res['line_residual'].update(bound(*residual_work(shape)))
+        torch, lambda: [line_gs.residual_plain(er, sr, st, c, rq)
+                        for c in range(4)], reps=20, per=4)
+    res['line_residual'].update(_colour_bound(shape))
     ek = _clone(er)
     zs = line_gs._scratch(st.shape, er[0])
     res['line_thomas']['ms'] = _time_steps(
@@ -501,13 +707,14 @@ def _time_line_64(torch, res, shape, st, e0, s, er, sr, rk, rp):
     log(f"64³ x-lines, ms per launch: line_factor "
         f"{res['line_factor']['ms']:.4f} (plain, entries included, "
         f"{res['line_factor']['plain_ms']:.4f}), line_residual "
-        f"{res['line_residual']['ms']:.4f} (plain "
+        f"{res['line_residual']['ms']:.4f} per colour (plain "
         f"{res['line_residual']['plain_ms']:.4f}), line_thomas "
         f"{res['line_thomas']['ms']:.4f} (plain "
         f"{res['line_thomas']['plain_ms']:.4f}); colour step "
         f"{step_ms:.4f} (plain {step_plain:.4f}); bounds "
         f"{res['line_factor']['bound_ms']:.4f}, "
-        f"{res['line_residual']['bound_ms']:.4f}, "
+        f"{res['line_residual']['bound_ms']:.4f} (whole level "
+        f"{res['line_residual']['bound_ms_full']:.4f}), "
         f"{res['line_thomas']['bound_ms']:.4f}")
 
 
@@ -527,20 +734,20 @@ def _line_kernels_large(torch, res, shape, dev):
         res['line_factor']['max_abs_err'], dmax)
     del ref
     torch.cuda.empty_cache()
-    rk = line_gs.residual(e, s, st, tuple(torch.empty_like(t) for t in e))
-    rp = stencil.residual_parts(*s, *e, *st.arrays)
-    torch.cuda.synchronize()
-    errs = [(_maxdiff(rk, rp), _maxabs(rp))]
-    del rk
+    errs = [_check_residual(torch, st, e, s, c) for c in range(4)]
     res['line_residual']['max_abs_err'] = max(
         res['line_residual']['max_abs_err'],
         _check_kernel('line_residual', shape, errs))
+    residual_plans(torch, st, e, s, reps=5)
+    rp = stencil.residual_parts(*s, *e, *st.arrays)
     thomas_plans(torch, res, st, e, rp, colors=(0, 3), reps=5)
-    out = tuple(torch.empty_like(t) for t in e)
+    out = _nan_like(e)
     res['line_residual']['ms_256'] = _time_steps(
-        torch, lambda: line_gs.residual(e, s, st, out), reps=10, per=1)
-    res['line_residual']['bound_ms_256'] = bound(
-        *residual_work(shape))['bound_ms']
+        torch, lambda: [line_gs.residual(e, s, st, c, out)
+                        for c in range(4)], reps=10, per=4)
+    cb = _colour_bound(shape)
+    res['line_residual']['bound_ms_256'] = cb['bound_ms']
+    res['line_residual']['bound_ms_full_256'] = cb['bound_ms_full']
     zs = line_gs._scratch(st.shape, e[0])
     res['line_thomas']['ms_256'] = _time_steps(
         torch, lambda: line_gs.thomas(e, rp, st.factors, st, 0, zs),
@@ -559,8 +766,9 @@ def _line_kernels_large(torch, res, shape, dev):
     log(f"256³ x-lines, ms per launch: line_factor "
         f"{res['line_factor']['ms_256']:.4f} (bound "
         f"{res['line_factor']['bound_ms_256']:.4f}), line_residual "
-        f"{res['line_residual']['ms_256']:.4f} (bound "
-        f"{res['line_residual']['bound_ms_256']:.4f}), line_thomas "
+        f"{res['line_residual']['ms_256']:.4f} per colour (bound "
+        f"{res['line_residual']['bound_ms_256']:.4f}; whole level "
+        f"{res['line_residual']['bound_ms_full_256']:.4f}), line_thomas "
         f"{res['line_thomas']['ms_256']:.4f} (bound "
         f"{res['line_thomas']['bound_ms_256']:.4f})")
     del pstate, st, e, s, packed, entries
@@ -622,6 +830,48 @@ def bench_problem(shape=(64, 64, 64)):
     sfield = SourceField.zeros(grid, frequency=1.0)
     np.asarray(sfield.fx)[tuple(n // 2 for n in shape)] = 1.0
     return grid, model, sfield
+
+
+def point_cycle_calls(grid, model, sfield, **kw):
+    """(shape, nu) of every point-smoothing call of one top-level cycle.
+
+    Runs the solver's own cycle (``solver.run_one_cycle``) on the CPU
+    on the levels it builds for this problem and options, with the
+    smoother replaced by a recorder; the cycle's calls do not depend on
+    the field.  ``sum(sweep_plan(shape, nu).launches)`` over them is
+    the factored kernel's launches per cycle.
+    """
+    import torch
+    from unittest import mock
+    from emg3d_tpu_torch import VolumeModel, solver
+    var = solver.MGParameters(verb=0, cycle=kw.pop('cycle', 'F'),
+                              sslsolver=False, linerelaxation=False,
+                              semicoarsening=False,
+                              shape_cells=grid.shape_cells, **kw)
+    vm = VolumeModel(grid, model, sfield)
+    sc = int(var.sc_dir)
+    levels = solver.build_levels(grid, vm, sc, int(var.clevel[sc]),
+                                 torch.device('cpu'), {'bytes': 0})
+    calls = []
+
+    def record(e, s, lev, nu, lr_dir, mode=None):
+        if nu > 0:
+            calls.append((lev.shape, nu))
+        return e
+    e = tuple(torch.zeros(sh, dtype=torch.complex128)
+              for sh in solver._edge_shapes(grid.shape_cells))
+    conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
+            int(var.lr_dir))
+    with mock.patch.object(solver, '_smooth', record):
+        solver.run_one_cycle(e, e, levels, conf)
+    return calls
+
+
+def k1_per_cycle(calls, plan=None):
+    """(launches, colour steps) of the factored kernel over ``calls``."""
+    from emg3d_tpu_torch.ops import point_gs
+    plans = [point_gs.sweep_plan(sh, nu, plan=plan) for sh, nu in calls]
+    return sum(p.launches for p in plans), sum(p.steps for p in plans)
 
 
 def large_shape(torch):
@@ -746,23 +996,34 @@ def main():
     grid, model, sfield = bench_problem()
     big = large_shape(torch)
     big_problem = bench_problem(big)
+    per_cycle, steps_cycle = k1_per_cycle(point_cycle_calls(grid, model,
+                                                            sfield))
     point_gs.reset_launches()
     with Phase('4 main path: solve 64³ and '
                f'{"x".join(map(str, big))}, default kernels'):
         e4, info4, wall_cold = _solve(torch, grid, model, sfield)
         k64 = dict(point_gs.LAUNCHES)
+        s64 = dict(point_gs.STEPS)
         log(f"64³: it_mg {info4['it_mg']}, rel_error "
             f"{info4['rel_error']:.3e}, wall {wall_cold:.3f} s (first "
-            f"solve), launches {k64}")
+            f"solve), launches {k64}, colour steps {s64}; enumerated on "
+            f"the CPU: {per_cycle} launches and {steps_cycle} steps per "
+            f"cycle")
         if k64['factored'] == 0:
             raise AssertionError("the default solve launched no factored "
                                  "kernel")
+        if (k64['factored'], s64['factored']) != (
+                per_cycle * info4['it_mg'], steps_cycle * info4['it_mg']):
+            raise AssertionError("64³ factored launches or steps differ "
+                                 "from the CPU enumeration")
         eb, infob, wallb = _solve(torch, *big_problem)
         launches = dict(point_gs.LAUNCHES)
+        steps = dict(point_gs.STEPS)
         kbig = {k: launches[k] - k64[k] for k in launches}
         log(f"{big}: it_mg {infob['it_mg']}, rel_error "
             f"{infob['rel_error']:.3e}, wall {wallb:.3f} s (first solve), "
-            f"launches {kbig}, peak device memory "
+            f"launches {kbig}, colour steps "
+            f"{ {k: steps[k] - s64[k] for k in steps} }, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del eb
         if kbig['fused'] == 0 or kbig['factored'] == 0:
@@ -831,8 +1092,12 @@ def main():
                  'bound_by': r['bound_by'], 'library_ms': None}
         if key in pinned:
             entry['pinned_launches'] = pinned[key]
+        if key == 'factored':
+            entry['plan'] = r['plan']
+            entry['steps'] = steps[key]
         entry.update({k: v for k, v in r.items()
-                      if k.startswith('step') or k.endswith('_256')})
+                      if k.startswith('step') or k.endswith('_256')
+                      or k == 'bound_ms_full'})
         kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")

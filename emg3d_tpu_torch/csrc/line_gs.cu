@@ -7,11 +7,14 @@
 // lines being relaxed):
 //
 //   K3  line_residual <- _kernel_res (457-568): the curl-curl residual
-//       r = s − A e of the whole level, one thread per edge, into a
-//       residual buffer (the math of stencil.residual_parts; PEC edges
-//       get r = s).  Pallas tiled x (and y) slabs and blended the owned
-//       rows into an aliased (8,128)-padded stack; here every thread
-//       owns its edge, so there is nothing to blend.
+//       r = s − A e (the math of stencil.residual_parts) at exactly the
+//       edges K4 of the colour reads, into a residual buffer: rx on the
+//       colour's lines, ry(1..nx-1, j-1|j, k), rz(1..nx-1, j, k-1|k)
+//       (line_gs.colour_edges; ~5/12 of the level's edges).  None of
+//       them lies on the PEC boundary, so r = s never arises.  Pallas
+//       computed the whole level and blended the owned rows into an
+//       aliased (8,128)-padded stack; a residual of every edge, one
+//       thread per edge, would be 7/12 overwritten before any read.
 //   K4  line_thomas <- _kernel_thomas (591-790): the block-tridiagonal
 //       substitution of every line of the colour along x,
 //         forward   y_i = r_i − B_i z_{i-1},  z_i = C_i⁻¹ y_i,
@@ -64,6 +67,24 @@
 //       split across lanes: in the operation order kept here the backward
 //       LDLᵀ substitution is a chain of ten dependent steps, and a
 //       shuffle per step would lengthen it.
+//   K3  a block owns a slab of the rotated level: R line rows × ZL lines
+//       along z × XC stations along x.  It walks the slab's x planes
+//       with a ring of four plane slots in shared memory, each holding
+//       the slab's e (ex, ey, ez) with its one-edge halo in y and z,
+//       filled by cp.async one plane ahead of the compute; the colour's
+//       edges of plane i are computed from the slots of planes i-1..i+1
+//       (the residual code of stencil.cuh through a shared-memory
+//       accessor).  So each e value comes from DRAM once per block
+//       (amplified only by the halos: (2R+1)/2R in y, (2ZL+1)/2ZL in z,
+//       (XC+1)/XC in x), not once per neighbouring edge through L1; s,
+//       η sums and ζ weights are read only at the colour's edges.
+//       Bound: memory (e read once, s read and r written at the colour
+//       edges, η sums and ζ weights read where they are needed).  On
+//       levels too small for slabs of several stations to fill the card
+//       (a run of one or two stations per block; Python's rule, timed),
+//       line_residual<false> reads e directly through L1/L2 instead: the
+//       ring's fill and barriers cost more latency there than the
+//       re-reads they save.
 // The residual and field accesses of a colour are stride 2 along z
 // (half-used sectors).  wgmma and TMA tiles do not apply (no matrix
 // product; the recurrences are sequential along the line).  The
@@ -111,39 +132,157 @@ struct ResArgs {
   const double* ihy;
   const double* ihz;
   int nx, ny, nz;
+  int cy, cz;           // the colour's transverse parity
+  int cny, cnz;         // its lines per transverse axis
+  int rows, lines;      // R line rows and ZL lines per block
+  int xplanes;          // XC stations per block
 };
 
+constexpr int kResSlots = 4;   // K3's ring of x-plane slots
+
+// A slab's e in the ring: plane i in slot i % 4; per slot ex
+// (2R+1)×(2ZL+1), ey 2R×(2ZL+1), ez (2R+1)×2ZL values, y-major, in
+// global edge indices offset by (Y0, Z0).
+struct SlabE {
+  const double2* s;
+  int slot, nex, ney;   // slot size; ex and ey tile sizes
+  int y0, z0;
+  int zx, zz;           // z extents: 2ZL+1 (ex, ey), 2ZL (ez)
+  __device__ __forceinline__ const double2* plane(int i) const {
+    return s + (i & (kResSlots - 1)) * slot;
+  }
+  __device__ __forceinline__ double2 x(int i, int j, int k) const {
+    return plane(i)[(j - y0) * zx + (k - z0)];
+  }
+  __device__ __forceinline__ double2 y(int i, int j, int k) const {
+    return plane(i)[nex + (j - y0) * zx + (k - z0)];
+  }
+  __device__ __forceinline__ double2 z(int i, int j, int k) const {
+    return plane(i)[nex + ney + (j - y0) * zz + (k - z0)];
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Copy a (ny_t × nz_t) tile of plane p of a field with row lengths
+// (n1, n2) at (y0, z0) into ``dst`` (row length ``zs``).
+__device__ __forceinline__ void load_tile(double2* dst, const double2* src,
+                                          int p, int y0, int z0, int ny_t,
+                                          int nz_t, int zs, int n1, int n2) {
+  const int total = ny_t * nz_t;
+  for (int n = threadIdx.x; n < total; n += blockDim.x) {
+    const int yy = n / nz_t, zz = n - yy * nz_t;
+    cp_async16(dst + yy * zs + zz, src + at(p, y0 + yy, z0 + zz, n1, n2));
+  }
+}
+
+template <bool kStaged>
 __global__ void __launch_bounds__(256)
 line_residual(ResArgs a) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
+  extern __shared__ double2 ring[];
+  const int R = a.rows, ZL = a.lines;
+  const int ngz = (a.cnz + ZL - 1) / ZL, ngy = (a.cny + R - 1) / R;
+  int b = blockIdx.x;
+  const int gz = b % ngz;
+  b /= ngz;
+  const int gy = b % ngy;
+  const int gx = b / ngy;
+  const int q0 = gy * R, r0 = gz * ZL;
+  const int nrows = min(R, a.cny - q0), nl = min(ZL, a.cnz - r0);
+  const int xa = gx * a.xplanes, xb = min(a.nx, xa + a.xplanes);
+  SlabE f;
+  f.s = ring;
+  f.y0 = a.cy + 2 * q0;
+  f.z0 = a.cz + 2 * r0;
+  f.zx = 2 * ZL + 1;
+  f.zz = 2 * ZL;
+  f.nex = (2 * R + 1) * f.zx;
+  f.ney = 2 * R * f.zx;
+  f.slot = f.nex + f.ney + (2 * R + 1) * f.zz;
   const int nx = a.nx, ny = a.ny, nz = a.nz;
-  const int64_t n_x = static_cast<int64_t>(nx) * (ny + 1) * (nz + 1);
-  const int64_t n_y = static_cast<int64_t>(nx + 1) * ny * (nz + 1);
-  const int64_t n_z = static_cast<int64_t>(nx + 1) * (ny + 1) * nz;
-  if (t < n_x) {
-    const int k = static_cast<int>(t % (nz + 1));
-    const int64_t q = t / (nz + 1);
-    const int j = static_cast<int>(q % (ny + 1));
-    const int i = static_cast<int>(q / (ny + 1));
-    a.rx[t] = (j == 0 || j == ny || k == 0 || k == nz) ? a.sx[t]
-                                                      : res_x(a, i, j, k);
-  } else if (t < n_x + n_y) {
-    const int64_t u = t - n_x;
-    const int k = static_cast<int>(u % (nz + 1));
-    const int64_t q = u / (nz + 1);
-    const int j = static_cast<int>(q % ny);
-    const int i = static_cast<int>(q / ny);
-    a.ry[u] = (i == 0 || i == nx || k == 0 || k == nz) ? a.sy[u]
-                                                      : res_y(a, i, j, k);
-  } else if (t < n_x + n_y + n_z) {
-    const int64_t u = t - n_x - n_y;
-    const int k = static_cast<int>(u % nz);
-    const int64_t q = u / nz;
-    const int j = static_cast<int>(q % (ny + 1));
-    const int i = static_cast<int>(q / (ny + 1));
-    a.rz[u] = (i == 0 || i == nx || j == 0 || j == ny) ? a.sz[u]
-                                                      : res_z(a, i, j, k);
+
+  // Plane p of the slab, one commit group (only what this block's
+  // stations, rows and lines need: ex planes xa-1..xb-1, ey and ez
+  // xa-1..xb; ex and ez rows y0..y0+2·nrows, ey rows y0..y0+2·nrows-1;
+  // ex and ey z-nodes z0..z0+2·nl, ez z0..z0+2·nl-1).
+  auto fill = [&](int p) {
+    if (p >= 0 && p <= xb) {
+      double2* d = ring + (p & (kResSlots - 1)) * f.slot;
+      if (p < xb) {
+        load_tile(d, a.ex, p, f.y0, f.z0, 2 * nrows + 1, 2 * nl + 1, f.zx,
+                  ny + 1, nz + 1);
+      }
+      load_tile(d + f.nex, a.ey, p, f.y0, f.z0, 2 * nrows, 2 * nl + 1, f.zx,
+                ny, nz + 1);
+      load_tile(d + f.nex + f.ney, a.ez, p, f.y0, f.z0, 2 * nrows + 1,
+                2 * nl, f.zz, ny + 1, nz);
+    }
+    cp_async_commit();
+  };
+
+  // This thread's edge of each plane: rx (t < R·ZL), ry (next 2R·ZL),
+  // rz (next 2R·ZL); lines fastest.
+  const int t = threadIdx.x, rzl = R * ZL;
+  int comp = -1, j = 0, k = 0;
+  if (t < rzl) {
+    const int row = t / ZL, l = t - row * ZL;
+    if (row < nrows && l < nl) {
+      comp = 0;
+      j = 1 + a.cy + 2 * (q0 + row);
+      k = 1 + a.cz + 2 * (r0 + l);
+    }
+  } else if (t < 3 * rzl) {
+    const int u = t - rzl, yy = u / ZL, l = u - yy * ZL;
+    if (yy / 2 < nrows && l < nl) {
+      comp = 1;
+      j = f.y0 + yy;
+      k = 1 + a.cz + 2 * (r0 + l);
+    }
+  } else if (t < 5 * rzl) {
+    const int u = t - 3 * rzl, row = u / (2 * ZL), kk = u - row * 2 * ZL;
+    if (row < nrows && kk / 2 < nl) {
+      comp = 2;
+      j = 1 + a.cy + 2 * (q0 + row);
+      k = f.z0 + kk;
+    }
+  }
+
+  if constexpr (!kStaged) {
+    // Direct: e through L1/L2, no staging and no barrier (levels too
+    // small for the ring's fill latency to pay).
+    for (int i = xa; i < xb; ++i) {
+      if (comp == 0) {
+        a.rx[at(i, j, k, ny + 1, nz + 1)] = res_x(a, i, j, k);
+      } else if (comp == 1 && i > 0) {
+        a.ry[at(i, j, k, ny, nz + 1)] = res_y(a, i, j, k);
+      } else if (comp == 2 && i > 0) {
+        a.rz[at(i, j, k, ny + 1, nz)] = res_z(a, i, j, k);
+      }
+    }
+    return;
+  }
+  fill(xa - 1);
+  fill(xa);
+  fill(xa + 1);
+  for (int i = xa; i < xb; ++i) {
+    fill(i + 2);
+    asm volatile("cp.async.wait_group 1;\n" ::);   // planes ≤ i+1 landed
+    __syncthreads();
+    if (comp == 0) {
+      a.rx[at(i, j, k, ny + 1, nz + 1)] = res_x(a, f, i, j, k);
+    } else if (comp == 1 && i > 0) {
+      a.ry[at(i, j, k, ny, nz + 1)] = res_y(a, f, i, j, k);
+    } else if (comp == 2 && i > 0) {
+      a.rz[at(i, j, k, ny + 1, nz)] = res_z(a, f, i, j, k);
+    }
+    __syncthreads();   // slot (i-1) % 4 is refilled at the next step
   }
 }
 
@@ -317,14 +456,6 @@ struct ThomasArgs {
   int planes;           // ring planes per slot: 28, or 33 with global z
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead));
 }
@@ -581,8 +712,16 @@ extern "C" int emg3d_line_residual(
     const void* ez, const void* sx, const void* sy, const void* sz,
     const void* stx, const void* sty, const void* stz, const void* wx,
     const void* wy, const void* wz, const void* ihx, const void* ihy,
-    const void* ihz, int nx, int ny, int nz, int blocks, int threads,
-    void* stream) {
+    const void* ihz, int nx, int ny, int nz, int cy, int cz, int cny,
+    int cnz, int rows, int lines, int xplanes, int staged, int blocks,
+    int threads, int smem, void* stream) {
+  const int ring = kResSlots * 16 *
+                   ((2 * rows + 1) * (2 * lines + 1) +
+                    2 * rows * (2 * lines + 1) + (2 * rows + 1) * 2 * lines);
+  if (rows < 1 || lines < 1 || xplanes < 1 || threads > 256 ||
+      threads < 5 * rows * lines || smem != (staged ? ring : 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ResArgs a;
   a.rx = static_cast<double2*>(rx);
   a.ry = static_cast<double2*>(ry);
@@ -605,7 +744,25 @@ extern "C" int emg3d_line_residual(
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
-  line_residual<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.cy = cy;
+  a.cz = cz;
+  a.cny = cny;
+  a.cnz = cnz;
+  a.rows = rows;
+  a.lines = lines;
+  a.xplanes = xplanes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!staged) {
+    line_residual<false><<<blocks, threads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        line_residual<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  line_residual<true><<<blocks, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

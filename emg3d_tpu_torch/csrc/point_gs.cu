@@ -11,10 +11,8 @@
 //       sums and inverse widths (pallas_gs.py:345-371 = coeffs.py:47-152)
 //       and factors and solves it in registers (blocksolve.py:32-85).
 //
-// One launch is one colour step; the smoother makes 8·nu launches per
-// call (colours 0..7 on even sweeps, 7..0 on odd ones).  One thread
-// owns one ACTIVE interior node (ix, iy, iz), i.e. one whose index
-// parity equals the colour's.  It
+// A colour step: one thread owns one ACTIVE interior node (ix, iy, iz),
+// i.e. one whose index parity equals the colour's.  It
 //   1. evaluates the residual r = s − A e at its six block edges
 //      (rb order: ex(ix-1), ex(ix), ey(iy-1), ey(iy), ez(iz-1), ez(iz));
 //   2. solves the block system A_b δ = rb;
@@ -34,19 +32,59 @@
 // eight updates (the TPU's vector unit works on whole (8,128) tiles).
 // Here only the active node's six edges are evaluated.
 //
+// Launch plans of K1 (the Python rule point_gs.sweep_plan picks one per
+// level from times measured on the card):
+//   step     point_gs_step<true>: one launch per colour step, 8·nu per
+//            smoothing call (colours 0..7 on even sweeps, 7..0 on odd).
+//   cluster  point_gs_sweep<kCluster>: the whole colour sequence of a
+//            smoothing call in ONE launch of one thread-block cluster
+//            (≤ 8 CTAs), grid-stride over each colour's nodes, a cluster
+//            barrier between colour steps.
+//   grid     point_gs_sweep<kGrid>: the same as a cooperative launch of
+//            up to one block per SM, a grid barrier between colour steps.
+//   shared   point_gs_sweep<kShared>: one CTA for a level that fits its
+//            shared memory whole (8³: e, s, η sums, factors, ζ weights
+//            and widths, 200 KB of 227 KB): copied in once with
+//            cp.async, every step runs from shared memory with a block
+//            barrier between steps, and e is copied back once.  The
+//            counterpart of _kernel_resident's VMEM copy-in/copy-out
+//            (pallas_gs.py:667-676, 742-746), which also runs every colour
+//            step of a call in one pallas_call (grid (len(seq), tiles)).
+// On the small levels a step is a latency chain per node (the stencil's
+// index arithmetic, ~50 loads, ~730 fp64 operations), and warps that
+// share an SM wait on each other's issue slots: the sweep plans
+// therefore size their blocks (32-256 threads, Python) so that a
+// colour's nodes spread over as many SMs as the plan has blocks.
+// Every node's arithmetic is the same code in every plan, so a plan is
+// bitwise equal to the step plan.  Between steps e is written by other
+// threads: it is never read through the non-coherent path (no __ldg,
+// no const __restrict__ on the e pointers); the barriers order the
+// writes (release) before the next step's reads (acquire).
+//
+// Factor layout (K1): colour-major.  Colour c's active nodes are packed
+// contiguously, z fastest, in the order of the thread index, and its 20
+// planes follow one another: plane p of the node of thread t sits at
+// off_c + p·n_c + t (point_gs.pack_factors).  A warp's plane load is one
+// 512 B run; a node-indexed stack spreads it over 1 KB, half of
+// it the other colours' nodes.  The bytes held are the same.
+//
 // Bound on this card: memory.  Per active node K1 loads 20 complex128
 // factors (320 B) plus about 30 field, source and parameter values that
 // are mostly shared with neighbouring threads through L1/L2; fp64
-// arithmetic is ~200 FLOP per node, far below the H100's fp64 rate per
+// arithmetic is ~730 FLOP per node, below the H100's fp64 rate per
 // byte.  wgmma and TMA do not apply (no matrix product, no regular
-// tile).  Coalescing of the stride-2 colour pattern and the launch
-// overhead of the many tiny coarse-level steps per F-cycle are the
-// known costs; they are left for later work.
+// tile).  On the coarse levels of a cycle the cost was the launches:
+// 8·nu per smoothing call, ~4 µs of device time each whatever their
+// size, and a host call each; the sweep plans make it one.
 //
 // The complex arithmetic and the residual at an edge are in
 // stencil.cuh, shared with the line kernels (line_gs.cu).
 
+#include <cooperative_groups.h>
+
 #include "stencil.cuh"
+
+namespace cg = cooperative_groups;
 
 using namespace emg3d;
 
@@ -85,7 +123,7 @@ struct Args {
   const double* ihx;    // inverse widths (nx,), (ny,), (nz,)
   const double* ihy;
   const double* ihz;
-  const double2* fac;   // K1: (20, nx-1, ny-1, nz-1); K2: unused
+  const double2* fac;   // K1: the colour's 20 planes (colour-major); K2: unused
   int nx, ny, nz;
   int x0, y0, z0;       // first active node index per axis
   int cnx, cny, cnz;    // active nodes per axis
@@ -181,20 +219,21 @@ __device__ void factor_block(const Args& a, int i, int j, int k,
   }
 }
 
-template <bool kFactored>
-__global__ void __launch_bounds__(256)
-point_gs_step(Args a) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t n_active = static_cast<int64_t>(a.cnx) * a.cny * a.cnz;
-  if (tid >= n_active) return;
-  const int c = static_cast<int>(tid % a.cnz);
-  const int64_t t = tid / a.cnz;
-  const int b = static_cast<int>(t % a.cny);
-  const int q = static_cast<int>(t / a.cny);
-  const int i = a.x0 + 2 * q;
-  const int j = a.y0 + 2 * b;
-  const int k = a.z0 + 2 * c;
+// One colour's node ``tid`` (of n = cnx·cny·cnz): residual at its six
+// block edges, the block solve, the in-place deposit.  ``fac`` holds
+// the colour's 20 factor planes of n nodes each (K1; unused by K2).
+template <bool kFactored, class A>
+__device__ __forceinline__ void node_update(const A& a, const double2* fac,
+                                            int64_t n, int64_t tid, int x0,
+                                            int y0, int z0, int cny,
+                                            int cnz) {
+  const int c = static_cast<int>(tid % cnz);
+  const int64_t t = tid / cnz;
+  const int b = static_cast<int>(t % cny);
+  const int q = static_cast<int>(t / cny);
+  const int i = x0 + 2 * q;
+  const int j = y0 + 2 * b;
+  const int k = z0 + 2 * c;
 
   // 1. Residual at the six block edges, from the pre-step field.
   double2 y[6] = {res_x(a, i - 1, j, k), res_x(a, i, j, k),
@@ -205,18 +244,15 @@ point_gs_step(Args a) {
   double2 L[6][6];
   double2 dinv[6];
   if constexpr (kFactored) {
-    const int64_t plane = static_cast<int64_t>(a.nx - 1) * (a.ny - 1) *
-                          (a.nz - 1);
-    const int64_t node = at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1);
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
 #pragma unroll
       for (int m = 0; m < r; ++m) {
-        if (l_present(r, m)) L[r][m] = a.fac[l_plane(r, m) * plane + node];
+        if (l_present(r, m)) L[r][m] = fac[l_plane(r, m) * n + tid];
       }
     }
 #pragma unroll
-    for (int r = 0; r < 6; ++r) dinv[r] = a.fac[(kDinvPlane + r) * plane + node];
+    for (int r = 0; r < 6; ++r) dinv[r] = fac[(kDinvPlane + r) * n + tid];
   } else {
     factor_block(a, i, j, k, L, dinv);
   }
@@ -249,19 +285,179 @@ point_gs_step(Args a) {
   EZ(i, j, k) = cadd(EZ(i, j, k), y[5]);
 }
 
+constexpr int kThreads = 256;   // most threads per block, every plan
+
+template <bool kFactored>
+__global__ void __launch_bounds__(kThreads)
+point_gs_step(Args a) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t n = static_cast<int64_t>(a.cnx) * a.cny * a.cnz;
+  if (tid >= n) return;
+  node_update<kFactored>(a, a.fac, n, tid, a.x0, a.y0, a.z0, a.cny, a.cnz);
+}
+
+// ---------------------------------------------------------------------
+// K1 sweep: every colour step of a smoothing call in one launch
+// ---------------------------------------------------------------------
+
+constexpr int kMaxSeq = 64;     // colour steps per launch (nu ≤ 8)
+constexpr int kMaxCluster = 8;  // CTAs of the cluster plan (portable)
+enum Plan { kCluster = 1, kGrid = 2, kShared = 3 };
+
+struct Colour {
+  int x0, y0, z0;               // first active node per axis
+  int cnx, cny, cnz;            // active nodes per axis (0: none)
+  int64_t off;                  // the colour's planes in the factor buffer
+};
+
+struct SweepArgs {
+  Args a;                       // a.fac: the whole colour-major buffer
+  Colour col[8];
+  int nseq;
+  signed char seq[kMaxSeq];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Sizes of a level's tensors in elements, in the order the resident
+// plan stacks them in shared memory: e (3), s (3), η sums (3), factors
+// (complex), then ζ weights (3) and inverse widths (3) (real).
+struct Sizes {
+  int64_t n[16];
+  __host__ __device__ Sizes(int nx, int ny, int nz) {
+    const int64_t x = nx, y = ny, z = nz;
+    const int64_t e[3] = {x * (y + 1) * (z + 1), (x + 1) * y * (z + 1),
+                          (x + 1) * (y + 1) * z};
+    for (int c = 0; c < 3; ++c) n[c] = n[3 + c] = e[c];
+    n[6] = x * (y - 1) * (z - 1);
+    n[7] = (x - 1) * y * (z - 1);
+    n[8] = (x - 1) * (y - 1) * z;
+    n[9] = 20 * (x - 1) * (y - 1) * (z - 1);
+    n[10] = (x + 1) * y * z;
+    n[11] = x * (y + 1) * z;
+    n[12] = x * y * (z + 1);
+    n[13] = x;
+    n[14] = y;
+    n[15] = z;
+  }
+  __host__ __device__ int64_t bytes() const {
+    int64_t b = 0;
+    for (int c = 0; c < 16; ++c) b += n[c] * (c < 10 ? 16 : 8);
+    return b;
+  }
+};
+
+template <int kPlan>
+__device__ __forceinline__ void step_barrier() {
+  if constexpr (kPlan == kCluster) {
+    cg::this_cluster().sync();
+  } else if constexpr (kPlan == kGrid) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int kPlan>
+__global__ void __launch_bounds__(kThreads)
+point_gs_sweep(const __grid_constant__ SweepArgs sa) {
+  extern __shared__ double2 smem[];
+  Args a = sa.a;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  const Sizes sz(a.nx, a.ny, a.nz);
+  if constexpr (kPlan == kShared) {
+    // The whole level resident: copy e, s, the η sums, the factors, the
+    // ζ weights and the inverse widths in once; from here on the steps
+    // address shared memory through the same accessors (generic
+    // pointers), so the arithmetic is that of every other plan.
+    const void* src[16] = {sa.a.ex, sa.a.ey, sa.a.ez, sa.a.sx, sa.a.sy,
+                           sa.a.sz, sa.a.stx, sa.a.sty, sa.a.stz, sa.a.fac,
+                           sa.a.wx, sa.a.wy, sa.a.wz, sa.a.ihx, sa.a.ihy,
+                           sa.a.ihz};
+    void* base[16];
+    char* dst = reinterpret_cast<char*>(smem);
+    for (int c = 0; c < 16; ++c) {
+      base[c] = dst;
+      if (c < 10) {
+        const double2* g = static_cast<const double2*>(src[c]);
+        double2* d = reinterpret_cast<double2*>(dst);
+        for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
+          cp_async16(d + i, g + i);
+        }
+        dst += sz.n[c] * 16;
+      } else {
+        const double* g = static_cast<const double*>(src[c]);
+        double* d = reinterpret_cast<double*>(dst);
+        for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
+          cp_async8(d + i, g + i);
+        }
+        dst += sz.n[c] * 8;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    a.ex = static_cast<double2*>(base[0]);
+    a.ey = static_cast<double2*>(base[1]);
+    a.ez = static_cast<double2*>(base[2]);
+    a.sx = static_cast<const double2*>(base[3]);
+    a.sy = static_cast<const double2*>(base[4]);
+    a.sz = static_cast<const double2*>(base[5]);
+    a.stx = static_cast<const double2*>(base[6]);
+    a.sty = static_cast<const double2*>(base[7]);
+    a.stz = static_cast<const double2*>(base[8]);
+    a.fac = static_cast<const double2*>(base[9]);
+    a.wx = static_cast<const double*>(base[10]);
+    a.wy = static_cast<const double*>(base[11]);
+    a.wz = static_cast<const double*>(base[12]);
+    a.ihx = static_cast<const double*>(base[13]);
+    a.ihy = static_cast<const double*>(base[14]);
+    a.ihz = static_cast<const double*>(base[15]);
+  }
+  for (int s = 0; s < sa.nseq; ++s) {
+    const Colour c = sa.col[sa.seq[s]];
+    const int64_t n = static_cast<int64_t>(c.cnx) * c.cny * c.cnz;
+    if (n == 0) continue;           // the same for every thread
+    const double2* fac = a.fac + c.off;
+    for (int64_t tid = t0; tid < n; tid += stride) {
+      node_update<true>(a, fac, n, tid, c.x0, c.y0, c.z0, c.cny, c.cnz);
+    }
+    if (s + 1 < sa.nseq) step_barrier<kPlan>();
+  }
+  if constexpr (kPlan == kShared) {
+    __syncthreads();
+    double2* out[3] = {sa.a.ex, sa.a.ey, sa.a.ez};
+    const double2* in[3] = {a.ex, a.ey, a.ez};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
+        out[c][i] = in[c][i];
+      }
+    }
+  }
+}
+
 }  // namespace
 
-// C interface, bound with ctypes by emg3d_tpu_torch/ops/point_gs.py.
-// Launches one colour step on ``stream`` and returns cudaGetLastError()
-// (0 on success).  ``blocks`` and ``threads`` come from the Python
-// launch-geometry function; the caller skips colours without nodes.
-extern "C" int emg3d_point_gs_step(
-    int factored, void* ex, void* ey, void* ez, const void* sx,
-    const void* sy, const void* sz, const void* stx, const void* sty,
-    const void* stz, const void* wx, const void* wy, const void* wz,
-    const void* ihx, const void* ihy, const void* ihz, const void* fac,
-    int nx, int ny, int nz, int x0, int y0, int z0, int cnx, int cny,
-    int cnz, int blocks, int threads, void* stream) {
+namespace {
+
+Args make_args(void* ex, void* ey, void* ez, const void* sx, const void* sy,
+               const void* sz, const void* stx, const void* sty,
+               const void* stz, const void* wx, const void* wy,
+               const void* wz, const void* ihx, const void* ihy,
+               const void* ihz, const void* fac, int nx, int ny, int nz) {
   Args a;
   a.ex = static_cast<double2*>(ex);
   a.ey = static_cast<double2*>(ey);
@@ -282,6 +478,46 @@ extern "C" int emg3d_point_gs_step(
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
+  a.x0 = a.y0 = a.z0 = 0;
+  a.cnx = a.cny = a.cnz = 0;
+  return a;
+}
+
+int grid_capacity(int threads, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, point_gs_sweep<kGrid>, threads, 0);
+  }
+  *blocks = sms * per_sm;
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// C interface, bound with ctypes by emg3d_tpu_torch/ops/point_gs.py.
+// Each launches on ``stream`` and returns a cudaError_t as int (0 on
+// success): cudaGetLastError() after the launch, or the error of a
+// launch the card refuses.  The launch geometry comes from the Python
+// plan functions.
+
+// One colour step (the ``step`` plan of K1, and K2).  ``fac`` points at
+// the colour's planes of the colour-major buffer; the caller skips
+// colours without nodes.
+extern "C" int emg3d_point_gs_step(
+    int factored, void* ex, void* ey, void* ez, const void* sx,
+    const void* sy, const void* sz, const void* stx, const void* sty,
+    const void* stz, const void* wx, const void* wy, const void* wz,
+    const void* ihx, const void* ihy, const void* ihz, const void* fac,
+    int nx, int ny, int nz, int x0, int y0, int z0, int cnx, int cny,
+    int cnz, int blocks, int threads, void* stream) {
+  if (threads > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
+                     ihy, ihz, fac, nx, ny, nz);
   a.x0 = x0;
   a.y0 = y0;
   a.z0 = z0;
@@ -294,5 +530,90 @@ extern "C" int emg3d_point_gs_step(
   } else {
     point_gs_step<false><<<blocks, threads, 0, s>>>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the grid plan that the card holds co-resident at its
+// largest blocks (kThreads threads).
+extern "C" int emg3d_point_gs_grid_capacity(int* blocks) {
+  return grid_capacity(kThreads, blocks);
+}
+
+// The whole colour sequence ``seq[0..nseq)`` of a smoothing call in one
+// launch (K1's cluster, grid and shared plans).  ``geom`` holds per
+// colour x0, y0, z0, cnx, cny, cnz; ``offs`` its offset in the factor
+// buffer.  A plan the card cannot run is refused, never replaced: a
+// cluster beyond kMaxCluster CTAs, a grid beyond the co-resident blocks,
+// shared memory beyond the block's.
+extern "C" int emg3d_point_gs_sweep(
+    int plan, void* ex, void* ey, void* ez, const void* sx, const void* sy,
+    const void* sz, const void* stx, const void* sty, const void* stz,
+    const void* wx, const void* wy, const void* wz, const void* ihx,
+    const void* ihy, const void* ihz, const void* fac, int nx, int ny,
+    int nz, const int* geom, const long long* offs, const int* seq,
+    int nseq, int blocks, int threads, int smem, void* stream) {
+  if (nseq < 1 || nseq > kMaxSeq || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SweepArgs sa;
+  sa.a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
+                   ihy, ihz, fac, nx, ny, nz);
+  for (int c = 0; c < 8; ++c) {
+    sa.col[c] = Colour{geom[6 * c], geom[6 * c + 1], geom[6 * c + 2],
+                       geom[6 * c + 3], geom[6 * c + 4], geom[6 * c + 5],
+                       static_cast<int64_t>(offs[c])};
+  }
+  sa.nseq = nseq;
+  for (int n = 0; n < kMaxSeq; ++n) {
+    if (n < nseq && (seq[n] < 0 || seq[n] > 7)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    sa.seq[n] = static_cast<signed char>(n < nseq ? seq[n] : 0);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (plan == kCluster) {
+    if (blocks > kMaxCluster || smem != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster>, sa);
+  } else if (plan == kGrid) {
+    if (smem != 0) return static_cast<int>(cudaErrorInvalidValue);
+    int cap = 0;
+    err = static_cast<cudaError_t>(grid_capacity(threads, &cap));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks > cap) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    void* args[] = {&sa};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(point_gs_sweep<kGrid>),
+        dim3(blocks, 1, 1), dim3(threads, 1, 1), args, 0, s);
+  } else if (plan == kShared) {
+    if (blocks != 1 || smem != Sizes(nx, ny, nz).bytes()) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(point_gs_sweep<kShared>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    point_gs_sweep<kShared><<<1, threads, smem, s>>>(sa);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,63 +56,99 @@ __device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
 #define WY(i, j, k) a.wy[emg3d::at(i, j, k, a.ny + 1, a.nz)]
 #define WZ(i, j, k) a.wz[emg3d::at(i, j, k, a.ny, a.nz + 1)]
 
+// The edge field e enters the residual through an accessor ``f`` with
+// members x(i, j, k), y(i, j, k), z(i, j, k) in global edge indices:
+// GlobalE reads the level's tensors (K1, K2), the residual kernel K3
+// reads a slab staged in shared memory (line_gs.cu).  The operation
+// order is the same whatever the accessor, so the results are too.
+template <class A>
+struct GlobalE {
+  const A& a;
+  __device__ __forceinline__ double2 x(int i, int j, int k) const {
+    return EX(i, j, k);
+  }
+  __device__ __forceinline__ double2 y(int i, int j, int k) const {
+    return EY(i, j, k);
+  }
+  __device__ __forceinline__ double2 z(int i, int j, int k) const {
+    return EZ(i, j, k);
+  }
+};
+
 // ζ-weighted curls on faces (stencil.curl_factors).
 // u1: x-face at x-node i of cell (j, k).
-template <class A>
-__device__ __forceinline__ double2 u1(const A& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EZ(i, j + 1, k), EZ(i, j, k)), a.ihy[j]),
-                         cscale(csub(EY(i, j, k + 1), EY(i, j, k)), a.ihz[k]));
+template <class A, class F>
+__device__ __forceinline__ double2 u1(const A& a, const F& f, int i, int j,
+                                      int k) {
+  const double2 v = csub(cscale(csub(f.z(i, j + 1, k), f.z(i, j, k)), a.ihy[j]),
+                         cscale(csub(f.y(i, j, k + 1), f.y(i, j, k)), a.ihz[k]));
   return cscale(v, WX(i, j, k));
 }
 // u2: y-face at y-node j of cell (i, k).
-template <class A>
-__device__ __forceinline__ double2 u2(const A& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EX(i, j, k + 1), EX(i, j, k)), a.ihz[k]),
-                         cscale(csub(EZ(i + 1, j, k), EZ(i, j, k)), a.ihx[i]));
+template <class A, class F>
+__device__ __forceinline__ double2 u2(const A& a, const F& f, int i, int j,
+                                      int k) {
+  const double2 v = csub(cscale(csub(f.x(i, j, k + 1), f.x(i, j, k)), a.ihz[k]),
+                         cscale(csub(f.z(i + 1, j, k), f.z(i, j, k)), a.ihx[i]));
   return cscale(v, WY(i, j, k));
 }
 // u3: z-face at z-node k of cell (i, j).
-template <class A>
-__device__ __forceinline__ double2 u3(const A& a, int i, int j, int k) {
-  const double2 v = csub(cscale(csub(EY(i + 1, j, k), EY(i, j, k)), a.ihx[i]),
-                         cscale(csub(EX(i, j + 1, k), EX(i, j, k)), a.ihy[j]));
+template <class A, class F>
+__device__ __forceinline__ double2 u3(const A& a, const F& f, int i, int j,
+                                      int k) {
+  const double2 v = csub(cscale(csub(f.y(i + 1, j, k), f.y(i, j, k)), a.ihx[i]),
+                         cscale(csub(f.x(i, j + 1, k), f.x(i, j, k)), a.ihy[j]));
   return cscale(v, WZ(i, j, k));
 }
 
 // Residual r = s − A e at one interior edge (stencil.amat_interior):
 // A e = ½·(second curl) − ¼·(η edge sum)·e.
+template <class A, class F>
+__device__ double2 res_x(const A& a, const F& f, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u3(a, f, i, j, k), a.ihy[j]),
+           cscale(u3(a, f, i, j - 1, k), a.ihy[j - 1])),
+      csub(cscale(u2(a, f, i, j, k), a.ihz[k]),
+           cscale(u2(a, f, i, j, k - 1), a.ihz[k - 1])));
+  const double2 st = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
+  const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.x(i, j, k)));
+  return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
+}
+template <class A, class F>
+__device__ double2 res_y(const A& a, const F& f, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u1(a, f, i, j, k), a.ihz[k]),
+           cscale(u1(a, f, i, j, k - 1), a.ihz[k - 1])),
+      csub(cscale(u3(a, f, i, j, k), a.ihx[i]),
+           cscale(u3(a, f, i - 1, j, k), a.ihx[i - 1])));
+  const double2 st = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
+  const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.y(i, j, k)));
+  return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
+}
+template <class A, class F>
+__device__ double2 res_z(const A& a, const F& f, int i, int j, int k) {
+  const double2 rr = csub(
+      csub(cscale(u2(a, f, i, j, k), a.ihx[i]),
+           cscale(u2(a, f, i - 1, j, k), a.ihx[i - 1])),
+      csub(cscale(u1(a, f, i, j, k), a.ihy[j]),
+           cscale(u1(a, f, i, j - 1, k), a.ihy[j - 1])));
+  const double2 st = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
+  const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.z(i, j, k)));
+  return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
+}
+
+// The same at an edge of the level's own tensors.
 template <class A>
 __device__ double2 res_x(const A& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u3(a, i, j, k), a.ihy[j]),
-           cscale(u3(a, i, j - 1, k), a.ihy[j - 1])),
-      csub(cscale(u2(a, i, j, k), a.ihz[k]),
-           cscale(u2(a, i, j, k - 1), a.ihz[k - 1])));
-  const double2 st = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EX(i, j, k)));
-  return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
+  return res_x(a, GlobalE<A>{a}, i, j, k);
 }
 template <class A>
 __device__ double2 res_y(const A& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u1(a, i, j, k), a.ihz[k]),
-           cscale(u1(a, i, j, k - 1), a.ihz[k - 1])),
-      csub(cscale(u3(a, i, j, k), a.ihx[i]),
-           cscale(u3(a, i - 1, j, k), a.ihx[i - 1])));
-  const double2 st = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
-  const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EY(i, j, k)));
-  return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
+  return res_y(a, GlobalE<A>{a}, i, j, k);
 }
 template <class A>
 __device__ double2 res_z(const A& a, int i, int j, int k) {
-  const double2 rr = csub(
-      csub(cscale(u2(a, i, j, k), a.ihx[i]),
-           cscale(u2(a, i - 1, j, k), a.ihx[i - 1])),
-      csub(cscale(u1(a, i, j, k), a.ihy[j]),
-           cscale(u1(a, i, j - 1, k), a.ihy[j - 1])));
-  const double2 st = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
-  const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), EZ(i, j, k)));
-  return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
+  return res_z(a, GlobalE<A>{a}, i, j, k);
 }
 
 }  // namespace emg3d

@@ -10,9 +10,11 @@ hand-written CUDA kernels (``csrc/line_gs.cu``):
   entries of :func:`.smoothers.pack_line_entries` (the math of
   :func:`.smoothers.factor_line_stack_`, its plain version).
 - ``line_residual`` (K3) replaces ``_kernel_res``: the residual
-  ``s − A e`` of the whole level (the math of
-  :func:`.stencil.residual_parts`, its plain version), one thread per
-  edge, into a residual buffer of the wrapper.
+  ``s − A e`` at exactly the edges the colour's Thomas step reads
+  (:func:`colour_edges`; the math of :func:`.stencil.residual_parts`,
+  restricted: :func:`residual_plain`), into a residual buffer of the
+  wrapper; blocks stage slabs of e in shared memory
+  (:func:`residual_geometry`).
 - ``line_thomas`` (K4) replaces ``_kernel_thomas``: one warp per block
   of lines of the colour runs the block-Thomas substitution along the
   lines against the factor stack, loading stations ahead into shared
@@ -20,7 +22,9 @@ hand-written CUDA kernels (``csrc/line_gs.cu``):
   :func:`.smoothers.line_thomas_x`, its plain version).
 
 K3 and K4 are launched once each per colour step, as the Pallas pair
-is; K5 once per factor stack.  y- and z-lines run the x-line kernels in
+is; K5 once per factor stack.  The residual buffer is filled with NaN
+once per smoothing call: an entry K4 read outside its colour's edges
+would show up as NaN in the result.  y- and z-lines run the x-line kernels in
 a cyclically rotated frame: the fields are transposed on the way in and
 out, and the rotated model parameters, the residual kernel's η edge
 sums and ζ face weights and the factor stack are field-independent and
@@ -31,6 +35,7 @@ call (``smoothers.line_color_steps``), for CPU tensors; for a CUDA
 tensor it launches or raises, it never falls back.
 """
 import ctypes
+import functools
 import math
 from collections import namedtuple
 
@@ -42,6 +47,7 @@ from .smoothers import NLINE
 __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
            'line_relaxation', 'line_relaxation_plain', 'residual', 'thomas',
            'launch_geometry', 'factor_geometry', 'residual_geometry',
+           'colour_edges', 'colour_edge_masks', 'residual_plain',
            'factor_bytes', 'cache_budget', 'LAUNCHES', 'reset_launches',
            'LINE_SHARE', 'SMEM_MAX']
 
@@ -54,8 +60,22 @@ LINE_SHARE = 0.5
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {'line_factor': 0, 'line_residual': 0, 'line_thomas': 0}
 
-MAX_THREADS = 256
 FACTOR_THREADS = 128
+# K3: a block owns RES_ROWS line rows × RES_LINES lines along z × a run
+# of stations, 5·rows·lines threads (csrc/line_gs.cu).  The run is the
+# longest of RES_XPLANES that still gives the colour RES_BLOCKS blocks,
+# else the shortest: a block walks its stations in sequence, so short
+# runs hide latency on small levels.  Runs of RES_STAGED stations or
+# more stage e in shared memory; shorter ones read it directly, where
+# the ring's fill latency costs more than its saved re-reads.  Timed
+# on the card at every rotated shape of sclr64 and at 256³
+# (chip_smoke.residual_plans; PERF.md §6).
+RES_ROWS = 2
+RES_LINES = 16
+RES_XPLANES = (4, 2, 1)
+RES_BLOCKS = 256
+RES_STAGED = 4
+RES_SLOTS = 4
 # K4: one warp per block and a ring of THOMAS_STAGES station slots in
 # shared memory (csrc/line_gs.cu: kWarp, kStages).  Lines per block (a
 # power of two ≤ THOMAS_WARP) are chosen so that a colour spreads over
@@ -70,6 +90,16 @@ THOMAS_ZSHARED = 96 * 1024
 SMEM_MAX = 232448          # shared memory one block may use (H100)
 _PLANES = NLINE + 5        # ring planes per slot: factors, r or e
 _PLANES_GZ = NLINE + 10    # ... and z, when z is in global memory
+
+ResidualGeometry = namedtuple('ResidualGeometry', [
+    'cy', 'cz',            # the colour's transverse parity
+    'counts',              # its lines per transverse axis
+    'rows', 'lines',       # line rows and z-lines per block
+    'xplanes',             # stations per block
+    'staged',              # e staged in shared memory (else read directly)
+    'blocks', 'threads',   # the launch (blocks == 0: no line)
+    'smem_bytes',          # dynamic shared memory per block
+])
 
 ThomasGeometry = namedtuple('ThomasGeometry', [
     'cy', 'cz',            # the colour's transverse parity
@@ -196,12 +226,83 @@ def factor(stack):
     return stack
 
 
-def residual_geometry(shape):
-    """(blocks, threads) of the residual kernel: one thread per edge."""
+def colour_edges(shape, color):
+    """The residual entries the Thomas step of ``color`` reads.
+
+    ``shape`` is the rotated-frame cell shape (lines along x); colour
+    ``cy + 2·cz`` has the lines (j, k) = (1 + cy + 2q, 1 + cz + 2r).
+    Returns, for rx, ry and rz, a triple of ``range``s (x, y, z indices)
+    whose product is the component's set: rx on the lines at every
+    station, ry(1..nx-1, j-1|j, k) and rz(1..nx-1, j, k-1|k).  The one
+    source of K3's launch geometry, of its work count and of the tests.
+    No entry lies on the PEC boundary.
+    """
     nx, ny, nz = shape
-    total = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
-             + (nx + 1) * (ny + 1) * nz)
-    return -(-total // MAX_THREADS), MAX_THREADS
+    cy, cz = color % 2, color // 2
+    cny, cnz = (ny - cy) // 2, (nz - cz) // 2
+    jl = range(1 + cy, 1 + cy + 2 * cny, 2)
+    kl = range(1 + cz, 1 + cz + 2 * cnz, 2)
+    return ((range(0, nx), jl, kl),
+            (range(1, nx), range(cy, cy + 2 * cny), kl),
+            (range(1, nx), jl, range(cz, cz + 2 * cnz)))
+
+
+def _slices(ranges):
+    return tuple(slice(r.start, r.stop, r.step) for r in ranges)
+
+
+def colour_edge_masks(shape, color, device='cpu'):
+    """Boolean masks of :func:`colour_edges` over the (rx, ry, rz)
+    shapes."""
+    nx, ny, nz = shape
+    shapes = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+              (nx + 1, ny + 1, nz))
+    out = []
+    for sh, rng in zip(shapes, colour_edges(shape, color)):
+        m = torch.zeros(sh, dtype=torch.bool, device=device)
+        m[_slices(rng)] = True
+        out.append(m)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
+                      xplanes=None, staged=None):
+    """K3's launch for one colour of a rotated level.
+
+    A block owns ``rows`` line rows × ``lines`` lines along z ×
+    ``xplanes`` stations of the colour's lines (:func:`colour_edges`)
+    and computes their edges with 5·rows·lines threads (rx, ry and rz of
+    each station: rows·lines, 2·rows·lines, 2·rows·lines), from a ring
+    of RES_SLOTS x-plane slots of e in shared memory, or (``staged``
+    False) reading e directly.  ``xplanes`` and ``staged`` default to
+    the rule of RES_XPLANES and RES_BLOCKS.  ``blocks == 0`` when the
+    colour has no line.
+    """
+    rx, _, _ = colour_edges(shape, color)
+    counts = (len(rx[1]), len(rx[2]))
+    cy, cz = color % 2, color // 2
+    threads = -(-5 * rows * lines // 32) * 32
+    if threads > 256:
+        raise ValueError(f"K3: {rows} rows × {lines} lines need "
+                         f"{5 * rows * lines} threads; a block takes 256")
+    slot = ((2 * rows + 1) * (2 * lines + 1) + 2 * rows * (2 * lines + 1)
+            + (2 * rows + 1) * 2 * lines)
+    slabs = -(-counts[0] // rows) * -(-counts[1] // lines)
+    if xplanes is None:
+        xplanes = next((x for x in RES_XPLANES
+                        if slabs * -(-shape[0] // x) >= RES_BLOCKS),
+                       RES_XPLANES[-1])
+    if staged is None:
+        staged = xplanes >= RES_STAGED
+    smem = RES_SLOTS * slot * 16 if staged else 0
+    if smem > SMEM_MAX:
+        raise ValueError(f"K3: {smem} B of shared memory per block")
+    blocks = slabs * -(-shape[0] // xplanes)
+    if counts[0] * counts[1] == 0:
+        blocks = 0
+    return ResidualGeometry(cy, cz, counts, rows, lines, xplanes,
+                            bool(staged), blocks, threads, smem)
 
 
 def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
@@ -301,22 +402,39 @@ def _cuda(t):
         raise ValueError(f"no line-relaxation kernel for {t.device}")
 
 
-def residual(e, s, state, out):
-    """``out`` ← s − A e of the rotated-frame level (K3); returns ``out``.
+def residual(e, s, state, color, out, geometry=None):
+    """``out`` ← s − A e at the edges of ``color`` (K3); returns ``out``.
 
-    ``e``, ``s``, ``out`` are rotated-frame CUDA edge tensors; the plain
-    version is :func:`.stencil.residual_parts`.
+    ``e``, ``s``, ``out`` are rotated-frame CUDA edge tensors; entries of
+    ``out`` outside :func:`colour_edges` are left as they are.
+    ``geometry`` forces a :func:`residual_geometry` (timings on the
+    card).  The plain version is :func:`residual_plain`.
     """
     _cuda(e[0])
+    g = residual_geometry(state.shape, color) if geometry is None \
+        else geometry
+    if g.blocks == 0:
+        return out
     from ._build import library
-    blocks, threads = residual_geometry(state.shape)
     err = library().emg3d_line_residual(
         *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih)),
-        *state.shape, blocks, threads, _stream(e[0].device))
+        *state.shape, g.cy, g.cz, *g.counts, g.rows, g.lines, g.xplanes,
+        int(g.staged), g.blocks, g.threads, g.smem_bytes,
+        _stream(e[0].device))
     if err != 0:
         raise RuntimeError(f"line_residual kernel launch failed: cudaError "
-                           f"{err} (shape {state.shape})")
+                           f"{err} (colour {color}, shape {state.shape})")
     LAUNCHES['line_residual'] += 1
+    return out
+
+
+def residual_plain(e, s, state, color, out):
+    """Plain version of :func:`residual`: :func:`.stencil.residual_parts`
+    copied into ``out`` at the colour's edges only."""
+    r = stencil.residual_parts(*s, *e, *state.arrays)
+    for dst, src, rng in zip(out, r, colour_edges(state.shape, color)):
+        sl = _slices(rng)
+        dst[sl] = src[sl]
     return out
 
 
@@ -403,7 +521,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
 
     CPU tensors run :func:`line_relaxation_plain`; for CUDA tensors each
     colour step is :func:`residual` (K3) then :func:`thomas` (K4), and
-    a stack the state does not cache is rebuilt by K5.  Returns ``e``.
+    a stack the state does not cache is rebuilt by K5.  The residual
+    buffer is NaN outside the edges K3 has written.  Returns ``e``.
     """
     _check(e, s, state)
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
@@ -414,10 +533,10 @@ def line_relaxation(e, s, state, nu, _seq=None):
     er = tuple(e) if a == 0 else _rotated(e, a)
     sr = _rotated(s, a)
     fac = _factors(state)
-    r = tuple(torch.empty_like(t) for t in er)
+    r = tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in er)
     zs = None if launch_geometry(state.shape, 0).z_shared else _scratch(
         state.shape, er[0])
     for color in seq:
-        residual(er, sr, state, r)
+        residual(er, sr, state, color, r)
         thomas(er, r, fac, state, color, zs)
     return _write_back(e, er, a)

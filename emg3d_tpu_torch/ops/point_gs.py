@@ -1,25 +1,32 @@
 """Point Gauss-Seidel smoother on Hopper: wrapper, state and plain version.
 
 Replaces the Pallas point smoother of ``emg3d_tpu/ops/pallas_gs.py``
-with two hand-written CUDA kernels (``csrc/point_gs.cu``, one template
-instantiated twice):
+with two hand-written CUDA kernels (``csrc/point_gs.cu``):
 
 - ``factored`` (K1) replaces ``_kernel_resident``: substitution only,
   against LDLᵀ factors built once per level and solve
-  (:func:`point_state`, the counterpart of ``pack_factors``).
+  (:func:`point_state`, the counterpart of ``pack_factors``), stored
+  colour-major (:func:`pack_factors`).  One launch runs the whole colour
+  sequence of a smoothing call, under a plan that :func:`sweep_plan`
+  picks per level: ``cluster``, ``grid`` or ``shared`` (one launch,
+  barriers between colour steps), or ``step`` (one launch per colour
+  step).
 - ``fused`` (K2) replaces ``_kernel``: assembles, factors and solves
-  each node block in registers.  The solver takes it for a level whose
-  factor stack would exceed :data:`FACTOR_SHARE` of the card's memory,
-  as the JAX package takes ``_kernel`` where ``_resident_plan`` fails.
+  each node block in registers, one launch per colour step.  The solver
+  takes it for a level whose factor stack would exceed
+  :data:`FACTOR_SHARE` of the card's memory, as the JAX package takes
+  ``_kernel`` where ``_resident_plan`` fails.
 
-One launch per colour step, one thread per active node; the kernel
-updates the field in place.  :func:`gauss_seidel_point` runs the
-kernels for CUDA tensors and the plain PyTorch version
-(:func:`gauss_seidel_point_plain`, the math of
+One thread per active node; the kernels update the field in place.
+:func:`gauss_seidel_point` runs the kernels for CUDA tensors and the
+plain PyTorch version (:func:`gauss_seidel_point_plain`, the math of
 :func:`.smoothers.gauss_seidel_point`) for CPU tensors.  For a CUDA
-tensor it launches or raises: it never falls back.
+tensor it launches or raises: it never falls back, neither to the plain
+version nor to another plan.
 """
 import ctypes
+import functools
+import math
 from collections import namedtuple
 
 import torch
@@ -27,8 +34,10 @@ import torch
 from . import smoothers, stencil
 
 __all__ = ['PointState', 'point_state', 'gauss_seidel_point',
-           'gauss_seidel_point_plain', 'launch_geometry', 'LAUNCHES',
-           'reset_launches', 'factors_fit']
+           'gauss_seidel_point_plain', 'launch_geometry', 'sweep_plan',
+           'pack_factors', 'unpack_factors', 'colour_offsets', 'LAUNCHES',
+           'STEPS', 'reset_launches', 'factors_fit', 'grid_capacity',
+           'PLANS']
 
 # Strict-lower factor entries of the 6×6 node-block LDLᵀ (fixed sparsity
 # incl. the (3,2) and (5,4) fill-in), in the plane order of the factor
@@ -42,10 +51,47 @@ NFACTORS = len(LKEYS) + 6
 # the solver uses the fused kernel on that level.
 FACTOR_SHARE = 0.25
 
-# Launches of each kernel since the last reset_launches().
+# Launches of each kernel, and the colour steps they ran, since the
+# last reset_launches().
 LAUNCHES = {'factored': 0, 'fused': 0}
+STEPS = {'factored': 0, 'fused': 0}
 
 MAX_THREADS = 256
+# K1's launch plans (csrc/point_gs.cu).  The sweep plans take the whole
+# colour sequence of a smoothing call in one launch, at most MAX_SEQ
+# colour steps (nu ≤ 8): ``cluster`` is one cluster of at most
+# MAX_CLUSTER blocks, ``grid`` a cooperative launch of at most
+# GRID_BLOCKS blocks (one per SM of an H100; no more than the card
+# holds co-resident, :func:`grid_capacity`), both with blocks of 32-256
+# threads sized to spread a colour over them; ``shared`` is one block
+# of 256 threads whose shared memory holds the whole level (at most
+# SMEM_MAX bytes).
+PLANS = ('step', 'cluster', 'grid', 'shared')
+MAX_SEQ = 64
+MAX_CLUSTER = 8
+GRID_BLOCKS = 132
+SMEM_MAX = 232448
+# The plan rule of :func:`sweep_plan`, from the times of every plan per
+# smoothing call measured on the card (chip_smoke.phase_kernels' plan
+# table; PERF.md §6): ``shared`` where the level fits a block,
+# ``cluster`` while a colour has at most CLUSTER_NODES nodes (16³),
+# ``grid`` up to STEP_NODES (64³), ``step`` above (128³: 2 % faster
+# than ``grid``, whose 132 blocks hold 8 nodes per thread there).
+CLUSTER_NODES = 512
+STEP_NODES = 131072
+# A plan name here forces that plan on every level (comparisons on the
+# card: chip_smoke.py, profile_solve.py --plan); None applies the rule.
+FORCE_PLAN = None
+_PLAN_CODE = {'cluster': 1, 'grid': 2, 'shared': 3}
+
+SweepPlan = namedtuple('SweepPlan', [
+    'plan',         # one of PLANS
+    'blocks',       # blocks of the sweep launch (0 for 'step': per colour)
+    'threads',      # threads per block
+    'smem_bytes',   # dynamic shared memory of the sweep launch
+    'launches',     # launches of the call
+    'steps',        # colour steps with nodes
+])
 
 PointState = namedtuple('PointState', [
     'shape',      # cell shape (nx, ny, nz)
@@ -53,13 +99,14 @@ PointState = namedtuple('PointState', [
     'st',         # η edge sums (stx, sty, stz), complex
     'w',          # ζ face weights (wx, wy, wz), real
     'ih',         # inverse widths (ihx, ihy, ihz), real
-    'factors',    # (20, nx-1, ny-1, nz-1) complex, or None
+    'factors',    # colour-major factors (pack_factors), or None
 ])
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        STEPS[k] = 0
 
 
 def factor_bytes(shape):
@@ -92,11 +139,74 @@ def point_state(arrays, shape, factored=True):
     ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
     factors = None
     if factored:
-        nb = tuple(n - 1 for n in shape)
         L, dinv = smoothers.node_factors(arrays)
-        planes = [L[k] for k in LKEYS] + list(dinv)
-        factors = torch.stack([torch.broadcast_to(p, nb) for p in planes])
+        factors = pack_factors([L[k] for k in LKEYS] + list(dinv), shape)
     return PointState(tuple(shape), tuple(arrays), st, w, ih, factors)
+
+
+@functools.lru_cache(maxsize=None)
+def colour_offsets(shape):
+    """Offsets of the colours in the colour-major factor buffer.
+
+    Returns ``(offs, total)``: colour c's NFACTORS planes of n_c nodes
+    each start at ``offs[c]``; ``total`` = NFACTORS × interior nodes.
+    """
+    offs, pos = [], 0
+    for c in range(8):
+        offs.append(pos)
+        pos += NFACTORS * math.prod(launch_geometry(shape, c)[1])
+    return tuple(offs), pos
+
+
+def _colour_nodes(color):
+    """Slices of the colour's nodes in a node-indexed (nx-1, ny-1, nz-1)
+    array (zero-based node i0 = ix - 1)."""
+    parity = (color % 2, (color // 2) % 2, color // 4)
+    return tuple(slice(1 - p, None, 2) for p in parity)
+
+
+def pack_factors(planes, shape):
+    """Colour-major factor buffer of a level (K1's layout).
+
+    ``planes`` are the NFACTORS node-indexed factor planes (LKEYS order,
+    then dinv), each broadcastable to ``(nx-1, ny-1, nz-1)``.  Colour
+    c's active nodes are packed in the order of the kernel's thread
+    index (z fastest), plane after plane: plane p of the colour's node t
+    sits at ``offs[c] + p·n_c + t`` (:func:`colour_offsets`).  Same
+    bytes as the node-indexed stack (:func:`factor_bytes`).
+    """
+    nb = tuple(n - 1 for n in shape)
+    planes = [torch.broadcast_to(p, nb) for p in planes]
+    dtype = functools.reduce(torch.promote_types, (p.dtype for p in planes))
+    offs, total = colour_offsets(tuple(shape))
+    out = torch.empty(total, dtype=dtype, device=planes[0].device)
+    for c in range(8):
+        counts = launch_geometry(shape, c)[1]
+        n = math.prod(counts)
+        if n == 0:
+            continue
+        sl = _colour_nodes(c)
+        out[offs[c]:offs[c] + NFACTORS * n].view(NFACTORS, *counts).copy_(
+            torch.stack([p[sl] for p in planes]))
+    return out
+
+
+def unpack_factors(flat, shape):
+    """Inverse of :func:`pack_factors`: the node-indexed stack
+    ``(NFACTORS, nx-1, ny-1, nz-1)``."""
+    nb = tuple(n - 1 for n in shape)
+    offs, total = colour_offsets(tuple(shape))
+    if tuple(flat.shape) != (total,):
+        raise ValueError(f"factors: shape {tuple(flat.shape)}, expected "
+                         f"({total},) for level {tuple(shape)}")
+    out = torch.empty((NFACTORS, *nb), dtype=flat.dtype, device=flat.device)
+    for c in range(8):
+        counts = launch_geometry(shape, c)[1]
+        n = math.prod(counts)
+        if n:
+            out[(slice(None),) + _colour_nodes(c)] = flat[
+                offs[c]:offs[c] + NFACTORS * n].view(NFACTORS, *counts)
+    return out
 
 
 def launch_geometry(shape, color):
@@ -120,8 +230,101 @@ def launch_geometry(shape, color):
     return first, counts, -(-total // threads), threads
 
 
+def _rule(shape, max_nodes):
+    if _shared_bytes(shape) <= SMEM_MAX:
+        return 'shared'
+    if max_nodes <= CLUSTER_NODES:
+        return 'cluster'
+    return 'grid' if max_nodes <= STEP_NODES else 'step'
+
+
+def _shared_bytes(shape):
+    """The shared plan's dynamic shared memory: the whole level (e, s,
+    η sums and factors complex; ζ weights and inverse widths real)."""
+    nx, ny, nz = shape
+    edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
+             + (nx + 1) * (ny + 1) * nz)
+    sums = (nx * (ny - 1) * (nz - 1) + (nx - 1) * ny * (nz - 1)
+            + (nx - 1) * (ny - 1) * nz)
+    faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
+    fac = NFACTORS * (nx - 1) * (ny - 1) * (nz - 1)
+    return 16 * (2 * edges + sums + fac) + 8 * (faces + nx + ny + nz)
+
+
+def _spread(most, max_blocks):
+    """(blocks, threads): a colour of ``most`` nodes over at most
+    ``max_blocks`` blocks of 32-256 threads, one warp per block until
+    every block has one."""
+    threads = min(MAX_THREADS, 32 * max(1, -(-most // (32 * max_blocks))))
+    return max(1, min(max_blocks, -(-most // threads))), threads
+
+
+def sweep_plan(shape, nu=None, seq=None, plan=None):
+    """K1's launch plan for one smoothing call on a level.
+
+    ``seq`` is the colour sequence (default ``color_sequence(nu)``, 8·nu
+    steps; more than MAX_SEQ raise).  ``plan`` forces one of PLANS (else
+    :data:`FORCE_PLAN`, else the rule: ``shared`` where the whole level
+    fits a block's shared memory, ``cluster`` while a colour has at most
+    CLUSTER_NODES nodes, ``grid`` up to STEP_NODES, ``step`` above).  A
+    plan the level does not admit (``shared`` beyond SMEM_MAX) raises.
+    Returns a :data:`SweepPlan`; ``launches`` is 1 for a sweep plan and
+    the number of colour steps with nodes for ``step``, whose launches
+    take their geometry from :func:`launch_geometry`.
+    """
+    seq = smoothers.color_sequence(nu) if seq is None else seq
+    return _sweep_plan(tuple(shape), tuple(seq), plan or FORCE_PLAN)
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_plan(shape, seq, plan):
+    if not 0 < len(seq) <= MAX_SEQ:
+        raise ValueError(f"{len(seq)} colour steps: the sweep takes 1 to "
+                         f"{MAX_SEQ} (nu ≤ {MAX_SEQ // 8})")
+    nodes = [math.prod(launch_geometry(shape, c)[1]) for c in seq]
+    steps = sum(1 for n in nodes if n)
+    most = max(nodes)
+    plan = plan or _rule(shape, most)
+    if plan not in PLANS:
+        raise ValueError(f"unknown sweep plan {plan!r}; one of {PLANS}")
+    blocks, threads, smem = 0, MAX_THREADS, 0
+    if plan == 'cluster':
+        blocks, threads = _spread(most, MAX_CLUSTER)
+    elif plan == 'grid':
+        blocks, threads = _spread(most, GRID_BLOCKS)
+    elif plan == 'shared':
+        blocks, smem = 1, _shared_bytes(shape)
+        if smem > SMEM_MAX:
+            raise ValueError(f"shared plan: level {shape} takes {smem} B, "
+                             f"a block holds {SMEM_MAX}")
+    if steps == 0:
+        launches = 0
+    else:
+        launches = steps if plan == 'step' else 1
+    return SweepPlan(plan, blocks, threads, smem, launches, steps)
+
+
+def plans_admitted(shape):
+    """The plans a level admits (every plan but ``shared`` beyond
+    SMEM_MAX)."""
+    return tuple(p for p in PLANS
+                 if p != 'shared' or _shared_bytes(shape) <= SMEM_MAX)
+
+
+def grid_capacity():
+    """Blocks of K1's grid plan the card holds co-resident (needs the
+    card)."""
+    from ._build import library
+    n = ctypes.c_int(0)
+    err = library().emg3d_point_gs_grid_capacity(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"point_gs grid capacity query failed: "
+                           f"cudaError {err}")
+    return n.value
+
+
 def _plain_fact(state):
-    f = state.factors
+    f = unpack_factors(state.factors, state.shape)
     return ({k: f[i] for i, k in enumerate(LKEYS)},
             [f[len(LKEYS) + i] for i in range(6)])
 
@@ -165,7 +368,7 @@ def _state_shapes(shape):
                (nx - 1, ny - 1, nz)),
         'w': ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)),
         'ih': ((nx,), (ny,), (nz,)),
-        'factors': ((NFACTORS, nx - 1, ny - 1, nz - 1),),
+        'factors': ((NFACTORS * (nx - 1) * (ny - 1) * (nz - 1),),),
     }
 
 
@@ -205,7 +408,8 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None):
+def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
+                       _plan=None):
     """nu sweeps of 8-colour point Gauss-Seidel; updates ``e`` in place.
 
     e, s : (ex, ey, ez) and (sx, sy, sz) edge tensors of the level.
@@ -214,9 +418,11 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None):
         smoke run); by default the state decides (factors present ->
         factored).
     _seq : explicit colour sequence (tests).
+    _plan : forces K1's launch plan (:func:`sweep_plan`).
 
     CPU tensors run :func:`gauss_seidel_point_plain`; CUDA tensors run
-    the kernels, one launch per colour step.  Returns ``e``.
+    the kernels: K1 under the level's :func:`sweep_plan`, K2 one launch
+    per colour step.  Returns ``e``.
     """
     _check(e, s, state)
     mode = _resolve_mode(state, _mode)
@@ -227,24 +433,70 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None):
     if e[0].device.type != 'cuda':
         raise ValueError(f"no point-smoother kernel for {e[0].device}")
 
+    if len(seq) > MAX_SEQ:
+        # Longer calls (nu > 8) run as consecutive sweeps.
+        for i in range(0, len(seq), MAX_SEQ):
+            gauss_seidel_point(e, s, state, nu, _mode=mode,
+                               _seq=seq[i:i + MAX_SEQ], _plan=_plan)
+        return tuple(e)
+
     from ._build import library
-    fn = library().emg3d_point_gs_step
-    factored = mode == 'factored'
-    fac = state.factors if factored else None
+    lib = library()
+    shape = state.shape
     ptrs = [_ptr(t) for t in (*e, *s, *state.st, *state.w, *state.ih)]
-    ptrs.append(_ptr(fac) if fac is not None else ctypes.c_void_p(0))
     with torch.cuda.device(e[0].device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    plan = sweep_plan(shape, seq=seq, plan=_plan) if mode == 'factored' \
+        else None
+    if plan is not None and plan.plan != 'step':
+        if plan.launches == 0:
+            return tuple(e)
+        geom, offs = _colour_table(shape)
+        err = lib.emg3d_point_gs_sweep(
+            _PLAN_CODE[plan.plan], *ptrs, _ptr(state.factors), *shape,
+            geom, offs, _seq_array(tuple(seq)), len(seq), plan.blocks,
+            plan.threads, plan.smem_bytes, stream)
+        if err != 0:
+            raise RuntimeError(f"point_gs sweep kernel ({plan.plan} plan) "
+                               f"launch failed: cudaError {err} (shape "
+                               f"{shape}, {plan})")
+        LAUNCHES[mode] += 1
+        STEPS[mode] += plan.steps
+        return tuple(e)
+    offs = colour_offsets(shape)[0]
     for color in seq:
-        first, counts, blocks, threads = launch_geometry(state.shape,
-                                                         color)
+        first, counts, blocks, threads = launch_geometry(shape, color)
         if blocks == 0:
             continue
-        err = fn(int(factored), *ptrs, *state.shape, *first, *counts,
-                 blocks, threads, stream)
+        if mode == 'factored':
+            fac = ctypes.c_void_p(state.factors.data_ptr() + offs[color]
+                                  * state.factors.element_size())
+        else:
+            fac = ctypes.c_void_p(0)
+        err = lib.emg3d_point_gs_step(int(mode == 'factored'), *ptrs, fac,
+                                      *shape, *first, *counts, blocks,
+                                      threads, stream)
         if err != 0:
             raise RuntimeError(f"point_gs {mode} kernel launch failed: "
                                f"cudaError {err} (colour {color}, shape "
-                               f"{state.shape})")
+                               f"{shape})")
         LAUNCHES[mode] += 1
+        STEPS[mode] += 1
     return tuple(e)
+
+
+@functools.lru_cache(maxsize=None)
+def _colour_table(shape):
+    """ctypes arrays of the sweep kernel: per colour (x0, y0, z0, cnx,
+    cny, cnz), and the colours' factor offsets (read-only to C)."""
+    geom = []
+    for c in range(8):
+        first, counts = launch_geometry(shape, c)[:2]
+        geom += [*first, *counts]
+    offs = colour_offsets(shape)[0]
+    return (ctypes.c_int * 48)(*geom), (ctypes.c_longlong * 8)(*offs)
+
+
+@functools.lru_cache(maxsize=None)
+def _seq_array(seq):
+    return (ctypes.c_int * len(seq))(*seq)

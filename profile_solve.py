@@ -2,7 +2,8 @@
 """Device profile of one warm solve of emg3d_tpu_torch on a CUDA card.
 
     python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
-                             [--ssl bicgstab|cgs] [--out DIR]
+                             [--ssl bicgstab|cgs] [--plan PLAN]
+                             [--compare-plans] [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
@@ -11,16 +12,23 @@ warm up, once more on the host clock alone, and once under
 point-smoother kernel, or runs the plain torch smoothers; by default
 the solver picks.  ``--sclr`` solves with semicoarsening and line
 relaxation (the production configuration), ``--ssl`` wraps the
-multigrid in BiCGSTAB or CGS.  Prints:
+multigrid in BiCGSTAB or CGS.  ``--plan`` forces one launch plan of
+the factored point kernel on every level (``point_gs.FORCE_PLAN``);
+``--compare-plans`` then also times warm solves with the plan forced
+to ``step`` and with ``sweep_plan``'s own choice, in turns, three each
+(host walls move between processes; compare within one).  Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
   and with the profiler;
 - device busy time, the union of the trace's kernel, memcpy and memset
   intervals, and the idle share 1 − busy / profiled wall;
-- device time and count per kernel name (top 12) and per copy kind;
-- the smoother kernels' launches of the profiled solve, and the host
-  seconds of the unprofiled warm solve spent building line states
-  (rotated parameters and block-Thomas factor stacks);
+- device time and count per kernel name (top 12) and per copy kind,
+  and the device time of the factored point kernel (K1, every plan)
+  and of the line-residual kernel (K3);
+- the smoother kernels' launches (and K1's colour steps) of the
+  profiled solve, and the host seconds of the unprofiled warm solve
+  spent building line states (rotated parameters and block-Thomas
+  factor stacks);
 - the card's name and power limit.
 
 The Chrome trace goes to ``DIR/trace.json`` (default
@@ -52,6 +60,8 @@ def main(argv=None):
     ap.add_argument('--mode', choices=('factored', 'fused', 'plain'))
     ap.add_argument('--sclr', action='store_true')
     ap.add_argument('--ssl', choices=('bicgstab', 'cgs'), default=False)
+    ap.add_argument('--plan', choices=('step', 'cluster', 'grid', 'shared'))
+    ap.add_argument('--compare-plans', action='store_true')
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
 
@@ -64,6 +74,7 @@ def main(argv=None):
     from emg3d_tpu_torch import solve
     from emg3d_tpu_torch.ops import line_gs, point_gs
 
+    point_gs.FORCE_PLAN = args.plan
     grid, model, sfield = bench_problem()
     kw = dict(cycle='F', tol=1e-6, verb=0, return_info=True,
               device='cuda', _mode=args.mode, sslsolver=args.ssl,
@@ -82,6 +93,17 @@ def main(argv=None):
         timed()
     with LineStateClock() as clock:
         wall, info = timed()
+    if args.compare_plans:
+        walls = {'step': [], 'chosen': []}
+        for _ in range(3):
+            for name, plan in (('step', 'step'), ('chosen', None)):
+                point_gs.FORCE_PLAN = plan
+                walls[name].append(timed()[0])
+        point_gs.FORCE_PLAN = args.plan
+        print("warm walls, K1 plan forced to step / sweep_plan's choice, "
+              "in turns: " + " / ".join(
+                  ", ".join(f"{w:.4f}" for w in walls[k]) for k in walls)
+              + " s")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -89,7 +111,8 @@ def main(argv=None):
     line_gs.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof, _ = timed()
-    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES,
+                'factored steps': point_gs.STEPS['factored']}
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -118,6 +141,14 @@ def main(argv=None):
     kernels = [kv for kv in ranked if not kv[0].startswith('[')]
     for name, (ms, n) in kernels[:12] + copies:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
+    # Kernel names as the trace gives them, demangled or not.
+    for label, keys in (('K1 point_gs_factored',
+                         ('point_gs_sweep', 'point_gs_step<true>',
+                          'point_gs_stepILb1')),
+                        ('K3 line_residual', ('line_residual',))):
+        hit = [v for k, v in kernels if any(s in k for s in keys)]
+        print(f"{label}: {sum(ms for ms, _ in hit):.3f} ms device time "
+              f"over {sum(n for _, n in hit)} launches")
     print(f"trace: {trace}")
     print(nvidia_smi())
     return 0

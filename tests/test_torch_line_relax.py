@@ -33,7 +33,7 @@ from emg3d_tpu.ops.pallas_lr import (line_factors,  # noqa: E402
 
 import emg3d_tpu_torch as pt  # noqa: E402
 from emg3d_tpu_torch import convert, solver  # noqa: E402
-from emg3d_tpu_torch.ops import _build, line_gs  # noqa: E402
+from emg3d_tpu_torch.ops import _build, line_gs, stencil  # noqa: E402
 from emg3d_tpu_torch.ops import smoothers as psm  # noqa: E402
 
 import torch_parity as tp  # noqa: E402
@@ -159,9 +159,106 @@ def test_launch_geometry(shape):
             # Within the factor stack's parity quarter.
             assert counts[0] <= ny // 2 and counts[1] <= nz // 2
     assert len(seen) == (ny - 1) * (nz - 1)
-    blocks, threads = line_gs.residual_geometry(shape)
-    edges = sum(np.prod(s) for s in tp.edge_shapes(shape))
-    assert blocks * threads >= edges > (blocks - 1) * threads
+    # K3: slabs of rows × lines × stations cover the colour's lines.
+    for color in range(4):
+        g = line_gs.residual_geometry(shape, color)
+        assert g.counts == line_gs.launch_geometry(shape, color).counts
+        assert g.threads % 32 == 0 and g.threads <= 256
+        assert g.threads >= 5 * g.rows * g.lines
+        slabs = [-(-n // d) for n, d in zip(
+            (*g.counts, shape[0]), (g.rows, g.lines, g.xplanes))]
+        assert g.blocks == (np.prod(slabs) if np.prod(g.counts) else 0)
+        assert g.smem_bytes <= line_gs.SMEM_MAX
+        assert g.staged == (g.xplanes >= line_gs.RES_STAGED) == (
+            g.smem_bytes > 0)
+
+
+@pytest.mark.parametrize('axis', [0, 1, 2])
+@pytest.mark.parametrize('shape', [(3, 3, 3), (7, 5, 9), (9, 7, 9),
+                                   (8, 8, 8)])
+def test_colour_edges_complete(shape, axis):
+    """Line relaxation whose residual holds only the colour's edges
+    (``line_gs.colour_edges``) and NaN everywhere else equals the JAX
+    package's: the Thomas step of a colour reads no other entry."""
+    par, e, s = _inputs(shape, seed=sum(shape) + axis)
+    ref = _j_lr(*tp.to_jax(e), *tp.to_jax(s), *tp.to_jax(par), nu=1,
+                axis=axis)
+    state = line_gs.line_state(convert.params_to_torch(par), shape, axis)
+    er = line_gs._rotated(_t(e), axis)
+    sr = line_gs._rotated(_t(s), axis)
+    for color in psm.line_color_sequence(1):
+        r = tuple(torch.full_like(t, complex(np.nan, np.nan)) for t in er)
+        line_gs.residual_plain(er, sr, state, color, r)
+        masks = line_gs.colour_edge_masks(state.shape, color)
+        for t, m in zip(r, masks):
+            assert bool(torch.isfinite(t[m]).all())
+            assert bool(torch.isnan(t[~m]).all())
+        er = psm.line_thomas_x(er, r, state.factors, color)
+    out = psm.unrotate_fields(er, axis)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert tp.rel(out, ref) < TOL
+
+
+def _colour_work_brute(shape, color):
+    """colour_residual_work counted edge by edge from the stencil."""
+    ex, ey, ez, f1, f2, f3 = (set() for _ in range(6))
+    rx, ry, rz = line_gs.colour_edges(shape, color)
+    n = 0
+    for comp, rng in enumerate((rx, ry, rz)):
+        for i in rng[0]:
+            for j in rng[1]:
+                for k in rng[2]:
+                    n += 1
+                    if comp == 0:       # u3(i,j|j-1,k), u2(i,j,k|k-1)
+                        f3 |= {(i, j, k), (i, j - 1, k)}
+                        f2 |= {(i, j, k), (i, j, k - 1)}
+                    elif comp == 1:     # u1(i,j,k|k-1), u3(i|i-1,j,k)
+                        f1 |= {(i, j, k), (i, j, k - 1)}
+                        f3 |= {(i, j, k), (i - 1, j, k)}
+                    else:               # u2(i|i-1,j,k), u1(i,j|j-1,k)
+                        f2 |= {(i, j, k), (i - 1, j, k)}
+                        f1 |= {(i, j, k), (i, j - 1, k)}
+    for i, j, k in f1:
+        ez |= {(i, j, k), (i, j + 1, k)}
+        ey |= {(i, j, k), (i, j, k + 1)}
+    for i, j, k in f2:
+        ex |= {(i, j, k), (i, j, k + 1)}
+        ez |= {(i, j, k), (i + 1, j, k)}
+    for i, j, k in f3:
+        ey |= {(i, j, k), (i + 1, j, k)}
+        ex |= {(i, j, k), (i, j + 1, k)}
+    reads = len(ex) + len(ey) + len(ez)
+    return 3 * n * 16 + reads * 16 + (len(f1) + len(f2) + len(f3)) * 8, \
+        n * 76
+
+
+@pytest.mark.parametrize('shape', [(3, 3, 3), (7, 5, 9), (4, 6, 5)])
+def test_colour_residual_work(shape):
+    import chip_smoke
+    for color in range(4):
+        work = chip_smoke.colour_residual_work(shape, color)
+        assert work == _colour_work_brute(shape, color)
+        assert work[0] < chip_smoke.residual_work(shape)[0]
+        # No colour edge lies on the PEC boundary (where r = s).
+        mx, my, mz = line_gs.colour_edge_masks(shape, color)
+        for m, axes in ((mx, (1, 2)), (my, (0, 2)), (mz, (0, 1))):
+            for ax in axes:
+                assert not bool(m.select(ax, 0).any())
+                assert not bool(m.select(ax, -1).any())
+
+
+def test_residual_plain_restricted():
+    shape = (7, 5, 9)
+    par, e, s = _inputs(shape, seed=4)
+    state = line_gs.line_state(convert.params_to_torch(par), shape, 0)
+    full = stencil.residual_parts(*_t(s), *_t(e), *state.arrays)
+    for color in range(4):
+        out = tuple(torch.zeros_like(t) for t in full)
+        line_gs.residual_plain(_t(e), _t(s), state, color, out)
+        for o, f, m in zip(out, full,
+                           line_gs.colour_edge_masks(shape, color)):
+            assert torch.equal(o[m], f[m])
+            assert not bool(o[~m].any())
 
 
 def _sclr_problem(n=8):
@@ -219,8 +316,8 @@ def test_kernel_entry_points_refuse_cpu(monkeypatch):
     state = line_gs.line_state(convert.params_to_torch(par), shape, 0)
     et, st = _t(e), _t(s)
     with pytest.raises(ValueError, match='no line-relaxation kernel'):
-        line_gs.residual(et, st, state, tuple(torch.empty_like(t)
-                                              for t in et))
+        line_gs.residual(et, st, state, 0, tuple(torch.empty_like(t)
+                                                 for t in et))
     with pytest.raises(ValueError, match='no line-relaxation kernel'):
         line_gs.thomas(et, st, state.factors, state, 0)
 
