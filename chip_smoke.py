@@ -16,18 +16,24 @@ Phases:
    limit);
 2. kernel build, timed, with ptxas' register/spill report;
 3. each point kernel against its plain version on the same card, at
-   (2,2,2), (4,4,4), (7,5,9), 8³, 16³, 32³, 64³ and 128³: every single
+   (2,2,2), (4,4,4), (7,5,9), 8³, 16³, 32³, 64×48×48, 64³ and 128³:
+   every single
    colour step and a full nu=3 sweep, each run twice (must be bitwise
    equal), within max|Δ| ≤ 1e-12·max|e| (fp64, a different summation
-   order); the factored kernel under every launch plan its level
-   admits (``point_gs.sweep_plan``), each bitwise equal to its
-   ``step`` plan; the table of ms per nu=3 smoothing call by plan and
-   level, the readings behind ``sweep_plan``'s rule; median time per
-   colour step at 64³, kernel beside plain;
+   order); K1 and K2 under every launch plan their levels admit
+   (``point_gs.sweep_plan``), each bitwise equal to the kernel's
+   ``step`` plan, and K2 from its packed node data and from direct
+   reads of st and w, bitwise equal; the table of ms per nu=3
+   smoothing call by kernel, plan and level, the readings behind
+   ``sweep_plan``'s and ``point_gs.point_kernel``'s rules; ms per
+   colour step at 64³ under each kernel's chosen plan, beside plain;
+   the step plan of both kernels at 256³ and of K2 at 512×384×384
+   (packed and direct), ms per colour step beside the bound;
 3b. the line kernels the same way, at (3,3,3), (7,5,9), (9,7,9) and
-   64³, lines along x, y and z: the factor kernel against
-   ``smoothers.line_factor_stack`` plane by plane (run twice, bitwise
-   equal), the residual kernel for each of the four colours against
+   64³, lines along x, y and z: the factor kernel (which assembles its
+   station blocks from the line state's η sums, ζ weights and widths)
+   against ``smoothers.line_factor_stack`` plane by plane (all 23; run
+   twice, bitwise equal), the residual kernel for each of the four colours against
    ``line_gs.residual_plain`` (``stencil.residual_parts`` restricted to
    ``line_gs.colour_edges``) into a NaN-filled buffer (twice, bitwise
    equal; every entry off the colour's edges must stay NaN), the
@@ -35,20 +41,25 @@ Phases:
    residual, every colour step through the wrapper (twice, bitwise
    equal; its residual buffer NaN-filled, the result finite) and a
    nu=2 sweep against the plain version; median ms per launch at 64³
-   and the residual kernel under several slab geometries; then at
-   256³, lines along x, the three kernels alone against their plain
-   versions, with ms per launch; and the Thomas kernel under every
-   launch plan (1-32 lines per block, z in shared or global memory) at
-   64³, PLAN_SHAPE and 256³, colours 0 and 3, each twice (bitwise
-   equal) against the plain version and timed;
+   and the residual kernel under several slab geometries; the factor
+   kernel under every block size (32-256 threads, one line each;
+   bitwise equal) at 64³, sclr64's rotated levels,
+   PLAN_SHAPE and 256³ (``factor_plans``); then at 256³, lines along x,
+   the three kernels alone against their plain versions, with ms per
+   launch; and the Thomas kernel under every launch plan (1-32 lines
+   per block, z in shared or global memory) at 64³, PLAN_SHAPE and
+   256³, colours 0 and 3, each twice (bitwise equal) against the plain
+   version and timed;
 4. the point path: the default solve of that configuration, CONVERGED,
-   with the factored kernel's launches equal to the number enumerated
-   on the CPU from ``sweep_plan`` (:func:`point_cycle_calls`, per
-   cycle) times ``it_mg``, and of the same fullspace on the smallest of
+   with each point kernel's launches and colour steps equal to the
+   numbers enumerated from ``point_kernel`` and ``sweep_plan`` over the
+   solver's own cycle (:func:`point_cycle_calls`, per cycle) times
+   ``it_mg``, and the same for the fullspace on the smallest of
    LARGE_SHAPES whose finest-level factor stack does not fit the
-   card's FACTOR_SHARE, so that the solver takes the fused kernel there
-   and the factored one below; then a warm second solve at 64³;
-5. the 64³ solve with the fused kernel pinned: same it_mg, field
+   card's FACTOR_SHARE (K2 there whatever the rule says); then a warm
+   second solve at 64³;
+5. the 64³ solve twice more, with K1 and with K2 pinned on every
+   level (64³ down to 2³, each under its own plans): same it_mg, field
    within a relative 1e-9 of phase 4;
 6. a heterogeneous tri-axial model on stretched 64×48×40 cells, solved
    through the kernels and through the plain torch path on the card:
@@ -68,9 +79,12 @@ Phases:
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
 solves of phase 7 and read just after them: those counts are
-``launches`` in the result line; the factored kernel also reports the
-colour ``steps`` those launches ran and the ``plan`` it runs at 64³.
-Phase 5's pinned solve is counted apart (``pinned_launches``).  Each
+``launches`` in the result line; each point kernel also reports the
+colour ``steps`` those launches ran and the ``plan`` it runs at 64³,
+K2 its step plan at 512×384×384 (``ms_large``, ``bound_ms_large``), K5
+the bound of the packed-entry design beside its own
+(``bound_ms_packed``).
+Phase 5's pinned solves are counted apart (``pinned_launches``).  Each
 kernel's ``bound_ms`` is the least time the card could take for the
 timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
 TFLOP/s, whichever is larger), counted from the call's shapes by the
@@ -94,7 +108,7 @@ import numpy as np
 TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
 TOL_SOLVE = 1e-9       # relative field difference between two solves
 SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (8, 8, 8), (16, 16, 16),
-          (32, 32, 32), (64, 64, 64), (128, 128, 128))
+          (32, 32, 32), (64, 48, 48), (64, 64, 64), (128, 128, 128))
 # K3's slab geometries timed at 64³ and 256³: (line rows, z-lines,
 # stations) per block, e staged in shared memory or read directly.
 RES_GEOMETRIES = ((2, 16, 1, False), (2, 16, 2, False), (2, 16, 4, False),
@@ -121,8 +135,14 @@ KERNELS = {
     'line_thomas': dict(name='line_thomas', source=LINE_SRC,
                         replaces='emg3d_tpu/ops/pallas_lr.py:885'),
     'line_factor': dict(name='line_factor', source=LINE_SRC,
-                        replaces='emg3d_tpu/ops/blocksolve.py:305'),
+                        replaces='emg3d_tpu/ops/pallas_lr.py:356'),
 }
+# The point kernels' step plan timed at sizes beyond SHAPES: 256³ (both
+# kernels) and the finest level of the 512×384×384 hierarchy (K2 only:
+# K1's factors there exceed FACTOR_SHARE of the card).
+POINT_LARGE = ((256, 256, 256), (512, 384, 384))
+# K5's block sizes (threads, one line each) timed by factor_plans.
+FACTOR_BLOCKS = (32, 64, 128, 256)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): memory
 # bandwidth, and fp64 outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -222,6 +242,34 @@ def _level(shape, seed, device, factored=True):
     return state, rand(), rand()
 
 
+def _level_fast(shape, seed, device, factored=True):
+    """Level tensors of a random stretched anisotropic model, made on
+    the card (the sizes where numpy on the host would take minutes):
+    η = −iωμ0·V·σ at 1 Hz, ζ = V, widths 50-150 m, σ 1/30-1/0.3 S/m."""
+    import torch
+    from emg3d_tpu_torch.ops import point_gs
+    g = torch.Generator(device=device).manual_seed(seed)
+    real = dict(dtype=torch.float64, device=device, generator=g)
+
+    def uni(lo, hi, *sh):
+        return lo + (hi - lo) * torch.rand(*sh, **real)
+    h = [uni(50, 150, n) for n in shape]
+    vol = h[0][:, None, None] * h[1][None, :, None] * h[2][None, None, :]
+    smu0 = -2j * math.pi * 4e-7 * math.pi
+    eta = tuple(smu0 * vol / uni(0.3, 30, *shape) for _ in range(3))
+    arrays = eta + (vol, *h)
+    nx, ny, nz = shape
+    edges = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+             (nx + 1, ny + 1, nz))
+
+    def rand():
+        return tuple(torch.complex(torch.randn(*sh, **real),
+                                   torch.randn(*sh, **real))
+                     for sh in edges)
+    state = point_gs.point_state(arrays, shape, factored=factored)
+    return state, rand(), rand()
+
+
 def _maxdiff(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
@@ -245,11 +293,12 @@ def bound(nbytes, flops):
 def point_work(shape, mode):
     """(bytes, flops) of one point colour step, the mean of 8 colours.
 
-    Per active node: the six block edges' e read and written, s and η
-    edge sums read, and 20 factors (K1) or 12 ζ face weights (K2).  The
-    residual stencil's other e values are not counted (so the bound is
-    low).  ~730 FLOP per node (six edge residuals, the 6×6
-    substitution); K2 ~1590 with the block's assembly and LDLᵀ.
+    Per active node: the six block edges' e read and written, s read,
+    and 20 factors (K1, 704 B a node with the six η sums it reads) or
+    its six η sums and twelve ζ face weights (K2, 480 B).  The residual
+    stencil's other e values are not counted (so the bound is low).
+    ~730 FLOP per node (six edge residuals, the 6×6 substitution); K2
+    ~1590 with the block's assembly and LDLᵀ.
     """
     from emg3d_tpu_torch.ops import point_gs
     nodes = sum(int(np.prod(point_gs.launch_geometry(shape, c)[1]))
@@ -318,11 +367,25 @@ def thomas_work(shape, color):
 
 
 def factor_work(shape):
-    """(bytes, flops) of K5 on the stack of a rotated level: per line of
-    the four parities 13 D planes read and 15 factor planes written at
-    station 0, 21 read and 15 written at the others; ~430 FLOP at
-    station 0 (the LDLᵀ), ~1550 at the others (five solves with
-    C_{i-1}, the update of C_i, its LDLᵀ)."""
+    """(bytes, flops) of K5 on a rotated level: the η sums, ζ weights
+    and inverse widths of the level read once, and the 23 planes of
+    every line-station written once; ~430 FLOP at station 0 (the LDLᵀ),
+    ~1550 at the others (five solves with C_{i-1}, the update of C_i,
+    its LDLᵀ), ~100 for each station's assembly."""
+    nx, ny, nz = shape
+    lines = 4 * (ny // 2) * (nz // 2)
+    sums = (nx * (ny - 1) * (nz - 1) + (nx - 1) * ny * (nz - 1)
+            + (nx - 1) * (ny - 1) * nz)
+    faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
+    return ((sums * 16 + (faces + nx + ny + nz) * 8
+             + lines * nx * 23 * 16),
+            lines * (430 + 1550 * (nx - 1) + 100 * nx))
+
+
+def factor_work_packed(shape):
+    """(bytes, flops) of the first K5 design (on packed entries): per
+    line 13 packed D planes read and 15 factor planes written at station
+    0, 21 read and 15 written at the others."""
     nx, ny, nz = shape
     lines = 4 * (ny // 2) * (nz // 2)
     return (lines * (28 + 36 * (nx - 1)) * 16,
@@ -377,23 +440,44 @@ def _sweep(torch, gs, e0, s, state, nu, mode, plan=None, seq=None):
     return outs[0]
 
 
-def phase_kernels(torch, results, shapes=SHAPES):
-    """K1 under every plan its levels admit, and K2, against the plain
-    version; K1's plans bitwise equal to its step plan; the plan table
-    (ms per nu=3 smoothing call)."""
+def _variants(state, mode):
+    """The states a kernel runs from: K1's; K2's with packed node data
+    (packed here on every level, also where ``point_state`` packs none
+    because the level's plan reads st and w) and without it (st and w
+    read directly)."""
+    from emg3d_tpu_torch.ops import point_gs
+    if mode == 'factored':
+        return {'': state}
+    nodes = state.nodes
+    if nodes is None:
+        nodes = point_gs.pack_node_data(state.st, state.w, state.shape)
+    return {'packed': state._replace(nodes=nodes),
+            'direct': state._replace(nodes=None)}
+
+
+def phase_kernels(torch, results, shapes=SHAPES, large=POINT_LARGE):
+    """K1 and K2 under every plan their levels admit, against the plain
+    version; each plan bitwise equal to the kernel's step plan, K2's
+    packed node data bitwise equal to direct reads; the plan table (ms
+    per nu=3 smoothing call) behind sweep_plan and point_kernel; the
+    step plan at POINT_LARGE."""
     from emg3d_tpu_torch.ops import point_gs
     dev = torch.device('cuda')
     gs = point_gs.gauss_seidel_point
-    log(f"point_gs grid plan: {point_gs.grid_capacity()} co-resident "
-        f"blocks (GRID_BLOCKS {point_gs.GRID_BLOCKS})")
-    if point_gs.grid_capacity() < point_gs.GRID_BLOCKS:
-        raise AssertionError("GRID_BLOCKS exceeds the co-resident blocks")
+    for code in ('factored', 'fused', 'fused_packed'):
+        cap = point_gs.grid_capacity(code)
+        log(f"point_gs grid plan, {code}: {cap} co-resident blocks "
+            f"(GRID_BLOCKS {point_gs.GRID_BLOCKS})")
+        if cap < point_gs.GRID_BLOCKS:
+            raise AssertionError("GRID_BLOCKS exceeds the co-resident "
+                                 "blocks")
     table = {}
     for shape in shapes:
-        state, e0, s = _level(shape, seed=sum(shape), device=dev)
         for mode in POINT_MODES:
-            plans = point_gs.plans_admitted(shape) if mode == 'factored' \
-                else (None,)
+            state, e0, s = _level(shape, seed=sum(shape), device=dev,
+                                  factored=mode == 'factored')
+            plans = point_gs.plans_admitted(shape, mode)
+            variants = _variants(state, mode)
             errs = []
             # Single colours, a nu=3 call and, at 8³, nu=9: more colour
             # steps than one sweep launch takes (consecutive launches).
@@ -404,72 +488,134 @@ def phase_kernels(torch, results, shapes=SHAPES):
                 ref = tuple(t.clone() for t in e0)
                 point_gs.gauss_seidel_point_plain(ref, s, state, nu,
                                                   _mode=mode, _seq=seq)
-                outs = {p: _sweep(torch, gs, e0, s, state, nu, mode, p, seq)
-                        for p in plans}
-                base = outs[plans[0]]
-                for p, out in outs.items():
-                    if not all(torch.equal(a, b) for a, b in zip(out, base)):
-                        raise AssertionError(
-                            f"{mode} {shape} seq {seq}: plan {p} differs "
-                            f"from plan {plans[0]}")
+                base = None
+                for v, st in variants.items():
+                    for p in plans:
+                        out = _sweep(torch, gs, e0, s, st, nu, mode, p, seq)
+                        if base is None:
+                            base = out       # the step plan, first variant
+                        elif not all(torch.equal(a, b)
+                                     for a, b in zip(out, base)):
+                            raise AssertionError(
+                                f"{mode} {shape} seq {seq}: plan {p} {v} "
+                                f"differs from the step plan")
                 errs.append((_maxdiff(base, ref), _maxabs(ref)))
             abs_err = max(a for a, _ in errs)
             worst = max(a / m for a, m in errs)
             nus = ', '.join(f"nu={nu}" for nu, seq in calls if seq is None)
+            what = ' and '.join(variants) if mode == 'fused' else ''
             log(f"{KERNELS[mode]['name']} {shape}: max|Δ|/max|e| "
                 f"{worst:.3e} (single colours, {nus}; plans "
-                f"{', '.join(map(str, plans))} bitwise equal; repeat "
-                f"bitwise equal)")
+                f"{', '.join(plans)}{' ' + what if what else ''} bitwise "
+                f"equal to the step plan; repeat bitwise equal)")
             if not worst <= TOL_KERNEL:
                 raise AssertionError(f"{mode} {shape}: {worst:.3e} > "
                                      f"{TOL_KERNEL}")
             res = results.setdefault(mode, {'max_abs_err': 0.0})
             res['max_abs_err'] = max(res['max_abs_err'], abs_err)
-            if mode == 'factored':
-                ek = tuple(t.clone() for t in e0)
-                for p in plans:
-                    table[shape, p] = _time_steps(
-                        torch, lambda: gs(ek, s, state, 3, _plan=p),
-                        reps=20, per=1)
+            ek = tuple(t.clone() for t in e0)
+            first = next(iter(variants.values()))   # K1's, K2's packed
+            for p in plans:
+                table[shape, mode, p] = _time_steps(
+                    torch, lambda: gs(ek, s, first, 3, _mode=mode, _plan=p),
+                    reps=20, per=1)
+            if mode == 'fused' and shape == shapes[-1]:
+                # Packed node data against direct reads, chosen plan.
+                direct = variants['direct']
+                ms = _time_steps(torch, lambda: gs(ek, s, direct, 3),
+                                 reps=20, per=1)
+                pick = point_gs.sweep_plan(shape, 3, kernel=mode).plan
+                log(f"point_gs_fused {shape}, {pick} plan, ms per nu=3 "
+                    f"call: packed node data {table[shape, mode, pick]:.4f}"
+                    f", direct reads {ms:.4f}")
+                res['ms_direct_128'] = ms / 24
             if shape == (64, 64, 64):
                 _time_point_64(torch, res, mode, state, e0, s)
-        del state, e0, s
+            del state, e0, s, variants, ek
+    _plan_table(table, shapes)
+    for shape in large:
+        _time_point_large(torch, results, shape, dev)
+
+
+def _plan_table(table, shapes):
+    """Log the table of ms per nu=3 call by kernel, plan and level."""
+    from emg3d_tpu_torch.ops import point_gs
     plans = point_gs.PLANS
-    log("K1 ms per nu=3 smoothing call (24 colour steps), by plan; * = "
-        "sweep_plan's choice:")
-    log("  shape          " + "".join(f"{p:>10}" for p in plans))
+    log("ms per nu=3 smoothing call (24 colour steps), by kernel and plan;"
+        " * = sweep_plan's choice; K = point_kernel's kernel on this card:")
+    log("  shape          kernel  " + "".join(f"{p:>10}" for p in plans))
     for shape in shapes:
-        pick = point_gs.sweep_plan(shape, 3).plan
-        cells = [f"{table[shape, p]:9.4f}{'*' if p == pick else ' '}"
-                 if (shape, p) in table else f"{'-':>9} " for p in plans]
-        log(f"  {'x'.join(map(str, shape)):14} " + "".join(cells))
-    results['factored']['plan_ms'] = {
-        f"{'x'.join(map(str, sh))}/{p}": v for (sh, p), v in table.items()}
+        for mode, name in zip(POINT_MODES, ('K1', 'K2')):
+            pick = point_gs.sweep_plan(shape, 3, kernel=mode).plan
+            cells = [f"{table[shape, mode, p]:9.4f}"
+                     f"{'*' if p == pick else ' '}"
+                     if (shape, mode, p) in table else f"{'-':>9} "
+                     for p in plans]
+            k = 'K' if point_gs.point_kernel(shape, 'cuda') == mode else ' '
+            log(f"  {'x'.join(map(str, shape)):14} {name} {k}    "
+                + "".join(cells))
 
 
 def _time_point_64(torch, res, mode, state, e0, s):
-    """ms per colour step at 64³: the kernel (K1 under its chosen plan,
-    per nu=3 call / 24) beside the plain version."""
+    """ms per colour step at 64³ under the kernel's chosen plan (per
+    nu=3 call / its steps), beside the plain version."""
     from emg3d_tpu_torch.ops import point_gs
     ek = tuple(t.clone() for t in e0)
     ep = tuple(t.clone() for t in e0)
-    if mode == 'factored':
-        plan = point_gs.sweep_plan(state.shape, 3)
-        res['plan'] = plan.plan
-        res['ms'] = _time_steps(torch, lambda: point_gs.gauss_seidel_point(
-            ek, s, state, 3), reps=20, per=plan.steps)
-    else:
-        seq = tuple(range(8))
-        res['ms'] = _time_steps(torch, lambda: point_gs.gauss_seidel_point(
-            ek, s, state, 1, _mode=mode, _seq=seq))
+    plan = point_gs.sweep_plan(state.shape, 3, kernel=mode)
+    res['plan'] = plan.plan
+    res['ms'] = _time_steps(torch, lambda: point_gs.gauss_seidel_point(
+        ek, s, state, 3, _mode=mode), reps=20, per=plan.steps)
     res['plain_ms'] = _time_steps(torch, lambda: point_gs.
                                   gauss_seidel_point_plain(
                                       ep, s, state, 1, _mode=mode,
                                       _seq=tuple(range(8))))
     res.update(bound(*point_work(state.shape, mode)))
     log(f"{KERNELS[mode]['name']} 64³: {res['ms']:.4f} ms per colour "
-        f"step; plain torch {res['plain_ms']:.4f} ms; bound "
-        f"{res['bound_ms']:.4f} ms")
+        f"step ({plan.plan} plan); plain torch {res['plain_ms']:.4f} ms; "
+        f"bound {res['bound_ms']:.4f} ms")
+
+
+def _time_point_large(torch, results, shape, dev):
+    """The step plan at a large level: ms per colour step (one nu=1
+    call, 8 steps), bound and share; K2 with packed node data and with
+    direct reads (bitwise equal), K1 where its factors fit."""
+    from emg3d_tpu_torch.ops import point_gs
+    gs = point_gs.gauss_seidel_point
+    key = 'large' if shape == POINT_LARGE[-1] else 'x'.join(map(str, shape))
+    for mode in POINT_MODES:
+        if mode == 'factored' and not point_gs.factors_fit(shape, dev):
+            continue
+        state, e, s = _level_fast(shape, seed=11, device=dev,
+                                  factored=mode == 'factored')
+        bnd = bound(*point_work(shape, mode))['bound_ms']
+        for v, st in _variants(state, mode).items():
+            if mode == 'fused':
+                outs = [_clone(e) for _ in range(2)]
+                gs(outs[0], s, st, 1, _mode=mode, _seq=(0,), _plan='step')
+                gs(outs[1], s, state._replace(nodes=None), 1, _mode=mode,
+                   _seq=(0,), _plan='step')
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(f"fused {shape}: packed node data "
+                                         f"differs from direct reads")
+                del outs
+            ek = _clone(e)
+            ms = _time_steps(torch, lambda: gs(ek, s, st, 1, _mode=mode,
+                                               _plan='step'),
+                             reps=5, per=8, warm=1)
+            log(f"{KERNELS[mode]['name']} {shape}{' ' + v if v else ''}, "
+                f"step plan: {ms:.4f} ms per colour step, bound "
+                f"{bnd:.4f} ms (bytes), {bnd / ms:.0%} of it")
+            res = results[mode]
+            if v in ('', 'packed'):
+                res[f'ms_{key}'] = ms
+                res[f'bound_ms_{key}'] = bnd
+            else:
+                res[f'ms_direct_{key}'] = ms
+            del ek
+        del state, e, s
+        torch.cuda.empty_cache()
 
 
 def _clone(f):
@@ -503,15 +649,62 @@ def _check_stack(shape, got, ref):
     return worst, max(d)
 
 
-def _factor_twice(torch, st):
-    """K5 twice on the packed entries of a state; bitwise equal."""
-    from emg3d_tpu_torch.ops import line_gs, smoothers
-    outs = [line_gs.factor(smoothers.pack_line_entries(st.arrays, st.shape))
+def _factor_twice(torch, st, geometry=None):
+    """K5 twice on a line state's parameters; bitwise equal."""
+    from emg3d_tpu_torch.ops import line_gs
+    outs = [line_gs.factor(st.st, st.w, st.ih, st.shape, geometry)
             for _ in range(2)]
     torch.cuda.synchronize()
     if not torch.equal(*outs):
         raise AssertionError(f"line_factor {st.shape}: two runs differ")
     return outs[0]
+
+
+def factor_plans(torch, res, st, ref=None, reps=10, threads=FACTOR_BLOCKS):
+    """K5 under each block size on the line state ``st``: each twice
+    bitwise equal and bitwise equal to the chosen geometry (and, given
+    ``ref``, within TOL_KERNEL of it), timed (ms per stack)."""
+    from emg3d_tpu_torch.ops import line_gs
+    shape = st.shape
+    pick = line_gs.factor_geometry(shape)
+    base = _factor_twice(torch, st)
+    if ref is not None:
+        _check_stack(shape, base, ref)
+    cells = []
+    for n in threads:
+        g = line_gs.factor_geometry(shape, n)
+        if not torch.equal(_factor_twice(torch, st, g), base):
+            raise AssertionError(f"line_factor {shape}: geometry {g} "
+                                 f"differs from {pick}")
+        ms = _time_steps(torch, lambda: line_gs.factor(
+            st.st, st.w, st.ih, shape, g), reps=reps, per=1)
+        cells.append(f"{n}{'*' if g == pick else ''} {ms:.4f}")
+    log(f"line_factor {'x'.join(map(str, shape))} ({pick.lines} lines), ms "
+        f"per stack by threads per block (* = factor_geometry's choice; "
+        f"all bitwise equal): " + ", ".join(cells))
+    del base
+
+
+def line_stack_shapes(shape):
+    """The rotated shapes of the line states that an sc+lr solve of a
+    ``shape`` fullspace builds (the solver's sc/lr schedule, by
+    shapes)."""
+    from emg3d_tpu_torch import solver
+    from emg3d_tpu_torch.ops import smoothers
+    var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
+                              shape_cells=shape, **SCLR)
+    out = set()
+    for sc, lr in zip(var._raw_sc_cycle, var._raw_lr_cycle):
+        shapes = [tuple(shape)]
+        for _ in range(int(var.clevel[sc])):
+            flags = solver._coarsen_flags(solver._current_sc_dir(
+                sc, shapes[-1]))
+            shapes.append(tuple(n // 2 if f else n
+                                for n, f in zip(shapes[-1], flags)))
+        for sh in shapes:
+            for ax in solver._lr_axes(solver._current_lr_dir(lr, sh)):
+                out.add((sh, ax))
+    return sorted(out)
 
 
 def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
@@ -525,7 +718,8 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
         errs = {'line_residual': [], 'line_thomas': []}
         for axis in range(3):
             st = line_gs.line_state(pstate.arrays, shape, axis)
-            # K5 against the plain elimination on the same card.
+            # K5 against the plain elimination on the same card, all 23
+            # planes.
             ref = smoothers.line_factor_stack(st.arrays, st.shape)
             fk = _factor_twice(torch, st)
             if not torch.equal(fk, st.factors):
@@ -578,10 +772,21 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
         for k, v in errs.items():
             res[k]['max_abs_err'] = max(res[k]['max_abs_err'],
                                         _check_kernel(k, shape, v))
+    # K5's geometries at sclr64's rotated levels (4-64 stations, 256-4096
+    # lines).
+    for rs in sorted({smoothers.rotate_shape(sh, ax)
+                      for sh, ax in line_stack_shapes((64, 64, 64))}):
+        pstate, _, _ = _level(rs, seed=sum(rs), device=dev, factored=False)
+        st = line_gs.line_state(pstate.arrays, rs, 0, factors=False)
+        factor_plans(torch, res['line_factor'], st,
+                     ref=smoothers.line_factor_stack(st.arrays, st.shape),
+                     reps=20)
+        del pstate, st
     if plan_shape is not None:
         pstate, e, s = _level(plan_shape, seed=5, device=dev,
                               factored=False)
         st = line_gs.line_state(pstate.arrays, plan_shape, 0)
+        factor_plans(torch, res['line_factor'], st, reps=10)
         r = stencil.residual_parts(*s, *e, *st.arrays)
         thomas_plans(torch, res, st, e, r, colors=(0, 3), reps=10)
         del pstate, e, s, st, r
@@ -693,17 +898,16 @@ def _time_line_64(torch, res, shape, st, e0, s, er, sr, rp):
             e, s, st, 1, _seq=(0,)), reps=5, per=1, warm=1)
     res['line_thomas']['step_ms'] = step_ms
     res['line_thomas']['step_plain_ms'] = step_plain
-    # K5 in place on a copy of the packed entries, refreshed before each
-    # call outside the timed events; the plain version on fresh entries.
-    entries = smoothers.pack_line_entries(st.arrays, st.shape)
-    packed = torch.empty_like(entries)
     res['line_factor']['ms'] = _time_steps(
-        torch, lambda: line_gs.factor(packed), reps=20, per=1,
-        prep=lambda: packed.copy_(entries))
+        torch, lambda: line_gs.factor(st.st, st.w, st.ih, st.shape),
+        reps=20, per=1)
     res['line_factor']['plain_ms'] = _time_steps(
         torch, lambda: smoothers.line_factor_stack(st.arrays, st.shape),
         reps=3, per=1, warm=1)
     res['line_factor'].update(bound(*factor_work(st.shape)))
+    res['line_factor']['bound_ms_packed'] = bound(
+        *factor_work_packed(st.shape))['bound_ms']
+    factor_plans(torch, res['line_factor'], st, reps=20)
     log(f"64³ x-lines, ms per launch: line_factor "
         f"{res['line_factor']['ms']:.4f} (plain, entries included, "
         f"{res['line_factor']['plain_ms']:.4f}), line_residual "
@@ -734,6 +938,8 @@ def _line_kernels_large(torch, res, shape, dev):
         res['line_factor']['max_abs_err'], dmax)
     del ref
     torch.cuda.empty_cache()
+    factor_plans(torch, res['line_factor'], st, reps=5)
+    torch.cuda.empty_cache()
     errs = [_check_residual(torch, st, e, s, c) for c in range(4)]
     res['line_residual']['max_abs_err'] = max(
         res['line_residual']['max_abs_err'],
@@ -756,13 +962,13 @@ def _line_kernels_large(torch, res, shape, dev):
         *thomas_work(shape, 0))['bound_ms']
     del out, zs, rp
     torch.cuda.empty_cache()
-    entries = smoothers.pack_line_entries(st.arrays, st.shape)
-    packed = torch.empty_like(entries)
     res['line_factor']['ms_256'] = _time_steps(
-        torch, lambda: line_gs.factor(packed), reps=5, per=1, warm=1,
-        prep=lambda: packed.copy_(entries))
+        torch, lambda: line_gs.factor(st.st, st.w, st.ih, st.shape),
+        reps=5, per=1, warm=1)
     res['line_factor']['bound_ms_256'] = bound(
         *factor_work(st.shape))['bound_ms']
+    res['line_factor']['bound_ms_packed_256'] = bound(
+        *factor_work_packed(st.shape))['bound_ms']
     log(f"256³ x-lines, ms per launch: line_factor "
         f"{res['line_factor']['ms_256']:.4f} (bound "
         f"{res['line_factor']['bound_ms_256']:.4f}), line_residual "
@@ -771,7 +977,7 @@ def _line_kernels_large(torch, res, shape, dev):
         f"{res['line_residual']['bound_ms_full_256']:.4f}), line_thomas "
         f"{res['line_thomas']['ms_256']:.4f} (bound "
         f"{res['line_thomas']['bound_ms_256']:.4f})")
-    del pstate, st, e, s, packed, entries
+    del pstate, st, e, s
     torch.cuda.empty_cache()
 
 
@@ -832,14 +1038,14 @@ def bench_problem(shape=(64, 64, 64)):
     return grid, model, sfield
 
 
-def point_cycle_calls(grid, model, sfield, **kw):
+def point_cycle_calls(grid, model, sfield, device='cpu', **kw):
     """(shape, nu) of every point-smoothing call of one top-level cycle.
 
-    Runs the solver's own cycle (``solver.run_one_cycle``) on the CPU
-    on the levels it builds for this problem and options, with the
-    smoother replaced by a recorder; the cycle's calls do not depend on
-    the field.  ``sum(sweep_plan(shape, nu).launches)`` over them is
-    the factored kernel's launches per cycle.
+    Runs the solver's own cycle (``solver.run_one_cycle``) on
+    ``device`` on the levels it builds for this problem and options,
+    with the smoother replaced by a recorder; the cycle's calls do not
+    depend on the field.  :func:`point_per_cycle` turns them into each
+    kernel's launches.
     """
     import torch
     from unittest import mock
@@ -851,14 +1057,14 @@ def point_cycle_calls(grid, model, sfield, **kw):
     vm = VolumeModel(grid, model, sfield)
     sc = int(var.sc_dir)
     levels = solver.build_levels(grid, vm, sc, int(var.clevel[sc]),
-                                 torch.device('cpu'), {'bytes': 0})
+                                 torch.device(device), {'bytes': 0})
     calls = []
 
     def record(e, s, lev, nu, lr_dir, mode=None):
         if nu > 0:
             calls.append((lev.shape, nu))
         return e
-    e = tuple(torch.zeros(sh, dtype=torch.complex128)
+    e = tuple(torch.zeros(sh, dtype=torch.complex128, device=device)
               for sh in solver._edge_shapes(grid.shape_cells))
     conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
             int(var.lr_dir))
@@ -867,11 +1073,18 @@ def point_cycle_calls(grid, model, sfield, **kw):
     return calls
 
 
-def k1_per_cycle(calls, plan=None):
-    """(launches, colour steps) of the factored kernel over ``calls``."""
+def point_per_cycle(calls, kernel, plan=None):
+    """{kernel: (launches, colour steps)} over ``calls``, each call on
+    the kernel ``kernel(shape)`` names (``point_gs.point_kernel`` on the
+    card) under its ``sweep_plan``."""
     from emg3d_tpu_torch.ops import point_gs
-    plans = [point_gs.sweep_plan(sh, nu, plan=plan) for sh, nu in calls]
-    return sum(p.launches for p in plans), sum(p.steps for p in plans)
+    out = {k: [0, 0] for k in point_gs.KERNELS}
+    for sh, nu in calls:
+        k = kernel(sh)
+        p = point_gs.sweep_plan(sh, nu, plan=plan, kernel=k)
+        out[k][0] += p.launches
+        out[k][1] += p.steps
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def large_shape(torch):
@@ -996,8 +1209,15 @@ def main():
     grid, model, sfield = bench_problem()
     big = large_shape(torch)
     big_problem = bench_problem(big)
-    per_cycle, steps_cycle = k1_per_cycle(point_cycle_calls(grid, model,
-                                                            sfield))
+
+    def card_kernel(sh):
+        return point_gs.point_kernel(sh, 'cuda')
+    per_cycle = point_per_cycle(point_cycle_calls(grid, model, sfield),
+                                card_kernel)
+    big_cycle = point_per_cycle(point_cycle_calls(*big_problem,
+                                                  device='cuda'),
+                                card_kernel)
+    torch.cuda.empty_cache()
     point_gs.reset_launches()
     with Phase('4 main path: solve 64³ and '
                f'{"x".join(map(str, big))}, default kernels'):
@@ -1007,44 +1227,55 @@ def main():
         log(f"64³: it_mg {info4['it_mg']}, rel_error "
             f"{info4['rel_error']:.3e}, wall {wall_cold:.3f} s (first "
             f"solve), launches {k64}, colour steps {s64}; enumerated on "
-            f"the CPU: {per_cycle} launches and {steps_cycle} steps per "
-            f"cycle")
-        if k64['factored'] == 0:
-            raise AssertionError("the default solve launched no factored "
-                                 "kernel")
-        if (k64['factored'], s64['factored']) != (
-                per_cycle * info4['it_mg'], steps_cycle * info4['it_mg']):
-            raise AssertionError("64³ factored launches or steps differ "
-                                 "from the CPU enumeration")
+            f"the CPU under point_kernel and sweep_plan, (launches, steps) "
+            f"per cycle: {per_cycle}")
+        for k, (n, st) in per_cycle.items():
+            if (k64[k], s64[k]) != (n * info4['it_mg'], st * info4['it_mg']):
+                raise AssertionError(f"64³ {k} launches or steps differ "
+                                     f"from the CPU enumeration")
         eb, infob, wallb = _solve(torch, *big_problem)
         launches = dict(point_gs.LAUNCHES)
         steps = dict(point_gs.STEPS)
         kbig = {k: launches[k] - k64[k] for k in launches}
+        sbig = {k: steps[k] - s64[k] for k in steps}
         log(f"{big}: it_mg {infob['it_mg']}, rel_error "
             f"{infob['rel_error']:.3e}, wall {wallb:.3f} s (first solve), "
-            f"launches {kbig}, colour steps "
-            f"{ {k: steps[k] - s64[k] for k in steps} }, peak device memory "
+            f"launches {kbig}, colour steps {sbig}; enumerated per cycle: "
+            f"{big_cycle}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del eb
-        if kbig['fused'] == 0 or kbig['factored'] == 0:
-            raise AssertionError(f"{big}: expected the fused kernel on the "
-                                 f"finest level and the factored one below")
+        for k, (n, st) in big_cycle.items():
+            if (kbig[k], sbig[k]) != (n * infob['it_mg'],
+                                      st * infob['it_mg']):
+                raise AssertionError(f"{big} {k} launches or steps differ "
+                                     f"from the enumeration")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"the point solves launched no "
+                                 f"{min(launches, key=launches.get)} kernel")
     with Phase('4b warm solve 64³, default kernels'):
         e4b, info4b, wall_warm = _solve(torch, grid, model, sfield)
         log(f"it_mg {info4b['it_mg']}, warm wall {wall_warm:.3f} s, "
             f"|Δ|/|e| vs phase 4 {_rel(e4b, e4):.3e}")
-    with Phase('5 solve 64³, fused kernel pinned'):
-        point_gs.reset_launches()
-        e5, info5, wall5 = _solve(torch, grid, model, sfield,
-                                  _mode='fused')
-        pinned = dict(point_gs.LAUNCHES)
-        rel = _rel(e5, e4)
-        log(f"it_mg {info5['it_mg']}, rel_error {info5['rel_error']:.3e}, "
-            f"wall {wall5:.3f} s, |e5-e4|/|e4| {rel:.3e}, "
-            f"launches {pinned}")
-        if info5['it_mg'] != info4['it_mg'] or not rel <= TOL_SOLVE:
-            raise AssertionError("fused-kernel solve differs from the "
-                                 "factored one")
+    pinned = {}
+    with Phase('5 solve 64³ with each point kernel pinned on every level'):
+        for mode in POINT_MODES:
+            point_gs.reset_launches()
+            e5, info5, wall5 = _solve(torch, grid, model, sfield, _mode=mode)
+            pinned[mode] = point_gs.LAUNCHES[mode]
+            rel = _rel(e5, e4)
+            log(f"{mode}: it_mg {info5['it_mg']}, rel_error "
+                f"{info5['rel_error']:.3e}, wall {wall5:.3f} s, "
+                f"|e5-e4|/|e4| {rel:.3e}, launches "
+                f"{dict(point_gs.LAUNCHES)}, colour steps "
+                f"{dict(point_gs.STEPS)}")
+            if info5['it_mg'] != info4['it_mg'] or not rel <= TOL_SOLVE:
+                raise AssertionError(f"the {mode}-pinned solve differs "
+                                     f"from the default one")
+            if pinned[mode] == 0 or sum(point_gs.LAUNCHES.values()) != \
+                    pinned[mode]:
+                raise AssertionError(f"the {mode}-pinned solve ran "
+                                     f"{dict(point_gs.LAUNCHES)}")
+            del e5
     with Phase('6 heterogeneous tri-axial 64x48x40: kernels vs plain'):
         hg, hm, hs = heterogeneous_problem()
         ek, ik, wk = _solve(torch, hg, hm, hs)
@@ -1092,12 +1323,13 @@ def main():
                  'bound_by': r['bound_by'], 'library_ms': None}
         if key in pinned:
             entry['pinned_launches'] = pinned[key]
-        if key == 'factored':
+        if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
         entry.update({k: v for k, v in r.items()
                       if k.startswith('step') or k.endswith('_256')
-                      or k == 'bound_ms_full'})
+                      or k.endswith('_large') or k.startswith('ms_')
+                      or k.startswith('bound_ms_')})
         kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")

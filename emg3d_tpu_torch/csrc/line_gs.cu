@@ -24,11 +24,19 @@
 //       k-1|k) edges in place.  Station i's unknowns are those five
 //       edges (smoothers.py:372-399 of the JAX package); the last
 //       station has ex only.
-//   K5  line_factor <- the block-Thomas elimination that
-//       pallas_lr.line_factors (356-450) runs as one lax.scan
-//       (emg3d_tpu/ops/blocksolve.py:305): per line, C_0 = D_0 and
-//       C_i = D_i − B_i C_{i-1}⁻¹ B_iᵀ, and the sparse LDLᵀ of every C_i,
-//       in place on the packed entries (smoothers.pack_line_entries).
+//   K5  line_factor <- pallas_lr.line_factors (356-450) whole: the
+//       station entries of every line (smoothers._line_entries_x_parity
+//       of the JAX package) and the block-Thomas elimination it runs as
+//       one lax.scan (emg3d_tpu/ops/blocksolve.py:305): per line,
+//       C_0 = D_0 and C_i = D_i − B_i C_{i-1}⁻¹ B_iᵀ, and the sparse LDLᵀ
+//       of every C_i.  Each station's D and B are assembled in registers
+//       from the rotated frame's η sums, ζ weights and inverse widths
+//       (node_block.cuh, the code of the fused point kernel K2): station
+//       i's D is node (i+1)'s block restricted to ex(i) and its four
+//       transverse edges, its B row 0 node i's ex(i)-row, its B diagonal
+//       node (i+1)'s x-couplings of the transverse edges
+//       (smoothers.pack_line_entries, the plain version, picks the same
+//       entries out of whole-level tensors).
 //
 // Layout: the factor stack is (nx, 23, 2, 2, ny2, nz2), with the lines
 // of one transverse parity fastest-varying: planes 0-9 L (_lower_keys(5)
@@ -38,13 +46,20 @@
 //
 // Bounds on this card (3.35 TB/s, 34 TFLOP/s fp64 outside the tensor
 // cores), each input byte read once and each output written once:
-//   K5  21 entry planes read and 15 written per line-station (576 B),
-//       ~1.5 kFLOP: memory-bound, 45 µs per stack at 64³, 2.9 ms at
-//       256³.  One thread per line over all four parities (4·ny2·nz2),
-//       stations in a loop, C_{i-1}'s 15 factors in registers; each
-//       station's 21 loads are independent of the recurrence, so they
-//       are issued one station ahead, and with 4k-65k lines in flight
-//       the loads of many lines overlap.
+//   K5  st, w and ih read once (~72 B per line-station) and the 23
+//       planes written once (368 B); ~1.5 kFLOP per station: memory-
+//       bound at 256³, a latency chain per line below.  The first design
+//       read 21 packed entry planes and wrote 15 (576 B) and waited on
+//       ~2 ms of host work per stack that built those entries with torch
+//       ops.  One thread per line over all four parities (4·ny2·nz2),
+//       stations in a loop, C_{i-1}'s 15 factors in registers, the next
+//       node's inputs loaded one station ahead, blocks of one warp so
+//       that few lines still spread over the SMs.  Below 256³ a line is
+//       a latency chain (the LDLᵀ's ten complex reciprocals per station
+//       in sequence), not bytes.  Splitting a station's five column
+//       solves over eight lanes per line (shuffles between them, every
+//       lane running the LDLᵀ) was timed on the card and read slower at
+//       every shape: it shortens the solves, not the LDLᵀ chain.
 //   K4  23 factors, 5 residuals and 5 field reads and writes per
 //       line-station (608 B): memory-bound, 11.9 µs per colour at 64³,
 //       0.76 ms at 256³.  What held the first design back was not the
@@ -95,9 +110,10 @@
 // Races: K4 reads only r (K3's buffer), the factors and the e values of
 // its own lines.  Lines of one colour share transverse parity, so they
 // are two apart in y or z and touch disjoint edges: the in-place update
-// is race-free and a colour step is deterministic.  K5 reads and writes
-// only its own line's planes.
+// is race-free and a colour step is deterministic.  K5 writes only its
+// own line's planes.
 
+#include "node_block.cuh"
 #include "stencil.cuh"
 
 using namespace emg3d;
@@ -297,13 +313,25 @@ __host__ __device__ constexpr bool d_absent(int a, int b) {
 }
 
 // ---------------------------------------------------------------------
-// K5: block-Thomas elimination, in place
+// K5: station entries and block-Thomas elimination
 // ---------------------------------------------------------------------
 
+constexpr int kFactorThreads = 256;   // most threads per block
+
 struct FactorArgs {
-  double2* fac;         // (nx, 23, 4·P): packed entries in, factors out
-  int64_t lines;        // 4·P = 4·ny2·nz2, the plane stride
-  int nx;
+  double2* fac;         // (nx, 23, 2, 2, ny2, nz2) out
+  const double2* stx;   // η edge sums of the rotated frame
+  const double2* sty;
+  const double2* stz;
+  const double* wx;     // ζ face weights
+  const double* wy;
+  const double* wz;
+  const double* ihx;    // inverse widths
+  const double* ihy;
+  const double* ihz;
+  int nx, ny, nz;
+  int nz2;
+  int64_t P;            // ny2·nz2: lines per parity
 };
 
 // y ← C⁻¹ y with dense LDLᵀ factors in registers
@@ -325,52 +353,87 @@ __device__ __forceinline__ void ldl_solve_reg(const double2 (&L)[5][5],
   }
 }
 
-__global__ void __launch_bounds__(128)
+// One line per thread.  Line l of the stack is parity quarter l / P
+// (y parity, z parity), transverse node (2q + py, 2r + pz) zero-based at
+// q = (l % P) / nz2, r = l % nz2; a padded line (beyond the level's
+// interior nodes) gets identity diagonals and no coupling.
+__global__ void __launch_bounds__(kFactorThreads)
 line_factor(FactorArgs a) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= a.lines) return;
-  const int64_t ps = a.lines;
+  const int64_t line = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  const int64_t ps = 4 * a.P;   // plane stride
+  if (line >= ps) return;
+  const int quarter = static_cast<int>(line / a.P);
+  const int64_t rem = line % a.P;
+  const int j0 = 2 * static_cast<int>(rem / a.nz2) + quarter / 2;
+  const int k0 = 2 * static_cast<int>(rem % a.nz2) + quarter % 2;
+  const bool valid = j0 < a.ny - 1 && k0 < a.nz - 1;
+  const int j = j0 + 1, k = k0 + 1;
+  const int nx = a.nx;
+  double ihym = 0.0, ihyp = 0.0, ihzm = 0.0, ihzp = 0.0;
+  NodeParams pn;                // node i+1's inputs, loaded a station ahead
+  if (valid) {
+    ihym = a.ihy[j - 1];
+    ihyp = a.ihy[j];
+    ihzm = a.ihz[k - 1];
+    ihzp = a.ihz[k];
+    pn = node_params(a, 1, j, k);
+  }
+  const double2 zero = make_double2(0.0, 0.0);
+  const double2 one = make_double2(1.0, 0.0);
   double2 L[5][5];      // factors of the previous station, then this one
   double2 dinv[5];
-  // Station i's entries, loaded one station ahead (the loads do not
-  // depend on the recurrence): D (lower triangle; the absent (2,1) and
-  // (4,3) are not read) and B_i's row 0 (0, b0[1..4]) and diagonal
-  // bd[1..4].
-  double2 Dn[5][5], b0n[5], bdn[5];
-  auto load = [&](int i) {
-    const double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + t;
-#pragma unroll
-    for (int r = 0; r < 5; ++r) {
-      Dn[r][r] = s[(kDinv + r) * ps];
-#pragma unroll
-      for (int c = 0; c < r; ++c) {
-        Dn[r][c] = d_absent(r, c) ? make_double2(0.0, 0.0)
-                                  : s[l_plane(r, c) * ps];
-      }
-    }
-#pragma unroll
-    for (int m = 1; m < 5; ++m) {
-      b0n[m] = i > 0 ? s[(kB + m - 1) * ps] : make_double2(0.0, 0.0);
-      bdn[m] = i > 0 ? s[(kB + 3 + m) * ps] : make_double2(0.0, 0.0);
-    }
-  };
-  load(0);
-  for (int i = 0; i < a.nx; ++i) {
-    double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + t;
-    // C ← D, from the planes where its factors go.
+  double2 prev[5];      // node i's A(1,1), A(2..5,1): station i+1's needs
+  for (int i = 0; i < nx; ++i) {
+    // Station i's entries: D (lower triangle; the absent (2,1) and (4,3)
+    // zero), B's row 0 (0, b0[1..4]) and diagonal bd[1..4].
     double2 C[5][5], b0[5], bd[5];
 #pragma unroll
     for (int r = 0; r < 5; ++r) {
+      b0[r] = zero;
+      bd[r] = zero;
 #pragma unroll
-      for (int c = 0; c <= r; ++c) C[r][c] = Dn[r][c];
+      for (int c = 0; c <= r; ++c) C[r][c] = r == c ? one : zero;
     }
+    if (valid && i + 1 < nx) {
+      // Node i+1: its block gives D; its x-couplings B's diagonal.
+      const NodeCoef nc = node_coef(pn.w, a.ihx[i], a.ihx[i + 1], ihym,
+                                    ihyp, ihzm, ihzp);
+      double2 A[6][6];
+      node_block(nc, pn.st, A);
+      if (i + 2 < nx) pn = node_params(a, i + 2, j, k);
+      C[0][0] = A[0][0];
+      C[1][1] = A[2][2];
+      C[2][2] = A[3][3];
+      C[3][3] = A[4][4];
+      C[4][4] = A[5][5];
+      C[1][0] = A[2][0];
+      C[2][0] = A[3][0];
+      C[3][0] = A[4][0];
+      C[4][0] = A[5][0];
+      C[3][1] = A[4][2];
+      C[4][1] = A[5][2];
+      C[3][2] = A[4][3];
+      C[4][2] = A[5][3];
+      if (i > 0) {
+        bd[1] = make_double2(-(nc.mzxLym * nc.ihxm), 0.0);
+        bd[2] = make_double2(-(nc.mzxLyp * nc.ihxm), 0.0);
+        bd[3] = make_double2(-(nc.myxLzm * nc.ihxm), 0.0);
+        bd[4] = make_double2(-(nc.myxLzp * nc.ihxm), 0.0);
 #pragma unroll
-    for (int m = 1; m < 5; ++m) {
-      b0[m] = b0n[m];
-      bd[m] = bdn[m];
+        for (int m = 1; m < 5; ++m) b0[m] = prev[m];
+      }
+      prev[0] = A[1][1];
+      prev[1] = A[2][1];
+      prev[2] = A[3][1];
+      prev[3] = A[4][1];
+      prev[4] = A[5][1];
+    } else if (valid) {
+      // The ex-only last station: node nx-1's (1,1), identity rows.
+      C[0][0] = prev[0];
+#pragma unroll
+      for (int m = 1; m < 5; ++m) b0[m] = prev[m];
     }
-    if (i + 1 < a.nx) load(i + 1);
     if (i > 0) {
       // Column b of C_{i-1}⁻¹ B_iᵀ (row b of B_i solved), then column b
       // of C_i = D_i − B_i (C_{i-1}⁻¹ B_iᵀ).
@@ -378,16 +441,16 @@ line_factor(FactorArgs a) {
       for (int b = 0; b < 5; ++b) {
         double2 col[5];
 #pragma unroll
-        for (int k = 0; k < 5; ++k) {
-          col[k] = make_double2(0.0, 0.0);
-          if (b == 0 && k > 0) col[k] = b0[k];
-          if (b > 0 && k == b) col[k] = bd[b];
+        for (int m = 0; m < 5; ++m) {
+          col[m] = zero;
+          if (b == 0 && m > 0) col[m] = b0[m];
+          if (b > 0 && m == b) col[m] = bd[b];
         }
         ldl_solve_reg(L, dinv, col);
         if (b == 0) {
 #pragma unroll
-          for (int k = 1; k < 5; ++k) {
-            C[0][0] = csub(C[0][0], cmul(b0[k], col[k]));
+          for (int m = 1; m < 5; ++m) {
+            C[0][0] = csub(C[0][0], cmul(b0[m], col[m]));
           }
         }
 #pragma unroll
@@ -426,6 +489,8 @@ line_factor(FactorArgs a) {
         L[r][c] = cmul(val, dinv[c]);
       }
     }
+    // The station's 23 planes.
+    double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + line;
 #pragma unroll
     for (int r = 1; r < 5; ++r) {
 #pragma unroll
@@ -433,6 +498,11 @@ line_factor(FactorArgs a) {
     }
 #pragma unroll
     for (int r = 0; r < 5; ++r) s[(kDinv + r) * ps] = dinv[r];
+#pragma unroll
+    for (int m = 1; m < 5; ++m) {
+      s[(kB + m - 1) * ps] = b0[m];
+      s[(kB + 3 + m) * ps] = bd[m];
+    }
   }
 }
 
@@ -808,12 +878,34 @@ extern "C" int emg3d_line_thomas(
   }
 }
 
-extern "C" int emg3d_line_factor(void* fac, int nx, long long lines,
-                                 int blocks, int threads, void* stream) {
+// K5 on the rotated level (nx, ny, nz) into ``fac`` (its whole
+// (nx, 23, 2, 2, ny/2, nz/2) stack), one line per thread.
+extern "C" int emg3d_line_factor(
+    void* fac, const void* stx, const void* sty, const void* stz,
+    const void* wx, const void* wy, const void* wz, const void* ihx,
+    const void* ihy, const void* ihz, int nx, int ny, int nz, int blocks,
+    int threads, void* stream) {
+  if (threads < 32 || threads % 32 != 0 || threads > kFactorThreads ||
+      nx < 2 || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   FactorArgs a;
   a.fac = static_cast<double2*>(fac);
-  a.lines = lines;
+  a.stx = static_cast<const double2*>(stx);
+  a.sty = static_cast<const double2*>(sty);
+  a.stz = static_cast<const double2*>(stz);
+  a.wx = static_cast<const double*>(wx);
+  a.wy = static_cast<const double*>(wy);
+  a.wz = static_cast<const double*>(wz);
+  a.ihx = static_cast<const double*>(ihx);
+  a.ihy = static_cast<const double*>(ihy);
+  a.ihz = static_cast<const double*>(ihz);
   a.nx = nx;
-  line_factor<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.ny = ny;
+  a.nz = nz;
+  a.nz2 = nz / 2;
+  a.P = static_cast<int64_t>(ny / 2) * (nz / 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  line_factor<<<blocks, threads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,135 @@
+// The 6×6 block of A at one interior node, assembled in registers from
+// the node's η edge sums, ζ face weights and inverse widths: the math
+// of coeffs.node_coefficients and node_block_entries in the face-weight
+// form of the JAX package's fused Pallas kernel (pallas_gs.py:345-371).
+// Shared by the fused point kernel K2 (point_gs.cu), which factors the
+// block, and the line-factor kernel K5 (line_gs.cu), which picks a line
+// station's entries out of it.
+//
+// A node (i, j, k) (global node indices) has the block edges
+// ex(i-1), ex(i), ey(j-1), ey(j), ez(k-1), ez(k) of its cell corner.
+// Its field-independent inputs (NodeParams):
+//   st[0..5]  the η edge sums at those six edges (stencil.eta_edge_sums):
+//             stx(i-1|i, j-1, k-1), sty(i-1, j-1|j, k-1),
+//             stz(i-1, j-1, k-1|k);
+//   w[0..5]   its twelve ζ face weights in pairs (.x the face below,
+//             .y the one above along the pair's axis):
+//             w[0] = WZ(i-1, j-1|j, k)   w[1] = WZ(i, j-1|j, k)
+//             w[2] = WY(i-1, j, k-1|k)   w[3] = WY(i, j, k-1|k)
+//             w[4] = WX(i, j-1, k-1|k)   w[5] = WX(i, j, k-1|k)
+// (point_gs.node_planes holds the same list for the packed layout.)
+// These are also exactly the sums and weights that the residuals at the
+// node's six edges read.
+#pragma once
+
+#include "stencil.cuh"
+
+namespace emg3d {
+
+struct NodeParams {
+  double2 st[6];
+  double2 w[6];
+};
+
+// The node's parameters from the level's tensors.
+template <class A>
+__device__ __forceinline__ NodeParams node_params(const A& a, int i, int j,
+                                                  int k) {
+  NodeParams p;
+  p.st[0] = a.stx[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1)];
+  p.st[1] = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
+  p.st[2] = a.sty[at(i - 1, j - 1, k - 1, a.ny, a.nz - 1)];
+  p.st[3] = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
+  p.st[4] = a.stz[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz)];
+  p.st[5] = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
+  p.w[0] = make_double2(WZ(i - 1, j - 1, k), WZ(i - 1, j, k));
+  p.w[1] = make_double2(WZ(i, j - 1, k), WZ(i, j, k));
+  p.w[2] = make_double2(WY(i - 1, j, k - 1), WY(i - 1, j, k));
+  p.w[3] = make_double2(WY(i, j, k - 1), WY(i, j, k));
+  p.w[4] = make_double2(WX(i, j - 1, k - 1), WX(i, j - 1, k));
+  p.w[5] = make_double2(WX(i, j, k - 1), WX(i, j, k));
+  return p;
+}
+
+// The 24 ζ-average coefficients of the node (coeffs.NodeCoeffs names)
+// and its six inverse widths.
+struct NodeCoef {
+  double mzyLxm, mzyRxm, myzLxm, myzRxm, mzyLxp, mzyRxp, myzLxp, myzRxp;
+  double mzxLym, mzxRym, mxzLym, mxzRym, mzxLyp, mzxRyp, mxzLyp, mxzRyp;
+  double myxLzm, myxRzm, mxyLzm, mxyRzm, myxLzp, myxRzp, mxyLzp, mxyRzp;
+  double ihxm, ihxp, ihym, ihyp, ihzm, ihzp;
+};
+
+__device__ __forceinline__ NodeCoef node_coef(const double2 (&w)[6],
+                                              double ihxm, double ihxp,
+                                              double ihym, double ihyp,
+                                              double ihzm, double ihzp) {
+  const double kxm = 0.5 * ihxm, kxp = 0.5 * ihxp;
+  const double kym = 0.5 * ihym, kyp = 0.5 * ihyp;
+  const double kzm = 0.5 * ihzm, kzp = 0.5 * ihzp;
+  NodeCoef c;
+  c.mzyLxm = kym * w[0].x;
+  c.mzyRxm = kyp * w[0].y;
+  c.myzLxm = kzm * w[2].x;
+  c.myzRxm = kzp * w[2].y;
+  c.mzyLxp = kym * w[1].x;
+  c.mzyRxp = kyp * w[1].y;
+  c.myzLxp = kzm * w[3].x;
+  c.myzRxp = kzp * w[3].y;
+  c.mzxLym = kxm * w[0].x;
+  c.mzxRym = kxp * w[1].x;
+  c.mxzLym = kzm * w[4].x;
+  c.mxzRym = kzp * w[4].y;
+  c.mzxLyp = kxm * w[0].y;
+  c.mzxRyp = kxp * w[1].y;
+  c.mxzLyp = kzm * w[5].x;
+  c.mxzRyp = kzp * w[5].y;
+  c.myxLzm = kxm * w[2].x;
+  c.myxRzm = kxp * w[3].x;
+  c.mxyLzm = kym * w[4].x;
+  c.mxyRzm = kyp * w[5].x;
+  c.myxLzp = kxm * w[2].y;
+  c.myxRzp = kxp * w[3].y;
+  c.mxyLzp = kym * w[4].y;
+  c.mxyRzp = kyp * w[5].y;
+  c.ihxm = ihxm;
+  c.ihxp = ihxp;
+  c.ihym = ihym;
+  c.ihyp = ihyp;
+  c.ihzm = ihzm;
+  c.ihzp = ihzp;
+  return c;
+}
+
+// The block's diagonal and its present strict-lower entries
+// (coeffs.node_block_entries, same operation order); the structurally
+// zero (1,0), (3,2) and (5,4), and the upper triangle, are not written.
+__device__ __forceinline__ void node_block(const NodeCoef& c,
+                                           const double2 (&st)[6],
+                                           double2 (&A)[6][6]) {
+  const double d[6] = {
+      c.mzyRxm * c.ihyp + c.mzyLxm * c.ihym + c.myzRxm * c.ihzp + c.myzLxm * c.ihzm,
+      c.mzyRxp * c.ihyp + c.mzyLxp * c.ihym + c.myzRxp * c.ihzp + c.myzLxp * c.ihzm,
+      c.mzxRym * c.ihxp + c.mzxLym * c.ihxm + c.mxzRym * c.ihzp + c.mxzLym * c.ihzm,
+      c.mzxRyp * c.ihxp + c.mzxLyp * c.ihxm + c.mxzRyp * c.ihzp + c.mxzLyp * c.ihzm,
+      c.myxRzm * c.ihxp + c.myxLzm * c.ihxm + c.mxyRzm * c.ihyp + c.mxyLzm * c.ihym,
+      c.myxRzp * c.ihxp + c.myxLzp * c.ihxm + c.mxyRzp * c.ihyp + c.mxyLzp * c.ihym};
+#pragma unroll
+  for (int n = 0; n < 6; ++n) {
+    A[n][n] = make_double2(d[n] - 0.25 * st[n].x, -(0.25 * st[n].y));
+  }
+  A[2][0] = make_double2(-c.mzyLxm * c.ihxm, 0.0);
+  A[3][0] = make_double2(c.mzyRxm * c.ihxm, 0.0);
+  A[4][0] = make_double2(-c.myzLxm * c.ihxm, 0.0);
+  A[5][0] = make_double2(c.myzRxm * c.ihxm, 0.0);
+  A[2][1] = make_double2(c.mzyLxp * c.ihxp, 0.0);
+  A[3][1] = make_double2(-c.mzyRxp * c.ihxp, 0.0);
+  A[4][1] = make_double2(c.myzLxp * c.ihxp, 0.0);
+  A[5][1] = make_double2(-c.myzRxp * c.ihxp, 0.0);
+  A[4][2] = make_double2(-c.mxzLym * c.ihym, 0.0);
+  A[5][2] = make_double2(c.mxzRym * c.ihym, 0.0);
+  A[4][3] = make_double2(c.mxzLyp * c.ihyp, 0.0);
+  A[5][3] = make_double2(-c.mxzRyp * c.ihyp, 0.0);
+}
+
+}  // namespace emg3d

@@ -3,13 +3,13 @@
 // Replaces the two Pallas point-smoother kernels of the JAX package,
 // emg3d_tpu/ops/pallas_gs.py:
 //
-//   K1  point_gs_step<true>   ("factored") <- _kernel_resident (644-747),
-//       the colour update against LDLᵀ factors built once per level
-//       (pack_factors, 614-641): each step runs substitution only.
-//   K2  point_gs_step<false>  ("fused")    <- _kernel (237-403), which
-//       assembles each node's 6×6 block from the ζ face weights, η edge
-//       sums and inverse widths (pallas_gs.py:345-371 = coeffs.py:47-152)
-//       and factors and solves it in registers (blocksolve.py:32-85).
+//   K1  "factored" <- _kernel_resident (644-747), the colour update
+//       against LDLᵀ factors built once per level (pack_factors,
+//       614-641): each step runs substitution only.
+//   K2  "fused"    <- _kernel (237-403), which assembles each node's 6×6
+//       block from the ζ face weights, η edge sums and inverse widths
+//       (pallas_gs.py:345-371 = coeffs.py:47-152; node_block.cuh) and
+//       factors and solves it in registers (blocksolve.py:32-85).
 //
 // A colour step: one thread owns one ACTIVE interior node (ix, iy, iz),
 // i.e. one whose index parity equals the colour's.  It
@@ -32,56 +32,69 @@
 // eight updates (the TPU's vector unit works on whole (8,128) tiles).
 // Here only the active node's six edges are evaluated.
 //
-// Launch plans of K1 (the Python rule point_gs.sweep_plan picks one per
-// level from times measured on the card):
-//   step     point_gs_step<true>: one launch per colour step, 8·nu per
+// Launch plans, of both kernels (the Python rule point_gs.sweep_plan
+// picks one per level and kernel from times measured on the card):
+//   step     point_gs_step<kernel>: one launch per colour step, 8·nu per
 //            smoothing call (colours 0..7 on even sweeps, 7..0 on odd).
-//   cluster  point_gs_sweep<kCluster>: the whole colour sequence of a
-//            smoothing call in ONE launch of one thread-block cluster
-//            (≤ 8 CTAs), grid-stride over each colour's nodes, a cluster
-//            barrier between colour steps.
-//   grid     point_gs_sweep<kGrid>: the same as a cooperative launch of
-//            up to one block per SM, a grid barrier between colour steps.
-//   shared   point_gs_sweep<kShared>: one CTA for a level that fits its
-//            shared memory whole (8³: e, s, η sums, factors, ζ weights
-//            and widths, 200 KB of 227 KB): copied in once with
-//            cp.async, every step runs from shared memory with a block
-//            barrier between steps, and e is copied back once.  The
-//            counterpart of _kernel_resident's VMEM copy-in/copy-out
+//   cluster  point_gs_sweep<kCluster, kernel>: the whole colour sequence
+//            of a smoothing call in ONE launch of one thread-block
+//            cluster (≤ 8 CTAs), grid-stride over each colour's nodes, a
+//            cluster barrier between colour steps.
+//   grid     point_gs_sweep<kGrid, kernel>: the same as a cooperative
+//            launch of up to one block per SM, a grid barrier between
+//            colour steps.
+//   shared   point_gs_sweep<kShared, kernel>: one CTA for a level that
+//            fits its shared memory whole (e, s, η sums, ζ weights,
+//            widths and, for K1, the factors: 8³ takes 200 KB of 227 KB
+//            with factors, 95 KB without): copied in once with cp.async,
+//            every step runs from shared memory with a block barrier
+//            between steps, and e is copied back once.  The counterpart
+//            of _kernel_resident's VMEM copy-in/copy-out
 //            (pallas_gs.py:667-676, 742-746), which also runs every colour
 //            step of a call in one pallas_call (grid (len(seq), tiles)).
 // On the small levels a step is a latency chain per node (the stencil's
-// index arithmetic, ~50 loads, ~730 fp64 operations), and warps that
-// share an SM wait on each other's issue slots: the sweep plans
-// therefore size their blocks (32-256 threads, Python) so that a
-// colour's nodes spread over as many SMs as the plan has blocks.
+// index arithmetic, ~50 loads, ~730 fp64 operations for K1, ~1590 for
+// K2), and warps that share an SM wait on each other's issue slots: the
+// sweep plans therefore size their blocks (32-256 threads, Python) so
+// that a colour's nodes spread over as many SMs as the plan has blocks.
 // Every node's arithmetic is the same code in every plan, so a plan is
 // bitwise equal to the step plan.  Between steps e is written by other
 // threads: it is never read through the non-coherent path (no __ldg,
 // no const __restrict__ on the e pointers); the barriers order the
 // writes (release) before the next step's reads (acquire).
 //
-// Factor layout (K1): colour-major.  Colour c's active nodes are packed
-// contiguously, z fastest, in the order of the thread index, and its 20
-// planes follow one another: plane p of the node of thread t sits at
-// off_c + p·n_c + t (point_gs.pack_factors).  A warp's plane load is one
-// 512 B run; a node-indexed stack spreads it over 1 KB, half of
-// it the other colours' nodes.  The bytes held are the same.
+// Colour-major data.  Colour c's active nodes are packed contiguously,
+// z fastest, in the order of the thread index; plane p of the node of
+// thread t sits at off_c + p·n_c + t (point_gs.pack_colour_major), so a
+// warp's plane load is one 512 B run, where a node-indexed array spreads
+// it over 1 KB at stride 2 along z, half of it the other colours' nodes.
+//   K1 reads its 20 factor planes so (point_gs.pack_factors).
+//   K2 reads its node's field-independent inputs so
+//   (point_gs.pack_node_data, kernel kFusedPacked): 12 planes of
+//   double2, the six η sums and the twelve ζ weights in pairs (192 B a
+//   node, NodeParams of node_block.cuh).  Those are all the sums and
+//   weights that the node's six residuals and its block read.  Where the
+//   packed data does not fit the card (Python's rule), K2 reads st and
+//   w at the node's indices instead (kFused); the values, and so the
+//   results, are the same.
 //
 // Bound on this card: memory.  Per active node K1 loads 20 complex128
-// factors (320 B) plus about 30 field, source and parameter values that
-// are mostly shared with neighbouring threads through L1/L2; fp64
-// arithmetic is ~730 FLOP per node, below the H100's fp64 rate per
-// byte.  wgmma and TMA do not apply (no matrix product, no regular
-// tile).  On the coarse levels of a cycle the cost was the launches:
-// 8·nu per smoothing call, ~4 µs of device time each whatever their
-// size, and a host call each; the sweep plans make it one.
+// factors (320 B), K2 12 packed planes (192 B), plus the node's e, s
+// and widths and stencil neighbours that are mostly shared with
+// neighbouring threads through L1/L2; fp64 arithmetic is below the
+// H100's fp64 rate per byte for K1 and near it for K2.  wgmma and TMA
+// do not apply (no matrix product, no regular tile).  On the coarse
+// levels of a cycle the cost was the launches: 8·nu per smoothing call,
+// ~4 µs of device time each whatever their size, and a host call each;
+// the sweep plans make it one.
 //
 // The complex arithmetic and the residual at an edge are in
-// stencil.cuh, shared with the line kernels (line_gs.cu).
+// stencil.cuh, shared with the line kernels (line_gs.cu); the node
+// block's assembly is in node_block.cuh, shared with K5.
 
 #include <cooperative_groups.h>
 
+#include "node_block.cuh"
 #include "stencil.cuh"
 
 namespace cg = cooperative_groups;
@@ -106,6 +119,11 @@ __host__ __device__ constexpr int l_plane(int i, int j) {
   return i == 2 ? j : i == 3 ? 2 + j : i == 4 ? 5 + j : 9 + j;
 }
 constexpr int kDinvPlane = 14;
+constexpr int kNodePlanes = 12;   // K2's packed planes: 6 η sums, 6 ζ pairs
+
+// The kernel a launch runs: K1, K2 reading st/w at the node's indices,
+// or K2 reading its colour-major packed node data.
+enum Kernel { kFactored = 0, kFused = 1, kFusedPacked = 2 };
 
 struct Args {
   double2* ex;          // (nx, ny+1, nz+1), updated in place
@@ -123,74 +141,26 @@ struct Args {
   const double* ihx;    // inverse widths (nx,), (ny,), (nz,)
   const double* ihy;
   const double* ihz;
-  const double2* fac;   // K1: the colour's 20 planes (colour-major); K2: unused
+  const double2* buf;   // colour-major planes: K1's factors, K2's packed
+                        // node data; unused by kFused
   int nx, ny, nz;
   int x0, y0, z0;       // first active node index per axis
   int cnx, cny, cnz;    // active nodes per axis
 };
 
-// K2: assemble the node block (coeffs.node_coefficients and
-// node_block_entries, in the face-weight form of pallas_gs.py:345-371)
-// and factor it (blocksolve.ldl_factor_sparse, same operation order).
-__device__ void factor_block(const Args& a, int i, int j, int k,
-                             double2 (&L)[6][6], double2 (&dinv)[6]) {
-  const double ihxm = a.ihx[i - 1], ihxp = a.ihx[i];
-  const double ihym = a.ihy[j - 1], ihyp = a.ihy[j];
-  const double ihzm = a.ihz[k - 1], ihzp = a.ihz[k];
-  const double kxm = 0.5 * ihxm, kxp = 0.5 * ihxp;
-  const double kym = 0.5 * ihym, kyp = 0.5 * ihyp;
-  const double kzm = 0.5 * ihzm, kzp = 0.5 * ihzp;
-
-  const double mzyLxm = kym * WZ(i - 1, j - 1, k), mzyRxm = kyp * WZ(i - 1, j, k);
-  const double myzLxm = kzm * WY(i - 1, j, k - 1), myzRxm = kzp * WY(i - 1, j, k);
-  const double mzyLxp = kym * WZ(i, j - 1, k), mzyRxp = kyp * WZ(i, j, k);
-  const double myzLxp = kzm * WY(i, j, k - 1), myzRxp = kzp * WY(i, j, k);
-  const double mzxLym = kxm * WZ(i - 1, j - 1, k), mzxRym = kxp * WZ(i, j - 1, k);
-  const double mxzLym = kzm * WX(i, j - 1, k - 1), mxzRym = kzp * WX(i, j - 1, k);
-  const double mzxLyp = kxm * WZ(i - 1, j, k), mzxRyp = kxp * WZ(i, j, k);
-  const double mxzLyp = kzm * WX(i, j, k - 1), mxzRyp = kzp * WX(i, j, k);
-  const double myxLzm = kxm * WY(i - 1, j, k - 1), myxRzm = kxp * WY(i, j, k - 1);
-  const double mxyLzm = kym * WX(i, j - 1, k - 1), mxyRzm = kyp * WX(i, j, k - 1);
-  const double myxLzp = kxm * WY(i - 1, j, k), myxRzp = kxp * WY(i, j, k);
-  const double mxyLzp = kym * WX(i, j - 1, k), mxyRzp = kyp * WX(i, j, k);
-
-  const double2 st0 = a.stx[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  const double2 st1 = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  const double2 st2 = a.sty[at(i - 1, j - 1, k - 1, a.ny, a.nz - 1)];
-  const double2 st3 = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
-  const double2 st4 = a.stz[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz)];
-  const double2 st5 = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
-
-  double2 A[6][6];
-  const double d[6] = {
-      mzyRxm * ihyp + mzyLxm * ihym + myzRxm * ihzp + myzLxm * ihzm,
-      mzyRxp * ihyp + mzyLxp * ihym + myzRxp * ihzp + myzLxp * ihzm,
-      mzxRym * ihxp + mzxLym * ihxm + mxzRym * ihzp + mxzLym * ihzm,
-      mzxRyp * ihxp + mzxLyp * ihxm + mxzRyp * ihzp + mxzLyp * ihzm,
-      myxRzm * ihxp + myxLzm * ihxm + mxyRzm * ihyp + mxyLzm * ihym,
-      myxRzp * ihxp + myxLzp * ihxm + mxyRzp * ihyp + mxyLzp * ihym};
-  const double2 st[6] = {st0, st1, st2, st3, st4, st5};
-#pragma unroll
-  for (int n = 0; n < 6; ++n) {
-    A[n][n] = make_double2(d[n] - 0.25 * st[n].x, -(0.25 * st[n].y));
-  }
-  A[2][0] = make_double2(-mzyLxm * ihxm, 0.0);
-  A[3][0] = make_double2(mzyRxm * ihxm, 0.0);
-  A[4][0] = make_double2(-myzLxm * ihxm, 0.0);
-  A[5][0] = make_double2(myzRxm * ihxm, 0.0);
-  A[2][1] = make_double2(mzyLxp * ihxp, 0.0);
-  A[3][1] = make_double2(-mzyRxp * ihxp, 0.0);
-  A[4][1] = make_double2(myzLxp * ihxp, 0.0);
-  A[5][1] = make_double2(-myzRxp * ihxp, 0.0);
-  A[4][2] = make_double2(-mxzLym * ihym, 0.0);
-  A[5][2] = make_double2(mxzRym * ihym, 0.0);
-  A[4][3] = make_double2(mxzLyp * ihyp, 0.0);
-  A[5][3] = make_double2(-mxzRyp * ihyp, 0.0);
-
+// K2: the block's LDLᵀ (blocksolve.ldl_factor_sparse, same operation
+// order) from its assembly (node_block.cuh).
+template <class A>
+__device__ void factor_block(const A& a, const NodeParams& p, int i, int j,
+                             int k, double2 (&L)[6][6], double2 (&dinv)[6]) {
+  double2 Ab[6][6];
+  node_block(node_coef(p.w, a.ihx[i - 1], a.ihx[i], a.ihy[j - 1], a.ihy[j],
+                       a.ihz[k - 1], a.ihz[k]),
+             p.st, Ab);
   double2 D[6];  // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
-    double2 acc = A[c][c];
+    double2 acc = Ab[c][c];
 #pragma unroll
     for (int m = 0; m < c; ++m) {
       if (l_present(c, m)) {
@@ -212,7 +182,7 @@ __device__ void factor_block(const Args& a, int i, int j, int k,
           has_s = true;
         }
       }
-      double2 val = a_present(r, c) ? A[r][c] : make_double2(0.0, 0.0);
+      double2 val = a_present(r, c) ? Ab[r][c] : make_double2(0.0, 0.0);
       if (has_s) val = csub(val, s);
       L[r][c] = cmul(val, dinv[c]);
     }
@@ -220,10 +190,11 @@ __device__ void factor_block(const Args& a, int i, int j, int k,
 }
 
 // One colour's node ``tid`` (of n = cnx·cny·cnz): residual at its six
-// block edges, the block solve, the in-place deposit.  ``fac`` holds
-// the colour's 20 factor planes of n nodes each (K1; unused by K2).
-template <bool kFactored, class A>
-__device__ __forceinline__ void node_update(const A& a, const double2* fac,
+// block edges, the block solve, the in-place deposit.  ``buf`` holds
+// the colour's planes of n nodes each: K1's 20 factors, or K2's 12
+// packed parameter planes (unused by kFused).
+template <int kKernel, class A>
+__device__ __forceinline__ void node_update(const A& a, const double2* buf,
                                             int64_t n, int64_t tid, int x0,
                                             int y0, int z0, int cny,
                                             int cnz) {
@@ -235,26 +206,55 @@ __device__ __forceinline__ void node_update(const A& a, const double2* fac,
   const int j = y0 + 2 * b;
   const int k = z0 + 2 * c;
 
-  // 1. Residual at the six block edges, from the pre-step field.
-  double2 y[6] = {res_x(a, i - 1, j, k), res_x(a, i, j, k),
-                  res_y(a, i, j - 1, k), res_y(a, i, j, k),
-                  res_z(a, i, j, k - 1), res_z(a, i, j, k)};
-
-  // 2. LDLᵀ factors of the block: loaded (K1) or built here (K2).
+  double2 y[6];
   double2 L[6][6];
   double2 dinv[6];
-  if constexpr (kFactored) {
+  if constexpr (kKernel == kFactored) {
+    // 1. Residual at the six block edges, from the pre-step field.
+    y[0] = res_x(a, i - 1, j, k);
+    y[1] = res_x(a, i, j, k);
+    y[2] = res_y(a, i, j - 1, k);
+    y[3] = res_y(a, i, j, k);
+    y[4] = res_z(a, i, j, k - 1);
+    y[5] = res_z(a, i, j, k);
+    // 2. The block's LDLᵀ factors, loaded.
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
 #pragma unroll
       for (int m = 0; m < r; ++m) {
-        if (l_present(r, m)) L[r][m] = fac[l_plane(r, m) * n + tid];
+        if (l_present(r, m)) L[r][m] = buf[l_plane(r, m) * n + tid];
       }
     }
 #pragma unroll
-    for (int r = 0; r < 6; ++r) dinv[r] = fac[(kDinvPlane + r) * n + tid];
+    for (int r = 0; r < 6; ++r) dinv[r] = buf[(kDinvPlane + r) * n + tid];
   } else {
-    factor_block(a, i, j, k, L, dinv);
+    // 1. The node's η sums and ζ weights, then the residual at its six
+    // block edges from them and the pre-step field.
+    NodeParams p;
+    if constexpr (kKernel == kFusedPacked) {
+#pragma unroll
+      for (int m = 0; m < 6; ++m) {
+        p.st[m] = buf[m * n + tid];
+        p.w[m] = buf[(6 + m) * n + tid];
+      }
+    } else {
+      p = node_params(a, i, j, k);
+    }
+    const GlobalE<A> f{a};
+    y[0] = res_x(a, f, i - 1, j, k, p.st[0], p.w[0].y, p.w[0].x, p.w[2].y,
+                 p.w[2].x);
+    y[1] = res_x(a, f, i, j, k, p.st[1], p.w[1].y, p.w[1].x, p.w[3].y,
+                 p.w[3].x);
+    y[2] = res_y(a, f, i, j - 1, k, p.st[2], p.w[4].y, p.w[4].x, p.w[1].x,
+                 p.w[0].x);
+    y[3] = res_y(a, f, i, j, k, p.st[3], p.w[5].y, p.w[5].x, p.w[1].y,
+                 p.w[0].y);
+    y[4] = res_z(a, f, i, j, k - 1, p.st[4], p.w[3].x, p.w[2].x, p.w[5].x,
+                 p.w[4].x);
+    y[5] = res_z(a, f, i, j, k, p.st[5], p.w[3].y, p.w[2].y, p.w[5].y,
+                 p.w[4].y);
+    // 2. The block, assembled and factored here.
+    factor_block(a, p, i, j, k, L, dinv);
   }
 
   // Forward, diagonal and backward substitution
@@ -287,18 +287,18 @@ __device__ __forceinline__ void node_update(const A& a, const double2* fac,
 
 constexpr int kThreads = 256;   // most threads per block, every plan
 
-template <bool kFactored>
+template <int kKernel>
 __global__ void __launch_bounds__(kThreads)
 point_gs_step(Args a) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t n = static_cast<int64_t>(a.cnx) * a.cny * a.cnz;
   if (tid >= n) return;
-  node_update<kFactored>(a, a.fac, n, tid, a.x0, a.y0, a.z0, a.cny, a.cnz);
+  node_update<kKernel>(a, a.buf, n, tid, a.x0, a.y0, a.z0, a.cny, a.cnz);
 }
 
 // ---------------------------------------------------------------------
-// K1 sweep: every colour step of a smoothing call in one launch
+// Sweep: every colour step of a smoothing call in one launch
 // ---------------------------------------------------------------------
 
 constexpr int kMaxSeq = 64;     // colour steps per launch (nu ≤ 8)
@@ -308,11 +308,11 @@ enum Plan { kCluster = 1, kGrid = 2, kShared = 3 };
 struct Colour {
   int x0, y0, z0;               // first active node per axis
   int cnx, cny, cnz;            // active nodes per axis (0: none)
-  int64_t off;                  // the colour's planes in the factor buffer
+  int64_t off;                  // the colour's planes in the buffer
 };
 
 struct SweepArgs {
-  Args a;                       // a.fac: the whole colour-major buffer
+  Args a;                       // a.buf: the whole colour-major buffer
   Colour col[8];
   int nseq;
   signed char seq[kMaxSeq];
@@ -331,10 +331,10 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
 
 // Sizes of a level's tensors in elements, in the order the resident
 // plan stacks them in shared memory: e (3), s (3), η sums (3), factors
-// (complex), then ζ weights (3) and inverse widths (3) (real).
+// (K1 only; complex), then ζ weights (3) and inverse widths (3) (real).
 struct Sizes {
   int64_t n[16];
-  __host__ __device__ Sizes(int nx, int ny, int nz) {
+  __host__ __device__ Sizes(int nx, int ny, int nz, bool factored) {
     const int64_t x = nx, y = ny, z = nz;
     const int64_t e[3] = {x * (y + 1) * (z + 1), (x + 1) * y * (z + 1),
                           (x + 1) * (y + 1) * z};
@@ -342,7 +342,7 @@ struct Sizes {
     n[6] = x * (y - 1) * (z - 1);
     n[7] = (x - 1) * y * (z - 1);
     n[8] = (x - 1) * (y - 1) * z;
-    n[9] = 20 * (x - 1) * (y - 1) * (z - 1);
+    n[9] = factored ? 20 * (x - 1) * (y - 1) * (z - 1) : 0;
     n[10] = (x + 1) * y * z;
     n[11] = x * (y + 1) * z;
     n[12] = x * y * (z + 1);
@@ -368,22 +368,24 @@ __device__ __forceinline__ void step_barrier() {
   }
 }
 
-template <int kPlan>
+template <int kPlan, int kKernel>
 __global__ void __launch_bounds__(kThreads)
 point_gs_sweep(const __grid_constant__ SweepArgs sa) {
+  static_assert(kPlan != kShared || kKernel != kFusedPacked,
+                "the shared plan reads st and w from shared memory");
   extern __shared__ double2 smem[];
   Args a = sa.a;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-  const Sizes sz(a.nx, a.ny, a.nz);
+  const Sizes sz(a.nx, a.ny, a.nz, kKernel == kFactored);
   if constexpr (kPlan == kShared) {
-    // The whole level resident: copy e, s, the η sums, the factors, the
-    // ζ weights and the inverse widths in once; from here on the steps
-    // address shared memory through the same accessors (generic
+    // The whole level resident: copy e, s, the η sums, the factors (K1),
+    // the ζ weights and the inverse widths in once; from here on the
+    // steps address shared memory through the same accessors (generic
     // pointers), so the arithmetic is that of every other plan.
     const void* src[16] = {sa.a.ex, sa.a.ey, sa.a.ez, sa.a.sx, sa.a.sy,
-                           sa.a.sz, sa.a.stx, sa.a.sty, sa.a.stz, sa.a.fac,
+                           sa.a.sz, sa.a.stx, sa.a.sty, sa.a.stz, sa.a.buf,
                            sa.a.wx, sa.a.wy, sa.a.wz, sa.a.ihx, sa.a.ihy,
                            sa.a.ihz};
     void* base[16];
@@ -418,7 +420,7 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
     a.stx = static_cast<const double2*>(base[6]);
     a.sty = static_cast<const double2*>(base[7]);
     a.stz = static_cast<const double2*>(base[8]);
-    a.fac = static_cast<const double2*>(base[9]);
+    a.buf = static_cast<const double2*>(base[9]);
     a.wx = static_cast<const double*>(base[10]);
     a.wy = static_cast<const double*>(base[11]);
     a.wz = static_cast<const double*>(base[12]);
@@ -430,9 +432,9 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
     const Colour c = sa.col[sa.seq[s]];
     const int64_t n = static_cast<int64_t>(c.cnx) * c.cny * c.cnz;
     if (n == 0) continue;           // the same for every thread
-    const double2* fac = a.fac + c.off;
+    const double2* buf = a.buf + c.off;
     for (int64_t tid = t0; tid < n; tid += stride) {
-      node_update<true>(a, fac, n, tid, c.x0, c.y0, c.z0, c.cny, c.cnz);
+      node_update<kKernel>(a, buf, n, tid, c.x0, c.y0, c.z0, c.cny, c.cnz);
     }
     if (s + 1 < sa.nseq) step_barrier<kPlan>();
   }
@@ -449,15 +451,11 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
   }
 }
 
-}  // namespace
-
-namespace {
-
 Args make_args(void* ex, void* ey, void* ez, const void* sx, const void* sy,
                const void* sz, const void* stx, const void* sty,
                const void* stz, const void* wx, const void* wy,
                const void* wz, const void* ihx, const void* ihy,
-               const void* ihz, const void* fac, int nx, int ny, int nz) {
+               const void* ihz, const void* buf, int nx, int ny, int nz) {
   Args a;
   a.ex = static_cast<double2*>(ex);
   a.ey = static_cast<double2*>(ey);
@@ -474,7 +472,7 @@ Args make_args(void* ex, void* ey, void* ez, const void* sx, const void* sy,
   a.ihx = static_cast<const double*>(ihx);
   a.ihy = static_cast<const double*>(ihy);
   a.ihz = static_cast<const double*>(ihz);
-  a.fac = static_cast<const double2*>(fac);
+  a.buf = static_cast<const double2*>(buf);
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
@@ -483,6 +481,14 @@ Args make_args(void* ex, void* ey, void* ez, const void* sx, const void* sy,
   return a;
 }
 
+bool valid_kernel(int kernel) {
+  return kernel == kFactored || kernel == kFused || kernel == kFusedPacked;
+}
+
+// Blocks of the grid plan of ``kKernel`` that the card holds
+// co-resident at ``threads`` threads per block (the kernels differ in
+// registers).
+template <int kKernel>
 int grid_capacity(int threads, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -491,10 +497,66 @@ int grid_capacity(int threads, int* blocks) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, point_gs_sweep<kGrid>, threads, 0);
+        &per_sm, point_gs_sweep<kGrid, kKernel>, threads, 0);
   }
   *blocks = sms * per_sm;
   return static_cast<int>(err);
+}
+
+int grid_capacity(int kernel, int threads, int* blocks) {
+  switch (kernel) {
+    case kFactored: return grid_capacity<kFactored>(threads, blocks);
+    case kFused: return grid_capacity<kFused>(threads, blocks);
+    default: return grid_capacity<kFusedPacked>(threads, blocks);
+  }
+}
+
+template <int kKernel>
+cudaError_t launch_sweep(int plan, const SweepArgs& sa, int blocks,
+                         int threads, int smem, cudaStream_t s) {
+  if (plan == kCluster) {
+    if (blocks > kMaxCluster || smem != 0) return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster, kKernel>, sa);
+  }
+  if (plan == kGrid) {
+    if (smem != 0) return cudaErrorInvalidValue;
+    int cap = 0;
+    cudaError_t err = static_cast<cudaError_t>(
+        grid_capacity<kKernel>(threads, &cap));
+    if (err != cudaSuccess) return err;
+    if (blocks > cap) return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {const_cast<SweepArgs*>(&sa)};
+    return cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(point_gs_sweep<kGrid, kKernel>),
+        dim3(blocks, 1, 1), dim3(threads, 1, 1), args, 0, s);
+  }
+  if constexpr (kKernel != kFusedPacked) {
+    if (plan == kShared) {
+      const Sizes sz(sa.a.nx, sa.a.ny, sa.a.nz, kKernel == kFactored);
+      if (blocks != 1 || smem != sz.bytes()) return cudaErrorInvalidValue;
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            point_gs_sweep<kShared, kKernel>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+      }
+      point_gs_sweep<kShared, kKernel><<<1, threads, smem, s>>>(sa);
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -503,21 +565,24 @@ int grid_capacity(int threads, int* blocks) {
 // Each launches on ``stream`` and returns a cudaError_t as int (0 on
 // success): cudaGetLastError() after the launch, or the error of a
 // launch the card refuses.  The launch geometry comes from the Python
-// plan functions.
+// plan functions.  ``kernel`` is 0 (K1, ``buf`` its factors), 1 (K2
+// reading st and w) or 2 (K2, ``buf`` its packed node data).
 
-// One colour step (the ``step`` plan of K1, and K2).  ``fac`` points at
-// the colour's planes of the colour-major buffer; the caller skips
-// colours without nodes.
+// One colour step (the ``step`` plan).  ``buf`` points at the colour's
+// planes of the colour-major buffer; the caller skips colours without
+// nodes.
 extern "C" int emg3d_point_gs_step(
-    int factored, void* ex, void* ey, void* ez, const void* sx,
+    int kernel, void* ex, void* ey, void* ez, const void* sx,
     const void* sy, const void* sz, const void* stx, const void* sty,
     const void* stz, const void* wx, const void* wy, const void* wz,
-    const void* ihx, const void* ihy, const void* ihz, const void* fac,
+    const void* ihx, const void* ihy, const void* ihz, const void* buf,
     int nx, int ny, int nz, int x0, int y0, int z0, int cnx, int cny,
     int cnz, int blocks, int threads, void* stream) {
-  if (threads > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (threads > kThreads || !valid_kernel(kernel)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
-                     ihy, ihz, fac, nx, ny, nz);
+                     ihy, ihz, buf, nx, ny, nz);
   a.x0 = x0;
   a.y0 = y0;
   a.z0 = z0;
@@ -525,40 +590,44 @@ extern "C" int emg3d_point_gs_step(
   a.cny = cny;
   a.cnz = cnz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (factored) {
-    point_gs_step<true><<<blocks, threads, 0, s>>>(a);
+  if (kernel == kFactored) {
+    point_gs_step<kFactored><<<blocks, threads, 0, s>>>(a);
+  } else if (kernel == kFused) {
+    point_gs_step<kFused><<<blocks, threads, 0, s>>>(a);
   } else {
-    point_gs_step<false><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFusedPacked><<<blocks, threads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the grid plan that the card holds co-resident at its
-// largest blocks (kThreads threads).
-extern "C" int emg3d_point_gs_grid_capacity(int* blocks) {
-  return grid_capacity(kThreads, blocks);
+// Blocks of ``kernel``'s grid plan that the card holds co-resident at
+// its largest blocks (kThreads threads).
+extern "C" int emg3d_point_gs_grid_capacity(int kernel, int* blocks) {
+  if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
+  return grid_capacity(kernel, kThreads, blocks);
 }
 
 // The whole colour sequence ``seq[0..nseq)`` of a smoothing call in one
-// launch (K1's cluster, grid and shared plans).  ``geom`` holds per
-// colour x0, y0, z0, cnx, cny, cnz; ``offs`` its offset in the factor
-// buffer.  A plan the card cannot run is refused, never replaced: a
-// cluster beyond kMaxCluster CTAs, a grid beyond the co-resident blocks,
-// shared memory beyond the block's.
+// launch (the cluster, grid and shared plans).  ``geom`` holds per
+// colour x0, y0, z0, cnx, cny, cnz; ``offs`` its offset in ``buf``.  A
+// plan the card cannot run is refused, never replaced: a cluster beyond
+// kMaxCluster CTAs, a grid beyond the co-resident blocks, shared memory
+// beyond the block's, the shared plan of packed K2.
 extern "C" int emg3d_point_gs_sweep(
-    int plan, void* ex, void* ey, void* ez, const void* sx, const void* sy,
-    const void* sz, const void* stx, const void* sty, const void* stz,
-    const void* wx, const void* wy, const void* wz, const void* ihx,
-    const void* ihy, const void* ihz, const void* fac, int nx, int ny,
-    int nz, const int* geom, const long long* offs, const int* seq,
-    int nseq, int blocks, int threads, int smem, void* stream) {
+    int plan, int kernel, void* ex, void* ey, void* ez, const void* sx,
+    const void* sy, const void* sz, const void* stx, const void* sty,
+    const void* stz, const void* wx, const void* wy, const void* wz,
+    const void* ihx, const void* ihy, const void* ihz, const void* buf,
+    int nx, int ny, int nz, const int* geom, const long long* offs,
+    const int* seq, int nseq, int blocks, int threads, int smem,
+    void* stream) {
   if (nseq < 1 || nseq > kMaxSeq || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || blocks < 1) {
+      threads % 32 != 0 || blocks < 1 || !valid_kernel(kernel)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SweepArgs sa;
   sa.a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
-                   ihy, ihz, fac, nx, ny, nz);
+                   ihy, ihz, buf, nx, ny, nz);
   for (int c = 0; c < 8; ++c) {
     sa.col[c] = Colour{geom[6 * c], geom[6 * c + 1], geom[6 * c + 2],
                        geom[6 * c + 3], geom[6 * c + 4], geom[6 * c + 5],
@@ -572,47 +641,13 @@ extern "C" int emg3d_point_gs_sweep(
     sa.seq[n] = static_cast<signed char>(n < nseq ? seq[n] : 0);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (plan == kCluster) {
-    if (blocks > kMaxCluster || smem != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks, 1, 1);
-    cfg.blockDim = dim3(threads, 1, 1);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster>, sa);
-  } else if (plan == kGrid) {
-    if (smem != 0) return static_cast<int>(cudaErrorInvalidValue);
-    int cap = 0;
-    err = static_cast<cudaError_t>(grid_capacity(threads, &cap));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (blocks > cap) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    void* args[] = {&sa};
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(point_gs_sweep<kGrid>),
-        dim3(blocks, 1, 1), dim3(threads, 1, 1), args, 0, s);
-  } else if (plan == kShared) {
-    if (blocks != 1 || smem != Sizes(nx, ny, nz).bytes()) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(point_gs_sweep<kShared>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    point_gs_sweep<kShared><<<1, threads, smem, s>>>(sa);
+  cudaError_t err;
+  if (kernel == kFactored) {
+    err = launch_sweep<kFactored>(plan, sa, blocks, threads, smem, s);
+  } else if (kernel == kFused) {
+    err = launch_sweep<kFused>(plan, sa, blocks, threads, smem, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_sweep<kFusedPacked>(plan, sa, blocks, threads, smem, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -75,66 +75,91 @@ struct GlobalE {
   }
 };
 
-// ζ-weighted curls on faces (stencil.curl_factors).
+// ζ-weighted curls on faces (stencil.curl_factors), the face weight
+// ``w`` given.
 // u1: x-face at x-node i of cell (j, k).
 template <class A, class F>
 __device__ __forceinline__ double2 u1(const A& a, const F& f, int i, int j,
-                                      int k) {
+                                      int k, double w) {
   const double2 v = csub(cscale(csub(f.z(i, j + 1, k), f.z(i, j, k)), a.ihy[j]),
                          cscale(csub(f.y(i, j, k + 1), f.y(i, j, k)), a.ihz[k]));
-  return cscale(v, WX(i, j, k));
+  return cscale(v, w);
 }
 // u2: y-face at y-node j of cell (i, k).
 template <class A, class F>
 __device__ __forceinline__ double2 u2(const A& a, const F& f, int i, int j,
-                                      int k) {
+                                      int k, double w) {
   const double2 v = csub(cscale(csub(f.x(i, j, k + 1), f.x(i, j, k)), a.ihz[k]),
                          cscale(csub(f.z(i + 1, j, k), f.z(i, j, k)), a.ihx[i]));
-  return cscale(v, WY(i, j, k));
+  return cscale(v, w);
 }
 // u3: z-face at z-node k of cell (i, j).
 template <class A, class F>
 __device__ __forceinline__ double2 u3(const A& a, const F& f, int i, int j,
-                                      int k) {
+                                      int k, double w) {
   const double2 v = csub(cscale(csub(f.y(i + 1, j, k), f.y(i, j, k)), a.ihx[i]),
                          cscale(csub(f.x(i, j + 1, k), f.x(i, j, k)), a.ihy[j]));
-  return cscale(v, WZ(i, j, k));
+  return cscale(v, w);
 }
 
 // Residual r = s − A e at one interior edge (stencil.amat_interior):
-// A e = ½·(second curl) − ¼·(η edge sum)·e.
+// A e = ½·(second curl) − ¼·(η edge sum)·e, with the edge's η sum ``st``
+// and the four face weights of its curls given (p: the face at the
+// edge's own index, m: the one below it).  Point kernel K2 passes them
+// from its node's packed data; the overloads below read them from the
+// level's tensors.  The operation order is the same either way.
 template <class A, class F>
-__device__ double2 res_x(const A& a, const F& f, int i, int j, int k) {
+__device__ double2 res_x(const A& a, const F& f, int i, int j, int k,
+                         double2 st, double w3p, double w3m, double w2p,
+                         double w2m) {
   const double2 rr = csub(
-      csub(cscale(u3(a, f, i, j, k), a.ihy[j]),
-           cscale(u3(a, f, i, j - 1, k), a.ihy[j - 1])),
-      csub(cscale(u2(a, f, i, j, k), a.ihz[k]),
-           cscale(u2(a, f, i, j, k - 1), a.ihz[k - 1])));
-  const double2 st = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
+      csub(cscale(u3(a, f, i, j, k, w3p), a.ihy[j]),
+           cscale(u3(a, f, i, j - 1, k, w3m), a.ihy[j - 1])),
+      csub(cscale(u2(a, f, i, j, k, w2p), a.ihz[k]),
+           cscale(u2(a, f, i, j, k - 1, w2m), a.ihz[k - 1])));
   const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.x(i, j, k)));
   return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
 }
 template <class A, class F>
-__device__ double2 res_y(const A& a, const F& f, int i, int j, int k) {
+__device__ double2 res_y(const A& a, const F& f, int i, int j, int k,
+                         double2 st, double w1p, double w1m, double w3p,
+                         double w3m) {
   const double2 rr = csub(
-      csub(cscale(u1(a, f, i, j, k), a.ihz[k]),
-           cscale(u1(a, f, i, j, k - 1), a.ihz[k - 1])),
-      csub(cscale(u3(a, f, i, j, k), a.ihx[i]),
-           cscale(u3(a, f, i - 1, j, k), a.ihx[i - 1])));
-  const double2 st = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
+      csub(cscale(u1(a, f, i, j, k, w1p), a.ihz[k]),
+           cscale(u1(a, f, i, j, k - 1, w1m), a.ihz[k - 1])),
+      csub(cscale(u3(a, f, i, j, k, w3p), a.ihx[i]),
+           cscale(u3(a, f, i - 1, j, k, w3m), a.ihx[i - 1])));
   const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.y(i, j, k)));
   return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
 }
 template <class A, class F>
-__device__ double2 res_z(const A& a, const F& f, int i, int j, int k) {
+__device__ double2 res_z(const A& a, const F& f, int i, int j, int k,
+                         double2 st, double w2p, double w2m, double w1p,
+                         double w1m) {
   const double2 rr = csub(
-      csub(cscale(u2(a, f, i, j, k), a.ihx[i]),
-           cscale(u2(a, f, i - 1, j, k), a.ihx[i - 1])),
-      csub(cscale(u1(a, f, i, j, k), a.ihy[j]),
-           cscale(u1(a, f, i, j - 1, k), a.ihy[j - 1])));
-  const double2 st = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
+      csub(cscale(u2(a, f, i, j, k, w2p), a.ihx[i]),
+           cscale(u2(a, f, i - 1, j, k, w2m), a.ihx[i - 1])),
+      csub(cscale(u1(a, f, i, j, k, w1p), a.ihy[j]),
+           cscale(u1(a, f, i, j - 1, k, w1m), a.ihy[j - 1])));
   const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.z(i, j, k)));
   return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
+}
+
+// The same with η sum and face weights read from the level's tensors.
+template <class A, class F>
+__device__ double2 res_x(const A& a, const F& f, int i, int j, int k) {
+  return res_x(a, f, i, j, k, a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)],
+               WZ(i, j, k), WZ(i, j - 1, k), WY(i, j, k), WY(i, j, k - 1));
+}
+template <class A, class F>
+__device__ double2 res_y(const A& a, const F& f, int i, int j, int k) {
+  return res_y(a, f, i, j, k, a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)],
+               WX(i, j, k), WX(i, j, k - 1), WZ(i, j, k), WZ(i - 1, j, k));
+}
+template <class A, class F>
+__device__ double2 res_z(const A& a, const F& f, int i, int j, int k) {
+  return res_z(a, f, i, j, k, a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)],
+               WY(i, j, k), WY(i - 1, j, k), WX(i, j, k), WX(i, j - 1, k));
 }
 
 // The same at an edge of the level's own tensors.

@@ -32,12 +32,12 @@ _I = ctypes.c_int
 # returns a cudaError_t as int.
 ARGTYPES = {
     'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
-    'emg3d_point_gs_sweep': [_I] + [_P] * 16 + [_I] * 3 + [_P] * 3
+    'emg3d_point_gs_sweep': [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P] * 3
                             + [_I] * 4 + [_P],
-    'emg3d_point_gs_grid_capacity': [_P],
+    'emg3d_point_gs_grid_capacity': [_I, _P],
     'emg3d_line_residual': [_P] * 18 + [_I] * 14 + [_P],
     'emg3d_line_thomas': [_P] * 8 + [_I] * 14 + [_P],
-    'emg3d_line_factor': [_P, _I, ctypes.c_longlong, _I, _I, _P],
+    'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
 }
 
 

@@ -16,7 +16,7 @@ Edge ordering of the 6-edge node block:
 """
 from collections import namedtuple
 
-__all__ = ['node_coefficients', 'NodeCoeffs']
+__all__ = ['node_coefficients', 'face_coefficients', 'NodeCoeffs']
 
 _FIELDS = [
     # 24 zeta-average coefficients (k_t * (zeta + zeta)), real.
@@ -116,6 +116,55 @@ def node_coefficients(eta_x, eta_y, eta_z, zeta, hx, hy, hz):
         ihzm=ihz[:-1][None, None, :], ihzp=ihz[1:][None, None, :],
     )
     return NodeCoeffs(**c)
+
+
+def face_coefficients(st, w, ih):
+    """The same coefficients from the level's η edge sums ``st``, ζ face
+    weights ``w`` (:func:`.stencil.eta_edge_sums`,
+    :func:`.stencil.zeta_face_weights`) and inverse widths ``ih``.
+
+    The face-weight form that the CUDA kernels K2 and K5 compute
+    (csrc/node_block.cuh): each ζ pair sum is the face weight between
+    the two cells, each k = ½·ih.  Equal to :func:`node_coefficients`
+    (a ζ sum is the same either way round; ½/h = ½·(1/h) exactly).
+    """
+    stx, sty, stz = st
+    wx, wy, wz = w
+    ihx, ihy, ihz = ih
+    kx, ky, kz = 0.5 * ihx, 0.5 * ihy, 0.5 * ihz
+    kxm = kx[:-1][:, None, None]
+    kxp = kx[1:][:, None, None]
+    kym = ky[:-1][None, :, None]
+    kyp = ky[1:][None, :, None]
+    kzm = kz[:-1][None, None, :]
+    kzp = kz[1:][None, None, :]
+    # Faces around the node (i0, j0, k0) = (ix-1, iy-1, iz-1).
+    zmm, zmp = wz[:-1, :-1, 1:-1], wz[:-1, 1:, 1:-1]
+    zpm, zpp = wz[1:, :-1, 1:-1], wz[1:, 1:, 1:-1]
+    ymm, ymp = wy[:-1, 1:-1, :-1], wy[:-1, 1:-1, 1:]
+    ypm, ypp = wy[1:, 1:-1, :-1], wy[1:, 1:-1, 1:]
+    xmm, xmp = wx[1:-1, :-1, :-1], wx[1:-1, :-1, 1:]
+    xpm, xpp = wx[1:-1, 1:, :-1], wx[1:-1, 1:, 1:]
+    return NodeCoeffs(
+        mzyLxm=kym * zmm, mzyRxm=kyp * zmp,
+        myzLxm=kzm * ymm, myzRxm=kzp * ymp,
+        mzyLxp=kym * zpm, mzyRxp=kyp * zpp,
+        myzLxp=kzm * ypm, myzRxp=kzp * ypp,
+        mzxLym=kxm * zmm, mzxRym=kxp * zpm,
+        mxzLym=kzm * xmm, mxzRym=kzp * xmp,
+        mzxLyp=kxm * zmp, mzxRyp=kxp * zpp,
+        mxzLyp=kzm * xpm, mxzRyp=kzp * xpp,
+        myxLzm=kxm * ymm, myxRzm=kxp * ypm,
+        mxyLzm=kym * xmm, mxyRzm=kyp * xpm,
+        myxLzp=kxm * ymp, myxRzp=kxp * ypp,
+        mxyLzp=kym * xmp, mxyRzp=kyp * xpp,
+        st0=stx[:-1], st1=stx[1:],
+        st2=sty[:, :-1], st3=sty[:, 1:],
+        st4=stz[:, :, :-1], st5=stz[:, :, 1:],
+        ihxm=ihx[:-1][:, None, None], ihxp=ihx[1:][:, None, None],
+        ihym=ihy[:-1][None, :, None], ihyp=ihy[1:][None, :, None],
+        ihzm=ihz[:-1][None, None, :], ihzp=ihz[1:][None, None, :],
+    )
 
 
 def node_block_entries(c):

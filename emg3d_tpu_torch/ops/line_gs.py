@@ -4,11 +4,13 @@ Replaces the Pallas line smoother of ``emg3d_tpu/ops/pallas_lr.py``,
 and the ``lax.scan`` that builds its factor stack, with three
 hand-written CUDA kernels (``csrc/line_gs.cu``):
 
-- ``line_factor`` (K5) replaces the block-Thomas elimination of
-  ``pallas_lr.line_factors`` (``emg3d_tpu/ops/blocksolve.py:305``): one
-  thread per line runs it along the stations, in place on the packed
-  entries of :func:`.smoothers.pack_line_entries` (the math of
-  :func:`.smoothers.factor_line_stack_`, its plain version).
+- ``line_factor`` (K5) replaces ``pallas_lr.line_factors`` whole: its
+  station entries and the block-Thomas elimination it runs as a
+  ``lax.scan`` (``emg3d_tpu/ops/blocksolve.py:305``).  One thread per
+  line (:func:`factor_geometry`) assembles each station's blocks from
+  the rotated frame's η sums, ζ weights and inverse widths, and runs
+  the elimination along the stations (the math of :func:`.smoothers.line_factor_stack`, its plain
+  version, which packs the same entries with torch ops).
 - ``line_residual`` (K3) replaces ``_kernel_res``: the residual
   ``s − A e`` at exactly the edges the colour's Thomas step reads
   (:func:`colour_edges`; the math of :func:`.stencil.residual_parts`,
@@ -49,7 +51,7 @@ __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
            'launch_geometry', 'factor_geometry', 'residual_geometry',
            'colour_edges', 'colour_edge_masks', 'residual_plain',
            'factor_bytes', 'cache_budget', 'LAUNCHES', 'reset_launches',
-           'LINE_SHARE', 'SMEM_MAX']
+           'LINE_SHARE', 'SMEM_MAX', 'FactorGeometry']
 
 # Share of the card's memory that the cached factor stacks of one solve
 # may take together (all levels, axes and semicoarsening hierarchies).
@@ -60,7 +62,12 @@ LINE_SHARE = 0.5
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {'line_factor': 0, 'line_residual': 0, 'line_thomas': 0}
 
-FACTOR_THREADS = 128
+# K5: one line per thread in blocks of FACTOR_WARP threads.  The times
+# of blocks of 32 to FACTOR_THREADS threads on the card
+# (chip_smoke.factor_plans; PERF.md §6) put one warp first at every
+# shape timed, 256 to 65536 lines.
+FACTOR_WARP = 32
+FACTOR_THREADS = 256
 # K3: a block owns RES_ROWS line rows × RES_LINES lines along z × a run
 # of stations, 5·rows·lines threads (csrc/line_gs.cu).  The run is the
 # longest of RES_XPLANES that still gives the colour RES_BLOCKS blocks,
@@ -111,6 +118,11 @@ ThomasGeometry = namedtuple('ThomasGeometry', [
     'smem_bytes',          # dynamic shared memory per block
 ])
 
+FactorGeometry = namedtuple('FactorGeometry', [
+    'lines',               # lines of the stack, all four parities
+    'blocks', 'threads',   # the launch (blocks == 0: no line)
+])
+
 LineState = namedtuple('LineState', [
     'axis',       # 0, 1, 2: the lines' direction in the level's frame
     'shape',      # cell shape in the rotated frame (lines along x)
@@ -148,11 +160,21 @@ def cache_budget(device):
     return LINE_SHARE * total
 
 
-def _stack(ar, rs, plain):
+def _stack(ar, rs, st, w, ih, plain):
     """Factor stack of the rotated frame: K5 on the card, else plain."""
     if plain or ar[0].device.type == 'cpu':
         return smoothers.line_factor_stack(ar, rs)
-    return factor(smoothers.pack_line_entries(ar, rs))
+    return factor(st, w, ih, rs)
+
+
+def _params(ar):
+    """η sums, ζ weights and inverse widths of a rotated frame."""
+    eta_x, eta_y, eta_z, zeta, hx, hy, hz = ar
+    st = tuple(t.contiguous() for t in
+               stencil.eta_edge_sums(eta_x, eta_y, eta_z))
+    w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
+    ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
+    return st, w, ih
 
 
 def line_factors(arrays, shape, axis):
@@ -161,8 +183,9 @@ def line_factors(arrays, shape, axis):
     CPU tensors take the plain elimination
     (:func:`.smoothers.line_factor_stack`), CUDA tensors K5.
     """
-    return _stack(smoothers.rotate_arrays(arrays, axis),
-                  smoothers.rotate_shape(shape, axis), False)
+    ar = smoothers.rotate_arrays(arrays, axis)
+    return _stack(ar, smoothers.rotate_shape(shape, axis), *_params(ar),
+                  False)
 
 
 def line_state(arrays, shape, axis, factors=True, plain=False):
@@ -178,52 +201,73 @@ def line_state(arrays, shape, axis, factors=True, plain=False):
     """
     ar = smoothers.rotate_arrays(arrays, axis)
     rs = smoothers.rotate_shape(shape, axis)
-    eta_x, eta_y, eta_z, zeta, hx, hy, hz = ar
-    st = tuple(t.contiguous() for t in
-               stencil.eta_edge_sums(eta_x, eta_y, eta_z))
-    w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
-    ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
-    fac = _stack(ar, rs, plain) if factors else None
+    st, w, ih = _params(ar)
+    fac = _stack(ar, rs, st, w, ih, plain) if factors else None
     return LineState(int(axis), rs, ar, st, w, ih, fac)
 
 
-def factor_geometry(stack_shape):
-    """(lines, blocks, threads) of K5 on a ``(nx, NLINE, 2, 2, ny2,
-    nz2)`` stack: one thread per line of all four parities."""
-    lines = 4 * stack_shape[-2] * stack_shape[-1]
-    if lines == 0 or stack_shape[0] == 0:
-        return lines, 0, 0
-    threads = min(FACTOR_THREADS, -(-lines // 32) * 32)
-    return lines, -(-lines // threads), threads
+def factor_geometry(shape, threads=FACTOR_WARP):
+    """K5's launch on a rotated level ``shape`` (lines along x).
 
-
-def factor(stack):
-    """Block-Thomas elimination of a packed stack in place (K5).
-
-    ``stack`` is :func:`.smoothers.pack_line_entries`' output, a
-    contiguous complex128 CUDA tensor; its planes 0-14 are overwritten
-    with the factors.  The plain version is
-    :func:`.smoothers.factor_line_stack_`.  Returns ``stack``.
+    One line per thread in blocks of one warp: the fastest geometry on
+    the card at every shape timed.  ``threads`` (a multiple of 32 up to
+    FACTOR_THREADS) forces larger blocks (timings on the card).  Returns
+    a :data:`FactorGeometry`.
     """
-    _cuda(stack)
-    if (stack.ndim != 6 or stack.shape[1:4] != (NLINE, 2, 2)
-            or stack.dtype != torch.complex128
-            or not stack.is_contiguous()):
-        raise ValueError(f"factor: expected a contiguous complex128 "
-                         f"(nx, {NLINE}, 2, 2, ny2, nz2) stack; got "
-                         f"{stack.dtype} {tuple(stack.shape)}")
-    lines, blocks, threads = factor_geometry(tuple(stack.shape))
-    if blocks == 0:
-        return stack
+    nx, ny, nz = shape
+    lines = 4 * (ny // 2) * (nz // 2)
+    if threads % 32 or not 32 <= threads <= FACTOR_THREADS:
+        raise ValueError(f"K5: {threads} threads per block; a multiple of "
+                         f"32 up to {FACTOR_THREADS}")
+    if lines == 0 or nx == 0:
+        return FactorGeometry(lines, 0, 0)
+    return FactorGeometry(lines, -(-lines // threads), threads)
+
+
+def factor(st, w, ih, shape, geometry=None):
+    """The factor stack of a rotated level, built on the card (K5).
+
+    ``st``, ``w`` and ``ih`` are the rotated frame's η edge sums, ζ face
+    weights and inverse widths (a :class:`LineState`'s), contiguous
+    CUDA tensors; ``shape`` its cell shape (lines along x).  Returns a
+    new ``(nx, NLINE, 2, 2, ny2, nz2)`` complex128 stack, every plane
+    written by the kernel.  ``geometry`` forces a
+    :func:`factor_geometry` (timings on the card).  The plain version
+    is :func:`.smoothers.line_factor_stack`.
+    """
+    _cuda(st[0])
+    nx, ny, nz = shape
+    want = {'st': (((nx, ny - 1, nz - 1), (nx - 1, ny, nz - 1),
+                    (nx - 1, ny - 1, nz)), torch.complex128),
+            'w': (((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)),
+                  torch.float64),
+            'ih': (((nx,), (ny,), (nz,)), torch.float64)}
+    for name, trio in (('st', st), ('w', w), ('ih', ih)):
+        shapes, dtype = want[name]
+        for t, sh in zip(trio, shapes):
+            if (tuple(t.shape) != sh or t.dtype != dtype
+                    or t.device != st[0].device or not t.is_contiguous()):
+                raise ValueError(
+                    f"factor: {name} must be contiguous {dtype} of shapes "
+                    f"{shapes} on {st[0].device}; got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+    if nx < 2:
+        raise ValueError(f"factor: a level of {nx} station(s); K5 takes 2 "
+                         f"or more")
+    g = factor_geometry(shape) if geometry is None else geometry
+    out = torch.empty((nx, NLINE, 2, 2, *_line_dims(shape)),
+                      dtype=torch.complex128, device=st[0].device)
+    if g.blocks == 0:
+        return out
     from ._build import library
-    err = library().emg3d_line_factor(_ptr(stack), stack.shape[0], lines,
-                                      blocks, threads,
-                                      _stream(stack.device))
+    err = library().emg3d_line_factor(
+        _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz,
+        g.blocks, g.threads, _stream(out.device))
     if err != 0:
         raise RuntimeError(f"line_factor kernel launch failed: cudaError "
-                           f"{err} (stack {tuple(stack.shape)})")
+                           f"{err} (level {tuple(shape)}, {g})")
     LAUNCHES['line_factor'] += 1
-    return stack
+    return out
 
 
 def colour_edges(shape, color):
@@ -492,7 +536,8 @@ def _scratch(shape, like):
 def _factors(state, plain=False):
     if state.factors is not None:
         return state.factors
-    return _stack(state.arrays, state.shape, plain)
+    return _stack(state.arrays, state.shape, state.st, state.w, state.ih,
+                  plain)
 
 
 def line_relaxation_plain(e, s, state, nu, _seq=None):

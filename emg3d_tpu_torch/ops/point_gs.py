@@ -6,23 +6,28 @@ with two hand-written CUDA kernels (``csrc/point_gs.cu``):
 - ``factored`` (K1) replaces ``_kernel_resident``: substitution only,
   against LDLᵀ factors built once per level and solve
   (:func:`point_state`, the counterpart of ``pack_factors``), stored
-  colour-major (:func:`pack_factors`).  One launch runs the whole colour
-  sequence of a smoothing call, under a plan that :func:`sweep_plan`
-  picks per level: ``cluster``, ``grid`` or ``shared`` (one launch,
-  barriers between colour steps), or ``step`` (one launch per colour
-  step).
+  colour-major (:func:`pack_factors`).
 - ``fused`` (K2) replaces ``_kernel``: assembles, factors and solves
-  each node block in registers, one launch per colour step.  The solver
-  takes it for a level whose factor stack would exceed
-  :data:`FACTOR_SHARE` of the card's memory, as the JAX package takes
-  ``_kernel`` where ``_resident_plan`` fails.
+  each node block in registers, from the node's η sums and ζ weights
+  packed colour-major once per level (:func:`pack_node_data`), or read
+  at the node's indices on levels small enough for the ``shared`` plan
+  and where the packed data would not fit the card
+  (:func:`packs_nodes`).
+
+Both run the whole colour sequence of a smoothing call in one launch,
+under a plan that :func:`sweep_plan` picks per level and kernel:
+``cluster``, ``grid`` or ``shared`` (one launch, barriers between
+colour steps), or ``step`` (one launch per colour step).  The solver
+takes, per level, the kernel :func:`point_kernel` names: the faster one
+by the times measured on the card, K1 only where its factor stack fits
+:data:`FACTOR_SHARE` of the card's memory.
 
 One thread per active node; the kernels update the field in place.
 :func:`gauss_seidel_point` runs the kernels for CUDA tensors and the
 plain PyTorch version (:func:`gauss_seidel_point_plain`, the math of
 :func:`.smoothers.gauss_seidel_point`) for CPU tensors.  For a CUDA
 tensor it launches or raises: it never falls back, neither to the plain
-version nor to another plan.
+version nor to another plan or kernel.
 """
 import ctypes
 import functools
@@ -35,9 +40,11 @@ from . import smoothers, stencil
 
 __all__ = ['PointState', 'point_state', 'gauss_seidel_point',
            'gauss_seidel_point_plain', 'launch_geometry', 'sweep_plan',
-           'pack_factors', 'unpack_factors', 'colour_offsets', 'LAUNCHES',
-           'STEPS', 'reset_launches', 'factors_fit', 'grid_capacity',
-           'PLANS']
+           'point_kernel', 'pack_factors', 'unpack_factors',
+           'pack_node_data', 'unpack_node_data', 'node_planes',
+           'colour_offsets', 'LAUNCHES', 'STEPS', 'reset_launches',
+           'factors_fit', 'packs_nodes', 'card_memory', 'grid_capacity',
+           'PLANS', 'KERNELS']
 
 # Strict-lower factor entries of the 6×6 node-block LDLᵀ (fixed sparsity
 # incl. the (3,2) and (5,4) fill-in), in the plane order of the factor
@@ -46,10 +53,25 @@ __all__ = ['PointState', 'point_state', 'gauss_seidel_point',
 LKEYS = ((2, 0), (2, 1), (3, 0), (3, 1), (3, 2), (4, 0), (4, 1),
          (4, 2), (4, 3), (5, 0), (5, 1), (5, 2), (5, 3), (5, 4))
 NFACTORS = len(LKEYS) + 6
+# K2's packed node data: the six η edge sums, then the twelve ζ face
+# weights as six (lower, upper) pairs in one complex plane each
+# (:func:`node_planes`; NodeParams of csrc/node_block.cuh).
+NODE_PLANES = 12
 
-# Share of the card's memory one level's factor stack may take before
-# the solver uses the fused kernel on that level.
+# Share of the card's memory one level's factor stack (K1) or packed
+# node data (K2) may take.  A level whose factors would exceed it runs
+# K2; one whose node data would, runs K2 on st and w directly.
 FACTOR_SHARE = 0.25
+
+KERNELS = ('factored', 'fused')
+# A kernel name here forces that kernel on every level that admits it
+# (comparisons on the card: chip_smoke.py, profile_solve.py --kernel);
+# None applies point_kernel's rule.
+FORCE_KERNEL = None
+# point_kernel's rule, from the times of both kernels under their chosen
+# plans (chip_smoke.phase_kernels' plan table; PERF.md §6): K2 where a
+# colour has at least FUSED_NODES nodes.
+FUSED_NODES = 18432
 
 # Launches of each kernel, and the colour steps they ran, since the
 # last reset_launches().
@@ -57,7 +79,7 @@ LAUNCHES = {'factored': 0, 'fused': 0}
 STEPS = {'factored': 0, 'fused': 0}
 
 MAX_THREADS = 256
-# K1's launch plans (csrc/point_gs.cu).  The sweep plans take the whole
+# The launch plans (csrc/point_gs.cu).  The sweep plans take the whole
 # colour sequence of a smoothing call in one launch, at most MAX_SEQ
 # colour steps (nu ≤ 8): ``cluster`` is one cluster of at most
 # MAX_CLUSTER blocks, ``grid`` a cooperative launch of at most
@@ -71,18 +93,21 @@ MAX_SEQ = 64
 MAX_CLUSTER = 8
 GRID_BLOCKS = 132
 SMEM_MAX = 232448
-# The plan rule of :func:`sweep_plan`, from the times of every plan per
-# smoothing call measured on the card (chip_smoke.phase_kernels' plan
-# table; PERF.md §6): ``shared`` where the level fits a block,
-# ``cluster`` while a colour has at most CLUSTER_NODES nodes (16³),
-# ``grid`` up to STEP_NODES (64³), ``step`` above (128³: 2 % faster
-# than ``grid``, whose 132 blocks hold 8 nodes per thread there).
+# The plan rule of :func:`sweep_plan`, from the times of every plan of
+# both kernels per smoothing call measured on the card
+# (chip_smoke.phase_kernels' plan table; PERF.md §6): ``shared`` where
+# the level fits a block (K2's level holds no factors, so it fits
+# larger levels), ``cluster`` while a colour has at most CLUSTER_NODES
+# nodes, ``grid`` up to STEP_NODES, ``step`` above; the two cut-offs
+# came out the same for both kernels.
 CLUSTER_NODES = 512
 STEP_NODES = 131072
 # A plan name here forces that plan on every level (comparisons on the
 # card: chip_smoke.py, profile_solve.py --plan); None applies the rule.
 FORCE_PLAN = None
 _PLAN_CODE = {'cluster': 1, 'grid': 2, 'shared': 3}
+# The kernel codes of the C interface: K1, K2 on st/w, K2 on packed data.
+_KERNEL_CODE = {'factored': 0, 'fused': 1, 'fused_packed': 2}
 
 SweepPlan = namedtuple('SweepPlan', [
     'plan',         # one of PLANS
@@ -100,6 +125,7 @@ PointState = namedtuple('PointState', [
     'w',          # ζ face weights (wx, wy, wz), real
     'ih',         # inverse widths (ihx, ihy, ihz), real
     'factors',    # colour-major factors (pack_factors), or None
+    'nodes',      # colour-major node data (pack_node_data), or None
 ])
 
 
@@ -115,13 +141,61 @@ def factor_bytes(shape):
     return NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) * 16
 
 
-def factors_fit(shape, device):
-    """Whether a level's factor stack fits FACTOR_SHARE of the card."""
+def node_bytes(shape):
+    """Bytes of a level's complex128 packed node data (192 per node)."""
+    nx, ny, nz = shape
+    return NODE_PLANES * (nx - 1) * (ny - 1) * (nz - 1) * 16
+
+
+def card_memory(device):
+    """Bytes of the card's memory, or None for a device that is not one."""
     device = torch.device(device)
     if device.type != 'cuda':
-        return True
-    total = torch.cuda.get_device_properties(device).total_memory
-    return factor_bytes(shape) <= FACTOR_SHARE * total
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def factors_fit(shape, device):
+    """Whether a level's factor stack fits FACTOR_SHARE of the card."""
+    total = card_memory(device)
+    return total is None or factor_bytes(shape) <= FACTOR_SHARE * total
+
+
+def packs_nodes(shape, device):
+    """Whether a K2 level state packs node data: only on a card, only
+    where the level's plans read it (a level that admits the ``shared``
+    plan runs it, and that plan holds st and w in shared memory), and
+    only where it fits FACTOR_SHARE of the card."""
+    total = card_memory(device)
+    return (total is not None
+            and _shared_bytes(tuple(shape), 'fused') > SMEM_MAX
+            and node_bytes(shape) <= FACTOR_SHARE * total)
+
+
+def _most_nodes(shape):
+    return max(math.prod(launch_geometry(shape, c)[1]) for c in range(8))
+
+
+def point_kernel(shape, device):
+    """The point kernel of a level: ``'factored'`` (K1) or ``'fused'`` (K2).
+
+    :data:`FORCE_KERNEL` if set, else the faster kernel by the card's
+    plan table: K2 where a colour has at least FUSED_NODES nodes.  K1
+    only where its factor stack fits FACTOR_SHARE of the card
+    (:func:`factors_fit`), whatever the rule or FORCE_KERNEL say.  A
+    device that is not a card takes K1 (the plain version on factors
+    computed once, as the JAX package's default).
+    """
+    if FORCE_KERNEL not in (None,) + KERNELS:
+        raise ValueError(f"FORCE_KERNEL {FORCE_KERNEL!r}: one of {KERNELS}")
+    if not factors_fit(shape, device):
+        return 'fused'
+    if FORCE_KERNEL is not None:
+        return FORCE_KERNEL
+    if card_memory(device) is None:
+        return 'factored'
+    return 'fused' if _most_nodes(tuple(shape)) >= FUSED_NODES \
+        else 'factored'
 
 
 def point_state(arrays, shape, factored=True):
@@ -130,31 +204,38 @@ def point_state(arrays, shape, factored=True):
     Built once per level and solve, on the tensors' device, by torch
     ops: the counterpart of ``pack_params``/``pack_factors`` of the JAX
     package, without their (8,128) padding.  With ``factored`` it holds
-    the node-block LDLᵀ factors of the factored kernel.
+    the node-block LDLᵀ factors of K1; without, K2's packed node data
+    where :func:`packs_nodes` says so (else None, and K2 reads st and
+    w).
     """
     eta_x, eta_y, eta_z, zeta, hx, hy, hz = arrays
     st = tuple(t.contiguous() for t in
                stencil.eta_edge_sums(eta_x, eta_y, eta_z))
     w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
     ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
-    factors = None
+    factors = nodes = None
     if factored:
         L, dinv = smoothers.node_factors(arrays)
         factors = pack_factors([L[k] for k in LKEYS] + list(dinv), shape)
-    return PointState(tuple(shape), tuple(arrays), st, w, ih, factors)
+    elif packs_nodes(shape, st[0].device):
+        nodes = pack_node_data(st, w, shape)
+    return PointState(tuple(shape), tuple(arrays), st, w, ih, factors,
+                      nodes)
 
 
 @functools.lru_cache(maxsize=None)
-def colour_offsets(shape):
-    """Offsets of the colours in the colour-major factor buffer.
+def colour_offsets(shape, planes=NFACTORS):
+    """Offsets of the colours in a colour-major buffer of ``planes``
+    planes per node (K1's factors: NFACTORS, K2's node data:
+    NODE_PLANES).
 
-    Returns ``(offs, total)``: colour c's NFACTORS planes of n_c nodes
-    each start at ``offs[c]``; ``total`` = NFACTORS × interior nodes.
+    Returns ``(offs, total)``: colour c's planes of n_c nodes each start
+    at ``offs[c]``; ``total`` = planes × interior nodes.
     """
     offs, pos = [], 0
     for c in range(8):
         offs.append(pos)
-        pos += NFACTORS * math.prod(launch_geometry(shape, c)[1])
+        pos += planes * math.prod(launch_geometry(shape, c)[1])
     return tuple(offs), pos
 
 
@@ -163,6 +244,18 @@ def _colour_nodes(color):
     array (zero-based node i0 = ix - 1)."""
     parity = (color % 2, (color // 2) % 2, color // 4)
     return tuple(slice(1 - p, None, 2) for p in parity)
+
+
+def _colour_views(flat, shape, planes):
+    """(colour, its (planes, cnx, cny, cnz) view of ``flat``, its node
+    slices) for every colour with nodes."""
+    offs, _ = colour_offsets(tuple(shape), planes)
+    for c in range(8):
+        counts = launch_geometry(shape, c)[1]
+        n = math.prod(counts)
+        if n:
+            yield (flat[offs[c]:offs[c] + planes * n].view(planes, *counts),
+                   _colour_nodes(c))
 
 
 def pack_factors(planes, shape):
@@ -178,16 +271,10 @@ def pack_factors(planes, shape):
     nb = tuple(n - 1 for n in shape)
     planes = [torch.broadcast_to(p, nb) for p in planes]
     dtype = functools.reduce(torch.promote_types, (p.dtype for p in planes))
-    offs, total = colour_offsets(tuple(shape))
-    out = torch.empty(total, dtype=dtype, device=planes[0].device)
-    for c in range(8):
-        counts = launch_geometry(shape, c)[1]
-        n = math.prod(counts)
-        if n == 0:
-            continue
-        sl = _colour_nodes(c)
-        out[offs[c]:offs[c] + NFACTORS * n].view(NFACTORS, *counts).copy_(
-            torch.stack([p[sl] for p in planes]))
+    out = torch.empty(colour_offsets(tuple(shape))[1], dtype=dtype,
+                      device=planes[0].device)
+    for view, sl in _colour_views(out, shape, NFACTORS):
+        view.copy_(torch.stack([p[sl] for p in planes]))
     return out
 
 
@@ -195,18 +282,69 @@ def unpack_factors(flat, shape):
     """Inverse of :func:`pack_factors`: the node-indexed stack
     ``(NFACTORS, nx-1, ny-1, nz-1)``."""
     nb = tuple(n - 1 for n in shape)
-    offs, total = colour_offsets(tuple(shape))
+    total = colour_offsets(tuple(shape))[1]
     if tuple(flat.shape) != (total,):
         raise ValueError(f"factors: shape {tuple(flat.shape)}, expected "
                          f"({total},) for level {tuple(shape)}")
     out = torch.empty((NFACTORS, *nb), dtype=flat.dtype, device=flat.device)
-    for c in range(8):
-        counts = launch_geometry(shape, c)[1]
-        n = math.prod(counts)
-        if n:
-            out[(slice(None),) + _colour_nodes(c)] = flat[
-                offs[c]:offs[c] + NFACTORS * n].view(NFACTORS, *counts)
+    for view, sl in _colour_views(flat, shape, NFACTORS):
+        out[(slice(None),) + sl] = view
     return out
+
+
+def node_planes(st, w):
+    """K2's node-indexed inputs: the six η sums at each interior node's
+    block edges, and its twelve ζ face weights as six (lower, upper)
+    pairs, as views of ``st`` and ``w`` (csrc/node_block.cuh lists
+    them)."""
+    stx, sty, stz = st
+    wx, wy, wz = w
+    sums = (stx[:-1], stx[1:], sty[:, :-1], sty[:, 1:], stz[:, :, :-1],
+            stz[:, :, 1:])
+    pairs = ((wz[:-1, :-1, 1:-1], wz[:-1, 1:, 1:-1]),
+             (wz[1:, :-1, 1:-1], wz[1:, 1:, 1:-1]),
+             (wy[:-1, 1:-1, :-1], wy[:-1, 1:-1, 1:]),
+             (wy[1:, 1:-1, :-1], wy[1:, 1:-1, 1:]),
+             (wx[1:-1, :-1, :-1], wx[1:-1, :-1, 1:]),
+             (wx[1:-1, 1:, :-1], wx[1:-1, 1:, 1:]))
+    return sums, pairs
+
+
+def pack_node_data(st, w, shape):
+    """Colour-major node data of a level (K2's layout): NODE_PLANES
+    complex planes per node, laid out as :func:`pack_factors` lays out
+    the factors: the six η sums, then the six ζ weight pairs with the
+    lower weight in the real and the upper in the imaginary part
+    (:func:`node_planes`).  Copied colour by colour, without
+    level-sized temporaries."""
+    sums, pairs = node_planes(st, w)
+    dtype = torch.promote_types(st[0].dtype, torch.complex64)
+    out = torch.empty(colour_offsets(tuple(shape), NODE_PLANES)[1],
+                      dtype=dtype, device=st[0].device)
+    for view, sl in _colour_views(out, shape, NODE_PLANES):
+        for p, t in enumerate(sums):
+            view[p].copy_(t[sl])
+        for p, (lo, hi) in enumerate(pairs):
+            view[6 + p].real.copy_(lo[sl])
+            view[6 + p].imag.copy_(hi[sl])
+    return out
+
+
+def unpack_node_data(flat, shape):
+    """Inverse of :func:`pack_node_data`: ``(sums, pairs)`` node-indexed,
+    as :func:`node_planes` gives them."""
+    nb = tuple(n - 1 for n in shape)
+    total = colour_offsets(tuple(shape), NODE_PLANES)[1]
+    if tuple(flat.shape) != (total,):
+        raise ValueError(f"nodes: shape {tuple(flat.shape)}, expected "
+                         f"({total},) for level {tuple(shape)}")
+    out = torch.empty((NODE_PLANES, *nb), dtype=flat.dtype,
+                      device=flat.device)
+    for view, sl in _colour_views(flat, shape, NODE_PLANES):
+        out[(slice(None),) + sl] = view
+    return (tuple(out[:6]),
+            tuple((p.real.contiguous(), p.imag.contiguous())
+                  for p in out[6:]))
 
 
 def launch_geometry(shape, color):
@@ -230,24 +368,26 @@ def launch_geometry(shape, color):
     return first, counts, -(-total // threads), threads
 
 
-def _rule(shape, max_nodes):
-    if _shared_bytes(shape) <= SMEM_MAX:
+def _rule(shape, max_nodes, kernel):
+    if _shared_bytes(shape, kernel) <= SMEM_MAX:
         return 'shared'
     if max_nodes <= CLUSTER_NODES:
         return 'cluster'
     return 'grid' if max_nodes <= STEP_NODES else 'step'
 
 
-def _shared_bytes(shape):
+def _shared_bytes(shape, kernel='factored'):
     """The shared plan's dynamic shared memory: the whole level (e, s,
-    η sums and factors complex; ζ weights and inverse widths real)."""
+    η sums and, for K1, factors complex; ζ weights and inverse widths
+    real)."""
     nx, ny, nz = shape
     edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
              + (nx + 1) * (ny + 1) * nz)
     sums = (nx * (ny - 1) * (nz - 1) + (nx - 1) * ny * (nz - 1)
             + (nx - 1) * (ny - 1) * nz)
     faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
-    fac = NFACTORS * (nx - 1) * (ny - 1) * (nz - 1)
+    fac = NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) \
+        if kernel == 'factored' else 0
     return 16 * (2 * edges + sums + fac) + 8 * (faces + nx + ny + nz)
 
 
@@ -259,32 +399,41 @@ def _spread(most, max_blocks):
     return max(1, min(max_blocks, -(-most // threads))), threads
 
 
-def sweep_plan(shape, nu=None, seq=None, plan=None):
-    """K1's launch plan for one smoothing call on a level.
+def _kernel_name(kernel):
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown point-smoother kernel {kernel!r}; one "
+                         f"of {KERNELS}")
+    return kernel
+
+
+def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored'):
+    """The launch plan of one smoothing call of ``kernel`` on a level.
 
     ``seq`` is the colour sequence (default ``color_sequence(nu)``, 8·nu
     steps; more than MAX_SEQ raise).  ``plan`` forces one of PLANS (else
-    :data:`FORCE_PLAN`, else the rule: ``shared`` where the whole level
-    fits a block's shared memory, ``cluster`` while a colour has at most
-    CLUSTER_NODES nodes, ``grid`` up to STEP_NODES, ``step`` above).  A
-    plan the level does not admit (``shared`` beyond SMEM_MAX) raises.
-    Returns a :data:`SweepPlan`; ``launches`` is 1 for a sweep plan and
-    the number of colour steps with nodes for ``step``, whose launches
-    take their geometry from :func:`launch_geometry`.
+    :data:`FORCE_PLAN`, else the kernel's rule: ``shared`` where the
+    whole level fits a block's shared memory, ``cluster`` while a colour
+    has at most CLUSTER_NODES nodes, ``grid`` up to STEP_NODES, ``step``
+    above).  A plan the level does not admit (``shared`` beyond
+    SMEM_MAX) raises.  Returns a :data:`SweepPlan`; ``launches`` is 1
+    for a sweep plan and the number of colour steps with nodes for
+    ``step``, whose launches take their geometry from
+    :func:`launch_geometry`.
     """
     seq = smoothers.color_sequence(nu) if seq is None else seq
-    return _sweep_plan(tuple(shape), tuple(seq), plan or FORCE_PLAN)
+    return _sweep_plan(tuple(shape), tuple(seq), plan or FORCE_PLAN,
+                       _kernel_name(kernel))
 
 
 @functools.lru_cache(maxsize=None)
-def _sweep_plan(shape, seq, plan):
+def _sweep_plan(shape, seq, plan, kernel):
     if not 0 < len(seq) <= MAX_SEQ:
         raise ValueError(f"{len(seq)} colour steps: the sweep takes 1 to "
                          f"{MAX_SEQ} (nu ≤ {MAX_SEQ // 8})")
     nodes = [math.prod(launch_geometry(shape, c)[1]) for c in seq]
     steps = sum(1 for n in nodes if n)
     most = max(nodes)
-    plan = plan or _rule(shape, most)
+    plan = plan or _rule(shape, most, kernel)
     if plan not in PLANS:
         raise ValueError(f"unknown sweep plan {plan!r}; one of {PLANS}")
     blocks, threads, smem = 0, MAX_THREADS, 0
@@ -293,7 +442,7 @@ def _sweep_plan(shape, seq, plan):
     elif plan == 'grid':
         blocks, threads = _spread(most, GRID_BLOCKS)
     elif plan == 'shared':
-        blocks, smem = 1, _shared_bytes(shape)
+        blocks, smem = 1, _shared_bytes(shape, kernel)
         if smem > SMEM_MAX:
             raise ValueError(f"shared plan: level {shape} takes {smem} B, "
                              f"a block holds {SMEM_MAX}")
@@ -304,19 +453,20 @@ def _sweep_plan(shape, seq, plan):
     return SweepPlan(plan, blocks, threads, smem, launches, steps)
 
 
-def plans_admitted(shape):
-    """The plans a level admits (every plan but ``shared`` beyond
-    SMEM_MAX)."""
-    return tuple(p for p in PLANS
-                 if p != 'shared' or _shared_bytes(shape) <= SMEM_MAX)
+def plans_admitted(shape, kernel='factored'):
+    """The plans a level admits for ``kernel`` (every plan but
+    ``shared`` beyond SMEM_MAX)."""
+    return tuple(p for p in PLANS if p != 'shared'
+                 or _shared_bytes(shape, kernel) <= SMEM_MAX)
 
 
-def grid_capacity():
-    """Blocks of K1's grid plan the card holds co-resident (needs the
-    card)."""
+def grid_capacity(kernel='factored'):
+    """Blocks of the grid plan the card holds co-resident, for
+    ``kernel``: 'factored', 'fused' or 'fused_packed' (needs the card)."""
     from ._build import library
     n = ctypes.c_int(0)
-    err = library().emg3d_point_gs_grid_capacity(ctypes.byref(n))
+    err = library().emg3d_point_gs_grid_capacity(_KERNEL_CODE[kernel],
+                                                 ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"point_gs grid capacity query failed: "
                            f"cudaError {err}")
@@ -360,6 +510,7 @@ def _state_shapes(shape):
     """Expected tensor shapes of a level, per :class:`PointState` group."""
     nx, ny, nz = shape
     cells = (nx, ny, nz)
+    nodes = (nx - 1) * (ny - 1) * (nz - 1)
     return {
         'e': ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
               (nx + 1, ny + 1, nz)),
@@ -368,7 +519,8 @@ def _state_shapes(shape):
                (nx - 1, ny - 1, nz)),
         'w': ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)),
         'ih': ((nx,), (ny,), (nz,)),
-        'factors': ((NFACTORS * (nx - 1) * (ny - 1) * (nz - 1),),),
+        'factors': ((NFACTORS * nodes,),),
+        'nodes': ((NODE_PLANES * nodes,),),
     }
 
 
@@ -377,8 +529,9 @@ def _check(e, s, state):
     shapes['s'] = shapes['e']
     groups = {'e': e, 's': s, 'arrays': state.arrays, 'st': state.st,
               'w': state.w, 'ih': state.ih}
-    if state.factors is not None:
-        groups['factors'] = (state.factors,)
+    for name in ('factors', 'nodes'):
+        if getattr(state, name) is not None:
+            groups[name] = (getattr(state, name),)
     dev = e[0].device
     for name, trio in groups.items():
         if len(trio) != len(shapes[name]):
@@ -394,7 +547,8 @@ def _check(e, s, state):
         return
     want = {'e': torch.complex128, 's': torch.complex128,
             'st': torch.complex128, 'w': torch.float64,
-            'ih': torch.float64, 'factors': torch.complex128}
+            'ih': torch.float64, 'factors': torch.complex128,
+            'nodes': torch.complex128}
     for name in want.keys() & groups.keys():
         for t in groups[name]:
             if t.dtype != want[name] or not t.is_contiguous():
@@ -405,7 +559,7 @@ def _check(e, s, state):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
@@ -418,11 +572,13 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         smoke run); by default the state decides (factors present ->
         factored).
     _seq : explicit colour sequence (tests).
-    _plan : forces K1's launch plan (:func:`sweep_plan`).
+    _plan : forces the launch plan (:func:`sweep_plan`).
 
     CPU tensors run :func:`gauss_seidel_point_plain`; CUDA tensors run
-    the kernels: K1 under the level's :func:`sweep_plan`, K2 one launch
-    per colour step.  Returns ``e``.
+    the kernel under the level's :func:`sweep_plan`: K1 on the state's
+    factors, K2 on its packed node data (on st and w where the state
+    has none, and always in the ``shared`` plan, which holds st and w
+    in shared memory).  Returns ``e``.
     """
     _check(e, s, state)
     mode = _resolve_mode(state, _mode)
@@ -446,34 +602,36 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
     ptrs = [_ptr(t) for t in (*e, *s, *state.st, *state.w, *state.ih)]
     with torch.cuda.device(e[0].device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    plan = sweep_plan(shape, seq=seq, plan=_plan) if mode == 'factored' \
-        else None
-    if plan is not None and plan.plan != 'step':
+    plan = sweep_plan(shape, seq=seq, plan=_plan, kernel=mode)
+    if mode == 'factored':
+        code, buf, planes = 'factored', state.factors, NFACTORS
+    elif state.nodes is not None and plan.plan != 'shared':
+        code, buf, planes = 'fused_packed', state.nodes, NODE_PLANES
+    else:
+        code, buf, planes = 'fused', None, NODE_PLANES
+    if plan.plan != 'step':
         if plan.launches == 0:
             return tuple(e)
-        geom, offs = _colour_table(shape)
+        geom, offs = _colour_table(shape, planes)
         err = lib.emg3d_point_gs_sweep(
-            _PLAN_CODE[plan.plan], *ptrs, _ptr(state.factors), *shape,
-            geom, offs, _seq_array(tuple(seq)), len(seq), plan.blocks,
-            plan.threads, plan.smem_bytes, stream)
+            _PLAN_CODE[plan.plan], _KERNEL_CODE[code], *ptrs, _ptr(buf),
+            *shape, geom, offs, _seq_array(tuple(seq)), len(seq),
+            plan.blocks, plan.threads, plan.smem_bytes, stream)
         if err != 0:
-            raise RuntimeError(f"point_gs sweep kernel ({plan.plan} plan) "
-                               f"launch failed: cudaError {err} (shape "
-                               f"{shape}, {plan})")
+            raise RuntimeError(f"point_gs {mode} sweep kernel ({plan.plan} "
+                               f"plan) launch failed: cudaError {err} "
+                               f"(shape {shape}, {plan})")
         LAUNCHES[mode] += 1
         STEPS[mode] += plan.steps
         return tuple(e)
-    offs = colour_offsets(shape)[0]
+    offs = colour_offsets(shape, planes)[0]
     for color in seq:
         first, counts, blocks, threads = launch_geometry(shape, color)
         if blocks == 0:
             continue
-        if mode == 'factored':
-            fac = ctypes.c_void_p(state.factors.data_ptr() + offs[color]
-                                  * state.factors.element_size())
-        else:
-            fac = ctypes.c_void_p(0)
-        err = lib.emg3d_point_gs_step(int(mode == 'factored'), *ptrs, fac,
+        at = ctypes.c_void_p(None if buf is None else buf.data_ptr()
+                             + offs[color] * buf.element_size())
+        err = lib.emg3d_point_gs_step(_KERNEL_CODE[code], *ptrs, at,
                                       *shape, *first, *counts, blocks,
                                       threads, stream)
         if err != 0:
@@ -486,14 +644,15 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _colour_table(shape):
+def _colour_table(shape, planes):
     """ctypes arrays of the sweep kernel: per colour (x0, y0, z0, cnx,
-    cny, cnz), and the colours' factor offsets (read-only to C)."""
+    cny, cnz), and the colours' offsets in a buffer of ``planes`` planes
+    per node (read-only to C)."""
     geom = []
     for c in range(8):
         first, counts = launch_geometry(shape, c)[:2]
         geom += [*first, *counts]
-    offs = colour_offsets(shape)[0]
+    offs = colour_offsets(shape, planes)[0]
     return (ctypes.c_int * 48)(*geom), (ctypes.c_longlong * 8)(*offs)
 
 

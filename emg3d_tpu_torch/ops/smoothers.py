@@ -19,7 +19,7 @@ rotated frame.  The field-independent factor stack is one tensor
 (:func:`line_factor_stack`: the packed entries of
 :func:`pack_line_entries`, eliminated in place by
 :func:`factor_line_stack_`), which the line kernels of :mod:`.line_gs`
-build and read as it is; :func:`factor_line_stack_` and
+build and read as it is; :func:`line_factor_stack` and
 :func:`line_color_steps` are the math they are held to.
 """
 import torch
@@ -28,12 +28,13 @@ from . import stencil
 from .blocksolve import (block_tridiag_factor_entries,
                          block_tridiag_solve_entries, ldl_factor_sparse,
                          ldl_solve_factored)
-from .coeffs import node_coefficients, node_block_entries
+from .coeffs import (face_coefficients, node_block_entries,
+                     node_coefficients)
 
 __all__ = ['gauss_seidel_point', 'color_sequence', 'color_steps',
            'node_factors', 'line_relaxation', 'line_color_sequence',
            'line_color_steps', 'line_factor_stack', 'pack_line_entries',
-           'factor_line_stack_', 'rotate_arrays',
+           'line_station_entries', 'factor_line_stack_', 'rotate_arrays',
            'rotate_fields', 'unrotate_fields', 'rotate_shape',
            'line_thomas_x', 'LINE_BKEYS', 'NLINE']
 
@@ -172,12 +173,22 @@ def pack_line_entries(arrays, shape):
     at the plane of L(a, b) (a > b) or of the inverse diagonal
     (10 + a), zeros at the absent (2, 1) and (4, 3), and the B entries
     at planes 15-22 as in the finished stack.  The elimination
-    (:func:`factor_line_stack_`, or the line kernel K5) then overwrites
-    planes 0-14 station by station, in place.
+    (:func:`factor_line_stack_`) then overwrites planes 0-14 station by
+    station, in place.
     """
+    return _pack_entries(node_coefficients(*arrays), shape)
+
+
+def line_station_entries(st, w, ih, shape):
+    """:func:`pack_line_entries` from the η edge sums, ζ face weights and
+    inverse widths of the (rotated) frame: the inputs the line kernel K5
+    reads, in its formulas (:func:`.coeffs.face_coefficients`)."""
+    return _pack_entries(face_coefficients(st, w, ih), shape)
+
+
+def _pack_entries(c, shape):
     nx, ny, nz = shape
     ny2, nz2 = ny // 2, nz // 2          # = ceil((n-1)/2) interior lines
-    c = node_coefficients(*arrays)
     ent = node_block_entries(c)
     nsh = ent[(0, 0)].shape              # (nx-1, nyn, nzn) interior nodes
     dev = ent[(0, 0)].device
@@ -228,8 +239,8 @@ def factor_line_stack_(stack):
 
     ``stack`` is :func:`pack_line_entries`' output; the D entries are
     read from their planes (the absent (2, 1) and (4, 3) stay absent)
-    before each station's factors overwrite them.  The plain version
-    of the line kernel K5.  Returns ``stack``.
+    before each station's factors overwrite them: the elimination half
+    of the line kernel K5's plain version.  Returns ``stack``.
     """
     Dent = {(a, b): stack[:, 10 + a if a == b else _l_plane(a, b)]
             for (a, b) in _D_MAP}

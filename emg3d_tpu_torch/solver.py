@@ -401,10 +401,10 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter):
 # The MG cycle
 # ======================================================================
 
-# Point-smoother modes: None picks the factored kernel where the
-# level's factor stack fits the card, the fused one elsewhere;
-# 'factored'/'fused' pin a kernel; 'plain' runs the plain torch version
-# on any device (comparisons on the card).
+# Point-smoother modes: None takes the kernel point_gs.point_kernel
+# names for the level (the faster one on the card, K1 only where its
+# factor stack fits); 'factored'/'fused' pin a kernel; 'plain' runs the
+# plain torch version on any device (comparisons on the card).
 _MODES = (None, 'factored', 'fused', 'plain')
 
 
@@ -413,7 +413,8 @@ def _level_state(lev, mode):
     if lev.pstate is None:
         dev = lev.arrays[0].device
         factored = mode in ('factored', 'plain') or (
-            mode is None and point_gs.factors_fit(lev.shape, dev))
+            mode is None and point_gs.point_kernel(lev.shape, dev)
+            == 'factored')
         lev.pstate = point_gs.point_state(lev.arrays, lev.shape,
                                           factored=factored)
     return lev.pstate

@@ -3,6 +3,7 @@
 
     python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
                              [--ssl bicgstab|cgs] [--plan PLAN]
+                             [--kernel factored|fused]
                              [--compare-plans] [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
@@ -13,20 +14,23 @@ point-smoother kernel, or runs the plain torch smoothers; by default
 the solver picks.  ``--sclr`` solves with semicoarsening and line
 relaxation (the production configuration), ``--ssl`` wraps the
 multigrid in BiCGSTAB or CGS.  ``--plan`` forces one launch plan of
-the factored point kernel on every level (``point_gs.FORCE_PLAN``);
-``--compare-plans`` then also times warm solves with the plan forced
-to ``step`` and with ``sweep_plan``'s own choice, in turns, three each
-(host walls move between processes; compare within one).  Prints:
+the point kernels on every level (``point_gs.FORCE_PLAN``), ``--kernel``
+one point kernel on every level that admits it
+(``point_gs.FORCE_KERNEL``); ``--compare-plans`` then also times warm
+solves with ``point_kernel``'s choice and with K1 forced, in turns,
+three each (host walls move between processes; compare within one).
+Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
   and with the profiler;
 - device busy time, the union of the trace's kernel, memcpy and memset
   intervals, and the idle share 1 − busy / profiled wall;
 - device time and count per kernel name (top 12) and per copy kind,
-  and the device time of the factored point kernel (K1, every plan)
-  and of the line-residual kernel (K3);
-- the smoother kernels' launches (and K1's colour steps) of the
-  profiled solve, and the host seconds of the unprofiled warm solve
+  and the device time of the point kernels (K1 and K2, every plan;
+  their sum) and of the line-residual kernel (K3);
+- the smoother kernels' launches (and the point kernels' colour steps)
+  of the profiled solve, and the host seconds of the unprofiled warm
+  solve
   spent building line states (rotated parameters and block-Thomas
   factor stacks);
 - the card's name and power limit.
@@ -36,6 +40,7 @@ The Chrome trace goes to ``DIR/trace.json`` (default
 """
 import argparse
 import json
+import re
 import sys
 import time
 from collections import defaultdict
@@ -43,6 +48,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+# The point kernels' instances in the trace (demangled or not): the last
+# template argument is the kernel, 0 for K1, 1-2 for K2.
+POINT_KERNEL = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)>|step<(\d)>|'
+                          r'sweepILi\dELi(\d)E|stepILi(\d)E)')
 
 
 def busy_union(intervals):
@@ -61,6 +70,7 @@ def main(argv=None):
     ap.add_argument('--sclr', action='store_true')
     ap.add_argument('--ssl', choices=('bicgstab', 'cgs'), default=False)
     ap.add_argument('--plan', choices=('step', 'cluster', 'grid', 'shared'))
+    ap.add_argument('--kernel', choices=('factored', 'fused'))
     ap.add_argument('--compare-plans', action='store_true')
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
@@ -75,6 +85,7 @@ def main(argv=None):
     from emg3d_tpu_torch.ops import line_gs, point_gs
 
     point_gs.FORCE_PLAN = args.plan
+    point_gs.FORCE_KERNEL = args.kernel
     grid, model, sfield = bench_problem()
     kw = dict(cycle='F', tol=1e-6, verb=0, return_info=True,
               device='cuda', _mode=args.mode, sslsolver=args.ssl,
@@ -94,16 +105,16 @@ def main(argv=None):
     with LineStateClock() as clock:
         wall, info = timed()
     if args.compare_plans:
-        walls = {'step': [], 'chosen': []}
+        walls = {'K1 forced': [], 'point_kernel': []}
         for _ in range(3):
-            for name, plan in (('step', 'step'), ('chosen', None)):
-                point_gs.FORCE_PLAN = plan
+            for name, kernel in (('K1 forced', 'factored'),
+                                 ('point_kernel', None)):
+                point_gs.FORCE_KERNEL = kernel
                 walls[name].append(timed()[0])
-        point_gs.FORCE_PLAN = args.plan
-        print("warm walls, K1 plan forced to step / sweep_plan's choice, "
-              "in turns: " + " / ".join(
-                  ", ".join(f"{w:.4f}" for w in walls[k]) for k in walls)
-              + " s")
+        point_gs.FORCE_KERNEL = args.kernel
+        print("warm walls, K1 forced / point_kernel's choice, in turns: "
+              + " / ".join(", ".join(f"{w:.4f}" for w in walls[k])
+                           for k in walls) + " s")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -112,7 +123,8 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof, _ = timed()
     launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES,
-                'factored steps': point_gs.STEPS['factored']}
+                'factored steps': point_gs.STEPS['factored'],
+                'fused steps': point_gs.STEPS['fused']}
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -142,13 +154,21 @@ def main(argv=None):
     for name, (ms, n) in kernels[:12] + copies:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
     # Kernel names as the trace gives them, demangled or not.
-    for label, keys in (('K1 point_gs_factored',
-                         ('point_gs_sweep', 'point_gs_step<true>',
-                          'point_gs_stepILb1')),
-                        ('K3 line_residual', ('line_residual',))):
-        hit = [v for k, v in kernels if any(s in k for s in keys)]
+    point = {'K1 point_gs_factored': [], 'K2 point_gs_fused': []}
+    for name, v in kernels:
+        m = POINT_KERNEL.search(name)
+        if m:
+            code = int(next(g for g in m.groups() if g is not None))
+            point['K1 point_gs_factored' if code == 0
+                  else 'K2 point_gs_fused'].append(v)
+    point['K3 line_residual'] = [v for k, v in kernels
+                                 if 'line_residual' in k]
+    for label, hit in point.items():
         print(f"{label}: {sum(ms for ms, _ in hit):.3f} ms device time "
               f"over {sum(n for _, n in hit)} launches")
+    both = point['K1 point_gs_factored'] + point['K2 point_gs_fused']
+    print(f"point kernels K1 + K2: {sum(ms for ms, _ in both):.3f} ms "
+          f"device time over {sum(n for _, n in both)} launches")
     print(f"trace: {trace}")
     print(nvidia_smi())
     return 0

@@ -120,6 +120,22 @@ def test_wrapper_checks_state_shapes(group):
         point_gs.gauss_seidel_point(e, s, bad, 1)
 
 
+def test_wrapper_checks_node_data_shape():
+    """A fused state whose packed node data disagrees with its shape is
+    refused; fused states with their own packed data and without any
+    (direct reads; a CPU state packs none) run."""
+    st, e, s = _cpu_state((4, 4, 4), factored=False)
+    other, _, _ = _cpu_state((4, 5, 4), factored=False)
+    assert st.factors is None and st.nodes is None
+    bad = point_gs.pack_node_data(other.st, other.w, other.shape)
+    with pytest.raises(ValueError, match='nodes: shape'):
+        point_gs.gauss_seidel_point(e, s, st._replace(nodes=bad), 1)
+    packed = point_gs.pack_node_data(st.st, st.w, st.shape)
+    point_gs.gauss_seidel_point(e, s, st._replace(nodes=packed), 1)
+    point_gs.gauss_seidel_point(e, s, st, 1)
+    assert float(e[0].abs().max()) > 0
+
+
 @pytest.mark.parametrize('shape', [(2, 2, 2), (3, 5, 7), (4, 4, 4),
                                    (64, 64, 64)])
 def test_launch_geometry(shape):

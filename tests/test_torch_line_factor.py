@@ -1,4 +1,4 @@
-"""The line factor stack's packed entries, its plain in-place
+"""The line factor stack's station entries, its plain in-place
 elimination (the plain version of the kernel K5), and the launch plans
 of K5 and of the Thomas kernel K4.
 
@@ -8,10 +8,16 @@ of K5 and of the Thomas kernel K4.
   on the same entries) bit for bit, and the JAX package's factors plane
   by plane at rel 1e-12 (fp64; the complex division differs in the
   last bits).
-- The launch geometries at the test shapes, 64³ and 256³: threads,
-  blocks, shared bytes within the card's 232,448 per block, and no
-  block for a colour or a stack without lines; K4's forced plans (lines
-  per block, z in shared or global memory) at 64³, 32×256² and 256³.
+- ``line_station_entries``, the same entries from the η sums, ζ weights
+  and inverse widths K5 reads, in its formulas, equals
+  ``pack_line_entries`` at rel 1e-15 and the JAX package's parity-split
+  entries (``_line_entries_x_parity``) at rel 1e-12, padded lines and
+  the ex-only last station included.
+- The launch geometries at the test shapes, 64³, 256³ and every level
+  of sclr64 and sclr256: threads, blocks, shared bytes within the
+  card's 232,448 per block, and no block for a colour or a stack
+  without lines; K4's forced plans (lines per block, z in shared or
+  global memory) at 64³, 32×256² and 256³; K5's forced geometries.
 - CPU tensors take the plain path without building the kernel library;
   the kernel entry points refuse CPU tensors.
 """
@@ -29,6 +35,7 @@ from emg3d_tpu.ops.blocksolve import block_tridiag_factor_entries  # noqa
 from emg3d_tpu.ops.coeffs import node_coefficients  # noqa: E402
 from emg3d_tpu.ops.pallas_lr import rotate_arrays  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from emg3d_tpu_torch import convert, solver  # noqa: E402
 from emg3d_tpu_torch.ops import _build, line_gs  # noqa: E402
 from emg3d_tpu_torch.ops import blocksolve as pbs  # noqa: E402
@@ -106,16 +113,84 @@ def test_packed_plain_elimination(shape, axis):
         assert tp.rel((a,), (b,)) < TOL, f"plane {n}"
 
 
+def _check_factor_geometry(shape):
+    nx, ny, nz = shape
+    g = line_gs.factor_geometry(shape)
+    assert g.lines == 4 * (ny // 2) * (nz // 2)
+    # One line per thread, blocks of one warp (the card's table).
+    assert g.threads == line_gs.FACTOR_WARP == 32
+    assert g.blocks * g.threads >= g.lines > (g.blocks - 1) * g.threads
+    return g
+
+
 @pytest.mark.parametrize('shape', SHAPES + LARGE)
 def test_factor_geometry(shape):
     nx, ny, nz = shape
-    stack = (nx, psm.NLINE, 2, 2, ny // 2, nz // 2)
-    lines, blocks, threads = line_gs.factor_geometry(stack)
-    assert lines == 4 * (ny // 2) * (nz // 2)
-    assert threads % 32 == 0 and 32 <= threads <= line_gs.FACTOR_THREADS
-    assert blocks * threads >= lines > (blocks - 1) * threads
-    assert line_gs.factor_geometry((nx, psm.NLINE, 2, 2, 0, nz // 2)) == (
-        0, 0, 0)
+    _check_factor_geometry(shape)
+    assert line_gs.factor_geometry((nx, 1, nz)) == (0, 0, 0)
+
+
+@pytest.mark.parametrize('size', [64, 256])
+def test_factor_geometry_sclr_levels(size):
+    """Every line state of the sc+lr solve of a size³ fullspace (sclr64:
+    27 states, 4-64 stations; sclr256: 39)."""
+    states = chip_smoke.line_stack_shapes((size,) * 3)
+    assert len(states) == {64: 27, 256: 39}[size]
+    for shape, axis in states:
+        rs = psm.rotate_shape(shape, axis)
+        g = _check_factor_geometry(rs)
+        assert g.blocks >= 1 and rs[0] >= 4
+
+
+def test_forced_factor_geometry():
+    """Larger blocks can be forced (the card's table of geometries);
+    anything but a multiple of 32 up to FACTOR_THREADS is refused."""
+    shape = (64, 64, 64)
+    for threads in (32, 64, 128, 256):
+        g = line_gs.factor_geometry(shape, threads)
+        assert (g.threads, g.lines) == (threads, 4096)
+        assert g.blocks * threads >= 4096 > (g.blocks - 1) * threads
+    assert line_gs.factor_geometry(shape) == line_gs.factor_geometry(
+        shape, line_gs.FACTOR_WARP)
+    for bad in (0, 16, 48, 512):
+        with pytest.raises(ValueError, match='threads per block'):
+            line_gs.factor_geometry(shape, bad)
+
+
+@pytest.mark.parametrize('axis', [0, 1, 2])
+@pytest.mark.parametrize('shape', [(3, 3, 3), (7, 5, 9), (9, 7, 9),
+                                   (8, 6, 4)])
+def test_line_station_entries(shape, axis):
+    """The packed entries from st, w and ih (K5's inputs and formulas)
+    against the torch-op packing and the JAX package's entries, padded
+    lines (identity diagonals) and the ex-only last station included."""
+    par, ar, rs = _rotated(shape, axis, seed=sum(shape) + 2 * axis + 1)
+    st = line_gs.line_state(convert.params_to_torch(par), shape, axis,
+                            factors=False)
+    got = psm.line_station_entries(st.st, st.w, st.ih, rs)
+    packed = psm.pack_line_entries(ar, rs)
+    assert tp.rel((got,), (packed,)) < 1e-15
+    nx, ny, nz = rs
+    ny2, nz2 = ny // 2, nz // 2
+    rot = rotate_arrays(tp.to_jax(par), axis)
+    D_j, B_j = jsm._line_entries_x_parity(node_coefficients(*rot), nx, ny2,
+                                          nz2)
+    for (a, b), v in D_j.items():
+        p = 10 + a if a == b else a * (a - 1) // 2 + b
+        assert tp.rel((got[:, p],), (np.asarray(v),)) < TOL, (a, b)
+    for n, k in enumerate(psm.LINE_BKEYS):
+        assert tp.rel((got[:, 15 + n],), (np.asarray(B_j[k]),)) < TOL, k
+    assert not got[:, 2].any() and not got[:, 9].any()   # absent D
+    assert torch.equal(got[-1, 11:15], torch.ones_like(got[-1, 11:15]))
+    # Padded lines (an odd count of interior nodes across: (8, 6, 4)):
+    # identity diagonals, nothing else.
+    pad = torch.ones((2 * ny2, 2 * nz2), dtype=torch.bool)
+    pad[:ny - 1, :nz - 1] = False
+    pad = pad.reshape(ny2, 2, nz2, 2).permute(1, 3, 0, 2)
+    assert bool(pad.any()) == (shape == (8, 6, 4))
+    assert torch.equal(got[:, 10:15, pad], torch.ones_like(
+        got[:, 10:15, pad]))
+    assert not got[:, :10, pad].any() and not got[:, 15:, pad].any()
 
 
 @pytest.mark.parametrize('shape', SHAPES + LARGE + [(2, 2, 2), (5, 2, 3)])
@@ -207,9 +282,11 @@ def test_factor_refuses_cpu(monkeypatch):
     def boom():
         raise AssertionError("kernel library requested for CPU tensors")
     monkeypatch.setattr(_build, 'library', boom)
-    _, ar, rs = _rotated((5, 4, 3), 0, seed=4)
+    par, _, rs = _rotated((5, 4, 3), 0, seed=4)
+    st = line_gs.line_state(convert.params_to_torch(par), (5, 4, 3), 0,
+                            factors=False)
     with pytest.raises(ValueError, match='no line-relaxation kernel'):
-        line_gs.factor(psm.pack_line_entries(ar, rs))
+        line_gs.factor(st.st, st.w, st.ih, rs)
 
 
 def test_launch_counters():
@@ -223,6 +300,8 @@ def test_launch_counters():
     assert names <= set(_build.ARGTYPES)
     # K4: 8 pointers, 14 ints (shape, colour, plan, launch), the stream.
     assert len(_build.ARGTYPES['emg3d_line_thomas']) == 23
+    # K5: the stack and 9 parameter pointers, shape, launch, the stream.
+    assert len(_build.ARGTYPES['emg3d_line_factor']) == 16
 
 
 @pytest.mark.parametrize('mode', [None, 'plain'])
