@@ -74,7 +74,21 @@ Phases:
 9. the model of phase 6 with semicoarsening and line relaxation,
    through the kernels (K5, K3, K4) and through the plain torch path
    (plain elimination and plain smoother): same it_mg, fields within a
-   relative 1e-9.
+   relative 1e-9;
+10. the Simulation path (:func:`simulation_problem`): 4 x-directed
+   sources × 2 frequencies on the 64³ fullspace, solved as one batched
+   sc+lr BiCGSTAB solve of 8 lanes (two K5 groups).  First the
+   lane-gridded K3 and K4 at LINE_SHAPES: 8 lanes of 2 frequency groups
+   in one launch, bitwise equal to the same kernels launched once per
+   lane and within 1e-12 of the plain versions lane by lane, with ms per
+   8-lane launch beside 8 one-lane launches at 64³.  Then ``compute()``
+   (exit message, it_mg, it_ssl, per-lane rel_error, launches and
+   device ms per kernel of the batched solve, peak memory), its warm
+   wall beside 8 sequential ``solve`` calls of the same pairs (each
+   lane's field within rel 10·tol of its own solve), ``misfit`` and
+   ``gradient`` against data of a 2 Ω·m fullspace, and the same
+   Simulation at 16³ through the kernels and through ``_mode='plain'``
+   (responses within rel 1e-9).
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -84,7 +98,9 @@ colour ``steps`` those launches ran and the ``plan`` it runs at 64³,
 K2 its step plan at 512×384×384 (``ms_large``, ``bound_ms_large``), K5
 the bound of the packed-entry design beside its own
 (``bound_ms_packed``).
-Phase 5's pinned solves are counted apart (``pinned_launches``).  Each
+Phase 5's pinned solves are counted apart (``pinned_launches``), and
+phase 10's batched solve (reset just before its warm ``compute()``, read
+just after) as ``simulation_launches``.  Each
 kernel's ``bound_ms`` is the least time the card could take for the
 timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
 TFLOP/s, whichever is larger), counted from the call's shapes by the
@@ -98,6 +114,7 @@ line with the kernels' readings.  Needs one card and no network.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -155,6 +172,16 @@ POINT_MODES = ('factored', 'fused')
 # Fullspace shapes (100 m cells) for the main path's second solve, in
 # order of size; good multigrid numbers (p·2^k, p ≤ 3).
 LARGE_SHAPES = ((512, 384, 384), (512, 512, 384), (512, 512, 512))
+# Phase 10: lanes of the lane-kernel checks (two frequency groups,
+# alternating), the Simulation's frequencies and its solver tolerance.
+LANES = 8
+SIM_FREQS = (0.5, 1.0)
+SIM_TOL = 1e-6
+# The trace's names of the point kernels' instances (demangled or not):
+# the last template argument is the kernel, 0 for K1, 1-2 for K2.
+POINT_KERNEL_NAME = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)>|step<(\d)>|'
+                               r'sweepILi\dELi(\d)E|stepILi(\d)E)')
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
 def log(msg):
@@ -1187,6 +1214,350 @@ def phase_sclr64(torch, grid, model, sfield):
     return launches
 
 
+def kernel_key(name):
+    """The package kernel (``KERNELS`` key) of a trace kernel name, or
+    None."""
+    m = POINT_KERNEL_NAME.search(name)
+    if m:
+        code = int(next(g for g in m.groups() if g is not None))
+        return 'factored' if code == 0 else 'fused'
+    return next((k for k in ('line_residual', 'line_thomas', 'line_factor')
+                 if k in name), None)
+
+
+def trace_times(prof, path):
+    """Device readings of a ``torch.profiler`` run, from its Chrome trace
+    (written to ``path``): the busy seconds (union of the kernel, memcpy
+    and memset intervals), the number of device events, and
+    ``{name: [ms, count]}`` per kernel name (copies as ``[cat] name``)."""
+    from collections import defaultdict
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(Path(path).read_text())['traceEvents']
+              if e.get('ph') == 'X' and e.get('cat') in DEVICE_CATS]
+    spans, busy, end = sorted((e['ts'], e['ts'] + e['dur'])
+                              for e in events), 0.0, float('-inf')
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    per = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        key = e['name'] if e['cat'] == 'kernel' else \
+            f"[{e['cat']}] {e['name']}"
+        per[key][0] += e['dur'] / 1e3
+        per[key][1] += 1
+    return busy / 1e6, len(events), dict(per)
+
+
+def simulation_problem(n=64, res=1.0):
+    """Phase 10's Simulation inputs: bench64's fullspace (``bench.py:
+    37-52``: 100 m cells at 64³, 1 Ω·m) centred on the origin, 4
+    x-directed electric point dipoles along x at y = z = 0, 400 m apart
+    and centred, a line of 16 x-directed electric receivers from 2 to
+    3 km along x, frequencies SIM_FREQS.  ``n`` cells per axis cover the
+    same 6.4 km (400 m cells at 16³).  Returns (grid, model, survey)."""
+    from emg3d_tpu_torch import TensorMesh, Model, Survey
+    grid = TensorMesh([np.full(n, 6400. / n)] * 3, origin=(-3200.,) * 3)
+    model = Model(grid, property_x=res, mapping='Resistivity')
+    survey = Survey('phase10', ((-600., -200., 200., 600.), 0., 0., 0., 0.),
+                    (np.linspace(2000., 3000., 16), 0., 0., 0., 0.),
+                    SIM_FREQS, noise_floor=1e-15, relative_error=0.05)
+    return grid, model, survey
+
+
+def _lane_setup(torch, shape, axis, seed, dev):
+    """A lane state of LANES lanes in two frequency groups (η and 2η of a
+    random level: the same σ at twice the frequency) and random (LANES,
+    ...) e and s in the rotated frame."""
+    from emg3d_tpu_torch.ops import line_gs
+    pstate, _, _ = _level(shape, seed, dev)
+    ar = pstate.arrays
+    arrays = tuple(torch.stack([a, 2 * a]) for a in ar[:3]) + ar[3:]
+    lanes = torch.tensor([b % 2 for b in range(LANES)], dtype=torch.int32,
+                         device=dev)
+    st = line_gs.line_state(arrays, shape, axis, lanes=lanes)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nx, ny, nz = shape
+
+    def rand():
+        return tuple(torch.complex(torch.randn((LANES,) + sh, device=dev,
+                                               dtype=torch.float64,
+                                               generator=g),
+                                   torch.randn((LANES,) + sh, device=dev,
+                                               dtype=torch.float64,
+                                               generator=g))
+                     for sh in ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                                (nx + 1, ny + 1, nz)))
+    e, s = rand(), rand()
+    return st, e, s, line_gs._rotated(e, axis), line_gs._rotated(s, axis)
+
+
+def _nan_equal(a, b):
+    """Bitwise equal, NaN where the other is NaN."""
+    import torch
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def phase_lane_kernels(torch, results, shapes=LINE_SHAPES):
+    """K3 and K4 over LANES lanes of two frequency groups in one launch:
+    bitwise equal to one launch per lane, within TOL_KERNEL of the plain
+    versions lane by lane (at 64³ lanes 0 and 1, one per group); K5 per
+    group bitwise equal to its one-lane stack; the wrapper's sweep
+    against the plain one; ms per 8-lane launch at 64³ beside 8 one-lane
+    launches.  Returns the 64³ readings."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    dev = torch.device('cuda')
+    errs = {'line_residual': [], 'line_thomas': []}
+    out = {}
+    for shape in shapes:
+        big = shape == (64, 64, 64)
+        for axis in ((0,) if big else range(3)):
+            st, e, s, er, sr = _lane_setup(torch, shape, axis,
+                                           sum(shape) + 3, dev)
+            groups = st.lanes.tolist()
+            one = [line_gs.lane_state(st, grp) for grp in groups]
+            for grp in range(2):
+                if not torch.equal(_factor_twice(torch, one[grp]),
+                                   st.factors[grp]):
+                    raise AssertionError(f"line_factor {shape}: group {grp}"
+                                         f"'s stack differs from K5's")
+            plain = (0, 1) if big else range(LANES)
+            rp = tuple(torch.stack(t) for t in zip(*(
+                stencil.residual_parts(*(t[b] for t in sr),
+                                       *(t[b] for t in er), *one[b].arrays)
+                for b in range(LANES))))
+            for color in range(4):
+                rk = line_gs.residual(er, sr, st, color, _nan_like(er))
+                ek = line_gs.thomas(_clone(er), rp, st.factors, st, color)
+                torch.cuda.synchronize()
+                for b in range(LANES):
+                    eb = tuple(t[b] for t in er)
+                    sb = tuple(t[b] for t in sr)
+                    r1 = line_gs.residual(eb, sb, one[b], color,
+                                          _nan_like(eb))
+                    e1 = line_gs.thomas(_clone(eb), tuple(t[b] for t in rp),
+                                        one[b].factors, one[b], color)
+                    torch.cuda.synchronize()
+                    if not all(_nan_equal(x[b], y) for x, y in zip(rk, r1)):
+                        raise AssertionError(
+                            f"line_residual {shape} axis {axis} colour "
+                            f"{color} lane {b}: the {LANES}-lane launch "
+                            f"differs from the one-lane launch")
+                    if not all(torch.equal(x[b], y) for x, y in zip(ek, e1)):
+                        raise AssertionError(
+                            f"line_thomas {shape} axis {axis} colour {color}"
+                            f" lane {b}: the {LANES}-lane launch differs "
+                            f"from the one-lane launch")
+                    if b not in plain:
+                        continue
+                    ref = line_gs.residual_plain(eb, sb, one[b], color,
+                                                 _nan_like(eb))
+                    fin = [~p.isnan() for p in ref]
+                    errs['line_residual'].append(
+                        (max(float((x[b][m] - p[m]).abs().max())
+                             if m.any() else 0.0
+                             for x, p, m in zip(rk, ref, fin)),
+                         max(float(p[m].abs().max()) if m.any() else 0.0
+                             for p, m in zip(ref, fin))))
+                    ep = smoothers.line_thomas_x(
+                        eb, tuple(t[b] for t in rp), one[b].factors, color)
+                    errs['line_thomas'].append(
+                        (_maxdiff(tuple(t[b] for t in ek), ep), _maxabs(ep)))
+            if not big:
+                # The wrapper's sweep (rotation, NaN buffer, 4 colours)
+                # over all lanes against the plain version lane by lane.
+                ek = _clone(e)
+                line_gs.line_relaxation(ek, s, st, 1)
+                ep = _clone(e)
+                line_gs.line_relaxation_plain(ep, s, st, 1)
+                torch.cuda.synchronize()
+                if not all(bool(torch.isfinite(t).all()) for t in ek):
+                    raise AssertionError(f"lane sweep {shape} axis {axis}: "
+                                         f"non-finite field")
+                errs['line_thomas'].append((_maxdiff(ek, ep), _maxabs(ep)))
+            else:
+                out = _time_lanes(torch, st, one, er, sr, rp)
+            del st, one, e, s, er, sr, rp
+        for k, v in errs.items():
+            results[k]['max_abs_err'] = max(
+                results[k]['max_abs_err'],
+                _check_kernel(f"{k} {LANES} lanes", shape, v))
+            errs[k] = []
+    return out
+
+
+def _time_lanes(torch, st, one, er, sr, rp):
+    """ms of K3 (per colour) and K4 (colour 0) at 64³: one launch of all
+    LANES lanes beside LANES one-lane launches."""
+    from emg3d_tpu_torch.ops import line_gs
+    rk = _nan_like(er)
+    eb = [tuple(t[b] for t in er) for b in range(LANES)]
+    sb = [tuple(t[b] for t in sr) for b in range(LANES)]
+    rb = [tuple(t[b] for t in rk) for b in range(LANES)]
+    k3 = _time_steps(torch, lambda: [line_gs.residual(er, sr, st, c, rk)
+                                     for c in range(4)], reps=20, per=4)
+    k3_1 = _time_steps(torch, lambda: [line_gs.residual(
+        eb[b], sb[b], one[b], c, rb[b]) for c in range(4)
+        for b in range(LANES)], reps=20, per=4)
+    ek = _clone(er)
+    ekb = [tuple(t[b] for t in ek) for b in range(LANES)]
+    rpb = [tuple(t[b] for t in rp) for b in range(LANES)]
+    k4 = _time_steps(torch, lambda: line_gs.thomas(ek, rp, st.factors, st,
+                                                   0), reps=20, per=1)
+    k4_1 = _time_steps(torch, lambda: [line_gs.thomas(
+        ekb[b], rpb[b], one[b].factors, one[b], 0) for b in range(LANES)],
+        reps=20, per=1)
+    g3 = line_gs.residual_geometry(st.shape, 0, lanes=LANES)
+    g4 = line_gs.launch_geometry(st.shape, 0, lanes=LANES)
+    log(f"64³ x-lines, {LANES} lanes in one launch against {LANES} one-lane "
+        f"launches (device ms): line_residual {k3:.4f} / {k3_1:.4f} per "
+        f"colour ({g3.blocks}×{g3.lanes} blocks, {g3.xplanes} stations, "
+        f"{'staged' if g3.staged else 'direct'}), line_thomas {k4:.4f} / "
+        f"{k4_1:.4f} (colour 0, {g4.blocks}×{g4.lanes} blocks of "
+        f"{g4.lines_per_block} lines, z "
+        f"{'shared' if g4.z_shared else 'global'})")
+    return {'line_residual': (k3, k3_1), 'line_thomas': (k4, k4_1)}
+
+
+def _sim(torch, grid, model, survey, **opts):
+    from emg3d_tpu_torch import Simulation
+    return Simulation('phase10', survey, grid, model, gridding='same',
+                      solver_opts={'device': 'cuda', 'verb': 1, **opts},
+                      verb=0)
+
+
+def _compute(torch, sim):
+    """sim.compute() from scratch (host wall, ending in a synchronize)."""
+    sim.clean('computed')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.compute()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_simulation(torch, results, out_dir):
+    """Phase 10 (see the module docstring).  Returns the launches of the
+    warm batched solve."""
+    from emg3d_tpu_torch import Model, solve
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    t0 = time.perf_counter()
+    lane_ms = phase_lane_kernels(torch, results)
+    log(f"lane kernels checked and timed in {time.perf_counter() - t0:.2f} s")
+    grid, model, survey = simulation_problem()
+    pairs = [(src, f) for src in survey.sources for f in SIM_FREQS]
+    # Observed data: the same survey over a 2 Ω·m fullspace.
+    np.random.seed(10)
+    _sim(torch, grid, Model(grid, property_x=2.0, mapping='Resistivity'),
+         survey).compute(observed=True)
+    sim = _sim(torch, grid, model, survey)
+    cold = _compute(torch, sim)
+    point_gs.reset_launches()
+    line_gs.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    warm = _compute(torch, sim)
+    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    info = sim.get_efield_info(*pairs[0])
+    rel = [sim.get_efield_info(*p)['rel_error'] for p in pairs]
+    log(f"Simulation 64³, {len(pairs)} lanes, sc+lr BiCGSTAB: "
+        f"{info['exit_message']}, it_mg {info['it_mg']}, it_ssl "
+        f"{info['it_ssl']}, rel_error per lane "
+        f"{', '.join(f'{r:.3e}' for r in rel)}; compute() cold "
+        f"{cold:.3f} s, warm {warm:.3f} s; launches {launches}; peak device "
+        f"memory {peak:.2f} GiB")
+    if info['exit_message'] != 'CONVERGED' or not max(rel) < SIM_TOL:
+        raise AssertionError("the batched Simulation solve did not converge")
+    for k in ('factored', 'line_residual', 'line_thomas', 'line_factor'):
+        if launches[k] == 0:
+            raise AssertionError(f"the Simulation path launched no {k}")
+
+    # Device time per kernel of the batched solve (warm, profiled).
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall = _compute(torch, sim)
+    busy, nev, per = trace_times(prof, out_dir / 'simulation_trace.json')
+    ms = {}
+    for name, (t, n) in per.items():
+        k = kernel_key(name)
+        if k is not None:
+            ms[k] = [ms.get(k, [0.0, 0])[0] + t, ms.get(k, [0, 0])[1] + n]
+    log(f"batched solve, profiled wall {prof_wall:.3f} s, device busy "
+        f"{busy:.4f} s over {nev} events (idle share "
+        f"{1 - busy / prof_wall:.4f}); device ms per kernel (launches): "
+        + ", ".join(f"{KERNELS[k]['name']} {t:.3f} ({n})"
+                    for k, (t, n) in sorted(ms.items())))
+
+    # The same pairs as 8 sequential solves.
+    opts = {k: v for k, v in sim.solver_opts.items()}
+    point_gs.reset_launches()
+    line_gs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles, sinfo = [], []
+    for src, f in pairs:
+        e1, i1 = solve(grid, model, sim.get_sfield(src, f), **opts)
+        singles.append(e1)
+        sinfo.append(i1)
+    torch.cuda.synchronize()
+    seq = time.perf_counter() - t0
+    single = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+    it_single = sum(i['it_mg'] for i in sinfo)
+    worst = max(_rel(sim.get_efield(*p), e1) for p, e1 in zip(pairs, singles))
+    log(f"{len(pairs)} sequential solves of the same pairs: {seq:.3f} s "
+        f"(batched compute() warm {warm:.3f} s), it_mg "
+        f"{[i['it_mg'] for i in sinfo]}, launches {single}; per MG cycle "
+        f"line_residual {launches['line_residual'] / info['it_mg']:.1f} "
+        f"batched, {single['line_residual'] / it_single:.1f} single; each "
+        f"lane's field against its own solve: max |Δ|/|e| {worst:.3e}")
+    if not all(i['exit_message'] == 'CONVERGED' for i in sinfo):
+        raise AssertionError("a sequential solve did not converge")
+    if not worst <= 10 * SIM_TOL:
+        raise AssertionError(f"batched lanes differ from their own solves by "
+                             f"{worst:.3e}")
+    for k in ('line_residual', 'line_thomas'):
+        b, o = launches[k] / info['it_mg'], single[k] / it_single
+        if not abs(b - o) <= 0.1 * o:
+            raise AssertionError(f"{k}: {b:.1f} launches per batched cycle, "
+                                 f"{o:.1f} per single-solve cycle")
+
+    misfit = sim.misfit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad = sim.gradient
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    log(f"misfit {misfit:.6e}; gradient {gwall:.3f} s (adjoint batched "
+        f"solve), finite {bool(np.isfinite(grad).all())}, norm "
+        f"{float(np.linalg.norm(grad)):.6e}")
+    if not (np.isfinite(misfit) and misfit > 0 and np.isfinite(grad).all()
+            and np.any(grad)):
+        raise AssertionError("misfit or gradient not finite")
+
+    # 16³: the kernels against the plain path on the card.
+    g16, m16, s16 = simulation_problem(16)
+    resp, walls = [], []
+    for mode in (None, 'plain'):
+        sm = _sim(torch, g16, m16, s16, _mode=mode)
+        walls.append(_compute(torch, sm))
+        resp.append(np.array(sm.data.synthetic))
+    fin = np.isfinite(resp[1])
+    diff = float(np.max(np.abs(resp[0][fin] - resp[1][fin])) /
+                 np.max(np.abs(resp[1][fin])))
+    log(f"Simulation 16³ kernels vs _mode='plain' ({walls[0]:.2f} / "
+        f"{walls[1]:.2f} s): {int(fin.sum())} finite responses, max "
+        f"|Δ|/max|ref| {diff:.3e}")
+    if not (np.array_equal(np.isfinite(resp[0]), fin) and fin.any()
+            and diff <= TOL_SOLVE):
+        raise AssertionError("16³ Simulation: kernels and plain differ")
+    for k, (a, b) in lane_ms.items():
+        results[k]['lanes_ms'] = a
+        results[k]['lanes_one_by_one_ms'] = b
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1311,6 +1682,10 @@ def main():
             f"{ip['it_mg']}, wall {wp:.3f} s; |Δ|/|e| {rel:.3e}")
         if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
             raise AssertionError("kernel and plain sc+lr solves differ")
+    with Phase('10 Simulation 64³, sc+lr BiCGSTAB, 8 lanes'):
+        out_dir = Path(__file__).resolve().parent / 'build' / 'chip_smoke'
+        out_dir.mkdir(parents=True, exist_ok=True)
+        sim_launches = phase_simulation(torch, results, out_dir)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -1323,13 +1698,14 @@ def main():
                  'bound_by': r['bound_by'], 'library_ms': None}
         if key in pinned:
             entry['pinned_launches'] = pinned[key]
+        entry['simulation_launches'] = sim_launches[key]
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
         entry.update({k: v for k, v in r.items()
                       if k.startswith('step') or k.endswith('_256')
                       or k.endswith('_large') or k.startswith('ms_')
-                      or k.startswith('bound_ms_')})
+                      or k.startswith('bound_ms_') or k.startswith('lanes')})
         kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")

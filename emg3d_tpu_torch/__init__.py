@@ -6,17 +6,35 @@ JAX package become hand-written CUDA kernels for Hopper (sm_90a), built
 with nvcc at first use.  This package imports neither JAX nor
 ``emg3d_tpu``.
 
-The slice ported so far is the standalone multigrid solve with the
-point Gauss-Seidel smoother: ``solve(grid, model, sfield)`` with its
-defaults (F-cycles, no Krylov solver, no line relaxation).  ``solve``
-runs on CUDA unless it is given ``device='cpu'``.
+Ported so far: ``solve`` in every configuration of the JAX package
+(F/V/W multigrid, point smoothing or semicoarsening with line
+relaxation, standalone or preconditioning BiCGSTAB, CGS or GCROT(m,k));
+``solve_batched`` (many (source, frequency) pairs on one grid advanced
+together, plain multigrid, BiCGSTAB or CGS); ``Simulation`` over a
+``Survey`` with its receivers, and the misfit and adjoint gradient of
+``optimize``.  Every entry point runs on CUDA unless it is given
+``device='cpu'`` (``Simulation``: ``solver_opts={'device': 'cpu'}``).
+Not ported yet: ``diff``, ``io``, ``time``, the CLI and ``parallel``.
 """
 __version__ = '0.1.0'
 
-from .meshes import TensorMesh
+from .meshes import TensorMesh, construct_mesh, good_mg_cell_nr, skin_depth
 from .models import Model, VolumeModel
-from .fields import Field, SourceField, get_source_field
-from .solver import solve
+from .fields import (Field, SourceField, get_source_field, get_receiver,
+                     get_receiver_response, get_h_field)
+from .maps import grid2grid, interp3d
+from .solver import solve, solve_batched
+from .surveys import Survey, Dipole, PointDipole
+from .simulations import Simulation, expand_grid_model
+from .utils import EMArray, Report
+from . import optimize
 
-__all__ = ['TensorMesh', 'Model', 'VolumeModel', 'Field', 'SourceField',
-           'get_source_field', 'solve']
+__all__ = [
+    'TensorMesh', 'construct_mesh', 'good_mg_cell_nr', 'skin_depth',
+    'Model', 'VolumeModel',
+    'Field', 'SourceField', 'get_source_field', 'get_receiver',
+    'get_receiver_response', 'get_h_field',
+    'grid2grid', 'interp3d',
+    'solve', 'solve_batched', 'Survey', 'Dipole', 'PointDipole', 'Simulation',
+    'expand_grid_model', 'EMArray', 'Report', 'optimize',
+]

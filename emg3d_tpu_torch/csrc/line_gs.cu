@@ -100,6 +100,15 @@
 //       line_residual<false> reads e directly through L1/L2 instead: the
 //       ring's fill and barriers cost more latency there than the
 //       re-reads they save.
+// Lanes.  K3 and K4 take the B lanes of a batched solve (its sources and
+// frequencies) in one launch: the lane is the grid's y index.  A lane's
+// e, s, residual and z scratch are the lane's slices of (B, ...) tensors;
+// its η sums and factor stack are those of the lane's frequency group,
+// slices of (G, ...) tensors picked by a lane → group table (int32, B
+// entries); ζ weights and widths are shared by all lanes.  A one-lane
+// launch (no table) is lane 0 of group 0: the arithmetic of a lane is
+// the same whatever B, only its addresses move.
+//
 // The residual and field accesses of a colour are stride 2 along z
 // (half-used sectors).  wgmma and TMA tiles do not apply (no matrix
 // product; the recurrences are sequential along the line).  The
@@ -147,12 +156,34 @@ struct ResArgs {
   const double* ihx;    // inverse widths (nx,), (ny,), (nz,)
   const double* ihy;
   const double* ihz;
+  const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
   int cy, cz;           // the colour's transverse parity
   int cny, cnz;         // its lines per transverse axis
   int rows, lines;      // R line rows and ZL lines per block
   int xplanes;          // XC stations per block
 };
+
+// Point ``a`` at lane ``lane``: e, s and r at the lane's slices, the η
+// sums at its group's.
+__device__ __forceinline__ void lane_offsets(ResArgs& a, int lane) {
+  const int64_t g = a.group ? a.group[lane] : 0;
+  const int64_t nx = a.nx, ny = a.ny, nz = a.nz;
+  const int64_t ex = nx * (ny + 1) * (nz + 1), ey = (nx + 1) * ny * (nz + 1),
+                ez = (nx + 1) * (ny + 1) * nz;
+  a.rx += lane * ex;
+  a.ex += lane * ex;
+  a.sx += lane * ex;
+  a.ry += lane * ey;
+  a.ey += lane * ey;
+  a.sy += lane * ey;
+  a.rz += lane * ez;
+  a.ez += lane * ez;
+  a.sz += lane * ez;
+  a.stx += g * nx * (ny - 1) * (nz - 1);
+  a.sty += g * (nx - 1) * ny * (nz - 1);
+  a.stz += g * (nx - 1) * (ny - 1) * nz;
+}
 
 constexpr int kResSlots = 4;   // K3's ring of x-plane slots
 
@@ -203,6 +234,7 @@ template <bool kStaged>
 __global__ void __launch_bounds__(256)
 line_residual(ResArgs a) {
   extern __shared__ double2 ring[];
+  lane_offsets(a, blockIdx.y);
   const int R = a.rows, ZL = a.lines;
   const int ngz = (a.cnz + ZL - 1) / ZL, ngy = (a.cny + R - 1) / R;
   int b = blockIdx.x;
@@ -518,7 +550,8 @@ struct ThomasArgs {
   const double2* ry;
   const double2* rz;
   const double2* fac;   // (nx, 23, 2, 2, ny2, nz2)
-  double2* zs;          // global scratch (nx, 5, ny2·nz2) if !zshared
+  double2* zs;          // global scratch (B, nx, 5, ny2·nz2) if !zshared
+  const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
   int cy, cz;           // the colour's transverse parity
   int cny, cnz;         // active lines per transverse axis
@@ -624,6 +657,22 @@ line_thomas(ThomasArgs a) {
   const int64_t nlines = static_cast<int64_t>(a.cny) * a.cnz;
   const int nz2 = a.nz / 2;
   const int64_t P = static_cast<int64_t>(a.ny / 2) * nz2;
+  {
+    // The batch lane (grid y): its fields, residual and z scratch, its
+    // group's factor stack.
+    const int64_t b = blockIdx.y, grp = a.group ? a.group[b] : 0;
+    const int64_t nx = a.nx, ny = a.ny, nz = a.nz;
+    const int64_t ex = nx * (ny + 1) * (nz + 1),
+                  ey = (nx + 1) * ny * (nz + 1), ez = (nx + 1) * (ny + 1) * nz;
+    a.ex += b * ex;
+    a.rx += b * ex;
+    a.ey += b * ey;
+    a.ry += b * ey;
+    a.ez += b * ez;
+    a.rz += b * ez;
+    a.fac += grp * nx * kNent * 4 * P;
+    if (!a.zshared) a.zs += b * nx * 5 * P;
+  }
   const int64_t pstride = 4 * P;   // consecutive planes of one station
   const int64_t quarter = (a.cy * 2 + a.cz) * P;
   const int slot_size = a.planes * lpb;
@@ -760,7 +809,7 @@ line_thomas(ThomasArgs a) {
 }
 
 template <int LPB>
-int launch_thomas(const ThomasArgs& a, int blocks, int smem,
+int launch_thomas(const ThomasArgs& a, dim3 blocks, int smem,
                   cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -777,19 +826,24 @@ int launch_thomas(const ThomasArgs& a, int blocks, int smem,
 // Each launches one kernel on ``stream`` and returns cudaGetLastError()
 // (0 on success); the launch geometry comes from the Python
 // launch-geometry functions, which skip colours without lines.
+//
+// K3 and K4 take ``lanes`` batch lanes (the grid's y extent) and
+// ``group``, the lane → frequency-group table on the card (null: one
+// lane).
 extern "C" int emg3d_line_residual(
     void* rx, void* ry, void* rz, const void* ex, const void* ey,
     const void* ez, const void* sx, const void* sy, const void* sz,
     const void* stx, const void* sty, const void* stz, const void* wx,
     const void* wy, const void* wz, const void* ihx, const void* ihy,
-    const void* ihz, int nx, int ny, int nz, int cy, int cz, int cny,
-    int cnz, int rows, int lines, int xplanes, int staged, int blocks,
-    int threads, int smem, void* stream) {
+    const void* ihz, const void* group, int nx, int ny, int nz, int cy,
+    int cz, int cny, int cnz, int rows, int lines, int xplanes, int staged,
+    int blocks, int lanes, int threads, int smem, void* stream) {
   const int ring = kResSlots * 16 *
                    ((2 * rows + 1) * (2 * lines + 1) +
                     2 * rows * (2 * lines + 1) + (2 * rows + 1) * 2 * lines);
   if (rows < 1 || lines < 1 || xplanes < 1 || threads > 256 ||
-      threads < 5 * rows * lines || smem != (staged ? ring : 0)) {
+      threads < 5 * rows * lines || smem != (staged ? ring : 0) ||
+      lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ResArgs a;
@@ -811,6 +865,7 @@ extern "C" int emg3d_line_residual(
   a.ihx = static_cast<const double*>(ihx);
   a.ihy = static_cast<const double*>(ihy);
   a.ihz = static_cast<const double*>(ihz);
+  a.group = static_cast<const int*>(group);
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
@@ -822,8 +877,9 @@ extern "C" int emg3d_line_residual(
   a.lines = lines;
   a.xplanes = xplanes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, lanes);
   if (!staged) {
-    line_residual<false><<<blocks, threads, 0, s>>>(a);
+    line_residual<false><<<grid, threads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (smem > 48 * 1024) {
@@ -832,7 +888,7 @@ extern "C" int emg3d_line_residual(
         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  line_residual<true><<<blocks, threads, smem, s>>>(a);
+  line_residual<true><<<grid, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -840,10 +896,12 @@ extern "C" int emg3d_line_residual(
 // geometry's constants); ``smem`` is the block's dynamic shared memory.
 extern "C" int emg3d_line_thomas(
     void* ex, void* ey, void* ez, const void* rx, const void* ry,
-    const void* rz, const void* fac, void* zs, int nx, int ny, int nz,
-    int cy, int cz, int cny, int cnz, int lpb, int zshared, int planes,
-    int stages, int blocks, int threads, int smem, void* stream) {
+    const void* rz, const void* fac, void* zs, const void* group, int nx,
+    int ny, int nz, int cy, int cz, int cny, int cnz, int lpb, int zshared,
+    int planes, int stages, int blocks, int lanes, int threads, int smem,
+    void* stream) {
   if (stages != kStages || threads != kWarp ||
+      lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr) ||
       lpb < 1 || lpb > kWarp || (lpb & (lpb - 1)) != 0 ||
       (planes != kNent + 5 && planes != kNent + 10) ||
       (!zshared && planes != kNent + 10)) {
@@ -858,6 +916,7 @@ extern "C" int emg3d_line_thomas(
   a.rz = static_cast<const double2*>(rz);
   a.fac = static_cast<const double2*>(fac);
   a.zs = static_cast<double2*>(zs);
+  a.group = static_cast<const int*>(group);
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
@@ -868,13 +927,14 @@ extern "C" int emg3d_line_thomas(
   a.zshared = zshared;
   a.planes = planes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, lanes);
   switch (lpb) {
-    case 1: return launch_thomas<1>(a, blocks, smem, st);
-    case 2: return launch_thomas<2>(a, blocks, smem, st);
-    case 4: return launch_thomas<4>(a, blocks, smem, st);
-    case 8: return launch_thomas<8>(a, blocks, smem, st);
-    case 16: return launch_thomas<16>(a, blocks, smem, st);
-    default: return launch_thomas<32>(a, blocks, smem, st);
+    case 1: return launch_thomas<1>(a, grid, smem, st);
+    case 2: return launch_thomas<2>(a, grid, smem, st);
+    case 4: return launch_thomas<4>(a, grid, smem, st);
+    case 8: return launch_thomas<8>(a, grid, smem, st);
+    case 16: return launch_thomas<16>(a, grid, smem, st);
+    default: return launch_thomas<32>(a, grid, smem, st);
   }
 }
 

@@ -1,13 +1,14 @@
 """Electromagnetic fields on staggered Yee grids (host-side numpy).
 
-Counterpart of ``emg3d_tpu/fields.py:32-458``: :class:`Field`,
+Counterpart of ``emg3d_tpu/fields.py``: :class:`Field`,
 :class:`SourceField` and :func:`get_source_field` in all four source
-formats.  The classes are plain host containers of three C-ordered
+formats, the receivers (:func:`get_receiver`,
+:func:`get_receiver_response`) and :func:`get_h_field`.  The classes are plain host containers of three C-ordered
 component arrays ``fx (nx, ny+1, nz+1)``, ``fy (nx+1, ny, nz+1)``,
 ``fz (nx+1, ny+1, nz)``; the solver copies them to the device as torch
 tensors (:mod:`emg3d_tpu_torch.convert`) and back.  They are not JAX
-pytrees.  Receivers and the H-field belong to a later slice of the
-port.
+pytrees.  Receivers and the H-field are host-side numpy, interpolated
+by the port's own :func:`.maps.interp3d`.
 """
 import warnings
 
@@ -15,10 +16,11 @@ import numpy as np
 from scipy.constants import mu_0
 from scipy.special import cosdg, sindg
 
-from . import utils
+from . import maps, utils
 from .dtypes import complex_dtype, real_dtype
 
-__all__ = ['Field', 'SourceField', 'get_source_field']
+__all__ = ['Field', 'SourceField', 'get_source_field', 'get_receiver',
+           'get_receiver_response', 'get_h_field']
 
 
 class Field:
@@ -423,3 +425,135 @@ def _square_loop_from_point_dipole(src, length):
     points = src[:3] + np.stack(
         [rot_hor, rot_ver, -rot_hor, -rot_ver, rot_hor])
     return points.T
+
+
+# ----------------------------------------------------------------------
+# Receivers & H-field (host-side; reference: fields.py:634-911)
+# ----------------------------------------------------------------------
+
+def get_receiver(grid, values, coordinates, method='cubic',
+                 extrapolate=False):
+    """Interpolate field/model values at receiver coordinates.
+
+    One boundary layer is stripped to avoid boundary effects; points
+    outside the (stripped) grid give NaN unless ``extrapolate=True``.
+    Reference parity: emg3d/fields.py:634-730.
+    """
+    if isinstance(values, Field):
+        fx = get_receiver(grid, values.fx, coordinates, method, extrapolate)
+        fy = get_receiver(grid, values.fy, coordinates, method, extrapolate)
+        fz = get_receiver(grid, values.fz, coordinates, method, extrapolate)
+        return fx, fy, fz
+
+    if len(coordinates) != 3:
+        raise ValueError("Coordinates needs to be in the form (x, y, z).\n"
+                         f"Length of provided coord.: {len(coordinates)}.")
+
+    values = np.asarray(values)
+    points = tuple()
+    for i, coord in enumerate(['x', 'y', 'z']):
+        if values.shape[i] == grid.shape_nodes[i]:
+            points += (getattr(grid, 'nodes_' + coord)[1:-1],)
+        else:
+            points += (getattr(grid, 'cell_centers_' + coord)[1:-1],)
+
+    xi = np.stack(np.broadcast_arrays(*[np.asarray(c, dtype=float)
+                                        for c in coordinates]), axis=-1)
+    if extrapolate:
+        out = maps.interp3d(points, values[1:-1, 1:-1, 1:-1], xi, method,
+                            fill_value=None, mode='nearest')
+    else:
+        out = maps.interp3d(points, values[1:-1, 1:-1, 1:-1], xi, method,
+                            fill_value=np.nan, mode='constant')
+
+    if values.size == grid.n_cells:
+        return out
+    return utils.EMArray(out)
+
+
+def get_receiver_response(grid, field, rec):
+    """Full response of an arbitrarily rotated point receiver.
+
+    Weights fx, fy, fz by (cos a cos d, sin a cos d, sin d).
+    Reference parity: emg3d/fields.py:733-817.
+    """
+    if len(rec) != 5:
+        raise ValueError(
+            "`rec` needs to be in the form (x, y, z, azimuth, dip).\n"
+            f"Length of provided `rec`: {len(rec)}.")
+
+    if not isinstance(field, Field):
+        raise ValueError("`field` must be a `Field`-instance, not a\n"
+                         "particular field such as `field.fx`.")
+
+    if field.is_electric:
+        points = ((grid.cell_centers_x, grid.nodes_y, grid.nodes_z),
+                  (grid.nodes_x, grid.cell_centers_y, grid.nodes_z),
+                  (grid.nodes_x, grid.nodes_y, grid.cell_centers_z))
+    else:
+        points = ((grid.nodes_x, grid.cell_centers_y, grid.cell_centers_z),
+                  (grid.cell_centers_x, grid.nodes_y, grid.cell_centers_z),
+                  (grid.cell_centers_x, grid.cell_centers_y, grid.nodes_z))
+    points = tuple(tuple(p[1:-1] for p in pp) for pp in points)
+
+    n = max(np.atleast_1d(x).size for x in rec)
+    resp = np.zeros(n, dtype=np.asarray(field.fx).dtype)
+    xi = np.stack(np.broadcast_arrays(
+        *[np.asarray(c, dtype=float) for c in rec[:3]]), axis=-1)
+
+    factors = _rotation(*rec[3:])
+    for i, ff in enumerate((field.fx, field.fy, field.fz)):
+        if np.any(abs(factors[i]) > 1e-10):
+            resp = resp + factors[i] * maps.interp3d(
+                points[i], np.asarray(ff)[1:-1, 1:-1, 1:-1], xi,
+                'cubic', fill_value=np.nan, mode='constant')
+    return utils.EMArray(resp)
+
+
+def get_h_field(grid, model, field):
+    """Magnetic field H from electric field E via Faraday's law.
+
+    Reference parity: emg3d/fields.py:820-911.
+    """
+    from . import models as _models
+
+    fx = np.asarray(field.fx)
+    fy = np.asarray(field.fy)
+    fz = np.asarray(field.fz)
+    hx_ = grid.h[0][:, None, None]
+    hy_ = grid.h[1][None, :, None]
+    hz_ = grid.h[2][None, None, :]
+
+    e3d_hx = (np.diff(fz, axis=1) / grid.h[1][None, :, None] -
+              np.diff(fy, axis=2) / grid.h[2][None, None, :])
+    e3d_hy = (np.diff(fx, axis=2) / grid.h[2][None, None, :] -
+              np.diff(fz, axis=0) / grid.h[0][:, None, None])
+    e3d_hz = (np.diff(fy, axis=0) / grid.h[0][:, None, None] -
+              np.diff(fx, axis=1) / grid.h[1][None, :, None])
+
+    if model.mu_r is not None:
+        vmodel = _models.VolumeModel(grid, model, field)
+        zeta = np.asarray(vmodel.zeta)
+
+        ixm = np.r_[0, np.arange(grid.shape_cells[0])]
+        ixp = np.r_[np.arange(grid.shape_cells[0]), grid.shape_cells[0]-1]
+        iym = np.r_[0, np.arange(grid.shape_cells[1])]
+        iyp = np.r_[np.arange(grid.shape_cells[1]), grid.shape_cells[1]-1]
+        izm = np.r_[0, np.arange(grid.shape_cells[2])]
+        izp = np.r_[np.arange(grid.shape_cells[2]), grid.shape_cells[2]-1]
+
+        zeta_x = (zeta[ixm, :, :] + zeta[ixp, :, :]) / 2.
+        zeta_y = (zeta[:, iym, :] + zeta[:, iyp, :]) / 2.
+        zeta_z = (zeta[:, :, izm] + zeta[:, :, izp]) / 2.
+
+        dx = (np.r_[0., grid.h[0]] + np.r_[grid.h[0], 0.]) / 2.
+        dy = (np.r_[0., grid.h[1]] + np.r_[grid.h[1], 0.]) / 2.
+        dz = (np.r_[0., grid.h[2]] + np.r_[grid.h[2], 0.]) / 2.
+
+        e3d_hx = e3d_hx * zeta_x / (dx[:, None, None] * hy_ * hz_)
+        e3d_hy = e3d_hy * zeta_y / (hx_ * dy[None, :, None] * hz_)
+        e3d_hz = e3d_hz * zeta_z / (hx_ * hy_ * dz[None, None, :])
+
+    smu0 = field.smu0
+    return Field(-e3d_hx / smu0, -e3d_hy / smu0, -e3d_hz / smu0,
+                 frequency=field._frequency)

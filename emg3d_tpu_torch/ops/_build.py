@@ -35,8 +35,8 @@ ARGTYPES = {
     'emg3d_point_gs_sweep': [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P] * 3
                             + [_I] * 4 + [_P],
     'emg3d_point_gs_grid_capacity': [_I, _P],
-    'emg3d_line_residual': [_P] * 18 + [_I] * 14 + [_P],
-    'emg3d_line_thomas': [_P] * 8 + [_I] * 14 + [_P],
+    'emg3d_line_residual': [_P] * 19 + [_I] * 15 + [_P],
+    'emg3d_line_thomas': [_P] * 9 + [_I] * 15 + [_P],
     'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
 }
 

@@ -35,6 +35,15 @@ live in a :class:`LineState` per (level, axis).
 :func:`line_relaxation_plain`, the plain version of the whole smoothing
 call (``smoothers.line_color_steps``), for CPU tensors; for a CUDA
 tensor it launches or raises, it never falls back.
+
+Lanes.  A batched solve relaxes B lanes (its (source, frequency)
+pairs) of one level at once: e and s are (B, ...) tensors, and the
+line state of the level is a *lane state* (:func:`line_state` with
+``lanes``): its η sums and factor stack carry a leading axis of G
+frequency groups, one K5 stack per group, and ``lanes`` maps each lane
+to its group.  K3 and K4 then take all B lanes in one launch (the lane
+is the grid's y index); :func:`lane_state` is one group's one-lane
+state, which the plain version runs lane by lane.
 """
 import ctypes
 import functools
@@ -51,7 +60,8 @@ __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
            'launch_geometry', 'factor_geometry', 'residual_geometry',
            'colour_edges', 'colour_edge_masks', 'residual_plain',
            'factor_bytes', 'cache_budget', 'LAUNCHES', 'reset_launches',
-           'LINE_SHARE', 'SMEM_MAX', 'FactorGeometry']
+           'LINE_SHARE', 'SMEM_MAX', 'FactorGeometry', 'lane_state',
+           'lane_count', 'MAX_LANES']
 
 # Share of the card's memory that the cached factor stacks of one solve
 # may take together (all levels, axes and semicoarsening hierarchies).
@@ -95,6 +105,7 @@ THOMAS_STAGES = 6
 THOMAS_BLOCKS = 256
 THOMAS_ZSHARED = 96 * 1024
 SMEM_MAX = 232448          # shared memory one block may use (H100)
+MAX_LANES = 65535          # lanes of one K3/K4 launch (the grid's y extent)
 _PLANES = NLINE + 5        # ring planes per slot: factors, r or e
 _PLANES_GZ = NLINE + 10    # ... and z, when z is in global memory
 
@@ -104,18 +115,20 @@ ResidualGeometry = namedtuple('ResidualGeometry', [
     'rows', 'lines',       # line rows and z-lines per block
     'xplanes',             # stations per block
     'staged',              # e staged in shared memory (else read directly)
-    'blocks', 'threads',   # the launch (blocks == 0: no line)
+    'blocks', 'threads',   # the launch per lane (blocks == 0: no line)
     'smem_bytes',          # dynamic shared memory per block
+    'lanes',               # batch lanes (the grid's y extent)
 ])
 
 ThomasGeometry = namedtuple('ThomasGeometry', [
     'cy', 'cz',            # the colour's transverse parity
     'counts',              # active lines per transverse axis
-    'blocks', 'threads',   # the launch (blocks == 0: no line)
+    'blocks', 'threads',   # the launch per lane (blocks == 0: no line)
     'lines_per_block',     # lines one block (one warp) runs
     'z_shared',            # z in shared memory (else global scratch)
     'planes',              # ring planes per station slot
     'smem_bytes',          # dynamic shared memory per block
+    'lanes',               # batch lanes (the grid's y extent)
 ])
 
 FactorGeometry = namedtuple('FactorGeometry', [
@@ -131,7 +144,10 @@ LineState = namedtuple('LineState', [
     'w',          # ζ face weights (wx, wy, wz)
     'ih',         # inverse widths (ihx, ihy, ihz)
     'factors',    # (nx, NLINE, 2, 2, ny2, nz2) complex, or None (rebuilt)
+    'lanes',      # None, or a lane state's lane → group table (int32, B)
 ])
+# A lane state's η (arrays[:3]), st and factors carry a leading group
+# axis (G, ...); ζ, w and the widths are shared by every group.
 
 
 def reset_launches():
@@ -160,11 +176,30 @@ def cache_budget(device):
     return LINE_SHARE * total
 
 
-def _stack(ar, rs, st, w, ih, plain):
-    """Factor stack of the rotated frame: K5 on the card, else plain."""
-    if plain or ar[0].device.type == 'cpu':
-        return smoothers.line_factor_stack(ar, rs)
-    return factor(st, w, ih, rs)
+def _stack(ar, rs, st, w, ih, plain, groups=None):
+    """Factor stack of the rotated frame: K5 on the card, else plain.
+
+    With ``groups`` (a lane state's G) one stack per group, K5 once per
+    group into the group's slice of a (G, ...) stack.
+    """
+    if groups is None:
+        if plain or ar[0].device.type == 'cpu':
+            return smoothers.line_factor_stack(ar, rs)
+        return factor(st, w, ih, rs)
+    out = torch.empty((groups, rs[0], NLINE, 2, 2, *_line_dims(rs)),
+                      dtype=torch.complex128, device=ar[0].device)
+    for g in range(groups):
+        if plain or ar[0].device.type == 'cpu':
+            out[g] = smoothers.line_factor_stack(_group_arrays(ar, g), rs)
+        else:
+            factor(tuple(t[g] for t in st), w, ih, rs, out=out[g])
+    return out
+
+
+def _group_arrays(ar, g):
+    """One group's (eta_x, eta_y, eta_z, zeta, hx, hy, hz) of a lane
+    state's arrays."""
+    return tuple(a[g] for a in ar[:3]) + tuple(ar[3:])
 
 
 def _params(ar):
@@ -188,7 +223,7 @@ def line_factors(arrays, shape, axis):
                   False)
 
 
-def line_state(arrays, shape, axis, factors=True, plain=False):
+def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None):
     """Field-independent state of ``axis``-line relaxation on a level.
 
     The counterpart of the JAX package's per-(level, axis) cache
@@ -198,12 +233,46 @@ def line_state(arrays, shape, axis, factors=True, plain=False):
     solver).  ``plain`` builds the stack with the plain elimination on
     any device (comparisons on the card); otherwise CPU tensors take
     the plain elimination and CUDA tensors K5.
+
+    ``lanes`` (int32, B entries on the arrays' device) makes a lane
+    state: η in ``arrays`` then carries a leading axis of G frequency
+    groups (ζ and the widths are shared), and ``lanes[b]`` is lane b's
+    group.
     """
     ar = smoothers.rotate_arrays(arrays, axis)
     rs = smoothers.rotate_shape(shape, axis)
     st, w, ih = _params(ar)
-    fac = _stack(ar, rs, st, w, ih, plain) if factors else None
-    return LineState(int(axis), rs, ar, st, w, ih, fac)
+    groups = None
+    if lanes is not None:
+        groups = ar[0].shape[0]
+        if (ar[0].ndim != 4 or lanes.dtype != torch.int32 or lanes.ndim != 1
+                or lanes.device != ar[0].device or not 0 < len(lanes)
+                <= MAX_LANES):
+            raise ValueError(f"a lane state takes η of (groups, ...) and "
+                             f"1 to {MAX_LANES} int32 lanes on its device; "
+                             f"got η {tuple(ar[0].shape)}, lanes "
+                             f"{lanes.dtype} {tuple(lanes.shape)} on "
+                             f"{lanes.device}")
+        lo, hi = int(lanes.min()), int(lanes.max())
+        if lo < 0 or hi >= groups:
+            raise ValueError(f"lane groups {lo}..{hi}; the state has "
+                             f"{groups}")
+    fac = _stack(ar, rs, st, w, ih, plain, groups) if factors else None
+    return LineState(int(axis), rs, ar, st, w, ih, fac, lanes)
+
+
+def lane_count(state):
+    """Lanes a line state relaxes at once (1 for a one-lane state)."""
+    return 1 if state.lanes is None else len(state.lanes)
+
+
+def lane_state(state, g):
+    """Group ``g``'s one-lane :class:`LineState` of a lane state (views;
+    its factor stack, where the lane state keeps one)."""
+    fac = None if state.factors is None else state.factors[g]
+    return LineState(state.axis, state.shape, _group_arrays(state.arrays, g),
+                     tuple(t[g] for t in state.st), state.w, state.ih, fac,
+                     None)
 
 
 def factor_geometry(shape, threads=FACTOR_WARP):
@@ -224,7 +293,7 @@ def factor_geometry(shape, threads=FACTOR_WARP):
     return FactorGeometry(lines, -(-lines // threads), threads)
 
 
-def factor(st, w, ih, shape, geometry=None):
+def factor(st, w, ih, shape, geometry=None, out=None):
     """The factor stack of a rotated level, built on the card (K5).
 
     ``st``, ``w`` and ``ih`` are the rotated frame's η edge sums, ζ face
@@ -232,8 +301,10 @@ def factor(st, w, ih, shape, geometry=None):
     CUDA tensors; ``shape`` its cell shape (lines along x).  Returns a
     new ``(nx, NLINE, 2, 2, ny2, nz2)`` complex128 stack, every plane
     written by the kernel.  ``geometry`` forces a
-    :func:`factor_geometry` (timings on the card).  The plain version
-    is :func:`.smoothers.line_factor_stack`.
+    :func:`factor_geometry` (timings on the card).  ``out`` is a
+    contiguous stack of that shape to write instead (a group's slice of
+    a lane state's stack).  The plain version is
+    :func:`.smoothers.line_factor_stack`.
     """
     _cuda(st[0])
     nx, ny, nz = shape
@@ -255,8 +326,13 @@ def factor(st, w, ih, shape, geometry=None):
         raise ValueError(f"factor: a level of {nx} station(s); K5 takes 2 "
                          f"or more")
     g = factor_geometry(shape) if geometry is None else geometry
-    out = torch.empty((nx, NLINE, 2, 2, *_line_dims(shape)),
-                      dtype=torch.complex128, device=st[0].device)
+    want = (nx, NLINE, 2, 2, *_line_dims(shape))
+    if out is None:
+        out = torch.empty(want, dtype=torch.complex128, device=st[0].device)
+    elif (tuple(out.shape) != want or out.dtype != torch.complex128
+          or out.device != st[0].device or not out.is_contiguous()):
+        raise ValueError(f"factor: out must be a contiguous complex128 "
+                         f"{want} on {st[0].device}")
     if g.blocks == 0:
         return out
     from ._build import library
@@ -311,8 +387,9 @@ def colour_edge_masks(shape, color, device='cpu'):
 
 @functools.lru_cache(maxsize=None)
 def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
-                      xplanes=None, staged=None):
-    """K3's launch for one colour of a rotated level.
+                      xplanes=None, staged=None, lanes=1):
+    """K3's launch for one colour of a rotated level, over ``lanes``
+    batch lanes.
 
     A block owns ``rows`` line rows × ``lines`` lines along z ×
     ``xplanes`` stations of the colour's lines (:func:`colour_edges`)
@@ -320,8 +397,10 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
     each station: rows·lines, 2·rows·lines, 2·rows·lines), from a ring
     of RES_SLOTS x-plane slots of e in shared memory, or (``staged``
     False) reading e directly.  ``xplanes`` and ``staged`` default to
-    the rule of RES_XPLANES and RES_BLOCKS.  ``blocks == 0`` when the
-    colour has no line.
+    the rule of RES_XPLANES and RES_BLOCKS, counting the blocks of every
+    lane (``blocks`` per lane, the launch's grid (blocks, lanes)).
+    ``blocks == 0`` when the colour has no line.  With one lane it is
+    the one-lane launch; a lane's results do not depend on the geometry.
     """
     rx, _, _ = colour_edges(shape, color)
     counts = (len(rx[1]), len(rx[2]))
@@ -332,10 +411,13 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
                          f"{5 * rows * lines} threads; a block takes 256")
     slot = ((2 * rows + 1) * (2 * lines + 1) + 2 * rows * (2 * lines + 1)
             + (2 * rows + 1) * 2 * lines)
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"K3: {lanes} lanes; a launch takes 1 to "
+                         f"{MAX_LANES}")
     slabs = -(-counts[0] // rows) * -(-counts[1] // lines)
     if xplanes is None:
         xplanes = next((x for x in RES_XPLANES
-                        if slabs * -(-shape[0] // x) >= RES_BLOCKS),
+                        if lanes * slabs * -(-shape[0] // x) >= RES_BLOCKS),
                        RES_XPLANES[-1])
     if staged is None:
         staged = xplanes >= RES_STAGED
@@ -346,10 +428,11 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
     if counts[0] * counts[1] == 0:
         blocks = 0
     return ResidualGeometry(cy, cz, counts, rows, lines, xplanes,
-                            bool(staged), blocks, threads, smem)
+                            bool(staged), blocks, threads, smem, lanes)
 
 
-def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
+def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
+                    lanes=1):
     """Active lines of one colour and the Thomas launch that covers them.
 
     ``shape`` is the rotated-frame cell shape (lines along x).  Interior
@@ -361,7 +444,10 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
     ≤ ``THOMAS_WARP`` that spreads the colour over about
     ``THOMAS_BLOCKS`` blocks (or more, at large levels), and z stays in
     shared memory while the block's bytes stay within
-    ``THOMAS_ZSHARED``.  ``lines_per_block`` and ``z_shared`` force
+    ``THOMAS_ZSHARED``.  Over ``lanes`` batch lanes the rule spreads the
+    lines of every lane (``blocks`` per lane, the launch's grid
+    (blocks, lanes)); a lane's results do not depend on the plan.
+    ``lines_per_block`` and ``z_shared`` force
     another plan (checks and timings on the card); a plan beyond the
     block's shared memory raises.  ``blocks == 0`` when the colour has
     no line (e.g. colours 1 and 3 on a level with one interior y-line).
@@ -370,11 +456,14 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
     cy, cz = color % 2, color // 2
     counts = ((ny - cy) // 2, (nz - cz) // 2)
     total = counts[0] * counts[1]
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"K4: {lanes} lanes; a launch takes 1 to "
+                         f"{MAX_LANES}")
     if total == 0:
-        return ThomasGeometry(cy, cz, counts, 0, 0, 0, False, 0, 0)
+        return ThomasGeometry(cy, cz, counts, 0, 0, 0, False, 0, 0, lanes)
     lpb = lines_per_block
     if lpb is None:
-        want = -(-total // THOMAS_BLOCKS)
+        want = -(-lanes * total // THOMAS_BLOCKS)
         lpb = min(THOMAS_WARP, 1 << (want - 1).bit_length())
     elif lpb not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"lines_per_block {lpb}: a power of two ≤ "
@@ -389,7 +478,7 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None):
     planes = _PLANES if z_shared else _PLANES_GZ
     smem = THOMAS_STAGES * planes * lpb * 16 + (zbytes if z_shared else 0)
     return ThomasGeometry(cy, cz, counts, -(-total // lpb), THOMAS_WARP,
-                          lpb, z_shared, planes, smem)
+                          lpb, z_shared, planes, smem, lanes)
 
 
 def _level_shape(state):
@@ -398,7 +487,10 @@ def _level_shape(state):
 
 
 def _check(e, s, state):
+    """Shapes, devices and (for the kernels) dtypes and contiguity of a
+    smoothing call; a lane state takes (B, ...) fields, its B lanes."""
     nx, ny, nz = _level_shape(state)
+    lead = () if state.lanes is None else (len(state.lanes),)
     edges = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
              (nx + 1, ny + 1, nz))
     dev = e[0].device
@@ -406,20 +498,25 @@ def _check(e, s, state):
         if len(trio) != 3:
             raise ValueError(f"{name}: {len(trio)} tensors, expected 3")
         for t, sh in zip(trio, edges):
-            if tuple(t.shape) != sh:
+            if tuple(t.shape) != lead + sh:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{sh} for level {(nx, ny, nz)}")
+                                 f"{lead + sh} for level {(nx, ny, nz)}")
             if t.device != dev:
                 raise ValueError(f"{name}: on {t.device}, e on {dev}")
     fac = state.factors
+    groups = () if state.lanes is None else (state.st[0].shape[0],)
     if fac is not None:
         rs = state.shape
-        want = (rs[0], NLINE, 2, 2, *_line_dims(rs))
+        want = groups + (rs[0], NLINE, 2, 2, *_line_dims(rs))
         if tuple(fac.shape) != want:
             raise ValueError(f"factors: shape {tuple(fac.shape)}, expected "
                              f"{want}")
     if dev.type == 'cpu':
         return
+    if state.lanes is not None and (state.lanes.device != dev
+                                    or state.lanes.dtype != torch.int32):
+        raise ValueError(f"lanes: the CUDA kernels take int32 on {dev}; "
+                         f"got {state.lanes.dtype} on {state.lanes.device}")
     groups = {'e': e, 's': s, 'st': state.st, 'w': state.w, 'ih': state.ih,
               'factors': () if fac is None else (fac,)}
     for name, trio in groups.items():
@@ -433,7 +530,7 @@ def _check(e, s, state):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(dev):
@@ -449,21 +546,27 @@ def _cuda(t):
 def residual(e, s, state, color, out, geometry=None):
     """``out`` ← s − A e at the edges of ``color`` (K3); returns ``out``.
 
-    ``e``, ``s``, ``out`` are rotated-frame CUDA edge tensors; entries of
-    ``out`` outside :func:`colour_edges` are left as they are.
-    ``geometry`` forces a :func:`residual_geometry` (timings on the
-    card).  The plain version is :func:`residual_plain`.
+    ``e``, ``s``, ``out`` are rotated-frame CUDA edge tensors ((B, ...)
+    for a lane state: all B lanes in one launch); entries of ``out``
+    outside :func:`colour_edges` are left as they are.  ``geometry``
+    forces a :func:`residual_geometry` (timings on the card).  The plain
+    version is :func:`residual_plain`.
     """
     _cuda(e[0])
-    g = residual_geometry(state.shape, color) if geometry is None \
-        else geometry
+    lanes = lane_count(state)
+    g = residual_geometry(state.shape, color, lanes=lanes) \
+        if geometry is None else geometry
+    if g.lanes != lanes:
+        raise ValueError(f"K3: a geometry of {g.lanes} lanes for a state "
+                         f"of {lanes}")
     if g.blocks == 0:
         return out
     from ._build import library
     err = library().emg3d_line_residual(
-        *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih)),
+        *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih,
+                            state.lanes)),
         *state.shape, g.cy, g.cz, *g.counts, g.rows, g.lines, g.xplanes,
-        int(g.staged), g.blocks, g.threads, g.smem_bytes,
+        int(g.staged), g.blocks, g.lanes, g.threads, g.smem_bytes,
         _stream(e[0].device))
     if err != 0:
         raise RuntimeError(f"line_residual kernel launch failed: cudaError "
@@ -488,24 +591,32 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     ``e``/``r`` are rotated-frame edge tensors, ``fac`` the factor stack
     and ``zs`` an optional ``(nx, 5, ny2·nz2)`` complex scratch for the
     forward sweep where z does not fit the block's shared memory, all
-    on the card.  ``geometry`` is a forced :func:`launch_geometry` of
-    the colour (default: the one it picks).  The plain version is
+    on the card; for a lane state ``e``, ``r`` and ``zs`` carry the B
+    lanes and ``fac`` the G groups, all lanes in one launch.
+    ``geometry`` is a forced :func:`launch_geometry` of the colour
+    (default: the one it picks).  The plain version is
     :func:`.smoothers.line_thomas_x`.  Returns ``e``.
     """
     _cuda(e[0])
-    g = launch_geometry(state.shape, color) if geometry is None else geometry
+    lanes = lane_count(state)
+    g = launch_geometry(state.shape, color, lanes=lanes) \
+        if geometry is None else geometry
+    if g.lanes != lanes:
+        raise ValueError(f"K4: a geometry of {g.lanes} lanes for a state "
+                         f"of {lanes}")
     if g.blocks == 0:
         return tuple(e)
     if g.z_shared:
         zp = ctypes.c_void_p(None)    # z stays in shared memory
     else:
-        zp = _ptr(_scratch(state.shape, e[0]) if zs is None else zs)
+        zp = _ptr(_scratch(state.shape, e[0], lanes if state.lanes
+                           is not None else None) if zs is None else zs)
     from ._build import library
     err = library().emg3d_line_thomas(
-        *(_ptr(t) for t in (*e, *r, fac)), zp, *state.shape, g.cy, g.cz,
-        *g.counts, g.lines_per_block, int(g.z_shared), g.planes,
-        THOMAS_STAGES, g.blocks, g.threads, g.smem_bytes,
-        _stream(e[0].device))
+        *(_ptr(t) for t in (*e, *r, fac)), zp, _ptr(state.lanes),
+        *state.shape, g.cy, g.cz, *g.counts, g.lines_per_block,
+        int(g.z_shared), g.planes, THOMAS_STAGES, g.blocks, g.lanes,
+        g.threads, g.smem_bytes, _stream(e[0].device))
     if err != 0:
         raise RuntimeError(f"line_thomas kernel launch failed: cudaError "
                            f"{err} (colour {color}, shape {state.shape})")
@@ -526,10 +637,12 @@ def _write_back(e, out, axis):
     return tuple(e)
 
 
-def _scratch(shape, like):
-    """K4's global z scratch ``(nx, 5, ny2·nz2)`` of a rotated level."""
+def _scratch(shape, like, lanes=None):
+    """K4's global z scratch ``(nx, 5, ny2·nz2)`` of a rotated level,
+    ``(lanes, nx, 5, ny2·nz2)`` for a lane state."""
     ny2, nz2 = _line_dims(shape)
-    return torch.empty((shape[0], 5, ny2 * nz2), dtype=like.dtype,
+    lead = () if lanes is None else (lanes,)
+    return torch.empty(lead + (shape[0], 5, ny2 * nz2), dtype=like.dtype,
                        device=like.device)
 
 
@@ -537,7 +650,8 @@ def _factors(state, plain=False):
     if state.factors is not None:
         return state.factors
     return _stack(state.arrays, state.shape, state.st, state.w, state.ih,
-                  plain)
+                  plain, None if state.lanes is None else
+                  state.st[0].shape[0])
 
 
 def line_relaxation_plain(e, s, state, nu, _seq=None):
@@ -546,13 +660,20 @@ def line_relaxation_plain(e, s, state, nu, _seq=None):
     :func:`.smoothers.line_color_steps` in the state's rotated frame,
     with its cached factor stack (a stack it does not cache is rebuilt
     by the plain elimination); writes the result into ``e`` in place,
-    as the kernels do.
+    as the kernels do.  A lane state runs all lanes at once, each with
+    its group's η and factor stack: the numbers of its :func:`lane_state`
+    lane by lane.
     """
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
     a = state.axis
-    out = smoothers.line_color_steps(_rotated(e, a), _rotated(s, a),
-                                     state.arrays,
-                                     _factors(state, plain=True), seq)
+    par, fac = state.arrays, _factors(state, plain=True)
+    if state.lanes is not None:
+        # Every lane at once, with its group's η and stack.
+        idx = state.lanes.long()
+        par = tuple(t.index_select(0, idx) for t in par[:3]) + par[3:]
+        fac = fac.index_select(0, idx)
+    out = smoothers.line_color_steps(_rotated(e, a), _rotated(s, a), par,
+                                     fac, seq)
     return _write_back(e, out, a)
 
 
@@ -560,7 +681,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
     """nu sweeps of 4-colour line Gauss-Seidel along ``state.axis``.
 
     e, s : (ex, ey, ez) and (sx, sy, sz) edge tensors of the level,
-        in its own frame; ``e`` is updated in place.
+        in its own frame; ``e`` is updated in place.  (B, ...) tensors
+        for a lane state: K3 and K4 take all B lanes in each launch.
     state : :func:`line_state` of the level and axis.
     _seq : explicit colour sequence (tests).
 
@@ -579,8 +701,10 @@ def line_relaxation(e, s, state, nu, _seq=None):
     sr = _rotated(s, a)
     fac = _factors(state)
     r = tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in er)
-    zs = None if launch_geometry(state.shape, 0).z_shared else _scratch(
-        state.shape, er[0])
+    lanes = lane_count(state)
+    zs = None if launch_geometry(state.shape, 0, lanes=lanes).z_shared \
+        else _scratch(state.shape, er[0],
+                      None if state.lanes is None else lanes)
     for color in seq:
         residual(er, sr, state, color, r)
         thomas(er, r, fac, state, color, zs)

@@ -152,14 +152,6 @@ _D_MAP = {(0, 0): (0, 0), (1, 1): (2, 2), (2, 2): (3, 3),
           (4, 2): (5, 3)}
 
 
-def _pad(a, widths):
-    """Zero-pad the leading axes: ``widths`` = ((lo, hi), ...) per axis."""
-    flat = [0, 0] * (a.ndim - len(widths))   # F.pad lists the last axis first
-    for lo, hi in reversed(widths):
-        flat += [lo, hi]
-    return torch.nn.functional.pad(a, flat)
-
-
 def _l_plane(a, b):
     """Plane of L(a, b), a > b, in ``_lower_keys(5)`` order."""
     return a * (a - 1) // 2 + b
@@ -263,19 +255,21 @@ def line_factor_stack(arrays, shape):
 
 
 def _parity_pick(a, cy, cz, ny2, nz2):
-    """(S, Ny, Nz) -> the (cy, cz)-parity quarter (S, ny2, nz2)."""
-    S, n1, n2 = a.shape
-    a = _pad(a, ((0, 0), (0, 2 * ny2 - n1), (0, 2 * nz2 - n2)))
-    return a.reshape(S, ny2, 2, nz2, 2)[:, :, cy, :, cz]
+    """(..., S, Ny, Nz) -> the (cy, cz)-parity quarter (..., S, ny2,
+    nz2)."""
+    n1, n2 = a.shape[-2:]
+    a = torch.nn.functional.pad(a, (0, 2 * nz2 - n2, 0, 2 * ny2 - n1))
+    return a.reshape(*a.shape[:-2], ny2, 2, nz2, 2)[..., cy, :, cz]
 
 
 def _parity_embed(d, cy, cz, nyn, nzn):
-    """Inverse of :func:`_parity_pick`: quarter -> (S, nyn, nzn), zeros
-    at the three inactive parities."""
-    S, ny2, nz2 = d.shape
-    full = torch.zeros((S, ny2, 2, nz2, 2), dtype=d.dtype, device=d.device)
-    full[:, :, cy, :, cz] = d
-    return full.reshape(S, 2 * ny2, 2 * nz2)[:, :nyn, :nzn]
+    """Inverse of :func:`_parity_pick`: quarter -> (..., S, nyn, nzn),
+    zeros at the three inactive parities."""
+    ny2, nz2 = d.shape[-2:]
+    full = torch.zeros((*d.shape[:-2], ny2, 2, nz2, 2), dtype=d.dtype,
+                       device=d.device)
+    full[..., cy, :, cz] = d
+    return full.reshape(*d.shape[:-2], 2 * ny2, 2 * nz2)[..., :nyn, :nzn]
 
 
 def _line_color_update_x(e, s, par, fac, color):
@@ -295,33 +289,45 @@ def line_thomas_x(e, r, fac, color):
 
     Solves every line of the colour against the factor stack and adds
     δ into the line's ex and its adjacent ey/ez edges (new tensors).
+    With a leading lane axis on ``e`` and ``r`` (B, ...), ``fac`` is
+    (B, ...) too: lane b's stack.  The lanes ride along the lines (the
+    station recurrence is elementwise in them), so each lane's numbers
+    are those of its one-lane call.
     """
     ex, ey, ez = e
     rx, ry, rz = r
     ny2, nz2 = fac.shape[-2:]
-    nyn = rx.shape[1] - 2          # interior node counts
-    nzn = rx.shape[2] - 2
+    nyn = rx.shape[-2] - 2         # interior node counts
+    nzn = rx.shape[-1] - 2
     cy, cz = color % 2, color // 2
+    lanes = rx.ndim == 4
 
-    # Station residuals (5 component stacks), parity-picked.
-    px = ((0, 1),)
-    rq = [_parity_pick(a, cy, cz, ny2, nz2) for a in (
-        rx[:, 1:-1, 1:-1],
-        _pad(ry[1:-1, :-1, 1:-1], px), _pad(ry[1:-1, 1:, 1:-1], px),
-        _pad(rz[1:-1, 1:-1, :-1], px), _pad(rz[1:-1, 1:-1, 1:], px))]
+    def stations(t):               # (B, S, ...) -> (S, B, ...)
+        return t.movedim(0, 1) if lanes else t
 
-    q = fac[:, :, cy, cz]
-    facts = ([q[:, p] for p in range(10)], [q[:, 10 + p] for p in range(5)])
-    Bent = {k: q[:, 15 + p] for p, k in enumerate(LINE_BKEYS)}
+    # Station residuals (5 component stacks), parity-picked; the last
+    # station has no transverse edges (zero-padded).
+    px = (0, 0, 0, 0, 0, 1)
+    pad = torch.nn.functional.pad
+    rq = [stations(_parity_pick(a, cy, cz, ny2, nz2)) for a in (
+        rx[..., 1:-1, 1:-1],
+        pad(ry[..., 1:-1, :-1, 1:-1], px), pad(ry[..., 1:-1, 1:, 1:-1], px),
+        pad(rz[..., 1:-1, 1:-1, :-1], px), pad(rz[..., 1:-1, 1:-1, 1:], px))]
+
+    q = fac[..., cy, cz, :, :]
+    facts = ([stations(q[..., p, :, :]) for p in range(10)],
+             [stations(q[..., 10 + p, :, :]) for p in range(5)])
+    Bent = {k: stations(q[..., 15 + p, :, :])
+            for p, k in enumerate(LINE_BKEYS)}
     delta = block_tridiag_solve_entries(5, facts, Bent, rq)
-    dm = [_parity_embed(d, cy, cz, nyn, nzn) for d in delta]
+    dm = [_parity_embed(stations(d), cy, cz, nyn, nzn) for d in delta]
 
     ex, ey, ez = ex.clone(), ey.clone(), ez.clone()
-    ex[:, 1:-1, 1:-1] += dm[0]
-    ey[1:-1, :-1, 1:-1] += dm[1][:-1]
-    ey[1:-1, 1:, 1:-1] += dm[2][:-1]
-    ez[1:-1, 1:-1, :-1] += dm[3][:-1]
-    ez[1:-1, 1:-1, 1:] += dm[4][:-1]
+    ex[..., 1:-1, 1:-1] += dm[0]
+    ey[..., 1:-1, :-1, 1:-1] += dm[1][..., :-1, :, :]
+    ey[..., 1:-1, 1:, 1:-1] += dm[2][..., :-1, :, :]
+    ez[..., 1:-1, 1:-1, :-1] += dm[3][..., :-1, :, :]
+    ez[..., 1:-1, 1:-1, 1:] += dm[4][..., :-1, :, :]
     return ex, ey, ez
 
 
@@ -341,12 +347,13 @@ def line_color_steps(e, s, par, fac, seq):
 
 
 def _rot_fwd(a):
-    """Cyclic axis rotation x→y→z→x (tensor axes (1, 2, 0))."""
-    return a.permute(1, 2, 0)
+    """Cyclic axis rotation x→y→z→x of the last three tensor axes ((1,
+    2, 0) of a 3-D tensor; leading lane axes stay)."""
+    return a.movedim(-3, -1)
 
 
 def _rot_bwd(a):
-    return a.permute(2, 0, 1)
+    return a.movedim(-1, -3)
 
 
 def rotate_arrays(arrays, axis):

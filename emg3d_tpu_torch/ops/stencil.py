@@ -7,7 +7,9 @@ Counterpart of ``emg3d_tpu/ops/stencil.py``: the operator
 evaluated matrix-free on the staggered Yee grid, with PEC rows zeroed,
 as whole-tensor first-curl (faces), ζ face-weighting, second-curl
 (edges) and η edge-averaging.  Complex tensors are native
-(complex128), not split re/im pairs.
+(complex128), not split re/im pairs.  Every function also takes a
+leading lane axis on the fields (and on η), the lanes of a batched
+solve: the grid axes are the last three.
 
 Tensor layout (C-order, indexed [ix, iy, iz]):
   ex (nx, ny+1, nz+1), ey (nx+1, ny, nz+1), ez (nx+1, ny+1, nz)
@@ -46,8 +48,8 @@ def zeta_face_weights(zeta):
       wz (nx, ny, nz+1) : weights on z-faces
     Boundary faces use the clamped (doubled) single-cell value.
     """
-    return (_edgepad_pair(zeta, 0), _edgepad_pair(zeta, 1),
-            _edgepad_pair(zeta, 2))
+    return (_edgepad_pair(zeta, -3), _edgepad_pair(zeta, -2),
+            _edgepad_pair(zeta, -1))
 
 
 def eta_edge_sums(eta_x, eta_y, eta_z):
@@ -57,9 +59,9 @@ def eta_edge_sums(eta_x, eta_y, eta_z):
       stx (nx, ny-1, nz-1) for x-edges at interior (iy, iz),
       sty (nx-1, ny, nz-1), stz (nx-1, ny-1, nz).
     """
-    stx = _adjpair(_adjpair(eta_x, 1), 2)
-    sty = _adjpair(_adjpair(eta_y, 0), 2)
-    stz = _adjpair(_adjpair(eta_z, 0), 1)
+    stx = _adjpair(_adjpair(eta_x, -2), -1)
+    sty = _adjpair(_adjpair(eta_y, -3), -1)
+    stz = _adjpair(_adjpair(eta_z, -3), -2)
     return stx, sty, stz
 
 
@@ -79,9 +81,9 @@ def curl_factors(ex, ey, ez, zeta, hx, hy, hz):
     """
     ihx, ihy, ihz = _inverse_widths(hx, hy, hz)
 
-    v1 = torch.diff(ez, dim=1) * ihy - torch.diff(ey, dim=2) * ihz
-    v2 = torch.diff(ex, dim=2) * ihz - torch.diff(ez, dim=0) * ihx
-    v3 = torch.diff(ey, dim=0) * ihx - torch.diff(ex, dim=1) * ihy
+    v1 = torch.diff(ez, dim=-2) * ihy - torch.diff(ey, dim=-1) * ihz
+    v2 = torch.diff(ex, dim=-1) * ihz - torch.diff(ez, dim=-3) * ihx
+    v3 = torch.diff(ey, dim=-3) * ihx - torch.diff(ex, dim=-2) * ihy
 
     wx, wy, wz = zeta_face_weights(zeta)
     return v1 * wx, v2 * wy, v3 * wz
@@ -98,19 +100,19 @@ def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     u1, u2, u3 = curl_factors(ex, ey, ez, zeta, hx, hy, hz)
 
     # Second curl, interior edges only.
-    rrx = (torch.diff(u3[:, :, 1:-1] * ihy, dim=1)
-           - torch.diff(u2[:, 1:-1, :] * ihz, dim=2))
-    rry = (torch.diff(u1[1:-1, :, :] * ihz, dim=2)
-           - torch.diff(u3[:, :, 1:-1] * ihx, dim=0))
-    rrz = (torch.diff(u2[:, 1:-1, :] * ihx, dim=0)
-           - torch.diff(u1[1:-1, :, :] * ihy, dim=1))
+    rrx = (torch.diff(u3[..., 1:-1] * ihy, dim=-2)
+           - torch.diff(u2[..., 1:-1, :] * ihz, dim=-1))
+    rry = (torch.diff(u1[..., 1:-1, :, :] * ihz, dim=-1)
+           - torch.diff(u3[..., 1:-1] * ihx, dim=-3))
+    rrz = (torch.diff(u2[..., 1:-1, :] * ihx, dim=-3)
+           - torch.diff(u1[..., 1:-1, :, :] * ihy, dim=-2))
 
     # η-terms (4-cell averages; /4 folded into the 0.25 factor).
     stx, sty, stz = eta_edge_sums(eta_x, eta_y, eta_z)
 
-    ax = 0.5 * rrx - 0.25 * stx * ex[:, 1:-1, 1:-1]
-    ay = 0.5 * rry - 0.25 * sty * ey[1:-1, :, 1:-1]
-    az = 0.5 * rrz - 0.25 * stz * ez[1:-1, 1:-1, :]
+    ax = 0.5 * rrx - 0.25 * stx * ex[..., 1:-1, 1:-1]
+    ay = 0.5 * rry - 0.25 * sty * ey[..., 1:-1, :, 1:-1]
+    az = 0.5 * rrz - 0.25 * stz * ez[..., 1:-1, 1:-1, :]
     return ax, ay, az
 
 
@@ -142,7 +144,7 @@ def pec_mask_apply(fx, fy, fz):
     The JAX counterpart returns new arrays; every caller here owns the
     tensors it masks, so the port writes into them.
     """
-    for f, axes in ((fx, (1, 2)), (fy, (0, 2)), (fz, (0, 1))):
+    for f, axes in ((fx, (-2, -1)), (fy, (-3, -1)), (fz, (-3, -2))):
         for ax in axes:
             f.select(ax, 0).zero_()
             f.select(ax, -1).zero_()

@@ -9,6 +9,9 @@ Counterpart of ``emg3d_tpu/ops/transfers.py``:
   direction (repeat), tensor-product linear interpolation in the
   transverse directions, decomposed into two 1-D interleave passes.
 
+Fields and model parameters may carry leading lane axes (a batched
+solve): the grid axes are the last three.
+
 The 1-D weights are host-precomputed per level (restrict_weights_1d,
 prolong_weights_1d, copied unchanged) and moved to the device once by
 the solver's build_levels.
@@ -117,8 +120,8 @@ def restrict(rx, ry, rz, weights, coarsen):
         if not coarsen[axis]:
             return f
         if is_field_dir:
-            return _sum_pairs(f, axis)
-        return _restrict_nodes(f, weights[axis], axis)
+            return _sum_pairs(f, axis + f.ndim - 3)
+        return _restrict_nodes(f, weights[axis], axis + f.ndim - 3)
 
     crx = tx(tx(tx(rx, True, 0), False, 1), False, 2)
     cry = tx(tx(tx(ry, False, 0), True, 1), False, 2)
@@ -157,8 +160,8 @@ def prolongate(ex, ey, ez, cex, cey, cez, pweights, coarsen):
         if not coarsen[axis]:
             return c
         if axis == field_dir:
-            return torch.repeat_interleave(c, 2, dim=axis)
-        return _interleave_nodes(c, pweights[axis], axis)
+            return torch.repeat_interleave(c, 2, dim=axis + c.ndim - 3)
+        return _interleave_nodes(c, pweights[axis], axis + c.ndim - 3)
 
     ex = ex + up(up(up(cex, 0, 2), 0, 1), 0, 0)
     ey = ey + up(up(up(cey, 1, 2), 1, 0), 1, 1)
@@ -169,10 +172,12 @@ def prolongate(ex, ey, ez, cex, cey, cez, pweights, coarsen):
 def restrict_model_parameter(param, coarsen):
     """Coarsen η/ζ by summing child cells (2/4/8 depending on dirs).
 
-    Reference parity: solver.py:1747-1784 (_restrict_model_parameters).
+    A 4-D ``param`` is a stack of lanes (B, nx, ny, nz), coarsened lane
+    by lane (reference parity: solver.py:1747-1784,
+    _restrict_model_parameters; emg3d_tpu/ops/transfers.py:193-206).
     """
     out = param
     for axis, c in enumerate(coarsen):
         if c:
-            out = _sum_pairs(out, axis)
+            out = _sum_pairs(out, axis + param.ndim - 3)
     return out

@@ -4,7 +4,9 @@ solver.py, in torch).
 Counterpart of ``emg3d_tpu/solver.py``: ``solve`` with any ``cycle``
 ('F', 'V', 'W'), ``semicoarsening`` and ``linerelaxation`` (fixed or
 rotating schedules), standalone or as the preconditioner of
-``sslsolver`` 'bicgstab' (True) or 'cgs'.
+``sslsolver`` 'bicgstab' (True), 'cgs' or 'gcrotmk'; and
+``solve_batched``, many (source, frequency) pairs on one grid advanced
+together.
 
 - The level hierarchy (coarse η/ζ, cell widths, transfer weights) is
   built at solve start, on the device, once per semicoarsening
@@ -19,10 +21,14 @@ rotating schedules), standalone or as the preconditioner of
   needs no jit, chunked dispatch or compile probes.
 - The host loop pulls one residual norm per cycle and applies the
   reference's termination logic (CONVERGED / DIVERGED / STAGNATED /
-  MAX-IT); the Krylov solvers take the JAX package's host-scalar route.
-
-GCROT(m,k) and batched solves belong to later slices of the port and
-raise ``NotImplementedError``.
+  MAX-IT); the Krylov solvers take the JAX package's host-scalar route,
+  GCROT(m,k) with its basis on the device.
+- A batched solve carries a leading lane axis on its fields (and on η
+  where the lanes' frequencies differ): residual, transfers and PEC
+  masks run on all lanes at once, line relaxation launches K3 and K4
+  once for all lanes (K5 once per frequency group), and point smoothing
+  launches K1/K2 once per lane.  Its Krylov solvers keep per-lane
+  scalars on the device.
 """
 import itertools
 import math
@@ -35,7 +41,7 @@ from . import fields, models, utils
 from .dtypes import COMPLEX, REAL
 from .ops import line_gs, point_gs, stencil, transfers
 
-__all__ = ['solve', 'multigrid', 'krylov', 'MGParameters']
+__all__ = ['solve', 'solve_batched', 'multigrid', 'krylov', 'MGParameters']
 
 
 # ======================================================================
@@ -319,9 +325,9 @@ class _Level:
     """Per-level data: model parameters, widths, transfer weights."""
 
     __slots__ = ('shape', 'arrays', 'coarsen', 'rweights', 'pweights',
-                 'nodes', 'h_np', 'pstate', 'lstate', 'meter')
+                 'nodes', 'h_np', 'pstate', 'lstate', 'meter', 'lanes')
 
-    def __init__(self, shape, arrays, h_np, nodes, meter):
+    def __init__(self, shape, arrays, h_np, nodes, meter, lanes=None):
         self.shape = shape          # cell shape
         self.arrays = arrays        # (eta_x, eta_y, eta_z, zeta, hx, hy, hz)
         self.h_np = h_np            # numpy widths (for weight building)
@@ -332,31 +338,64 @@ class _Level:
         self.pstate = None          # point-smoother state (built lazily)
         self.lstate = {}            # axis -> line state (built lazily)
         self.meter = meter          # cached factor bytes, solve-wide
+        self.lanes = lanes          # a batched solve's Lanes, or None
 
 
-def build_levels(grid, vmodel, sc_dir, clevel, device, meter):
+class Lanes:
+    """The lanes of a batched solve and their frequency groups.
+
+    ``group[b]`` is lane b's group (lanes of one frequency share one; the
+    groups are numbered in order of first appearance), ``reps[g]`` the
+    first lane of group g, and ``index`` the group table as an int32
+    tensor on the solve's device (the line kernels read it).
+    """
+
+    def __init__(self, keys, device):
+        order = {}
+        self.group = np.array([order.setdefault(k, len(order)) for k in keys],
+                              dtype=np.int64)
+        self.reps = tuple(int(np.argmax(self.group == g))
+                          for g in range(len(order)))
+        self.index = torch.tensor(self.group, dtype=torch.int32,
+                                  device=device)
+
+
+def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None):
     """Build the full level hierarchy for one top-level sc_dir.
 
     η is complex128 on ``device`` (a real Laplace-domain η is promoted;
     its imaginary part stays exactly zero), ζ and the widths float64.
     ``meter`` is the solve's ``{'bytes': n}`` of cached line factors.
+
+    ``vmodel`` may be a list of VolumeModels, one per lane of a batched
+    solve (reference parity: emg3d_tpu/solver.py:371-390): η is then
+    stacked per lane (B, nx, ny, nz) and ζ taken from the first (it does
+    not depend on the frequency).  ``lanes`` (a :class:`Lanes`) marks
+    the levels of a batched solve.
     """
     def tens(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    eta_x = tens(vmodel.eta_x, COMPLEX)
-    eta_y = eta_x if vmodel.eta_y is vmodel.eta_x \
-        else tens(vmodel.eta_y, COMPLEX)
-    eta_z = eta_x if vmodel.eta_z is vmodel.eta_x \
-        else tens(vmodel.eta_z, COMPLEX)
-    zeta = tens(vmodel.zeta, REAL)
+    per_lane = isinstance(vmodel, (list, tuple))
+    vms = list(vmodel) if per_lane else [vmodel]
+
+    def eta(name):
+        vals = [np.asarray(getattr(vm, name)) for vm in vms]
+        return tens(np.stack(vals) if per_lane else vals[0], COMPLEX)
+
+    eta_x = eta('eta_x')
+    eta_y = eta_x if all(vm.eta_y is vm.eta_x for vm in vms) \
+        else eta('eta_y')
+    eta_z = eta_x if all(vm.eta_z is vm.eta_x for vm in vms) \
+        else eta('eta_z')
+    zeta = tens(vms[0].zeta, REAL)
 
     h_np = [np.asarray(h, dtype=np.float64) for h in grid.h]
     nodes = [np.r_[0., np.cumsum(h)] + o
              for h, o in zip(h_np, grid.origin)]
     shape = tuple(grid.shape_cells)
     arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, REAL) for h in h_np])
-    levels = [_Level(shape, arrays, h_np, nodes, meter)]
+    levels = [_Level(shape, arrays, h_np, nodes, meter, lanes)]
 
     for _ in range(clevel):
         cur = levels[-1]
@@ -393,7 +432,7 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter):
             transfers.restrict_model_parameter(a[2], coarsen)
         czeta = transfers.restrict_model_parameter(a[3], coarsen)
         carrays = (cex, cey, cez, czeta, *[tens(h, REAL) for h in ch_np])
-        levels.append(_Level(cshape, carrays, ch_np, cnodes, meter))
+        levels.append(_Level(cshape, carrays, ch_np, cnodes, meter, lanes))
     return levels
 
 
@@ -409,15 +448,42 @@ _MODES = (None, 'factored', 'fused', 'plain')
 
 
 def _level_state(lev, mode):
-    """The level's point-smoother state, built once per level and solve."""
+    """The level's point-smoother state, built once per level and solve;
+    for the levels of a batched solve one per frequency group (a list)."""
     if lev.pstate is None:
         dev = lev.arrays[0].device
         factored = mode in ('factored', 'plain') or (
             mode is None and point_gs.point_kernel(lev.shape, dev)
             == 'factored')
-        lev.pstate = point_gs.point_state(lev.arrays, lev.shape,
-                                          factored=factored)
+        if lev.lanes is None:
+            lev.pstate = point_gs.point_state(lev.arrays, lev.shape,
+                                              factored=factored)
+        else:
+            lev.pstate = [point_gs.point_state(_lane_arrays(lev.arrays, b),
+                                               lev.shape, factored=factored)
+                          for b in lev.lanes.reps]
     return lev.pstate
+
+
+def _lane_arrays(arrays, b):
+    """Lane b's 3-D (eta_x, eta_y, eta_z, zeta, hx, hy, hz) of a level
+    whose η may be stacked per lane."""
+    return tuple(a[b] if i < 3 and a.ndim == 4 else a
+                 for i, a in enumerate(arrays))
+
+
+def _group_arrays(lev):
+    """A batched level's arrays with η stacked per frequency group (G,
+    nx, ny, nz): the input of its lane line states."""
+    reps = torch.tensor(lev.lanes.reps, device=lev.arrays[0].device)
+    done = {}
+
+    def grp(a):
+        if id(a) not in done:
+            done[id(a)] = (a.index_select(0, reps) if a.ndim == 4
+                           else a.unsqueeze(0))
+        return done[id(a)]
+    return tuple(grp(a) for a in lev.arrays[:3]) + tuple(lev.arrays[3:])
 
 
 def _line_state(lev, axis, mode=None):
@@ -433,10 +499,18 @@ def _line_state(lev, axis, mode=None):
     state = lev.lstate.get(axis)
     if state is None:
         nbytes = line_gs.factor_bytes(lev.shape, axis)
+        if lev.lanes is not None:
+            # One stack per frequency group; K3 and K4 take every lane.
+            nbytes *= len(lev.lanes.reps)
         keep = (lev.meter['bytes'] + nbytes
                 <= line_gs.cache_budget(lev.arrays[0].device))
-        state = line_gs.line_state(lev.arrays, lev.shape, axis,
-                                   factors=keep, plain=mode == 'plain')
+        if lev.lanes is None:
+            state = line_gs.line_state(lev.arrays, lev.shape, axis,
+                                       factors=keep, plain=mode == 'plain')
+        else:
+            state = line_gs.line_state(_group_arrays(lev), lev.shape, axis,
+                                       factors=keep, plain=mode == 'plain',
+                                       lanes=lev.lanes.index)
         if keep:
             lev.meter['bytes'] += nbytes
         lev.lstate[axis] = state
@@ -448,16 +522,22 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None):
 
     Point smoothing where the level's lr_dir is 0, else line relaxation
     along each of its axes in turn.  Updates ``e`` in place and returns
-    it.
+    it.  On a batched level the point smoother runs lane by lane (its
+    kernel launched once per lane, with the lane's group state), line
+    relaxation all lanes at once.
     """
     if nu <= 0:
         return e
     lr = _current_lr_dir(lr_dir, lev.shape)
     if lr == 0:
         state = _level_state(lev, mode)
-        if mode == 'plain':
-            return point_gs.gauss_seidel_point_plain(e, s, state, nu)
-        return point_gs.gauss_seidel_point(e, s, state, nu)
+        gs = point_gs.gauss_seidel_point_plain if mode == 'plain' \
+            else point_gs.gauss_seidel_point
+        if lev.lanes is None:
+            return gs(e, s, state, nu)
+        for b, g in enumerate(lev.lanes.group):
+            gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g], nu)
+        return e
     for ax in _lr_axes(lr):
         state = _line_state(lev, ax, mode)
         if mode == 'plain':
@@ -521,7 +601,9 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
         r = _residual_e(e, s, lev.arrays)
         rc = transfers.restrict(*r, lev.rweights, lev.coarsen)
         rc = stencil.pec_mask_apply(*rc)
-        ec = tuple(torch.zeros(sh, dtype=e[0].dtype, device=e[0].device)
+        lead = tuple(e[0].shape[:-3])        # the lanes of a batched solve
+        ec = tuple(torch.zeros(lead + sh, dtype=e[0].dtype,
+                               device=e[0].device)
                    for sh in _edge_shapes(levels[lvl + 1].shape))
 
         ec = _mg_rec(ec, rc, levels, lvl + 1,
@@ -563,6 +645,17 @@ def residual_norm(e, s, arrays):
     return float(_norm(*_residual_e(e, s, arrays)))
 
 
+def _norm_b(rx, ry, rz):
+    """Per-lane norms of batched fields: (B,) real tensor."""
+    return torch.sqrt(sum((r.real**2 + r.imag**2).reshape(r.shape[0], -1)
+                          .sum(1) for r in (rx, ry, rz)))
+
+
+def residual_norms(e, s, arrays):
+    """Per-lane ‖s − A e‖₂ of batched fields, as a numpy array."""
+    return _norm_b(*_residual_e(e, s, arrays)).cpu().numpy()
+
+
 # ======================================================================
 # Host loop
 # ======================================================================
@@ -584,12 +677,27 @@ class _SolveContext:
                        for f in (efield.fx, efield.fy, efield.fz))
         self._levels = {}
         self.meter = {'bytes': 0}
+        self.lanes = None
+
+    @classmethod
+    def batched(cls, grid, vmodel, s, var, device, mode, lanes):
+        """The context of a batched solve: ``s`` the (B, ...) source
+        tensors, ``lanes`` their :class:`Lanes`; the field starts at 0."""
+        ctx = cls.__new__(cls)
+        ctx.grid, ctx.vmodel, ctx.var = grid, vmodel, var
+        ctx.device, ctx.mode, ctx.lanes = device, mode, lanes
+        ctx.s = s
+        ctx.e = tuple(torch.zeros_like(c) for c in s)
+        ctx._levels = {}
+        ctx.meter = {'bytes': 0}
+        return ctx
 
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
             clevel = int(self.var.clevel[int(sc_dir)])
             levels = build_levels(self.grid, self.vmodel, int(sc_dir),
-                                  clevel, self.device, self.meter)
+                                  clevel, self.device, self.meter,
+                                  self.lanes)
             if self._levels:
                 # The finest level is the same in every hierarchy: share
                 # its parameters and line states (no number changes).
@@ -804,12 +912,14 @@ def _axpy(alpha, x, y):
 
 
 def krylov(ctx, var):
-    """MG-preconditioned BiCGSTAB/CGS (reference: solver.py:1965-2124).
+    """MG-preconditioned BiCGSTAB/CGS/GCROT(m,k) (reference:
+    solver.py:1965-2124).
 
     scipy's algorithms with host scalars, so iteration counts are
-    comparable; the right preconditioner M is :func:`multigrid` on a
-    zero field (up to ``var.maxit`` cycles, with the sc/lr schedules
-    advancing one step per cycle).  A diverging or stagnating
+    comparable (GCROT(m,k) with its basis on the device,
+    :func:`_gcrotmk`); the right preconditioner M is :func:`multigrid`
+    on a zero field (up to ``var.maxit`` cycles, with the sc/lr
+    schedules advancing one step per cycle).  A diverging or stagnating
     preconditioner aborts with a zero field.
     """
     fine = ctx.levels(int(var.sc_dir))[0]
@@ -824,11 +934,11 @@ def krylov(ctx, var):
         ez = tuple(torch.zeros_like(c) for c in r)
         return multigrid(ctx, var, e=ez, s=r, track=False)
 
-    def callback(xk):
+    def callback(xk, l2=None):
         var._ssl_it += 1
         var.runtime_at_cycle = np.r_[var.runtime_at_cycle,
                                      var.time.elapsed]
-        var.l2 = residual_norm(xk, s, arrays)
+        var.l2 = residual_norm(xk, s, arrays) if l2 is None else l2
         var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
         if var.verb > 3:
             log = f"   [{var.time.now}]   {var.l2/var.l2_refe:.3e} "
@@ -839,7 +949,8 @@ def krylov(ctx, var):
 
     bnorm = float(_norm(*s))
     atol = max(float(var.tol) * bnorm, 1e-30)
-    solver = _bicgstab if var.sslsolver == 'bicgstab' else _cgs
+    solver = {'bicgstab': _bicgstab, 'cgs': _cgs,
+              'gcrotmk': _gcrotmk}[var.sslsolver]
     try:
         x, info = solver(matvec, precond, s, x, atol, var.ssl_maxit,
                          callback)
@@ -910,6 +1021,188 @@ def _bicgstab(matvec, precond, b, x, atol, maxiter, callback):
     return x, maxiter
 
 
+# ----------------------------------------------------------------------
+# GCROT(m, k) with a device-resident basis (reference parity:
+# emg3d_tpu/solver.py:2190-2424, the complex128 branch at 2097-2099).
+# The Krylov basis V, the flexible preconditioned vectors Z and the
+# recycled pairs (C, U) are slot-stacked tensors on the device; the host
+# fetches one packed vector per inner step and solves the ≤ m×m
+# least-squares problems.
+# ----------------------------------------------------------------------
+
+_GCROT_M = 20
+_GCROT_K = 10
+
+
+def _st_dots(stacks, w):
+    """<stack_i, w> summed over the field components: (S,) complex."""
+    tot = None
+    for B, x in zip(stacks, w):
+        d = B.reshape(B.shape[0], -1).conj() @ x.reshape(-1)
+        tot = d if tot is None else tot + d
+    return tot
+
+
+def _st_comb(stacks, coef):
+    """Σ_i coef_i · stack_i per component (coef: (S,) complex)."""
+    return tuple((coef @ B.reshape(B.shape[0], -1)).reshape(B.shape[1:])
+                 for B in stacks)
+
+
+def _st_zeros(nslots, like):
+    return tuple(torch.zeros((nslots,) + tuple(c.shape), dtype=c.dtype,
+                             device=c.device) for c in like)
+
+
+def _gc_append(stack, idx, v, scale):
+    """Slot write: stack[idx] := v · scale (in place)."""
+    for B, c in zip(stack, v):
+        B[idx] = c * scale
+    return stack
+
+
+def _dot_d(a, b):
+    """<a, b> over the components as a device scalar (no host sync)."""
+    tot = None
+    for x, y in zip(a, b):
+        d = torch.vdot(x.reshape(-1), y.reshape(-1))
+        tot = d if tot is None else tot + d
+    return tot
+
+
+def _gc_ortho(cstack, vstack, cmask, vmask, w):
+    """Orthogonalize w against the active C and V slots (CGS2).
+
+    Two classical Gram-Schmidt passes (as stable as modified GS);
+    inactive slots are masked to zero.  Returns w, and ONE packed real
+    vector [cd.re, cd.im, vd.re, vd.im, ‖w‖] for a single host fetch.
+    """
+    def gs_pass(w_):
+        cd = _st_dots(cstack, w_) * cmask
+        vd = _st_dots(vstack, w_) * vmask
+        w_ = tuple(ww - cc - vv for ww, cc, vv in
+                   zip(w_, _st_comb(cstack, cd), _st_comb(vstack, vd)))
+        return w_, cd, vd
+
+    w, cd1, vd1 = gs_pass(w)
+    w, cd2, vd2 = gs_pass(w)
+    cd = cd1 + cd2
+    vd = vd1 + vd2
+    wn = torch.sqrt(_dot_d(w, w).real)
+    pk = torch.cat([cd.real, cd.imag, vd.real, vd.imag, wn[None]])
+    return w, pk
+
+
+def _gc_update(x, r, cxr, uxr):
+    """x/r update along the new direction, and the packed diagnostics.
+
+    gamma = <c_new, r> with c_new = cxr/‖cxr‖; x += gamma·u_new,
+    r −= gamma·c_new.  Returns the new pair, rsqrt(‖cxr‖²) (the slot
+    scale of the new outer pair) and [‖r_new‖², ‖cxr‖²] for one fetch.
+    """
+    n2 = _dot_d(cxr, cxr).real
+    g = _dot_d(cxr, r)
+    inv = torch.rsqrt(torch.clamp(n2, min=torch.finfo(n2.dtype).tiny))
+    coef = torch.complex(g.real / n2, g.imag / n2)
+    x_new = tuple(xx + coef * uu for xx, uu in zip(x, uxr))
+    r_new = tuple(rr - coef * cc for rr, cc in zip(r, cxr))
+    rn2 = _dot_d(r_new, r_new).real
+    return x_new, r_new, inv, torch.stack([rn2, n2])
+
+
+def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
+             k=None):
+    """GCROT(m, k) with a device-resident basis and recycled subspace.
+
+    Flexible inner FGMRES(m) (the preconditioner, MG cycles with
+    advancing sc/lr schedules, may vary), outer recycling of k (c, u)
+    pairs with oldest-out truncation.  Per inner step the host fetches
+    one packed (4·slots+1)-float vector and solves a ≤ m×m least-squares
+    problem (reference parity: emg3d_tpu/solver.py:2332-2422).
+    """
+    m = _GCROT_M if m is None else m
+    k = _GCROT_K if k is None else k
+    dev = b[0].device
+
+    def coef(c):
+        return torch.tensor(c, dtype=b[0].dtype, device=dev)
+
+    r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
+    rn = float(_norm(*r))
+    if rn <= atol or maxiter == 0:
+        return x, 0
+
+    cstack = _st_zeros(k, r)
+    ustack = _st_zeros(k, r)
+    vstack = _st_zeros(m + 1, r)
+    zstack = _st_zeros(m, r)
+    cmask = np.zeros(k)
+    cu_next = 0
+
+    for _cycle in range(maxiter):
+        beta = rn
+        _gc_append(vstack, 0, r, 1.0 / beta)
+        v_cur = tuple(c * (1.0 / beta) for c in r)
+        vmask = np.zeros(m + 1)
+        vmask[0] = 1.0
+        cmask_d = torch.tensor(cmask, dtype=REAL, device=dev)
+
+        H = np.zeros((m + 1, m), np.complex128)
+        Bm = np.zeros((k, m), np.complex128)
+        e1 = np.zeros(m + 1, np.complex128)
+        e1[0] = beta
+        j = 0
+        y = None
+        while j < m:
+            z = precond(v_cur)
+            w = matvec(z)
+            _gc_append(zstack, j, z, 1.0)
+            w, pk = _gc_ortho(cstack, vstack, cmask_d,
+                              torch.tensor(vmask, dtype=REAL, device=dev), w)
+            pk = pk.cpu().numpy()                     # ONE fetch
+            cd = pk[:k] + 1j * pk[k:2 * k]
+            vd = pk[2 * k:2 * k + m + 1] + 1j * pk[2 * k + m + 1:-1]
+            wn = float(pk[-1])
+            H[:, j] = vd
+            H[j + 1, j] = wn
+            Bm[:, j] = cd
+            happy = not np.isfinite(wn) or wn <= 1e-30
+            if not happy and j + 1 < m + 1:
+                _gc_append(vstack, j + 1, w, 1.0 / wn)
+                vmask[j + 1] = 1.0
+                v_cur = tuple(c * (1.0 / wn) for c in w)
+            j += 1
+            y = np.linalg.lstsq(H[:j + 1, :j], e1[:j + 1], rcond=None)[0]
+            pres = np.linalg.norm(e1[:j + 1] - H[:j + 1, :j] @ y)
+            if pres <= atol or happy:
+                break
+
+        hy = np.zeros(m + 1, np.complex128)
+        hy[:j + 1] = H[:j + 1, :j] @ y
+        ypad = np.zeros(m, np.complex128)
+        ypad[:j] = y
+        yb = Bm[:, :j] @ y
+        # The new outer pair before normalization: cx = V·(H y) is the
+        # A-image of ux = Z·y − U·(B y) in the C-complement.
+        cxr = _st_comb(vstack, coef(hy))
+        uxr = tuple(zz - uu for zz, uu in zip(_st_comb(zstack, coef(ypad)),
+                                              _st_comb(ustack, coef(yb))))
+        x, r, inv_d, diag = _gc_update(x, r, cxr, uxr)
+        _gc_append(cstack, cu_next, cxr, inv_d)
+        _gc_append(ustack, cu_next, uxr, inv_d)
+        cmask[cu_next] = 1.0
+        cu_next = (cu_next + 1) % k
+
+        rn2, n2 = diag.cpu().numpy()                 # one fetch per cycle
+        rn = float(np.sqrt(max(rn2, 0.0)))
+        callback(x, l2=rn)
+        if not np.isfinite(rn) or n2 <= 0:
+            return x, -1
+        if rn <= atol:
+            return x, 0
+    return x, maxiter
+
+
 def _cgs(matvec, precond, b, x, atol, maxiter, callback):
     """Preconditioned CGS."""
     r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
@@ -974,8 +1267,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     efield : Field, optional — initial guess; updated in place (host
         arrays); if provided, nothing is returned (unless return_info).
     cycle : {'F', 'V', 'W'}
-    sslsolver : {False, True, 'bicgstab', 'cgs'} ('gcrotmk' is not
-        ported yet)
+    sslsolver : {False, True, 'bicgstab', 'cgs', 'gcrotmk'}
     semicoarsening : bool/int/digit-cycle
     linerelaxation : bool/int/digit-cycle
     verb : int
@@ -983,7 +1275,9 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         None means ``'cuda'`` and raises when no CUDA device exists;
         CPU runs ask for ``device='cpu'``.
     kwargs : tol, maxit, nu_init, nu_pre, nu_coarse, nu_post, clevel,
-        return_info, log
+        return_info, log; ``profile=dir`` traces the solve with
+        ``torch.profiler`` into ``dir`` (a TensorBoard/Chrome trace);
+        ``sharding`` is refused (multi-GPU is a later slice).
 
     Returns
     -------
@@ -991,20 +1285,20 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     info_dict : dict (if return_info=True)
     """
     device = _resolve_device(device)
-    # Private: pin the point-smoother kernel ('factored', 'fused') or
-    # run the plain torch version ('plain'); see _MODES.
-    mode = kwargs.pop('_mode', None)
-    if mode not in _MODES:
-        raise ValueError(f"_mode must be one of {_MODES}; got {mode!r}")
+    mode = _pop_mode(kwargs)
+    if kwargs.pop('sharding', None) is not None:
+        raise NotImplementedError(
+            "solve(..., sharding=) is not ported to emg3d_tpu_torch yet: "
+            "multi-GPU solves come with the parallel/ slice of the port "
+            "(ROADMAP queue 1, item 6).")
+    profile = kwargs.pop('profile', None)
+    # Prebuilt volume parameters η/ζ (the differentiable solve passes
+    # them; ``model`` is then unused and may be None).
+    vmodel_inp = kwargs.pop('_vmodel', None)
     var = MGParameters(
         verb=verb, cycle=cycle, sslsolver=sslsolver,
         linerelaxation=linerelaxation, semicoarsening=semicoarsening,
         shape_cells=tuple(grid.shape_cells), **kwargs)
-    if var.sslsolver == 'gcrotmk':
-        raise NotImplementedError(
-            "sslsolver='gcrotmk' is not ported to emg3d_tpu_torch yet; "
-            "it comes with the GCROT(m,k) slice of the port (use "
-            "'bicgstab' or 'cgs').")
 
     do_return = True
 
@@ -1014,7 +1308,8 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
                f"v{__import__('emg3d_tpu_torch').__version__}\n", 2)
     var.cprint(var, 2)
 
-    vmodel = models.VolumeModel(grid, model, sfield)
+    vmodel = vmodel_inp if vmodel_inp is not None \
+        else models.VolumeModel(grid, model, sfield)
     out_dtype = np.asarray(sfield.fx).dtype
 
     if efield is None:
@@ -1057,10 +1352,11 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode)
     # krylov() catches _ConvergenceError itself, and standalone multigrid
     # never raises it.
-    if var.sslsolver:
-        krylov(ctx, var)
-    else:
-        multigrid(ctx, var)
+    with _profiler(profile, device):
+        if var.sslsolver:
+            krylov(ctx, var)
+        else:
+            multigrid(ctx, var)
 
     var.runtime_at_cycle = np.r_[var.runtime_at_cycle, var.time.elapsed]
     var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
@@ -1099,6 +1395,31 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     return out
 
 
+def _pop_mode(kwargs):
+    """Private ``_mode``: pin the point-smoother kernel ('factored',
+    'fused') or run the plain torch version ('plain'); see _MODES."""
+    mode = kwargs.pop('_mode', None)
+    if mode not in _MODES:
+        raise ValueError(f"_mode must be one of {_MODES}; got {mode!r}")
+    return mode
+
+
+def _profiler(trace_dir, device):
+    """``torch.profiler`` around a solve, writing its trace into
+    ``trace_dir`` (the JAX package's ``profile=dir``); a null context
+    without one."""
+    import contextlib
+    if not trace_dir:
+        return contextlib.nullcontext()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(
+            str(trace_dir)))
+
+
 def _info_dict(var):
     return {
         'exit': 0 if var.exit_message == 'CONVERGED' else 1,
@@ -1114,3 +1435,326 @@ def _info_dict(var):
         'error_at_cycle': var.error_at_cycle,
         'log': var.log_message,
     }
+
+
+# ======================================================================
+# Batched multi-source solve (reference parity: solver.py:2929-3472)
+# ======================================================================
+
+def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
+                  linerelaxation=False, verb=2, device=None, **kwargs):
+    """Solve for many sources at once on one grid, advanced together.
+
+    The (source, frequency) pairs are stacked on a leading lane axis and
+    every multigrid cycle advances all lanes: residuals, transfers and
+    line relaxation (K3 and K4 take every lane in one launch) run once
+    for the batch, the point smoother once per lane.  Sources may have
+    different frequencies: η is then stacked per lane, and the line
+    smoother keeps one factor stack (K5) per frequency.  ``sslsolver``
+    'bicgstab' (True) and 'cgs' run with per-lane scalars on the device
+    and an MG preconditioner of ``maxit`` fixed cycles; 'gcrotmk' is
+    refused.  ``device`` as in :func:`solve`.
+
+    Termination: CONVERGED when every lane's residual is below tol;
+    DIVERGED if any lane diverges; STAGNATED only when every lane has
+    stagnated; MAX-IT on the worst lane.  ``it_mg`` is shared,
+    ``rel_error`` per lane.
+
+    Returns
+    -------
+    efields : list of Field (one per source field, with its frequency)
+    info : dict — per-lane 'abs_error', 'rel_error' and 'ref_error'
+        arrays, shared 'it_mg' and 'it_ssl', etc.
+    """
+    if not sfields:
+        raise ValueError("Provide at least one source field.")
+    device = _resolve_device(device)
+    mode = _pop_mode(kwargs)
+    sslsolver = kwargs.pop('sslsolver', False)
+    var = MGParameters(
+        verb=verb, cycle=cycle, sslsolver=sslsolver,
+        linerelaxation=linerelaxation, semicoarsening=semicoarsening,
+        shape_cells=tuple(grid.shape_cells), **kwargs)
+    if var.sslsolver and var.sslsolver not in ('bicgstab', 'cgs'):
+        raise NotImplementedError(
+            "Batched Krylov implements bicgstab and cgs only.")
+
+    # One VolumeModel per frequency; a per-lane list stacks η.
+    lane_freqs = [float(sf._frequency) for sf in sfields]
+    by_freq = {}
+    for sf, f in zip(sfields, lane_freqs):
+        if f not in by_freq:
+            by_freq[f] = models.VolumeModel(grid, model, sf)
+    vmodel = by_freq[lane_freqs[0]] if len(by_freq) == 1 \
+        else [by_freq[f] for f in lane_freqs]
+    lanes = Lanes(lane_freqs, device)
+
+    out_dtype = np.asarray(sfields[0].fx).dtype
+    s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
+                                     for sf in sfields]), dtype=COMPLEX,
+                           device=device)
+              for name in ('fx', 'fy', 'fz'))
+    ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
+
+    refe = np.array([float(sf.norm()) for sf in sfields])
+    var.l2_refe = float(refe.max())
+    refe = np.where(refe == 0, 1.0, refe)
+
+    if var.sslsolver:
+        e, l2_last = _krylov_batched(ctx, var, refe)
+    else:
+        e, l2_last = _multigrid_batched(ctx, var, refe)
+
+    comps = [t.cpu().numpy() for t in e]
+    if not np.iscomplexobj(np.zeros(0, out_dtype)):
+        comps = [c.real for c in comps]     # Laplace domain (see solve)
+    out = [fields.Field(*(np.ascontiguousarray(c[b], dtype=out_dtype)
+                          for c in comps), frequency=sf._frequency)
+           for b, sf in enumerate(sfields)]
+    info = {
+        'exit': 0 if var.exit_message == 'CONVERGED' else 1,
+        'exit_message': var.exit_message,
+        'abs_error': l2_last,
+        'rel_error': l2_last / refe,
+        'ref_error': refe,
+        'tol': var.tol,
+        'it_mg': var.it,
+        'it_ssl': var._ssl_it,
+        'time': var.time.elapsed,
+        'runtime_at_cycle': var.runtime_at_cycle,
+        'error_at_cycle': var.error_at_cycle,
+        'log': var.log_message,
+    }
+    return out, info
+
+
+def _multigrid_batched(ctx, var, refe):
+    """MG cycles on every lane, with the batched termination rules
+    (reference parity: solver.py:3127-3211)."""
+    e, s = ctx.e, ctx.s
+    l2_last = residual_norms(e, s, ctx.levels(int(var.sc_dir))[0].arrays)
+    l2_stag = np.tile(l2_last, (var._maxcycle, 1))
+    it = 0
+    first = True
+    while True:
+        conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
+                int(var.lr_dir))
+        levels = ctx.levels(int(var.sc_dir))
+        nu_init = var.nu_init if first else 0
+        first = False
+        e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
+                          mode=ctx.mode)
+        l2 = residual_norms(e, s, levels[0].arrays)
+        if var.sc_cycle:
+            var.sc_dir = next(var.sc_cycle)
+        if var.lr_cycle:
+            var.lr_dir = next(var.lr_cycle)
+
+        l2_stag[(it - 1) % var._maxcycle] = l2_last
+        it += 1
+        var.it += 1
+        l2_last = l2
+        rel = l2_last / refe
+        if var.verb > 2:
+            var.cprint(
+                f"   [{var.time.now}]   max {rel.max():.3e} after "
+                f"{it:3} {var.cycle}-cycles "
+                f"({np.sum(rel < var.tol)}/{rel.size} converged)", 2)
+
+        finished = True
+        if np.all(rel < var.tol):
+            var.exit_message = "CONVERGED"
+        elif np.any(l2_last > 10 * refe) or not np.all(
+                np.isfinite(l2_last)):
+            var.exit_message = "DIVERGED"
+        elif it > 2 and np.all(
+                l2_last >= l2_stag[(it - 1) % var._maxcycle]):
+            var.exit_message = "STAGNATED"
+        elif it == var.maxit:
+            var.exit_message = "MAX. ITERATION REACHED, NOT CONVERGED"
+        else:
+            finished = False
+        if finished:
+            add = "\n" if var.verb < 5 else ""
+            var.cprint(add + "   > " + var.exit_message, 2)
+            return e, l2_last
+
+
+def _krylov_batched(ctx, var, refe):
+    """Batched BiCGSTAB/CGS with per-lane device scalars, preconditioned
+    by ``var.maxit`` fixed MG cycles (reference parity:
+    solver.py:3050-3125).  complex128 needs neither the JAX package's
+    unit-norm lane scaling nor its two-float refinement; convergence is
+    judged per lane against tol·‖s_b‖."""
+    fine = ctx.levels(int(var.sc_dir))[0]
+
+    def matvec(ee):
+        return stencil.amat(*ee, *fine.arrays)
+
+    def prec(rr):
+        return _precond_fixed_cycles(ctx, var, rr)
+
+    def on_iter():
+        var._ssl_it += 1
+
+    kernel = _bicgstab_batched if var.sslsolver == 'bicgstab' \
+        else _cgs_batched
+    x, info = kernel(matvec, prec, ctx.s, ctx.e, var.tol * refe,
+                     var.ssl_maxit, on_iter)
+    if info == 0:
+        var.exit_message = 'CONVERGED'
+    elif info > 0:
+        var.exit_message = 'MAX. ITERATION REACHED, NOT CONVERGED'
+    else:
+        var.exit_message = f'Error in {var.sslsolver} ({info})'
+    var.cprint("\n   > " + var.exit_message, 2)
+    return x, residual_norms(x, ctx.s, fine.arrays)
+
+
+def _precond_fixed_cycles(ctx, var, r):
+    """Preconditioner: exactly ``var.maxit`` MG cycles from a zero field,
+    no norms, the sc/lr schedules advancing per cycle (reference parity:
+    solver.py:3432-3472; ``var.maxit`` is the schedule's length under a
+    Krylov solver)."""
+    e = tuple(torch.zeros_like(c) for c in r)
+    for _ in range(var.maxit):
+        conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
+                int(var.lr_dir))
+        e = run_one_cycle(e, r, ctx.levels(int(var.sc_dir)), conf,
+                          mode=ctx.mode)
+        var.it += 1
+        if var.sc_cycle:
+            var.sc_dir = next(var.sc_cycle)
+        if var.lr_cycle:
+            var.lr_dir = next(var.lr_cycle)
+    return e
+
+
+def _dot_b(a, b):
+    """Per-lane inner products <a_b, b_b> = Σ conj(a_b)·b_b: (B,)."""
+    tot = None
+    for x, y in zip(a, b):
+        v = torch.linalg.vecdot(x.reshape(x.shape[0], -1),
+                                y.reshape(y.shape[0], -1))
+        tot = v if tot is None else tot + v
+    return tot
+
+
+def _bcast(scal):
+    """(B,) scalars -> broadcastable (B, 1, 1, 1)."""
+    return scal.reshape(-1, 1, 1, 1)
+
+
+def _cdiv_guard(num, den, guard):
+    """num/den with den replaced by 1 where ``guard`` is False."""
+    return num / torch.where(guard, den, torch.ones_like(den))
+
+
+def _freeze(mask, new, old):
+    """Lane-wise where(mask, new, old) of field tuples."""
+    m = _bcast(mask)
+    return tuple(torch.where(m, nn, oo) for nn, oo in zip(new, old))
+
+
+def _lanes_done(r, active, atol):
+    """Host check of the lanes: (all settled, all converged, new active
+    mask) from one fetch of the per-lane residual norms."""
+    rn = torch.sqrt(_dot_b(r, r).real).cpu().numpy()
+    act = active.cpu().numpy()
+    done = rn <= atol
+    return (bool(np.all(done | ~act)), bool(np.all(done)),
+            torch.tensor(act & ~done, device=active.device))
+
+
+def _bicgstab_batched(matvec, precond, b, x, atol, maxiter, on_iter):
+    """Per-lane BiCGSTAB with (B,) device scalars and lane freezing.
+
+    Converged or broken-down lanes are frozen by masks; the iteration
+    stops when every lane is settled (or at maxiter).  Returns (x, info)
+    with info 0 if every lane converged, -1 if some broke down.
+    """
+    r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
+    rtilde = r
+    one = torch.ones(r[0].shape[0], dtype=r[0].dtype, device=r[0].device)
+    rho_prev = alpha = omega = one
+    v = tuple(torch.zeros_like(c) for c in r)
+    p = tuple(torch.zeros_like(c) for c in r)
+    active = torch.ones(len(one), dtype=torch.bool, device=one.device)
+
+    for _ in range(maxiter):
+        settled, converged, active = _lanes_done(r, active, atol)
+        if settled:
+            return x, 0 if converged else -1
+
+        rho = _dot_b(rtilde, r)
+        active = active & ((rho.real**2 + rho.imag**2) > 0)
+        beta = (_cdiv_guard(rho, rho_prev, active) *
+                _cdiv_guard(alpha, omega, active))
+        bb_, om_ = _bcast(beta), _bcast(omega)
+        p = _freeze(active, tuple(rr + bb_ * (pp - om_ * vv)
+                                  for rr, pp, vv in zip(r, p, v)), p)
+
+        phat = precond(p)
+        v = _freeze(active, matvec(phat), v)
+        denom = _dot_b(rtilde, v)
+        active = active & ((denom.real**2 + denom.imag**2) > 0)
+        alpha = _cdiv_guard(rho, denom, active)
+        al_ = _bcast(alpha)
+        sres = tuple(rr - al_ * vv for rr, vv in zip(r, v))
+
+        shat = precond(sres)
+        t = matvec(shat)
+        tt = _dot_b(t, t)
+        omega = _cdiv_guard(_dot_b(t, sres), tt, active & (tt.real > 0))
+        om2_ = _bcast(omega)
+        x = _freeze(active, tuple(xx + al_ * ph + om2_ * sh for xx, ph, sh
+                                  in zip(x, phat, shat)), x)
+        r = _freeze(active, tuple(ss - om2_ * ttt
+                                  for ss, ttt in zip(sres, t)), r)
+        rho_prev = rho
+        on_iter()
+    return x, maxiter
+
+
+def _cgs_batched(matvec, precond, b, x, atol, maxiter, on_iter):
+    """Per-lane CGS with (B,) device scalars and lane freezing (the lane
+    protocol of :func:`_bicgstab_batched`).  With q = p = 0 and
+    rho_prev = 1 the first iteration needs no special case."""
+    r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
+    rtilde = r
+    rho_prev = torch.ones(r[0].shape[0], dtype=r[0].dtype,
+                          device=r[0].device)
+    q = tuple(torch.zeros_like(c) for c in r)
+    p = tuple(torch.zeros_like(c) for c in r)
+    active = torch.ones(len(rho_prev), dtype=torch.bool,
+                        device=rho_prev.device)
+
+    for _ in range(maxiter):
+        settled, converged, active = _lanes_done(r, active, atol)
+        if settled:
+            return x, 0 if converged else -1
+
+        rho = _dot_b(rtilde, r)
+        active = active & ((rho.real**2 + rho.imag**2) > 0)
+        bb_ = _bcast(_cdiv_guard(rho, rho_prev, active))
+        u = tuple(rr + bb_ * qq for rr, qq in zip(r, q))
+        p = _freeze(active, tuple(uu + bb_ * (qq + bb_ * pp)
+                                  for uu, qq, pp in zip(u, q, p)), p)
+
+        phat = precond(p)
+        vhat = matvec(phat)
+        denom = _dot_b(rtilde, vhat)
+        active = active & ((denom.real**2 + denom.imag**2) > 0)
+        al_ = _bcast(_cdiv_guard(rho, denom, active))
+        q = _freeze(active, tuple(uu - al_ * vv
+                                  for uu, vv in zip(u, vhat)), q)
+        uq = tuple(uu + qq for uu, qq in zip(u, q))
+
+        uqhat = precond(uq)
+        w = matvec(uqhat)
+        x = _freeze(active, tuple(xx + al_ * uu
+                                  for xx, uu in zip(x, uqhat)), x)
+        r = _freeze(active, tuple(rr - al_ * ww for rr, ww in zip(r, w)), r)
+        rho_prev = rho
+        on_iter()
+    return x, maxiter

@@ -4,7 +4,7 @@
     python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
                              [--ssl bicgstab|cgs] [--plan PLAN]
                              [--kernel factored|fused]
-                             [--compare-plans] [--out DIR]
+                             [--compare-plans] [--batched] [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
@@ -19,6 +19,11 @@ one point kernel on every level that admits it
 (``point_gs.FORCE_KERNEL``); ``--compare-plans`` then also times warm
 solves with ``point_kernel``'s choice and with K1 forced, in turns,
 three each (host walls move between processes; compare within one).
+``--batched`` profiles instead the batched solve of ``chip_smoke.py``'s
+phase 10: its 4 sources × 2 frequencies on the same 64³ fullspace
+(``chip_smoke.simulation_problem``) as one ``solve_batched`` of 8 lanes,
+with semicoarsening, line relaxation and BiCGSTAB (the Simulation's
+default; ``--ssl cgs`` takes CGS).
 Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
@@ -26,8 +31,8 @@ Prints:
 - device busy time, the union of the trace's kernel, memcpy and memset
   intervals, and the idle share 1 − busy / profiled wall;
 - device time and count per kernel name (top 12) and per copy kind,
-  and the device time of the point kernels (K1 and K2, every plan;
-  their sum) and of the line-residual kernel (K3);
+  and the device time and launches of each of the package's kernels
+  (K1-K5; the point kernels under every plan) and of K1 + K2;
 - the smoother kernels' launches (and the point kernels' colour steps)
   of the profiled solve, and the host seconds of the unprofiled warm
   solve
@@ -39,29 +44,11 @@ The Chrome trace goes to ``DIR/trace.json`` (default
 ``build/profile``).
 """
 import argparse
-import json
-import re
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-# The point kernels' instances in the trace (demangled or not): the last
-# template argument is the kernel, 0 for K1, 1-2 for K2.
-POINT_KERNEL = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)>|step<(\d)>|'
-                          r'sweepILi\dELi(\d)E|stepILi(\d)E)')
-
-
-def busy_union(intervals):
-    """Total length of the union of (start, end) intervals."""
-    busy, end = 0.0, float('-inf')
-    for a, b in sorted(intervals):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy
 
 
 def main(argv=None):
@@ -72,6 +59,7 @@ def main(argv=None):
     ap.add_argument('--plan', choices=('step', 'cluster', 'grid', 'shared'))
     ap.add_argument('--kernel', choices=('factored', 'fused'))
     ap.add_argument('--compare-plans', action='store_true')
+    ap.add_argument('--batched', action='store_true')
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
 
@@ -80,21 +68,37 @@ def main(argv=None):
         print("profile_solve: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import LineStateClock, bench_problem, nvidia_smi
-    from emg3d_tpu_torch import solve
+    from chip_smoke import (KERNELS, LineStateClock, bench_problem,
+                            kernel_key, nvidia_smi, simulation_problem,
+                            trace_times)
+    from emg3d_tpu_torch import get_source_field, solve, solve_batched
     from emg3d_tpu_torch.ops import line_gs, point_gs
 
     point_gs.FORCE_PLAN = args.plan
     point_gs.FORCE_KERNEL = args.kernel
-    grid, model, sfield = bench_problem()
-    kw = dict(cycle='F', tol=1e-6, verb=0, return_info=True,
-              device='cuda', _mode=args.mode, sslsolver=args.ssl,
-              semicoarsening=args.sclr, linerelaxation=args.sclr)
+    kw = dict(cycle='F', tol=1e-6, verb=0, device='cuda', _mode=args.mode,
+              sslsolver=args.ssl, semicoarsening=args.sclr,
+              linerelaxation=args.sclr)
+    if args.batched:
+        grid, model, survey = simulation_problem()
+        sfields = [get_source_field(grid, src.coordinates, f)
+                   for src in survey.sources.values()
+                   for f in survey.frequencies]
+        kw.update(semicoarsening=True, linerelaxation=True,
+                  sslsolver=args.ssl or 'bicgstab')
+
+        def run():
+            return solve_batched(grid, model, sfields, **kw)[1]
+    else:
+        grid, model, sfield = bench_problem()
+
+        def run():
+            return solve(grid, model, sfield, return_info=True, **kw)[1]
 
     def timed():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, info = solve(grid, model, sfield, **kw)
+        info = run()
         torch.cuda.synchronize()
         if info['exit_message'] != 'CONVERGED':
             raise AssertionError(info['exit_message'])
@@ -129,21 +133,14 @@ def main(argv=None):
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     trace = out / 'trace.json'
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())['traceEvents']
-              if e.get('ph') == 'X' and e.get('cat') in DEVICE_CATS]
-    busy = busy_union([(e['ts'], e['ts'] + e['dur']) for e in events]) / 1e6
-    per = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        key = e['name'] if e['cat'] == 'kernel' else f"[{e['cat']}] " \
-            f"{e['name']}"
-        per[key][0] += e['dur'] / 1e3
-        per[key][1] += 1
+    busy, nev, per = trace_times(prof, trace)
 
-    print(f"mode {args.mode or 'default'}, sclr {args.sclr}, sslsolver "
-          f"{args.ssl}: it_mg {info['it_mg']}, it_ssl {info['it_ssl']}, "
-          f"warm wall {wall:.4f} s; profiled wall {wall_prof:.4f} s")
-    print(f"device busy {busy:.4f} s over {len(events)} device events; "
+    what = (f"batched {len(sfields)} lanes, sslsolver {kw['sslsolver']}"
+            if args.batched else f"sclr {args.sclr}, sslsolver {args.ssl}")
+    print(f"mode {args.mode or 'default'}, {what}: it_mg {info['it_mg']}, "
+          f"it_ssl {info['it_ssl']}, warm wall {wall:.4f} s; profiled wall "
+          f"{wall_prof:.4f} s")
+    print(f"device busy {busy:.4f} s over {nev} device events; "
           f"idle share {1 - busy / wall_prof:.4f}")
     print(f"smoother launches {launches}; line-state builds "
           f"{clock.seconds:.4f} s ({clock.builds} builds) of the "
@@ -154,19 +151,17 @@ def main(argv=None):
     for name, (ms, n) in kernels[:12] + copies:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
     # Kernel names as the trace gives them, demangled or not.
-    point = {'K1 point_gs_factored': [], 'K2 point_gs_fused': []}
+    labels = dict(zip(KERNELS, ('K1', 'K2', 'K3', 'K4', 'K5')))
+    hits = {k: [] for k in KERNELS}
     for name, v in kernels:
-        m = POINT_KERNEL.search(name)
-        if m:
-            code = int(next(g for g in m.groups() if g is not None))
-            point['K1 point_gs_factored' if code == 0
-                  else 'K2 point_gs_fused'].append(v)
-    point['K3 line_residual'] = [v for k, v in kernels
-                                 if 'line_residual' in k]
-    for label, hit in point.items():
-        print(f"{label}: {sum(ms for ms, _ in hit):.3f} ms device time "
-              f"over {sum(n for _, n in hit)} launches")
-    both = point['K1 point_gs_factored'] + point['K2 point_gs_fused']
+        k = kernel_key(name)
+        if k is not None:
+            hits[k].append(v)
+    for k, hit in hits.items():
+        print(f"{labels[k]} {KERNELS[k]['name']}: "
+              f"{sum(ms for ms, _ in hit):.3f} ms device time over "
+              f"{sum(n for _, n in hit)} launches")
+    both = hits['factored'] + hits['fused']
     print(f"point kernels K1 + K2: {sum(ms for ms, _ in both):.3f} ms "
           f"device time over {sum(n for _, n in both)} launches")
     print(f"trace: {trace}")

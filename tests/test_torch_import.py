@@ -22,7 +22,8 @@ def test_import_without_jax():
     code = (
         "import sys\n"
         "import emg3d_tpu_torch\n"
-        "from emg3d_tpu_torch import solve, convert\n"
+        "from emg3d_tpu_torch import solve, convert, surveys, simulations, "
+        "optimize\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
         "smoothers\n"
         "bad = [m for m in sys.modules\n"
@@ -62,12 +63,55 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Options of modules still to port name their slice; sslsolver
+    'gcrotmk' is ported and solves."""
     grid, model, sfield = _tiny_problem()
-    with pytest.raises(NotImplementedError, match='gcrotmk'):
+    with pytest.raises(NotImplementedError, match='parallel/.*item 6'):
         pt.solve(grid, model, sfield, verb=0, device='cpu',
-                 sslsolver='gcrotmk')
+                 sharding={'mesh': None})
     with pytest.raises(ValueError):
         pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
+    _, info = pt.solve(grid, model, sfield, verb=0, device='cpu',
+                       sslsolver='gcrotmk', return_info=True)
+    assert info['exit_message'] == 'CONVERGED' and info['it_ssl'] > 0
+    survey = pt.Survey('s', (0, 0, 0, 0, 0), (100, 0, 0, 0, 0), 1.0)
+    sim = pt.Simulation('s', survey, grid, model, gridding='same',
+                        solver_opts={'device': 'cpu'})
+    for call in (lambda: sim.to_file('s.h5'),
+                 lambda: pt.Simulation.from_file('s.h5'),
+                 lambda: survey.to_file('s.h5')):
+        with pytest.raises(NotImplementedError, match='io.*item 5'):
+            call()
+
+
+def test_profile_writes_trace(tmp_path):
+    """``profile=dir`` traces the solve with torch.profiler into dir."""
+    grid, model, sfield = _tiny_problem()
+    e0 = pt.solve(grid, model, sfield, verb=0, device='cpu')
+    e1 = pt.solve(grid, model, sfield, verb=0, device='cpu',
+                  profile=tmp_path)
+    assert np.array_equal(e0.field, e1.field)
+    assert list(tmp_path.glob('*.json'))
+
+
+def test_prebuilt_vmodel():
+    """``_vmodel`` (prebuilt η/ζ) replaces the model."""
+    grid, model, sfield = _tiny_problem()
+    e0 = pt.solve(grid, model, sfield, verb=0, device='cpu')
+    vm = pt.VolumeModel(grid, model, sfield)
+    e1 = pt.solve(grid, None, sfield, verb=0, device='cpu', _vmodel=vm)
+    assert np.array_equal(e0.field, e1.field)
+
+
+def test_exports_every_ported_name():
+    """Each name of the JAX package's ``__all__`` whose module is ported
+    is exported by the port; ``cx`` (the TPU's split complex pairs) is
+    not carried over, ``diff`` and ``io`` are still to port."""
+    jt = pytest.importorskip('emg3d_tpu')
+    missing = set(jt.__all__) - set(pt.__all__)
+    assert missing == {'cx', 'diff', 'io'}
+    for name in pt.__all__:
+        assert getattr(pt, name) is not None
 
 
 def _cpu_state(shape, factored=True):

@@ -298,8 +298,9 @@ def test_launch_counters():
     names = {'emg3d_line_factor', 'emg3d_line_residual',
              'emg3d_line_thomas'}
     assert names <= set(_build.ARGTYPES)
-    # K4: 8 pointers, 14 ints (shape, colour, plan, launch), the stream.
-    assert len(_build.ARGTYPES['emg3d_line_thomas']) == 23
+    # K4: 8 pointers and the lane table, 15 ints (shape, colour, plan,
+    # launch, lanes), the stream.
+    assert len(_build.ARGTYPES['emg3d_line_thomas']) == 25
     # K5: the stack and 9 parameter pointers, shape, launch, the stream.
     assert len(_build.ARGTYPES['emg3d_line_factor']) == 16
 
@@ -324,6 +325,7 @@ def test_solver_line_state_mode(monkeypatch, mode):
     lev.shape = (4, 4, 4)
     lev.lstate = {}
     lev.meter = {'bytes': 0}
+    lev.lanes = None
     st = solver._line_state(lev, 2, mode)
     assert st.factors is not None and seen == [mode == 'plain']
     assert solver._line_state(lev, 2, mode) is st        # built once

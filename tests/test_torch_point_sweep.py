@@ -410,6 +410,7 @@ def test_level_state_builds_one_kernel(monkeypatch, mode, force):
     lev.arrays = convert.params_to_torch(par)
     lev.shape = shape
     lev.pstate = None
+    lev.lanes = None
     st = solver._level_state(lev, mode)
     fused = mode is None and force == 'fused'
     assert (st.factors is None) == fused
