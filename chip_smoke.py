@@ -44,12 +44,14 @@ Phases:
    and the residual kernel under several slab geometries; the factor
    kernel under every block size (32-256 threads, one line each;
    bitwise equal) at 64³, sclr64's rotated levels,
-   PLAN_SHAPE and 256³ (``factor_plans``); then at 256³, lines along x,
-   the three kernels alone against their plain versions, with ms per
-   launch; and the Thomas kernel under every launch plan (1-32 lines
-   per block, z in shared or global memory) at 64³, PLAN_SHAPE and
-   256³, colours 0 and 3, each twice (bitwise equal) against the plain
-   version and timed;
+   PLAN_SHAPE, 128³ and 256³ (``factor_plans``); then at 128³ (the
+   question of scripts/hw_bisect_lr128.py: K3 and K4 each launched
+   alone) and 256³, lines along x, the three kernels alone against
+   their plain versions, with ms per launch beside plain; and the
+   Thomas kernel under every launch plan (1-32 lines per block, z in
+   shared or global memory) at 64³ and PLAN_SHAPE (colours 0 and 3),
+   128³ and 256³ (all four), each twice (bitwise equal) against the
+   plain version and timed;
 4. the point path: the default solve of that configuration, CONVERGED,
    with each point kernel's launches and colour steps equal to the
    numbers enumerated from ``point_kernel`` and ``sweep_plan`` over the
@@ -88,7 +90,41 @@ Phases:
    lane's field within rel 10·tol of its own solve), ``misfit`` and
    ``gradient`` against data of a 2 Ω·m fullspace, and the same
    Simulation at 16³ through the kernels and through ``_mode='plain'``
-   (responses within rel 1e-9).
+   (responses within rel 1e-9);
+11. "tdem64", the time domain (:func:`tdem_problem`): one x-directed
+   dipole at the origin of the same fullspace, the 16 receivers, and the
+   19 frequencies (0.011-8.35 Hz) of a ``Fourier`` as one 19-lane sc+lr
+   BiCGSTAB ``solve_batched``: exit message, it_mg, it_ssl and rel_error
+   per lane, launches and device ms per kernel, peak memory, line-state
+   seconds and whether every factor stack stayed cached (K5 launches per
+   line state = groups), cold and warm ``compute()``; three lanes
+   (lowest, middle, highest frequency) against their own ``solve``
+   (rel 10·tol); ``Fourier.freq2time`` of every receiver, finite; the
+   same survey at 16³ through the kernels and ``_mode='plain'``,
+   frequency and time responses within rel 1e-9;
+12. "diff64", autograd (:func:`diff_problem`, tests/test_diff.py's setup
+   on bench64's grid): the gradient of ½‖d − d_obs‖² in log σ through
+   ``diff.make_differentiable_solve(grid, 1.0, tol=1e-10)``, with the
+   point smoother (K1/K2) and with sc+lr (K3/K4/K5): forward and
+   backward walls, the seconds inside ``solver.solve`` and outside it,
+   launches and device ms per kernel; at 16³ the gradients through the
+   kernels against ``_mode='plain'`` (rel 1e-9, each solve's exit
+   message, it_mg and it_ssl equal), central
+   differences on three cells (1 %) and the source's gradient against
+   the adjoint field λ;
+13. "cli64": phase 10's survey (with its observed data) and model
+   written with ``io`` to .npz and .json; ``cli.main.main([cfg, '-f'])``
+   (npz inputs) and ``'-g'`` (json inputs) on the card, their outputs
+   against phase 10's ``compute()`` (with the same noise seed), data and
+   gradient (rel 1e-9); a ``Simulation.to_file``/``from_file`` round trip;
+14. the probes (``ops/probes.py``, ``csrc/probes.cu``), the counterparts
+   of the Mosaic probes in scripts/: ``tile_copy`` (TMA with an mbarrier)
+   over every grid step of ``probe``/``probe3``/``probe23``/``probe12``
+   (:func:`probe_boxes`), the card's opt-in shared memory and launches
+   with N bytes of it up to and beyond that limit, ``smem_sum``,
+   ``tile_roll``, ``dyn_slice`` and ``station_solve`` at ty=8, Zp=256,
+   each bitwise equal to its plain version (``station_solve`` within
+   1e-6 of ``torch.linalg.solve``), then timed.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -98,10 +134,18 @@ colour ``steps`` those launches ran and the ``plan`` it runs at 64³,
 K2 its step plan at 512×384×384 (``ms_large``, ``bound_ms_large``), K5
 the bound of the packed-entry design beside its own
 (``bound_ms_packed``).
-Phase 5's pinned solves are counted apart (``pinned_launches``), and
+Phase 5's pinned solves are counted apart (``pinned_launches``),
 phase 10's batched solve (reset just before its warm ``compute()``, read
-just after) as ``simulation_launches``.  Each
-kernel's ``bound_ms`` is the least time the card could take for the
+just after) as ``simulation_launches``, phase 11's the same way as
+``tdem_launches`` and phase 12's gradients (reset before each 64³
+forward and backward, read after) as ``diff_launches``.  The probes are
+on no path: their counters are reset with the point kernels' before
+phase 4 and read just before phase 14, and those counts (0 unless a
+path ran a probe) are ``launches`` of their entries, under ``probes`` in
+the same line, beside the launches of their checks
+(``probe_launches``).  The two entries of scripts/hw_bisect_lr128.py
+(K3 and K4 alone at 128³, phase 3b) carry K3's and K4's ``launches``
+of the main path.  Each kernel's ``bound_ms`` is the least time the card could take for the
 timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
 TFLOP/s, whichever is larger), counted from the call's shapes by the
 ``*_work`` functions below; the residual kernel's is that of the
@@ -133,9 +177,11 @@ RES_GEOMETRIES = ((2, 16, 1, False), (2, 16, 2, False), (2, 16, 4, False),
                   (2, 16, 16, True), (4, 8, 1, False), (4, 8, 4, True),
                   (4, 8, 16, True))
 LINE_SHAPES = ((3, 3, 3), (7, 5, 9), (9, 7, 9), (64, 64, 64))
-# sclr256's finest level: each kernel alone against its plain version
-# (lines along x), where the kernels' int64 offsets are largest.
-LINE_LARGE = (256, 256, 256)
+# Each line kernel alone against its plain version (lines along x) at
+# 128³, the shape of scripts/hw_bisect_lr128.py, and at sclr256's finest
+# level, where the kernels' int64 offsets are largest.
+LR128 = (128, 128, 128)
+LINE_LARGE = (LR128, (256, 256, 256))
 # Short lines (32 stations) of many lines: the only shape where z of 16
 # and 32 lines per block fits a block's shared memory.  K4 runs every
 # launch plan here, at 64³ and at LINE_LARGE.
@@ -177,6 +223,14 @@ LARGE_SHAPES = ((512, 384, 384), (512, 512, 384), (512, 512, 512))
 LANES = 8
 SIM_FREQS = (0.5, 1.0)
 SIM_TOL = 1e-6
+# Phase 11: the times of the time-domain survey (its Fourier computes 19
+# frequencies, 0.011-8.35 Hz).
+TDEM_TIME = np.logspace(-1, 1, 21)
+# Phase 12: tests/test_diff.py's unit samplers (x-edges) and its
+# finite-difference cells, at 16³.
+DIFF_EDGES = ((10, 8, 8), (5, 9, 7), (11, 11, 9))
+DIFF_FD_CELLS = ((8, 8, 8), (10, 8, 8), (6, 9, 7))
+PROBE_SRC = 'emg3d_tpu_torch/csrc/probes.cu'
 # The trace's names of the point kernels' instances (demangled or not):
 # the last template argument is the kernel, 0 for K1, 1-2 for K2.
 POINT_KERNEL_NAME = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)>|step<(\d)>|'
@@ -233,14 +287,21 @@ def phase_environment(torch):
 
 
 def phase_build():
+    """Both libraries (solve kernels, probes) built at once: every nvcc
+    of both starts together."""
+    from concurrent.futures import ThreadPoolExecutor
     from emg3d_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    path, text = _build.build()
-    _build.library()
-    log(f"built {path} in {time.perf_counter() - t0:.2f} s")
-    for line in text.splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        built = list(pool.map(_build.build, _build.LIBRARIES))
+    for name, (path, text) in zip(_build.LIBRARIES, built):
+        _build.library(name)
+        log(f"built {path}")
+        for line in text.splitlines():
+            if 'registers' in line or 'spill' in line or \
+                    'Compiling' in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"build {time.perf_counter() - t0:.2f} s")
 
 
 def _level(shape, seed, device, factored=True):
@@ -817,8 +878,8 @@ def phase_line_kernels(torch, results, device='cuda', shapes=LINE_SHAPES,
         r = stencil.residual_parts(*s, *e, *st.arrays)
         thomas_plans(torch, res, st, e, r, colors=(0, 3), reps=10)
         del pstate, e, s, st, r
-    if large is not None:
-        _line_kernels_large(torch, res, large, dev)
+    for shape in large:
+        _line_kernels_large(torch, res, shape, dev)
 
 
 def _nan_like(f):
@@ -950,8 +1011,15 @@ def _time_line_64(torch, res, shape, st, e0, s, er, sr, rp):
 
 
 def _line_kernels_large(torch, res, shape, dev):
-    """K5, K3 and K4 alone against their plain versions on x-lines."""
+    """K5, K3 and K4 alone against their plain versions on x-lines at
+    ``shape``, K5 and K3 under every launch plan, K4 under every plan on
+    all four colours, then each timed (K3 and K4 beside plain).  The
+    readings land under keys ending in ``_<nx>`` (``ms_128``,
+    ``plain_ms_256``, ...): ms per launch, bounds, the shape's max|Δ|
+    and the launches its checks made (``check_launches_<nx>``)."""
     from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    n = f'_{shape[0]}'
+    n0 = dict(line_gs.LAUNCHES)
     pstate, e, s = _level(shape, seed=7, device=dev, factored=False)
     st = line_gs.line_state(pstate.arrays, shape, 0)
     fk = _factor_twice(torch, st)
@@ -963,47 +1031,61 @@ def _line_kernels_large(torch, res, shape, dev):
     _, dmax = _check_stack(shape, st.factors, ref)
     res['line_factor']['max_abs_err'] = max(
         res['line_factor']['max_abs_err'], dmax)
+    res['line_factor']['max_abs_err' + n] = dmax
     del ref
     torch.cuda.empty_cache()
     factor_plans(torch, res['line_factor'], st, reps=5)
     torch.cuda.empty_cache()
     errs = [_check_residual(torch, st, e, s, c) for c in range(4)]
+    e3 = _check_kernel('line_residual', shape, errs)
     res['line_residual']['max_abs_err'] = max(
-        res['line_residual']['max_abs_err'],
-        _check_kernel('line_residual', shape, errs))
+        res['line_residual']['max_abs_err'], e3)
+    res['line_residual']['max_abs_err' + n] = e3
     residual_plans(torch, st, e, s, reps=5)
     rp = stencil.residual_parts(*s, *e, *st.arrays)
-    thomas_plans(torch, res, st, e, rp, colors=(0, 3), reps=5)
+    res['line_thomas']['max_abs_err' + n] = thomas_plans(
+        torch, res, st, e, rp, colors=range(4), reps=5)
+    for k in n0:
+        res[k]['check_launches' + n] = line_gs.LAUNCHES[k] - n0[k]
     out = _nan_like(e)
-    res['line_residual']['ms_256'] = _time_steps(
+    res['line_residual']['ms' + n] = _time_steps(
         torch, lambda: [line_gs.residual(e, s, st, c, out)
                         for c in range(4)], reps=10, per=4)
+    res['line_residual']['plain_ms' + n] = _time_steps(
+        torch, lambda: [line_gs.residual_plain(e, s, st, c, out)
+                        for c in range(4)], reps=3, per=4, warm=1)
     cb = _colour_bound(shape)
-    res['line_residual']['bound_ms_256'] = cb['bound_ms']
-    res['line_residual']['bound_ms_full_256'] = cb['bound_ms_full']
+    res['line_residual']['bound_ms' + n] = cb['bound_ms']
+    res['line_residual']['bound_ms_full' + n] = cb['bound_ms_full']
     zs = line_gs._scratch(st.shape, e[0])
-    res['line_thomas']['ms_256'] = _time_steps(
-        torch, lambda: line_gs.thomas(e, rp, st.factors, st, 0, zs),
+    ek = _clone(e)
+    res['line_thomas']['ms' + n] = _time_steps(
+        torch, lambda: line_gs.thomas(ek, rp, st.factors, st, 0, zs),
         reps=10, per=1)
-    res['line_thomas']['bound_ms_256'] = bound(
+    res['line_thomas']['plain_ms' + n] = _time_steps(
+        torch, lambda: smoothers.line_thomas_x(e, rp, st.factors, 0),
+        reps=2, per=1, warm=1)
+    res['line_thomas']['bound_ms' + n] = bound(
         *thomas_work(shape, 0))['bound_ms']
-    del out, zs, rp
+    del out, zs, rp, ek
     torch.cuda.empty_cache()
-    res['line_factor']['ms_256'] = _time_steps(
+    res['line_factor']['ms' + n] = _time_steps(
         torch, lambda: line_gs.factor(st.st, st.w, st.ih, st.shape),
         reps=5, per=1, warm=1)
-    res['line_factor']['bound_ms_256'] = bound(
+    res['line_factor']['bound_ms' + n] = bound(
         *factor_work(st.shape))['bound_ms']
-    res['line_factor']['bound_ms_packed_256'] = bound(
+    res['line_factor']['bound_ms_packed' + n] = bound(
         *factor_work_packed(st.shape))['bound_ms']
-    log(f"256³ x-lines, ms per launch: line_factor "
-        f"{res['line_factor']['ms_256']:.4f} (bound "
-        f"{res['line_factor']['bound_ms_256']:.4f}), line_residual "
-        f"{res['line_residual']['ms_256']:.4f} per colour (bound "
-        f"{res['line_residual']['bound_ms_256']:.4f}; whole level "
-        f"{res['line_residual']['bound_ms_full_256']:.4f}), line_thomas "
-        f"{res['line_thomas']['ms_256']:.4f} (bound "
-        f"{res['line_thomas']['bound_ms_256']:.4f})")
+    r3, r4, r5 = (res[k] for k in ('line_residual', 'line_thomas',
+                                   'line_factor'))
+    log(f"{shape} x-lines, ms per launch: line_factor {r5['ms' + n]:.4f} "
+        f"(bound {r5['bound_ms' + n]:.4f}), line_residual "
+        f"{r3['ms' + n]:.4f} per colour (plain {r3['plain_ms' + n]:.4f}; "
+        f"bound {r3['bound_ms' + n]:.4f}; whole level "
+        f"{r3['bound_ms_full' + n]:.4f}), line_thomas {r4['ms' + n]:.4f} "
+        f"(plain {r4['plain_ms' + n]:.4f}; bound {r4['bound_ms' + n]:.4f})"
+        f"; launches in the checks "
+        f"{ {k: res[k]['check_launches' + n] for k in n0} }")
     del pstate, st, e, s
     torch.cuda.empty_cache()
 
@@ -1013,7 +1095,8 @@ def thomas_plans(torch, res, st, e, r, colors, reps):
     per block with z in global memory and, where it fits the block, in
     shared memory; each run twice (bitwise equal) and held against
     ``smoothers.line_thomas_x`` from the same residual ``r``, and timed
-    (median ms per launch) on the first colour."""
+    (median ms per launch) on the first colour.  Returns the largest
+    max|Δ|."""
     from emg3d_tpu_torch.ops import line_gs, smoothers
     shape = st.shape
     zs = line_gs._scratch(shape, e[0])
@@ -1050,9 +1133,10 @@ def thomas_plans(torch, res, st, e, r, colors, reps):
                     del et
                 log(msg)
         del ep
+    dmax = _check_kernel('line_thomas plans', shape, errs)
     res['line_thomas']['max_abs_err'] = max(
-        res['line_thomas']['max_abs_err'],
-        _check_kernel('line_thomas plans', shape, errs))
+        res['line_thomas']['max_abs_err'], dmax)
+    return dmax
 
 
 def bench_problem(shape=(64, 64, 64)):
@@ -1158,32 +1242,44 @@ def heterogeneous_problem(seed=64):
     return grid, model, sfield
 
 
-class LineStateClock:
-    """Host seconds spent in ``line_gs.line_state`` (the line states'
-    parameters and factor stacks) while active, each build ending in a
-    synchronize.  The solver calls it through the module, so patching
-    the module's attribute sees every build."""
+class Clock:
+    """Host seconds spent in ``module.attr`` while active, each call
+    ending in a synchronize, the number of calls and, given ``record``,
+    ``record(result)`` of each call in ``records``.  The package calls
+    ``line_gs.line_state`` and ``solver.solve`` through their modules,
+    so patching the module's attribute sees every call."""
+
+    def __init__(self, module, attr, record=None):
+        self._mod, self._attr, self._record = module, attr, record
 
     def __enter__(self):
-        from emg3d_tpu_torch.ops import line_gs
         import torch
-        self.seconds, self.builds = 0.0, 0
-        self._mod, self._real = line_gs, line_gs.line_state
+        self.seconds, self.calls, self.records = 0.0, 0, []
+        self._real = real = getattr(self._mod, self._attr)
 
         def timed(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self._real(*a, **k)
+            out = real(*a, **k)
             torch.cuda.synchronize()
             self.seconds += time.perf_counter() - t0
-            self.builds += 1
+            self.calls += 1
+            if self._record is not None:
+                self.records.append(self._record(out))
             return out
-        line_gs.line_state = timed
+        setattr(self._mod, self._attr, timed)
         return self
 
     def __exit__(self, *exc):
-        self._mod.line_state = self._real
+        setattr(self._mod, self._attr, self._real)
         return False
+
+
+def line_state_clock():
+    """A :class:`Clock` of the line states' builds (parameters and
+    factor stacks)."""
+    from emg3d_tpu_torch.ops import line_gs
+    return Clock(line_gs, 'line_state')
 
 
 def phase_sclr64(torch, grid, model, sfield):
@@ -1193,7 +1289,7 @@ def phase_sclr64(torch, grid, model, sfield):
     line_gs.reset_launches()
     cold = {}
     for name, ssl in runs:
-        with LineStateClock() as clock:
+        with line_state_clock() as clock:
             cold[name] = (*_solve(torch, grid, model, sfield, sslsolver=ssl,
                                   **SCLR), clock)
     launches = dict(line_gs.LAUNCHES)
@@ -1202,14 +1298,14 @@ def phase_sclr64(torch, grid, model, sfield):
         raise AssertionError("the sc+lr solves launched no line kernel")
     for name, ssl in runs:
         _, info, wall, cclock = cold[name]
-        with LineStateClock() as clock:
+        with line_state_clock() as clock:
             _, winfo, warm = _solve(torch, grid, model, sfield,
                                     sslsolver=ssl, **SCLR)
         log(f"sclr64 {name}: it_mg {info['it_mg']}, it_ssl "
             f"{info['it_ssl']}, rel_error {info['rel_error']:.3e}, cold "
             f"wall {wall:.3f} s ({cclock.seconds:.4f} s in "
-            f"{cclock.builds} line-state builds), warm wall {warm:.3f} s "
-            f"({clock.seconds:.4f} s in {clock.builds} builds; it_mg "
+            f"{cclock.calls} line-state builds), warm wall {warm:.3f} s "
+            f"({clock.seconds:.4f} s in {clock.calls} builds; it_mg "
             f"{winfo['it_mg']})")
     return launches
 
@@ -1247,6 +1343,31 @@ def trace_times(prof, path):
         per[key][0] += e['dur'] / 1e3
         per[key][1] += 1
     return busy / 1e6, len(events), dict(per)
+
+
+def _profile(torch, fn, path):
+    """Run ``fn`` under torch.profiler; returns (wall, busy seconds,
+    device events, {kernel key: [ms, launches]}) from its trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, nev, per = trace_times(prof, path)
+    ms = {}
+    for name, (t, n) in per.items():
+        k = kernel_key(name)
+        if k is not None:
+            ms[k] = [ms.get(k, [0.0, 0])[0] + t, ms.get(k, [0, 0])[1] + n]
+    return wall, busy, nev, ms
+
+
+def _kernel_ms(ms):
+    return ", ".join(f"{KERNELS[k]['name']} {t:.3f} ({n})"
+                     for k, (t, n) in sorted(ms.items()))
 
 
 def simulation_problem(n=64, res=1.0):
@@ -1439,7 +1560,7 @@ def _compute(torch, sim):
 
 def phase_simulation(torch, results, out_dir):
     """Phase 10 (see the module docstring).  Returns the launches of the
-    warm batched solve."""
+    warm batched solve, the Simulation and its gradient."""
     from emg3d_tpu_torch import Model, solve
     from emg3d_tpu_torch.ops import line_gs, point_gs
     t0 = time.perf_counter()
@@ -1474,21 +1595,13 @@ def phase_simulation(torch, results, out_dir):
             raise AssertionError(f"the Simulation path launched no {k}")
 
     # Device time per kernel of the batched solve (warm, profiled).
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        prof_wall = _compute(torch, sim)
-    busy, nev, per = trace_times(prof, out_dir / 'simulation_trace.json')
-    ms = {}
-    for name, (t, n) in per.items():
-        k = kernel_key(name)
-        if k is not None:
-            ms[k] = [ms.get(k, [0.0, 0])[0] + t, ms.get(k, [0, 0])[1] + n]
+    prof_wall, busy, nev, ms = _profile(
+        torch, lambda: _compute(torch, sim),
+        out_dir / 'simulation_trace.json')
     log(f"batched solve, profiled wall {prof_wall:.3f} s, device busy "
         f"{busy:.4f} s over {nev} events (idle share "
         f"{1 - busy / prof_wall:.4f}); device ms per kernel (launches): "
-        + ", ".join(f"{KERNELS[k]['name']} {t:.3f} ({n})"
-                    for k, (t, n) in sorted(ms.items())))
+        + _kernel_ms(ms))
 
     # The same pairs as 8 sequential solves.
     opts = {k: v for k, v in sim.solver_opts.items()}
@@ -1555,7 +1668,597 @@ def phase_simulation(torch, results, out_dir):
     for k, (a, b) in lane_ms.items():
         results[k]['lanes_ms'] = a
         results[k]['lanes_one_by_one_ms'] = b
+    return launches, sim, grad
+
+
+def tdem_problem(n=64):
+    """Phase 11's inputs: bench64's fullspace centred on the origin (as
+    :func:`simulation_problem`), one x-directed electric point dipole at
+    the origin, phase 10's 16 x-directed receivers 2-3 km along x, and
+    the frequencies of ``Fourier(time=TDEM_TIME, fmin=0.01, fmax=10,
+    signal=-1, ft='dlf', every_x_freq=2)``: 19, 0.011-8.35 Hz.  Returns
+    (grid, model, survey, fourier)."""
+    from emg3d_tpu_torch import Fourier, Survey
+    fourier = Fourier(time=TDEM_TIME, fmin=0.01, fmax=10, signal=-1,
+                      ft='dlf', every_x_freq=2)
+    grid, model, _ = simulation_problem(n)
+    survey = Survey('tdem', (0., 0., 0., 0., 0.),
+                    (np.linspace(2000., 3000., 16), 0., 0., 0., 0.),
+                    fourier.freq_compute, noise_floor=1e-15,
+                    relative_error=0.05)
+    return grid, model, survey, fourier
+
+
+def time_responses(fourier, data):
+    """``fourier.freq2time`` of every receiver's spectrum ((nrec, nfreq)
+    data) that is finite; rows of NaN for the others."""
+    out = np.full((data.shape[0], fourier.time.size), np.nan)
+    for r, d in enumerate(data):
+        if np.isfinite(d).all():
+            out[r] = fourier.freq2time(d)
+    return out
+
+
+def _tdem_sim(grid, model, survey, **opts):
+    from emg3d_tpu_torch import Simulation
+    return Simulation('tdem', survey, grid, model, gridding='same',
+                      solver_opts={'device': 'cuda', 'verb': 1, **opts},
+                      verb=0)
+
+
+def phase_tdem(torch, out_dir):
+    """Phase 11 (see the module docstring).  Returns the launches of the
+    warm 19-lane solve."""
+    from emg3d_tpu_torch import solve
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    grid, model, survey, fourier = tdem_problem()
+    freqs = [float(f) for f in fourier.freq_compute]
+    src = next(iter(survey.sources))
+    sim = _tdem_sim(grid, model, survey)
+    with line_state_clock() as cclock:
+        cold = _compute(torch, sim)
+    point_gs.reset_launches()
+    line_gs.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with line_state_clock() as clock:
+        warm = _compute(torch, sim)
+    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    infos = [sim.get_efield_info(src, f) for f in freqs]
+    rel = [i['rel_error'] for i in infos]
+    log(f"tdem64: {len(freqs)} frequencies {freqs[0]:.4f}-{freqs[-1]:.4f} Hz"
+        f" as one {len(freqs)}-lane sc+lr BiCGSTAB solve: exit "
+        f"{sorted({i['exit_message'] for i in infos})}, it_mg "
+        f"{infos[0]['it_mg']}, it_ssl {infos[0]['it_ssl']}; rel_error per "
+        f"lane (Hz: rel) " + ", ".join(f"{f:.4f}: {r:.3e}"
+                                       for f, r in zip(freqs, rel)))
+    log(f"tdem64 compute(): cold {cold:.3f} s ({cclock.seconds:.4f} s in "
+        f"{cclock.calls} line-state builds), warm {warm:.3f} s "
+        f"({clock.seconds:.4f} s in {clock.calls} line-state builds); "
+        f"launches {launches}; peak device memory {peak:.2f} GiB")
+    if any(i['exit_message'] != 'CONVERGED' for i in infos) or \
+            not max(rel) < SIM_TOL:
+        raise AssertionError("the time-domain batched solve did not "
+                             "converge on every lane")
+    for k in ('factored', 'line_residual', 'line_thomas', 'line_factor'):
+        if launches[k] == 0:
+            raise AssertionError(f"the time-domain path launched no {k}")
+    # Each line state of the solve holds one stack per frequency group;
+    # a stack outside the cache budget is rebuilt (K5 again) at every
+    # smoothing call.
+    per_state = launches['line_factor'] / max(clock.calls, 1)
+    log(f"tdem64 factor stacks: {launches['line_factor']} K5 launches over "
+        f"{clock.calls} line states of {len(freqs)} groups ("
+        f"{per_state:.2f} per state; {len(freqs)} = every stack cached, "
+        f"more = stacks rebuilt at each smoothing call); cache budget "
+        f"{line_gs.cache_budget('cuda') / 2**30:.2f} GiB")
+    log(f"tdem64 K1 (point_gs_factored, coarse levels, once per lane): "
+        f"{launches['factored']} launches, "
+        f"{launches['factored'] / len(freqs):.1f} per lane")
+
+    wall, busy, nev, ms = _profile(torch, lambda: _compute(torch, sim),
+                                   out_dir / 'tdem_trace.json')
+    log(f"tdem64 profiled compute() {wall:.3f} s, device busy {busy:.4f} s "
+        f"over {nev} events (idle share {1 - busy / wall:.4f}); device ms "
+        f"per kernel (launches): {_kernel_ms(ms)}")
+
+    # Three lanes against their own single solves.
+    opts = dict(sim.solver_opts)
+    for f in (freqs[0], freqs[len(freqs) // 2], freqs[-1]):
+        e1, i1 = solve(grid, model, sim.get_sfield(src, f), **opts)
+        d = _rel(sim.get_efield(src, f), e1)
+        log(f"tdem64 lane {f:.4f} Hz against its own solve "
+            f"({i1['exit_message']}, it_mg {i1['it_mg']}, it_ssl "
+            f"{i1['it_ssl']}): |Δ|/|e| {d:.3e}")
+        if i1['exit_message'] != 'CONVERGED' or not d <= 10 * SIM_TOL:
+            raise AssertionError(f"tdem64 lane {f} Hz differs from its own "
+                                 f"solve by {d:.3e}")
+
+    data = np.array(sim.data.synthetic)[0]
+    resp = time_responses(fourier, data)
+    log(f"tdem64 time domain (switch-off, {fourier.time.size} times "
+        f"{fourier.time[0]}-{fourier.time[-1]} s): "
+        f"{int(np.isfinite(resp).all(1).sum())} of {len(resp)} receivers "
+        f"finite; receiver 0 at every 5th time: "
+        + ", ".join(f"{v:.4e}" for v in resp[0][::5]))
+    if not (np.isfinite(data).all() and np.isfinite(resp).all()):
+        raise AssertionError("tdem64: non-finite responses")
+
+    # 16³: kernels against the plain path, frequency and time responses.
+    g16, m16, s16, f16 = tdem_problem(16)
+    out, walls = [], []
+    for mode in (None, 'plain'):
+        sm = _tdem_sim(g16, m16, s16, _mode=mode)
+        walls.append(_compute(torch, sm))
+        d = np.array(sm.data.synthetic)[0]
+        out.append((d, time_responses(f16, d)))
+    (dk, tk), (dp, tp) = out
+    fin, tfin = np.isfinite(dp), np.isfinite(tp)
+    dd = float(np.max(np.abs(dk[fin] - dp[fin])) / np.max(np.abs(dp[fin])))
+    td = float(np.max(np.abs(tk[tfin] - tp[tfin])) / np.max(np.abs(tp[tfin])))
+    log(f"tdem 16³ kernels vs _mode='plain' ({walls[0]:.2f} / {walls[1]:.2f}"
+        f" s): {int(fin.all(1).sum())} receivers finite, frequency "
+        f"responses max |Δ|/max|ref| {dd:.3e}, time responses {td:.3e}")
+    if not (np.array_equal(np.isfinite(dk), fin) and fin.any()
+            and np.array_equal(np.isfinite(tk), tfin) and tfin.any()
+            and dd <= TOL_SOLVE and td <= TOL_SOLVE):
+        raise AssertionError("tdem 16³: kernels and plain differ")
     return launches
+
+
+def diff_problem(torch, n, device='cuda'):
+    """Phase 12's inputs, tests/test_diff.py:16-53 at n³ cells of 100 m
+    centred on the origin (its own 16³ at n = 16, bench64's grid at 64):
+    the 1 Hz x-source at the origin as tensors, unit samplers of three
+    interior x-edges and the σ = 3 block, both scaled by n/16.  Returns
+    (grid, s, weights, sigma_true) on ``device``."""
+    from emg3d_tpu_torch import TensorMesh, get_source_field
+    k = n // 16
+    dev = torch.device(device)
+    grid = TensorMesh([np.full(n, 100.)] * 3, origin=(-50. * n,) * 3)
+    sf = get_source_field(grid, (0, 0, 0, 0, 0), 1.0, strength=0)
+    s = tuple(torch.tensor(np.asarray(f), device=dev)
+              for f in (sf.fx, sf.fy, sf.fz))
+    w = []
+    for idx in DIFF_EDGES:
+        wx = torch.zeros((n, n + 1, n + 1), dtype=torch.float64, device=dev)
+        wx[tuple(k * i for i in idx)] = 1.0
+        w.append((0, wx))
+    sig = np.ones((n,) * 3)
+    sig[6 * k:10 * k, 6 * k:10 * k, 6 * k:10 * k] = 3.0
+    return grid, s, w, torch.tensor(sig, device=dev)
+
+
+def diff_misfit(torch, grid, s, w, tol=1e-10, **opts):
+    """(fsolve, data(σ), misfit(log σ, d_obs)) through the port's
+    differentiable solve at 1 Hz."""
+    from emg3d_tpu_torch import diff
+    fsolve = diff.make_differentiable_solve(grid, 1.0, tol=tol, **opts)
+
+    def data(sigma):
+        eta, zeta = diff.eta_zeta_from_sigma(grid, sigma, 1.0)
+        return diff.sample_edges(fsolve((eta, eta, eta, zeta), s), w)
+
+    def misfit(log_sigma, d_obs):
+        return 0.5 * torch.sum((data(torch.exp(log_sigma)) - d_obs).abs()
+                               ** 2)
+    return fsolve, data, misfit
+
+
+def _diff_grad(torch, misfit, like, d_obs):
+    """∂misfit/∂log σ at σ = 1, the misfit, the forward and backward
+    walls and the :class:`Clock` of ``solver.solve`` over both (its
+    records each solve's exit message, it_mg and it_ssl)."""
+    from emg3d_tpu_torch import solver
+    x = torch.zeros_like(like).requires_grad_(True)
+    with Clock(solver, 'solve', record=lambda out: tuple(
+            out[1][k] for k in ('exit_message', 'it_mg', 'it_ssl'))) \
+            as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L = misfit(x, d_obs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        L.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return x.grad, float(L.detach()), t1 - t0, t2 - t1, clock
+
+
+def phase_diff(torch, out_dir):
+    """Phase 12 (see the module docstring).  Returns the launches of the
+    two 64³ gradients."""
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    configs = (('point', {}), ('sc+lr', SCLR))
+    launches = {}
+    for name, opts in configs:
+        grid, s, w, sig = diff_problem(torch, 64)
+        _, data, misfit = diff_misfit(torch, grid, s, w, **opts)
+        d_obs = data(sig).detach()
+        point_gs.reset_launches()
+        line_gs.reset_launches()
+        g, L, fwd, bwd, clock = _diff_grad(torch, misfit, sig, d_obs)
+        launches[name] = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+        wall, busy, nev, ms = _profile(
+            torch, lambda: _diff_grad(torch, misfit, sig, d_obs),
+            out_dir / f"diff_{name.replace('+', '')}_trace.json")
+        log(f"diff64 {name}: misfit {L:.6e}, gradient norm "
+            f"{float(g.norm()):.6e}; forward {fwd:.3f} s, backward "
+            f"{bwd:.3f} s, of which {clock.seconds:.3f} s in {clock.calls} "
+            f"solver.solve calls and {fwd + bwd - clock.seconds:.3f} s "
+            f"outside them (tensor ↔ host field copies, the residual's "
+            f"autograd pullback); launches {launches[name]}; profiled "
+            f"forward+backward {wall:.3f} s, device busy {busy:.4f} s (idle "
+            f"share {1 - busy / wall:.4f}), device ms per kernel (launches):"
+            f" {_kernel_ms(ms)}")
+        if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)):
+            raise AssertionError(f"diff64 {name}: gradient not finite")
+        keys = ('line_residual', 'line_thomas', 'line_factor') \
+            if opts else ('factored', 'fused')
+        if any(launches[name][k] == 0 for k in keys):
+            raise AssertionError(f"diff64 {name}: the gradient launched "
+                                 f"none of {keys}")
+        del g, s, w, sig, d_obs
+    # 16³ at tol 1e-10: kernels against plain (gradients and each solve's
+    # exit message and cycle counts), central differences, the source's
+    # gradient.
+    grid, s, w, sig = diff_problem(torch, 16)
+    for name, opts in configs:
+        fsolve, data, misfit = diff_misfit(torch, grid, s, w, **opts)
+        d_obs = data(sig).detach()
+        t0 = time.perf_counter()
+        gk, _, _, _, ck = _diff_grad(torch, misfit, sig, d_obs)
+        t1 = time.perf_counter()
+        gp, _, _, _, cp = _diff_grad(
+            torch, diff_misfit(torch, grid, s, w, _mode='plain', **opts)[2],
+            sig, d_obs)
+        t2 = time.perf_counter()
+        rel = float((gk - gp).abs().max() / gp.abs().max())
+        log(f"diff 16³ {name}: kernels vs _mode='plain' gradients (tol "
+            f"1e-10; {t1 - t0:.2f} / {t2 - t1:.2f} s) max |Δ|/max|ref| "
+            f"{rel:.3e}; (exit, it_mg, it_ssl) per solve {ck.records} / "
+            f"{cp.records}")
+        if not rel <= TOL_SOLVE or ck.records != cp.records:
+            raise AssertionError(f"diff 16³ {name}: kernels and plain differ")
+        if name != 'point':
+            continue
+        h = 1e-5
+        for cell in DIFF_FD_CELLS:
+            up = torch.zeros_like(sig)
+            up[cell] = h
+            with torch.no_grad():
+                fd = (float(misfit(up, d_obs)) - float(misfit(-up, d_obs))) \
+                    / (2 * h)
+            r = abs(float(gk[cell]) - fd) / max(abs(fd), 1e-30)
+            log(f"diff 16³ cell {cell}: autograd {float(gk[cell]):.6e}, "
+                f"central difference {fd:.6e}, rel {r:.3e}")
+            if not r < 0.01:
+                raise AssertionError(f"diff 16³ cell {cell}: FD {fd} vs "
+                                     f"autograd {float(gk[cell])}")
+        # The source's gradient is the adjoint field λ = conj(A⁻¹ conj(w)),
+        # w = ∂misfit/∂e.
+        from emg3d_tpu_torch import diff
+        eta, zeta = diff.eta_zeta_from_sigma(grid, torch.ones_like(sig), 1.0)
+        src = tuple(t.clone().requires_grad_(True) for t in s)
+        e = fsolve((eta, eta, eta, zeta), src)
+        L = 0.5 * torch.sum((diff.sample_edges(e, w) - d_obs).abs() ** 2)
+        we = [torch.zeros_like(c) if g is None else g for c, g in zip(
+            e, torch.autograd.grad(L, e, retain_graph=True,
+                                   allow_unused=True))]
+        gs = torch.autograd.grad(L, src)
+        with torch.no_grad():
+            lam = tuple(c.conj() for c in fsolve(
+                (eta, eta, eta, zeta), tuple(c.conj() for c in we)))
+        d = max(float((a - b).abs().max()) for a, b in zip(gs, lam)) / \
+            max(float(b.abs().max()) for b in lam)
+        fin = all(bool(torch.isfinite(t).all()) for t in gs)
+        log(f"diff 16³ source gradient: finite {fin}, against the adjoint "
+            f"field λ max |Δ|/max|λ| {d:.3e}")
+        if not (fin and d <= TOL_SOLVE):
+            raise AssertionError("diff 16³: the source's gradient is not λ")
+    return launches
+
+
+CLI_CONFIG = """[files]
+path = {path}
+survey = {survey}
+model = {model}
+output = {output}
+
+[simulation]
+gridding = same
+"""
+
+
+def phase_cli(torch, sim, grad, out_dir):
+    """Phase 13 (see the module docstring): phase 10's survey, model and
+    results through the port's io and CLI on the card."""
+    from emg3d_tpu_torch import Simulation, io
+    from emg3d_tpu_torch.cli import main as cli
+    d = out_dir / 'cli'
+    d.mkdir(parents=True, exist_ok=True)
+    synthetic = np.array(sim.data.synthetic)
+    observed = np.array(sim.data.observed)
+    misfit = sim.misfit
+    t0 = time.perf_counter()
+    for ext in ('npz', 'json'):
+        io.save(str(d / f'survey.{ext}'), survey=sim.survey)
+        io.save(str(d / f'model.{ext}'), model=sim.model, mesh=sim.grid)
+    log(f"cli64 inputs written (npz and json) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for ext in ('npz', 'json'):
+        back = np.array(io.load(str(d / f'survey.{ext}'))['survey']
+                        .data.observed)
+        if not np.array_equal(back, observed, equal_nan=True):
+            raise AssertionError(f"cli64: survey.{ext} does not load back")
+    fname = str(d / 'simulation.npz')
+    sim.to_file(fname, what='results')
+    back = Simulation.from_file(fname)
+    if not (np.array_equal(np.array(back.data.synthetic), synthetic,
+                           equal_nan=True)
+            and np.array_equal(np.array(back.data.observed), observed,
+                               equal_nan=True)
+            and np.array_equal(back.gradient, grad)):
+        raise AssertionError("cli64: Simulation.to_file/from_file round "
+                             "trip changed the data")
+    log("cli64 Simulation.to_file/from_file (npz, what='results'): data and "
+        "gradient equal")
+    runs = {}
+    for flag, ext in (('-f', 'npz'), ('-g', 'json')):
+        cfg = d / f'run{flag[1]}.cfg'
+        cfg.write_text(CLI_CONFIG.format(path=d, survey=f'survey.{ext}',
+                                         model=f'model.{ext}',
+                                         output=f'out{flag[1]}.npz'))
+        np.random.seed(11)              # the forward task adds noise
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main([str(cfg), flag, '-q'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[flag] = io.load(str(d / f'out{flag[1]}.npz'))
+        log(f"cli64 main([{cfg.name}, '{flag}', '-q']) from {ext} inputs: "
+            f"{wall:.3f} s; output keys {sorted(runs[flag])}")
+    # -f against phase 10's compute(observed=True) with the same noise
+    # seed (the files above hold phase 10's own observed data).
+    np.random.seed(11)
+    sim.compute(observed=True)
+    checks = (('-f data', runs['-f']['data'], np.array(sim.data.observed)),
+              ('-g data', runs['-g']['data'], synthetic),
+              ('-g gradient', runs['-g']['gradient'], grad))
+    for what, got, ref in checks:
+        got = np.asarray(got)
+        fin = np.isfinite(ref)
+        rel = float(np.max(np.abs(got[fin] - ref[fin])) /
+                    np.max(np.abs(ref[fin])))
+        log(f"cli64 {what}: shape {got.shape}, against phase 10 max "
+            f"|Δ|/max|ref| {rel:.3e}")
+        if got.shape != ref.shape or not rel <= TOL_SOLVE or \
+                not np.array_equal(np.isfinite(got), fin):
+            raise AssertionError(f"cli64 {what} differs from phase 10")
+    if np.asarray(runs['-g']['gradient']).shape != \
+            tuple(sim.grid.shape_cells):
+        raise AssertionError("cli64: gradient shape")
+    rm = abs(float(runs['-g']['misfit']) - misfit) / misfit
+    log(f"cli64 misfit {float(runs['-g']['misfit']):.6e} (phase 10 "
+        f"{misfit:.6e}, rel {rm:.3e})")
+    if not rm <= TOL_SOLVE:
+        raise AssertionError("cli64 misfit differs from phase 10")
+
+
+def probe_boxes():
+    """The sub-boxes of the tile_copy probe: {case: (array shape, [(offsets,
+    lengths), ...])}, the grid steps of the Pallas probes in
+    scripts/hw_probe_ztile.py (``probe`` at three z alignments and one
+    odd offset step, ``probe3``, ``probe23``, ``probe12``), applied in
+    order to one array each."""
+    cases = {}
+    for align in (128, 8, 120, 13):
+        cases[f'probe z {align}'] = ((6, 20, 32, 384), [
+            ((0, 0, 0, t * align), (6, 20, 32, 128))
+            for t in range((384 - 128) // align + 1)])
+    # probe3: dims 0 (chunks of 4), 2 (y-slabs of 16 at 8) and 3 together.
+    cases['probe3'] = ((32, 46, 64, 384), [
+        (((t * 2 + z) % 8 * 4, 0, t * 8, z * 128), (4, 46, 16, 256))
+        for t in range(7) for z in range(2)])
+    # probe23: dims 2 and 3, z tiles of 256 and 128 at 128.
+    cases['probe23'] = ((6, 34, 64, 384), [
+        ((0, 0, t * 8, z * 128), (6, 34, 16, tz))
+        for tz in (256, 128) for t in range(7)
+        for z in range((384 - tz) // 128 + 1)])
+    # probe12: dims 1 (clipped, unaligned) and 2 (y tiles of 64 at 56).
+    cases['probe12'] = ((6, 34, 264, 384), [
+        ((0, min(max(t * 4 - 1, 0), 28), y * 56, 0), (6, 6, 64, 384))
+        for t in range(8) for y in range(4)])
+    return cases
+
+
+def phase_probes(torch, launches):
+    """Phase 14 (see the module docstring): every probe checked against its
+    plain version (launches counted), then timed.  Returns the probes'
+    entries of the result line; ``launches`` are the probes' counts over
+    phases 4-13 (no path runs them)."""
+    from emg3d_tpu_torch.ops import probes
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(14)
+    probes.reset_launches()
+    # tile_copy: every probe's boxes in order, against the plain copy.
+    for case, (shape, boxes) in probe_boxes().items():
+        x = torch.randn(shape, device=dev, generator=g)
+        ref = x.clone()
+        for off, ln in boxes:
+            probes.tile_copy(x, off, ln)
+            probes.tile_copy_plain(ref, off, ln)
+        torch.cuda.synchronize()
+        if not torch.equal(x, ref):
+            raise AssertionError(f"tile_copy {case}: differs from plain")
+        log(f"tile_copy {case} {shape}: {len(boxes)} boxes (TMA box "
+            f"{probes.tile_box(boxes[0][1])}) bitwise equal to plain")
+        del x, ref
+    # smem_limit: the card's opt-in limit, and launches around it.
+    optin = probes.smem_optin()
+    table = []
+    for nbytes in (48 * 1024, 96 * 1024, 160 * 1024, optin, optin + 16):
+        err, attr, out = probes.smem_limit(nbytes)
+        ok = err == 0 and (int(out.item()) & 0xffffffff) == \
+            probes.smem_checksum(nbytes)
+        table.append((nbytes, err, ok))
+        log(f"smem_limit {nbytes} B: cudaFuncSetAttribute error {attr}, "
+            f"launch error {err}: " + ('refused' if err else
+                                       'sum equal to plain' if ok else
+                                       'WRONG SUM'))
+    if optin != 232448:
+        raise AssertionError(f"opt-in shared memory {optin}, not 232448")
+    if not all(ok for nbytes, _, ok in table if nbytes <= optin) or \
+            table[-1][1] == 0:
+        raise AssertionError(f"smem_limit: {table}")
+    # fbuf5d, rolllane/rollsub, dynslice(_al, _al12), station at ty=8,
+    # Zp=256.
+    f = torch.randn((64, 46, 8, 256), device=dev, generator=g)
+    if not torch.equal(probes.smem_sum(f, 8, 3),
+                       probes.smem_sum_plain(f, 8, 3)):
+        raise AssertionError("smem_sum differs from plain")
+    xr = torch.randn((8, 256), device=dev, generator=g)
+    for axis in (0, 1):
+        for shift in (1, 3, -5):
+            if not torch.equal(probes.tile_roll(xr, shift, axis),
+                               torch.roll(xr, shift, axis)):
+                raise AssertionError(f"tile_roll axis {axis} shift {shift}")
+    for ny, ty, starts in ((72, 8, [min(t * 6, 64) for t in range(4)]),
+                           (48, 16, [t * 8 for t in range(4)]),
+                           (48, 12, [t * 8 for t in range(4)])):
+        xs = torch.randn((6, 66, ny, 256), device=dev, generator=g)
+        y0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+        if not torch.equal(probes.dyn_slice(xs, y0, ty),
+                           probes.dyn_slice_plain(xs, y0, ty)):
+            raise AssertionError(f"dyn_slice ty {ty}: differs from plain")
+    xst = station_inputs(torch, (8, 256), dev, g)
+    zp = probes.station_solve_plain(xst)
+    st_err = float((probes.station_solve(xst) - zp).abs().max())
+    st_rel = st_err / float(zp.abs().max())
+    log(f"smem_sum, tile_roll (axes 0 and 1, shifts 1, 3, -5), dyn_slice (ty"
+        f" 8, 16, 12) bitwise equal to plain; station_solve (8, 256) max "
+        f"|Δ|/max|ref| {st_rel:.3e} against torch.linalg.solve (complex128)")
+    if not st_rel <= 1e-6:
+        raise AssertionError(f"station_solve: {st_rel:.3e} > 1e-6")
+    n = dict(probes.LAUNCHES)
+
+    # Timings (device ms per launch), beside the plain versions.
+    shape, boxes = probe_boxes()['probe12']
+    x = torch.zeros(shape, device=dev)
+    off, ln = boxes[5]
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        probes.smem_checksum(optin)
+    check_ms = (time.perf_counter() - t0)
+    box = tuple(slice(o, o + k) for o, k in zip(off, ln))
+    rows = (y0.clamp(0, xs.shape[2] - 12)[:, None]
+            + torch.arange(12, device=dev)).reshape(-1)
+    # (name, replaces, key, kernel, plain, (library call, what it is) or
+    # (None, why there is none), (bytes, flops), max|Δ|, extra keys); the
+    # library call, one PyTorch call that computes the function, is timed
+    # and used nowhere in the port.
+    timed = (
+        ('probe_tile_copy', 'scripts/hw_probe_ztile.py:46', 'tile_copy',
+         lambda: probes.tile_copy(x, off, ln),
+         lambda: probes.tile_copy_plain(x, off, ln),
+         (lambda: x[box].add_(1.0), 'x[box].add_(1.0)'),
+         (2 * 4 * int(np.prod(ln)), 0), 0.0,
+         {'box': list(ln), 'shape': list(shape),
+          'also_replaces': ['scripts/hw_probe_ztile.py:95',
+                            'scripts/hw_probe_ztile.py:134',
+                            'scripts/hw_probe_ztile.py:174']}),
+        ('probe_smem_limit', 'scripts/hw_probe_ztile.py:209', 'smem_limit',
+         lambda: probes.smem_limit(optin), None,
+         (None, 'none: no tensor input; the function is the card\'s '
+                'shared-memory opt-in'), (4, 0), 0.0,
+         {'optin_bytes': optin,
+          'largest_launched': max(b for b, _, ok in table if ok),
+          'refused': {str(b): e for b, e, _ in table if e},
+          'plain_is': 'smem_checksum on the host'}),
+        ('probe_smem_sum', 'scripts/hw_bisect_zp256.py:49', 'smem_sum',
+         lambda: probes.smem_sum(f, 8, 3),
+         lambda: probes.smem_sum_plain(f, 8, 3),
+         (lambda: f[:8, 3].sum(0), 'f[:8, 3].sum(0)'),
+         (4 * 8 * 8 * 256 + 4 * 8 * 256, 0), 0.0,
+         {}),
+        ('probe_tile_roll', 'scripts/hw_bisect_zp256.py:65', 'tile_roll',
+         lambda: probes.tile_roll(xr, 1, 1), lambda: torch.roll(xr, 1, 1),
+         (lambda: torch.roll(xr, 1, 1), 'torch.roll(x, 1, 1)'),
+         (2 * 4 * 8 * 256, 0), 0.0,
+         {'plain_is': 'torch.roll'}),
+        ('probe_dyn_slice', 'scripts/hw_bisect_zp256.py:84', 'dyn_slice',
+         lambda: probes.dyn_slice(xs, y0, 12),
+         lambda: probes.dyn_slice_plain(xs, y0, 12),
+         (lambda: xs.index_select(2, rows),
+          'x.index_select(2, rows), rows the clamped rows of y0 (built '
+          'outside the timing), out laid out (A, B, T·ty, Z)'),
+         (2 * 4 * 4 * 6 * 66 * 12 * 256, 0), 0.0,
+         {'also_replaces': ['scripts/hw_bisect_zp256.py:108']}),
+        ('probe_station_solve', 'scripts/hw_bisect_zp256.py:136',
+         'station_solve', lambda: probes.station_solve(xst),
+         lambda: probes.station_solve_plain(xst),
+         (None, 'none: no call takes packed LDLᵀ factors; '
+                'torch.linalg.solve needs the matrices assembled (the '
+                'plain version)'),
+         (4 * 50 * 8 * 256, 0), st_err, {}),
+    )
+    entries = []
+    for name, replaces, key, fn, plain, lib, work, err, extra in timed:
+        ms = _time_steps(torch, fn, per=1)
+        pms = check_ms if plain is None else _time_steps(torch, plain,
+                                                          per=1)
+        entries.append({'name': name, 'route': 'cuda', 'source': PROBE_SRC,
+                        'replaces': replaces, 'launches': launches[key],
+                        'probe_launches': n[key], 'max_abs_err': err,
+                        'ms': ms, 'plain_ms': pms, **bound(*work),
+                        'library_ms': None if lib[0] is None else
+                        _time_steps(torch, lib[0], per=1),
+                        'library_call': lib[1], **extra})
+    for e in entries:
+        lib = f"library {e['library_call']}" if e['library_ms'] is None \
+            else f"library {e['library_ms']:.4f} ({e['library_call']})"
+        log(f"probe {e['name']}: {e['launches']} launches in phases 4-13, "
+            f"{e['probe_launches']} in the checks, {e['ms']:.4f} ms per "
+            f"launch (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.6f}, "
+            f"{e['bound_by']}; {lib})")
+    return entries
+
+
+def station_inputs(torch, tile, dev, g):
+    """Random well-conditioned LDLᵀ factors and right-hand sides (40,
+    *tile) float32: |L| ≤ 0.2, dinv of modulus 0.5-1."""
+    def u(lo, hi, n):
+        return lo + (hi - lo) * torch.rand((n,) + tile, device=dev,
+                                           generator=g)
+    x = torch.empty((40,) + tile, device=dev)
+    x[0:20] = u(-0.2, 0.2, 20)
+    ang = u(-0.5, 0.5, 5)
+    mod = u(0.5, 1.0, 5)
+    x[20:30:2], x[21:30:2] = mod * torch.cos(ang), mod * torch.sin(ang)
+    x[30:40] = u(-1.0, 1.0, 10)
+    return x
+
+
+def lr128_entries(results, launches):
+    """The result line's entries for scripts/hw_bisect_lr128.py's two
+    cases, K3 and K4 built and launched apart at 128³: phase 3b's
+    readings of them alone at 128³, and their main-path launches."""
+    out = []
+    for key, line in (('line_residual', 43), ('line_thomas', 86)):
+        r = results[key]
+        work = {k: v for k, v in (
+            _colour_bound(LR128) if key == 'line_residual' else
+            bound(*thomas_work(LR128, 0))).items()
+            if k in ('bound_ms', 'bound_by')}
+        out.append({'name': f'{key}_128', 'route': 'cuda',
+                    'source': LINE_SRC,
+                    'replaces': f'scripts/hw_bisect_lr128.py:{line}',
+                    'launches': launches[key],
+                    'probe_launches': r['check_launches_128'],
+                    'max_abs_err': r['max_abs_err_128'],
+                    'ms': r['ms_128'], 'plain_ms': r['plain_ms_128'],
+                    **work, 'library_ms': None})
+    return out
 
 
 def main():
@@ -1565,7 +2268,7 @@ def main():
               "needs a CUDA card.", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from emg3d_tpu_torch.ops import line_gs, point_gs
+    from emg3d_tpu_torch.ops import line_gs, point_gs, probes
 
     results = {}
     with Phase('1 environment'):
@@ -1590,6 +2293,7 @@ def main():
                                 card_kernel)
     torch.cuda.empty_cache()
     point_gs.reset_launches()
+    probes.reset_launches()
     with Phase('4 main path: solve 64³ and '
                f'{"x".join(map(str, big))}, default kernels'):
         e4, info4, wall_cold = _solve(torch, grid, model, sfield)
@@ -1662,13 +2366,13 @@ def main():
     with Phase('8 sclr256: sc+lr standalone at 256³'):
         line_gs.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with LineStateClock() as clock:
+        with line_state_clock() as clock:
             e8, info8, wall8 = _solve(torch, *bench_problem((256,) * 3),
                                       **SCLR)
         del e8
         log(f"256³: it_mg {info8['it_mg']}, rel_error "
             f"{info8['rel_error']:.3e}, wall {wall8:.3f} s (first solve; "
-            f"{clock.seconds:.4f} s in {clock.builds} line-state builds), "
+            f"{clock.seconds:.4f} s in {clock.calls} line-state builds), "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"launches {dict(line_gs.LAUNCHES)}")
@@ -1682,10 +2386,22 @@ def main():
             f"{ip['it_mg']}, wall {wp:.3f} s; |Δ|/|e| {rel:.3e}")
         if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
             raise AssertionError("kernel and plain sc+lr solves differ")
+    out_dir = Path(__file__).resolve().parent / 'build' / 'chip_smoke'
+    out_dir.mkdir(parents=True, exist_ok=True)
     with Phase('10 Simulation 64³, sc+lr BiCGSTAB, 8 lanes'):
-        out_dir = Path(__file__).resolve().parent / 'build' / 'chip_smoke'
-        out_dir.mkdir(parents=True, exist_ok=True)
-        sim_launches = phase_simulation(torch, results, out_dir)
+        sim_launches, sim10, grad10 = phase_simulation(torch, results,
+                                                       out_dir)
+    with Phase('11 tdem64: time domain, 19 frequencies, one batched solve'):
+        tdem_launches = phase_tdem(torch, out_dir)
+    with Phase('12 diff64: autograd gradients, point and sc+lr'):
+        diff_launches = phase_diff(torch, out_dir)
+    with Phase('13 cli64: io and the command line'):
+        phase_cli(torch, sim10, grad10, out_dir)
+        del sim10, grad10
+    probe_launches = dict(probes.LAUNCHES)
+    with Phase('14 probes'):
+        probe_entries = phase_probes(torch, probe_launches) + \
+            lr128_entries(results, launches)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -1699,17 +2415,19 @@ def main():
         if key in pinned:
             entry['pinned_launches'] = pinned[key]
         entry['simulation_launches'] = sim_launches[key]
+        entry['tdem_launches'] = tdem_launches[key]
+        entry['diff_launches'] = {c: n[key] for c, n in diff_launches.items()}
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
         entry.update({k: v for k, v in r.items()
-                      if k.startswith('step') or k.endswith('_256')
+                      if k.startswith('step') or k[-4:] in ('_128', '_256')
                       or k.endswith('_large') or k.startswith('ms_')
                       or k.startswith('bound_ms_') or k.startswith('lanes')})
         kernels.append(entry)
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")
-    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'kernels': kernels, 'probes': probe_entries}))
     print(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

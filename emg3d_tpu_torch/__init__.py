@@ -12,9 +12,13 @@ relaxation, standalone or preconditioning BiCGSTAB, CGS or GCROT(m,k));
 ``solve_batched`` (many (source, frequency) pairs on one grid advanced
 together, plain multigrid, BiCGSTAB or CGS); ``Simulation`` over a
 ``Survey`` with its receivers, and the misfit and adjoint gradient of
-``optimize``.  Every entry point runs on CUDA unless it is given
-``device='cpu'`` (``Simulation``: ``solver_opts={'device': 'cpu'}``).
-Not ported yet: ``diff``, ``io``, ``time``, the CLI and ``parallel``.
+``optimize``; the time domain (``Fourier``, :mod:`.time`), files
+(:mod:`.io`, ``to_file``/``from_file``), the command line
+(``python -m emg3d_tpu_torch config.cfg -f``) and autograd through the
+solve (:mod:`.diff`, a ``torch.autograd.Function``).  Every entry point
+runs on CUDA unless it is given ``device='cpu'`` (``Simulation``:
+``solver_opts={'device': 'cpu'}``; the CLI: ``device = cpu`` in
+``[solver_opts]``).  Multi-GPU solves (``parallel``) are not ported.
 """
 __version__ = '0.1.0'
 
@@ -27,7 +31,8 @@ from .solver import solve, solve_batched
 from .surveys import Survey, Dipole, PointDipole
 from .simulations import Simulation, expand_grid_model
 from .utils import EMArray, Report
-from . import optimize
+from .time import Fourier
+from . import diff, io, optimize, time
 
 __all__ = [
     'TensorMesh', 'construct_mesh', 'good_mg_cell_nr', 'skin_depth',
@@ -36,5 +41,5 @@ __all__ = [
     'get_receiver_response', 'get_h_field',
     'grid2grid', 'interp3d',
     'solve', 'solve_batched', 'Survey', 'Dipole', 'PointDipole', 'Simulation',
-    'expand_grid_model', 'EMArray', 'Report', 'optimize',
+    'expand_grid_model', 'EMArray', 'Report', 'diff', 'io', 'optimize',
 ]

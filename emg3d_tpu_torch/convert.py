@@ -17,7 +17,7 @@ from .ops.smoothers import LINE_BKEYS, NLINE
 __all__ = ['params_to_torch', 'params_to_numpy', 'fields_to_torch',
            'fields_to_numpy', 'mesh_to_torch', 'mesh_to_numpy',
            'model_to_torch', 'model_to_numpy', 'line_factors_to_torch',
-           'line_factors_to_numpy']
+           'line_factors_to_numpy', 'pair_to_torch', 'tensor_to_pair']
 
 
 def _tensor(a, dtype, device):
@@ -118,3 +118,20 @@ def line_factors_to_numpy(fac, shape):
               for p in range(n)]
     return (planes[:10], planes[10:15],
             dict(zip(LINE_BKEYS, planes[15:])))
+
+
+def pair_to_torch(pair, device='cpu'):
+    """A split (re, im) pair as one complex128 tensor.
+
+    ``pair`` is the JAX package's ``cx.C2`` as numpy (anything with
+    ``re`` and ``im``) or a 2-tuple of real arrays.
+    """
+    re, im = (pair.re, pair.im) if hasattr(pair, 're') else pair
+    return torch.complex(_tensor(re, REAL, device), _tensor(im, REAL, device))
+
+
+def tensor_to_pair(t):
+    """A complex tensor (a field, or a gradient in PyTorch's convention
+    ∂L/∂Re + i·∂L/∂Im) as the JAX package's (re, im) numpy pair."""
+    a = t.detach().resolve_conj().cpu().numpy()
+    return np.ascontiguousarray(a.real), np.ascontiguousarray(a.imag)

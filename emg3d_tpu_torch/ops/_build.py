@@ -3,10 +3,13 @@
 The kernels in ``emg3d_tpu_torch/csrc/*.cu`` have a plain C interface,
 so they build in seconds with ``nvcc`` alone (no PyTorch headers): one
 ``nvcc -c`` per source, all started together, then one link into a
-shared library.  The library lands in ``build/emg3d_tpu_torch/`` beside
-the package, in a folder keyed by a hash of the sources and the flags,
-so an edited source rebuilds and an unchanged one is reused.  Nothing
-is compiled at import: the first kernel launch builds.
+shared library.  There are two libraries (``LIBRARIES``): the solve
+kernels, and the probes, which no solve path runs and which therefore
+build and load apart.  A library lands in ``build/emg3d_tpu_torch/``
+beside the package, in a folder keyed by a hash of its sources, the
+headers and the flags, so an edited source rebuilds and an unchanged
+one is reused.  Nothing is compiled at import: the first kernel launch
+builds.
 """
 import ctypes
 import hashlib
@@ -16,19 +19,19 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'build', 'ARGTYPES']
+__all__ = ['library', 'build', 'ARGTYPES', 'PROBE_ARGTYPES',
+           'LIBRARIES']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-LIBNAME = 'libemg3d_tpu_torch.so'
 
-_LIB = []   # the loaded library, once built
+_LIBS = {}   # the loaded libraries by name, once built
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# The C entry points of csrc/*.cu and their argument types; each
+# The C entry points of the solve library and their argument types; each
 # returns a cudaError_t as int.
 ARGTYPES = {
     'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
@@ -38,6 +41,23 @@ ARGTYPES = {
     'emg3d_line_residual': [_P] * 19 + [_I] * 15 + [_P],
     'emg3d_line_thomas': [_P] * 9 + [_I] * 15 + [_P],
     'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
+}
+# The same for the probe library (csrc/probes.cu).
+PROBE_ARGTYPES = {
+    'emg3d_probe_tile_copy': [_P] + [_I] * 16 + [_P],
+    'emg3d_probe_smem_limit': [_P, _I, _P, _P],
+    'emg3d_probe_smem_optin': [_P],
+    'emg3d_probe_smem_sum': [_P] * 2 + [_I] * 5 + [_P],
+    'emg3d_probe_tile_roll': [_P] * 2 + [_I] * 4 + [_P],
+    'emg3d_probe_dyn_slice': [_P] * 3 + [_I] * 5 + [_P],
+    'emg3d_probe_station_solve': [_P] * 2 + [_I, _P],
+}
+# name: (file name, sources in csrc/, entry points).
+LIBRARIES = {
+    'solve': ('libemg3d_tpu_torch.so', ('line_gs.cu', 'point_gs.cu'),
+              ARGTYPES),
+    'probes': ('libemg3d_tpu_torch_probes.so', ('probes.cu',),
+               PROBE_ARGTYPES),
 }
 
 
@@ -56,27 +76,29 @@ def _nvcc():
                        "kernels of emg3d_tpu_torch cannot be built.")
 
 
-def _sources():
-    srcs = sorted(CSRC.glob('*.cu'))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC}")
+def _sources(name='solve'):
+    srcs = [CSRC / f for f in LIBRARIES[name][1]]
+    missing = [p for p in srcs if not p.is_file()]
+    if missing:
+        raise RuntimeError(f"CUDA sources missing: {missing}")
     return srcs
 
 
-def build():
-    """Compile ``csrc/*.cu`` (if not yet built); return (path, log).
+def build(name='solve'):
+    """Compile library ``name``'s sources (if not yet built); return
+    (path, log).
 
     ``log`` is nvcc's output, with ptxas' register and spill report
     per kernel.
     """
-    srcs = _sources()
+    libname = LIBRARIES[name][0]
+    srcs = _sources(name)
     h = hashlib.sha256(' '.join(FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
-        if p.suffix in ('.cu', '.cuh'):
-            h.update(p.name.encode())
-            h.update(p.read_bytes())
+    for p in srcs + sorted(CSRC.glob('*.cuh')):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib = out_dir / LIBNAME
+    lib = out_dir / libname
     log = out_dir / 'nvcc.log'
     if lib.is_file():
         return lib, log.read_text() if log.is_file() else ''
@@ -92,7 +114,7 @@ def build():
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         outs = [p.communicate()[0] for p in procs]
-        so = os.path.join(tmp, LIBNAME)
+        so = os.path.join(tmp, libname)
         link = [nvcc, '-shared', '-o', so, *objs]
         text = ''.join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
         failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
@@ -108,14 +130,15 @@ def build():
     return lib, text
 
 
-def library():
-    """The loaded kernel library (built at first use), with argtypes set."""
-    if not _LIB:
-        path, _ = build()
+def library(name='solve'):
+    """The loaded library ``name`` (built at first use), with argtypes
+    set."""
+    if name not in _LIBS:
+        path, _ = build(name)
         lib = ctypes.CDLL(str(path))
-        for name, types in ARGTYPES.items():
-            fn = getattr(lib, name)
+        for entry, types in LIBRARIES[name][2].items():
+            fn = getattr(lib, entry)
             fn.argtypes = types
             fn.restype = _I
-        _LIB.append(lib)
-    return _LIB[0]
+        _LIBS[name] = lib
+    return _LIBS[name]

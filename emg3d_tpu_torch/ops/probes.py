@@ -1,0 +1,260 @@
+"""The Mosaic probes' counterparts on the card, with their plain versions.
+
+The JAX package's scripts/hw_probe_ztile.py and hw_bisect_zp256.py are
+Pallas kernels that probed which on-chip copies, layouts and scratch
+sizes Mosaic lowers.  ``csrc/probes.cu`` does the same work with the
+card's own means (the TMA and an mbarrier for ``make_async_copy``,
+dynamic shared memory past 48 KB, warp shuffles for ``pltpu.roll``,
+cp.async for dynamic slices); no solve path runs them.  Each wrapper
+takes its plain version for a CPU tensor and launches its kernel (or
+raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
+``chip_smoke.py``'s probe phase holds each kernel against its plain
+version at the shapes of the Pallas probes.
+"""
+import ctypes
+
+import torch
+
+__all__ = ['tile_copy', 'tile_copy_plain', 'tile_box', 'tile_span',
+           'smem_limit',
+           'smem_checksum', 'smem_optin', 'smem_sum', 'smem_sum_plain',
+           'tile_roll', 'dyn_slice', 'dyn_slice_plain', 'station_solve',
+           'station_solve_plain', 'LAUNCHES', 'reset_launches']
+
+LAUNCHES = {'tile_copy': 0, 'smem_limit': 0, 'smem_sum': 0,
+            'tile_roll': 0, 'dyn_slice': 0, 'station_solve': 0}
+# Bytes of one tile_copy box in shared memory (TMA boxes are ≤ 256 a dim).
+TILE_BYTES = 32 * 1024
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    from ._build import library
+    return library('probes')
+
+
+def _stream(t):
+    with torch.cuda.device(t.device):
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(t, ndim, name):
+    if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: a contiguous {ndim}-D float32 tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f"{name}: no version for {t.device}")
+
+
+def _raise(err, name, what):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: error {err} "
+                           f"({what})")
+    LAUNCHES[name] += 1
+
+
+def tile_box(lengths):
+    """The TMA box (b0..b3) of a sub-box of ``lengths`` (its z length
+    rounded out to 16 bytes, :func:`tile_span`): whole z runs up to 256
+    (a multiple of 4: 16-byte rows), then y rows, then x planes, within
+    TILE_BYTES."""
+    b3 = min(256, -(-lengths[3] // 4) * 4)
+    b2 = max(1, min(lengths[2], 256, TILE_BYTES // (4 * b3)))
+    b1 = max(1, min(lengths[1], 256, TILE_BYTES // (4 * b3 * b2)))
+    b0 = max(1, min(lengths[0], 256, TILE_BYTES // (4 * b3 * b2 * b1)))
+    return b0, b1, b2, b3
+
+
+def tile_span(offset, length, size):
+    """The z elements a tile_copy kernel moves for a sub-box's z range:
+    [offset, offset + length) rounded out to multiples of 4 (16 bytes;
+    the card refused boxes at other z offsets), within ``size``."""
+    return min(size, -(-(offset + length) // 4) * 4) - offset // 4 * 4
+
+
+def tile_copy(x, offsets, lengths):
+    """x[o0:o0+l0, …, o3:o3+l3] += 1 in place (``hw_probe_ztile``'s copy
+    +1 through on-chip memory); returns x.  ``x`` a contiguous 4-D
+    float32 tensor whose last dim is a multiple of 4."""
+    _check(x, 4, 'tile_copy')
+    for o, n, d in zip(offsets, lengths, x.shape):
+        if o < 0 or n < 1 or o + n > d:
+            raise ValueError(f"tile_copy: box {offsets} + {lengths} "
+                             f"outside {tuple(x.shape)}")
+    if x.device.type == 'cpu':
+        return tile_copy_plain(x, offsets, lengths)
+    if x.shape[3] % 4:
+        raise ValueError("tile_copy: the last dim must be a multiple of 4 "
+                         "(16-byte strides)")
+    box = tile_box((*lengths[:3], tile_span(offsets[3], lengths[3],
+                                            x.shape[3])))
+    err = _lib().emg3d_probe_tile_copy(
+        _ptr(x), *x.shape, *offsets, *lengths, *box, _stream(x))
+    _raise(err, 'tile_copy', f"box {offsets} + {lengths}")
+    return x
+
+
+def tile_copy_plain(x, offsets, lengths):
+    x[tuple(slice(o, o + n) for o, n in zip(offsets, lengths))] += 1.0
+    return x
+
+
+def smem_limit(nbytes, device='cuda'):
+    """Launch a kernel that fills and sums ``nbytes`` of dynamic shared
+    memory, after cudaFuncSetAttribute to ``nbytes``.  Returns
+    ``(launch_error, attribute_error, out)``: errors as cudaError_t (0
+    where the card took the size) and the kernel's int32 sum (None where
+    the launch was refused), whose low 32 bits are held against
+    :func:`smem_checksum`.  Card only: the question is the card's."""
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        raise ValueError("smem_limit probes a CUDA card's shared memory")
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    attr = ctypes.c_int(-1)
+    err = _lib().emg3d_probe_smem_limit(
+        _ptr(out), int(nbytes), ctypes.c_void_p(ctypes.addressof(attr)),
+        _stream(out))
+    if err != 0:
+        return err, attr.value, None
+    LAUNCHES['smem_limit'] += 1
+    return 0, attr.value, out
+
+
+def smem_checksum(nbytes):
+    """The plain version of :func:`smem_limit`'s sum: word i holds
+    i·2654435761 mod 2³², summed mod 2³²."""
+    n = nbytes // 4
+    return (2654435761 * (n * (n - 1) // 2)) & 0xffffffff
+
+
+def smem_optin(device='cuda'):
+    """The dynamic shared memory (bytes) a block of the card may opt in
+    to (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    with torch.cuda.device(torch.device(device)):
+        val = ctypes.c_int(0)
+        err = _lib().emg3d_probe_smem_optin(
+            ctypes.c_void_p(ctypes.addressof(val)))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: {err}")
+    return val.value
+
+
+def smem_sum(f, chx, plane):
+    """``hw_bisect_zp256``'s fbuf5d: out (ty, Zp) = Σ_{i<chx} f[i,
+    plane] of f (nx, NF, ty, Zp), through a 5-D shared buffer."""
+    _check(f, 4, 'smem_sum')
+    nx, nf, ty, zp = f.shape
+    if not (1 <= chx <= nx and 0 <= plane < nf):
+        raise ValueError(f"smem_sum: chx {chx}, plane {plane} for "
+                         f"{tuple(f.shape)}")
+    if f.device.type == 'cpu':
+        return smem_sum_plain(f, chx, plane)
+    out = torch.empty((ty, zp), dtype=f.dtype, device=f.device)
+    err = _lib().emg3d_probe_smem_sum(_ptr(out), _ptr(f), chx, nf, ty, zp,
+                                      plane, _stream(f))
+    _raise(err, 'smem_sum', f"shape {tuple(f.shape)}")
+    return out
+
+
+def smem_sum_plain(f, chx, plane):
+    acc = torch.zeros(f.shape[2:], dtype=f.dtype, device=f.device)
+    for i in range(chx):                   # the kernel's order: bitwise
+        acc = acc + f[i, plane]
+    return acc
+
+
+def tile_roll(x, shift, axis):
+    """``torch.roll(x, shift, axis)`` of a (ty, Zp) tile with warp
+    shuffles (``hw_bisect_zp256``'s rolllane/rollsub); its plain version
+    is ``torch.roll``."""
+    _check(x, 2, 'tile_roll')
+    if axis not in (0, 1):
+        raise ValueError(f"tile_roll: axis {axis}")
+    if x.device.type == 'cpu':
+        return torch.roll(x, shift, axis)
+    rows, cols = x.shape
+    if (axis == 1 and (cols % 32 or cols > 512)) or \
+            (axis == 0 and 32 % rows):
+        raise ValueError(f"tile_roll: no kernel plan for {tuple(x.shape)} "
+                         f"along {axis}")
+    out = torch.empty_like(x)
+    err = _lib().emg3d_probe_tile_roll(_ptr(out), _ptr(x), rows, cols,
+                                       int(shift), axis, _stream(x))
+    _raise(err, 'tile_roll', f"shape {tuple(x.shape)}, axis {axis}")
+    return out
+
+
+def dyn_slice(x, y0, ty):
+    """``hw_bisect_zp256``'s dynslice: out (T, A, B, ty, Z) with out[t] =
+    x[:, :, y:y+ty] for each first row y = y0[t] clamped into range,
+    ``y0`` an int32 tensor on x's device read by the kernel."""
+    _check(x, 4, 'dyn_slice')
+    if y0.dtype != torch.int32 or y0.dim() != 1 or y0.device != x.device:
+        raise ValueError("dyn_slice: y0 a 1-D int32 tensor on x's device")
+    a, b, ny, zp = x.shape
+    if not 1 <= ty <= ny:
+        raise ValueError(f"dyn_slice: ty {ty} for {ny} rows")
+    if x.device.type == 'cpu':
+        return dyn_slice_plain(x, y0, ty)
+    if zp % 4:
+        raise ValueError("dyn_slice: the last dim must be a multiple of 4")
+    out = torch.empty((y0.numel(), a, b, ty, zp), dtype=x.dtype,
+                      device=x.device)
+    err = _lib().emg3d_probe_dyn_slice(_ptr(out), _ptr(x), _ptr(y0),
+                                       y0.numel(), a * b, ny, ty, zp,
+                                       _stream(x))
+    _raise(err, 'dyn_slice', f"shape {tuple(x.shape)}, ty {ty}")
+    return out
+
+
+def dyn_slice_plain(x, y0, ty):
+    ny = x.shape[2]
+    return torch.stack([x[:, :, y:y + ty] for y in
+                        (min(max(int(v), 0), ny - ty) for v in y0.tolist())])
+
+
+def station_solve(x):
+    """``hw_bisect_zp256``'s station: z (10, ty, Zp) from x (40, ty, Zp),
+    the 5×5 complex-symmetric LDLᵀ substitution of
+    ``blocksolve.ldl_solve_factored`` per point (planes 2i, 2i+1 of x
+    the real and imaginary parts of complex entry i: L (0-9, strict
+    lower, row-major), dinv (10-14), y (15-19); of z those of the
+    solution)."""
+    _check(x, 3, 'station_solve')
+    if x.shape[0] != 40:
+        raise ValueError(f"station_solve: 40 planes, got {x.shape[0]}")
+    if x.device.type == 'cpu':
+        return station_solve_plain(x)
+    z = torch.empty((10,) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device=x.device)
+    err = _lib().emg3d_probe_station_solve(_ptr(z), _ptr(x),
+                                           x[0].numel(), _stream(x))
+    _raise(err, 'station_solve', f"shape {tuple(x.shape)}")
+    return z
+
+
+def station_solve_plain(x):
+    """Plain version: the matrix L·diag(1/dinv)·Lᵀ assembled per point
+    and solved by ``torch.linalg.solve`` in complex128; the solution
+    rounded to float32."""
+    c = torch.complex(x[0::2].double(), x[1::2].double())    # (20, ...)
+    pts = c.shape[1:]
+    c = c.reshape(20, -1).T                                  # (P, 20)
+    L = torch.eye(5, dtype=c.dtype, device=c.device).repeat(len(c), 1, 1)
+    k = 0
+    for i in range(1, 5):
+        for j in range(i):
+            L[:, i, j] = c[:, k]
+            k += 1
+    m = L @ torch.diag_embed(1.0 / c[:, 10:15]) @ L.transpose(1, 2)
+    z = torch.linalg.solve(m, c[:, 15:20]).T.reshape((5,) + tuple(pts))
+    return torch.stack([z.real, z.imag], 1).reshape(
+        (10,) + tuple(pts)).float()

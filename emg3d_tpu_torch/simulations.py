@@ -12,8 +12,6 @@ the reference:
   grids) are solved from ``max_workers`` host threads.
 - Survey data lives in the in-house DataView (no xarray).
 - The solves run on CUDA unless ``solver_opts={'device': 'cpu'}``.
-- Files (``to_file``/``from_file``) need the io module, which is not
-  ported yet: they raise ``NotImplementedError``.
 """
 import itertools
 from copy import deepcopy
@@ -23,11 +21,6 @@ import numpy as np
 from . import fields, meshes, models, optimize, solver
 
 __all__ = ['Simulation', 'expand_grid_model', 'estimate_gridding_opts']
-
-_NO_IO = ("files (to_file/from_file) need emg3d_tpu_torch.io, which is not "
-          "ported yet (ROADMAP queue 1, item 5: io, time, cli); use "
-          "to_dict/from_dict")
-
 
 class Simulation:
     """Forward modelling of an entire survey on a model.
@@ -641,12 +634,18 @@ class Simulation:
 
     def to_file(self, fname, what='computed', name='simulation',
                 **kwargs):
-        """Save to file: needs the io module, not ported yet."""
-        raise NotImplementedError(_NO_IO)
+        from . import io
+        kwargs[name] = self.to_dict(what=what)
+        kwargs['collect_classes'] = False
+        io.save(fname, **kwargs)
 
     @classmethod
     def from_file(cls, fname, name='simulation', **kwargs):
-        raise NotImplementedError(_NO_IO)
+        from . import io
+        out = io.load(fname, **kwargs)[name]
+        if isinstance(out, dict):
+            return cls.from_dict(out)
+        return out
 
     # -- info printing --------------------------------------------------
 

@@ -15,12 +15,6 @@ import numpy as np
 
 __all__ = ['Survey', 'Dipole', 'PointDipole']
 
-# File io (emg3d_tpu/io.py) comes with a later slice of the port.
-_NO_IO = ("files (to_file/from_file) need emg3d_tpu_torch.io, which is not "
-          "ported yet (ROADMAP queue 1, item 5: io, time, cli); use "
-          "to_dict/from_dict")
-
-
 class DataView(dict):
     """dict of named data arrays with attribute access (xarray-lite)."""
 
@@ -324,12 +318,16 @@ class Survey:
             raise KeyError(f"Variable {e} missing in `inp`.") from e
 
     def to_file(self, fname, name='survey', **kwargs):
-        """Save survey to file: needs the io module, not ported yet."""
-        raise NotImplementedError(_NO_IO)
+        """Save survey to file (h5/npz/json via emg3d_tpu_torch.io)."""
+        from . import io
+        kwargs[name] = self
+        kwargs['collect_classes'] = False
+        io.save(fname, **kwargs)
 
     @classmethod
     def from_file(cls, fname, name='survey', **kwargs):
-        raise NotImplementedError(_NO_IO)
+        from . import io
+        return io.load(fname, **kwargs)[name]
 
     # -- dipole parsing (reference parity: surveys.py:709-821) ----------
 

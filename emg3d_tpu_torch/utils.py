@@ -2,7 +2,7 @@
 
 Counterpart of ``emg3d_tpu/utils.py``.  ``Report`` lists the torch and
 CUDA versions and devices instead of JAX's.  The time-domain
-``Fourier`` machinery is not part of the port yet.
+``Fourier`` machinery lives in :mod:`emg3d_tpu_torch.time`.
 """
 import warnings
 from datetime import datetime, timezone
@@ -103,3 +103,8 @@ class Report:
 
 def _process_warning(msg):
     warnings.warn(msg, UserWarning)
+
+
+# Reference-parity alias: the reference exposes the time-domain driver
+# as utils.Fourier (emg3d/utils.py:189); ours lives in .time.
+from .time import Fourier  # noqa: E402,F401

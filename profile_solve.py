@@ -68,9 +68,9 @@ def main(argv=None):
         print("profile_solve: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (KERNELS, LineStateClock, bench_problem,
-                            kernel_key, nvidia_smi, simulation_problem,
-                            trace_times)
+    from chip_smoke import (KERNELS, bench_problem, kernel_key,
+                            line_state_clock, nvidia_smi,
+                            simulation_problem, trace_times)
     from emg3d_tpu_torch import get_source_field, solve, solve_batched
     from emg3d_tpu_torch.ops import line_gs, point_gs
 
@@ -106,7 +106,7 @@ def main(argv=None):
 
     for _ in range(2):
         timed()
-    with LineStateClock() as clock:
+    with line_state_clock() as clock:
         wall, info = timed()
     if args.compare_plans:
         walls = {'K1 forced': [], 'point_kernel': []}
@@ -143,7 +143,7 @@ def main(argv=None):
     print(f"device busy {busy:.4f} s over {nev} device events; "
           f"idle share {1 - busy / wall_prof:.4f}")
     print(f"smoother launches {launches}; line-state builds "
-          f"{clock.seconds:.4f} s ({clock.builds} builds) of the "
+          f"{clock.seconds:.4f} s ({clock.calls} builds) of the "
           f"unprofiled warm wall")
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     copies = [kv for kv in ranked if kv[0].startswith('[')]

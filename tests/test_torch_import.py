@@ -23,9 +23,11 @@ def test_import_without_jax():
         "import sys\n"
         "import emg3d_tpu_torch\n"
         "from emg3d_tpu_torch import solve, convert, surveys, simulations, "
-        "optimize\n"
+        "optimize, diff, io, time\n"
+        "from emg3d_tpu_torch.cli import main, parser, run\n"
+        "import emg3d_tpu_torch.__main__\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
-        "smoothers\n"
+        "smoothers, probes\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
@@ -42,6 +44,11 @@ def test_no_module_imports_jax_or_emg3d_tpu():
     files = sorted(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py',
                                           REPO / 'profile_solve.py']
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    for mod in ('diff.py', 'io.py', 'time.py', '__main__.py',
+                'cli/__init__.py', 'cli/main.py', 'cli/parser.py',
+                'cli/run.py', 'ops/probes.py'):
+        assert f'emg3d_tpu_torch/{mod}' in names, mod
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -64,7 +71,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_unported_options_raise():
     """Options of modules still to port name their slice; sslsolver
-    'gcrotmk' is ported and solves."""
+    'gcrotmk' is ported and solves.  (Files, once refused here, are
+    ported: tests/test_torch_io.py.)"""
     grid, model, sfield = _tiny_problem()
     with pytest.raises(NotImplementedError, match='parallel/.*item 6'):
         pt.solve(grid, model, sfield, verb=0, device='cpu',
@@ -74,14 +82,6 @@ def test_unported_options_raise():
     _, info = pt.solve(grid, model, sfield, verb=0, device='cpu',
                        sslsolver='gcrotmk', return_info=True)
     assert info['exit_message'] == 'CONVERGED' and info['it_ssl'] > 0
-    survey = pt.Survey('s', (0, 0, 0, 0, 0), (100, 0, 0, 0, 0), 1.0)
-    sim = pt.Simulation('s', survey, grid, model, gridding='same',
-                        solver_opts={'device': 'cpu'})
-    for call in (lambda: sim.to_file('s.h5'),
-                 lambda: pt.Simulation.from_file('s.h5'),
-                 lambda: survey.to_file('s.h5')):
-        with pytest.raises(NotImplementedError, match='io.*item 5'):
-            call()
 
 
 def test_profile_writes_trace(tmp_path):
@@ -104,12 +104,12 @@ def test_prebuilt_vmodel():
 
 
 def test_exports_every_ported_name():
-    """Each name of the JAX package's ``__all__`` whose module is ported
-    is exported by the port; ``cx`` (the TPU's split complex pairs) is
-    not carried over, ``diff`` and ``io`` are still to port."""
+    """Each name of the JAX package's ``__all__`` is exported by the
+    port but ``cx`` (the TPU's split complex pairs, not carried over)."""
     jt = pytest.importorskip('emg3d_tpu')
     missing = set(jt.__all__) - set(pt.__all__)
-    assert missing == {'cx', 'diff', 'io'}
+    assert missing == {'cx'}
+    assert pt.Fourier is pt.time.Fourier
     for name in pt.__all__:
         assert getattr(pt, name) is not None
 
