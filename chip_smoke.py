@@ -124,7 +124,33 @@ Phases:
    with N bytes of it up to and beyond that limit, ``smem_sum``,
    ``tile_roll``, ``dyn_slice`` and ``station_solve`` at ty=8, Zp=256,
    each bitwise equal to its plain version (``station_solve`` within
-   1e-6 of ``torch.linalg.solve``), then timed.
+   1e-6 of ``torch.linalg.solve``), then timed;
+15. "complex64", the solve in the precision of the JAX package's
+   production path (a complex64 source): (a) each kernel's complex64
+   instance against its complex64 plain version at 16³, 64³ and 256³
+   (K1 and K2 single colour steps and, below 256³, a nu=1 call under the
+   chosen plan, at 256³ the step plan on colours 0 and 7; K5's stack, K3
+   on every colour, K4 on colours 0 and 3; lines along x), both held to
+   the float64 evaluation of the same float32 inputs: the kernel within
+   max(TOL_C64, 2·ep) of it and of the plain version, ep the plain
+   version's distance from it, each at its worst over the shape's calls
+   (:func:`_check_c64`; the readings per shape in ``checks_c64``); timed
+   at 64³ and 256³ beside the complex128 times and the bounds at the
+   element size and the fp32 peak; K6 (``residual_ds``) at 64³ and 256³
+   on a near-converged level (s = fl32(A64·(hi + lo))):
+   within TOL_DS of its plain version, within TOL_DS_F64·‖r‖ of the
+   float64 residual of the same float32 operator, timed beside plain;
+   (b) the main path in complex64 (counters reset before, read after:
+   ``launches_c64``): bench64 cold and warm (CONVERGED, rel_error below
+   1e-6, hi + lo returned in complex128 within TOL_C64_FIELD of phase 4's
+   field), sclr64 BiCGSTAB (against phase 7's field), sclr256
+   standalone (peak memory beside phase 8's) and sim64's 8 pairs as
+   complex64 sources through one ``solve_batched`` (every lane
+   CONVERGED, responses within TOL_C64_FIELD of a complex128 solve at
+   tol 1e-10); bench64, sclr64 and sim64 each timed in turns with their
+   complex128 solves (a cold complex64 run, then three warm pairs); (c)
+   16³ complex64 solves through the kernels and ``_mode='plain'``, point
+   and sc+lr: the same exit, it_mg ±1, fields within TOL_C64_FIELD.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -143,7 +169,11 @@ on no path: their counters are reset with the point kernels' before
 phase 4 and read just before phase 14, and those counts (0 unless a
 path ran a probe) are ``launches`` of their entries, under ``probes`` in
 the same line, beside the launches of their checks
-(``probe_launches``).  The two entries of scripts/hw_bisect_lr128.py
+(``probe_launches``).  Phase 15's complex64 main path is counted apart:
+``launches_c64`` of each kernel, with its complex64 times (``ms_c64``,
+``bound_ms_c64`` at 64³, ``..._256`` at 256³) and ``max_abs_err_c64``;
+K6, on the complex64 path only, has an entry of its own
+(``residual_ds``, launches = its complex64 count).  The two entries of scripts/hw_bisect_lr128.py
 (K3 and K4 alone at 128³, phase 3b) carry K3's and K4's ``launches``
 of the main path.  Each kernel's ``bound_ms`` is the least time the card could take for the
 timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
@@ -168,6 +198,19 @@ import numpy as np
 
 TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
 TOL_SOLVE = 1e-9       # relative field difference between two solves
+# Phase 15 (complex64): a kernel's float32 result against the float64
+# evaluation of the same float32 inputs and against its plain version
+# (max|Δ|/max|e|; where the data's conditioning amplifies float32
+# rounding above it, each within twice the plain version's own distance
+# from float64: _check_c64), a complex64 solve's field against another
+# solve's, and K6's double-single residual: its plain version's (bit for
+# bit in practice) and the float64 evaluation of the same operator
+# (tests/test_dsres.py:109).
+TOL_C64 = 1e-5
+TOL_C64_FIELD = 2e-5
+TOL_DS = 1e-12
+TOL_DS_F64 = 3e-7
+C64_SHAPES = ((16, 16, 16), (64, 64, 64), (256, 256, 256))
 SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (8, 8, 8), (16, 16, 16),
           (32, 32, 32), (64, 48, 48), (64, 64, 64), (128, 128, 128))
 # K3's slab geometries timed at 64³ and 256³: (line rows, z-lines,
@@ -200,6 +243,9 @@ KERNELS = {
     'line_factor': dict(name='line_factor', source=LINE_SRC,
                         replaces='emg3d_tpu/ops/pallas_lr.py:356'),
 }
+# K6, the complex64 path's double-single residual (XLA on the TPU).
+DSRES = dict(name='residual_ds', source='emg3d_tpu_torch/csrc/dsres.cu',
+             replaces='emg3d_tpu/ops/dsres.py:170')
 # The point kernels' step plan timed at sizes beyond SHAPES: 256³ (both
 # kernels) and the finest level of the 512×384×384 hierarchy (K2 only:
 # K1's factors there exceed FACTOR_SHARE of the card).
@@ -207,9 +253,10 @@ POINT_LARGE = ((256, 256, 256), (512, 384, 384))
 # K5's block sizes (threads, one line each) timed by factor_plans.
 FACTOR_BLOCKS = (32, 64, 128, 256)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): memory
-# bandwidth, and fp64 outside the tensor cores.
+# bandwidth, and fp64 and fp32 outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP64 = 34e12
+PEAK_FP32 = 67e12
 # Cycles per second of torch.cuda._sleep's spin (the H100's highest SM
 # clock; a lower clock only spins longer).
 SPIN_HZ = 1.98e9
@@ -233,7 +280,9 @@ DIFF_FD_CELLS = ((8, 8, 8), (10, 8, 8), (6, 9, 7))
 PROBE_SRC = 'emg3d_tpu_torch/csrc/probes.cu'
 # The trace's names of the point kernels' instances (demangled or not):
 # the last template argument is the kernel, 0 for K1, 1-2 for K2.
-POINT_KERNEL_NAME = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)>|step<(\d)>|'
+# Each instance also names its real type (double, float) last.
+POINT_KERNEL_NAME = re.compile(r'point_gs_(?:sweep<\d+, ?(\d)[,>]|'
+                               r'step<(\d)[,>]|'
                                r'sweepILi\dELi(\d)E|stepILi(\d)E)')
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
@@ -330,10 +379,12 @@ def _level(shape, seed, device, factored=True):
     return state, rand(), rand()
 
 
-def _level_fast(shape, seed, device, factored=True):
+def _level_fast(shape, seed, device, factored=True, dtype=None):
     """Level tensors of a random stretched anisotropic model, made on
     the card (the sizes where numpy on the host would take minutes):
-    η = −iωμ0·V·σ at 1 Hz, ζ = V, widths 50-150 m, σ 1/30-1/0.3 S/m."""
+    η = −iωμ0·V·σ at 1 Hz, ζ = V, widths 50-150 m, σ 1/30-1/0.3 S/m;
+    made in complex128/float64 and, for ``dtype`` complex64, rounded
+    once to complex64/float32 (fields too)."""
     import torch
     from emg3d_tpu_torch.ops import point_gs
     g = torch.Generator(device=device).manual_seed(seed)
@@ -346,6 +397,10 @@ def _level_fast(shape, seed, device, factored=True):
     smu0 = -2j * math.pi * 4e-7 * math.pi
     eta = tuple(smu0 * vol / uni(0.3, 30, *shape) for _ in range(3))
     arrays = eta + (vol, *h)
+    c64 = dtype == torch.complex64
+    if c64:
+        arrays = tuple(a.to(torch.complex64 if a.is_complex()
+                            else torch.float32) for a in arrays)
     nx, ny, nz = shape
     edges = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
              (nx + 1, ny + 1, nz))
@@ -353,7 +408,7 @@ def _level_fast(shape, seed, device, factored=True):
     def rand():
         return tuple(torch.complex(torch.randn(*sh, **real),
                                    torch.randn(*sh, **real))
-                     for sh in edges)
+                     .to(dtype or torch.complex128) for sh in edges)
     state = point_gs.point_state(arrays, shape, factored=factored)
     return state, rand(), rand()
 
@@ -366,19 +421,21 @@ def _maxabs(a):
     return max(float(x.abs().max()) for x in a)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_FP64):
     """bound_ms and bound_by of a call that must move ``nbytes`` and do
-    ``flops`` fp64 operations."""
-    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FP64
+    ``flops`` operations at ``peak`` per second (fp64 by default)."""
+    tb, tf = nbytes / PEAK_BYTES, flops / peak
     return {'bound_ms': max(tb, tf) * 1e3,
             'bound_by': 'bytes' if tb >= tf else 'operations'}
 
 
 # Work of one call of each kernel: bytes with each input read once and
-# each output written once; fp64 operations counting a complex product
-# as 6, a complex sum as 2 and a complex reciprocal as 7.
+# each output written once; operations counting a complex product as 6,
+# a complex sum as 2 and a complex reciprocal as 7.  ``size`` is the
+# complex element's bytes (16: complex128, 8: complex64; a real one is
+# half), the operations are in its precision.
 
-def point_work(shape, mode):
+def point_work(shape, mode, size=16):
     """(bytes, flops) of one point colour step, the mean of 8 colours.
 
     Per active node: the six block edges' e read and written, s read,
@@ -392,11 +449,11 @@ def point_work(shape, mode):
     nodes = sum(int(np.prod(point_gs.launch_geometry(shape, c)[1]))
                 for c in range(8)) / 8
     if mode == 'factored':
-        return nodes * 44 * 16, nodes * 730
-    return nodes * (24 * 16 + 12 * 8), nodes * 1590
+        return nodes * 44 * size, nodes * 730
+    return nodes * (24 * size + 12 * size // 2), nodes * 1590
 
 
-def residual_work(shape):
+def residual_work(shape, size=16):
     """(bytes, flops) of K3: e and s read and r written on every edge,
     η edge sums and ζ face weights read; ~76 FLOP per interior edge."""
     nx, ny, nz = shape
@@ -405,10 +462,10 @@ def residual_work(shape):
     inner = ((nx * (ny - 1) * (nz - 1)) + (nx - 1) * ny * (nz - 1)
              + (nx - 1) * (ny - 1) * nz)
     faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
-    return 3 * edges * 16 + inner * 16 + faces * 8, inner * 76
+    return 3 * edges * size + inner * size + faces * size // 2, inner * 76
 
 
-def colour_residual_work(shape, color):
+def colour_residual_work(shape, color, size=16):
     """(bytes, flops) of K3 on one colour of a rotated level: r written,
     s and η edge sums read at the colour's edges
     (``line_gs.colour_edges``), and every e value and ζ face weight
@@ -439,10 +496,10 @@ def colour_residual_work(shape, color):
         a |= b
     reads = int(ex.sum() + ey.sum() + ez.sum())
     faces = int(f1.sum() + f2.sum() + f3.sum())
-    return 3 * n * 16 + reads * 16 + faces * 8, n * 76
+    return 3 * n * size + reads * size + faces * size // 2, n * 76
 
 
-def thomas_work(shape, color):
+def thomas_work(shape, color, size=16):
     """(bytes, flops) of K4 on one colour: per line and station 23
     factors, and 5 residuals read and 5 field values read and written
     (1 at the last station); ~530 FLOP per line-station."""
@@ -450,11 +507,11 @@ def thomas_work(shape, color):
     nx = shape[0]
     g = line_gs.launch_geometry(shape, color)
     lines = g.counts[0] * g.counts[1]
-    return (lines * (23 * nx + 3 * (5 * (nx - 1) + 1)) * 16,
+    return (lines * (23 * nx + 3 * (5 * (nx - 1) + 1)) * size,
             lines * nx * 530)
 
 
-def factor_work(shape):
+def factor_work(shape, size=16):
     """(bytes, flops) of K5 on a rotated level: the η sums, ζ weights
     and inverse widths of the level read once, and the 23 planes of
     every line-station written once; ~430 FLOP at station 0 (the LDLᵀ),
@@ -465,9 +522,31 @@ def factor_work(shape):
     sums = (nx * (ny - 1) * (nz - 1) + (nx - 1) * ny * (nz - 1)
             + (nx - 1) * (ny - 1) * nz)
     faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
-    return ((sums * 16 + (faces + nx + ny + nz) * 8
-             + lines * nx * 23 * 16),
+    return ((sums * size + (faces + nx + ny + nz) * size // 2
+             + lines * nx * 23 * size),
             lines * (430 + 1550 * (nx - 1) + 100 * nx))
+
+
+def dsres_work(shape, lanes=1):
+    """(bytes, flops) of the double-single residual on a level: hi, lo
+    and s read and r written at every edge (complex64), the η sums, ζ
+    weights and widths read once.  Float32 operations (a two-sum 6, a
+    double-single add 14, a coefficient product 11 with its fma as 2):
+    150 per ζ-weighted face curl, each face an interior edge takes
+    counted once (two double-single differences, three coefficient
+    products, one difference), and 310 per interior edge (the second
+    curl of its four faces, the η term, s − A·e, the fold).  K6 itself
+    recomputes every face for each of its four edges (910 per edge);
+    the bound counts what the function needs."""
+    nx, ny, nz = shape
+    edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
+             + (nx + 1) * (ny + 1) * nz)
+    inner = ((nx * (ny - 1) * (nz - 1)) + (nx - 1) * ny * (nz - 1)
+             + (nx - 1) * (ny - 1) * nz)
+    faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
+    used = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    return (lanes * (4 * edges * 8 + inner * 8) + (faces + nx + ny + nz) * 4,
+            lanes * (used * 150 + inner * 310))
 
 
 def factor_work_packed(shape):
@@ -947,13 +1026,15 @@ def residual_plans(torch, st, e, s, reps, geometries=RES_GEOMETRIES):
             f"{gs[0].smem_bytes} B shared; bitwise equal to the default")
 
 
-def _colour_bound(shape):
+def _colour_bound(shape, size=16, peak=PEAK_FP64):
     """K3's bound_ms averaged over the four colours, its bound_by, and
     the whole level's bound_ms (``bound_ms_full``)."""
-    work = [bound(*colour_residual_work(shape, c)) for c in range(4)]
+    work = [bound(*colour_residual_work(shape, c, size), peak)
+            for c in range(4)]
     return {'bound_ms': sum(w['bound_ms'] for w in work) / 4,
             'bound_by': work[0]['bound_by'],
-            'bound_ms_full': bound(*residual_work(shape))['bound_ms']}
+            'bound_ms_full': bound(*residual_work(shape, size),
+                                   peak)['bound_ms']}
 
 
 def _time_line_64(torch, res, shape, st, e0, s, er, sr, rp):
@@ -1283,7 +1364,8 @@ def line_state_clock():
 
 
 def phase_sclr64(torch, grid, model, sfield):
-    """The production path, cold (launches counted) then warm."""
+    """The production path, cold (launches counted) then warm.  Returns
+    the launches and the cold BiCGSTAB solve's field."""
     from emg3d_tpu_torch.ops import line_gs
     runs = (('standalone', False), ('bicgstab', True), ('cgs', 'cgs'))
     line_gs.reset_launches()
@@ -1307,7 +1389,7 @@ def phase_sclr64(torch, grid, model, sfield):
             f"{cclock.calls} line-state builds), warm wall {warm:.3f} s "
             f"({clock.seconds:.4f} s in {clock.calls} builds; it_mg "
             f"{winfo['it_mg']})")
-    return launches
+    return launches, cold['bicgstab'][0]
 
 
 def kernel_key(name):
@@ -2261,6 +2343,524 @@ def lr128_entries(results, launches):
     return out
 
 
+def _c64_source(sf):
+    """A SourceField of the port in complex64."""
+    from emg3d_tpu_torch import SourceField
+    return SourceField(*(np.asarray(getattr(sf, c)).astype(np.complex64)
+                         for c in ('fx', 'fy', 'fz')),
+                       frequency=sf._frequency)
+
+
+def _rel_max(out, ref):
+    """(max|Δ|/max|ref|, max|Δ|) of two component sequences."""
+    d = _maxdiff(out, ref)
+    return d / _maxabs(ref), d
+
+
+def _up(t):
+    """A complex64/float32 tensor (or None, or a tuple of them) cast
+    exactly to complex128/float64."""
+    import torch
+    if t is None:
+        return None
+    if isinstance(t, (tuple, list)):
+        return tuple(_up(x) for x in t)
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
+def _upcast_state(state):
+    """A point or line state with every tensor cast exactly to
+    complex128/float64: the plain version on it is the float64
+    evaluation of the float32 inputs."""
+    return state._replace(**{k: _up(getattr(state, k)) for k in
+                             ('arrays', 'st', 'w', 'ih', 'factors', 'nodes')
+                             if getattr(state, k, None) is not None})
+
+
+def _check_c64(name, shape, triples, tol=TOL_C64):
+    """Each triple: a complex64 kernel's result, its complex64 plain
+    version's and the float64 evaluation of the same float32 inputs
+    (component sequences), all read as max|Δ|/max|ref| and taken at
+    their worst over the triples.  The plain version's distance from the
+    float64 result, ``ep``, is what float32 rounding costs on these
+    inputs; the kernel rounds in another order, so it may land as far on
+    the other side.  It passes where both its distance from the float64
+    result and its distance from the plain version are within
+    max(``tol``, 2·ep).  Logs the three readings and returns
+    ``(max|kernel − plain|, readings)``."""
+    worst = {'kernel_f64': 0.0, 'plain_f64': 0.0, 'kernel_plain': 0.0}
+    dmax = 0.0
+    for k, p, x in triples:
+        m, d = _maxabs(x), _maxdiff(k, p)
+        for key, v in (('kernel_f64', _maxdiff(k, x) / m),
+                       ('plain_f64', _maxdiff(p, x) / m),
+                       ('kernel_plain', d / m)):
+            worst[key] = max(worst[key], v)
+        dmax = max(dmax, d)
+    log(f"{name} complex64 {shape}: max|Δ|/max|ref| against the float64 "
+        f"evaluation: kernel {worst['kernel_f64']:.3e}, plain "
+        f"{worst['plain_f64']:.3e}; kernel against plain "
+        f"{worst['kernel_plain']:.3e}")
+    limit = max(tol, 2 * worst['plain_f64'])
+    if not (worst['kernel_f64'] <= limit and worst['kernel_plain'] <= limit):
+        raise AssertionError(f"{name} complex64 {shape}: beyond the limit "
+                             f"{limit:.3e}")
+    return dmax, worst
+
+
+def _record_c64(res, shape, checked):
+    """Adds a _check_c64 result to a kernel's entry: the largest
+    max|kernel − plain| and the readings per shape (``checks_c64``)."""
+    dmax, worst = checked
+    res['max_abs_err_c64'] = max(res.get('max_abs_err_c64', 0.0), dmax)
+    res.setdefault('checks_c64', {})['x'.join(map(str, shape))] = worst
+
+
+def _c64_point(torch, results, shape, dev):
+    """K1 and K2 in complex64 against their plain versions at ``shape``
+    (:func:`_check_c64`): single colour steps and (below 256³) a nu=1
+    call under the chosen plan; at 256³ the step plan on colours 0 and
+    7.  Times at 64³ (ms per colour step, chosen plan) and 256³ (step
+    plan)."""
+    from emg3d_tpu_torch.ops import point_gs
+    c64 = torch.complex64
+    big = shape == C64_SHAPES[-1]
+    gs = point_gs.gauss_seidel_point
+    plain = point_gs.gauss_seidel_point_plain
+    for mode in POINT_MODES:
+        res = results[mode]
+        if mode == 'factored' and not point_gs.factors_fit(shape, dev, c64):
+            continue
+        state, e0, s = _level_fast(shape, seed=sum(shape) + 15, device=dev,
+                                   factored=mode == 'factored', dtype=c64)
+        state64 = _upcast_state(state)
+        plan = 'step' if big else None
+        calls = [(1, (c,)) for c in ((0, 7) if big else range(8))]
+        if not big:
+            calls.append((1, None))
+        triples = []
+        for nu, seq in calls:
+            ref = _clone(e0)
+            plain(ref, s, state, nu, _mode=mode, _seq=seq)
+            ref64 = _up(e0)
+            plain(ref64, _up(s), state64, nu, _mode=mode, _seq=seq)
+            out = _clone(e0)
+            gs(out, s, state, nu, _mode=mode, _seq=seq, _plan=plan)
+            torch.cuda.synchronize()
+            triples.append((out, ref, ref64))
+        _record_c64(res, shape, _check_c64(KERNELS[mode]['name'], shape,
+                                           triples))
+        del triples, state64
+        ek = _clone(e0)
+        if shape == (64, 64, 64):
+            p = point_gs.sweep_plan(shape, 3, kernel=mode, dtype=c64)
+            res['ms_c64'] = _time_steps(torch, lambda: gs(
+                ek, s, state, 3, _mode=mode), reps=20, per=p.steps)
+            b = bound(*point_work(shape, mode, 8), PEAK_FP32)
+            res['bound_ms_c64'] = b['bound_ms']
+            log(f"{KERNELS[mode]['name']} complex64 64³: {res['ms_c64']:.4f}"
+                f" ms per colour step ({p.plan} plan; complex128 "
+                f"{res['ms']:.4f}), bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}), {b['bound_ms'] / res['ms_c64']:.0%} of "
+                f"it")
+        elif big:
+            ms = _time_steps(torch, lambda: gs(ek, s, state, 1, _mode=mode,
+                                               _plan='step'),
+                             reps=5, per=8, warm=1)
+            b = bound(*point_work(shape, mode, 8), PEAK_FP32)
+            res['ms_c64_256'] = ms
+            res['bound_ms_c64_256'] = b['bound_ms']
+            log(f"{KERNELS[mode]['name']} complex64 {shape}, step plan: "
+                f"{ms:.4f} ms per colour step, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}), {b['bound_ms'] / ms:.0%} of it")
+        del state, e0, s, ek
+        torch.cuda.empty_cache()
+
+
+def _residual_triple(torch, st, st64, e, s, color):
+    """K3 on one colour into a NaN-filled buffer (twice, bitwise equal,
+    the plain version's entries NaN and no others), beside the plain
+    version in complex64 and in float64, at the colour's edges."""
+    from emg3d_tpu_torch.ops import line_gs
+    outs = [line_gs.residual(e, s, st, color, _nan_like(e))
+            for _ in range(2)]
+    ref = line_gs.residual_plain(e, s, st, color, _nan_like(e))
+    ref64 = line_gs.residual_plain(_up(e), _up(s), st64, color,
+                                   _nan_like(_up(e)))
+    torch.cuda.synchronize()
+    for a, b, p in zip(*outs, ref):
+        if not (torch.equal(torch.isnan(a), torch.isnan(p))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
+            raise AssertionError(f"line_residual complex64 {st.shape} "
+                                 f"colour {color}: runs differ or the "
+                                 f"entries written are not the colour's")
+    on = [~torch.isnan(p) for p in ref]
+    return tuple(tuple(t[m] for t, m in zip(x, on))
+                 for x in (outs[0], ref, ref64))
+
+
+def _c64_line(torch, results, shape, dev):
+    """K5, K3 (every colour) and K4 (colours 0 and 3) in complex64, x-lines,
+    against their plain versions (:func:`_check_c64`); times at 64³ and
+    256³ (K3 mean of the four colours, K4 colour 0, K5 one stack)."""
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    c64 = torch.complex64
+    res = {k: results[k] for k in ('line_residual', 'line_thomas',
+                                   'line_factor')}
+    pstate, e, s = _level_fast(shape, seed=sum(shape) + 16, device=dev,
+                               factored=False, dtype=c64)
+    st = line_gs.line_state(pstate.arrays, shape, 0)
+    st64 = _upcast_state(st)
+    ref = smoothers.line_factor_stack(st.arrays, st.shape)
+    ref64 = smoothers.line_factor_stack(st64.arrays, st.shape)
+    torch.cuda.synchronize()
+    e5 = _check_c64('line_factor', shape, [((st.factors,), (ref,),
+                                            (ref64,))])
+    del ref, ref64
+    e3 = _check_c64('line_residual', shape,
+                    [_residual_triple(torch, st, st64, e, s, c)
+                     for c in range(4)])
+    rp = stencil.residual_parts(*s, *e, *st.arrays)
+    triples = []
+    for color in (0, 3):
+        ek = line_gs.thomas(_clone(e), rp, st.factors, st, color)
+        ep = smoothers.line_thomas_x(e, rp, st.factors, color)
+        ex = smoothers.line_thomas_x(_up(e), _up(rp), _up(st.factors),
+                                     color)
+        torch.cuda.synchronize()
+        triples.append((ek, ep, ex))
+    e4 = _check_c64('line_thomas', shape, triples)
+    del triples, st64
+    for k, checked in (('line_factor', e5), ('line_residual', e3),
+                       ('line_thomas', e4)):
+        _record_c64(res[k], shape, checked)
+    if shape[0] in (64, 256):
+        n = '' if shape[0] == 64 else '_256'
+        out = _nan_like(e)
+        res['line_residual']['ms_c64' + n] = _time_steps(
+            torch, lambda: [line_gs.residual(e, s, st, c, out)
+                            for c in range(4)],
+            reps=20 if not n else 5, per=4)
+        res['line_residual']['bound_ms_c64' + n] = _colour_bound(
+            shape, 8, PEAK_FP32)['bound_ms']
+        zs = line_gs._scratch(st.shape, e[0])
+        ek = _clone(e)
+        res['line_thomas']['ms_c64' + n] = _time_steps(
+            torch, lambda: line_gs.thomas(ek, rp, st.factors, st, 0, zs),
+            reps=20 if not n else 5, per=1)
+        res['line_thomas']['bound_ms_c64' + n] = bound(
+            *thomas_work(shape, 0, 8), PEAK_FP32)['bound_ms']
+        del out, zs, ek
+        res['line_factor']['ms_c64' + n] = _time_steps(
+            torch, lambda: line_gs.factor(st.st, st.w, st.ih, st.shape),
+            reps=10 if not n else 3, per=1, warm=1)
+        res['line_factor']['bound_ms_c64' + n] = bound(
+            *factor_work(st.shape, 8), PEAK_FP32)['bound_ms']
+        log(f"{shape} x-lines complex64, ms per launch (bound): "
+            + ", ".join(f"{k} {res[k]['ms_c64' + n]:.4f} "
+                        f"({res[k]['bound_ms_c64' + n]:.4f}; complex128 "
+                        f"{res[k]['ms' + n]:.4f})" for k in res))
+    del pstate, e, s, st, rp
+    torch.cuda.empty_cache()
+
+
+def _amat_params64(e, params):
+    """A·e in complex128 of the operator given by a level's float32 η
+    sums, ζ weights and widths (``dsres.ds_params``), promoted: the
+    float64 evaluation of the float32 operator (stencil.amat with these
+    coefficients)."""
+    import torch
+    st, w, ih = (tuple(t.to(torch.complex128 if t.is_complex()
+                            else torch.float64) for t in g) for g in params)
+    ex, ey, ez = e
+    d = torch.diff
+    ihx, ihy, ihz = ih[0][:, None, None], ih[1][None, :, None], \
+        ih[2][None, None, :]
+    u1 = (d(ez, dim=-2) * ihy - d(ey, dim=-1) * ihz) * w[0]
+    u2 = (d(ex, dim=-1) * ihz - d(ez, dim=-3) * ihx) * w[1]
+    u3 = (d(ey, dim=-3) * ihx - d(ex, dim=-2) * ihy) * w[2]
+    rrx = d(u3[..., 1:-1] * ihy, dim=-2) - d(u2[..., 1:-1, :] * ihz, dim=-1)
+    rry = d(u1[..., 1:-1, :, :] * ihz, dim=-1) - d(u3[..., 1:-1] * ihx,
+                                                   dim=-3)
+    rrz = d(u2[..., 1:-1, :] * ihx, dim=-3) - d(u1[..., 1:-1, :, :] * ihy,
+                                                dim=-2)
+    pad = torch.nn.functional.pad
+    return (pad(0.5 * rrx - 0.25 * st[0] * ex[..., 1:-1, 1:-1],
+                (1, 1, 1, 1, 0, 0)),
+            pad(0.5 * rry - 0.25 * st[1] * ey[..., 1:-1, :, 1:-1],
+                (1, 1, 0, 0, 1, 1)),
+            pad(0.5 * rrz - 0.25 * st[2] * ez[..., 1:-1, 1:-1, :],
+                (0, 0, 1, 1, 1, 1)))
+
+
+def _c64_dsres(torch, results, shape, dev):
+    """K6 against its plain version on a near-converged complex64 level:
+    a random hi stream and a lo stream at its rounding level, s =
+    fl32(A64·(hi + lo)) (the residual is pure rounding): every component
+    within TOL_DS of the plain version and within TOL_DS_F64·‖r‖ of the
+    float64 residual of the same float32 operator; timed beside the
+    plain version."""
+    from emg3d_tpu_torch.ops import dsres
+    c64 = torch.complex64
+    state, hi, _ = _level_fast(shape, seed=sum(shape) + 17, device=dev,
+                               factored=False, dtype=c64)
+    params = dsres.ds_params(state.arrays)
+    g = torch.Generator(device=dev).manual_seed(17)
+    lo = tuple((1e-7 * torch.complex(
+        torch.randn(t.shape, generator=g, device=dev, dtype=torch.float64),
+        torch.randn(t.shape, generator=g, device=dev,
+                    dtype=torch.float64))).to(c64) for t in hi)
+    e64 = tuple(h.to(torch.complex128) + x.to(torch.complex128)
+                for h, x in zip(hi, lo))
+    a64 = _amat_params64(e64, params)
+    s = tuple(a.to(c64) for a in a64)
+    r64 = tuple(x.to(torch.complex128) - a for x, a in zip(s, a64))
+    del a64, e64
+    outs = [dsres.residual(hi, lo, s, params) for _ in range(2)]
+    ref = dsres.residual_ds_plain(hi, lo, s, state.arrays, params)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"residual_ds {shape}: two runs differ")
+    worst, dmax = _rel_max(outs[0], ref)
+    f64 = max(float(torch.linalg.norm(o.to(torch.complex128) - r)) /
+              float(torch.linalg.norm(r)) for o, r in zip(outs[0], r64))
+    log(f"residual_ds {shape}: max|Δ|/max|ref| against plain {worst:.3e}, "
+        f"max over components of ‖r − r64‖/‖r64‖ {f64:.3e}")
+    if not (worst <= TOL_DS and f64 <= TOL_DS_F64):
+        raise AssertionError(f"residual_ds {shape}: {worst:.3e} against "
+                             f"plain, {f64:.3e} against float64")
+    res = results.setdefault('residual_ds', {'max_abs_err': 0.0})
+    res['max_abs_err'] = max(res['max_abs_err'], dmax)
+    n = '' if shape[0] == 64 else '_256'
+    out = tuple(torch.empty_like(t) for t in s)
+    res['ms' + n] = _time_steps(torch, lambda: dsres.residual(
+        hi, lo, s, params, out), reps=20 if not n else 5, per=1)
+    res['plain_ms' + n] = _time_steps(torch, lambda: dsres.residual_ds_plain(
+        hi, lo, s, state.arrays, params), reps=5 if not n else 2, per=1,
+        warm=1)
+    b = bound(*dsres_work(shape), PEAK_FP32)
+    res['bound_ms' + n] = b['bound_ms']
+    res['bound_by' + n] = b['bound_by']
+    log(f"residual_ds {shape}: {res['ms' + n]:.4f} ms per launch (plain "
+        f"torch {res['plain_ms' + n]:.4f} ms), bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), {b['bound_ms'] / res['ms' + n]:.0%} of it")
+    del state, hi, lo, s, r64, outs, ref, out
+    torch.cuda.empty_cache()
+
+
+def phase_c64_kernels(torch, results):
+    """Phase 15a: every kernel's complex64 instance against its plain
+    version at C64_SHAPES, and K6 at 64³ and 256³, timed."""
+    from emg3d_tpu_torch.ops import point_gs
+    dev = torch.device('cuda')
+    for code in ('factored', 'fused', 'fused_packed'):
+        cap = point_gs.grid_capacity(code, torch.complex64)
+        log(f"point_gs grid plan, {code} complex64: {cap} co-resident "
+            f"blocks (GRID_BLOCKS {point_gs.GRID_BLOCKS})")
+        if cap < point_gs.GRID_BLOCKS:
+            raise AssertionError("GRID_BLOCKS exceeds the co-resident "
+                                 "blocks")
+    for shape in C64_SHAPES:
+        _c64_point(torch, results, shape, dev)
+        _c64_line(torch, results, shape, dev)
+    for shape in C64_SHAPES[1:]:
+        _c64_dsres(torch, results, shape, dev)
+
+
+def _launch_counts():
+    from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
+    return {**point_gs.LAUNCHES, **line_gs.LAUNCHES, **dsres.LAUNCHES}
+
+
+class _Counted:
+    """Adds the kernels' launches made inside the block to ``counts``."""
+
+    def __init__(self, counts):
+        self.counts = counts
+
+    def __enter__(self):
+        self.t0 = _launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in _launch_counts().items():
+            self.counts[k] = self.counts.get(k, 0) + v - self.t0[k]
+        return False
+
+
+# Warm complex64 / complex128 pairs timed in turns per configuration.
+C64_PAIRS = 3
+
+
+def _c64_pair(torch, name, counts, c128, c64, check):
+    """Walls of a configuration in complex128 and complex64 in turns: a
+    complex128 run, the cold complex64 run, then C64_PAIRS pairs of
+    warm complex64 and complex128 runs; the complex64 runs counted in
+    ``counts``.  ``check`` holds the cold complex64 result, which is
+    returned."""
+    walls = {'c128': [], 'c64': []}
+    out = cold = None
+    runs = [('c128', c128), ('c64', c64)] + \
+        [r for _ in range(C64_PAIRS) for r in (('c64', c64), ('c128', c128))]
+    for run, fn in runs:
+        with _Counted(counts if run == 'c64' else {}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if run == 'c64' and out is None:
+            out, cold = res, wall
+        else:
+            walls[run].append(wall)
+        del res
+    check(out)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"{name} walls (s): complex64 cold {cold:.3f}; in turns, "
+        f"complex128 " + ", ".join(f"{w:.3f}" for w in walls['c128'])
+        + "; complex64 warm " + ", ".join(f"{w:.3f}" for w in walls['c64'])
+        + f"; medians complex128 {med['c128']:.3f}, complex64 "
+        f"{med['c64']:.3f} ({med['c64'] / med['c128']:.2f}×)")
+    return out
+
+
+def phase_c64_path(torch, e4, e_sclr, peak8, sim):
+    """Phase 15b: the complex64 main path through the kernels, its
+    launches counted (``launches_c64``): bench64 (against phase 4's
+    field), sclr64 BiCGSTAB (against phase 7's), each timed in turns with
+    its complex128 solve; sclr256 standalone (peak memory against phase
+    8's); sim64's 8 pairs as complex64 sources through one solve_batched,
+    timed in turns with the complex128 batched solve, every lane
+    CONVERGED and its responses held to the complex128 solve at tol 1e-10
+    (phase 10's, at tol 1e-6, are themselves only as accurate as their
+    residual: logged beside).  Returns the launches per kernel."""
+    from emg3d_tpu_torch import fields, solve, solve_batched
+    grid, model, sfield = bench_problem()
+    src = _c64_source(sfield)
+    counts = {k: 0 for k in _launch_counts()}
+    kw = dict(cycle='F', tol=1e-6, verb=1, return_info=True, device='cuda')
+
+    def check_solve(name, ref, **opts):
+        def check(out):
+            e, info = out
+            rel = _rel(e, ref)
+            log(f"{name} complex64: {info['exit_message']}, it_mg "
+                f"{info['it_mg']}, it_ssl {info['it_ssl']}, rel_error "
+                f"{info['rel_error']:.3e}, returned {e.field.dtype}, "
+                f"|Δ|/|e| against complex128 {rel:.3e}")
+            if not (info['exit_message'] == 'CONVERGED'
+                    and info['rel_error'] < 1e-6
+                    and e.field.dtype == np.complex128
+                    and rel <= TOL_C64_FIELD):
+                raise AssertionError(f"{name} complex64: {info}")
+        return check
+
+    _c64_pair(torch, 'bench64', counts,
+              lambda: solve(grid, model, sfield, **kw),
+              lambda: solve(grid, model, src, **kw),
+              check_solve('bench64', e4))
+    log(f"bench64 complex64 launches (cold + warm): {counts}")
+    _c64_pair(torch, 'sclr64 bicgstab', counts,
+              lambda: solve(grid, model, sfield, sslsolver=True, **SCLR,
+                            **kw),
+              lambda: solve(grid, model, src, sslsolver=True, **SCLR, **kw),
+              check_solve('sclr64 bicgstab', e_sclr))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g256, m256, s256 = bench_problem((256,) * 3)
+    with _Counted(counts):
+        e256, i256, w256 = _solve(torch, g256, m256, _c64_source(s256),
+                                  **SCLR)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sclr256 complex64: {i256['exit_message']}, it_mg {i256['it_mg']}, "
+        f"rel_error {i256['rel_error']:.3e}, wall {w256:.3f} s; peak device "
+        f"memory {peak:.2f} GiB (complex128, phase 8: {peak8:.2f} GiB)")
+    if not i256['rel_error'] < 1e-6:
+        raise AssertionError("sclr256 complex64 above tol")
+    del e256, g256, m256, s256
+    torch.cuda.empty_cache()
+
+    # sim64: phase 10's pairs as complex64 sources, one batched solve.
+    survey = sim.survey
+    pairs = [(p, f) for p in survey.sources for f in SIM_FREQS]
+    opts = {k: v for k, v in sim.solver_opts.items()
+            if k not in ('sslsolver', 'return_info', 'log')}
+    ssl = sim.solver_opts.get('sslsolver', True)
+    opts['sslsolver'] = 'bicgstab' if ssl is True else ssl
+    sf128 = [sim.get_sfield(*p) for p in pairs]
+    sf64 = [_c64_source(x) for x in sf128]
+    grid10, model10 = sim.get_grid(*pairs[0]), sim.get_model(*pairs[0])
+    ref, rinfo = solve_batched(grid10, model10, sf128,
+                               **{**opts, 'tol': 1e-10})
+    erec = np.nonzero(survey.rec_types)[0]
+    rec = tuple(np.array(survey.rec_coords)[:, erec])
+
+    def check_sim(out):
+        efs, info = out
+        worst = worst10 = err10 = 0.0
+        for (p, f), ef, er in zip(pairs, efs, ref):
+            got = fields.get_receiver_response(grid=grid10, field=ef,
+                                               rec=rec)
+            acc = fields.get_receiver_response(grid=grid10, field=er,
+                                               rec=rec)
+            r10 = sim.data.synthetic[sim._src_index(p), erec,
+                                     sim._freq_index(f)]
+            # The Simulation leaves NaN where it drops a response.
+            fin = np.isfinite(r10)
+            if not (fin.any() and np.isfinite(got[fin]).all()
+                    and np.isfinite(acc[fin]).all()):
+                raise AssertionError(f"sim64 complex64 {p} {f} Hz: "
+                                     f"non-finite responses")
+            m = np.max(np.abs(acc[fin]))
+            worst = max(worst, float(np.max(np.abs(got[fin] - acc[fin]))
+                                     / m))
+            worst10 = max(worst10, float(np.max(np.abs(got[fin] - r10[fin]))
+                                         / m))
+            err10 = max(err10, float(np.max(np.abs(r10[fin] - acc[fin]))
+                                     / m))
+        log(f"sim64 complex64 ({len(pairs)} lanes): {info['exit_message']}, "
+            f"it_mg {info['it_mg']}, it_ssl {info['it_ssl']}, rel_error max "
+            f"{info['rel_error'].max():.3e}; responses max|Δ|/max|ref| "
+            f"against complex128 at tol 1e-10 (it_mg {rinfo['it_mg']}, "
+            f"rel_error max {rinfo['rel_error'].max():.3e}) {worst:.3e}, "
+            f"against phase 10's {worst10:.3e} (phase 10's own, against tol "
+            f"1e-10: {err10:.3e})")
+        if not (info['exit_message'] == 'CONVERGED'
+                and np.all(info['rel_error'] < SIM_TOL)
+                and all(ef.field.dtype == np.complex128 for ef in efs)
+                and worst <= TOL_C64_FIELD
+                and worst10 <= err10 + TOL_C64_FIELD):
+            raise AssertionError("sim64 complex64 batched solve")
+
+    _c64_pair(torch, 'sim64 solve_batched', counts,
+              lambda: solve_batched(grid10, model10, sf128, **opts),
+              lambda: solve_batched(grid10, model10, sf64, **opts),
+              check_sim)
+    log(f"complex64 main path launches: {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the complex64 path launched no "
+                             f"{min(counts, key=counts.get)}")
+    return counts
+
+
+def phase_c64_plain(torch):
+    """Phase 15c: complex64 solves at 16³ through the kernels and through
+    ``_mode='plain'`` (plain smoothers, plain K6): the same exit, it_mg
+    ±1, fields within TOL_C64_FIELD; point and sc+lr."""
+    grid, model, sfield = bench_problem((16,) * 3)
+    src = _c64_source(sfield)
+    for name, kw in (('point', {}), ('sc+lr', SCLR)):
+        ek, ik, wk = _solve(torch, grid, model, src, **kw)
+        ep, ip, wp = _solve(torch, grid, model, src, _mode='plain', **kw)
+        rel = _rel(ek, ep)
+        log(f"16³ complex64 {name}: kernels it_mg {ik['it_mg']} "
+            f"({wk:.3f} s), plain it_mg {ip['it_mg']} ({wp:.3f} s), "
+            f"|Δ|/|e| {rel:.3e}")
+        if abs(ik['it_mg'] - ip['it_mg']) > 1 or not rel <= TOL_C64_FIELD:
+            raise AssertionError(f"16³ complex64 {name}: kernels and plain "
+                                 f"differ")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2362,7 +2962,8 @@ def main():
         if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
             raise AssertionError("kernel and plain solves differ")
     with Phase('7 main path: sclr64 (sc+lr), standalone, bicgstab, cgs'):
-        launches.update(phase_sclr64(torch, grid, model, sfield))
+        sclr_launches, e_sclr = phase_sclr64(torch, grid, model, sfield)
+        launches.update(sclr_launches)
     with Phase('8 sclr256: sc+lr standalone at 256³'):
         line_gs.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2370,11 +2971,11 @@ def main():
             e8, info8, wall8 = _solve(torch, *bench_problem((256,) * 3),
                                       **SCLR)
         del e8
+        peak8 = torch.cuda.max_memory_allocated() / 2**30
         log(f"256³: it_mg {info8['it_mg']}, rel_error "
             f"{info8['rel_error']:.3e}, wall {wall8:.3f} s (first solve; "
             f"{clock.seconds:.4f} s in {clock.calls} line-state builds), "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"peak device memory {peak8:.2f} GiB, "
             f"launches {dict(line_gs.LAUNCHES)}")
     with Phase('9 heterogeneous tri-axial 64x48x40, sc+lr: kernels vs '
                'plain'):
@@ -2397,11 +2998,15 @@ def main():
         diff_launches = phase_diff(torch, out_dir)
     with Phase('13 cli64: io and the command line'):
         phase_cli(torch, sim10, grad10, out_dir)
-        del sim10, grad10
     probe_launches = dict(probes.LAUNCHES)
     with Phase('14 probes'):
         probe_entries = phase_probes(torch, probe_launches) + \
             lr128_entries(results, launches)
+    with Phase('15 complex64: kernels, main path, kernels vs plain'):
+        phase_c64_kernels(torch, results)
+        c64_launches = phase_c64_path(torch, e4, e_sclr, peak8, sim10)
+        phase_c64_plain(torch)
+        del sim10, grad10
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -2420,11 +3025,24 @@ def main():
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
+        entry['launches_c64'] = c64_launches[key]
+        entry['max_abs_err_c64'] = r['max_abs_err_c64']
+        entry['checks_c64'] = r['checks_c64']
         entry.update({k: v for k, v in r.items()
                       if k.startswith('step') or k[-4:] in ('_128', '_256')
                       or k.endswith('_large') or k.startswith('ms_')
                       or k.startswith('bound_ms_') or k.startswith('lanes')})
         kernels.append(entry)
+    r = results['residual_ds']
+    kernels.append({
+        'name': DSRES['name'], 'route': 'cuda', 'source': DSRES['source'],
+        'replaces': DSRES['replaces'],
+        'launches': c64_launches['residual_ds'],
+        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': None,
+        'launches_c64': c64_launches['residual_ds'],
+        **{k: v for k, v in r.items() if k.endswith('_256')}})
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s")
     print(json.dumps({'kernels': kernels, 'probes': probe_entries}))

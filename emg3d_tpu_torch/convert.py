@@ -9,7 +9,7 @@ identical inputs.
 import numpy as np
 import torch
 
-from .dtypes import COMPLEX, REAL
+from .dtypes import COMPLEX, REAL, REAL_OF
 from .meshes import TensorMesh
 from .models import Model
 from .ops.smoothers import LINE_BKEYS, NLINE
@@ -26,18 +26,20 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def params_to_torch(params, device='cpu'):
+def params_to_torch(params, device='cpu', dtype=COMPLEX):
     """A level's ``(eta_x, eta_y, eta_z, zeta, hx, hy, hz)`` as tensors.
 
-    η becomes complex128, ζ and the widths float64.  Where eta_y or
-    eta_z is the same object as eta_x (isotropic and HTI/VTI models),
-    the tensors are shared too, as in build_levels.
+    η becomes ``dtype`` (complex128, or complex64), ζ and the widths its
+    real dtype.  Where eta_y or eta_z is the same object as eta_x
+    (isotropic and HTI/VTI models), the tensors are shared too, as in
+    build_levels.
     """
+    real = REAL_OF[dtype]
     eta_x, eta_y, eta_z, zeta, hx, hy, hz = params
-    ex = _tensor(eta_x, COMPLEX, device)
-    ey = ex if eta_y is eta_x else _tensor(eta_y, COMPLEX, device)
-    ez = ex if eta_z is eta_x else _tensor(eta_z, COMPLEX, device)
-    return (ex, ey, ez, *(_tensor(a, REAL, device)
+    ex = _tensor(eta_x, dtype, device)
+    ey = ex if eta_y is eta_x else _tensor(eta_y, dtype, device)
+    ez = ex if eta_z is eta_x else _tensor(eta_z, dtype, device)
+    return (ex, ey, ez, *(_tensor(a, real, device)
                           for a in (zeta, hx, hy, hz)))
 
 

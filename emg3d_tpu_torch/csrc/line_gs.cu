@@ -1,4 +1,11 @@
-// Line Gauss-Seidel for Hopper (sm_90a), complex128.
+// Line Gauss-Seidel for Hopper (sm_90a), in the two scalar types of a
+// solve: complex128 and complex64 (every kernel templated on its real
+// type R; each C entry point has a ``_c64`` twin for the float
+// instance, the precision the Pallas kernels compute in,
+// pallas_lr.py:40).  The launch plans are the complex128 ones, every byte
+// count taken at the element size: a complex64 element is 8 bytes, so
+// the staging copies are cp.async of 8 bytes (a complex64 plane at an
+// odd element offset is not 16-byte aligned).
 //
 // Replaces the two Pallas line-smoother kernels of the JAX package,
 // emg3d_tpu/ops/pallas_lr.py, launched once each per colour step as the
@@ -45,7 +52,8 @@
 // plane load of a warp is one contiguous run.
 //
 // Bounds on this card (3.35 TB/s, 34 TFLOP/s fp64 outside the tensor
-// cores), each input byte read once and each output written once:
+// cores), each input byte read once and each output written once, in
+// complex128 (complex64: half the bytes, fp32 at 67 TFLOP/s):
 //   K5  st, w and ih read once (~72 B per line-station) and the 23
 //       planes written once (368 B); ~1.5 kFLOP per station: memory-
 //       bound at 256³, a latency chain per line below.  The first design
@@ -137,25 +145,28 @@ constexpr int kWarp = 32;      // K4: one warp per block
 constexpr int kStages = 6;     // K4's ring of station slots
 constexpr int kAhead = kStages - 2;   // stations loaded ahead
 
+template <class R>
 struct ResArgs {
-  double2* rx;          // residual out, same shapes as e
-  double2* ry;
-  double2* rz;
-  const double2* ex;    // (nx, ny+1, nz+1)
-  const double2* ey;    // (nx+1, ny, nz+1)
-  const double2* ez;    // (nx+1, ny+1, nz)
-  const double2* sx;    // source, same shapes as e
-  const double2* sy;
-  const double2* sz;
-  const double2* stx;   // η edge sums (nx, ny-1, nz-1)
-  const double2* sty;   // (nx-1, ny, nz-1)
-  const double2* stz;   // (nx-1, ny-1, nz)
-  const double* wx;     // ζ face weights (nx+1, ny, nz)
-  const double* wy;     // (nx, ny+1, nz)
-  const double* wz;     // (nx, ny, nz+1)
-  const double* ihx;    // inverse widths (nx,), (ny,), (nz,)
-  const double* ihy;
-  const double* ihz;
+  using real = R;
+  using C = cplx_t<R>;
+  C* rx;          // residual out, same shapes as e
+  C* ry;
+  C* rz;
+  const C* ex;    // (nx, ny+1, nz+1)
+  const C* ey;    // (nx+1, ny, nz+1)
+  const C* ez;    // (nx+1, ny+1, nz)
+  const C* sx;    // source, same shapes as e
+  const C* sy;
+  const C* sz;
+  const C* stx;   // η edge sums (nx, ny-1, nz-1)
+  const C* sty;   // (nx-1, ny, nz-1)
+  const C* stz;   // (nx-1, ny-1, nz)
+  const R* wx;     // ζ face weights (nx+1, ny, nz)
+  const R* wy;     // (nx, ny+1, nz)
+  const R* wz;     // (nx, ny, nz+1)
+  const R* ihx;    // inverse widths (nx,), (ny,), (nz,)
+  const R* ihy;
+  const R* ihz;
   const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
   int cy, cz;           // the colour's transverse parity
@@ -166,7 +177,8 @@ struct ResArgs {
 
 // Point ``a`` at lane ``lane``: e, s and r at the lane's slices, the η
 // sums at its group's.
-__device__ __forceinline__ void lane_offsets(ResArgs& a, int lane) {
+template <class R>
+__device__ __forceinline__ void lane_offsets(ResArgs<R>& a, int lane) {
   const int64_t g = a.group ? a.group[lane] : 0;
   const int64_t nx = a.nx, ny = a.ny, nz = a.nz;
   const int64_t ex = nx * (ny + 1) * (nz + 1), ey = (nx + 1) * ny * (nz + 1),
@@ -190,29 +202,40 @@ constexpr int kResSlots = 4;   // K3's ring of x-plane slots
 // A slab's e in the ring: plane i in slot i % 4; per slot ex
 // (2R+1)×(2ZL+1), ey 2R×(2ZL+1), ez (2R+1)×2ZL values, y-major, in
 // global edge indices offset by (Y0, Z0).
+template <class C>
 struct SlabE {
-  const double2* s;
+  const C* s;
   int slot, nex, ney;   // slot size; ex and ey tile sizes
   int y0, z0;
   int zx, zz;           // z extents: 2ZL+1 (ex, ey), 2ZL (ez)
-  __device__ __forceinline__ const double2* plane(int i) const {
+  __device__ __forceinline__ const C* plane(int i) const {
     return s + (i & (kResSlots - 1)) * slot;
   }
-  __device__ __forceinline__ double2 x(int i, int j, int k) const {
+  __device__ __forceinline__ C x(int i, int j, int k) const {
     return plane(i)[(j - y0) * zx + (k - z0)];
   }
-  __device__ __forceinline__ double2 y(int i, int j, int k) const {
+  __device__ __forceinline__ C y(int i, int j, int k) const {
     return plane(i)[nex + (j - y0) * zx + (k - z0)];
   }
-  __device__ __forceinline__ double2 z(int i, int j, int k) const {
+  __device__ __forceinline__ C z(int i, int j, int k) const {
     return plane(i)[nex + ney + (j - y0) * zz + (k - z0)];
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// One element from global into shared memory: a complex128 element
+// (16 B) bypassing L1, a complex64 one (8 B, at any element offset, so
+// not always 16-byte aligned) through cp.async.ca.
+template <class C>
+__device__ __forceinline__ void cp_async(C* smem, const C* gmem) {
+  static_assert(sizeof(C) == 16 || sizeof(C) == 8, "complex elements");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+  if constexpr (sizeof(C) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -220,20 +243,25 @@ __device__ __forceinline__ void cp_async_commit() {
 
 // Copy a (ny_t × nz_t) tile of plane p of a field with row lengths
 // (n1, n2) at (y0, z0) into ``dst`` (row length ``zs``).
-__device__ __forceinline__ void load_tile(double2* dst, const double2* src,
+template <class C>
+__device__ __forceinline__ void load_tile(C* dst, const C* src,
                                           int p, int y0, int z0, int ny_t,
                                           int nz_t, int zs, int n1, int n2) {
   const int total = ny_t * nz_t;
   for (int n = threadIdx.x; n < total; n += blockDim.x) {
     const int yy = n / nz_t, zz = n - yy * nz_t;
-    cp_async16(dst + yy * zs + zz, src + at(p, y0 + yy, z0 + zz, n1, n2));
+    cp_async(dst + yy * zs + zz, src + at(p, y0 + yy, z0 + zz, n1, n2));
   }
 }
 
-template <bool kStaged>
+// (T: the real type; R is the slab's line rows below.)
+template <bool kStaged, class T>
 __global__ void __launch_bounds__(256)
-line_residual(ResArgs a) {
-  extern __shared__ double2 ring[];
+line_residual(ResArgs<T> a) {
+  using C = cplx_t<T>;
+  // Raw bytes: the float and double instances share the symbol.
+  extern __shared__ __align__(16) unsigned char res_smem[];
+  C* ring = reinterpret_cast<C*>(res_smem);
   lane_offsets(a, blockIdx.y);
   const int R = a.rows, ZL = a.lines;
   const int ngz = (a.cnz + ZL - 1) / ZL, ngy = (a.cny + R - 1) / R;
@@ -245,7 +273,7 @@ line_residual(ResArgs a) {
   const int q0 = gy * R, r0 = gz * ZL;
   const int nrows = min(R, a.cny - q0), nl = min(ZL, a.cnz - r0);
   const int xa = gx * a.xplanes, xb = min(a.nx, xa + a.xplanes);
-  SlabE f;
+  SlabE<C> f;
   f.s = ring;
   f.y0 = a.cy + 2 * q0;
   f.z0 = a.cz + 2 * r0;
@@ -262,7 +290,7 @@ line_residual(ResArgs a) {
   // ex and ey z-nodes z0..z0+2·nl, ez z0..z0+2·nl-1).
   auto fill = [&](int p) {
     if (p >= 0 && p <= xb) {
-      double2* d = ring + (p & (kResSlots - 1)) * f.slot;
+      C* d = ring + (p & (kResSlots - 1)) * f.slot;
       if (p < xb) {
         load_tile(d, a.ex, p, f.y0, f.z0, 2 * nrows + 1, 2 * nl + 1, f.zx,
                   ny + 1, nz + 1);
@@ -350,17 +378,20 @@ __host__ __device__ constexpr bool d_absent(int a, int b) {
 
 constexpr int kFactorThreads = 256;   // most threads per block
 
+template <class R>
 struct FactorArgs {
-  double2* fac;         // (nx, 23, 2, 2, ny2, nz2) out
-  const double2* stx;   // η edge sums of the rotated frame
-  const double2* sty;
-  const double2* stz;
-  const double* wx;     // ζ face weights
-  const double* wy;
-  const double* wz;
-  const double* ihx;    // inverse widths
-  const double* ihy;
-  const double* ihz;
+  using real = R;
+  using C = cplx_t<R>;
+  C* fac;         // (nx, 23, 2, 2, ny2, nz2) out
+  const C* stx;   // η edge sums of the rotated frame
+  const C* sty;
+  const C* stz;
+  const R* wx;     // ζ face weights
+  const R* wy;
+  const R* wz;
+  const R* ihx;    // inverse widths
+  const R* ihy;
+  const R* ihz;
   int nx, ny, nz;
   int nz2;
   int64_t P;            // ny2·nz2: lines per parity
@@ -368,9 +399,10 @@ struct FactorArgs {
 
 // y ← C⁻¹ y with dense LDLᵀ factors in registers
 // (blocksolve.ldl_solve_factored, all ten L entries, same order).
-__device__ __forceinline__ void ldl_solve_reg(const double2 (&L)[5][5],
-                                              const double2 (&dinv)[5],
-                                              double2 (&y)[5]) {
+template <class C>
+__device__ __forceinline__ void ldl_solve_reg(const C (&L)[5][5],
+                                              const C (&dinv)[5],
+                                              C (&y)[5]) {
 #pragma unroll
   for (int i = 1; i < 5; ++i) {
 #pragma unroll
@@ -389,8 +421,10 @@ __device__ __forceinline__ void ldl_solve_reg(const double2 (&L)[5][5],
 // (y parity, z parity), transverse node (2q + py, 2r + pz) zero-based at
 // q = (l % P) / nz2, r = l % nz2; a padded line (beyond the level's
 // interior nodes) gets identity diagonals and no coupling.
+template <class R>
 __global__ void __launch_bounds__(kFactorThreads)
-line_factor(FactorArgs a) {
+line_factor(FactorArgs<R> a) {
+  using C = cplx_t<R>;
   const int64_t line = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
   const int64_t ps = 4 * a.P;   // plane stride
@@ -402,8 +436,8 @@ line_factor(FactorArgs a) {
   const bool valid = j0 < a.ny - 1 && k0 < a.nz - 1;
   const int j = j0 + 1, k = k0 + 1;
   const int nx = a.nx;
-  double ihym = 0.0, ihyp = 0.0, ihzm = 0.0, ihzp = 0.0;
-  NodeParams pn;                // node i+1's inputs, loaded a station ahead
+  R ihym = 0, ihyp = 0, ihzm = 0, ihzp = 0;
+  NodeParams<R> pn;                // node i+1's inputs, loaded a station ahead
   if (valid) {
     ihym = a.ihy[j - 1];
     ihyp = a.ihy[j];
@@ -411,47 +445,47 @@ line_factor(FactorArgs a) {
     ihzp = a.ihz[k];
     pn = node_params(a, 1, j, k);
   }
-  const double2 zero = make_double2(0.0, 0.0);
-  const double2 one = make_double2(1.0, 0.0);
-  double2 L[5][5];      // factors of the previous station, then this one
-  double2 dinv[5];
-  double2 prev[5];      // node i's A(1,1), A(2..5,1): station i+1's needs
+  const C zero = cmake(R(0), R(0));
+  const C one = cmake(R(1), R(0));
+  C L[5][5];      // factors of the previous station, then this one
+  C dinv[5];
+  C prev[5];      // node i's A(1,1), A(2..5,1): station i+1's needs
   for (int i = 0; i < nx; ++i) {
     // Station i's entries: D (lower triangle; the absent (2,1) and (4,3)
     // zero), B's row 0 (0, b0[1..4]) and diagonal bd[1..4].
-    double2 C[5][5], b0[5], bd[5];
+    C Cm[5][5], b0[5], bd[5];
 #pragma unroll
     for (int r = 0; r < 5; ++r) {
       b0[r] = zero;
       bd[r] = zero;
 #pragma unroll
-      for (int c = 0; c <= r; ++c) C[r][c] = r == c ? one : zero;
+      for (int c = 0; c <= r; ++c) Cm[r][c] = r == c ? one : zero;
     }
     if (valid && i + 1 < nx) {
       // Node i+1: its block gives D; its x-couplings B's diagonal.
-      const NodeCoef nc = node_coef(pn.w, a.ihx[i], a.ihx[i + 1], ihym,
+      const NodeCoef<R> nc = node_coef(pn.w, a.ihx[i], a.ihx[i + 1], ihym,
                                     ihyp, ihzm, ihzp);
-      double2 A[6][6];
+      C A[6][6];
       node_block(nc, pn.st, A);
       if (i + 2 < nx) pn = node_params(a, i + 2, j, k);
-      C[0][0] = A[0][0];
-      C[1][1] = A[2][2];
-      C[2][2] = A[3][3];
-      C[3][3] = A[4][4];
-      C[4][4] = A[5][5];
-      C[1][0] = A[2][0];
-      C[2][0] = A[3][0];
-      C[3][0] = A[4][0];
-      C[4][0] = A[5][0];
-      C[3][1] = A[4][2];
-      C[4][1] = A[5][2];
-      C[3][2] = A[4][3];
-      C[4][2] = A[5][3];
+      Cm[0][0] = A[0][0];
+      Cm[1][1] = A[2][2];
+      Cm[2][2] = A[3][3];
+      Cm[3][3] = A[4][4];
+      Cm[4][4] = A[5][5];
+      Cm[1][0] = A[2][0];
+      Cm[2][0] = A[3][0];
+      Cm[3][0] = A[4][0];
+      Cm[4][0] = A[5][0];
+      Cm[3][1] = A[4][2];
+      Cm[4][1] = A[5][2];
+      Cm[3][2] = A[4][3];
+      Cm[4][2] = A[5][3];
       if (i > 0) {
-        bd[1] = make_double2(-(nc.mzxLym * nc.ihxm), 0.0);
-        bd[2] = make_double2(-(nc.mzxLyp * nc.ihxm), 0.0);
-        bd[3] = make_double2(-(nc.myxLzm * nc.ihxm), 0.0);
-        bd[4] = make_double2(-(nc.myxLzp * nc.ihxm), 0.0);
+        bd[1] = cmake(-(nc.mzxLym * nc.ihxm), R(0));
+        bd[2] = cmake(-(nc.mzxLyp * nc.ihxm), R(0));
+        bd[3] = cmake(-(nc.myxLzm * nc.ihxm), R(0));
+        bd[4] = cmake(-(nc.myxLzp * nc.ihxm), R(0));
 #pragma unroll
         for (int m = 1; m < 5; ++m) b0[m] = prev[m];
       }
@@ -462,7 +496,7 @@ line_factor(FactorArgs a) {
       prev[4] = A[5][1];
     } else if (valid) {
       // The ex-only last station: node nx-1's (1,1), identity rows.
-      C[0][0] = prev[0];
+      Cm[0][0] = prev[0];
 #pragma unroll
       for (int m = 1; m < 5; ++m) b0[m] = prev[m];
     }
@@ -471,7 +505,7 @@ line_factor(FactorArgs a) {
       // of C_i = D_i − B_i (C_{i-1}⁻¹ B_iᵀ).
 #pragma unroll
       for (int b = 0; b < 5; ++b) {
-        double2 col[5];
+        C col[5];
 #pragma unroll
         for (int m = 0; m < 5; ++m) {
           col[m] = zero;
@@ -482,25 +516,25 @@ line_factor(FactorArgs a) {
         if (b == 0) {
 #pragma unroll
           for (int m = 1; m < 5; ++m) {
-            C[0][0] = csub(C[0][0], cmul(b0[m], col[m]));
+            Cm[0][0] = csub(Cm[0][0], cmul(b0[m], col[m]));
           }
         }
 #pragma unroll
         for (int r = 1; r < 5; ++r) {
           if (r < b) continue;
-          const double2 tt = cmul(bd[r], col[r]);
-          C[r][b] = d_absent(r, b) ? make_double2(-tt.x, -tt.y)
-                                   : csub(C[r][b], tt);
+          const C tt = cmul(bd[r], col[r]);
+          Cm[r][b] = d_absent(r, b) ? cmake(-tt.x, -tt.y)
+                                   : csub(Cm[r][b], tt);
         }
       }
     }
     // Sparse LDLᵀ of C (blocksolve.ldl_factor_sparse, same order; every
     // entry is present from station 1 on, and at station 0 an absent
     // D entry gives 0 − s there as here).
-    double2 D[5];   // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
+    C D[5];   // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
 #pragma unroll
     for (int c = 0; c < 5; ++c) {
-      double2 acc = C[c][c];
+      C acc = Cm[c][c];
 #pragma unroll
       for (int m = 0; m < c; ++m) {
         acc = csub(acc, cmul(cmul(L[c][m], L[c][m]), D[m]));
@@ -509,9 +543,9 @@ line_factor(FactorArgs a) {
       D[c] = crecip(dinv[c]);
 #pragma unroll
       for (int r = c + 1; r < 5; ++r) {
-        double2 val = C[r][c];
+        C val = Cm[r][c];
         if (c > 0) {
-          double2 sum = cmul(cmul(L[r][0], L[c][0]), D[0]);
+          C sum = cmul(cmul(L[r][0], L[c][0]), D[0]);
 #pragma unroll
           for (int m = 1; m < c; ++m) {
             sum = cadd(sum, cmul(cmul(L[r][m], L[c][m]), D[m]));
@@ -522,7 +556,7 @@ line_factor(FactorArgs a) {
       }
     }
     // The station's 23 planes.
-    double2* s = a.fac + static_cast<int64_t>(i) * kNent * ps + line;
+    C* s = a.fac + static_cast<int64_t>(i) * kNent * ps + line;
 #pragma unroll
     for (int r = 1; r < 5; ++r) {
 #pragma unroll
@@ -542,15 +576,18 @@ line_factor(FactorArgs a) {
 // K4: block-Thomas substitution of one colour, in place
 // ---------------------------------------------------------------------
 
+template <class R>
 struct ThomasArgs {
-  double2* ex;          // fields, updated in place
-  double2* ey;
-  double2* ez;
-  const double2* rx;    // residual of the colour step (K3)
-  const double2* ry;
-  const double2* rz;
-  const double2* fac;   // (nx, 23, 2, 2, ny2, nz2)
-  double2* zs;          // global scratch (B, nx, 5, ny2·nz2) if !zshared
+  using real = R;
+  using C = cplx_t<R>;
+  C* ex;          // fields, updated in place
+  C* ey;
+  C* ez;
+  const C* rx;    // residual of the colour step (K3)
+  const C* ry;
+  const C* rz;
+  const C* fac;   // (nx, 23, 2, 2, ny2, nz2)
+  C* zs;          // global scratch (B, nx, 5, ny2·nz2) if !zshared
   const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
   int cy, cz;           // the colour's transverse parity
@@ -565,8 +602,9 @@ __device__ __forceinline__ void cp_async_wait_ahead() {
 
 // y ← C⁻¹ y with the LDLᵀ factors of one station at f[p·stride]
 // (blocksolve.ldl_solve_factored, all ten L entries, same order).
-__device__ __forceinline__ void ldl_solve5(const double2* f, int stride,
-                                           double2 (&y)[5]) {
+template <class C>
+__device__ __forceinline__ void ldl_solve5(const C* f, int stride,
+                                           C (&y)[5]) {
 #pragma unroll
   for (int i = 1; i < 5; ++i) {
 #pragma unroll
@@ -594,35 +632,35 @@ __device__ __forceinline__ void ldl_solve5(const double2* f, int stride,
 // that own different planes unroll into predicated instructions instead
 // of diverging.  The last station has an ex residual and edge only
 // (``last`` bits).
-template <int kStep>
+template <int kStep, class C>
 struct Copies {
   static constexpr int kF = (kNent + kStep - 1) / kStep;   // factor, max
   static constexpr int kX = (10 + kStep - 1) / kStep;      // others, max
-  const double2* f;     // factor plane p0 of station 0
+  const C* f;     // factor plane p0 of station 0
   int nf;               // factor planes of this lane
   int px;               // first non-factor plane of this lane
   int nx_;              // non-factor planes of this lane
   unsigned last;        // bit n: table entry n skipped at the last station
-  const double2* base[kX];
+  const C* base[kX];
   int64_t stride[kX];
 };
 
-template <int kStep>
-__device__ __forceinline__ Copies<kStep> plan_copies(
-    const ThomasArgs& a, bool forward, int p0, int j, int k, int64_t fline,
+template <int kStep, class R, class C = cplx_t<R>>
+__device__ __forceinline__ Copies<kStep, C> plan_copies(
+    const ThomasArgs<R>& a, bool forward, int p0, int j, int k, int64_t fline,
     int64_t zline, int64_t pstride, int64_t P) {
-  Copies<kStep> c;
+  Copies<kStep, C> c;
   const int nplanes = forward ? kNent + 5 : a.planes;
   c.f = a.fac + p0 * pstride + fline;
   c.nf = p0 < kNent ? (kNent - 1 - p0) / kStep + 1 : 0;
   c.px = p0 + c.nf * kStep;
   c.nx_ = 0;
   c.last = 0;
-  const double2* fx = forward ? a.rx : a.ex;
-  const double2* fy = forward ? a.ry : a.ey;
-  const double2* fz = forward ? a.rz : a.ez;
+  const C* fx = forward ? a.rx : a.ex;
+  const C* fy = forward ? a.ry : a.ey;
+  const C* fz = forward ? a.rz : a.ez;
 #pragma unroll
-  for (int n = 0; n < Copies<kStep>::kX; ++n) {
+  for (int n = 0; n < Copies<kStep, C>::kX; ++n) {
     const int m = c.px + n * kStep - kNent;
     c.base[n] = nullptr;
     c.stride[n] = 0;
@@ -648,10 +686,13 @@ __device__ __forceinline__ Copies<kStep> plan_copies(
   return c;
 }
 
-template <int LPB>
+template <int LPB, class R>
 __global__ void __launch_bounds__(kWarp)
-line_thomas(ThomasArgs a) {
-  extern __shared__ double2 smem[];
+line_thomas(ThomasArgs<R> a) {
+  using C = cplx_t<R>;
+  // Raw bytes: the float and double instances share the symbol.
+  extern __shared__ __align__(16) unsigned char thomas_smem[];
+  C* smem = reinterpret_cast<C*>(thomas_smem);
   const int lane = threadIdx.x;
   constexpr int lpb = LPB, kStep = kWarp / LPB;
   const int64_t nlines = static_cast<int64_t>(a.cny) * a.cnz;
@@ -676,7 +717,7 @@ line_thomas(ThomasArgs a) {
   const int64_t pstride = 4 * P;   // consecutive planes of one station
   const int64_t quarter = (a.cy * 2 + a.cz) * P;
   const int slot_size = a.planes * lpb;
-  double2* zsm = smem + kStages * slot_size;   // (nx, 5, lpb) if zshared
+  C* zsm = smem + kStages * slot_size;   // (nx, 5, lpb) if zshared
 
   // The line this lane loads for, and the one it computes if lane < lpb
   // (the same: l = lane mod lpb).
@@ -694,21 +735,21 @@ line_thomas(ThomasArgs a) {
   const int nx = a.nx;
 
   auto slot = [&](int i) { return smem + (i % kStages) * slot_size; };
-  Copies<kStep> cp;
+  Copies<kStep, C> cp;
   auto fill = [&](int i) {
     if (valid && i >= 0 && i < nx) {
-      double2* dst = slot(i) + l;
-      const double2* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
+      C* dst = slot(i) + l;
+      const C* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
 #pragma unroll
-      for (int n = 0; n < Copies<kStep>::kF; ++n) {
+      for (int n = 0; n < Copies<kStep, C>::kF; ++n) {
         if (n < cp.nf) {
-          cp_async16(dst + (p0 + n * kStep) * lpb, f + n * kStep * pstride);
+          cp_async(dst + (p0 + n * kStep) * lpb, f + n * kStep * pstride);
         }
       }
 #pragma unroll
-      for (int n = 0; n < Copies<kStep>::kX; ++n) {
+      for (int n = 0; n < Copies<kStep, C>::kX; ++n) {
         if (n < cp.nx_ && !(i == nx - 1 && ((cp.last >> n) & 1u))) {
-          cp_async16(dst + (cp.px + n * kStep) * lpb,
+          cp_async(dst + (cp.px + n * kStep) * lpb,
                      cp.base[n] + i * cp.stride[n]);
         }
       }
@@ -718,7 +759,7 @@ line_thomas(ThomasArgs a) {
 
   // Forward: y_i = r_i − B_i z_{i-1} (no B term at station 0),
   // z_i = C_i⁻¹ y_i.
-  double2 zp[5];
+  C zp[5];
   cp = plan_copies<kStep>(a, true, p0, j, k, fline, zline, pstride, P);
   for (int i = 0; i < kAhead; ++i) fill(i);
   for (int i = 0; i < nx; ++i) {
@@ -726,12 +767,12 @@ line_thomas(ThomasArgs a) {
     cp_async_wait_ahead();
     __syncwarp();
     if (active) {
-      const double2* f = slot(i) + lane;
-      double2 y[5];
+      const C* f = slot(i) + lane;
+      C y[5];
 #pragma unroll
       for (int m = 0; m < 5; ++m) {
         y[m] = (m == 0 || i < nx - 1) ? f[(kNent + m) * lpb]
-                                      : make_double2(0.0, 0.0);
+                                      : cmake(R(0), R(0));
       }
       if (i > 0) {
 #pragma unroll
@@ -762,7 +803,7 @@ line_thomas(ThomasArgs a) {
 
   // Backward: δ_{S-1} = z_{S-1}; δ_i = z_i − C_i⁻¹ (B_{i+1}ᵀ δ_{i+1}),
   // each δ_i added into the line's edges as soon as it is known.
-  double2 dn[5];
+  C dn[5];
   cp = plan_copies<kStep>(a, false, p0, j, k, fline, zline, pstride,
                           P);
   for (int n = 0; n < kAhead; ++n) fill(nx - 1 - n);
@@ -771,16 +812,16 @@ line_thomas(ThomasArgs a) {
     cp_async_wait_ahead();
     __syncwarp();
     if (active) {
-      const double2* f = slot(i) + lane;
-      double2 d[5];
+      const C* f = slot(i) + lane;
+      C d[5];
       if (i == nx - 1) {
 #pragma unroll
         for (int m = 0; m < 5; ++m) d[m] = zp[m];
       } else {
-        const double2* fn = slot(i + 1) + lane;   // station i+1
+        const C* fn = slot(i + 1) + lane;   // station i+1
         // (Bᵀ)_{ak} = B_{ka}: row 0 of Bᵀ is zero.
-        double2 u[5];
-        u[0] = make_double2(0.0, 0.0);
+        C u[5];
+        u[0] = cmake(R(0), R(0));
 #pragma unroll
         for (int m = 1; m < 5; ++m) {
           u[m] = cadd(cmul(fn[(kB + m - 1) * lpb], dn[0]),
@@ -789,7 +830,7 @@ line_thomas(ThomasArgs a) {
         ldl_solve5(f, lpb, u);
 #pragma unroll
         for (int m = 0; m < 5; ++m) {
-          const double2 z = a.zshared ? zsm[(i * 5 + m) * lpb + lane]
+          const C z = a.zshared ? zsm[(i * 5 + m) * lpb + lane]
                                       : f[(kNent + 5 + m) * lpb];
           d[m] = csub(z, u[m]);
         }
@@ -808,37 +849,30 @@ line_thomas(ThomasArgs a) {
   }
 }
 
-template <int LPB>
-int launch_thomas(const ThomasArgs& a, dim3 blocks, int smem,
+template <int LPB, class R>
+int launch_thomas(const ThomasArgs<R>& a, dim3 blocks, int smem,
                   cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        line_thomas<LPB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        line_thomas<LPB, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  line_thomas<LPB><<<blocks, kWarp, smem, stream>>>(a);
+  line_thomas<LPB, R><<<blocks, kWarp, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// C interface, bound with ctypes by emg3d_tpu_torch/ops/line_gs.py.
-// Each launches one kernel on ``stream`` and returns cudaGetLastError()
-// (0 on success); the launch geometry comes from the Python
-// launch-geometry functions, which skip colours without lines.
-//
-// K3 and K4 take ``lanes`` batch lanes (the grid's y extent) and
-// ``group``, the lane → frequency-group table on the card (null: one
-// lane).
-extern "C" int emg3d_line_residual(
-    void* rx, void* ry, void* rz, const void* ex, const void* ey,
-    const void* ez, const void* sx, const void* sy, const void* sz,
-    const void* stx, const void* sty, const void* stz, const void* wx,
-    const void* wy, const void* wz, const void* ihx, const void* ihy,
-    const void* ihz, const void* group, int nx, int ny, int nz, int cy,
-    int cz, int cny, int cnz, int rows, int lines, int xplanes, int staged,
-    int blocks, int lanes, int threads, int smem, void* stream) {
-  const int ring = kResSlots * 16 *
+template <class R>
+int residual(void* rx, void* ry, void* rz, const void* ex, const void* ey,
+             const void* ez, const void* sx, const void* sy, const void* sz,
+             const void* stx, const void* sty, const void* stz,
+             const void* wx, const void* wy, const void* wz, const void* ihx,
+             const void* ihy, const void* ihz, const void* group, int nx,
+             int ny, int nz, int cy, int cz, int cny, int cnz, int rows,
+             int lines, int xplanes, int staged, int blocks, int lanes,
+             int threads, int smem, void* stream) {
+  using C = cplx_t<R>;
+  const int ring = kResSlots * static_cast<int>(sizeof(C)) *
                    ((2 * rows + 1) * (2 * lines + 1) +
                     2 * rows * (2 * lines + 1) + (2 * rows + 1) * 2 * lines);
   if (rows < 1 || lines < 1 || xplanes < 1 || threads > 256 ||
@@ -846,25 +880,25 @@ extern "C" int emg3d_line_residual(
       lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ResArgs a;
-  a.rx = static_cast<double2*>(rx);
-  a.ry = static_cast<double2*>(ry);
-  a.rz = static_cast<double2*>(rz);
-  a.ex = static_cast<const double2*>(ex);
-  a.ey = static_cast<const double2*>(ey);
-  a.ez = static_cast<const double2*>(ez);
-  a.sx = static_cast<const double2*>(sx);
-  a.sy = static_cast<const double2*>(sy);
-  a.sz = static_cast<const double2*>(sz);
-  a.stx = static_cast<const double2*>(stx);
-  a.sty = static_cast<const double2*>(sty);
-  a.stz = static_cast<const double2*>(stz);
-  a.wx = static_cast<const double*>(wx);
-  a.wy = static_cast<const double*>(wy);
-  a.wz = static_cast<const double*>(wz);
-  a.ihx = static_cast<const double*>(ihx);
-  a.ihy = static_cast<const double*>(ihy);
-  a.ihz = static_cast<const double*>(ihz);
+  ResArgs<R> a;
+  a.rx = static_cast<C*>(rx);
+  a.ry = static_cast<C*>(ry);
+  a.rz = static_cast<C*>(rz);
+  a.ex = static_cast<const C*>(ex);
+  a.ey = static_cast<const C*>(ey);
+  a.ez = static_cast<const C*>(ez);
+  a.sx = static_cast<const C*>(sx);
+  a.sy = static_cast<const C*>(sy);
+  a.sz = static_cast<const C*>(sz);
+  a.stx = static_cast<const C*>(stx);
+  a.sty = static_cast<const C*>(sty);
+  a.stz = static_cast<const C*>(stz);
+  a.wx = static_cast<const R*>(wx);
+  a.wy = static_cast<const R*>(wy);
+  a.wz = static_cast<const R*>(wz);
+  a.ihx = static_cast<const R*>(ihx);
+  a.ihy = static_cast<const R*>(ihy);
+  a.ihz = static_cast<const R*>(ihz);
   a.group = static_cast<const int*>(group);
   a.nx = nx;
   a.ny = ny;
@@ -879,27 +913,26 @@ extern "C" int emg3d_line_residual(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, lanes);
   if (!staged) {
-    line_residual<false><<<grid, threads, 0, s>>>(a);
+    line_residual<false, R><<<grid, threads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        line_residual<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        line_residual<true, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  line_residual<true><<<grid, threads, smem, s>>>(a);
+  line_residual<true, R><<<grid, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ``stages`` and ``threads`` must equal kStages and kWarp (the Python
-// geometry's constants); ``smem`` is the block's dynamic shared memory.
-extern "C" int emg3d_line_thomas(
-    void* ex, void* ey, void* ez, const void* rx, const void* ry,
-    const void* rz, const void* fac, void* zs, const void* group, int nx,
-    int ny, int nz, int cy, int cz, int cny, int cnz, int lpb, int zshared,
-    int planes, int stages, int blocks, int lanes, int threads, int smem,
-    void* stream) {
+template <class R>
+int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
+           const void* rz, const void* fac, void* zs, const void* group,
+           int nx, int ny, int nz, int cy, int cz, int cny, int cnz, int lpb,
+           int zshared, int planes, int stages, int blocks, int lanes,
+           int threads, int smem, void* stream) {
+  using C = cplx_t<R>;
   if (stages != kStages || threads != kWarp ||
       lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr) ||
       lpb < 1 || lpb > kWarp || (lpb & (lpb - 1)) != 0 ||
@@ -907,15 +940,15 @@ extern "C" int emg3d_line_thomas(
       (!zshared && planes != kNent + 10)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ThomasArgs a;
-  a.ex = static_cast<double2*>(ex);
-  a.ey = static_cast<double2*>(ey);
-  a.ez = static_cast<double2*>(ez);
-  a.rx = static_cast<const double2*>(rx);
-  a.ry = static_cast<const double2*>(ry);
-  a.rz = static_cast<const double2*>(rz);
-  a.fac = static_cast<const double2*>(fac);
-  a.zs = static_cast<double2*>(zs);
+  ThomasArgs<R> a;
+  a.ex = static_cast<C*>(ex);
+  a.ey = static_cast<C*>(ey);
+  a.ez = static_cast<C*>(ez);
+  a.rx = static_cast<const C*>(rx);
+  a.ry = static_cast<const C*>(ry);
+  a.rz = static_cast<const C*>(rz);
+  a.fac = static_cast<const C*>(fac);
+  a.zs = static_cast<C*>(zs);
   a.group = static_cast<const int*>(group);
   a.nx = nx;
   a.ny = ny;
@@ -929,43 +962,108 @@ extern "C" int emg3d_line_thomas(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, lanes);
   switch (lpb) {
-    case 1: return launch_thomas<1>(a, grid, smem, st);
-    case 2: return launch_thomas<2>(a, grid, smem, st);
-    case 4: return launch_thomas<4>(a, grid, smem, st);
-    case 8: return launch_thomas<8>(a, grid, smem, st);
-    case 16: return launch_thomas<16>(a, grid, smem, st);
-    default: return launch_thomas<32>(a, grid, smem, st);
+    case 1: return launch_thomas<1, R>(a, grid, smem, st);
+    case 2: return launch_thomas<2, R>(a, grid, smem, st);
+    case 4: return launch_thomas<4, R>(a, grid, smem, st);
+    case 8: return launch_thomas<8, R>(a, grid, smem, st);
+    case 16: return launch_thomas<16, R>(a, grid, smem, st);
+    default: return launch_thomas<32, R>(a, grid, smem, st);
   }
 }
 
-// K5 on the rotated level (nx, ny, nz) into ``fac`` (its whole
-// (nx, 23, 2, 2, ny/2, nz/2) stack), one line per thread.
-extern "C" int emg3d_line_factor(
-    void* fac, const void* stx, const void* sty, const void* stz,
-    const void* wx, const void* wy, const void* wz, const void* ihx,
-    const void* ihy, const void* ihz, int nx, int ny, int nz, int blocks,
-    int threads, void* stream) {
+template <class R>
+int factor(void* fac, const void* stx, const void* sty, const void* stz,
+           const void* wx, const void* wy, const void* wz, const void* ihx,
+           const void* ihy, const void* ihz, int nx, int ny, int nz,
+           int blocks, int threads, void* stream) {
+  using C = cplx_t<R>;
   if (threads < 32 || threads % 32 != 0 || threads > kFactorThreads ||
       nx < 2 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FactorArgs a;
-  a.fac = static_cast<double2*>(fac);
-  a.stx = static_cast<const double2*>(stx);
-  a.sty = static_cast<const double2*>(sty);
-  a.stz = static_cast<const double2*>(stz);
-  a.wx = static_cast<const double*>(wx);
-  a.wy = static_cast<const double*>(wy);
-  a.wz = static_cast<const double*>(wz);
-  a.ihx = static_cast<const double*>(ihx);
-  a.ihy = static_cast<const double*>(ihy);
-  a.ihz = static_cast<const double*>(ihz);
+  FactorArgs<R> a;
+  a.fac = static_cast<C*>(fac);
+  a.stx = static_cast<const C*>(stx);
+  a.sty = static_cast<const C*>(sty);
+  a.stz = static_cast<const C*>(stz);
+  a.wx = static_cast<const R*>(wx);
+  a.wy = static_cast<const R*>(wy);
+  a.wz = static_cast<const R*>(wz);
+  a.ihx = static_cast<const R*>(ihx);
+  a.ihy = static_cast<const R*>(ihy);
+  a.ihz = static_cast<const R*>(ihz);
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
   a.nz2 = nz / 2;
   a.P = static_cast<int64_t>(ny / 2) * (nz / 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  line_factor<<<blocks, threads, 0, s>>>(a);
+  line_factor<R><<<blocks, threads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, bound with ctypes by emg3d_tpu_torch/ops/line_gs.py.
+// Each launches one kernel on ``stream`` and returns cudaGetLastError()
+// (0 on success); the launch geometry comes from the Python
+// launch-geometry functions, which skip colours without lines.  Every
+// entry point takes complex128 tensors (float64 weights and widths);
+// its ``_c64`` twin the same in complex64 (float32).
+//
+// K3 and K4 take ``lanes`` batch lanes (the grid's y extent) and
+// ``group``, the lane → frequency-group table on the card (null: one
+// lane).
+#define EMG3D_RES_PARAMS                                                     \
+  void *rx, void *ry, void *rz, const void *ex, const void *ey,              \
+      const void *ez, const void *sx, const void *sy, const void *sz,        \
+      const void *stx, const void *sty, const void *stz, const void *wx,     \
+      const void *wy, const void *wz, const void *ihx, const void *ihy,      \
+      const void *ihz, const void *group, int nx, int ny, int nz, int cy,    \
+      int cz, int cny, int cnz, int rows, int lines, int xplanes,            \
+      int staged, int blocks, int lanes, int threads, int smem, void *stream
+#define EMG3D_RES_ARGS                                                       \
+  rx, ry, rz, ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx, ihy,   \
+      ihz, group, nx, ny, nz, cy, cz, cny, cnz, rows, lines, xplanes,        \
+      staged, blocks, lanes, threads, smem, stream
+extern "C" int emg3d_line_residual(EMG3D_RES_PARAMS) {
+  return residual<double>(EMG3D_RES_ARGS);
+}
+extern "C" int emg3d_line_residual_c64(EMG3D_RES_PARAMS) {
+  return residual<float>(EMG3D_RES_ARGS);
+}
+
+// ``stages`` and ``threads`` must equal kStages and kWarp (the Python
+// geometry's constants); ``smem`` is the block's dynamic shared memory.
+#define EMG3D_THOMAS_PARAMS                                                  \
+  void *ex, void *ey, void *ez, const void *rx, const void *ry,              \
+      const void *rz, const void *fac, void *zs, const void *group, int nx,  \
+      int ny, int nz, int cy, int cz, int cny, int cnz, int lpb,             \
+      int zshared, int planes, int stages, int blocks, int lanes,            \
+      int threads, int smem, void *stream
+#define EMG3D_THOMAS_ARGS                                                    \
+  ex, ey, ez, rx, ry, rz, fac, zs, group, nx, ny, nz, cy, cz, cny, cnz, lpb, \
+      zshared, planes, stages, blocks, lanes, threads, smem, stream
+extern "C" int emg3d_line_thomas(EMG3D_THOMAS_PARAMS) {
+  return thomas<double>(EMG3D_THOMAS_ARGS);
+}
+extern "C" int emg3d_line_thomas_c64(EMG3D_THOMAS_PARAMS) {
+  return thomas<float>(EMG3D_THOMAS_ARGS);
+}
+
+// K5 on the rotated level (nx, ny, nz) into ``fac`` (its whole
+// (nx, 23, 2, 2, ny/2, nz/2) stack), one line per thread.
+#define EMG3D_FACTOR_PARAMS                                                  \
+  void *fac, const void *stx, const void *sty, const void *stz,              \
+      const void *wx, const void *wy, const void *wz, const void *ihx,       \
+      const void *ihy, const void *ihz, int nx, int ny, int nz, int blocks,  \
+      int threads, void *stream
+#define EMG3D_FACTOR_ARGS                                                    \
+  fac, stx, sty, stz, wx, wy, wz, ihx, ihy, ihz, nx, ny, nz, blocks,         \
+      threads, stream
+extern "C" int emg3d_line_factor(EMG3D_FACTOR_PARAMS) {
+  return factor<double>(EMG3D_FACTOR_ARGS);
+}
+extern "C" int emg3d_line_factor_c64(EMG3D_FACTOR_PARAMS) {
+  return factor<float>(EMG3D_FACTOR_ARGS);
 }

@@ -26,48 +26,51 @@
 
 namespace emg3d {
 
+template <class R>
 struct NodeParams {
-  double2 st[6];
-  double2 w[6];
+  cplx_t<R> st[6];
+  cplx_t<R> w[6];
 };
 
 // The node's parameters from the level's tensors.
 template <class A>
-__device__ __forceinline__ NodeParams node_params(const A& a, int i, int j,
-                                                  int k) {
-  NodeParams p;
+__device__ __forceinline__ NodeParams<typename A::real> node_params(
+    const A& a, int i, int j, int k) {
+  NodeParams<typename A::real> p;
   p.st[0] = a.stx[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1)];
   p.st[1] = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
   p.st[2] = a.sty[at(i - 1, j - 1, k - 1, a.ny, a.nz - 1)];
   p.st[3] = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
   p.st[4] = a.stz[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz)];
   p.st[5] = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
-  p.w[0] = make_double2(WZ(i - 1, j - 1, k), WZ(i - 1, j, k));
-  p.w[1] = make_double2(WZ(i, j - 1, k), WZ(i, j, k));
-  p.w[2] = make_double2(WY(i - 1, j, k - 1), WY(i - 1, j, k));
-  p.w[3] = make_double2(WY(i, j, k - 1), WY(i, j, k));
-  p.w[4] = make_double2(WX(i, j - 1, k - 1), WX(i, j - 1, k));
-  p.w[5] = make_double2(WX(i, j, k - 1), WX(i, j, k));
+  p.w[0] = cmake(WZ(i - 1, j - 1, k), WZ(i - 1, j, k));
+  p.w[1] = cmake(WZ(i, j - 1, k), WZ(i, j, k));
+  p.w[2] = cmake(WY(i - 1, j, k - 1), WY(i - 1, j, k));
+  p.w[3] = cmake(WY(i, j, k - 1), WY(i, j, k));
+  p.w[4] = cmake(WX(i, j - 1, k - 1), WX(i, j - 1, k));
+  p.w[5] = cmake(WX(i, j, k - 1), WX(i, j, k));
   return p;
 }
 
 // The 24 ζ-average coefficients of the node (coeffs.NodeCoeffs names)
 // and its six inverse widths.
+template <class R>
 struct NodeCoef {
-  double mzyLxm, mzyRxm, myzLxm, myzRxm, mzyLxp, mzyRxp, myzLxp, myzRxp;
-  double mzxLym, mzxRym, mxzLym, mxzRym, mzxLyp, mzxRyp, mxzLyp, mxzRyp;
-  double myxLzm, myxRzm, mxyLzm, mxyRzm, myxLzp, myxRzp, mxyLzp, mxyRzp;
-  double ihxm, ihxp, ihym, ihyp, ihzm, ihzp;
+  R mzyLxm, mzyRxm, myzLxm, myzRxm, mzyLxp, mzyRxp, myzLxp, myzRxp;
+  R mzxLym, mzxRym, mxzLym, mxzRym, mzxLyp, mzxRyp, mxzLyp, mxzRyp;
+  R myxLzm, myxRzm, mxyLzm, mxyRzm, myxLzp, myxRzp, mxyLzp, mxyRzp;
+  R ihxm, ihxp, ihym, ihyp, ihzm, ihzp;
 };
 
-__device__ __forceinline__ NodeCoef node_coef(const double2 (&w)[6],
-                                              double ihxm, double ihxp,
-                                              double ihym, double ihyp,
-                                              double ihzm, double ihzp) {
-  const double kxm = 0.5 * ihxm, kxp = 0.5 * ihxp;
-  const double kym = 0.5 * ihym, kyp = 0.5 * ihyp;
-  const double kzm = 0.5 * ihzm, kzp = 0.5 * ihzp;
-  NodeCoef c;
+template <class R>
+__device__ __forceinline__ NodeCoef<R> node_coef(const cplx_t<R> (&w)[6],
+                                                 R ihxm, R ihxp, R ihym,
+                                                 R ihyp, R ihzm, R ihzp) {
+  const R half = R(0.5);
+  const R kxm = half * ihxm, kxp = half * ihxp;
+  const R kym = half * ihym, kyp = half * ihyp;
+  const R kzm = half * ihzm, kzp = half * ihzp;
+  NodeCoef<R> c;
   c.mzyLxm = kym * w[0].x;
   c.mzyRxm = kyp * w[0].y;
   c.myzLxm = kzm * w[2].x;
@@ -104,10 +107,12 @@ __device__ __forceinline__ NodeCoef node_coef(const double2 (&w)[6],
 // The block's diagonal and its present strict-lower entries
 // (coeffs.node_block_entries, same operation order); the structurally
 // zero (1,0), (3,2) and (5,4), and the upper triangle, are not written.
-__device__ __forceinline__ void node_block(const NodeCoef& c,
-                                           const double2 (&st)[6],
-                                           double2 (&A)[6][6]) {
-  const double d[6] = {
+template <class R>
+__device__ __forceinline__ void node_block(const NodeCoef<R>& c,
+                                           const cplx_t<R> (&st)[6],
+                                           cplx_t<R> (&A)[6][6]) {
+  const R quarter = R(0.25), zero = R(0);
+  const R d[6] = {
       c.mzyRxm * c.ihyp + c.mzyLxm * c.ihym + c.myzRxm * c.ihzp + c.myzLxm * c.ihzm,
       c.mzyRxp * c.ihyp + c.mzyLxp * c.ihym + c.myzRxp * c.ihzp + c.myzLxp * c.ihzm,
       c.mzxRym * c.ihxp + c.mzxLym * c.ihxm + c.mxzRym * c.ihzp + c.mxzLym * c.ihzm,
@@ -116,20 +121,20 @@ __device__ __forceinline__ void node_block(const NodeCoef& c,
       c.myxRzp * c.ihxp + c.myxLzp * c.ihxm + c.mxyRzp * c.ihyp + c.mxyLzp * c.ihym};
 #pragma unroll
   for (int n = 0; n < 6; ++n) {
-    A[n][n] = make_double2(d[n] - 0.25 * st[n].x, -(0.25 * st[n].y));
+    A[n][n] = cmake(d[n] - quarter * st[n].x, -(quarter * st[n].y));
   }
-  A[2][0] = make_double2(-c.mzyLxm * c.ihxm, 0.0);
-  A[3][0] = make_double2(c.mzyRxm * c.ihxm, 0.0);
-  A[4][0] = make_double2(-c.myzLxm * c.ihxm, 0.0);
-  A[5][0] = make_double2(c.myzRxm * c.ihxm, 0.0);
-  A[2][1] = make_double2(c.mzyLxp * c.ihxp, 0.0);
-  A[3][1] = make_double2(-c.mzyRxp * c.ihxp, 0.0);
-  A[4][1] = make_double2(c.myzLxp * c.ihxp, 0.0);
-  A[5][1] = make_double2(-c.myzRxp * c.ihxp, 0.0);
-  A[4][2] = make_double2(-c.mxzLym * c.ihym, 0.0);
-  A[5][2] = make_double2(c.mxzRym * c.ihym, 0.0);
-  A[4][3] = make_double2(c.mxzLyp * c.ihyp, 0.0);
-  A[5][3] = make_double2(-c.mxzRyp * c.ihyp, 0.0);
+  A[2][0] = cmake(-c.mzyLxm * c.ihxm, zero);
+  A[3][0] = cmake(c.mzyRxm * c.ihxm, zero);
+  A[4][0] = cmake(-c.myzLxm * c.ihxm, zero);
+  A[5][0] = cmake(c.myzRxm * c.ihxm, zero);
+  A[2][1] = cmake(c.mzyLxp * c.ihxp, zero);
+  A[3][1] = cmake(-c.mzyRxp * c.ihxp, zero);
+  A[4][1] = cmake(c.myzLxp * c.ihxp, zero);
+  A[5][1] = cmake(-c.myzRxp * c.ihxp, zero);
+  A[4][2] = cmake(-c.mxzLym * c.ihym, zero);
+  A[5][2] = cmake(c.mxzRym * c.ihym, zero);
+  A[4][3] = cmake(c.mxzLyp * c.ihyp, zero);
+  A[5][3] = cmake(-c.mxzRyp * c.ihyp, zero);
 }
 
 }  // namespace emg3d

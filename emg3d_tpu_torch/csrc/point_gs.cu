@@ -1,4 +1,10 @@
-// Point Gauss-Seidel colour step for Hopper (sm_90a), complex128.
+// Point Gauss-Seidel colour step for Hopper (sm_90a), in the two scalar
+// types of a solve: complex128 and complex64 (every kernel is templated
+// on its real type R, double or float; each C entry point below has a
+// ``_c64`` twin that launches the float instance).  The complex64
+// instances are the precision the Pallas kernels compute in (float32
+// split re/im, pallas_gs.py:48); their plans and launch geometry are the
+// complex128 ones, with every byte count taken at the element size.
 //
 // Replaces the two Pallas point-smoother kernels of the JAX package,
 // emg3d_tpu/ops/pallas_gs.py:
@@ -70,9 +76,9 @@
 // it over 1 KB at stride 2 along z, half of it the other colours' nodes.
 //   K1 reads its 20 factor planes so (point_gs.pack_factors).
 //   K2 reads its node's field-independent inputs so
-//   (point_gs.pack_node_data, kernel kFusedPacked): 12 planes of
-//   double2, the six η sums and the twelve ζ weights in pairs (192 B a
-//   node, NodeParams of node_block.cuh).  Those are all the sums and
+//   (point_gs.pack_node_data, kernel kFusedPacked): 12 complex planes,
+//   the six η sums and the twelve ζ weights in pairs (192 B a node in
+//   complex128, NodeParams of node_block.cuh).  Those are all the sums and
 //   weights that the node's six residuals and its block read.  Where the
 //   packed data does not fit the card (Python's rule), K2 reads st and
 //   w at the node's indices instead (kFused); the values, and so the
@@ -83,10 +89,11 @@
 // and widths and stencil neighbours that are mostly shared with
 // neighbouring threads through L1/L2; fp64 arithmetic is below the
 // H100's fp64 rate per byte for K1 and near it for K2.  wgmma and TMA
-// do not apply (no matrix product, no regular tile).  On the coarse
-// levels of a cycle the cost was the launches: 8·nu per smoothing call,
-// ~4 µs of device time each whatever their size, and a host call each;
-// the sweep plans make it one.
+// do not apply (no matrix product, no regular tile).  In complex64 every
+// byte count halves and the arithmetic is fp32, twice the fp64 rate.
+// On the coarse levels of a cycle the cost was the launches: 8·nu per
+// smoothing call, ~4 µs of device time each whatever their size, and a
+// host call each; the sweep plans make it one.
 //
 // The complex arithmetic and the residual at an edge are in
 // stencil.cuh, shared with the line kernels (line_gs.cu); the node
@@ -125,23 +132,26 @@ constexpr int kNodePlanes = 12;   // K2's packed planes: 6 η sums, 6 ζ pairs
 // or K2 reading its colour-major packed node data.
 enum Kernel { kFactored = 0, kFused = 1, kFusedPacked = 2 };
 
+template <class R>
 struct Args {
-  double2* ex;          // (nx, ny+1, nz+1), updated in place
-  double2* ey;          // (nx+1, ny, nz+1)
-  double2* ez;          // (nx+1, ny+1, nz)
-  const double2* sx;    // source, same shapes as e
-  const double2* sy;
-  const double2* sz;
-  const double2* stx;   // η edge sums (nx, ny-1, nz-1)
-  const double2* sty;   // (nx-1, ny, nz-1)
-  const double2* stz;   // (nx-1, ny-1, nz)
-  const double* wx;     // ζ face weights (nx+1, ny, nz)
-  const double* wy;     // (nx, ny+1, nz)
-  const double* wz;     // (nx, ny, nz+1)
-  const double* ihx;    // inverse widths (nx,), (ny,), (nz,)
-  const double* ihy;
-  const double* ihz;
-  const double2* buf;   // colour-major planes: K1's factors, K2's packed
+  using real = R;
+  using C = cplx_t<R>;
+  C* ex;                // (nx, ny+1, nz+1), updated in place
+  C* ey;                // (nx+1, ny, nz+1)
+  C* ez;                // (nx+1, ny+1, nz)
+  const C* sx;          // source, same shapes as e
+  const C* sy;
+  const C* sz;
+  const C* stx;         // η edge sums (nx, ny-1, nz-1)
+  const C* sty;         // (nx-1, ny, nz-1)
+  const C* stz;         // (nx-1, ny-1, nz)
+  const R* wx;          // ζ face weights (nx+1, ny, nz)
+  const R* wy;          // (nx, ny+1, nz)
+  const R* wz;          // (nx, ny, nz+1)
+  const R* ihx;         // inverse widths (nx,), (ny,), (nz,)
+  const R* ihy;
+  const R* ihz;
+  const C* buf;         // colour-major planes: K1's factors, K2's packed
                         // node data; unused by kFused
   int nx, ny, nz;
   int x0, y0, z0;       // first active node index per axis
@@ -150,17 +160,18 @@ struct Args {
 
 // K2: the block's LDLᵀ (blocksolve.ldl_factor_sparse, same operation
 // order) from its assembly (node_block.cuh).
-template <class A>
-__device__ void factor_block(const A& a, const NodeParams& p, int i, int j,
-                             int k, double2 (&L)[6][6], double2 (&dinv)[6]) {
-  double2 Ab[6][6];
+template <class A, class C = cplx_of<A>>
+__device__ void factor_block(const A& a,
+                             const NodeParams<typename A::real>& p, int i,
+                             int j, int k, C (&L)[6][6], C (&dinv)[6]) {
+  C Ab[6][6];
   node_block(node_coef(p.w, a.ihx[i - 1], a.ihx[i], a.ihy[j - 1], a.ihy[j],
                        a.ihz[k - 1], a.ihz[k]),
              p.st, Ab);
-  double2 D[6];  // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
+  C D[6];  // D[k] = 1 / dinv[k], as blocksolve._d recomputes it
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
-    double2 acc = Ab[c][c];
+    C acc = Ab[c][c];
 #pragma unroll
     for (int m = 0; m < c; ++m) {
       if (l_present(c, m)) {
@@ -173,16 +184,17 @@ __device__ void factor_block(const A& a, const NodeParams& p, int i, int j,
     for (int r = c + 1; r < 6; ++r) {
       if (!l_present(r, c)) continue;
       bool has_s = false;
-      double2 s = make_double2(0.0, 0.0);
+      C s = cmake(typename A::real(0), typename A::real(0));
 #pragma unroll
       for (int m = 0; m < c; ++m) {
         if (l_present(r, m) && l_present(c, m)) {
-          const double2 t = cmul(cmul(L[r][m], L[c][m]), D[m]);
+          const C t = cmul(cmul(L[r][m], L[c][m]), D[m]);
           s = has_s ? cadd(s, t) : t;
           has_s = true;
         }
       }
-      double2 val = a_present(r, c) ? Ab[r][c] : make_double2(0.0, 0.0);
+      C val = a_present(r, c) ? Ab[r][c]
+                              : cmake(typename A::real(0), typename A::real(0));
       if (has_s) val = csub(val, s);
       L[r][c] = cmul(val, dinv[c]);
     }
@@ -193,8 +205,8 @@ __device__ void factor_block(const A& a, const NodeParams& p, int i, int j,
 // block edges, the block solve, the in-place deposit.  ``buf`` holds
 // the colour's planes of n nodes each: K1's 20 factors, or K2's 12
 // packed parameter planes (unused by kFused).
-template <int kKernel, class A>
-__device__ __forceinline__ void node_update(const A& a, const double2* buf,
+template <int kKernel, class A, class C = cplx_of<A>>
+__device__ __forceinline__ void node_update(const A& a, const C* buf,
                                             int64_t n, int64_t tid, int x0,
                                             int y0, int z0, int cny,
                                             int cnz) {
@@ -206,9 +218,9 @@ __device__ __forceinline__ void node_update(const A& a, const double2* buf,
   const int j = y0 + 2 * b;
   const int k = z0 + 2 * c;
 
-  double2 y[6];
-  double2 L[6][6];
-  double2 dinv[6];
+  C y[6];
+  C L[6][6];
+  C dinv[6];
   if constexpr (kKernel == kFactored) {
     // 1. Residual at the six block edges, from the pre-step field.
     y[0] = res_x(a, i - 1, j, k);
@@ -230,7 +242,7 @@ __device__ __forceinline__ void node_update(const A& a, const double2* buf,
   } else {
     // 1. The node's η sums and ζ weights, then the residual at its six
     // block edges from them and the pre-step field.
-    NodeParams p;
+    NodeParams<typename A::real> p;
     if constexpr (kKernel == kFusedPacked) {
 #pragma unroll
       for (int m = 0; m < 6; ++m) {
@@ -287,9 +299,9 @@ __device__ __forceinline__ void node_update(const A& a, const double2* buf,
 
 constexpr int kThreads = 256;   // most threads per block, every plan
 
-template <int kKernel>
+template <int kKernel, class R>
 __global__ void __launch_bounds__(kThreads)
-point_gs_step(Args a) {
+point_gs_step(Args<R> a) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t n = static_cast<int64_t>(a.cnx) * a.cny * a.cnz;
@@ -311,27 +323,39 @@ struct Colour {
   int64_t off;                  // the colour's planes in the buffer
 };
 
+template <class R>
 struct SweepArgs {
-  Args a;                       // a.buf: the whole colour-major buffer
+  Args<R> a;                       // a.buf: the whole colour-major buffer
   Colour col[8];
   int nseq;
   signed char seq[kMaxSeq];
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// One element from global into shared memory: 16-byte elements
+// (complex128) bypass L1, 8- and 4-byte ones (complex64 at any element
+// offset, float64, float32) take the sizes cp.async.ca allows.
+template <class T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  static_assert(sizeof(T) == 16 || sizeof(T) == 8 || sizeof(T) == 4,
+                "cp.async copies 4, 8 or 16 bytes");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(gmem));
+  if constexpr (sizeof(T) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  } else if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+  }
 }
 
 // Sizes of a level's tensors in elements, in the order the resident
 // plan stacks them in shared memory: e (3), s (3), η sums (3), factors
-// (K1 only; complex), then ζ weights (3) and inverse widths (3) (real).
+// (K1 only; complex), then ζ weights (3) and inverse widths (3) (real):
+// complex elements of sizeof(C) bytes, real ones of sizeof(R).
+template <class R>
 struct Sizes {
   int64_t n[16];
   __host__ __device__ Sizes(int nx, int ny, int nz, bool factored) {
@@ -352,7 +376,10 @@ struct Sizes {
   }
   __host__ __device__ int64_t bytes() const {
     int64_t b = 0;
-    for (int c = 0; c < 16; ++c) b += n[c] * (c < 10 ? 16 : 8);
+    for (int c = 0; c < 16; ++c) {
+      b += n[c] * static_cast<int64_t>(c < 10 ? sizeof(cplx_t<R>)
+                                               : sizeof(R));
+    }
     return b;
   }
 };
@@ -368,17 +395,19 @@ __device__ __forceinline__ void step_barrier() {
   }
 }
 
-template <int kPlan, int kKernel>
+template <int kPlan, int kKernel, class R>
 __global__ void __launch_bounds__(kThreads)
-point_gs_sweep(const __grid_constant__ SweepArgs sa) {
+point_gs_sweep(const __grid_constant__ SweepArgs<R> sa) {
   static_assert(kPlan != kShared || kKernel != kFusedPacked,
                 "the shared plan reads st and w from shared memory");
-  extern __shared__ double2 smem[];
-  Args a = sa.a;
+  using C = cplx_t<R>;
+  // Raw bytes: the float and double instances share the symbol.
+  extern __shared__ __align__(16) unsigned char smem[];
+  Args<R> a = sa.a;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-  const Sizes sz(a.nx, a.ny, a.nz, kKernel == kFactored);
+  const Sizes<R> sz(a.nx, a.ny, a.nz, kKernel == kFactored);
   if constexpr (kPlan == kShared) {
     // The whole level resident: copy e, s, the η sums, the factors (K1),
     // the ζ weights and the inverse widths in once; from here on the
@@ -389,50 +418,50 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
                            sa.a.wx, sa.a.wy, sa.a.wz, sa.a.ihx, sa.a.ihy,
                            sa.a.ihz};
     void* base[16];
-    char* dst = reinterpret_cast<char*>(smem);
+    unsigned char* dst = smem;
     for (int c = 0; c < 16; ++c) {
       base[c] = dst;
       if (c < 10) {
-        const double2* g = static_cast<const double2*>(src[c]);
-        double2* d = reinterpret_cast<double2*>(dst);
+        const C* g = static_cast<const C*>(src[c]);
+        C* d = reinterpret_cast<C*>(dst);
         for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
-          cp_async16(d + i, g + i);
+          cp_async(d + i, g + i);
         }
-        dst += sz.n[c] * 16;
+        dst += sz.n[c] * sizeof(C);
       } else {
-        const double* g = static_cast<const double*>(src[c]);
-        double* d = reinterpret_cast<double*>(dst);
+        const R* g = static_cast<const R*>(src[c]);
+        R* d = reinterpret_cast<R*>(dst);
         for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
-          cp_async8(d + i, g + i);
+          cp_async(d + i, g + i);
         }
-        dst += sz.n[c] * 8;
+        dst += sz.n[c] * sizeof(R);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    a.ex = static_cast<double2*>(base[0]);
-    a.ey = static_cast<double2*>(base[1]);
-    a.ez = static_cast<double2*>(base[2]);
-    a.sx = static_cast<const double2*>(base[3]);
-    a.sy = static_cast<const double2*>(base[4]);
-    a.sz = static_cast<const double2*>(base[5]);
-    a.stx = static_cast<const double2*>(base[6]);
-    a.sty = static_cast<const double2*>(base[7]);
-    a.stz = static_cast<const double2*>(base[8]);
-    a.buf = static_cast<const double2*>(base[9]);
-    a.wx = static_cast<const double*>(base[10]);
-    a.wy = static_cast<const double*>(base[11]);
-    a.wz = static_cast<const double*>(base[12]);
-    a.ihx = static_cast<const double*>(base[13]);
-    a.ihy = static_cast<const double*>(base[14]);
-    a.ihz = static_cast<const double*>(base[15]);
+    a.ex = static_cast<C*>(base[0]);
+    a.ey = static_cast<C*>(base[1]);
+    a.ez = static_cast<C*>(base[2]);
+    a.sx = static_cast<const C*>(base[3]);
+    a.sy = static_cast<const C*>(base[4]);
+    a.sz = static_cast<const C*>(base[5]);
+    a.stx = static_cast<const C*>(base[6]);
+    a.sty = static_cast<const C*>(base[7]);
+    a.stz = static_cast<const C*>(base[8]);
+    a.buf = static_cast<const C*>(base[9]);
+    a.wx = static_cast<const R*>(base[10]);
+    a.wy = static_cast<const R*>(base[11]);
+    a.wz = static_cast<const R*>(base[12]);
+    a.ihx = static_cast<const R*>(base[13]);
+    a.ihy = static_cast<const R*>(base[14]);
+    a.ihz = static_cast<const R*>(base[15]);
   }
   for (int s = 0; s < sa.nseq; ++s) {
     const Colour c = sa.col[sa.seq[s]];
     const int64_t n = static_cast<int64_t>(c.cnx) * c.cny * c.cnz;
     if (n == 0) continue;           // the same for every thread
-    const double2* buf = a.buf + c.off;
+    const C* buf = a.buf + c.off;
     for (int64_t tid = t0; tid < n; tid += stride) {
       node_update<kKernel>(a, buf, n, tid, c.x0, c.y0, c.z0, c.cny, c.cnz);
     }
@@ -440,8 +469,8 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
   }
   if constexpr (kPlan == kShared) {
     __syncthreads();
-    double2* out[3] = {sa.a.ex, sa.a.ey, sa.a.ez};
-    const double2* in[3] = {a.ex, a.ey, a.ez};
+    C* out[3] = {sa.a.ex, sa.a.ey, sa.a.ez};
+    const C* in[3] = {a.ex, a.ey, a.ez};
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
@@ -451,28 +480,31 @@ point_gs_sweep(const __grid_constant__ SweepArgs sa) {
   }
 }
 
-Args make_args(void* ex, void* ey, void* ez, const void* sx, const void* sy,
-               const void* sz, const void* stx, const void* sty,
-               const void* stz, const void* wx, const void* wy,
-               const void* wz, const void* ihx, const void* ihy,
-               const void* ihz, const void* buf, int nx, int ny, int nz) {
-  Args a;
-  a.ex = static_cast<double2*>(ex);
-  a.ey = static_cast<double2*>(ey);
-  a.ez = static_cast<double2*>(ez);
-  a.sx = static_cast<const double2*>(sx);
-  a.sy = static_cast<const double2*>(sy);
-  a.sz = static_cast<const double2*>(sz);
-  a.stx = static_cast<const double2*>(stx);
-  a.sty = static_cast<const double2*>(sty);
-  a.stz = static_cast<const double2*>(stz);
-  a.wx = static_cast<const double*>(wx);
-  a.wy = static_cast<const double*>(wy);
-  a.wz = static_cast<const double*>(wz);
-  a.ihx = static_cast<const double*>(ihx);
-  a.ihy = static_cast<const double*>(ihy);
-  a.ihz = static_cast<const double*>(ihz);
-  a.buf = static_cast<const double2*>(buf);
+template <class R>
+Args<R> make_args(void* ex, void* ey, void* ez, const void* sx,
+                  const void* sy, const void* sz, const void* stx,
+                  const void* sty, const void* stz, const void* wx,
+                  const void* wy, const void* wz, const void* ihx,
+                  const void* ihy, const void* ihz, const void* buf, int nx,
+                  int ny, int nz) {
+  using C = cplx_t<R>;
+  Args<R> a;
+  a.ex = static_cast<C*>(ex);
+  a.ey = static_cast<C*>(ey);
+  a.ez = static_cast<C*>(ez);
+  a.sx = static_cast<const C*>(sx);
+  a.sy = static_cast<const C*>(sy);
+  a.sz = static_cast<const C*>(sz);
+  a.stx = static_cast<const C*>(stx);
+  a.sty = static_cast<const C*>(sty);
+  a.stz = static_cast<const C*>(stz);
+  a.wx = static_cast<const R*>(wx);
+  a.wy = static_cast<const R*>(wy);
+  a.wz = static_cast<const R*>(wz);
+  a.ihx = static_cast<const R*>(ihx);
+  a.ihy = static_cast<const R*>(ihy);
+  a.ihz = static_cast<const R*>(ihz);
+  a.buf = static_cast<const C*>(buf);
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
@@ -488,7 +520,7 @@ bool valid_kernel(int kernel) {
 // Blocks of the grid plan of ``kKernel`` that the card holds
 // co-resident at ``threads`` threads per block (the kernels differ in
 // registers).
-template <int kKernel>
+template <int kKernel, class R>
 int grid_capacity(int threads, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -497,22 +529,23 @@ int grid_capacity(int threads, int* blocks) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, point_gs_sweep<kGrid, kKernel>, threads, 0);
+        &per_sm, point_gs_sweep<kGrid, kKernel, R>, threads, 0);
   }
   *blocks = sms * per_sm;
   return static_cast<int>(err);
 }
 
+template <class R>
 int grid_capacity(int kernel, int threads, int* blocks) {
   switch (kernel) {
-    case kFactored: return grid_capacity<kFactored>(threads, blocks);
-    case kFused: return grid_capacity<kFused>(threads, blocks);
-    default: return grid_capacity<kFusedPacked>(threads, blocks);
+    case kFactored: return grid_capacity<kFactored, R>(threads, blocks);
+    case kFused: return grid_capacity<kFused, R>(threads, blocks);
+    default: return grid_capacity<kFusedPacked, R>(threads, blocks);
   }
 }
 
-template <int kKernel>
-cudaError_t launch_sweep(int plan, const SweepArgs& sa, int blocks,
+template <int kKernel, class R>
+cudaError_t launch_sweep(int plan, const SweepArgs<R>& sa, int blocks,
                          int threads, int smem, cudaStream_t s) {
   if (plan == kCluster) {
     if (blocks > kMaxCluster || smem != 0) return cudaErrorInvalidValue;
@@ -528,61 +561,50 @@ cudaError_t launch_sweep(int plan, const SweepArgs& sa, int blocks,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster, kKernel>, sa);
+    return cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster, kKernel, R>,
+                              sa);
   }
   if (plan == kGrid) {
     if (smem != 0) return cudaErrorInvalidValue;
     int cap = 0;
     cudaError_t err = static_cast<cudaError_t>(
-        grid_capacity<kKernel>(threads, &cap));
+        grid_capacity<kKernel, R>(threads, &cap));
     if (err != cudaSuccess) return err;
     if (blocks > cap) return cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {const_cast<SweepArgs*>(&sa)};
+    void* args[] = {const_cast<SweepArgs<R>*>(&sa)};
     return cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(point_gs_sweep<kGrid, kKernel>),
+        reinterpret_cast<const void*>(point_gs_sweep<kGrid, kKernel, R>),
         dim3(blocks, 1, 1), dim3(threads, 1, 1), args, 0, s);
   }
   if constexpr (kKernel != kFusedPacked) {
     if (plan == kShared) {
-      const Sizes sz(sa.a.nx, sa.a.ny, sa.a.nz, kKernel == kFactored);
+      const Sizes<R> sz(sa.a.nx, sa.a.ny, sa.a.nz, kKernel == kFactored);
       if (blocks != 1 || smem != sz.bytes()) return cudaErrorInvalidValue;
       if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            point_gs_sweep<kShared, kKernel>,
+            point_gs_sweep<kShared, kKernel, R>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
       }
-      point_gs_sweep<kShared, kKernel><<<1, threads, smem, s>>>(sa);
+      point_gs_sweep<kShared, kKernel, R><<<1, threads, smem, s>>>(sa);
       return cudaSuccess;
     }
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// C interface, bound with ctypes by emg3d_tpu_torch/ops/point_gs.py.
-// Each launches on ``stream`` and returns a cudaError_t as int (0 on
-// success): cudaGetLastError() after the launch, or the error of a
-// launch the card refuses.  The launch geometry comes from the Python
-// plan functions.  ``kernel`` is 0 (K1, ``buf`` its factors), 1 (K2
-// reading st and w) or 2 (K2, ``buf`` its packed node data).
-
-// One colour step (the ``step`` plan).  ``buf`` points at the colour's
-// planes of the colour-major buffer; the caller skips colours without
-// nodes.
-extern "C" int emg3d_point_gs_step(
-    int kernel, void* ex, void* ey, void* ez, const void* sx,
-    const void* sy, const void* sz, const void* stx, const void* sty,
-    const void* stz, const void* wx, const void* wy, const void* wz,
-    const void* ihx, const void* ihy, const void* ihz, const void* buf,
-    int nx, int ny, int nz, int x0, int y0, int z0, int cnx, int cny,
-    int cnz, int blocks, int threads, void* stream) {
+template <class R>
+int step(int kernel, void* ex, void* ey, void* ez, const void* sx,
+         const void* sy, const void* sz, const void* stx, const void* sty,
+         const void* stz, const void* wx, const void* wy, const void* wz,
+         const void* ihx, const void* ihy, const void* ihz, const void* buf,
+         int nx, int ny, int nz, int x0, int y0, int z0, int cnx, int cny,
+         int cnz, int blocks, int threads, void* stream) {
   if (threads > kThreads || !valid_kernel(kernel)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
-                     ihy, ihz, buf, nx, ny, nz);
+  Args<R> a = make_args<R>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy,
+                           wz, ihx, ihy, ihz, buf, nx, ny, nz);
   a.x0 = x0;
   a.y0 = y0;
   a.z0 = z0;
@@ -591,43 +613,30 @@ extern "C" int emg3d_point_gs_step(
   a.cnz = cnz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel == kFactored) {
-    point_gs_step<kFactored><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFactored, R><<<blocks, threads, 0, s>>>(a);
   } else if (kernel == kFused) {
-    point_gs_step<kFused><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFused, R><<<blocks, threads, 0, s>>>(a);
   } else {
-    point_gs_step<kFusedPacked><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFusedPacked, R><<<blocks, threads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of ``kernel``'s grid plan that the card holds co-resident at
-// its largest blocks (kThreads threads).
-extern "C" int emg3d_point_gs_grid_capacity(int kernel, int* blocks) {
-  if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
-  return grid_capacity(kernel, kThreads, blocks);
-}
-
-// The whole colour sequence ``seq[0..nseq)`` of a smoothing call in one
-// launch (the cluster, grid and shared plans).  ``geom`` holds per
-// colour x0, y0, z0, cnx, cny, cnz; ``offs`` its offset in ``buf``.  A
-// plan the card cannot run is refused, never replaced: a cluster beyond
-// kMaxCluster CTAs, a grid beyond the co-resident blocks, shared memory
-// beyond the block's, the shared plan of packed K2.
-extern "C" int emg3d_point_gs_sweep(
-    int plan, int kernel, void* ex, void* ey, void* ez, const void* sx,
-    const void* sy, const void* sz, const void* stx, const void* sty,
-    const void* stz, const void* wx, const void* wy, const void* wz,
-    const void* ihx, const void* ihy, const void* ihz, const void* buf,
-    int nx, int ny, int nz, const int* geom, const long long* offs,
-    const int* seq, int nseq, int blocks, int threads, int smem,
-    void* stream) {
+template <class R>
+int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
+          const void* sx, const void* sy, const void* sz, const void* stx,
+          const void* sty, const void* stz, const void* wx, const void* wy,
+          const void* wz, const void* ihx, const void* ihy, const void* ihz,
+          const void* buf, int nx, int ny, int nz, const int* geom,
+          const long long* offs, const int* seq, int nseq, int blocks,
+          int threads, int smem, void* stream) {
   if (nseq < 1 || nseq > kMaxSeq || threads < 32 || threads > kThreads ||
       threads % 32 != 0 || blocks < 1 || !valid_kernel(kernel)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SweepArgs sa;
-  sa.a = make_args(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx,
-                   ihy, ihz, buf, nx, ny, nz);
+  SweepArgs<R> sa;
+  sa.a = make_args<R>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz,
+                      ihx, ihy, ihz, buf, nx, ny, nz);
   for (int c = 0; c < 8; ++c) {
     sa.col[c] = Colour{geom[6 * c], geom[6 * c + 1], geom[6 * c + 2],
                        geom[6 * c + 3], geom[6 * c + 4], geom[6 * c + 5],
@@ -643,12 +652,81 @@ extern "C" int emg3d_point_gs_sweep(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (kernel == kFactored) {
-    err = launch_sweep<kFactored>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFactored, R>(plan, sa, blocks, threads, smem, s);
   } else if (kernel == kFused) {
-    err = launch_sweep<kFused>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFused, R>(plan, sa, blocks, threads, smem, s);
   } else {
-    err = launch_sweep<kFusedPacked>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFusedPacked, R>(plan, sa, blocks, threads, smem, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, bound with ctypes by emg3d_tpu_torch/ops/point_gs.py.
+// Each launches on ``stream`` and returns a cudaError_t as int (0 on
+// success): cudaGetLastError() after the launch, or the error of a
+// launch the card refuses.  The launch geometry comes from the Python
+// plan functions.  ``kernel`` is 0 (K1, ``buf`` its factors), 1 (K2
+// reading st and w) or 2 (K2, ``buf`` its packed node data).  Every
+// entry point takes complex128 tensors (float64 weights and widths);
+// its ``_c64`` twin the same in complex64 (float32).
+
+#define EMG3D_STEP_PARAMS                                                   \
+  int kernel, void *ex, void *ey, void *ez, const void *sx, const void *sy, \
+      const void *sz, const void *stx, const void *sty, const void *stz,   \
+      const void *wx, const void *wy, const void *wz, const void *ihx,     \
+      const void *ihy, const void *ihz, const void *buf, int nx, int ny,   \
+      int nz, int x0, int y0, int z0, int cnx, int cny, int cnz,           \
+      int blocks, int threads, void *stream
+#define EMG3D_STEP_ARGS                                                     \
+  kernel, ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx, ihy, ihz, \
+      buf, nx, ny, nz, x0, y0, z0, cnx, cny, cnz, blocks, threads, stream
+
+// One colour step (the ``step`` plan).  ``buf`` points at the colour's
+// planes of the colour-major buffer; the caller skips colours without
+// nodes.
+extern "C" int emg3d_point_gs_step(EMG3D_STEP_PARAMS) {
+  return step<double>(EMG3D_STEP_ARGS);
+}
+extern "C" int emg3d_point_gs_step_c64(EMG3D_STEP_PARAMS) {
+  return step<float>(EMG3D_STEP_ARGS);
+}
+
+// Blocks of ``kernel``'s grid plan that the card holds co-resident at
+// its largest blocks (kThreads threads).
+extern "C" int emg3d_point_gs_grid_capacity(int kernel, int* blocks) {
+  if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
+  return grid_capacity<double>(kernel, kThreads, blocks);
+}
+extern "C" int emg3d_point_gs_grid_capacity_c64(int kernel, int* blocks) {
+  if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
+  return grid_capacity<float>(kernel, kThreads, blocks);
+}
+
+#define EMG3D_SWEEP_PARAMS                                                   \
+  int plan, int kernel, void *ex, void *ey, void *ez, const void *sx,        \
+      const void *sy, const void *sz, const void *stx, const void *sty,      \
+      const void *stz, const void *wx, const void *wy, const void *wz,       \
+      const void *ihx, const void *ihy, const void *ihz, const void *buf,    \
+      int nx, int ny, int nz, const int *geom, const long long *offs,        \
+      const int *seq, int nseq, int blocks, int threads, int smem,           \
+      void *stream
+#define EMG3D_SWEEP_ARGS                                                     \
+  plan, kernel, ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz, ihx, ihy, \
+      ihz, buf, nx, ny, nz, geom, offs, seq, nseq, blocks, threads, smem,    \
+      stream
+
+// The whole colour sequence ``seq[0..nseq)`` of a smoothing call in one
+// launch (the cluster, grid and shared plans).  ``geom`` holds per
+// colour x0, y0, z0, cnx, cny, cnz; ``offs`` its offset in ``buf``.  A
+// plan the card cannot run is refused, never replaced: a cluster beyond
+// kMaxCluster CTAs, a grid beyond the co-resident blocks, shared memory
+// beyond the block's, the shared plan of packed K2.
+extern "C" int emg3d_point_gs_sweep(EMG3D_SWEEP_PARAMS) {
+  return sweep<double>(EMG3D_SWEEP_ARGS);
+}
+extern "C" int emg3d_point_gs_sweep_c64(EMG3D_SWEEP_PARAMS) {
+  return sweep<float>(EMG3D_SWEEP_ARGS);
 }

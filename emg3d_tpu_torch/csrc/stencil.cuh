@@ -1,16 +1,19 @@
-// Complex128 helpers and the curl-curl residual at one edge, shared by
-// the point (point_gs.cu) and line (line_gs.cu) kernels.
+// Complex helpers and the curl-curl residual at one edge, shared by the
+// point (point_gs.cu) and line (line_gs.cu) kernels, for both scalar
+// types of a solve: complex128 (double2 with double weights) and
+// complex64 (float2 with float weights).
 //
-// The residual functions take any argument struct ``a`` with the members
-// ex, ey, ez (edge fields), sx, sy, sz (source), stx, sty, stz (η edge
-// sums, stencil.eta_edge_sums), wx, wy, wz (ζ face weights,
+// The residual functions take any argument struct ``a`` with a member
+// type ``real`` (double or float) and the members ex, ey, ez (edge
+// fields), sx, sy, sz (source), stx, sty, stz (η edge sums,
+// stencil.eta_edge_sums), wx, wy, wz (ζ face weights,
 // stencil.zeta_face_weights), ihx, ihy, ihz (inverse widths) and the
 // level's cell shape nx, ny, nz.  All tensors are C-ordered, unpadded.
 //
 // Complex products are complex-SYMMETRIC (no conjugation anywhere), as
 // in blocksolve.py.  The complex reciprocal follows the scaled (Smith)
-// division that PyTorch uses, so the kernels and the plain torch
-// versions agree to rounding.
+// division that PyTorch uses, in IEEE division (no fast-math flag), so
+// the kernels and the plain torch versions agree to rounding.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,30 +21,64 @@
 
 namespace emg3d {
 
-__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
-  return make_double2(a.x + b.x, a.y + b.y);
+// The complex type of a real type: double2 for double, float2 for float.
+template <class R>
+struct Cplx;
+template <>
+struct Cplx<double> {
+  using type = double2;
+};
+template <>
+struct Cplx<float> {
+  using type = float2;
+};
+template <class R>
+using cplx_t = typename Cplx<R>::type;
+// The complex type of an argument struct (its ``real`` member type).
+template <class A>
+using cplx_of = cplx_t<typename A::real>;
+
+__device__ __forceinline__ double2 cmake(double re, double im) {
+  return make_double2(re, im);
 }
-__device__ __forceinline__ double2 csub(double2 a, double2 b) {
-  return make_double2(a.x - b.x, a.y - b.y);
+__device__ __forceinline__ float2 cmake(float re, float im) {
+  return make_float2(re, im);
+}
+
+template <class C>
+__device__ __forceinline__ C cadd(C a, C b) {
+  return cmake(a.x + b.x, a.y + b.y);
+}
+template <class C>
+__device__ __forceinline__ C csub(C a, C b) {
+  return cmake(a.x - b.x, a.y - b.y);
 }
 // Complex product without conjugation.
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+template <class C>
+__device__ __forceinline__ C cmul(C a, C b) {
+  return cmake(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
-__device__ __forceinline__ double2 cscale(double2 a, double s) {
-  return make_double2(a.x * s, a.y * s);
+// Complex times real; a literal factor (0.5, 0.25) is taken in the
+// complex type's precision, as the plain version takes a Python float.
+template <class C>
+__device__ __forceinline__ C cscale(C a, decltype(a.x) s) {
+  return cmake(a.x * s, a.y * s);
 }
+__device__ __forceinline__ double rabs(double v) { return fabs(v); }
+__device__ __forceinline__ float rabs(float v) { return fabsf(v); }
 // 1 / (c + d i) by the scaled division of c10::complex.
-__device__ __forceinline__ double2 crecip(double2 z) {
-  const double c = z.x, d = z.y;
-  if (fabs(c) >= fabs(d)) {
-    const double rat = d / c;
-    const double scl = 1.0 / (c + d * rat);
-    return make_double2(scl, -rat * scl);
+template <class C>
+__device__ __forceinline__ C crecip(C z) {
+  using R = decltype(z.x);
+  const R c = z.x, d = z.y;
+  if (rabs(c) >= rabs(d)) {
+    const R rat = d / c;
+    const R scl = R(1) / (c + d * rat);
+    return cmake(scl, -rat * scl);
   }
-  const double rat = c / d;
-  const double scl = 1.0 / (d + c * rat);
-  return make_double2(rat * scl, -scl);
+  const R rat = c / d;
+  const R scl = R(1) / (d + c * rat);
+  return cmake(rat * scl, -scl);
 }
 
 __device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
@@ -64,13 +101,13 @@ __device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
 template <class A>
 struct GlobalE {
   const A& a;
-  __device__ __forceinline__ double2 x(int i, int j, int k) const {
+  __device__ __forceinline__ cplx_of<A> x(int i, int j, int k) const {
     return EX(i, j, k);
   }
-  __device__ __forceinline__ double2 y(int i, int j, int k) const {
+  __device__ __forceinline__ cplx_of<A> y(int i, int j, int k) const {
     return EY(i, j, k);
   }
-  __device__ __forceinline__ double2 z(int i, int j, int k) const {
+  __device__ __forceinline__ cplx_of<A> z(int i, int j, int k) const {
     return EZ(i, j, k);
   }
 };
@@ -79,26 +116,29 @@ struct GlobalE {
 // ``w`` given.
 // u1: x-face at x-node i of cell (j, k).
 template <class A, class F>
-__device__ __forceinline__ double2 u1(const A& a, const F& f, int i, int j,
-                                      int k, double w) {
-  const double2 v = csub(cscale(csub(f.z(i, j + 1, k), f.z(i, j, k)), a.ihy[j]),
-                         cscale(csub(f.y(i, j, k + 1), f.y(i, j, k)), a.ihz[k]));
+__device__ __forceinline__ cplx_of<A> u1(const A& a, const F& f, int i, int j,
+                                         int k, typename A::real w) {
+  const cplx_of<A> v =
+      csub(cscale(csub(f.z(i, j + 1, k), f.z(i, j, k)), a.ihy[j]),
+           cscale(csub(f.y(i, j, k + 1), f.y(i, j, k)), a.ihz[k]));
   return cscale(v, w);
 }
 // u2: y-face at y-node j of cell (i, k).
 template <class A, class F>
-__device__ __forceinline__ double2 u2(const A& a, const F& f, int i, int j,
-                                      int k, double w) {
-  const double2 v = csub(cscale(csub(f.x(i, j, k + 1), f.x(i, j, k)), a.ihz[k]),
-                         cscale(csub(f.z(i + 1, j, k), f.z(i, j, k)), a.ihx[i]));
+__device__ __forceinline__ cplx_of<A> u2(const A& a, const F& f, int i, int j,
+                                         int k, typename A::real w) {
+  const cplx_of<A> v =
+      csub(cscale(csub(f.x(i, j, k + 1), f.x(i, j, k)), a.ihz[k]),
+           cscale(csub(f.z(i + 1, j, k), f.z(i, j, k)), a.ihx[i]));
   return cscale(v, w);
 }
 // u3: z-face at z-node k of cell (i, j).
 template <class A, class F>
-__device__ __forceinline__ double2 u3(const A& a, const F& f, int i, int j,
-                                      int k, double w) {
-  const double2 v = csub(cscale(csub(f.y(i + 1, j, k), f.y(i, j, k)), a.ihx[i]),
-                         cscale(csub(f.x(i, j + 1, k), f.x(i, j, k)), a.ihy[j]));
+__device__ __forceinline__ cplx_of<A> u3(const A& a, const F& f, int i, int j,
+                                         int k, typename A::real w) {
+  const cplx_of<A> v =
+      csub(cscale(csub(f.y(i + 1, j, k), f.y(i, j, k)), a.ihx[i]),
+           cscale(csub(f.x(i, j + 1, k), f.x(i, j, k)), a.ihy[j]));
   return cscale(v, w);
 }
 
@@ -109,70 +149,76 @@ __device__ __forceinline__ double2 u3(const A& a, const F& f, int i, int j,
 // from its node's packed data; the overloads below read them from the
 // level's tensors.  The operation order is the same either way.
 template <class A, class F>
-__device__ double2 res_x(const A& a, const F& f, int i, int j, int k,
-                         double2 st, double w3p, double w3m, double w2p,
-                         double w2m) {
-  const double2 rr = csub(
+__device__ cplx_of<A> res_x(const A& a, const F& f, int i, int j, int k,
+                            cplx_of<A> st, typename A::real w3p,
+                            typename A::real w3m, typename A::real w2p,
+                            typename A::real w2m) {
+  const cplx_of<A> rr = csub(
       csub(cscale(u3(a, f, i, j, k, w3p), a.ihy[j]),
            cscale(u3(a, f, i, j - 1, k, w3m), a.ihy[j - 1])),
       csub(cscale(u2(a, f, i, j, k, w2p), a.ihz[k]),
            cscale(u2(a, f, i, j, k - 1, w2m), a.ihz[k - 1])));
-  const double2 ax = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.x(i, j, k)));
+  const cplx_of<A> ax =
+      csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.x(i, j, k)));
   return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
 }
 template <class A, class F>
-__device__ double2 res_y(const A& a, const F& f, int i, int j, int k,
-                         double2 st, double w1p, double w1m, double w3p,
-                         double w3m) {
-  const double2 rr = csub(
+__device__ cplx_of<A> res_y(const A& a, const F& f, int i, int j, int k,
+                            cplx_of<A> st, typename A::real w1p,
+                            typename A::real w1m, typename A::real w3p,
+                            typename A::real w3m) {
+  const cplx_of<A> rr = csub(
       csub(cscale(u1(a, f, i, j, k, w1p), a.ihz[k]),
            cscale(u1(a, f, i, j, k - 1, w1m), a.ihz[k - 1])),
       csub(cscale(u3(a, f, i, j, k, w3p), a.ihx[i]),
            cscale(u3(a, f, i - 1, j, k, w3m), a.ihx[i - 1])));
-  const double2 ay = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.y(i, j, k)));
+  const cplx_of<A> ay =
+      csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.y(i, j, k)));
   return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
 }
 template <class A, class F>
-__device__ double2 res_z(const A& a, const F& f, int i, int j, int k,
-                         double2 st, double w2p, double w2m, double w1p,
-                         double w1m) {
-  const double2 rr = csub(
+__device__ cplx_of<A> res_z(const A& a, const F& f, int i, int j, int k,
+                            cplx_of<A> st, typename A::real w2p,
+                            typename A::real w2m, typename A::real w1p,
+                            typename A::real w1m) {
+  const cplx_of<A> rr = csub(
       csub(cscale(u2(a, f, i, j, k, w2p), a.ihx[i]),
            cscale(u2(a, f, i - 1, j, k, w2m), a.ihx[i - 1])),
       csub(cscale(u1(a, f, i, j, k, w1p), a.ihy[j]),
            cscale(u1(a, f, i, j - 1, k, w1m), a.ihy[j - 1])));
-  const double2 az = csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.z(i, j, k)));
+  const cplx_of<A> az =
+      csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.z(i, j, k)));
   return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
 }
 
 // The same with η sum and face weights read from the level's tensors.
 template <class A, class F>
-__device__ double2 res_x(const A& a, const F& f, int i, int j, int k) {
+__device__ cplx_of<A> res_x(const A& a, const F& f, int i, int j, int k) {
   return res_x(a, f, i, j, k, a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)],
                WZ(i, j, k), WZ(i, j - 1, k), WY(i, j, k), WY(i, j, k - 1));
 }
 template <class A, class F>
-__device__ double2 res_y(const A& a, const F& f, int i, int j, int k) {
+__device__ cplx_of<A> res_y(const A& a, const F& f, int i, int j, int k) {
   return res_y(a, f, i, j, k, a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)],
                WX(i, j, k), WX(i, j, k - 1), WZ(i, j, k), WZ(i - 1, j, k));
 }
 template <class A, class F>
-__device__ double2 res_z(const A& a, const F& f, int i, int j, int k) {
+__device__ cplx_of<A> res_z(const A& a, const F& f, int i, int j, int k) {
   return res_z(a, f, i, j, k, a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)],
                WY(i, j, k), WY(i - 1, j, k), WX(i, j, k), WX(i, j - 1, k));
 }
 
 // The same at an edge of the level's own tensors.
 template <class A>
-__device__ double2 res_x(const A& a, int i, int j, int k) {
+__device__ cplx_of<A> res_x(const A& a, int i, int j, int k) {
   return res_x(a, GlobalE<A>{a}, i, j, k);
 }
 template <class A>
-__device__ double2 res_y(const A& a, int i, int j, int k) {
+__device__ cplx_of<A> res_y(const A& a, int i, int j, int k) {
   return res_y(a, GlobalE<A>{a}, i, j, k);
 }
 template <class A>
-__device__ double2 res_z(const A& a, int i, int j, int k) {
+__device__ cplx_of<A> res_z(const A& a, int i, int j, int k) {
   return res_z(a, GlobalE<A>{a}, i, j, k);
 }
 

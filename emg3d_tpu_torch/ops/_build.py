@@ -19,8 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'build', 'ARGTYPES', 'PROBE_ARGTYPES',
-           'LIBRARIES']
+__all__ = ['library', 'build', 'entry', 'ARGTYPES', 'PROBE_ARGTYPES',
+           'LIBRARIES', 'C64']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
@@ -32,8 +32,9 @@ _LIBS = {}   # the loaded libraries by name, once built
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # The C entry points of the solve library and their argument types; each
-# returns a cudaError_t as int.
-ARGTYPES = {
+# returns a cudaError_t as int.  K1-K5 take complex128 tensors, their
+# ``_c64`` twins (C64) the same in complex64; K6 is complex64 only.
+_SOLVE = {
     'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
     'emg3d_point_gs_sweep': [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P] * 3
                             + [_I] * 4 + [_P],
@@ -42,6 +43,9 @@ ARGTYPES = {
     'emg3d_line_thomas': [_P] * 9 + [_I] * 15 + [_P],
     'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
 }
+C64 = '_c64'
+ARGTYPES = {**_SOLVE, **{k + C64: v for k, v in _SOLVE.items()},
+            'emg3d_residual_ds_c64': [_P] * 21 + [_I] * 7 + [_P]}
 # The same for the probe library (csrc/probes.cu).
 PROBE_ARGTYPES = {
     'emg3d_probe_tile_copy': [_P] + [_I] * 16 + [_P],
@@ -54,8 +58,8 @@ PROBE_ARGTYPES = {
 }
 # name: (file name, sources in csrc/, entry points).
 LIBRARIES = {
-    'solve': ('libemg3d_tpu_torch.so', ('line_gs.cu', 'point_gs.cu'),
-              ARGTYPES),
+    'solve': ('libemg3d_tpu_torch.so', ('line_gs.cu', 'point_gs.cu',
+                                        'dsres.cu'), ARGTYPES),
     'probes': ('libemg3d_tpu_torch_probes.so', ('probes.cu',),
                PROBE_ARGTYPES),
 }
@@ -142,3 +146,16 @@ def library(name='solve'):
             fn.restype = _I
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def entry(name, dtype):
+    """The solve library's C entry point ``name`` for tensors of the
+    complex ``dtype``: the complex128 instance, or its ``_c64`` twin for
+    complex64.  Any other dtype raises."""
+    import torch
+    if dtype == torch.complex128:
+        return getattr(library(), name)
+    if dtype == torch.complex64:
+        return getattr(library(), name + C64)
+    raise ValueError(f"{name}: the CUDA kernels take complex128 or "
+                     f"complex64; got {dtype}")

@@ -23,6 +23,10 @@ hand-written CUDA kernels (``csrc/line_gs.cu``):
   memory, and adds δ into the lines' edges in place (the math of
   :func:`.smoothers.line_thomas_x`, its plain version).
 
+Each kernel comes in complex128 and complex64 (the precision the Pallas
+kernels compute in); the line state's dtype picks the instance, under
+the same launch plans with every byte count at the element size.
+
 K3 and K4 are launched once each per colour step, as the Pallas pair
 is; K5 once per factor stack.  The residual buffer is filled with NaN
 once per smoothing call: an entry K4 read outside its colour's edges
@@ -53,6 +57,7 @@ from collections import namedtuple
 import torch
 
 from . import smoothers, stencil
+from ..dtypes import REAL_OF, complex_size
 from .smoothers import NLINE
 
 __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
@@ -160,11 +165,12 @@ def _line_dims(rshape):
     return rshape[1] // 2, rshape[2] // 2
 
 
-def factor_bytes(shape, axis):
-    """Bytes of the complex128 factor stack of ``axis``-lines of a level."""
+def factor_bytes(shape, axis, dtype=torch.complex128):
+    """Bytes of the factor stack of ``axis``-lines of a level in
+    ``dtype``."""
     rs = smoothers.rotate_shape(shape, axis)
     ny2, nz2 = _line_dims(rs)
-    return rs[0] * NLINE * 4 * ny2 * nz2 * 16
+    return rs[0] * NLINE * 4 * ny2 * nz2 * complex_size(dtype)
 
 
 def cache_budget(device):
@@ -187,7 +193,7 @@ def _stack(ar, rs, st, w, ih, plain, groups=None):
             return smoothers.line_factor_stack(ar, rs)
         return factor(st, w, ih, rs)
     out = torch.empty((groups, rs[0], NLINE, 2, 2, *_line_dims(rs)),
-                      dtype=torch.complex128, device=ar[0].device)
+                      dtype=st[0].dtype, device=ar[0].device)
     for g in range(groups):
         if plain or ar[0].device.type == 'cpu':
             out[g] = smoothers.line_factor_stack(_group_arrays(ar, g), rs)
@@ -298,9 +304,9 @@ def factor(st, w, ih, shape, geometry=None, out=None):
 
     ``st``, ``w`` and ``ih`` are the rotated frame's η edge sums, ζ face
     weights and inverse widths (a :class:`LineState`'s), contiguous
-    CUDA tensors; ``shape`` its cell shape (lines along x).  Returns a
-    new ``(nx, NLINE, 2, 2, ny2, nz2)`` complex128 stack, every plane
-    written by the kernel.  ``geometry`` forces a
+    CUDA tensors, complex128/float64 or complex64/float32; ``shape`` its
+    cell shape (lines along x).  Returns a new ``(nx, NLINE, 2, 2, ny2,
+    nz2)`` stack of st's dtype, every plane written by the kernel.  ``geometry`` forces a
     :func:`factor_geometry` (timings on the card).  ``out`` is a
     contiguous stack of that shape to write instead (a group's slice of
     a lane state's stack).  The plain version is
@@ -308,11 +314,13 @@ def factor(st, w, ih, shape, geometry=None, out=None):
     """
     _cuda(st[0])
     nx, ny, nz = shape
+    cdt = st[0].dtype
+    complex_size(cdt)
     want = {'st': (((nx, ny - 1, nz - 1), (nx - 1, ny, nz - 1),
-                    (nx - 1, ny - 1, nz)), torch.complex128),
+                    (nx - 1, ny - 1, nz)), cdt),
             'w': (((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)),
-                  torch.float64),
-            'ih': (((nx,), (ny,), (nz,)), torch.float64)}
+                  REAL_OF[cdt]),
+            'ih': (((nx,), (ny,), (nz,)), REAL_OF[cdt])}
     for name, trio in (('st', st), ('w', w), ('ih', ih)):
         shapes, dtype = want[name]
         for t, sh in zip(trio, shapes):
@@ -328,15 +336,15 @@ def factor(st, w, ih, shape, geometry=None, out=None):
     g = factor_geometry(shape) if geometry is None else geometry
     want = (nx, NLINE, 2, 2, *_line_dims(shape))
     if out is None:
-        out = torch.empty(want, dtype=torch.complex128, device=st[0].device)
-    elif (tuple(out.shape) != want or out.dtype != torch.complex128
+        out = torch.empty(want, dtype=cdt, device=st[0].device)
+    elif (tuple(out.shape) != want or out.dtype != cdt
           or out.device != st[0].device or not out.is_contiguous()):
-        raise ValueError(f"factor: out must be a contiguous complex128 "
+        raise ValueError(f"factor: out must be a contiguous {cdt} "
                          f"{want} on {st[0].device}")
     if g.blocks == 0:
         return out
-    from ._build import library
-    err = library().emg3d_line_factor(
+    from ._build import entry
+    err = entry('emg3d_line_factor', cdt)(
         _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz,
         g.blocks, g.threads, _stream(out.device))
     if err != 0:
@@ -387,9 +395,11 @@ def colour_edge_masks(shape, color, device='cpu'):
 
 @functools.lru_cache(maxsize=None)
 def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
-                      xplanes=None, staged=None, lanes=1):
+                      xplanes=None, staged=None, lanes=1,
+                      dtype=torch.complex128):
     """K3's launch for one colour of a rotated level, over ``lanes``
-    batch lanes.
+    batch lanes, for fields of ``dtype`` (the ring's bytes at its element
+    size; the rule is the same for both).
 
     A block owns ``rows`` line rows × ``lines`` lines along z ×
     ``xplanes`` stations of the colour's lines (:func:`colour_edges`)
@@ -421,7 +431,7 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
                        RES_XPLANES[-1])
     if staged is None:
         staged = xplanes >= RES_STAGED
-    smem = RES_SLOTS * slot * 16 if staged else 0
+    smem = RES_SLOTS * slot * complex_size(dtype) if staged else 0
     if smem > SMEM_MAX:
         raise ValueError(f"K3: {smem} B of shared memory per block")
     blocks = slabs * -(-shape[0] // xplanes)
@@ -432,7 +442,7 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
 
 
 def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
-                    lanes=1):
+                    lanes=1, dtype=torch.complex128):
     """Active lines of one colour and the Thomas launch that covers them.
 
     ``shape`` is the rotated-frame cell shape (lines along x).  Interior
@@ -449,7 +459,9 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
     (blocks, lanes)); a lane's results do not depend on the plan.
     ``lines_per_block`` and ``z_shared`` force
     another plan (checks and timings on the card); a plan beyond the
-    block's shared memory raises.  ``blocks == 0`` when the colour has
+    block's shared memory raises.  ``dtype`` is the fields' (the ring's
+    and z's bytes at its element size: complex64 keeps z on chip at
+    twice the stations).  ``blocks == 0`` when the colour has
     no line (e.g. colours 1 and 3 on a level with one interior y-line).
     """
     nx, ny, nz = shape
@@ -468,15 +480,16 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
     elif lpb not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"lines_per_block {lpb}: a power of two ≤ "
                          f"{THOMAS_WARP}")
-    ring = THOMAS_STAGES * _PLANES * lpb * 16
-    zbytes = nx * 5 * lpb * 16
+    size = complex_size(dtype)
+    ring = THOMAS_STAGES * _PLANES * lpb * size
+    zbytes = nx * 5 * lpb * size
     if z_shared is None:
         z_shared = ring + zbytes <= THOMAS_ZSHARED
     elif z_shared and ring + zbytes > SMEM_MAX:
         raise ValueError(f"z of {lpb} lines of {nx} stations does not fit "
                          f"a block's shared memory")
     planes = _PLANES if z_shared else _PLANES_GZ
-    smem = THOMAS_STAGES * planes * lpb * 16 + (zbytes if z_shared else 0)
+    smem = THOMAS_STAGES * planes * lpb * size + (zbytes if z_shared else 0)
     return ThomasGeometry(cy, cz, counts, -(-total // lpb), THOMAS_WARP,
                           lpb, z_shared, planes, smem, lanes)
 
@@ -511,22 +524,28 @@ def _check(e, s, state):
         if tuple(fac.shape) != want:
             raise ValueError(f"factors: shape {tuple(fac.shape)}, expected "
                              f"{want}")
+    cdt = e[0].dtype
+    complex_size(cdt)
+    groups = {'e': e, 's': s, 'st': state.st, 'w': state.w, 'ih': state.ih,
+              'factors': () if fac is None else (fac,)}
+    for name, trio in groups.items():
+        want = REAL_OF[cdt] if name in ('w', 'ih') else cdt
+        for t in trio:
+            if t.dtype != want:
+                raise ValueError(f"{name}: {t.dtype} in a {cdt} call; "
+                                 f"expected {want}")
     if dev.type == 'cpu':
         return
     if state.lanes is not None and (state.lanes.device != dev
                                     or state.lanes.dtype != torch.int32):
         raise ValueError(f"lanes: the CUDA kernels take int32 on {dev}; "
                          f"got {state.lanes.dtype} on {state.lanes.device}")
-    groups = {'e': e, 's': s, 'st': state.st, 'w': state.w, 'ih': state.ih,
-              'factors': () if fac is None else (fac,)}
     for name, trio in groups.items():
-        want = torch.float64 if name in ('w', 'ih') else torch.complex128
         for t in trio:
-            if t.device != dev or t.dtype != want or not t.is_contiguous():
+            if t.device != dev or not t.is_contiguous():
                 raise ValueError(
-                    f"{name}: the CUDA kernels take contiguous {want} on "
-                    f"{dev}; got {t.dtype} on {t.device}, contiguous="
-                    f"{t.is_contiguous()}")
+                    f"{name}: the CUDA kernels take contiguous tensors on "
+                    f"{dev}; got {t.device}, contiguous={t.is_contiguous()}")
 
 
 def _ptr(t):
@@ -554,15 +573,15 @@ def residual(e, s, state, color, out, geometry=None):
     """
     _cuda(e[0])
     lanes = lane_count(state)
-    g = residual_geometry(state.shape, color, lanes=lanes) \
-        if geometry is None else geometry
+    g = residual_geometry(state.shape, color, lanes=lanes,
+                          dtype=e[0].dtype) if geometry is None else geometry
     if g.lanes != lanes:
         raise ValueError(f"K3: a geometry of {g.lanes} lanes for a state "
                          f"of {lanes}")
     if g.blocks == 0:
         return out
-    from ._build import library
-    err = library().emg3d_line_residual(
+    from ._build import entry
+    err = entry('emg3d_line_residual', e[0].dtype)(
         *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih,
                             state.lanes)),
         *state.shape, g.cy, g.cz, *g.counts, g.rows, g.lines, g.xplanes,
@@ -599,8 +618,8 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     """
     _cuda(e[0])
     lanes = lane_count(state)
-    g = launch_geometry(state.shape, color, lanes=lanes) \
-        if geometry is None else geometry
+    g = launch_geometry(state.shape, color, lanes=lanes,
+                        dtype=e[0].dtype) if geometry is None else geometry
     if g.lanes != lanes:
         raise ValueError(f"K4: a geometry of {g.lanes} lanes for a state "
                          f"of {lanes}")
@@ -611,8 +630,8 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     else:
         zp = _ptr(_scratch(state.shape, e[0], lanes if state.lanes
                            is not None else None) if zs is None else zs)
-    from ._build import library
-    err = library().emg3d_line_thomas(
+    from ._build import entry
+    err = entry('emg3d_line_thomas', e[0].dtype)(
         *(_ptr(t) for t in (*e, *r, fac)), zp, _ptr(state.lanes),
         *state.shape, g.cy, g.cz, *g.counts, g.lines_per_block,
         int(g.z_shared), g.planes, THOMAS_STAGES, g.blocks, g.lanes,
@@ -702,7 +721,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
     fac = _factors(state)
     r = tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in er)
     lanes = lane_count(state)
-    zs = None if launch_geometry(state.shape, 0, lanes=lanes).z_shared \
+    zs = None if launch_geometry(state.shape, 0, lanes=lanes,
+                                 dtype=er[0].dtype).z_shared \
         else _scratch(state.shape, er[0],
                       None if state.lanes is None else lanes)
     for color in seq:

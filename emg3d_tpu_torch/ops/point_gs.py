@@ -22,6 +22,10 @@ takes, per level, the kernel :func:`point_kernel` names: the faster one
 by the times measured on the card, K1 only where its factor stack fits
 :data:`FACTOR_SHARE` of the card's memory.
 
+Both kernels come in complex128 and complex64 (the precision the Pallas
+kernels compute in): the state's dtype picks the instance.  The plans
+and rules are the same for both, every byte count at the element size.
+
 One thread per active node; the kernels update the field in place.
 :func:`gauss_seidel_point` runs the kernels for CUDA tensors and the
 plain PyTorch version (:func:`gauss_seidel_point_plain`, the math of
@@ -37,6 +41,7 @@ from collections import namedtuple
 import torch
 
 from . import smoothers, stencil
+from ..dtypes import REAL_OF, complex_size
 
 __all__ = ['PointState', 'point_state', 'gauss_seidel_point',
            'gauss_seidel_point_plain', 'launch_geometry', 'sweep_plan',
@@ -135,16 +140,17 @@ def reset_launches():
         STEPS[k] = 0
 
 
-def factor_bytes(shape):
-    """Bytes of a level's complex128 factor stack."""
+def factor_bytes(shape, dtype=torch.complex128):
+    """Bytes of a level's factor stack in ``dtype``."""
     nx, ny, nz = shape
-    return NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) * 16
+    return NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) * complex_size(dtype)
 
 
-def node_bytes(shape):
-    """Bytes of a level's complex128 packed node data (192 per node)."""
+def node_bytes(shape, dtype=torch.complex128):
+    """Bytes of a level's packed node data in ``dtype`` (192 per node in
+    complex128)."""
     nx, ny, nz = shape
-    return NODE_PLANES * (nx - 1) * (ny - 1) * (nz - 1) * 16
+    return NODE_PLANES * (nx - 1) * (ny - 1) * (nz - 1) * complex_size(dtype)
 
 
 def card_memory(device):
@@ -155,40 +161,41 @@ def card_memory(device):
     return torch.cuda.get_device_properties(device).total_memory
 
 
-def factors_fit(shape, device):
-    """Whether a level's factor stack fits FACTOR_SHARE of the card."""
+def factors_fit(shape, device, dtype=torch.complex128):
+    """Whether a level's factor stack in ``dtype`` fits FACTOR_SHARE of
+    the card."""
     total = card_memory(device)
-    return total is None or factor_bytes(shape) <= FACTOR_SHARE * total
+    return total is None or factor_bytes(shape, dtype) <= FACTOR_SHARE * total
 
 
-def packs_nodes(shape, device):
+def packs_nodes(shape, device, dtype=torch.complex128):
     """Whether a K2 level state packs node data: only on a card, only
     where the level's plans read it (a level that admits the ``shared``
     plan runs it, and that plan holds st and w in shared memory), and
     only where it fits FACTOR_SHARE of the card."""
     total = card_memory(device)
     return (total is not None
-            and _shared_bytes(tuple(shape), 'fused') > SMEM_MAX
-            and node_bytes(shape) <= FACTOR_SHARE * total)
+            and _shared_bytes(tuple(shape), 'fused', dtype) > SMEM_MAX
+            and node_bytes(shape, dtype) <= FACTOR_SHARE * total)
 
 
 def _most_nodes(shape):
     return max(math.prod(launch_geometry(shape, c)[1]) for c in range(8))
 
 
-def point_kernel(shape, device):
+def point_kernel(shape, device, dtype=torch.complex128):
     """The point kernel of a level: ``'factored'`` (K1) or ``'fused'`` (K2).
 
     :data:`FORCE_KERNEL` if set, else the faster kernel by the card's
     plan table: K2 where a colour has at least FUSED_NODES nodes.  K1
     only where its factor stack fits FACTOR_SHARE of the card
-    (:func:`factors_fit`), whatever the rule or FORCE_KERNEL say.  A
-    device that is not a card takes K1 (the plain version on factors
-    computed once, as the JAX package's default).
+    (:func:`factors_fit`, in the solve's ``dtype``), whatever the rule or
+    FORCE_KERNEL say.  A device that is not a card takes K1 (the plain
+    version on factors computed once, as the JAX package's default).
     """
     if FORCE_KERNEL not in (None,) + KERNELS:
         raise ValueError(f"FORCE_KERNEL {FORCE_KERNEL!r}: one of {KERNELS}")
-    if not factors_fit(shape, device):
+    if not factors_fit(shape, device, dtype):
         return 'fused'
     if FORCE_KERNEL is not None:
         return FORCE_KERNEL
@@ -217,7 +224,7 @@ def point_state(arrays, shape, factored=True):
     if factored:
         L, dinv = smoothers.node_factors(arrays)
         factors = pack_factors([L[k] for k in LKEYS] + list(dinv), shape)
-    elif packs_nodes(shape, st[0].device):
+    elif packs_nodes(shape, st[0].device, st[0].dtype):
         nodes = pack_node_data(st, w, shape)
     return PointState(tuple(shape), tuple(arrays), st, w, ih, factors,
                       nodes)
@@ -368,18 +375,18 @@ def launch_geometry(shape, color):
     return first, counts, -(-total // threads), threads
 
 
-def _rule(shape, max_nodes, kernel):
-    if _shared_bytes(shape, kernel) <= SMEM_MAX:
+def _rule(shape, max_nodes, kernel, dtype):
+    if _shared_bytes(shape, kernel, dtype) <= SMEM_MAX:
         return 'shared'
     if max_nodes <= CLUSTER_NODES:
         return 'cluster'
     return 'grid' if max_nodes <= STEP_NODES else 'step'
 
 
-def _shared_bytes(shape, kernel='factored'):
+def _shared_bytes(shape, kernel='factored', dtype=torch.complex128):
     """The shared plan's dynamic shared memory: the whole level (e, s,
     η sums and, for K1, factors complex; ζ weights and inverse widths
-    real)."""
+    real), at the element sizes of ``dtype``."""
     nx, ny, nz = shape
     edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
              + (nx + 1) * (ny + 1) * nz)
@@ -388,7 +395,9 @@ def _shared_bytes(shape, kernel='factored'):
     faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
     fac = NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) \
         if kernel == 'factored' else 0
-    return 16 * (2 * edges + sums + fac) + 8 * (faces + nx + ny + nz)
+    size = complex_size(dtype)
+    return size * (2 * edges + sums + fac) + size // 2 * (faces + nx + ny
+                                                           + nz)
 
 
 def _spread(most, max_blocks):
@@ -406,8 +415,11 @@ def _kernel_name(kernel):
     return kernel
 
 
-def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored'):
-    """The launch plan of one smoothing call of ``kernel`` on a level.
+def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored',
+               dtype=torch.complex128):
+    """The launch plan of one smoothing call of ``kernel`` on a level, in
+    ``dtype`` (complex128 or complex64: the same rule, the ``shared``
+    plan's bytes at the element size).
 
     ``seq`` is the colour sequence (default ``color_sequence(nu)``, 8·nu
     steps; more than MAX_SEQ raise).  ``plan`` forces one of PLANS (else
@@ -422,18 +434,18 @@ def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored'):
     """
     seq = smoothers.color_sequence(nu) if seq is None else seq
     return _sweep_plan(tuple(shape), tuple(seq), plan or FORCE_PLAN,
-                       _kernel_name(kernel))
+                       _kernel_name(kernel), dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _sweep_plan(shape, seq, plan, kernel):
+def _sweep_plan(shape, seq, plan, kernel, dtype):
     if not 0 < len(seq) <= MAX_SEQ:
         raise ValueError(f"{len(seq)} colour steps: the sweep takes 1 to "
                          f"{MAX_SEQ} (nu ≤ {MAX_SEQ // 8})")
     nodes = [math.prod(launch_geometry(shape, c)[1]) for c in seq]
     steps = sum(1 for n in nodes if n)
     most = max(nodes)
-    plan = plan or _rule(shape, most, kernel)
+    plan = plan or _rule(shape, most, kernel, dtype)
     if plan not in PLANS:
         raise ValueError(f"unknown sweep plan {plan!r}; one of {PLANS}")
     blocks, threads, smem = 0, MAX_THREADS, 0
@@ -442,7 +454,7 @@ def _sweep_plan(shape, seq, plan, kernel):
     elif plan == 'grid':
         blocks, threads = _spread(most, GRID_BLOCKS)
     elif plan == 'shared':
-        blocks, smem = 1, _shared_bytes(shape, kernel)
+        blocks, smem = 1, _shared_bytes(shape, kernel, dtype)
         if smem > SMEM_MAX:
             raise ValueError(f"shared plan: level {shape} takes {smem} B, "
                              f"a block holds {SMEM_MAX}")
@@ -460,13 +472,14 @@ def plans_admitted(shape, kernel='factored'):
                  or _shared_bytes(shape, kernel) <= SMEM_MAX)
 
 
-def grid_capacity(kernel='factored'):
+def grid_capacity(kernel='factored', dtype=torch.complex128):
     """Blocks of the grid plan the card holds co-resident, for
-    ``kernel``: 'factored', 'fused' or 'fused_packed' (needs the card)."""
-    from ._build import library
+    ``kernel`` ('factored', 'fused' or 'fused_packed') in ``dtype``
+    (needs the card)."""
+    from ._build import entry
     n = ctypes.c_int(0)
-    err = library().emg3d_point_gs_grid_capacity(_KERNEL_CODE[kernel],
-                                                 ctypes.byref(n))
+    err = entry('emg3d_point_gs_grid_capacity', dtype)(_KERNEL_CODE[kernel],
+                                                       ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"point_gs grid capacity query failed: "
                            f"cudaError {err}")
@@ -543,19 +556,29 @@ def _check(e, s, state):
                                  f"expected {sh} for level {state.shape}")
             if t.device != dev:
                 raise ValueError(f"{name}: on {t.device}, e on {dev}")
-    if dev.type == 'cpu':
-        return
-    want = {'e': torch.complex128, 's': torch.complex128,
-            'st': torch.complex128, 'w': torch.float64,
-            'ih': torch.float64, 'factors': torch.complex128,
-            'nodes': torch.complex128}
-    for name in want.keys() & groups.keys():
-        for t in groups[name]:
-            if t.dtype != want[name] or not t.is_contiguous():
-                raise ValueError(
-                    f"{name}: the CUDA kernel takes contiguous "
-                    f"{want[name]} on {dev}; got {t.dtype}, "
-                    f"contiguous={t.is_contiguous()}")
+    _check_dtypes(groups, dev)
+
+
+def _check_dtypes(groups, dev):
+    """One precision for the whole call: e, s, the η sums, the factors
+    and node data (and η in ``arrays``) of one complex dtype, complex128
+    or complex64, and the ζ weights and widths (ζ and h in ``arrays``)
+    of its real dtype; a mixed set raises, on every device.  The CUDA
+    kernels also take contiguous tensors only."""
+    cdt = groups['e'][0].dtype
+    complex_size(cdt)
+    for name, trio in groups.items():
+        for n, t in enumerate(trio):
+            cplx = name in ('e', 's', 'st', 'factors', 'nodes') or (
+                name == 'arrays' and n < 3)
+            want = cdt if cplx else REAL_OF[cdt]
+            if t.dtype != want:
+                raise ValueError(f"{name}: {t.dtype} in a {cdt} state; "
+                                 f"expected {want}")
+            if dev.type != 'cpu' and name != 'arrays' and \
+                    not t.is_contiguous():
+                raise ValueError(f"{name}: the CUDA kernels take "
+                                 f"contiguous tensors on {dev}")
 
 
 def _ptr(t):
@@ -596,13 +619,13 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
                                _seq=seq[i:i + MAX_SEQ], _plan=_plan)
         return tuple(e)
 
-    from ._build import library
-    lib = library()
+    from ._build import entry
+    dtype = e[0].dtype
     shape = state.shape
     ptrs = [_ptr(t) for t in (*e, *s, *state.st, *state.w, *state.ih)]
     with torch.cuda.device(e[0].device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    plan = sweep_plan(shape, seq=seq, plan=_plan, kernel=mode)
+    plan = sweep_plan(shape, seq=seq, plan=_plan, kernel=mode, dtype=dtype)
     if mode == 'factored':
         code, buf, planes = 'factored', state.factors, NFACTORS
     elif state.nodes is not None and plan.plan != 'shared':
@@ -613,7 +636,7 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         if plan.launches == 0:
             return tuple(e)
         geom, offs = _colour_table(shape, planes)
-        err = lib.emg3d_point_gs_sweep(
+        err = entry('emg3d_point_gs_sweep', dtype)(
             _PLAN_CODE[plan.plan], _KERNEL_CODE[code], *ptrs, _ptr(buf),
             *shape, geom, offs, _seq_array(tuple(seq)), len(seq),
             plan.blocks, plan.threads, plan.smem_bytes, stream)
@@ -625,13 +648,14 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         STEPS[mode] += plan.steps
         return tuple(e)
     offs = colour_offsets(shape, planes)[0]
+    step = entry('emg3d_point_gs_step', dtype)
     for color in seq:
         first, counts, blocks, threads = launch_geometry(shape, color)
         if blocks == 0:
             continue
         at = ctypes.c_void_p(None if buf is None else buf.data_ptr()
                              + offs[color] * buf.element_size())
-        err = lib.emg3d_point_gs_step(_KERNEL_CODE[code], *ptrs, at,
+        err = step(_KERNEL_CODE[code], *ptrs, at,
                                       *shape, *first, *counts, blocks,
                                       threads, stream)
         if err != 0:

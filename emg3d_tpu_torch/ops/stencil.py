@@ -6,8 +6,8 @@ Counterpart of ``emg3d_tpu/ops/stencil.py``: the operator
 
 evaluated matrix-free on the staggered Yee grid, with PEC rows zeroed,
 as whole-tensor first-curl (faces), ζ face-weighting, second-curl
-(edges) and η edge-averaging.  Complex tensors are native
-(complex128), not split re/im pairs.  Every function also takes a
+(edges) and η edge-averaging.  Complex tensors are native (complex128,
+or complex64 in a complex64 solve), not split re/im pairs.  Every function also takes a
 leading lane axis on the fields (and on η), the lanes of a batched
 solve: the grid axes are the last three.
 

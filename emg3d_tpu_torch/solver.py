@@ -29,6 +29,16 @@ together.
   once for all lanes (K5 once per frequency group), and point smoothing
   launches K1/K2 once per lane.  Its Krylov solvers keep per-lane
   scalars on the device.
+- A complex64 source runs the whole solve in complex64/float32
+  (:func:`.dtypes.precision`): the levels' arrays in float32, every
+  kernel's complex64 instance, and the JAX package's two-float scheme
+  to reach tol 1e-6 from float32 storage: the solution as a (hi, lo)
+  pair (:func:`.ops.dsres.ds_accumulate`), its residual in double-single
+  arithmetic (:func:`.ops.dsres.residual_ds`, K6 on the card), standalone
+  multigrid switching to correction-form cycles near the float32 floor
+  and every Krylov solve under iterative refinement
+  (:func:`_refine_krylov`).  The result is hi + lo in complex128 when the
+  lo stream is live, as in the JAX package.
 """
 import itertools
 import math
@@ -38,8 +48,8 @@ import numpy as np
 import torch
 
 from . import fields, models, utils
-from .dtypes import COMPLEX, REAL
-from .ops import line_gs, point_gs, stencil, transfers
+from .dtypes import COMPLEX, REAL_OF, precision
+from .ops import dsres, line_gs, point_gs, stencil, transfers
 
 __all__ = ['solve', 'solve_batched', 'multigrid', 'krylov', 'MGParameters']
 
@@ -360,11 +370,16 @@ class Lanes:
                                   device=device)
 
 
-def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None):
+def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
+                 dtype=COMPLEX):
     """Build the full level hierarchy for one top-level sc_dir.
 
-    η is complex128 on ``device`` (a real Laplace-domain η is promoted;
-    its imaginary part stays exactly zero), ζ and the widths float64.
+    η is of the complex ``dtype`` on ``device`` (complex128 or complex64;
+    a real Laplace-domain η is promoted, its imaginary part stays exactly
+    zero), ζ, the widths and the transfer weights of its real dtype: the
+    host's float64 values rounded once, as the JAX package's
+    ``build_levels`` casts them (``emg3d_tpu/solver.py:361-366``).  Every
+    coarse level is then computed from these arrays in their precision.
     ``meter`` is the solve's ``{'bytes': n}`` of cached line factors.
 
     ``vmodel`` may be a list of VolumeModels, one per lane of a batched
@@ -373,28 +388,30 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None):
     not depend on the frequency).  ``lanes`` (a :class:`Lanes`) marks
     the levels of a batched solve.
     """
-    def tens(a, dtype):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    def tens(a, dt):
+        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+
+    cplx, real = dtype, REAL_OF[dtype]
 
     per_lane = isinstance(vmodel, (list, tuple))
     vms = list(vmodel) if per_lane else [vmodel]
 
     def eta(name):
         vals = [np.asarray(getattr(vm, name)) for vm in vms]
-        return tens(np.stack(vals) if per_lane else vals[0], COMPLEX)
+        return tens(np.stack(vals) if per_lane else vals[0], cplx)
 
     eta_x = eta('eta_x')
     eta_y = eta_x if all(vm.eta_y is vm.eta_x for vm in vms) \
         else eta('eta_y')
     eta_z = eta_x if all(vm.eta_z is vm.eta_x for vm in vms) \
         else eta('eta_z')
-    zeta = tens(vms[0].zeta, REAL)
+    zeta = tens(vms[0].zeta, real)
 
     h_np = [np.asarray(h, dtype=np.float64) for h in grid.h]
     nodes = [np.r_[0., np.cumsum(h)] + o
              for h, o in zip(h_np, grid.origin)]
     shape = tuple(grid.shape_cells)
-    arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, REAL) for h in h_np])
+    arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, real) for h in h_np])
     levels = [_Level(shape, arrays, h_np, nodes, meter, lanes)]
 
     for _ in range(clevel):
@@ -414,12 +431,12 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None):
             if coarsen[ax]:
                 centers = (cur.nodes[ax][:-1] + cur.nodes[ax][1:]) / 2
                 ccenters = (cnodes[ax][:-1] + cnodes[ax][1:]) / 2
-                rw[ax] = tuple(tens(w, REAL) for w in
+                rw[ax] = tuple(tens(w, real) for w in
                                transfers.restrict_weights_1d(
                                    cur.nodes[ax], centers, cur.h_np[ax],
                                    cnodes[ax], ccenters, ch_np[ax]))
                 pw[ax] = tens(transfers.prolong_weights_1d(
-                    cur.nodes[ax], cnodes[ax]), REAL)
+                    cur.nodes[ax], cnodes[ax]), real)
         cur.rweights = tuple(rw)
         cur.pweights = tuple(pw)
 
@@ -431,7 +448,7 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None):
         cez = cex if a[2] is a[0] else \
             transfers.restrict_model_parameter(a[2], coarsen)
         czeta = transfers.restrict_model_parameter(a[3], coarsen)
-        carrays = (cex, cey, cez, czeta, *[tens(h, REAL) for h in ch_np])
+        carrays = (cex, cey, cez, czeta, *[tens(h, real) for h in ch_np])
         levels.append(_Level(cshape, carrays, ch_np, cnodes, meter, lanes))
     return levels
 
@@ -453,8 +470,8 @@ def _level_state(lev, mode):
     if lev.pstate is None:
         dev = lev.arrays[0].device
         factored = mode in ('factored', 'plain') or (
-            mode is None and point_gs.point_kernel(lev.shape, dev)
-            == 'factored')
+            mode is None and point_gs.point_kernel(
+                lev.shape, dev, lev.arrays[0].dtype) == 'factored')
         if lev.lanes is None:
             lev.pstate = point_gs.point_state(lev.arrays, lev.shape,
                                               factored=factored)
@@ -498,7 +515,7 @@ def _line_state(lev, axis, mode=None):
     """
     state = lev.lstate.get(axis)
     if state is None:
-        nbytes = line_gs.factor_bytes(lev.shape, axis)
+        nbytes = line_gs.factor_bytes(lev.shape, axis, lev.arrays[0].dtype)
         if lev.lanes is not None:
             # One stack per frequency group; K3 and K4 take every lane.
             nbytes *= len(lev.lanes.reps)
@@ -661,7 +678,13 @@ def residual_norms(e, s, arrays):
 # ======================================================================
 
 class _SolveContext:
-    """Per-solve state: device fields and level hierarchies per sc_dir."""
+    """Per-solve state: device fields and level hierarchies per sc_dir.
+
+    The precision follows the source (:func:`.dtypes.precision`): a
+    complex64 source puts s, e and every level in complex64/float32.
+    ``e_lo`` is the two-float lo stream of the solution once it is live
+    (complex64 solves), else None.
+    """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode):
         self.grid = grid
@@ -669,13 +692,16 @@ class _SolveContext:
         self.var = var
         self.device = device
         self.mode = mode
-        self.s = tuple(torch.tensor(np.asarray(f), dtype=COMPLEX,
+        self.dtype = precision(np.asarray(sfield.fx).dtype)[1]
+        self.s = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
                                     device=device)
                        for f in (sfield.fx, sfield.fy, sfield.fz))
-        self.e = tuple(torch.tensor(np.asarray(f), dtype=COMPLEX,
+        self.e = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
                                     device=device)
                        for f in (efield.fx, efield.fy, efield.fz))
+        self.e_lo = None
         self._levels = {}
+        self._ds_params = None
         self.meter = {'bytes': 0}
         self.lanes = None
 
@@ -686,18 +712,33 @@ class _SolveContext:
         ctx = cls.__new__(cls)
         ctx.grid, ctx.vmodel, ctx.var = grid, vmodel, var
         ctx.device, ctx.mode, ctx.lanes = device, mode, lanes
+        ctx.dtype = s[0].dtype
         ctx.s = s
         ctx.e = tuple(torch.zeros_like(c) for c in s)
+        ctx.e_lo = None
         ctx._levels = {}
+        ctx._ds_params = None
         ctx.meter = {'bytes': 0}
         return ctx
+
+    def residual_ds(self, ehi, elo, s):
+        """s − A·(ehi + elo) on the finest level in double-single
+        arithmetic (:func:`.ops.dsres.residual_ds`; its plain version
+        under ``_mode='plain'``), the float32 operator built once per
+        solve."""
+        arrays = self.levels(int(self.var.sc_dir))[0].arrays
+        if self._ds_params is None:
+            self._ds_params = dsres.ds_params(arrays)
+        fn = dsres.residual_ds_plain if self.mode == 'plain' \
+            else dsres.residual_ds
+        return fn(ehi, elo, s, arrays, self._ds_params)
 
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
             clevel = int(self.var.clevel[int(sc_dir)])
             levels = build_levels(self.grid, self.vmodel, int(sc_dir),
                                   clevel, self.device, self.meter,
-                                  self.lanes)
+                                  self.lanes, self.dtype)
             if self._levels:
                 # The finest level is the same in every hierarchy: share
                 # its parameters and line states (no number changes).
@@ -706,6 +747,13 @@ class _SolveContext:
                 levels[0].lstate = fine.lstate
             self._levels[sc_dir] = levels
         return self._levels[sc_dir]
+
+
+def _ds_wanted(e, var):
+    """Two-float accumulation applies: complex64 storage and a tol below
+    the single-float solution-representation floor (~2e-6 relative)
+    (the JAX package's ``_ds_wanted``)."""
+    return e[0].dtype == torch.complex64 and float(var.tol) < 2e-5
 
 
 def multigrid(ctx, var, e=None, s=None, track=True):
@@ -717,6 +765,10 @@ def multigrid(ctx, var, e=None, s=None, track=True):
     does on the CPU (its chunked and pipelined dispatch exist only for
     the TPU).  ``track`` records the per-cycle runtime and error and
     logs each cycle.
+
+    A standalone complex64 solve switches to two-float (hi, lo) storage
+    once the error nears the float32 representation floor
+    (:class:`_TwoFloat`); the lo stream lands in ``ctx.e_lo``.
     """
     standalone = e is None
     if standalone:
@@ -738,6 +790,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
 
     it = 0
     first = True
+    ds = _TwoFloat(ctx, var, s, lambda r: float(_norm(*r)))
     while True:
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
@@ -749,9 +802,12 @@ def multigrid(ctx, var, e=None, s=None, track=True):
                        var.cycle)
         first = False
 
-        e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
-                          mode=ctx.mode, dbg=dbg)
-        l2 = residual_norm(e, s, levels[0].arrays)
+        if ds.lo is not None:
+            e, l2 = ds.cycle(e, levels, conf, dbg=dbg)
+        else:
+            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
+                              mode=ctx.mode, dbg=dbg)
+            l2 = residual_norm(e, s, levels[0].arrays)
 
         # Advance sc/lr schedules (per top-level cycle).
         if var.sc_cycle:
@@ -779,10 +835,50 @@ def multigrid(ctx, var, e=None, s=None, track=True):
                       it, refe=refe):
             break
 
+        if standalone:
+            ds.switch(e, l2_last, var.l2_refe)
+
     var.l2 = l2_last
     if standalone:
         ctx.e = e
+        ctx.e_lo = ds.lo
     return e
+
+
+class _TwoFloat:
+    """The two-float mode of standalone multigrid in complex64 (the JAX
+    package's solver.py:1568-1835, batched :3150-3215).
+
+    Once the error is below ``tau = max(100·tol, 1e-5)`` of the source
+    norm (and :func:`_ds_wanted`), the solution is a (hi, lo) pair: each
+    cycle runs in correction form (δ = MG(0, r)), accumulates δ with a
+    two-sum (:func:`.ops.dsres.ds_accumulate`) and takes the
+    double-single residual of hi + lo as its convergence residual and
+    next source.  ``norm`` is the residual norm, a float (single solve)
+    or one per lane (batched).
+    """
+
+    def __init__(self, ctx, var, s, norm):
+        self.ctx, self.var, self.s, self.norm = ctx, var, s, norm
+        self.tau = max(100.0 * float(var.tol), 1e-5)
+        self.lo = None    # the lo stream, once live
+        self.r = None     # its double-single residual
+
+    def cycle(self, e, levels, conf, dbg=None):
+        """One correction cycle from hi ``e``: (new hi, residual norm)."""
+        zero = tuple(torch.zeros_like(c) for c in e)
+        delta = run_one_cycle(zero, self.r, levels, conf,
+                              mode=self.ctx.mode, dbg=dbg)
+        e, self.lo = dsres.ds_accumulate(e, self.lo, delta)
+        self.r = self.ctx.residual_ds(e, self.lo, self.s)
+        return e, self.norm(self.r)
+
+    def switch(self, e, l2, refe):
+        """Go two-float once every ``l2`` is below tau·``refe``."""
+        if (self.lo is None and _ds_wanted(e, self.var)
+                and np.all(l2 < self.tau * refe)):
+            self.lo = tuple(torch.zeros_like(c) for c in e)
+            self.r = self.ctx.residual_ds(e, self.lo, self.s)
 
 
 def _qc_levels(out, nlevels, lvl, cycmax, new_cycmax, cycle):
@@ -951,12 +1047,19 @@ def krylov(ctx, var):
     atol = max(float(var.tol) * bnorm, 1e-30)
     solver = {'bicgstab': _bicgstab, 'cgs': _cgs,
               'gcrotmk': _gcrotmk}[var.sslsolver]
+    l2_final = None
     try:
-        x, info = solver(matvec, precond, s, x, atol, var.ssl_maxit,
-                         callback)
+        if s[0].dtype == torch.complex64:
+            x, l2_final, info = _krylov_refined(ctx, var, solver, matvec,
+                                                callback, x, bnorm)
+        else:
+            x, info = solver(matvec, precond, s, x, atol, var.ssl_maxit,
+                             callback)
     except _ConvergenceError:
         info = -1
         x = tuple(torch.zeros_like(c) for c in s)
+        ctx.e_lo = None
+        l2_final = None
         var.exit_message += " (returned field is zero)"
 
     pre = "\n   > "
@@ -971,8 +1074,102 @@ def krylov(ctx, var):
     var.cprint(pre + var.exit_message, 2)
 
     ctx.e = x
-    var.l2 = residual_norm(x, s, arrays)
+    # The refined path reports the double-single-evaluated true residual
+    # (a float32 evaluation would report its own noise floor).
+    var.l2 = l2_final if l2_final is not None \
+        else residual_norm(x, s, arrays)
     return x
+
+
+# MG cycles of the single solve's refinement shortcut (the JAX
+# package's _REFINE_SHORTCUT_CYCLES, hardware-tuned there).
+_REFINE_SHORTCUT_CYCLES = 1
+
+
+def _refine_krylov(residual_fn, norm_fn, precond, inner, xhi, xlo, atol,
+                   maxit):
+    """Two-float iterative refinement around a Krylov inner solve (the
+    JAX package's ``_refine_krylov``, solver.py:1471-1535, at its
+    settings: no pass-0 loosening, one shortcut try).
+
+    The Krylov recursive residual converges below tol, but with float32
+    solution storage the true residual floors at a few e-6, so the
+    solution accumulates as a (hi, lo) pair, each pass solves the
+    correction system for the double-single true residual, and
+    convergence is judged on that.  ``norm_fn``/``atol`` may be scalars
+    (single solve) or per-lane arrays (batched); termination is
+    all-lanes.  ``inner(r0, x0)`` runs one Krylov solve of the
+    correction system and returns ``(dx, info)``.  A pass after the
+    first starts within a few × tol, so it first tries one cheap
+    preconditioner application (``precond``), kept where it reduces the
+    residual.  Returns ``(xhi, xlo, rn_true, info)``.
+    """
+    info = 0
+    rn_true = None
+    for _pass in range(4):
+        r0 = residual_fn(xhi, xlo)
+        rn_true = norm_fn(r0)
+        if np.all(rn_true <= atol):
+            # The double-single true residual is the arbiter: a
+            # converged solution clears any stale inner-pass code.
+            info = 0
+            break
+        if info != 0 or _pass == 3:
+            if info == 0:
+                info = maxit
+            break
+        if _pass >= 1:
+            xh2, xl2 = dsres.ds_accumulate(xhi, xlo, precond(r0))
+            r2 = residual_fn(xh2, xl2)
+            rn2 = norm_fn(r2)
+            if np.all(rn2 <= rn_true):
+                xhi, xlo, r0, rn_true = xh2, xl2, r2, rn2
+                if np.all(rn2 <= atol):
+                    info = 0
+                    break
+        zero = tuple(torch.zeros_like(c) for c in xhi)
+        dx, info = inner(r0, zero)
+        xhi, xlo = dsres.ds_accumulate(xhi, xlo, dx)
+    return xhi, xlo, rn_true, info
+
+
+def _krylov_refined(ctx, var, solver, matvec, callback, x, bnorm):
+    """A complex64 Krylov solve under :func:`_refine_krylov` (the JAX
+    package's accelerator path, solver.py:2005-2090): the unit-norm
+    system s/‖s‖, ``solver`` (the port's BiCGSTAB, CGS or GCROT(m,k)) as
+    the inner solve of each correction system, preconditioned by
+    :func:`_precond_fixed_cycles`, and the shortcut by one MG cycle.
+    Returns ``(x, l2, info)``: hi scaled back, its double-single true
+    residual norm, the Krylov code; the lo stream goes to ``ctx.e_lo``.
+    """
+    sc = 1.0 / max(bnorm, 1e-300)
+    s_n = tuple(c * sc for c in ctx.s)
+    xhi = tuple(c * sc for c in x)
+    xlo = tuple(torch.zeros_like(c) for c in xhi)
+    atol_n = max(float(var.tol), 1e-30)
+    rhs = [None]      # the correction system of the current pass
+
+    def inner_callback(xk, l2=None):
+        # The inner solvers report the correction system's residual
+        # (recursive, or r0 − A·dx); scaled back to the source's norm.
+        if l2 is None:
+            l2 = float(_norm(*(r - a for r, a in zip(rhs[0],
+                                                     matvec(xk)))))
+        callback(xk, l2=l2 * bnorm)
+
+    def inner(r0, x0):
+        rhs[0] = r0
+        return solver(matvec, lambda r: _precond_fixed_cycles(ctx, var, r),
+                      r0, x0, atol_n, var.ssl_maxit, inner_callback)
+
+    xhi, xlo, rn_true, info = _refine_krylov(
+        lambda h, lo: ctx.residual_ds(h, lo, s_n),
+        lambda r: float(_norm(*r)),
+        lambda r: _precond_fixed_cycles(ctx, var, r,
+                                        cycles=_REFINE_SHORTCUT_CYCLES),
+        inner, xhi, xlo, atol_n, var.ssl_maxit)
+    ctx.e_lo = tuple(c * bnorm for c in xlo)
+    return tuple(c * bnorm for c in xhi), rn_true * bnorm, info
 
 
 def _bicgstab(matvec, precond, b, x, atol, maxiter, callback):
@@ -1123,6 +1320,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
     m = _GCROT_M if m is None else m
     k = _GCROT_K if k is None else k
     dev = b[0].device
+    rdt = b[0].real.dtype       # masks in the solve's real precision
 
     def coef(c):
         return torch.tensor(c, dtype=b[0].dtype, device=dev)
@@ -1145,7 +1343,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
         v_cur = tuple(c * (1.0 / beta) for c in r)
         vmask = np.zeros(m + 1)
         vmask[0] = 1.0
-        cmask_d = torch.tensor(cmask, dtype=REAL, device=dev)
+        cmask_d = torch.tensor(cmask, dtype=rdt, device=dev)
 
         H = np.zeros((m + 1, m), np.complex128)
         Bm = np.zeros((k, m), np.complex128)
@@ -1158,7 +1356,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
             w = matvec(z)
             _gc_append(zstack, j, z, 1.0)
             w, pk = _gc_ortho(cstack, vstack, cmask_d,
-                              torch.tensor(vmask, dtype=REAL, device=dev), w)
+                              torch.tensor(vmask, dtype=rdt, device=dev), w)
             pk = pk.cpu().numpy()                     # ONE fetch
             cd = pk[:k] + 1j * pk[k:2 * k]
             vd = pk[2 * k:2 * k + m + 1] + 1j * pk[2 * k + m + 1:-1]
@@ -1368,8 +1566,14 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
                    f"runtime = {var.time.runtime}\n", 2)
 
     comps = [t.cpu().numpy() for t in ctx.e]
+    if ctx.e_lo is not None:
+        # Collapse the two-float solution on the host (exact in f64),
+        # as the JAX package returns it: complex128.
+        comps = [hi.astype(np.complex128) + lo.cpu().numpy()
+                 for hi, lo in zip(comps, ctx.e_lo)]
+        out_dtype = np.result_type(out_dtype, np.float64)
     if not np.iscomplexobj(np.zeros(0, out_dtype)):
-        # Laplace domain: the solve ran promoted to complex128, with an
+        # Laplace domain: the solve ran promoted to complex, with an
         # imaginary part that stays exactly zero.
         comps = [c.real for c in comps]
     comps = [np.ascontiguousarray(c, dtype=out_dtype) for c in comps]
@@ -1490,8 +1694,9 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
     lanes = Lanes(lane_freqs, device)
 
     out_dtype = np.asarray(sfields[0].fx).dtype
+    cdtype = precision(out_dtype)[1]
     s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
-                                     for sf in sfields]), dtype=COMPLEX,
+                                     for sf in sfields]), dtype=cdtype,
                            device=device)
               for name in ('fx', 'fy', 'fz'))
     ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
@@ -1506,6 +1711,11 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
         e, l2_last = _multigrid_batched(ctx, var, refe)
 
     comps = [t.cpu().numpy() for t in e]
+    if ctx.e_lo is not None:
+        # The two-float solution collapsed on the host (see solve).
+        comps = [hi.astype(np.complex128) + lo.cpu().numpy()
+                 for hi, lo in zip(comps, ctx.e_lo)]
+        out_dtype = np.result_type(out_dtype, np.float64)
     if not np.iscomplexobj(np.zeros(0, out_dtype)):
         comps = [c.real for c in comps]     # Laplace domain (see solve)
     out = [fields.Field(*(np.ascontiguousarray(c[b], dtype=out_dtype)
@@ -1530,21 +1740,27 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
 
 def _multigrid_batched(ctx, var, refe):
     """MG cycles on every lane, with the batched termination rules
-    (reference parity: solver.py:3127-3211)."""
+    (reference parity: solver.py:3127-3211).  A complex64 batch switches
+    to two-float cycles once every lane is below tau (:class:`_TwoFloat`);
+    its lo stream lands in ``ctx.e_lo``."""
     e, s = ctx.e, ctx.s
     l2_last = residual_norms(e, s, ctx.levels(int(var.sc_dir))[0].arrays)
     l2_stag = np.tile(l2_last, (var._maxcycle, 1))
     it = 0
     first = True
+    ds = _TwoFloat(ctx, var, s, lambda r: _norm_b(*r).cpu().numpy())
     while True:
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         levels = ctx.levels(int(var.sc_dir))
         nu_init = var.nu_init if first else 0
         first = False
-        e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
-                          mode=ctx.mode)
-        l2 = residual_norms(e, s, levels[0].arrays)
+        if ds.lo is not None:
+            e, l2 = ds.cycle(e, levels, conf)
+        else:
+            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
+                              mode=ctx.mode)
+            l2 = residual_norms(e, s, levels[0].arrays)
         if var.sc_cycle:
             var.sc_dir = next(var.sc_cycle)
         if var.lr_cycle:
@@ -1577,7 +1793,9 @@ def _multigrid_batched(ctx, var, refe):
         if finished:
             add = "\n" if var.verb < 5 else ""
             var.cprint(add + "   > " + var.exit_message, 2)
+            ctx.e_lo = ds.lo
             return e, l2_last
+        ds.switch(e, l2_last, refe)
 
 
 def _krylov_batched(ctx, var, refe):
@@ -1585,7 +1803,8 @@ def _krylov_batched(ctx, var, refe):
     by ``var.maxit`` fixed MG cycles (reference parity:
     solver.py:3050-3125).  complex128 needs neither the JAX package's
     unit-norm lane scaling nor its two-float refinement; convergence is
-    judged per lane against tol·‖s_b‖."""
+    judged per lane against tol·‖s_b‖.  A complex64 batch takes both
+    (JAX solver.py:3063-3095): :func:`_krylov_batched_refined`."""
     fine = ctx.levels(int(var.sc_dir))[0]
 
     def matvec(ee):
@@ -1599,6 +1818,9 @@ def _krylov_batched(ctx, var, refe):
 
     kernel = _bicgstab_batched if var.sslsolver == 'bicgstab' \
         else _cgs_batched
+    if ctx.s[0].dtype == torch.complex64:
+        return _krylov_batched_refined(ctx, var, refe, kernel, matvec, prec,
+                                       on_iter)
     x, info = kernel(matvec, prec, ctx.s, ctx.e, var.tol * refe,
                      var.ssl_maxit, on_iter)
     if info == 0:
@@ -1611,13 +1833,50 @@ def _krylov_batched(ctx, var, refe):
     return x, residual_norms(x, ctx.s, fine.arrays)
 
 
-def _precond_fixed_cycles(ctx, var, r):
-    """Preconditioner: exactly ``var.maxit`` MG cycles from a zero field,
-    no norms, the sc/lr schedules advancing per cycle (reference parity:
-    solver.py:3432-3472; ``var.maxit`` is the schedule's length under a
-    Krylov solver)."""
+def _krylov_batched_refined(ctx, var, refe, kernel, matvec, prec, on_iter):
+    """The complex64 batched Krylov solve: every lane scaled to unit norm
+    (float32 breakdown guards square squared magnitudes and underflow on
+    μ0-scaled sources otherwise), and per-lane two-float refinement
+    (:func:`_refine_krylov`, shortcut by the full preconditioner) with
+    the double-single residual of all lanes at once.  Returns the hi
+    stream scaled back and its true residual norms; the lo stream goes
+    to ``ctx.e_lo``."""
+    sc = _bcast(torch.tensor(1.0 / refe, dtype=torch.float32,
+                             device=ctx.s[0].device))
+    s_n = tuple(c * sc for c in ctx.s)
+    nlanes = len(refe)
+
+    atol = np.full(nlanes, float(var.tol))
+
+    def inner(r0, x0):
+        return kernel(matvec, prec, r0, x0, atol, var.ssl_maxit, on_iter)
+
+    xhi = ctx.e
+    xlo = tuple(torch.zeros_like(c) for c in xhi)
+    xhi, xlo, rn_true, info = _refine_krylov(
+        lambda h, lo: ctx.residual_ds(h, lo, s_n),
+        lambda r: _norm_b(*r).cpu().numpy(),
+        prec, inner, xhi, xlo, atol, var.ssl_maxit)
+    if info == 0:
+        var.exit_message = 'CONVERGED'
+    elif info > 0:
+        var.exit_message = 'MAX. ITERATION REACHED, NOT CONVERGED'
+    else:
+        var.exit_message = f'Error in {var.sslsolver} ({info})'
+    var.cprint("\n   > " + var.exit_message, 2)
+    us = _bcast(torch.tensor(refe, dtype=torch.float32,
+                             device=ctx.s[0].device))
+    ctx.e_lo = tuple(c * us for c in xlo)
+    return tuple(c * us for c in xhi), rn_true * refe
+
+
+def _precond_fixed_cycles(ctx, var, r, cycles=None):
+    """Preconditioner: exactly ``cycles`` (default ``var.maxit``) MG
+    cycles from a zero field, no norms, the sc/lr schedules advancing per
+    cycle (reference parity: solver.py:3432-3472; ``var.maxit`` is the
+    schedule's length under a Krylov solver)."""
     e = tuple(torch.zeros_like(c) for c in r)
-    for _ in range(var.maxit):
+    for _ in range(var.maxit if cycles is None else cycles):
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         e = run_one_cycle(e, r, ctx.levels(int(var.sc_dir)), conf,

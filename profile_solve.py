@@ -4,7 +4,8 @@
     python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
                              [--ssl bicgstab|cgs] [--plan PLAN]
                              [--kernel factored|fused]
-                             [--compare-plans] [--batched] [--out DIR]
+                             [--compare-plans] [--batched] [--complex64]
+                             [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
@@ -23,7 +24,9 @@ three each (host walls move between processes; compare within one).
 phase 10: its 4 sources × 2 frequencies on the same 64³ fullspace
 (``chip_smoke.simulation_problem``) as one ``solve_batched`` of 8 lanes,
 with semicoarsening, line relaxation and BiCGSTAB (the Simulation's
-default; ``--ssl cgs`` takes CGS).
+default; ``--ssl cgs`` takes CGS).  ``--complex64`` casts the sources
+to complex64: the solve then runs in complex64/float32 with the two-float
+cycles and Krylov refinement (K6 ``residual_ds`` listed beside K1-K5).
 Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
@@ -60,6 +63,7 @@ def main(argv=None):
     ap.add_argument('--kernel', choices=('factored', 'fused'))
     ap.add_argument('--compare-plans', action='store_true')
     ap.add_argument('--batched', action='store_true')
+    ap.add_argument('--complex64', action='store_true')
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
 
@@ -68,11 +72,11 @@ def main(argv=None):
         print("profile_solve: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (KERNELS, bench_problem, kernel_key,
-                            line_state_clock, nvidia_smi,
+    from chip_smoke import (DSRES, KERNELS, _c64_source, bench_problem,
+                            kernel_key, line_state_clock, nvidia_smi,
                             simulation_problem, trace_times)
     from emg3d_tpu_torch import get_source_field, solve, solve_batched
-    from emg3d_tpu_torch.ops import line_gs, point_gs
+    from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
 
     point_gs.FORCE_PLAN = args.plan
     point_gs.FORCE_KERNEL = args.kernel
@@ -86,11 +90,15 @@ def main(argv=None):
                    for f in survey.frequencies]
         kw.update(semicoarsening=True, linerelaxation=True,
                   sslsolver=args.ssl or 'bicgstab')
+        if args.complex64:
+            sfields = [_c64_source(f) for f in sfields]
 
         def run():
             return solve_batched(grid, model, sfields, **kw)[1]
     else:
         grid, model, sfield = bench_problem()
+        if args.complex64:
+            sfield = _c64_source(sfield)
 
         def run():
             return solve(grid, model, sfield, return_info=True, **kw)[1]
@@ -124,9 +132,10 @@ def main(argv=None):
             torch.profiler.ProfilerActivity.CUDA]
     point_gs.reset_launches()
     line_gs.reset_launches()
+    dsres.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof, _ = timed()
-    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES,
+    launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES, **dsres.LAUNCHES,
                 'factored steps': point_gs.STEPS['factored'],
                 'fused steps': point_gs.STEPS['fused']}
 
@@ -137,6 +146,7 @@ def main(argv=None):
 
     what = (f"batched {len(sfields)} lanes, sslsolver {kw['sslsolver']}"
             if args.batched else f"sclr {args.sclr}, sslsolver {args.ssl}")
+    what += ', complex64' if args.complex64 else ''
     print(f"mode {args.mode or 'default'}, {what}: it_mg {info['it_mg']}, "
           f"it_ssl {info['it_ssl']}, warm wall {wall:.4f} s; profiled wall "
           f"{wall_prof:.4f} s")
@@ -161,6 +171,9 @@ def main(argv=None):
         print(f"{labels[k]} {KERNELS[k]['name']}: "
               f"{sum(ms for ms, _ in hit):.3f} ms device time over "
               f"{sum(n for _, n in hit)} launches")
+    k6 = [v for name, v in kernels if DSRES['name'] in name]
+    print(f"K6 {DSRES['name']}: {sum(ms for ms, _ in k6):.3f} ms device "
+          f"time over {sum(n for _, n in k6)} launches")
     both = hits['factored'] + hits['fused']
     print(f"point kernels K1 + K2: {sum(ms for ms, _ in both):.3f} ms "
           f"device time over {sum(n for _, n in both)} launches")

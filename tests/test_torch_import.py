@@ -27,7 +27,7 @@ def test_import_without_jax():
         "from emg3d_tpu_torch.cli import main, parser, run\n"
         "import emg3d_tpu_torch.__main__\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
-        "smoothers, probes\n"
+        "smoothers, probes, dsres\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
@@ -47,7 +47,7 @@ def test_no_module_imports_jax_or_emg3d_tpu():
     names = {f.relative_to(REPO).as_posix() for f in files}
     for mod in ('diff.py', 'io.py', 'time.py', '__main__.py',
                 'cli/__init__.py', 'cli/main.py', 'cli/parser.py',
-                'cli/run.py', 'ops/probes.py'):
+                'cli/run.py', 'ops/probes.py', 'ops/dsres.py'):
         assert f'emg3d_tpu_torch/{mod}' in names, mod
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -209,5 +209,6 @@ def test_launch_geometry(shape):
 def test_build_flags():
     assert 'arch=compute_90a,code=sm_90a' in _build.FLAGS
     assert [p.name for p in _build._sources()] == ['line_gs.cu',
-                                                   'point_gs.cu']
+                                                   'point_gs.cu',
+                                                   'dsres.cu']
     assert '-shared' not in _build.FLAGS        # one object per source
