@@ -151,6 +151,21 @@ Phases:
    complex128 solves (a cold complex64 run, then three warm pairs); (c)
    16³ complex64 solves through the kernels and ``_mode='plain'``, point
    and sc+lr: the same exit, it_mg ±1, fields within TOL_C64_FIELD.
+   Phase 15 pins float32 storage (``solver.BF16_STORAGE = False``), so
+   its readings are those of the complex64 path without bfloat16.
+16. bfloat16 storage of the complex64 solve (the default on the card):
+   (a) K1-K5's ``_bf16`` instances at 16³, 64³ and 256³ against their
+   plain versions (K1-K4 as phase 15 holds the complex64 ones, against
+   the float64 evaluation of the same rounded inputs; K5's bfloat16
+   stack against the rounding of its float32 instance's and of the plain
+   elimination's), timed in turns with the float32-storage instances at
+   64³ and 256³; (b) bench64, sclr64 standalone and sclr64 BiCGSTAB, a
+   cold bfloat16 run, then three warm bfloat16 / float32 pairs in turns
+   (exit, it_mg, it_ssl, walls, peak memory, fields against complex128
+   within TOL_C64_FIELD), and sclr256 with bfloat16 stacks once (its
+   peak beside phase 15's); (c) 16³ solves through the kernels and
+   ``_mode='plain'``, point, sc+lr, and sc+lr with every stack in
+   bfloat16.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -173,7 +188,12 @@ the same line, beside the launches of their checks
 ``launches_c64`` of each kernel, with its complex64 times (``ms_c64``,
 ``bound_ms_c64`` at 64³, ``..._256`` at 256³) and ``max_abs_err_c64``;
 K6, on the complex64 path only, has an entry of its own
-(``residual_ds``, launches = its complex64 count).  The two entries of scripts/hw_bisect_lr128.py
+(``residual_ds``, launches = its complex64 count).  Phase 16b's
+bfloat16 runs count the launches of each kernel's ``_bf16`` instance
+(``launches_bf16``), beside its bfloat16 times (``ms_bf16``,
+``bound_ms_bf16`` at 64³, ``..._256`` at 256³; ``ms_f32s`` the
+float32-storage instance's in the same turns), ``max_abs_err_bf16`` and
+``checks_bf16``.  The two entries of scripts/hw_bisect_lr128.py
 (K3 and K4 alone at 128³, phase 3b) carry K3's and K4's ``launches``
 of the main path.  Each kernel's ``bound_ms`` is the least time the card could take for the
 timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
@@ -379,12 +399,14 @@ def _level(shape, seed, device, factored=True):
     return state, rand(), rand()
 
 
-def _level_fast(shape, seed, device, factored=True, dtype=None):
+def _level_fast(shape, seed, device, factored=True, dtype=None,
+                storage=None):
     """Level tensors of a random stretched anisotropic model, made on
     the card (the sizes where numpy on the host would take minutes):
     η = −iωμ0·V·σ at 1 Hz, ζ = V, widths 50-150 m, σ 1/30-1/0.3 S/m;
     made in complex128/float64 and, for ``dtype`` complex64, rounded
-    once to complex64/float32 (fields too)."""
+    once to complex64/float32 (fields too); the point state's streams
+    stored in ``storage``."""
     import torch
     from emg3d_tpu_torch.ops import point_gs
     g = torch.Generator(device=device).manual_seed(seed)
@@ -409,7 +431,8 @@ def _level_fast(shape, seed, device, factored=True, dtype=None):
         return tuple(torch.complex(torch.randn(*sh, **real),
                                    torch.randn(*sh, **real))
                      .to(dtype or torch.complex128) for sh in edges)
-    state = point_gs.point_state(arrays, shape, factored=factored)
+    state = point_gs.point_state(arrays, shape, factored=factored,
+                                 storage=storage)
     return state, rand(), rand()
 
 
@@ -433,9 +456,12 @@ def bound(nbytes, flops, peak=PEAK_FP64):
 # each output written once; operations counting a complex product as 6,
 # a complex sum as 2 and a complex reciprocal as 7.  ``size`` is the
 # complex element's bytes (16: complex128, 8: complex64; a real one is
-# half), the operations are in its precision.
+# half), the operations are in its precision.  ``stream`` (K1-K3: s, the
+# η sums and the ζ weights) and ``fsize`` (K4, K5: the factor stack) are
+# the bytes of a stored complex value where it is not ``size`` (4: a
+# complex64 solve's bfloat16 storage).
 
-def point_work(shape, mode, size=16):
+def point_work(shape, mode, size=16, stream=None):
     """(bytes, flops) of one point colour step, the mean of 8 colours.
 
     Per active node: the six block edges' e read and written, s read,
@@ -446,11 +472,13 @@ def point_work(shape, mode, size=16):
     ~1590 with the block's assembly and LDLᵀ.
     """
     from emg3d_tpu_torch.ops import point_gs
+    stream = stream or size
     nodes = sum(int(np.prod(point_gs.launch_geometry(shape, c)[1]))
                 for c in range(8)) / 8
     if mode == 'factored':
-        return nodes * 44 * size, nodes * 730
-    return nodes * (24 * size + 12 * size // 2), nodes * 1590
+        return nodes * (32 * size + 12 * stream), nodes * 730
+    return nodes * (12 * size + 12 * stream + 12 * stream // 2), \
+        nodes * 1590
 
 
 def residual_work(shape, size=16):
@@ -465,7 +493,7 @@ def residual_work(shape, size=16):
     return 3 * edges * size + inner * size + faces * size // 2, inner * 76
 
 
-def colour_residual_work(shape, color, size=16):
+def colour_residual_work(shape, color, size=16, stream=None):
     """(bytes, flops) of K3 on one colour of a rotated level: r written,
     s and η edge sums read at the colour's edges
     (``line_gs.colour_edges``), and every e value and ζ face weight
@@ -496,10 +524,12 @@ def colour_residual_work(shape, color, size=16):
         a |= b
     reads = int(ex.sum() + ey.sum() + ez.sum())
     faces = int(f1.sum() + f2.sum() + f3.sum())
-    return 3 * n * size + reads * size + faces * size // 2, n * 76
+    stream = stream or size
+    return (n * size + 2 * n * stream + reads * size + faces * stream // 2,
+            n * 76)
 
 
-def thomas_work(shape, color, size=16):
+def thomas_work(shape, color, size=16, fsize=None):
     """(bytes, flops) of K4 on one colour: per line and station 23
     factors, and 5 residuals read and 5 field values read and written
     (1 at the last station); ~530 FLOP per line-station."""
@@ -507,11 +537,12 @@ def thomas_work(shape, color, size=16):
     nx = shape[0]
     g = line_gs.launch_geometry(shape, color)
     lines = g.counts[0] * g.counts[1]
-    return (lines * (23 * nx + 3 * (5 * (nx - 1) + 1)) * size,
+    return (lines * (23 * nx * (fsize or size)
+                     + 3 * (5 * (nx - 1) + 1) * size),
             lines * nx * 530)
 
 
-def factor_work(shape, size=16):
+def factor_work(shape, size=16, fsize=None):
     """(bytes, flops) of K5 on a rotated level: the η sums, ζ weights
     and inverse widths of the level read once, and the 23 planes of
     every line-station written once; ~430 FLOP at station 0 (the LDLᵀ),
@@ -523,7 +554,7 @@ def factor_work(shape, size=16):
             + (nx - 1) * (ny - 1) * nz)
     faces = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
     return ((sums * size + (faces + nx + ny + nz) * size // 2
-             + lines * nx * 23 * size),
+             + lines * nx * 23 * (fsize or size)),
             lines * (430 + 1550 * (nx - 1) + 100 * nx))
 
 
@@ -1026,10 +1057,10 @@ def residual_plans(torch, st, e, s, reps, geometries=RES_GEOMETRIES):
             f"{gs[0].smem_bytes} B shared; bitwise equal to the default")
 
 
-def _colour_bound(shape, size=16, peak=PEAK_FP64):
+def _colour_bound(shape, size=16, peak=PEAK_FP64, stream=None):
     """K3's bound_ms averaged over the four colours, its bound_by, and
     the whole level's bound_ms (``bound_ms_full``)."""
-    work = [bound(*colour_residual_work(shape, c, size), peak)
+    work = [bound(*colour_residual_work(shape, c, size, stream), peak)
             for c in range(4)]
     return {'bound_ms': sum(w['bound_ms'] for w in work) / 4,
             'bound_by': work[0]['bound_by'],
@@ -1252,7 +1283,7 @@ def point_cycle_calls(grid, model, sfield, device='cpu', **kw):
                                  torch.device(device), {'bytes': 0})
     calls = []
 
-    def record(e, s, lev, nu, lr_dir, mode=None):
+    def record(e, s, lev, nu, lr_dir, mode=None, storage=None):
         if nu > 0:
             calls.append((lev.shape, nu))
         return e
@@ -2673,17 +2704,19 @@ def _launch_counts():
 
 
 class _Counted:
-    """Adds the kernels' launches made inside the block to ``counts``."""
+    """Adds the kernels' launches made inside the block to ``counts``
+    (``read``: the counters, by default every instance's)."""
 
-    def __init__(self, counts):
+    def __init__(self, counts, read=None):
         self.counts = counts
+        self.read = read or _launch_counts
 
     def __enter__(self):
-        self.t0 = _launch_counts()
+        self.t0 = self.read()
         return self
 
     def __exit__(self, *exc):
-        for k, v in _launch_counts().items():
+        for k, v in self.read().items():
             self.counts[k] = self.counts.get(k, 0) + v - self.t0[k]
         return False
 
@@ -2729,7 +2762,7 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     launches counted (``launches_c64``): bench64 (against phase 4's
     field), sclr64 BiCGSTAB (against phase 7's), each timed in turns with
     its complex128 solve; sclr256 standalone (peak memory against phase
-    8's); sim64's 8 pairs as complex64 sources through one solve_batched,
+    8's, returned beside the launches); sim64's 8 pairs as complex64 sources through one solve_batched,
     timed in turns with the complex128 batched solve, every lane
     CONVERGED and its responses held to the complex128 solve at tol 1e-10
     (phase 10's, at tol 1e-6, are themselves only as accurate as their
@@ -2840,7 +2873,7 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     if min(counts.values()) == 0:
         raise AssertionError(f"the complex64 path launched no "
                              f"{min(counts, key=counts.get)}")
-    return counts
+    return counts, peak
 
 
 def phase_c64_plain(torch):
@@ -2861,6 +2894,357 @@ def phase_c64_plain(torch):
                                  f"differ")
 
 
+# ----------------------------------------------------------------------
+# Phase 16: bfloat16 storage of the complex64 solve
+# ----------------------------------------------------------------------
+
+def _bf16_ulp(torch, x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    a = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _record_bf16(res, shape, checked):
+    """Adds a phase-16 check to a kernel's entry: the largest
+    max|kernel − plain| and the readings per shape (``checks_bf16``)."""
+    dmax, worst = checked
+    res['max_abs_err_bf16'] = max(res.get('max_abs_err_bf16', 0.0), dmax)
+    res.setdefault('checks_bf16', {})['x'.join(map(str, shape))] = worst
+
+
+def _bf16_point(torch, results, shape, dev):
+    """K1 and K2's bfloat16 instances against their plain versions at
+    ``shape``, as :func:`_c64_point` holds the complex64 ones: both
+    against the float64 evaluation of the same rounded inputs (the
+    stored η sums, ζ weights and source, widened) and each other
+    (:func:`_check_c64`).  At 64³ and 256³ timed in turns with the
+    float32-storage instance on the same level."""
+    from emg3d_tpu_torch.dtypes import BF16, from_storage, round_to
+    from emg3d_tpu_torch.ops import point_gs, smoothers
+    c64 = torch.complex64
+    big = shape == C64_SHAPES[-1]
+    gs = point_gs.gauss_seidel_point
+    plain = point_gs.gauss_seidel_point_plain
+    for mode in POINT_MODES:
+        res = results[mode]
+        if mode == 'factored' and not point_gs.factors_fit(shape, dev, c64):
+            continue
+        state, e0, s = _level_fast(shape, seed=sum(shape) + 18, device=dev,
+                                   factored=mode == 'factored', dtype=c64,
+                                   storage=BF16)
+        sw64 = (_up(tuple(from_storage(t, True) for t in state.st)),
+                _up(tuple(from_storage(t) for t in state.w)), _up(state.ih))
+        s64 = _up(tuple(round_to(t, BF16) for t in s))
+        fact64 = None
+        if mode == 'factored':
+            L, dinv = point_gs._plain_fact(state)
+            fact64 = ({k: _up(v) for k, v in L.items()}, _up(dinv))
+        plan = 'step' if big else None
+        calls = [(1, (c,)) for c in ((0, 7) if big else range(8))]
+        if not big:
+            calls.append((1, None))
+        triples = []
+        for nu, seq in calls:
+            ref = _clone(e0)
+            plain(ref, s, state, nu, _mode=mode, _seq=seq)
+            ref64 = smoothers.color_steps(
+                _up(e0), s64, _up(state.arrays),
+                smoothers.color_sequence(nu) if seq is None else list(seq),
+                fact=fact64, sw=sw64)
+            out = _clone(e0)
+            gs(out, s, state, nu, _mode=mode, _seq=seq, _plan=plan)
+            torch.cuda.synchronize()
+            triples.append((out, ref, ref64))
+        _record_bf16(res, shape, _check_c64(
+            KERNELS[mode]['name'] + ' bf16', shape, triples))
+        del triples, sw64, s64, fact64
+        if shape[0] in (64, 256):
+            n = '_256' if big else ''
+            f32 = point_gs.point_state(state.arrays, shape,
+                                       factored=mode == 'factored')
+            ek = _clone(e0)
+            if big:
+                kw, per, reps, warm = dict(_plan='step'), 8, 5, 1
+                nu = 1
+            else:
+                nu, reps, warm = 3, 20, 3
+                kw = {}
+                per = point_gs.sweep_plan(shape, nu, kernel=mode, dtype=c64,
+                                          storage=BF16).steps
+            times = {}
+            for key, st_ in (('ms_f32s', f32), ('ms_bf16', state),
+                             ('ms_bf16', state), ('ms_f32s', f32)):
+                times.setdefault(key, []).append(_time_steps(
+                    torch, lambda: gs(ek, s, st_, nu, _mode=mode, **kw),
+                    reps=reps, per=per, warm=warm))
+            for key, v in times.items():
+                res[key + n] = float(np.median(v))
+            b = bound(*point_work(shape, mode, 8, stream=4), PEAK_FP32)
+            res['bound_ms_bf16' + n] = b['bound_ms']
+            log(f"{KERNELS[mode]['name']} bf16 {shape}: "
+                f"{res['ms_bf16' + n]:.4f} ms per colour step (float32 "
+                f"storage {res['ms_f32s' + n]:.4f}), bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                f"{b['bound_ms'] / res['ms_bf16' + n]:.0%} of it")
+            del f32, ek
+        del state, e0, s
+        torch.cuda.empty_cache()
+
+
+def _bf16_line(torch, results, shape, dev):
+    """K5, K3 (every colour) and K4 (colours 0 and 3) in their bfloat16
+    instances, x-lines, against their plain versions.  K3 and K4 as
+    :func:`_check_c64` holds the complex64 ones (to the float64
+    evaluation of the same rounded inputs and to the plain version).
+    K5 stores the bfloat16 rounding of a float32 elimination: its stack
+    is held to the rounding of its float32 instance's (within one
+    bfloat16 ulp; bitwise where the two instances compile alike) and
+    of the plain elimination's (within one ulp of their float32
+    distance).  At 64³ and 256³ timed in turns with the float32-storage
+    instances."""
+    from emg3d_tpu_torch.dtypes import (BF16, from_storage, round_to,
+                                        to_storage)
+    from emg3d_tpu_torch.ops import line_gs, smoothers, stencil
+    c64 = torch.complex64
+    res = {k: results[k] for k in ('line_residual', 'line_thomas',
+                                   'line_factor')}
+    pstate, e, s = _level_fast(shape, seed=sum(shape) + 19, device=dev,
+                               factored=False, dtype=c64)
+    f32 = line_gs.line_state(pstate.arrays, shape, 0)
+    stb = line_gs.line_state(pstate.arrays, shape, 0, storage=BF16,
+                             fstorage=BF16)
+    torch.cuda.synchronize()
+    # K5.
+    kb = from_storage(stb.factors, True)
+    ref = smoothers.line_factor_stack(f32.arrays, f32.shape)
+    a, b, c = (torch.view_as_real(t) for t in
+               (kb, round_to(f32.factors, BF16), round_to(ref, BF16)))
+    fk, fp = torch.view_as_real(f32.factors), torch.view_as_real(ref)
+    same = float((a == b).double().mean())
+    own = bool(((a - b).abs() <= _bf16_ulp(torch, torch.maximum(
+        a.abs(), b.abs()))).all())
+    vs_plain = bool(((a - c).abs() <= (fk - fp).abs() + _bf16_ulp(
+        torch, torch.maximum(a.abs(), c.abs()))).all())
+    d5 = float((a - c).abs().max())
+    worst5 = {'bitwise_own_f32': same, 'kernel_plain': d5 / float(
+        c.abs().max())}
+    log(f"line_factor bf16 {shape}: {same:.6f} of the entries bitwise the "
+        f"rounding of the float32 instance's (all within one ulp: {own}); "
+        f"against the plain elimination's rounding max|Δ|/max|ref| "
+        f"{worst5['kernel_plain']:.3e}, within one ulp of the float32 "
+        f"distance: {vs_plain}")
+    if not (own and vs_plain):
+        raise AssertionError(f"line_factor bf16 {shape}")
+    _record_bf16(res['line_factor'], shape, (d5, worst5))
+    del a, b, c, fk, fp, ref
+    # K3.
+    sw64 = (_up(tuple(from_storage(t, True) for t in stb.st)),
+            _up(tuple(from_storage(t) for t in stb.w)), _up(stb.ih))
+    sb = tuple(to_storage(t, BF16) for t in s)
+    r64 = stencil.residual_sw(*_up(tuple(round_to(t, BF16) for t in s)),
+                              *_up(e), *sw64)
+    triples = []
+    for color in range(4):
+        outs = [line_gs.residual(e, sb, stb, color, _nan_like(e))
+                for _ in range(2)]
+        ref = line_gs.residual_plain(e, s, stb, color, _nan_like(e))
+        torch.cuda.synchronize()
+        for x, y, p in zip(*outs, ref):
+            if not (torch.equal(torch.isnan(x), torch.isnan(p))
+                    and torch.equal(torch.nan_to_num(x),
+                                    torch.nan_to_num(y))):
+                raise AssertionError(f"line_residual bf16 {shape} colour "
+                                     f"{color}: runs differ or the entries "
+                                     f"written are not the colour's")
+        on = [~torch.isnan(p) for p in ref]
+        triples.append(tuple(tuple(t[m] for t, m in zip(x, on))
+                             for x in (outs[0], ref, r64)))
+    _record_bf16(res['line_residual'], shape,
+                 _check_c64('line_residual bf16', shape, triples))
+    del triples, r64, sw64
+    # K4 on the bfloat16 stack.
+    rp = stencil.residual_parts(*s, *e, *f32.arrays)
+    triples = []
+    for color in (0, 3):
+        ek = line_gs.thomas(_clone(e), rp, stb.factors, stb, color)
+        ep = smoothers.line_thomas_x(e, rp, kb, color)
+        ex = smoothers.line_thomas_x(_up(e), _up(rp), _up(kb), color)
+        torch.cuda.synchronize()
+        triples.append((ek, ep, ex))
+    _record_bf16(res['line_thomas'], shape,
+                 _check_c64('line_thomas bf16', shape, triples))
+    del triples, kb
+    if shape[0] in (64, 256):
+        n = '' if shape[0] == 64 else '_256'
+        big = bool(n)
+        out = _nan_like(e)
+        zs = line_gs._scratch(stb.shape, e[0])
+        ek = _clone(e)
+        runs = {
+            'line_residual': (
+                lambda st_, s_: [line_gs.residual(e, s_, st_, c, out)
+                                 for c in range(4)], 4, 5 if big else 20, 3),
+            'line_thomas': (
+                lambda st_, s_: line_gs.thomas(ek, rp, st_.factors, st_, 0,
+                                               zs), 1, 5 if big else 20, 3),
+            'line_factor': (
+                lambda st_, s_: line_gs.factor(f32.st, f32.w, f32.ih,
+                                               f32.shape,
+                                               storage=st_.fstorage),
+                1, 3 if big else 10, 1)}
+        for k, (fn, per, reps, warm) in runs.items():
+            times = {}
+            for key, st_, s_ in (('ms_f32s', f32, s), ('ms_bf16', stb, sb),
+                                 ('ms_bf16', stb, sb), ('ms_f32s', f32, s)):
+                times.setdefault(key, []).append(_time_steps(
+                    torch, lambda: fn(st_, s_), reps=reps, per=per,
+                    warm=warm))
+            for key, v in times.items():
+                res[k][key + n] = float(np.median(v))
+        res['line_residual']['bound_ms_bf16' + n] = _colour_bound(
+            shape, 8, PEAK_FP32, stream=4)['bound_ms']
+        res['line_thomas']['bound_ms_bf16' + n] = bound(
+            *thomas_work(shape, 0, 8, fsize=4), PEAK_FP32)['bound_ms']
+        res['line_factor']['bound_ms_bf16' + n] = bound(
+            *factor_work(shape, 8, fsize=4), PEAK_FP32)['bound_ms']
+        log(f"{shape} x-lines bf16, ms per launch (bound; float32 storage): "
+            + ", ".join(f"{k} {res[k]['ms_bf16' + n]:.4f} "
+                        f"({res[k]['bound_ms_bf16' + n]:.4f}; "
+                        f"{res[k]['ms_f32s' + n]:.4f})" for k in res))
+        del out, zs, ek
+    del pstate, e, s, sb, f32, stb, rp
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_kernels(torch, results):
+    """Phase 16a: K1-K5's bfloat16 instances against their plain versions
+    at C64_SHAPES, timed beside their float32-storage instances."""
+    from emg3d_tpu_torch.dtypes import BF16
+    from emg3d_tpu_torch.ops import point_gs
+    dev = torch.device('cuda')
+    for code in ('factored', 'fused', 'fused_packed'):
+        cap = point_gs.grid_capacity(code, torch.complex64, BF16)
+        log(f"point_gs grid plan, {code} bf16: {cap} co-resident blocks "
+            f"(GRID_BLOCKS {point_gs.GRID_BLOCKS})")
+        if cap < point_gs.GRID_BLOCKS:
+            raise AssertionError("GRID_BLOCKS exceeds the co-resident "
+                                 "blocks")
+    for shape in C64_SHAPES:
+        _bf16_point(torch, results, shape, dev)
+        _bf16_line(torch, results, shape, dev)
+
+
+def _bf16_counts():
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    return {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES}
+
+
+def phase_bf16_path(torch, e4, e_sclr, peak_c64):
+    """Phase 16b: the complex64 main path with bfloat16 storage (the
+    default on the card) against float32 storage: bench64, sclr64
+    standalone and sclr64 BiCGSTAB each a cold bfloat16 run, then
+    C64_PAIRS warm bfloat16 / float32 pairs in turns (exit, it_mg,
+    it_ssl, walls, peak memory, the field against complex128); sclr256
+    with bfloat16 stacks once, its peak beside phase 15's float32-storage
+    one.  The bfloat16 runs' launches of each kernel's bfloat16 instance
+    are counted (``launches_bf16``); returns them."""
+    from emg3d_tpu_torch import solve, solver
+    grid, model, sfield = bench_problem()
+    src = _c64_source(sfield)
+    counts = {k: 0 for k in _bf16_counts()}
+    kw = dict(cycle='F', tol=1e-6, verb=1, return_info=True, device='cuda')
+    configs = (('bench64', {}, e4), ('sclr64 standalone', SCLR, e_sclr),
+               ('sclr64 bicgstab', dict(SCLR, sslsolver=True), e_sclr))
+    for name, opts, ref in configs:
+        walls = {'bf16': [], 'f32': []}
+        info = {}
+        runs = [('bf16', None)] + [r for _ in range(C64_PAIRS) for r in (
+            ('bf16', None), ('f32', False))]
+        for i, (run, flag) in enumerate(runs):
+            solver.BF16_STORAGE = flag
+            torch.cuda.reset_peak_memory_stats()
+            with _Counted(counts if run == 'bf16' else {}, _bf16_counts):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e, inf = solve(grid, model, src, **opts, **kw)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            solver.BF16_STORAGE = None
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rel = _rel(e, ref)
+            if i == 0:
+                cold = wall
+            else:
+                walls[run].append(wall)
+            info.setdefault(run, (inf, rel, peak))
+            if not (inf['exit_message'] == 'CONVERGED'
+                    and inf['rel_error'] < 1e-6
+                    and e.field.dtype == np.complex128
+                    and rel <= TOL_C64_FIELD):
+                raise AssertionError(f"{name} complex64 {run}: {inf}, "
+                                     f"|Δ|/|e| against complex128 {rel:.3e}")
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        for run in ('bf16', 'f32'):
+            inf, rel, peak = info[run]
+            log(f"{name} complex64, {run} storage: {inf['exit_message']}, "
+                f"it_mg {inf['it_mg']}, it_ssl {inf['it_ssl']}, rel_error "
+                f"{inf['rel_error']:.3e}, |Δ|/|e| against complex128 "
+                f"{rel:.3e}, peak {peak:.3f} GiB")
+        log(f"{name} walls (s): bf16 cold {cold:.3f}; in turns, bf16 "
+            + ", ".join(f"{w:.3f}" for w in walls['bf16']) + "; float32 "
+            + ", ".join(f"{w:.3f}" for w in walls['f32'])
+            + f"; medians bf16 {med['bf16']:.3f}, float32 {med['f32']:.3f}"
+            f" ({med['bf16'] / med['f32']:.2f}×)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g256, m256, s256 = bench_problem((256,) * 3)
+    with _Counted(counts, _bf16_counts):
+        e256, i256, w256 = _solve(torch, g256, m256, _c64_source(s256),
+                                  **SCLR)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sclr256 complex64, bf16 storage: {i256['exit_message']}, it_mg "
+        f"{i256['it_mg']}, rel_error {i256['rel_error']:.3e}, wall "
+        f"{w256:.3f} s; peak device memory {peak:.2f} GiB (float32 "
+        f"storage, phase 15: {peak_c64:.2f} GiB)")
+    if not i256['rel_error'] < 1e-6:
+        raise AssertionError("sclr256 complex64 bf16 above tol")
+    del e256, g256, m256, s256
+    torch.cuda.empty_cache()
+    log(f"bf16 main path launches of the bfloat16 instances: {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the bf16 path launched no "
+                             f"{min(counts, key=counts.get)} bf16 instance")
+    return counts, peak
+
+
+def phase_bf16_plain(torch):
+    """Phase 16c: complex64 solves at 16³ with bfloat16 storage through
+    the kernels and through ``_mode='plain'`` (which rounds where the
+    kernels do): the same exit, it_mg ±1, fields within TOL_C64_FIELD;
+    point, sc+lr, and sc+lr with every stack in bfloat16
+    (``FSTACK_BYTES`` 0: K4 and K5 in bfloat16 too)."""
+    from emg3d_tpu_torch import solver
+    grid, model, sfield = bench_problem((16,) * 3)
+    src = _c64_source(sfield)
+    threshold = solver.FSTACK_BYTES
+    for name, kw, fbytes in (('point', {}, threshold),
+                             ('sc+lr', SCLR, threshold),
+                             ('sc+lr, bf16 stacks', SCLR, 0)):
+        solver.FSTACK_BYTES = fbytes
+        try:
+            ek, ik, wk = _solve(torch, grid, model, src, **kw)
+            ep, ip, wp = _solve(torch, grid, model, src, _mode='plain', **kw)
+        finally:
+            solver.FSTACK_BYTES = threshold
+        rel = _rel(ek, ep)
+        log(f"16³ complex64 bf16 {name}: kernels it_mg {ik['it_mg']} "
+            f"({wk:.3f} s), plain it_mg {ip['it_mg']} ({wp:.3f} s), "
+            f"|Δ|/|e| {rel:.3e}")
+        if abs(ik['it_mg'] - ip['it_mg']) > 1 or not rel <= TOL_C64_FIELD:
+            raise AssertionError(f"16³ complex64 bf16 {name}: kernels and "
+                                 f"plain differ")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2868,6 +3252,7 @@ def main():
               "needs a CUDA card.", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from emg3d_tpu_torch import solver
     from emg3d_tpu_torch.ops import line_gs, point_gs, probes
 
     results = {}
@@ -3003,10 +3388,22 @@ def main():
         probe_entries = phase_probes(torch, probe_launches) + \
             lr128_entries(results, launches)
     with Phase('15 complex64: kernels, main path, kernels vs plain'):
-        phase_c64_kernels(torch, results)
-        c64_launches = phase_c64_path(torch, e4, e_sclr, peak8, sim10)
-        phase_c64_plain(torch)
+        # float32 storage pinned: the complex64 path without bfloat16.
+        solver.BF16_STORAGE = False
+        try:
+            phase_c64_kernels(torch, results)
+            c64_launches, peak_c64 = phase_c64_path(torch, e4, e_sclr,
+                                                    peak8, sim10)
+            phase_c64_plain(torch)
+        finally:
+            solver.BF16_STORAGE = None
         del sim10, grad10
+    with Phase('16 bfloat16 storage: kernels, main path, kernels vs '
+               'plain'):
+        phase_bf16_kernels(torch, results)
+        bf16_launches, peak_bf16 = phase_bf16_path(torch, e4, e_sclr,
+                                                   peak_c64)
+        phase_bf16_plain(torch)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -3028,6 +3425,9 @@ def main():
         entry['launches_c64'] = c64_launches[key]
         entry['max_abs_err_c64'] = r['max_abs_err_c64']
         entry['checks_c64'] = r['checks_c64']
+        entry['launches_bf16'] = bf16_launches[key]
+        entry['max_abs_err_bf16'] = r['max_abs_err_bf16']
+        entry['checks_bf16'] = r['checks_bf16']
         entry.update({k: v for k, v in r.items()
                       if k.startswith('step') or k[-4:] in ('_128', '_256')
                       or k.endswith('_large') or k.startswith('ms_')
@@ -3044,7 +3444,8 @@ def main():
         'launches_c64': c64_launches['residual_ds'],
         **{k: v for k, v in r.items() if k.endswith('_256')}})
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
-        f"{wall_warm:.3f} s")
+        f"{wall_warm:.3f} s; sclr256 complex64 peak {peak_c64:.2f} GiB "
+        f"with float32 storage, {peak_bf16:.2f} GiB with bfloat16")
     print(json.dumps({'kernels': kernels, 'probes': probe_entries}))
     print(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {

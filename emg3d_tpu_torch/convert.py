@@ -9,7 +9,7 @@ identical inputs.
 import numpy as np
 import torch
 
-from .dtypes import COMPLEX, REAL, REAL_OF
+from .dtypes import COMPLEX, REAL, REAL_OF, to_storage
 from .meshes import TensorMesh
 from .models import Model
 from .ops.smoothers import LINE_BKEYS, NLINE
@@ -17,7 +17,8 @@ from .ops.smoothers import LINE_BKEYS, NLINE
 __all__ = ['params_to_torch', 'params_to_numpy', 'fields_to_torch',
            'fields_to_numpy', 'mesh_to_torch', 'mesh_to_numpy',
            'model_to_torch', 'model_to_numpy', 'line_factors_to_torch',
-           'line_factors_to_numpy', 'pair_to_torch', 'tensor_to_pair']
+           'line_factors_to_numpy', 'line_stack_entries', 'pair_to_torch',
+           'tensor_to_pair']
 
 
 def _tensor(a, dtype, device):
@@ -82,15 +83,19 @@ def model_to_numpy(model):
     return model.to_dict(copy=True)
 
 
-def line_factors_to_torch(L_all, d_all, Bent, device='cpu'):
+def line_factors_to_torch(L_all, d_all, Bent, device='cpu', storage=None):
     """The port's line factor stack from the JAX package's entries.
 
     ``L_all`` (10 strict-lower LDLᵀ entries), ``d_all`` (5 inverse
     diagonals) and ``Bent`` (dict of the 8 B entries) are ``(S, ny-1,
     nz-1)`` arrays, as ``block_tridiag_factor_entries`` of
-    ``_line_entries_x`` returns them.  Returns the ``(S, NLINE, 2, 2,
-    ny2, nz2)`` complex128 stack of ``ops.smoothers.line_factor_stack``;
-    padded lines get identity factors (dinv 1, L and B 0).
+    ``_line_entries_x`` returns them (or :func:`line_stack_entries` of a
+    Pallas stack).  Returns the ``(S, NLINE, 2, 2, ny2, nz2)`` complex128
+    stack of ``ops.smoothers.line_factor_stack``; padded lines get
+    identity factors (dinv 1, L and B 0).  With ``storage``
+    ``torch.bfloat16`` it returns the port's bfloat16 stack of the
+    entries rounded to bfloat16, ``(..., nz2, 2)``: exactly the values of
+    a JAX stack built with ``line_factors(..., fdtype=jnp.bfloat16)``.
     """
     planes = [*L_all, *d_all, *(Bent[k] for k in LINE_BKEYS)]
     S, nyn, nzn = np.shape(planes[0])
@@ -102,8 +107,27 @@ def line_factors_to_torch(L_all, d_all, Bent, device='cpu'):
                                                  (S, nyn, nzn))
     quarters = full.reshape(S, NLINE, ny2, 2, nz2, 2).transpose(
         0, 1, 3, 5, 2, 4)
+    if storage is not None:
+        # Every bfloat16 value is a float32 one: round from complex64.
+        return to_storage(torch.tensor(np.ascontiguousarray(quarters),
+                                       dtype=torch.complex64,
+                                       device=device), storage)
     return torch.tensor(np.ascontiguousarray(quarters), dtype=COMPLEX,
                         device=device)
+
+
+def line_stack_entries(stack, shape):
+    """``(L_all, d_all, Bent)`` of the JAX package's padded Pallas factor
+    stack ``(S, 46, Yp, Zp)`` (``pallas_lr.line_factors``: each entry's
+    real and imaginary plane in turn, L in ``_LORD``, the inverse
+    diagonal, B in ``_BORD`` = LINE_BKEYS order; line (j, k) at padded
+    index (j, k)), as complex128 ``(S, ny-1, nz-1)`` arrays.  ``stack`` is
+    numpy of any real dtype (a bfloat16 stack as float32, exactly);
+    ``shape`` the cell shape of the frame whose x-lines it solves."""
+    _, ny, nz = shape
+    a = np.asarray(stack, dtype=np.float64)[:, :, 1:ny, 1:nz]
+    planes = [a[:, 2 * p] + 1j * a[:, 2 * p + 1] for p in range(NLINE)]
+    return (planes[:10], planes[10:15], dict(zip(LINE_BKEYS, planes[15:])))
 
 
 def line_factors_to_numpy(fac, shape):

@@ -124,6 +124,19 @@
 // ldl_factor_sparse and block_tridiag_solve_entries (and of the JAX
 // package), so kernels and plain versions agree to rounding.
 //
+// bfloat16 storage (the ``_bf16`` entry points, complex64 only), as the
+// JAX package's Pallas path stores: K3 reads s, the η sums and the ζ
+// weights stored in bfloat16 (pack_params(pdtype=), pack_fields(sdtype=);
+// _kernel_res upcasts them, pallas_lr.py:539-545); K5 eliminates in
+// float32 and rounds each factor to bfloat16 when it writes it
+// (line_factors(fdtype=), pallas_lr.py:356-402); K4 reads that stack
+// (_kernel_thomas's F, :657-667), each complex factor one 4-byte
+// __nv_bfloat162 instead of 8 bytes.  Every load widens exactly
+// (stencil.cuh: up) and the arithmetic stays float32.  K4's ring slot
+// then holds the 23 factor planes at 4 B an entry, padded to 8 B, before
+// its residual, field and z planes at 8 B (slot_bytes; line_gs._slot_bytes
+// in Python): each cp.async is 4 or 8 bytes, aligned to its size.
+//
 // Races: K4 reads only r (K3's buffer), the factors and the e values of
 // its own lines.  Lines of one colour share transverse parity, so they
 // are two apart in y or z and touch disjoint edges: the in-place update
@@ -145,25 +158,28 @@ constexpr int kWarp = 32;      // K4: one warp per block
 constexpr int kStages = 6;     // K4's ring of station slots
 constexpr int kAhead = kStages - 2;   // stations loaded ahead
 
-template <class R>
+// R: the compute (real) type; S: the storage of s, η sums and ζ weights.
+template <class R, class S = R>
 struct ResArgs {
   using real = R;
   using C = cplx_t<R>;
+  using SC = typename Store<R, S>::cplx;
+  using SR = typename Store<R, S>::real;
   C* rx;          // residual out, same shapes as e
   C* ry;
   C* rz;
   const C* ex;    // (nx, ny+1, nz+1)
   const C* ey;    // (nx+1, ny, nz+1)
   const C* ez;    // (nx+1, ny+1, nz)
-  const C* sx;    // source, same shapes as e
-  const C* sy;
-  const C* sz;
-  const C* stx;   // η edge sums (nx, ny-1, nz-1)
-  const C* sty;   // (nx-1, ny, nz-1)
-  const C* stz;   // (nx-1, ny-1, nz)
-  const R* wx;     // ζ face weights (nx+1, ny, nz)
-  const R* wy;     // (nx, ny+1, nz)
-  const R* wz;     // (nx, ny, nz+1)
+  const SC* sx;   // source, same shapes as e
+  const SC* sy;
+  const SC* sz;
+  const SC* stx;  // η edge sums (nx, ny-1, nz-1)
+  const SC* sty;  // (nx-1, ny, nz-1)
+  const SC* stz;  // (nx-1, ny-1, nz)
+  const SR* wx;    // ζ face weights (nx+1, ny, nz)
+  const SR* wy;    // (nx, ny+1, nz)
+  const SR* wz;    // (nx, ny, nz+1)
   const R* ihx;    // inverse widths (nx,), (ny,), (nz,)
   const R* ihy;
   const R* ihz;
@@ -177,8 +193,8 @@ struct ResArgs {
 
 // Point ``a`` at lane ``lane``: e, s and r at the lane's slices, the η
 // sums at its group's.
-template <class R>
-__device__ __forceinline__ void lane_offsets(ResArgs<R>& a, int lane) {
+template <class R, class S>
+__device__ __forceinline__ void lane_offsets(ResArgs<R, S>& a, int lane) {
   const int64_t g = a.group ? a.group[lane] : 0;
   const int64_t nx = a.nx, ny = a.ny, nz = a.nz;
   const int64_t ex = nx * (ny + 1) * (nz + 1), ey = (nx + 1) * ny * (nz + 1),
@@ -224,16 +240,21 @@ struct SlabE {
 
 // One element from global into shared memory: a complex128 element
 // (16 B) bypassing L1, a complex64 one (8 B, at any element offset, so
-// not always 16-byte aligned) through cp.async.ca.
+// not always 16-byte aligned) and a bfloat16 complex (4 B) through
+// cp.async.ca.
 template <class C>
 __device__ __forceinline__ void cp_async(C* smem, const C* gmem) {
-  static_assert(sizeof(C) == 16 || sizeof(C) == 8, "complex elements");
+  static_assert(sizeof(C) == 16 || sizeof(C) == 8 || sizeof(C) == 4,
+                "complex elements");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   if constexpr (sizeof(C) == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"(gmem));
-  } else {
+  } else if constexpr (sizeof(C) == 8) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(gmem));
   }
 }
@@ -254,10 +275,11 @@ __device__ __forceinline__ void load_tile(C* dst, const C* src,
   }
 }
 
-// (T: the real type; R is the slab's line rows below.)
-template <bool kStaged, class T>
+// (T: the real type; R is the slab's line rows below; S the storage of
+// s, η sums and ζ weights.)
+template <bool kStaged, class T, class S>
 __global__ void __launch_bounds__(256)
-line_residual(ResArgs<T> a) {
+line_residual(ResArgs<T, S> a) {
   using C = cplx_t<T>;
   // Raw bytes: the float and double instances share the symbol.
   extern __shared__ __align__(16) unsigned char res_smem[];
@@ -378,11 +400,13 @@ __host__ __device__ constexpr bool d_absent(int a, int b) {
 
 constexpr int kFactorThreads = 256;   // most threads per block
 
-template <class R>
+// F: the storage of the stack it writes (R, or bfloat16 for float).
+template <class R, class F = R>
 struct FactorArgs {
   using real = R;
   using C = cplx_t<R>;
-  C* fac;         // (nx, 23, 2, 2, ny2, nz2) out
+  using FC = typename Store<R, F>::cplx;
+  FC* fac;        // (nx, 23, 2, 2, ny2, nz2) out
   const C* stx;   // η edge sums of the rotated frame
   const C* sty;
   const C* stz;
@@ -421,9 +445,9 @@ __device__ __forceinline__ void ldl_solve_reg(const C (&L)[5][5],
 // (y parity, z parity), transverse node (2q + py, 2r + pz) zero-based at
 // q = (l % P) / nz2, r = l % nz2; a padded line (beyond the level's
 // interior nodes) gets identity diagonals and no coupling.
-template <class R>
+template <class R, class F>
 __global__ void __launch_bounds__(kFactorThreads)
-line_factor(FactorArgs<R> a) {
+line_factor(FactorArgs<R, F> a) {
   using C = cplx_t<R>;
   const int64_t line = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
@@ -555,19 +579,21 @@ line_factor(FactorArgs<R> a) {
         L[r][c] = cmul(val, dinv[c]);
       }
     }
-    // The station's 23 planes.
-    C* s = a.fac + static_cast<int64_t>(i) * kNent * ps + line;
+    // The station's 23 planes, stored (rounded where F is bfloat16;
+    // the recurrence above keeps the unrounded factors).
+    typename FactorArgs<R, F>::FC* s =
+        a.fac + static_cast<int64_t>(i) * kNent * ps + line;
 #pragma unroll
     for (int r = 1; r < 5; ++r) {
 #pragma unroll
-      for (int c = 0; c < r; ++c) s[l_plane(r, c) * ps] = L[r][c];
+      for (int c = 0; c < r; ++c) put(&s[l_plane(r, c) * ps], L[r][c]);
     }
 #pragma unroll
-    for (int r = 0; r < 5; ++r) s[(kDinv + r) * ps] = dinv[r];
+    for (int r = 0; r < 5; ++r) put(&s[(kDinv + r) * ps], dinv[r]);
 #pragma unroll
     for (int m = 1; m < 5; ++m) {
-      s[(kB + m - 1) * ps] = b0[m];
-      s[(kB + 3 + m) * ps] = bd[m];
+      put(&s[(kB + m - 1) * ps], b0[m]);
+      put(&s[(kB + 3 + m) * ps], bd[m]);
     }
   }
 }
@@ -576,17 +602,19 @@ line_factor(FactorArgs<R> a) {
 // K4: block-Thomas substitution of one colour, in place
 // ---------------------------------------------------------------------
 
-template <class R>
+// F: the storage of the factor stack (R, or bfloat16 for float).
+template <class R, class F = R>
 struct ThomasArgs {
   using real = R;
   using C = cplx_t<R>;
+  using FC = typename Store<R, F>::cplx;
   C* ex;          // fields, updated in place
   C* ey;
   C* ez;
   const C* rx;    // residual of the colour step (K3)
   const C* ry;
   const C* rz;
-  const C* fac;   // (nx, 23, 2, 2, ny2, nz2)
+  const FC* fac;  // (nx, 23, 2, 2, ny2, nz2)
   C* zs;          // global scratch (B, nx, 5, ny2·nz2) if !zshared
   const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
@@ -600,27 +628,43 @@ __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead));
 }
 
-// y ← C⁻¹ y with the LDLᵀ factors of one station at f[p·stride]
-// (blocksolve.ldl_solve_factored, all ten L entries, same order).
-template <class C>
-__device__ __forceinline__ void ldl_solve5(const C* f, int stride,
+// y ← C⁻¹ y with the LDLᵀ factors of one station at f[p·stride], stored
+// as FC (blocksolve.ldl_solve_factored, all ten L entries, same order).
+template <class FC, class C>
+__device__ __forceinline__ void ldl_solve5(const FC* f, int stride,
                                            C (&y)[5]) {
 #pragma unroll
   for (int i = 1; i < 5; ++i) {
 #pragma unroll
     for (int k = 0; k < i; ++k) {
-      y[i] = csub(y[i], cmul(f[l_plane(i, k) * stride], y[k]));
+      y[i] = csub(y[i], cmul(up(f[l_plane(i, k) * stride]), y[k]));
     }
   }
 #pragma unroll
-  for (int i = 0; i < 5; ++i) y[i] = cmul(y[i], f[(kDinv + i) * stride]);
+  for (int i = 0; i < 5; ++i) {
+    y[i] = cmul(y[i], up(f[(kDinv + i) * stride]));
+  }
 #pragma unroll
   for (int i = 3; i >= 0; --i) {
 #pragma unroll
     for (int k = i + 1; k < 5; ++k) {
-      y[i] = csub(y[i], cmul(f[l_plane(k, i) * stride], y[k]));
+      y[i] = csub(y[i], cmul(up(f[l_plane(k, i) * stride]), y[k]));
     }
   }
+}
+
+// Bytes of one K4 ring slot of ``planes`` planes of ``lpb`` lines: the
+// kNent factor planes (FC entries) padded to a whole C, then the others
+// (residuals, fields, z; C entries).  For FC = C, planes·lpb C entries.
+template <class C, class FC>
+__host__ __device__ constexpr int factor_part_bytes(int lpb) {
+  return static_cast<int>((kNent * lpb * sizeof(FC) + sizeof(C) - 1) /
+                          sizeof(C) * sizeof(C));
+}
+template <class C, class FC>
+__host__ __device__ constexpr int slot_bytes(int planes, int lpb) {
+  return factor_part_bytes<C, FC>(lpb) +
+         static_cast<int>((planes - kNent) * lpb * sizeof(C));
 }
 
 // The ring copies of one lane.  Lane ``lane`` loads, for line
@@ -632,11 +676,11 @@ __device__ __forceinline__ void ldl_solve5(const C* f, int stride,
 // that own different planes unroll into predicated instructions instead
 // of diverging.  The last station has an ex residual and edge only
 // (``last`` bits).
-template <int kStep, class C>
+template <int kStep, class C, class FC>
 struct Copies {
   static constexpr int kF = (kNent + kStep - 1) / kStep;   // factor, max
   static constexpr int kX = (10 + kStep - 1) / kStep;      // others, max
-  const C* f;     // factor plane p0 of station 0
+  const FC* f;    // factor plane p0 of station 0
   int nf;               // factor planes of this lane
   int px;               // first non-factor plane of this lane
   int nx_;              // non-factor planes of this lane
@@ -645,11 +689,12 @@ struct Copies {
   int64_t stride[kX];
 };
 
-template <int kStep, class R, class C = cplx_t<R>>
-__device__ __forceinline__ Copies<kStep, C> plan_copies(
-    const ThomasArgs<R>& a, bool forward, int p0, int j, int k, int64_t fline,
-    int64_t zline, int64_t pstride, int64_t P) {
-  Copies<kStep, C> c;
+template <int kStep, class R, class F, class C = cplx_t<R>,
+          class FC = typename Store<R, F>::cplx>
+__device__ __forceinline__ Copies<kStep, C, FC> plan_copies(
+    const ThomasArgs<R, F>& a, bool forward, int p0, int j, int k,
+    int64_t fline, int64_t zline, int64_t pstride, int64_t P) {
+  Copies<kStep, C, FC> c;
   const int nplanes = forward ? kNent + 5 : a.planes;
   c.f = a.fac + p0 * pstride + fline;
   c.nf = p0 < kNent ? (kNent - 1 - p0) / kStep + 1 : 0;
@@ -660,7 +705,7 @@ __device__ __forceinline__ Copies<kStep, C> plan_copies(
   const C* fy = forward ? a.ry : a.ey;
   const C* fz = forward ? a.rz : a.ez;
 #pragma unroll
-  for (int n = 0; n < Copies<kStep, C>::kX; ++n) {
+  for (int n = 0; n < Copies<kStep, C, FC>::kX; ++n) {
     const int m = c.px + n * kStep - kNent;
     c.base[n] = nullptr;
     c.stride[n] = 0;
@@ -686,13 +731,13 @@ __device__ __forceinline__ Copies<kStep, C> plan_copies(
   return c;
 }
 
-template <int LPB, class R>
+template <int LPB, class R, class F>
 __global__ void __launch_bounds__(kWarp)
-line_thomas(ThomasArgs<R> a) {
+line_thomas(ThomasArgs<R, F> a) {
   using C = cplx_t<R>;
+  using FC = typename ThomasArgs<R, F>::FC;
   // Raw bytes: the float and double instances share the symbol.
   extern __shared__ __align__(16) unsigned char thomas_smem[];
-  C* smem = reinterpret_cast<C*>(thomas_smem);
   const int lane = threadIdx.x;
   constexpr int lpb = LPB, kStep = kWarp / LPB;
   const int64_t nlines = static_cast<int64_t>(a.cny) * a.cnz;
@@ -716,8 +761,12 @@ line_thomas(ThomasArgs<R> a) {
   }
   const int64_t pstride = 4 * P;   // consecutive planes of one station
   const int64_t quarter = (a.cy * 2 + a.cz) * P;
-  const int slot_size = a.planes * lpb;
-  C* zsm = smem + kStages * slot_size;   // (nx, 5, lpb) if zshared
+  // Slot i % kStages: the factor planes (fslot), then the residual,
+  // field and z planes (oslot); after the ring z, (nx, 5, lpb), if
+  // zshared.
+  const int fbytes = factor_part_bytes<C, FC>(lpb);
+  const int sbytes = slot_bytes<C, FC>(a.planes, lpb);
+  C* zsm = reinterpret_cast<C*>(thomas_smem + kStages * sbytes);
 
   // The line this lane loads for, and the one it computes if lane < lpb
   // (the same: l = lane mod lpb).
@@ -734,23 +783,30 @@ line_thomas(ThomasArgs<R> a) {
   const bool active = valid && lane < lpb;
   const int nx = a.nx;
 
-  auto slot = [&](int i) { return smem + (i % kStages) * slot_size; };
-  Copies<kStep, C> cp;
+  auto fslot = [&](int i) {
+    return reinterpret_cast<FC*>(thomas_smem + (i % kStages) * sbytes);
+  };
+  auto oslot = [&](int i) {
+    return reinterpret_cast<C*>(thomas_smem + (i % kStages) * sbytes +
+                                fbytes);
+  };
+  Copies<kStep, C, FC> cp;
   auto fill = [&](int i) {
     if (valid && i >= 0 && i < nx) {
-      C* dst = slot(i) + l;
-      const C* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
+      FC* dstf = fslot(i) + l;
+      C* dsto = oslot(i) + l;
+      const FC* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
 #pragma unroll
-      for (int n = 0; n < Copies<kStep, C>::kF; ++n) {
+      for (int n = 0; n < Copies<kStep, C, FC>::kF; ++n) {
         if (n < cp.nf) {
-          cp_async(dst + (p0 + n * kStep) * lpb, f + n * kStep * pstride);
+          cp_async(dstf + (p0 + n * kStep) * lpb, f + n * kStep * pstride);
         }
       }
 #pragma unroll
-      for (int n = 0; n < Copies<kStep, C>::kX; ++n) {
+      for (int n = 0; n < Copies<kStep, C, FC>::kX; ++n) {
         if (n < cp.nx_ && !(i == nx - 1 && ((cp.last >> n) & 1u))) {
-          cp_async(dst + (cp.px + n * kStep) * lpb,
-                     cp.base[n] + i * cp.stride[n]);
+          cp_async(dsto + (cp.px + n * kStep - kNent) * lpb,
+                   cp.base[n] + i * cp.stride[n]);
         }
       }
     }
@@ -767,21 +823,21 @@ line_thomas(ThomasArgs<R> a) {
     cp_async_wait_ahead();
     __syncwarp();
     if (active) {
-      const C* f = slot(i) + lane;
+      const FC* f = fslot(i) + lane;
+      const C* o = oslot(i) + lane;
       C y[5];
 #pragma unroll
       for (int m = 0; m < 5; ++m) {
-        y[m] = (m == 0 || i < nx - 1) ? f[(kNent + m) * lpb]
-                                      : cmake(R(0), R(0));
+        y[m] = (m == 0 || i < nx - 1) ? o[m * lpb] : cmake(R(0), R(0));
       }
       if (i > 0) {
 #pragma unroll
         for (int m = 1; m < 5; ++m) {
-          y[0] = csub(y[0], cmul(f[(kB + m - 1) * lpb], zp[m]));
+          y[0] = csub(y[0], cmul(up(f[(kB + m - 1) * lpb]), zp[m]));
         }
 #pragma unroll
         for (int m = 1; m < 5; ++m) {
-          y[m] = csub(y[m], cmul(f[(kB + 3 + m) * lpb], zp[m]));
+          y[m] = csub(y[m], cmul(up(f[(kB + 3 + m) * lpb]), zp[m]));
         }
       }
       ldl_solve5(f, lpb, y);
@@ -812,35 +868,36 @@ line_thomas(ThomasArgs<R> a) {
     cp_async_wait_ahead();
     __syncwarp();
     if (active) {
-      const C* f = slot(i) + lane;
+      const FC* f = fslot(i) + lane;
+      const C* o = oslot(i) + lane;
       C d[5];
       if (i == nx - 1) {
 #pragma unroll
         for (int m = 0; m < 5; ++m) d[m] = zp[m];
       } else {
-        const C* fn = slot(i + 1) + lane;   // station i+1
+        const FC* fn = fslot(i + 1) + lane;   // station i+1
         // (Bᵀ)_{ak} = B_{ka}: row 0 of Bᵀ is zero.
         C u[5];
         u[0] = cmake(R(0), R(0));
 #pragma unroll
         for (int m = 1; m < 5; ++m) {
-          u[m] = cadd(cmul(fn[(kB + m - 1) * lpb], dn[0]),
-                      cmul(fn[(kB + 3 + m) * lpb], dn[m]));
+          u[m] = cadd(cmul(up(fn[(kB + m - 1) * lpb]), dn[0]),
+                      cmul(up(fn[(kB + 3 + m) * lpb]), dn[m]));
         }
         ldl_solve5(f, lpb, u);
 #pragma unroll
         for (int m = 0; m < 5; ++m) {
           const C z = a.zshared ? zsm[(i * 5 + m) * lpb + lane]
-                                      : f[(kNent + 5 + m) * lpb];
+                                : o[(5 + m) * lpb];
           d[m] = csub(z, u[m]);
         }
       }
-      EX(i, j, k) = cadd(f[kNent * lpb], d[0]);
+      EX(i, j, k) = cadd(o[0], d[0]);
       if (i < nx - 1) {
-        EY(i + 1, j - 1, k) = cadd(f[(kNent + 1) * lpb], d[1]);
-        EY(i + 1, j, k) = cadd(f[(kNent + 2) * lpb], d[2]);
-        EZ(i + 1, j, k - 1) = cadd(f[(kNent + 3) * lpb], d[3]);
-        EZ(i + 1, j, k) = cadd(f[(kNent + 4) * lpb], d[4]);
+        EY(i + 1, j - 1, k) = cadd(o[1 * lpb], d[1]);
+        EY(i + 1, j, k) = cadd(o[2 * lpb], d[2]);
+        EZ(i + 1, j, k - 1) = cadd(o[3 * lpb], d[3]);
+        EZ(i + 1, j, k) = cadd(o[4 * lpb], d[4]);
       }
 #pragma unroll
       for (int m = 0; m < 5; ++m) dn[m] = d[m];
@@ -849,20 +906,27 @@ line_thomas(ThomasArgs<R> a) {
   }
 }
 
-template <int LPB, class R>
-int launch_thomas(const ThomasArgs<R>& a, dim3 blocks, int smem,
+template <int LPB, class R, class F>
+int launch_thomas(const ThomasArgs<R, F>& a, dim3 blocks, int smem,
                   cudaStream_t stream) {
+  using C = cplx_t<R>;
+  using FC = typename ThomasArgs<R, F>::FC;
+  // The ring and z (the Python geometry's smem_bytes) or nothing.
+  const int want = kStages * slot_bytes<C, FC>(a.planes, LPB) +
+                   (a.zshared ? a.nx * 5 * LPB * static_cast<int>(sizeof(C))
+                              : 0);
+  if (smem != want) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        line_thomas<LPB, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        line_thomas<LPB, R, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  line_thomas<LPB, R><<<blocks, kWarp, smem, stream>>>(a);
+  line_thomas<LPB, R, F><<<blocks, kWarp, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class R>
+template <class R, class S>
 int residual(void* rx, void* ry, void* rz, const void* ex, const void* ey,
              const void* ez, const void* sx, const void* sy, const void* sz,
              const void* stx, const void* sty, const void* stz,
@@ -880,22 +944,25 @@ int residual(void* rx, void* ry, void* rz, const void* ex, const void* ey,
       lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ResArgs<R> a;
+  using A = ResArgs<R, S>;
+  using SC = typename A::SC;
+  using SR = typename A::SR;
+  A a;
   a.rx = static_cast<C*>(rx);
   a.ry = static_cast<C*>(ry);
   a.rz = static_cast<C*>(rz);
   a.ex = static_cast<const C*>(ex);
   a.ey = static_cast<const C*>(ey);
   a.ez = static_cast<const C*>(ez);
-  a.sx = static_cast<const C*>(sx);
-  a.sy = static_cast<const C*>(sy);
-  a.sz = static_cast<const C*>(sz);
-  a.stx = static_cast<const C*>(stx);
-  a.sty = static_cast<const C*>(sty);
-  a.stz = static_cast<const C*>(stz);
-  a.wx = static_cast<const R*>(wx);
-  a.wy = static_cast<const R*>(wy);
-  a.wz = static_cast<const R*>(wz);
+  a.sx = static_cast<const SC*>(sx);
+  a.sy = static_cast<const SC*>(sy);
+  a.sz = static_cast<const SC*>(sz);
+  a.stx = static_cast<const SC*>(stx);
+  a.sty = static_cast<const SC*>(sty);
+  a.stz = static_cast<const SC*>(stz);
+  a.wx = static_cast<const SR*>(wx);
+  a.wy = static_cast<const SR*>(wy);
+  a.wz = static_cast<const SR*>(wz);
   a.ihx = static_cast<const R*>(ihx);
   a.ihy = static_cast<const R*>(ihy);
   a.ihz = static_cast<const R*>(ihz);
@@ -913,20 +980,20 @@ int residual(void* rx, void* ry, void* rz, const void* ex, const void* ey,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, lanes);
   if (!staged) {
-    line_residual<false, R><<<grid, threads, 0, s>>>(a);
+    line_residual<false, R, S><<<grid, threads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        line_residual<true, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        line_residual<true, R, S>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  line_residual<true, R><<<grid, threads, smem, s>>>(a);
+  line_residual<true, R, S><<<grid, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class R>
+template <class R, class F>
 int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
            const void* rz, const void* fac, void* zs, const void* group,
            int nx, int ny, int nz, int cy, int cz, int cny, int cnz, int lpb,
@@ -940,14 +1007,14 @@ int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
       (!zshared && planes != kNent + 10)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ThomasArgs<R> a;
+  ThomasArgs<R, F> a;
   a.ex = static_cast<C*>(ex);
   a.ey = static_cast<C*>(ey);
   a.ez = static_cast<C*>(ez);
   a.rx = static_cast<const C*>(rx);
   a.ry = static_cast<const C*>(ry);
   a.rz = static_cast<const C*>(rz);
-  a.fac = static_cast<const C*>(fac);
+  a.fac = static_cast<const typename ThomasArgs<R, F>::FC*>(fac);
   a.zs = static_cast<C*>(zs);
   a.group = static_cast<const int*>(group);
   a.nx = nx;
@@ -962,16 +1029,16 @@ int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, lanes);
   switch (lpb) {
-    case 1: return launch_thomas<1, R>(a, grid, smem, st);
-    case 2: return launch_thomas<2, R>(a, grid, smem, st);
-    case 4: return launch_thomas<4, R>(a, grid, smem, st);
-    case 8: return launch_thomas<8, R>(a, grid, smem, st);
-    case 16: return launch_thomas<16, R>(a, grid, smem, st);
-    default: return launch_thomas<32, R>(a, grid, smem, st);
+    case 1: return launch_thomas<1, R, F>(a, grid, smem, st);
+    case 2: return launch_thomas<2, R, F>(a, grid, smem, st);
+    case 4: return launch_thomas<4, R, F>(a, grid, smem, st);
+    case 8: return launch_thomas<8, R, F>(a, grid, smem, st);
+    case 16: return launch_thomas<16, R, F>(a, grid, smem, st);
+    default: return launch_thomas<32, R, F>(a, grid, smem, st);
   }
 }
 
-template <class R>
+template <class R, class F>
 int factor(void* fac, const void* stx, const void* sty, const void* stz,
            const void* wx, const void* wy, const void* wz, const void* ihx,
            const void* ihy, const void* ihz, int nx, int ny, int nz,
@@ -981,8 +1048,8 @@ int factor(void* fac, const void* stx, const void* sty, const void* stz,
       nx < 2 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FactorArgs<R> a;
-  a.fac = static_cast<C*>(fac);
+  FactorArgs<R, F> a;
+  a.fac = static_cast<typename FactorArgs<R, F>::FC*>(fac);
   a.stx = static_cast<const C*>(stx);
   a.sty = static_cast<const C*>(sty);
   a.stz = static_cast<const C*>(stz);
@@ -998,7 +1065,7 @@ int factor(void* fac, const void* stx, const void* sty, const void* stz,
   a.nz2 = nz / 2;
   a.P = static_cast<int64_t>(ny / 2) * (nz / 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  line_factor<R><<<blocks, threads, 0, s>>>(a);
+  line_factor<R, F><<<blocks, threads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1009,7 +1076,10 @@ int factor(void* fac, const void* stx, const void* sty, const void* stz,
 // (0 on success); the launch geometry comes from the Python
 // launch-geometry functions, which skip colours without lines.  Every
 // entry point takes complex128 tensors (float64 weights and widths);
-// its ``_c64`` twin the same in complex64 (float32).
+// its ``_c64`` twin the same in complex64 (float32); its ``_bf16`` twin
+// complex64 with its stream stored in bfloat16 (each complex value two
+// bfloat16, re and im): K3 s, st and w, K4 the stack it reads, K5 the
+// stack it writes.
 //
 // K3 and K4 take ``lanes`` batch lanes (the grid's y extent) and
 // ``group``, the lane → frequency-group table on the card (null: one
@@ -1027,14 +1097,18 @@ int factor(void* fac, const void* stx, const void* sty, const void* stz,
       ihz, group, nx, ny, nz, cy, cz, cny, cnz, rows, lines, xplanes,        \
       staged, blocks, lanes, threads, smem, stream
 extern "C" int emg3d_line_residual(EMG3D_RES_PARAMS) {
-  return residual<double>(EMG3D_RES_ARGS);
+  return residual<double, double>(EMG3D_RES_ARGS);
 }
 extern "C" int emg3d_line_residual_c64(EMG3D_RES_PARAMS) {
-  return residual<float>(EMG3D_RES_ARGS);
+  return residual<float, float>(EMG3D_RES_ARGS);
+}
+extern "C" int emg3d_line_residual_bf16(EMG3D_RES_PARAMS) {
+  return residual<float, __nv_bfloat16>(EMG3D_RES_ARGS);
 }
 
 // ``stages`` and ``threads`` must equal kStages and kWarp (the Python
-// geometry's constants); ``smem`` is the block's dynamic shared memory.
+// geometry's constants); ``smem`` is the block's dynamic shared memory,
+// which must equal the ring's and z's bytes (slot_bytes).
 #define EMG3D_THOMAS_PARAMS                                                  \
   void *ex, void *ey, void *ez, const void *rx, const void *ry,              \
       const void *rz, const void *fac, void *zs, const void *group, int nx,  \
@@ -1045,10 +1119,13 @@ extern "C" int emg3d_line_residual_c64(EMG3D_RES_PARAMS) {
   ex, ey, ez, rx, ry, rz, fac, zs, group, nx, ny, nz, cy, cz, cny, cnz, lpb, \
       zshared, planes, stages, blocks, lanes, threads, smem, stream
 extern "C" int emg3d_line_thomas(EMG3D_THOMAS_PARAMS) {
-  return thomas<double>(EMG3D_THOMAS_ARGS);
+  return thomas<double, double>(EMG3D_THOMAS_ARGS);
 }
 extern "C" int emg3d_line_thomas_c64(EMG3D_THOMAS_PARAMS) {
-  return thomas<float>(EMG3D_THOMAS_ARGS);
+  return thomas<float, float>(EMG3D_THOMAS_ARGS);
+}
+extern "C" int emg3d_line_thomas_bf16(EMG3D_THOMAS_PARAMS) {
+  return thomas<float, __nv_bfloat16>(EMG3D_THOMAS_ARGS);
 }
 
 // K5 on the rotated level (nx, ny, nz) into ``fac`` (its whole
@@ -1062,8 +1139,11 @@ extern "C" int emg3d_line_thomas_c64(EMG3D_THOMAS_PARAMS) {
   fac, stx, sty, stz, wx, wy, wz, ihx, ihy, ihz, nx, ny, nz, blocks,         \
       threads, stream
 extern "C" int emg3d_line_factor(EMG3D_FACTOR_PARAMS) {
-  return factor<double>(EMG3D_FACTOR_ARGS);
+  return factor<double, double>(EMG3D_FACTOR_ARGS);
 }
 extern "C" int emg3d_line_factor_c64(EMG3D_FACTOR_PARAMS) {
-  return factor<float>(EMG3D_FACTOR_ARGS);
+  return factor<float, float>(EMG3D_FACTOR_ARGS);
+}
+extern "C" int emg3d_line_factor_bf16(EMG3D_FACTOR_PARAMS) {
+  return factor<float, __nv_bfloat16>(EMG3D_FACTOR_ARGS);
 }

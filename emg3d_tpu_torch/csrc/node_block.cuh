@@ -32,17 +32,18 @@ struct NodeParams {
   cplx_t<R> w[6];
 };
 
-// The node's parameters from the level's tensors.
+// The node's parameters from the level's tensors (widened from their
+// storage where the η sums and ζ weights are stored in bfloat16).
 template <class A>
 __device__ __forceinline__ NodeParams<typename A::real> node_params(
     const A& a, int i, int j, int k) {
   NodeParams<typename A::real> p;
-  p.st[0] = a.stx[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  p.st[1] = a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)];
-  p.st[2] = a.sty[at(i - 1, j - 1, k - 1, a.ny, a.nz - 1)];
-  p.st[3] = a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)];
-  p.st[4] = a.stz[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz)];
-  p.st[5] = a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)];
+  p.st[0] = up(a.stx[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz - 1)]);
+  p.st[1] = up(a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)]);
+  p.st[2] = up(a.sty[at(i - 1, j - 1, k - 1, a.ny, a.nz - 1)]);
+  p.st[3] = up(a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)]);
+  p.st[4] = up(a.stz[at(i - 1, j - 1, k - 1, a.ny - 1, a.nz)]);
+  p.st[5] = up(a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)]);
   p.w[0] = cmake(WZ(i - 1, j - 1, k), WZ(i - 1, j, k));
   p.w[1] = cmake(WZ(i, j - 1, k), WZ(i, j, k));
   p.w[2] = cmake(WY(i - 1, j, k - 1), WY(i - 1, j, k));

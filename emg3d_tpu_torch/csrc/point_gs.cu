@@ -95,6 +95,18 @@
 // smoothing call, ~4 µs of device time each whatever their size, and a
 // host call each; the sweep plans make it one.
 //
+// bfloat16 storage (the ``_bf16`` entry points): a complex64 solve may
+// store s, the η sums and the ζ weights in bfloat16 (the JAX package's
+// pack_params(pdtype=) and pack_fields(sdtype=), pallas_gs.py:433-484,
+// read by _kernel and _kernel_resident through _up, :312-322).  Every
+// kernel is templated on that storage type S as well (S = R, or
+// __nv_bfloat16 with R = float): the loads widen (stencil.cuh: up), the
+// arithmetic stays float32.  K1's factors and K2's packed node data stay
+// float32 (K2's built from the rounded sums and weights), e and the
+// widths too.  A node then reads 4 B instead of 8 for each of its s, η
+// sum and ζ weight values; the shared plan stacks the level's tensors by
+// element size, largest first, so that each starts aligned.
+//
 // The complex arithmetic and the residual at an edge are in
 // stencil.cuh, shared with the line kernels (line_gs.cu); the node
 // block's assembly is in node_block.cuh, shared with K5.
@@ -132,22 +144,25 @@ constexpr int kNodePlanes = 12;   // K2's packed planes: 6 η sums, 6 ζ pairs
 // or K2 reading its colour-major packed node data.
 enum Kernel { kFactored = 0, kFused = 1, kFusedPacked = 2 };
 
-template <class R>
+// R: the compute (real) type; S: the storage of s, η sums and ζ weights.
+template <class R, class S = R>
 struct Args {
   using real = R;
   using C = cplx_t<R>;
+  using SC = typename Store<R, S>::cplx;
+  using SR = typename Store<R, S>::real;
   C* ex;                // (nx, ny+1, nz+1), updated in place
   C* ey;                // (nx+1, ny, nz+1)
   C* ez;                // (nx+1, ny+1, nz)
-  const C* sx;          // source, same shapes as e
-  const C* sy;
-  const C* sz;
-  const C* stx;         // η edge sums (nx, ny-1, nz-1)
-  const C* sty;         // (nx-1, ny, nz-1)
-  const C* stz;         // (nx-1, ny-1, nz)
-  const R* wx;          // ζ face weights (nx+1, ny, nz)
-  const R* wy;          // (nx, ny+1, nz)
-  const R* wz;          // (nx, ny, nz+1)
+  const SC* sx;         // source, same shapes as e
+  const SC* sy;
+  const SC* sz;
+  const SC* stx;        // η edge sums (nx, ny-1, nz-1)
+  const SC* sty;        // (nx-1, ny, nz-1)
+  const SC* stz;        // (nx-1, ny-1, nz)
+  const SR* wx;         // ζ face weights (nx+1, ny, nz)
+  const SR* wy;         // (nx, ny+1, nz)
+  const SR* wz;         // (nx, ny, nz+1)
   const R* ihx;         // inverse widths (nx,), (ny,), (nz,)
   const R* ihy;
   const R* ihz;
@@ -299,9 +314,9 @@ __device__ __forceinline__ void node_update(const A& a, const C* buf,
 
 constexpr int kThreads = 256;   // most threads per block, every plan
 
-template <int kKernel, class R>
+template <int kKernel, class R, class S>
 __global__ void __launch_bounds__(kThreads)
-point_gs_step(Args<R> a) {
+point_gs_step(Args<R, S> a) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t n = static_cast<int64_t>(a.cnx) * a.cny * a.cnz;
@@ -323,9 +338,9 @@ struct Colour {
   int64_t off;                  // the colour's planes in the buffer
 };
 
-template <class R>
+template <class R, class S>
 struct SweepArgs {
-  Args<R> a;                       // a.buf: the whole colour-major buffer
+  Args<R, S> a;                    // a.buf: the whole colour-major buffer
   Colour col[8];
   int nseq;
   signed char seq[kMaxSeq];
@@ -333,31 +348,42 @@ struct SweepArgs {
 
 // One element from global into shared memory: 16-byte elements
 // (complex128) bypass L1, 8- and 4-byte ones (complex64 at any element
-// offset, float64, float32) take the sizes cp.async.ca allows.
+// offset, float64, float32, a bfloat16 complex) take the sizes
+// cp.async.ca allows; cp.async has no 2-byte copy, so a bfloat16 weight
+// is a plain load and store (ordered by the barrier after the copies).
 template <class T>
 __device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
-  static_assert(sizeof(T) == 16 || sizeof(T) == 8 || sizeof(T) == 4,
-                "cp.async copies 4, 8 or 16 bytes");
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (sizeof(T) == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
-  } else if constexpr (sizeof(T) == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem));
+  static_assert(sizeof(T) == 16 || sizeof(T) == 8 || sizeof(T) == 4 ||
+                    sizeof(T) == 2,
+                "elements of 2, 4, 8 or 16 bytes");
+  if constexpr (sizeof(T) == 2) {
+    *smem = *gmem;
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if constexpr (sizeof(T) == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(gmem));
+    } else if constexpr (sizeof(T) == 8) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                   "l"(gmem));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                   "l"(gmem));
+    }
   }
 }
 
-// Sizes of a level's tensors in elements, in the order the resident
-// plan stacks them in shared memory: e (3), s (3), η sums (3), factors
-// (K1 only; complex), then ζ weights (3) and inverse widths (3) (real):
-// complex elements of sizeof(C) bytes, real ones of sizeof(R).
-template <class R>
+// Sizes of a level's tensors in elements and their element bytes: e (3),
+// s (3), η sums (3), factors (K1 only; complex), ζ weights (3) and
+// inverse widths (3) (real).  The resident plan stacks them in shared
+// memory by element size, largest first (in this order within a size):
+// every tensor then starts aligned to its element, with no padding.  In
+// complex128 and complex64 that is the order above.
+template <class R, class S>
 struct Sizes {
   int64_t n[16];
+  int esz[16];
   __host__ __device__ Sizes(int nx, int ny, int nz, bool factored) {
     const int64_t x = nx, y = ny, z = nz;
     const int64_t e[3] = {x * (y + 1) * (z + 1), (x + 1) * y * (z + 1),
@@ -373,16 +399,45 @@ struct Sizes {
     n[13] = x;
     n[14] = y;
     n[15] = z;
+    using St = Store<R, S>;
+    for (int c = 0; c < 16; ++c) {
+      esz[c] = static_cast<int>(
+          c < 3 || c == 9 ? sizeof(cplx_t<R>)
+          : c < 9         ? sizeof(typename St::cplx)
+          : c < 13        ? sizeof(typename St::real)
+                          : sizeof(R));
+    }
   }
   __host__ __device__ int64_t bytes() const {
     int64_t b = 0;
-    for (int c = 0; c < 16; ++c) {
-      b += n[c] * static_cast<int64_t>(c < 10 ? sizeof(cplx_t<R>)
-                                               : sizeof(R));
-    }
+    for (int c = 0; c < 16; ++c) b += n[c] * esz[c];
     return b;
   }
 };
+
+// Copy ``n`` elements of ``bytes`` bytes each into shared memory.
+__device__ __forceinline__ void copy_in(unsigned char* dst, const void* src,
+                                        int64_t n, int bytes) {
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+    switch (bytes) {
+      case 16:
+        cp_async(reinterpret_cast<uint4*>(dst) + i,
+                 static_cast<const uint4*>(src) + i);
+        break;
+      case 8:
+        cp_async(reinterpret_cast<uint2*>(dst) + i,
+                 static_cast<const uint2*>(src) + i);
+        break;
+      case 4:
+        cp_async(reinterpret_cast<unsigned*>(dst) + i,
+                 static_cast<const unsigned*>(src) + i);
+        break;
+      default:
+        cp_async(reinterpret_cast<unsigned short*>(dst) + i,
+                 static_cast<const unsigned short*>(src) + i);
+    }
+  }
+}
 
 template <int kPlan>
 __device__ __forceinline__ void step_barrier() {
@@ -395,46 +450,40 @@ __device__ __forceinline__ void step_barrier() {
   }
 }
 
-template <int kPlan, int kKernel, class R>
+template <int kPlan, int kKernel, class R, class S>
 __global__ void __launch_bounds__(kThreads)
-point_gs_sweep(const __grid_constant__ SweepArgs<R> sa) {
+point_gs_sweep(const __grid_constant__ SweepArgs<R, S> sa) {
   static_assert(kPlan != kShared || kKernel != kFusedPacked,
                 "the shared plan reads st and w from shared memory");
+  using A = Args<R, S>;
   using C = cplx_t<R>;
+  using SC = typename A::SC;
+  using SR = typename A::SR;
   // Raw bytes: the float and double instances share the symbol.
   extern __shared__ __align__(16) unsigned char smem[];
-  Args<R> a = sa.a;
+  A a = sa.a;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-  const Sizes<R> sz(a.nx, a.ny, a.nz, kKernel == kFactored);
+  const Sizes<R, S> sz(a.nx, a.ny, a.nz, kKernel == kFactored);
   if constexpr (kPlan == kShared) {
     // The whole level resident: copy e, s, the η sums, the factors (K1),
-    // the ζ weights and the inverse widths in once; from here on the
-    // steps address shared memory through the same accessors (generic
-    // pointers), so the arithmetic is that of every other plan.
+    // the ζ weights and the inverse widths in once, largest elements
+    // first; from here on the steps address shared memory through the
+    // same accessors (generic pointers), so the arithmetic is that of
+    // every other plan.
     const void* src[16] = {sa.a.ex, sa.a.ey, sa.a.ez, sa.a.sx, sa.a.sy,
                            sa.a.sz, sa.a.stx, sa.a.sty, sa.a.stz, sa.a.buf,
                            sa.a.wx, sa.a.wy, sa.a.wz, sa.a.ihx, sa.a.ihy,
                            sa.a.ihz};
     void* base[16];
     unsigned char* dst = smem;
-    for (int c = 0; c < 16; ++c) {
-      base[c] = dst;
-      if (c < 10) {
-        const C* g = static_cast<const C*>(src[c]);
-        C* d = reinterpret_cast<C*>(dst);
-        for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
-          cp_async(d + i, g + i);
-        }
-        dst += sz.n[c] * sizeof(C);
-      } else {
-        const R* g = static_cast<const R*>(src[c]);
-        R* d = reinterpret_cast<R*>(dst);
-        for (int64_t i = threadIdx.x; i < sz.n[c]; i += blockDim.x) {
-          cp_async(d + i, g + i);
-        }
-        dst += sz.n[c] * sizeof(R);
+    for (int bytes = 16; bytes >= 2; bytes /= 2) {
+      for (int c = 0; c < 16; ++c) {
+        if (sz.esz[c] != bytes) continue;
+        base[c] = dst;
+        copy_in(dst, src[c], sz.n[c], bytes);
+        dst += sz.n[c] * bytes;
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -443,16 +492,16 @@ point_gs_sweep(const __grid_constant__ SweepArgs<R> sa) {
     a.ex = static_cast<C*>(base[0]);
     a.ey = static_cast<C*>(base[1]);
     a.ez = static_cast<C*>(base[2]);
-    a.sx = static_cast<const C*>(base[3]);
-    a.sy = static_cast<const C*>(base[4]);
-    a.sz = static_cast<const C*>(base[5]);
-    a.stx = static_cast<const C*>(base[6]);
-    a.sty = static_cast<const C*>(base[7]);
-    a.stz = static_cast<const C*>(base[8]);
+    a.sx = static_cast<const SC*>(base[3]);
+    a.sy = static_cast<const SC*>(base[4]);
+    a.sz = static_cast<const SC*>(base[5]);
+    a.stx = static_cast<const SC*>(base[6]);
+    a.sty = static_cast<const SC*>(base[7]);
+    a.stz = static_cast<const SC*>(base[8]);
     a.buf = static_cast<const C*>(base[9]);
-    a.wx = static_cast<const R*>(base[10]);
-    a.wy = static_cast<const R*>(base[11]);
-    a.wz = static_cast<const R*>(base[12]);
+    a.wx = static_cast<const SR*>(base[10]);
+    a.wy = static_cast<const SR*>(base[11]);
+    a.wz = static_cast<const SR*>(base[12]);
     a.ihx = static_cast<const R*>(base[13]);
     a.ihy = static_cast<const R*>(base[14]);
     a.ihz = static_cast<const R*>(base[15]);
@@ -480,27 +529,30 @@ point_gs_sweep(const __grid_constant__ SweepArgs<R> sa) {
   }
 }
 
-template <class R>
-Args<R> make_args(void* ex, void* ey, void* ez, const void* sx,
-                  const void* sy, const void* sz, const void* stx,
-                  const void* sty, const void* stz, const void* wx,
-                  const void* wy, const void* wz, const void* ihx,
-                  const void* ihy, const void* ihz, const void* buf, int nx,
-                  int ny, int nz) {
+template <class R, class S>
+Args<R, S> make_args(void* ex, void* ey, void* ez, const void* sx,
+                     const void* sy, const void* sz, const void* stx,
+                     const void* sty, const void* stz, const void* wx,
+                     const void* wy, const void* wz, const void* ihx,
+                     const void* ihy, const void* ihz, const void* buf,
+                     int nx, int ny, int nz) {
+  using A = Args<R, S>;
   using C = cplx_t<R>;
-  Args<R> a;
+  using SC = typename A::SC;
+  using SR = typename A::SR;
+  A a;
   a.ex = static_cast<C*>(ex);
   a.ey = static_cast<C*>(ey);
   a.ez = static_cast<C*>(ez);
-  a.sx = static_cast<const C*>(sx);
-  a.sy = static_cast<const C*>(sy);
-  a.sz = static_cast<const C*>(sz);
-  a.stx = static_cast<const C*>(stx);
-  a.sty = static_cast<const C*>(sty);
-  a.stz = static_cast<const C*>(stz);
-  a.wx = static_cast<const R*>(wx);
-  a.wy = static_cast<const R*>(wy);
-  a.wz = static_cast<const R*>(wz);
+  a.sx = static_cast<const SC*>(sx);
+  a.sy = static_cast<const SC*>(sy);
+  a.sz = static_cast<const SC*>(sz);
+  a.stx = static_cast<const SC*>(stx);
+  a.sty = static_cast<const SC*>(sty);
+  a.stz = static_cast<const SC*>(stz);
+  a.wx = static_cast<const SR*>(wx);
+  a.wy = static_cast<const SR*>(wy);
+  a.wz = static_cast<const SR*>(wz);
   a.ihx = static_cast<const R*>(ihx);
   a.ihy = static_cast<const R*>(ihy);
   a.ihz = static_cast<const R*>(ihz);
@@ -520,7 +572,7 @@ bool valid_kernel(int kernel) {
 // Blocks of the grid plan of ``kKernel`` that the card holds
 // co-resident at ``threads`` threads per block (the kernels differ in
 // registers).
-template <int kKernel, class R>
+template <int kKernel, class R, class S>
 int grid_capacity(int threads, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -529,23 +581,23 @@ int grid_capacity(int threads, int* blocks) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, point_gs_sweep<kGrid, kKernel, R>, threads, 0);
+        &per_sm, point_gs_sweep<kGrid, kKernel, R, S>, threads, 0);
   }
   *blocks = sms * per_sm;
   return static_cast<int>(err);
 }
 
-template <class R>
+template <class R, class S>
 int grid_capacity(int kernel, int threads, int* blocks) {
   switch (kernel) {
-    case kFactored: return grid_capacity<kFactored, R>(threads, blocks);
-    case kFused: return grid_capacity<kFused, R>(threads, blocks);
-    default: return grid_capacity<kFusedPacked, R>(threads, blocks);
+    case kFactored: return grid_capacity<kFactored, R, S>(threads, blocks);
+    case kFused: return grid_capacity<kFused, R, S>(threads, blocks);
+    default: return grid_capacity<kFusedPacked, R, S>(threads, blocks);
   }
 }
 
-template <int kKernel, class R>
-cudaError_t launch_sweep(int plan, const SweepArgs<R>& sa, int blocks,
+template <int kKernel, class R, class S>
+cudaError_t launch_sweep(int plan, const SweepArgs<R, S>& sa, int blocks,
                          int threads, int smem, cudaStream_t s) {
   if (plan == kCluster) {
     if (blocks > kMaxCluster || smem != 0) return cudaErrorInvalidValue;
@@ -561,39 +613,39 @@ cudaError_t launch_sweep(int plan, const SweepArgs<R>& sa, int blocks,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster, kKernel, R>,
+    return cudaLaunchKernelEx(&cfg, point_gs_sweep<kCluster, kKernel, R, S>,
                               sa);
   }
   if (plan == kGrid) {
     if (smem != 0) return cudaErrorInvalidValue;
     int cap = 0;
     cudaError_t err = static_cast<cudaError_t>(
-        grid_capacity<kKernel, R>(threads, &cap));
+        grid_capacity<kKernel, R, S>(threads, &cap));
     if (err != cudaSuccess) return err;
     if (blocks > cap) return cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {const_cast<SweepArgs<R>*>(&sa)};
+    void* args[] = {const_cast<SweepArgs<R, S>*>(&sa)};
     return cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(point_gs_sweep<kGrid, kKernel, R>),
+        reinterpret_cast<const void*>(point_gs_sweep<kGrid, kKernel, R, S>),
         dim3(blocks, 1, 1), dim3(threads, 1, 1), args, 0, s);
   }
   if constexpr (kKernel != kFusedPacked) {
     if (plan == kShared) {
-      const Sizes<R> sz(sa.a.nx, sa.a.ny, sa.a.nz, kKernel == kFactored);
+      const Sizes<R, S> sz(sa.a.nx, sa.a.ny, sa.a.nz, kKernel == kFactored);
       if (blocks != 1 || smem != sz.bytes()) return cudaErrorInvalidValue;
       if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            point_gs_sweep<kShared, kKernel, R>,
+            point_gs_sweep<kShared, kKernel, R, S>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
       }
-      point_gs_sweep<kShared, kKernel, R><<<1, threads, smem, s>>>(sa);
+      point_gs_sweep<kShared, kKernel, R, S><<<1, threads, smem, s>>>(sa);
       return cudaSuccess;
     }
   }
   return cudaErrorInvalidValue;
 }
 
-template <class R>
+template <class R, class S>
 int step(int kernel, void* ex, void* ey, void* ez, const void* sx,
          const void* sy, const void* sz, const void* stx, const void* sty,
          const void* stz, const void* wx, const void* wy, const void* wz,
@@ -603,8 +655,8 @@ int step(int kernel, void* ex, void* ey, void* ez, const void* sx,
   if (threads > kThreads || !valid_kernel(kernel)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args<R> a = make_args<R>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy,
-                           wz, ihx, ihy, ihz, buf, nx, ny, nz);
+  Args<R, S> a = make_args<R, S>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx,
+                                 wy, wz, ihx, ihy, ihz, buf, nx, ny, nz);
   a.x0 = x0;
   a.y0 = y0;
   a.z0 = z0;
@@ -613,16 +665,16 @@ int step(int kernel, void* ex, void* ey, void* ez, const void* sx,
   a.cnz = cnz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel == kFactored) {
-    point_gs_step<kFactored, R><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFactored, R, S><<<blocks, threads, 0, s>>>(a);
   } else if (kernel == kFused) {
-    point_gs_step<kFused, R><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFused, R, S><<<blocks, threads, 0, s>>>(a);
   } else {
-    point_gs_step<kFusedPacked, R><<<blocks, threads, 0, s>>>(a);
+    point_gs_step<kFusedPacked, R, S><<<blocks, threads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class R>
+template <class R, class S>
 int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
           const void* sx, const void* sy, const void* sz, const void* stx,
           const void* sty, const void* stz, const void* wx, const void* wy,
@@ -634,9 +686,9 @@ int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
       threads % 32 != 0 || blocks < 1 || !valid_kernel(kernel)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SweepArgs<R> sa;
-  sa.a = make_args<R>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz,
-                      ihx, ihy, ihz, buf, nx, ny, nz);
+  SweepArgs<R, S> sa;
+  sa.a = make_args<R, S>(ex, ey, ez, sx, sy, sz, stx, sty, stz, wx, wy, wz,
+                         ihx, ihy, ihz, buf, nx, ny, nz);
   for (int c = 0; c < 8; ++c) {
     sa.col[c] = Colour{geom[6 * c], geom[6 * c + 1], geom[6 * c + 2],
                        geom[6 * c + 3], geom[6 * c + 4], geom[6 * c + 5],
@@ -652,11 +704,12 @@ int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (kernel == kFactored) {
-    err = launch_sweep<kFactored, R>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFactored, R, S>(plan, sa, blocks, threads, smem, s);
   } else if (kernel == kFused) {
-    err = launch_sweep<kFused, R>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFused, R, S>(plan, sa, blocks, threads, smem, s);
   } else {
-    err = launch_sweep<kFusedPacked, R>(plan, sa, blocks, threads, smem, s);
+    err = launch_sweep<kFusedPacked, R, S>(plan, sa, blocks, threads, smem,
+                                           s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -671,7 +724,9 @@ int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
 // plan functions.  ``kernel`` is 0 (K1, ``buf`` its factors), 1 (K2
 // reading st and w) or 2 (K2, ``buf`` its packed node data).  Every
 // entry point takes complex128 tensors (float64 weights and widths);
-// its ``_c64`` twin the same in complex64 (float32).
+// its ``_c64`` twin the same in complex64 (float32), and its ``_bf16``
+// twin complex64 with s, st (each complex value two bfloat16, re and
+// im) and w (bfloat16) stored in bfloat16.
 
 #define EMG3D_STEP_PARAMS                                                   \
   int kernel, void *ex, void *ey, void *ez, const void *sx, const void *sy, \
@@ -688,21 +743,28 @@ int sweep(int plan, int kernel, void* ex, void* ey, void* ez,
 // planes of the colour-major buffer; the caller skips colours without
 // nodes.
 extern "C" int emg3d_point_gs_step(EMG3D_STEP_PARAMS) {
-  return step<double>(EMG3D_STEP_ARGS);
+  return step<double, double>(EMG3D_STEP_ARGS);
 }
 extern "C" int emg3d_point_gs_step_c64(EMG3D_STEP_PARAMS) {
-  return step<float>(EMG3D_STEP_ARGS);
+  return step<float, float>(EMG3D_STEP_ARGS);
+}
+extern "C" int emg3d_point_gs_step_bf16(EMG3D_STEP_PARAMS) {
+  return step<float, __nv_bfloat16>(EMG3D_STEP_ARGS);
 }
 
 // Blocks of ``kernel``'s grid plan that the card holds co-resident at
 // its largest blocks (kThreads threads).
 extern "C" int emg3d_point_gs_grid_capacity(int kernel, int* blocks) {
   if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
-  return grid_capacity<double>(kernel, kThreads, blocks);
+  return grid_capacity<double, double>(kernel, kThreads, blocks);
 }
 extern "C" int emg3d_point_gs_grid_capacity_c64(int kernel, int* blocks) {
   if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
-  return grid_capacity<float>(kernel, kThreads, blocks);
+  return grid_capacity<float, float>(kernel, kThreads, blocks);
+}
+extern "C" int emg3d_point_gs_grid_capacity_bf16(int kernel, int* blocks) {
+  if (!valid_kernel(kernel)) return static_cast<int>(cudaErrorInvalidValue);
+  return grid_capacity<float, __nv_bfloat16>(kernel, kThreads, blocks);
 }
 
 #define EMG3D_SWEEP_PARAMS                                                   \
@@ -725,8 +787,11 @@ extern "C" int emg3d_point_gs_grid_capacity_c64(int kernel, int* blocks) {
 // kMaxCluster CTAs, a grid beyond the co-resident blocks, shared memory
 // beyond the block's, the shared plan of packed K2.
 extern "C" int emg3d_point_gs_sweep(EMG3D_SWEEP_PARAMS) {
-  return sweep<double>(EMG3D_SWEEP_ARGS);
+  return sweep<double, double>(EMG3D_SWEEP_ARGS);
 }
 extern "C" int emg3d_point_gs_sweep_c64(EMG3D_SWEEP_PARAMS) {
-  return sweep<float>(EMG3D_SWEEP_ARGS);
+  return sweep<float, float>(EMG3D_SWEEP_ARGS);
+}
+extern "C" int emg3d_point_gs_sweep_bf16(EMG3D_SWEEP_PARAMS) {
+  return sweep<float, __nv_bfloat16>(EMG3D_SWEEP_ARGS);
 }

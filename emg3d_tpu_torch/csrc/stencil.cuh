@@ -10,12 +10,22 @@
 // stencil.zeta_face_weights), ihx, ihy, ihz (inverse widths) and the
 // level's cell shape nx, ny, nz.  All tensors are C-ordered, unpadded.
 //
+// A complex64 solve may store s, the η sums and the ζ weights in
+// bfloat16 (the JAX package's pack_params(pdtype=), pack_fields(sdtype=),
+// pallas_gs.py:433-484): an argument struct then declares those members
+// of the storage types of Store<float, __nv_bfloat16>, and every read
+// below goes through up(), which widens a stored value exactly to the
+// compute type (and is the identity for float and double), as the JAX
+// kernels' _up does (pallas_gs.py:312-322).  The arithmetic after the
+// load is the same in every instance.
+//
 // Complex products are complex-SYMMETRIC (no conjugation anywhere), as
 // in blocksolve.py.  The complex reciprocal follows the scaled (Smith)
 // division that PyTorch uses, in IEEE division (no fast-math flag), so
 // the kernels and the plain torch versions agree to rounding.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -37,6 +47,41 @@ using cplx_t = typename Cplx<R>::type;
 // The complex type of an argument struct (its ``real`` member type).
 template <class A>
 using cplx_of = cplx_t<typename A::real>;
+
+// The stored types of a stream computed in R and stored in S: R's own
+// (S = R), or bfloat16 for float (a complex value as one
+// __nv_bfloat162, .x the real part, .y the imaginary part: the layout of
+// a torch bfloat16 tensor with a trailing (re, im) axis).
+template <class R, class S>
+struct Store {
+  static_assert(sizeof(S) == sizeof(R), "S = R, or Store's specialisation");
+  using cplx = cplx_t<R>;
+  using real = R;
+};
+template <>
+struct Store<float, __nv_bfloat16> {
+  using cplx = __nv_bfloat162;
+  using real = __nv_bfloat16;
+};
+
+// A stored value in its compute type, exactly.
+__device__ __forceinline__ double up(double v) { return v; }
+__device__ __forceinline__ float up(float v) { return v; }
+__device__ __forceinline__ float up(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ double2 up(double2 v) { return v; }
+__device__ __forceinline__ float2 up(float2 v) { return v; }
+__device__ __forceinline__ float2 up(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+// Store a computed value: as it is, or rounded to the nearest bfloat16
+// (ties to even, as torch's Tensor.to and JAX's astype round).
+__device__ __forceinline__ void put(double2* p, double2 v) { *p = v; }
+__device__ __forceinline__ void put(float2* p, float2 v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat162* p, float2 v) {
+  *p = __float22bfloat162_rn(v);
+}
 
 __device__ __forceinline__ double2 cmake(double re, double im) {
   return make_double2(re, im);
@@ -89,9 +134,9 @@ __device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
 #define EX(i, j, k) a.ex[emg3d::at(i, j, k, a.ny + 1, a.nz + 1)]
 #define EY(i, j, k) a.ey[emg3d::at(i, j, k, a.ny, a.nz + 1)]
 #define EZ(i, j, k) a.ez[emg3d::at(i, j, k, a.ny + 1, a.nz)]
-#define WX(i, j, k) a.wx[emg3d::at(i, j, k, a.ny, a.nz)]
-#define WY(i, j, k) a.wy[emg3d::at(i, j, k, a.ny + 1, a.nz)]
-#define WZ(i, j, k) a.wz[emg3d::at(i, j, k, a.ny, a.nz + 1)]
+#define WX(i, j, k) emg3d::up(a.wx[emg3d::at(i, j, k, a.ny, a.nz)])
+#define WY(i, j, k) emg3d::up(a.wy[emg3d::at(i, j, k, a.ny + 1, a.nz)])
+#define WZ(i, j, k) emg3d::up(a.wz[emg3d::at(i, j, k, a.ny, a.nz + 1)])
 
 // The edge field e enters the residual through an accessor ``f`` with
 // members x(i, j, k), y(i, j, k), z(i, j, k) in global edge indices:
@@ -160,7 +205,7 @@ __device__ cplx_of<A> res_x(const A& a, const F& f, int i, int j, int k,
            cscale(u2(a, f, i, j, k - 1, w2m), a.ihz[k - 1])));
   const cplx_of<A> ax =
       csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.x(i, j, k)));
-  return csub(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)], ax);
+  return csub(up(a.sx[at(i, j, k, a.ny + 1, a.nz + 1)]), ax);
 }
 template <class A, class F>
 __device__ cplx_of<A> res_y(const A& a, const F& f, int i, int j, int k,
@@ -174,7 +219,7 @@ __device__ cplx_of<A> res_y(const A& a, const F& f, int i, int j, int k,
            cscale(u3(a, f, i - 1, j, k, w3m), a.ihx[i - 1])));
   const cplx_of<A> ay =
       csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.y(i, j, k)));
-  return csub(a.sy[at(i, j, k, a.ny, a.nz + 1)], ay);
+  return csub(up(a.sy[at(i, j, k, a.ny, a.nz + 1)]), ay);
 }
 template <class A, class F>
 __device__ cplx_of<A> res_z(const A& a, const F& f, int i, int j, int k,
@@ -188,23 +233,26 @@ __device__ cplx_of<A> res_z(const A& a, const F& f, int i, int j, int k,
            cscale(u1(a, f, i, j - 1, k, w1m), a.ihy[j - 1])));
   const cplx_of<A> az =
       csub(cscale(rr, 0.5), cmul(cscale(st, 0.25), f.z(i, j, k)));
-  return csub(a.sz[at(i, j, k, a.ny + 1, a.nz)], az);
+  return csub(up(a.sz[at(i, j, k, a.ny + 1, a.nz)]), az);
 }
 
 // The same with η sum and face weights read from the level's tensors.
 template <class A, class F>
 __device__ cplx_of<A> res_x(const A& a, const F& f, int i, int j, int k) {
-  return res_x(a, f, i, j, k, a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)],
+  return res_x(a, f, i, j, k,
+               up(a.stx[at(i, j - 1, k - 1, a.ny - 1, a.nz - 1)]),
                WZ(i, j, k), WZ(i, j - 1, k), WY(i, j, k), WY(i, j, k - 1));
 }
 template <class A, class F>
 __device__ cplx_of<A> res_y(const A& a, const F& f, int i, int j, int k) {
-  return res_y(a, f, i, j, k, a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)],
+  return res_y(a, f, i, j, k,
+               up(a.sty[at(i - 1, j, k - 1, a.ny, a.nz - 1)]),
                WX(i, j, k), WX(i, j, k - 1), WZ(i, j, k), WZ(i - 1, j, k));
 }
 template <class A, class F>
 __device__ cplx_of<A> res_z(const A& a, const F& f, int i, int j, int k) {
-  return res_z(a, f, i, j, k, a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)],
+  return res_z(a, f, i, j, k,
+               up(a.stz[at(i - 1, j - 1, k, a.ny - 1, a.nz)]),
                WY(i, j, k), WY(i - 1, j, k), WX(i, j, k), WX(i, j - 1, k));
 }
 

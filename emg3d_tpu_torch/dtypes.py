@@ -9,6 +9,18 @@ source field asks for a solve in complex64/float32 on the device, the
 precision of the JAX package's production path and of its Pallas
 kernels, as its ``_SolveContext`` derives the precision from the
 source (``emg3d_tpu/solver.py:1349-1363``): :func:`precision`.
+
+A complex64 solve may also *store* some of its field-independent
+streams in bfloat16 (:data:`BF16`), as the JAX package's Pallas path
+does (``pack_params(pdtype=)``, ``pack_fields(sdtype=)``,
+``line_factors(fdtype=)``): values are computed in float32, rounded to
+bfloat16 once when stored, and upcast exactly where a kernel loads them.
+torch has no complex bfloat16, so a complex bfloat16 tensor is a
+``torch.bfloat16`` tensor with a trailing (re, im) axis of 2
+(:func:`to_storage`), the layout of one ``__nv_bfloat162`` per complex
+number in CUDA.  The rounding is round-to-nearest-even in torch
+(``Tensor.to``), in CUDA (``__float22bfloat162_rn``) and in JAX
+(``astype``), so the same float32 values give the same bfloat16 bits.
 """
 import numpy as np
 import torch
@@ -17,6 +29,8 @@ REAL = torch.float64
 COMPLEX = torch.complex128
 # The real dtype of each complex dtype a solve runs in.
 REAL_OF = {torch.complex128: torch.float64, torch.complex64: torch.float32}
+# The reduced storage dtype of a complex64 solve's streams.
+BF16 = torch.bfloat16
 
 
 def real_dtype():
@@ -47,3 +61,52 @@ def complex_size(dtype):
         raise ValueError(f"the solve runs in complex128 or complex64; got "
                          f"{dtype}")
     return 16 if dtype == torch.complex128 else 8
+
+
+def check_storage(dtype, storage):
+    """Raises unless ``storage`` is None, or :data:`BF16` for a complex64
+    (or float32) ``dtype``: bfloat16 storage is for complex64 solves."""
+    if storage not in (None, BF16):
+        raise ValueError(f"storage {storage}: None or {BF16}")
+    if storage is not None and dtype not in (torch.complex64, torch.float32):
+        raise ValueError(f"bfloat16 storage is for complex64 solves; got "
+                         f"{dtype}")
+
+
+def storage_of(t):
+    """The storage dtype of a stream tensor: :data:`BF16` for a
+    bfloat16 one, else None (stored in the solve's own precision)."""
+    return BF16 if t.dtype == BF16 else None
+
+
+def to_storage(t, storage):
+    """``t`` (complex64 or float32) stored in ``storage``: for
+    :data:`BF16` a new contiguous bfloat16 tensor, complex ``t`` with a
+    trailing (re, im) axis of 2; for None ``t`` itself."""
+    if storage is None:
+        return t
+    if storage != BF16:
+        raise ValueError(f"storage {storage}: None or {BF16}")
+    if t.dtype not in (torch.complex64, torch.float32):
+        raise ValueError(f"bfloat16 storage holds complex64/float32 "
+                         f"values; got {t.dtype}")
+    src = torch.view_as_real(t) if t.is_complex() else t
+    return src.to(BF16, memory_format=torch.contiguous_format)
+
+
+def from_storage(t, complex_=False):
+    """The values of a stored tensor, exactly: a bfloat16 ``t`` as
+    float32, or as complex64 where ``complex_`` (its trailing (re, im)
+    axis folded); any other tensor as it is."""
+    if t.dtype != BF16:
+        return t
+    f = t.float()
+    return torch.view_as_complex(f) if complex_ else f
+
+
+def round_to(t, storage):
+    """``t`` rounded through ``storage`` and back, in its own dtype: what
+    a kernel computes with after loading the stored ``t``."""
+    if storage is None:
+        return t
+    return from_storage(to_storage(t, storage), t.is_complex())

@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 __all__ = ['library', 'build', 'entry', 'ARGTYPES', 'PROBE_ARGTYPES',
-           'LIBRARIES', 'C64']
+           'LIBRARIES', 'C64', 'BF16']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
@@ -33,7 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # The C entry points of the solve library and their argument types; each
 # returns a cudaError_t as int.  K1-K5 take complex128 tensors, their
-# ``_c64`` twins (C64) the same in complex64; K6 is complex64 only.
+# ``_c64`` twins (C64) the same in complex64, and their ``_bf16`` twins
+# (BF16) complex64 with a bfloat16-stored stream: K1-K3 read s, the η
+# sums and the ζ weights in bfloat16, K4 reads a bfloat16 factor stack
+# and K5 writes one.  K6 is complex64 only.
 _SOLVE = {
     'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
     'emg3d_point_gs_sweep': [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P] * 3
@@ -44,7 +47,9 @@ _SOLVE = {
     'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
 }
 C64 = '_c64'
+BF16 = '_bf16'
 ARGTYPES = {**_SOLVE, **{k + C64: v for k, v in _SOLVE.items()},
+            **{k + BF16: v for k, v in _SOLVE.items()},
             'emg3d_residual_ds_c64': [_P] * 21 + [_I] * 7 + [_P]}
 # The same for the probe library (csrc/probes.cu).
 PROBE_ARGTYPES = {
@@ -148,11 +153,18 @@ def library(name='solve'):
     return _LIBS[name]
 
 
-def entry(name, dtype):
+def entry(name, dtype, storage=None):
     """The solve library's C entry point ``name`` for tensors of the
     complex ``dtype``: the complex128 instance, or its ``_c64`` twin for
-    complex64.  Any other dtype raises."""
+    complex64, or, with ``storage`` ``torch.bfloat16`` (complex64 only),
+    its ``_bf16`` twin.  Any other combination raises: a bfloat16 request
+    never runs another instance."""
     import torch
+    if storage is not None:
+        if dtype != torch.complex64 or storage != torch.bfloat16:
+            raise ValueError(f"{name}: bfloat16 storage takes complex64 "
+                             f"tensors; got {dtype}, storage {storage}")
+        return getattr(library(), name + BF16)
     if dtype == torch.complex128:
         return getattr(library(), name)
     if dtype == torch.complex64:

@@ -25,7 +25,14 @@ hand-written CUDA kernels (``csrc/line_gs.cu``):
 
 Each kernel comes in complex128 and complex64 (the precision the Pallas
 kernels compute in); the line state's dtype picks the instance, under
-the same launch plans with every byte count at the element size.
+the same launch plans with every byte count at the element size.  A
+complex64 line state may store in bfloat16, as the JAX package's Pallas
+path does: its s/params streams (``storage``: K3 reads s, the η sums and
+the ζ weights as bfloat16, ``pack_params(pdtype=)``,
+``pack_fields(sdtype=)``) and its factor stack (``fstorage``: K5
+eliminates in float32 and stores bfloat16, K4 reads it,
+``line_factors(fdtype=)``).  The kernels' ``_bf16`` instances upcast at
+the load; the plain versions round where they do.
 
 K3 and K4 are launched once each per colour step, as the Pallas pair
 is; K5 once per factor stack.  The residual buffer is filled with NaN
@@ -57,14 +64,16 @@ from collections import namedtuple
 import torch
 
 from . import smoothers, stencil
-from ..dtypes import REAL_OF, complex_size
+from ..dtypes import (REAL_OF, check_storage, complex_size, from_storage,
+                      round_to, storage_of, to_storage)
 from .smoothers import NLINE
 
 __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
            'line_relaxation', 'line_relaxation_plain', 'residual', 'thomas',
            'launch_geometry', 'factor_geometry', 'residual_geometry',
            'colour_edges', 'colour_edge_masks', 'residual_plain',
-           'factor_bytes', 'cache_budget', 'LAUNCHES', 'reset_launches',
+           'factor_bytes', 'cache_budget', 'LAUNCHES', 'BF16_LAUNCHES',
+           'reset_launches',
            'LINE_SHARE', 'SMEM_MAX', 'FactorGeometry', 'lane_state',
            'lane_count', 'MAX_LANES']
 
@@ -74,8 +83,10 @@ __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
 # instead of cached.
 LINE_SHARE = 0.5
 
-# Launches of each kernel since the last reset_launches().
+# Launches of each kernel since the last reset_launches(); BF16_LAUNCHES
+# counts those of the ``_bf16`` instances among them.
 LAUNCHES = {'line_factor': 0, 'line_residual': 0, 'line_thomas': 0}
+BF16_LAUNCHES = {'line_factor': 0, 'line_residual': 0, 'line_thomas': 0}
 
 # K5: one line per thread in blocks of FACTOR_WARP threads.  The times
 # of blocks of 32 to FACTOR_THREADS threads on the card
@@ -150,14 +161,18 @@ LineState = namedtuple('LineState', [
     'ih',         # inverse widths (ihx, ihy, ihz)
     'factors',    # (nx, NLINE, 2, 2, ny2, nz2) complex, or None (rebuilt)
     'lanes',      # None, or a lane state's lane → group table (int32, B)
-])
+    'storage',    # None, or BF16: st, w (and s at each call) in bfloat16
+    'fstorage',   # None, or BF16: the factor stack in bfloat16
+], defaults=(None, None))
 # A lane state's η (arrays[:3]), st and factors carry a leading group
-# axis (G, ...); ζ, w and the widths are shared by every group.
+# axis (G, ...); ζ, w and the widths are shared by every group.  A
+# bfloat16 tensor of complex values has a trailing (re, im) axis of 2.
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        BF16_LAUNCHES[k] = 0
 
 
 def _line_dims(rshape):
@@ -165,12 +180,21 @@ def _line_dims(rshape):
     return rshape[1] // 2, rshape[2] // 2
 
 
-def factor_bytes(shape, axis, dtype=torch.complex128):
+def _entry_size(dtype, storage=None):
+    """Bytes of one complex entry of ``dtype`` stored in ``storage``."""
+    size = complex_size(dtype)
+    if storage is not None:
+        check_storage(dtype, storage)
+        return size // 2
+    return size
+
+
+def factor_bytes(shape, axis, dtype=torch.complex128, storage=None):
     """Bytes of the factor stack of ``axis``-lines of a level in
-    ``dtype``."""
+    ``dtype``, stored in ``storage``."""
     rs = smoothers.rotate_shape(shape, axis)
     ny2, nz2 = _line_dims(rs)
-    return rs[0] * NLINE * 4 * ny2 * nz2 * complex_size(dtype)
+    return rs[0] * NLINE * 4 * ny2 * nz2 * _entry_size(dtype, storage)
 
 
 def cache_budget(device):
@@ -182,16 +206,19 @@ def cache_budget(device):
     return LINE_SHARE * total
 
 
-def _stack(ar, rs, st, w, ih, plain, groups=None):
-    """Factor stack of the rotated frame: K5 on the card, else plain.
+def _stack(ar, rs, st, w, ih, plain, groups=None, fstorage=None):
+    """Factor stack of the rotated frame: K5 on the card, else plain;
+    stored in ``fstorage`` (the plain elimination's float32 stack
+    rounded once, as K5 rounds on write).  ``st``/``w`` are the unrounded
+    η sums and ζ weights.
 
     With ``groups`` (a lane state's G) one stack per group, K5 once per
     group into the group's slice of a (G, ...) stack.
     """
     if groups is None:
         if plain or ar[0].device.type == 'cpu':
-            return smoothers.line_factor_stack(ar, rs)
-        return factor(st, w, ih, rs)
+            return to_storage(smoothers.line_factor_stack(ar, rs), fstorage)
+        return factor(st, w, ih, rs, storage=fstorage)
     out = torch.empty((groups, rs[0], NLINE, 2, 2, *_line_dims(rs)),
                       dtype=st[0].dtype, device=ar[0].device)
     for g in range(groups):
@@ -229,7 +256,8 @@ def line_factors(arrays, shape, axis):
                   False)
 
 
-def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None):
+def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None,
+               storage=None, fstorage=None, stack=None):
     """Field-independent state of ``axis``-line relaxation on a level.
 
     The counterpart of the JAX package's per-(level, axis) cache
@@ -238,7 +266,13 @@ def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None):
     kept: each smoothing call rebuilds it (the memory rule of the
     solver).  ``plain`` builds the stack with the plain elimination on
     any device (comparisons on the card); otherwise CPU tensors take
-    the plain elimination and CUDA tensors K5.
+    the plain elimination and CUDA tensors K5.  ``stack`` is a stack
+    built before (another state's of the same level and axis, in
+    ``fstorage``) to keep instead of building one.
+
+    ``storage`` :data:`~emg3d_tpu_torch.dtypes.BF16` stores the η sums
+    and ζ weights in bfloat16 (and s at each call), ``fstorage`` the
+    factor stack; both only in complex64, and only in one-lane states.
 
     ``lanes`` (int32, B entries on the arrays' device) makes a lane
     state: η in ``arrays`` then carries a leading axis of G frequency
@@ -248,7 +282,12 @@ def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None):
     ar = smoothers.rotate_arrays(arrays, axis)
     rs = smoothers.rotate_shape(shape, axis)
     st, w, ih = _params(ar)
+    check_storage(st[0].dtype, storage)
+    check_storage(st[0].dtype, fstorage)
     groups = None
+    if lanes is not None and (storage or fstorage):
+        raise ValueError("a lane state stores in its solve's precision: "
+                         "batched solves take no bfloat16 storage")
     if lanes is not None:
         groups = ar[0].shape[0]
         if (ar[0].ndim != 4 or lanes.dtype != torch.int32 or lanes.ndim != 1
@@ -263,8 +302,15 @@ def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None):
         if lo < 0 or hi >= groups:
             raise ValueError(f"lane groups {lo}..{hi}; the state has "
                              f"{groups}")
-    fac = _stack(ar, rs, st, w, ih, plain, groups) if factors else None
-    return LineState(int(axis), rs, ar, st, w, ih, fac, lanes)
+    if stack is not None:
+        fac = stack
+    else:
+        fac = _stack(ar, rs, st, w, ih, plain, groups, fstorage) \
+            if factors else None
+    return LineState(int(axis), rs, ar, tuple(to_storage(t, storage)
+                                              for t in st),
+                     tuple(to_storage(t, storage) for t in w), ih, fac,
+                     lanes, storage, fstorage)
 
 
 def lane_count(state):
@@ -278,7 +324,7 @@ def lane_state(state, g):
     fac = None if state.factors is None else state.factors[g]
     return LineState(state.axis, state.shape, _group_arrays(state.arrays, g),
                      tuple(t[g] for t in state.st), state.w, state.ih, fac,
-                     None)
+                     None, state.storage, state.fstorage)
 
 
 def factor_geometry(shape, threads=FACTOR_WARP):
@@ -299,23 +345,27 @@ def factor_geometry(shape, threads=FACTOR_WARP):
     return FactorGeometry(lines, -(-lines // threads), threads)
 
 
-def factor(st, w, ih, shape, geometry=None, out=None):
+def factor(st, w, ih, shape, geometry=None, out=None, storage=None):
     """The factor stack of a rotated level, built on the card (K5).
 
     ``st``, ``w`` and ``ih`` are the rotated frame's η edge sums, ζ face
-    weights and inverse widths (a :class:`LineState`'s), contiguous
-    CUDA tensors, complex128/float64 or complex64/float32; ``shape`` its
-    cell shape (lines along x).  Returns a new ``(nx, NLINE, 2, 2, ny2,
-    nz2)`` stack of st's dtype, every plane written by the kernel.  ``geometry`` forces a
-    :func:`factor_geometry` (timings on the card).  ``out`` is a
-    contiguous stack of that shape to write instead (a group's slice of
-    a lane state's stack).  The plain version is
-    :func:`.smoothers.line_factor_stack`.
+    weights and inverse widths (unrounded: a full-precision
+    :class:`LineState`'s), contiguous CUDA tensors, complex128/float64
+    or complex64/float32; ``shape`` its cell shape (lines along x).
+    Returns a new ``(nx, NLINE, 2, 2, ny2, nz2)`` stack of st's dtype,
+    every plane written by the kernel; with ``storage``
+    :data:`~emg3d_tpu_torch.dtypes.BF16` (complex64) the elimination runs
+    in float32 and the kernel stores bfloat16, ``(..., nz2, 2)``.
+    ``geometry`` forces a :func:`factor_geometry` (timings on the
+    card).  ``out`` is a contiguous stack of that shape to write instead
+    (a group's slice of a lane state's stack).  The plain version is
+    :func:`.smoothers.line_factor_stack` (rounded once to ``storage``).
     """
     _cuda(st[0])
     nx, ny, nz = shape
     cdt = st[0].dtype
     complex_size(cdt)
+    check_storage(cdt, storage)
     want = {'st': (((nx, ny - 1, nz - 1), (nx - 1, ny, nz - 1),
                     (nx - 1, ny - 1, nz)), cdt),
             'w': (((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)),
@@ -335,22 +385,26 @@ def factor(st, w, ih, shape, geometry=None, out=None):
                          f"or more")
     g = factor_geometry(shape) if geometry is None else geometry
     want = (nx, NLINE, 2, 2, *_line_dims(shape))
+    odt = cdt
+    if storage is not None:
+        want, odt = want + (2,), storage
     if out is None:
-        out = torch.empty(want, dtype=cdt, device=st[0].device)
-    elif (tuple(out.shape) != want or out.dtype != cdt
+        out = torch.empty(want, dtype=odt, device=st[0].device)
+    elif (tuple(out.shape) != want or out.dtype != odt
           or out.device != st[0].device or not out.is_contiguous()):
-        raise ValueError(f"factor: out must be a contiguous {cdt} "
+        raise ValueError(f"factor: out must be a contiguous {odt} "
                          f"{want} on {st[0].device}")
     if g.blocks == 0:
         return out
     from ._build import entry
-    err = entry('emg3d_line_factor', cdt)(
+    err = entry('emg3d_line_factor', cdt, storage)(
         _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz,
         g.blocks, g.threads, _stream(out.device))
     if err != 0:
         raise RuntimeError(f"line_factor kernel launch failed: cudaError "
                            f"{err} (level {tuple(shape)}, {g})")
     LAUNCHES['line_factor'] += 1
+    BF16_LAUNCHES['line_factor'] += storage is not None
     return out
 
 
@@ -399,7 +453,8 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
                       dtype=torch.complex128):
     """K3's launch for one colour of a rotated level, over ``lanes``
     batch lanes, for fields of ``dtype`` (the ring's bytes at its element
-    size; the rule is the same for both).
+    size; the rule is the same for both; the ring holds e alone, which a
+    bfloat16 state keeps in the solve's precision).
 
     A block owns ``rows`` line rows × ``lines`` lines along z ×
     ``xplanes`` stations of the colour's lines (:func:`colour_edges`)
@@ -442,7 +497,7 @@ def residual_geometry(shape, color, rows=RES_ROWS, lines=RES_LINES,
 
 
 def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
-                    lanes=1, dtype=torch.complex128):
+                    lanes=1, dtype=torch.complex128, fstorage=None):
     """Active lines of one colour and the Thomas launch that covers them.
 
     ``shape`` is the rotated-frame cell shape (lines along x).  Interior
@@ -461,7 +516,9 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
     another plan (checks and timings on the card); a plan beyond the
     block's shared memory raises.  ``dtype`` is the fields' (the ring's
     and z's bytes at its element size: complex64 keeps z on chip at
-    twice the stations).  ``blocks == 0`` when the colour has
+    twice the stations).  ``fstorage`` is the factor stack's storage:
+    a bfloat16 stack's planes take half the ring (:func:`_slot_bytes`).
+    ``blocks == 0`` when the colour has
     no line (e.g. colours 1 and 3 on a level with one interior y-line).
     """
     nx, ny, nz = shape
@@ -481,7 +538,8 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
         raise ValueError(f"lines_per_block {lpb}: a power of two ≤ "
                          f"{THOMAS_WARP}")
     size = complex_size(dtype)
-    ring = THOMAS_STAGES * _PLANES * lpb * size
+    fsize = _entry_size(dtype, fstorage)
+    ring = THOMAS_STAGES * _slot_bytes(_PLANES, lpb, size, fsize)
     zbytes = nx * 5 * lpb * size
     if z_shared is None:
         z_shared = ring + zbytes <= THOMAS_ZSHARED
@@ -489,9 +547,19 @@ def launch_geometry(shape, color, lines_per_block=None, z_shared=None,
         raise ValueError(f"z of {lpb} lines of {nx} stations does not fit "
                          f"a block's shared memory")
     planes = _PLANES if z_shared else _PLANES_GZ
-    smem = THOMAS_STAGES * planes * lpb * size + (zbytes if z_shared else 0)
+    smem = (THOMAS_STAGES * _slot_bytes(planes, lpb, size, fsize)
+            + (zbytes if z_shared else 0))
     return ThomasGeometry(cy, cz, counts, -(-total // lpb), THOMAS_WARP,
                           lpb, z_shared, planes, smem, lanes)
+
+
+def _slot_bytes(planes, lpb, size, fsize):
+    """Bytes of one K4 ring slot: the NLINE factor planes of ``lpb`` lines
+    at ``fsize`` bytes an entry, padded to the ``size`` of the other
+    planes' entries (residuals, fields, z), which follow them
+    (csrc/line_gs.cu: slot_bytes)."""
+    fbytes = NLINE * lpb * fsize
+    return -(-fbytes // size) * size + (planes - NLINE) * lpb * size
 
 
 def _level_shape(state):
@@ -521,19 +589,28 @@ def _check(e, s, state):
     if fac is not None:
         rs = state.shape
         want = groups + (rs[0], NLINE, 2, 2, *_line_dims(rs))
+        if state.fstorage is not None:
+            want += (2,)
         if tuple(fac.shape) != want:
             raise ValueError(f"factors: shape {tuple(fac.shape)}, expected "
                              f"{want}")
     cdt = e[0].dtype
     complex_size(cdt)
+    check_storage(cdt, state.storage)
+    check_storage(cdt, state.fstorage)
     groups = {'e': e, 's': s, 'st': state.st, 'w': state.w, 'ih': state.ih,
               'factors': () if fac is None else (fac,)}
     for name, trio in groups.items():
         want = REAL_OF[cdt] if name in ('w', 'ih') else cdt
+        if name in ('st', 'w') and state.storage is not None:
+            want = state.storage
+        if name == 'factors' and state.fstorage is not None:
+            want = state.fstorage
         for t in trio:
             if t.dtype != want:
-                raise ValueError(f"{name}: {t.dtype} in a {cdt} call; "
-                                 f"expected {want}")
+                raise ValueError(f"{name}: {t.dtype} in a {cdt} call of "
+                                 f"storage {state.storage}/"
+                                 f"{state.fstorage}; expected {want}")
     if dev.type == 'cpu':
         return
     if state.lanes is not None and (state.lanes.device != dev
@@ -567,11 +644,17 @@ def residual(e, s, state, color, out, geometry=None):
 
     ``e``, ``s``, ``out`` are rotated-frame CUDA edge tensors ((B, ...)
     for a lane state: all B lanes in one launch); entries of ``out``
-    outside :func:`colour_edges` are left as they are.  ``geometry``
-    forces a :func:`residual_geometry` (timings on the card).  The plain
-    version is :func:`residual_plain`.
+    outside :func:`colour_edges` are left as they are.  A bfloat16 state
+    (``storage``) takes ``s`` stored in bfloat16 and launches K3's
+    ``_bf16`` instance.  ``geometry`` forces a :func:`residual_geometry`
+    (timings on the card).  The plain version is :func:`residual_plain`.
     """
     _cuda(e[0])
+    if storage_of(s[0]) != state.storage or storage_of(state.st[0]) != \
+            state.storage or storage_of(state.w[0]) != state.storage:
+        raise ValueError(f"K3: s {s[0].dtype}, st {state.st[0].dtype} and "
+                         f"w {state.w[0].dtype} in a state of storage "
+                         f"{state.storage}")
     lanes = lane_count(state)
     g = residual_geometry(state.shape, color, lanes=lanes,
                           dtype=e[0].dtype) if geometry is None else geometry
@@ -581,7 +664,7 @@ def residual(e, s, state, color, out, geometry=None):
     if g.blocks == 0:
         return out
     from ._build import entry
-    err = entry('emg3d_line_residual', e[0].dtype)(
+    err = entry('emg3d_line_residual', e[0].dtype, state.storage)(
         *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih,
                             state.lanes)),
         *state.shape, g.cy, g.cz, *g.counts, g.rows, g.lines, g.xplanes,
@@ -591,13 +674,21 @@ def residual(e, s, state, color, out, geometry=None):
         raise RuntimeError(f"line_residual kernel launch failed: cudaError "
                            f"{err} (colour {color}, shape {state.shape})")
     LAUNCHES['line_residual'] += 1
+    BF16_LAUNCHES['line_residual'] += state.storage is not None
     return out
 
 
 def residual_plain(e, s, state, color, out):
     """Plain version of :func:`residual`: :func:`.stencil.residual_parts`
-    copied into ``out`` at the colour's edges only."""
-    r = stencil.residual_parts(*s, *e, *state.arrays)
+    copied into ``out`` at the colour's edges only (``s`` in the solve's
+    precision; a bfloat16 state rounds it and reads its stored η sums and
+    ζ weights, as K3 does)."""
+    sw = _plain_params(state)
+    if sw is None:
+        r = stencil.residual_parts(*s, *e, *state.arrays)
+    else:
+        r = stencil.residual_sw(*(round_to(t, state.storage) for t in s),
+                                *e, *sw)
     for dst, src, rng in zip(out, r, colour_edges(state.shape, color)):
         sl = _slices(rng)
         dst[sl] = src[sl]
@@ -613,13 +704,18 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     on the card; for a lane state ``e``, ``r`` and ``zs`` carry the B
     lanes and ``fac`` the G groups, all lanes in one launch.
     ``geometry`` is a forced :func:`launch_geometry` of the colour
-    (default: the one it picks).  The plain version is
-    :func:`.smoothers.line_thomas_x`.  Returns ``e``.
+    (default: the one it picks).  A bfloat16 ``fac`` (the state's
+    ``fstorage``) launches K4's ``_bf16`` instance.  The plain version
+    is :func:`.smoothers.line_thomas_x`.  Returns ``e``.
     """
     _cuda(e[0])
+    if storage_of(fac) != state.fstorage:
+        raise ValueError(f"K4: a {fac.dtype} stack in a state of factor "
+                         f"storage {state.fstorage}")
     lanes = lane_count(state)
-    g = launch_geometry(state.shape, color, lanes=lanes,
-                        dtype=e[0].dtype) if geometry is None else geometry
+    g = launch_geometry(state.shape, color, lanes=lanes, dtype=e[0].dtype,
+                        fstorage=state.fstorage) \
+        if geometry is None else geometry
     if g.lanes != lanes:
         raise ValueError(f"K4: a geometry of {g.lanes} lanes for a state "
                          f"of {lanes}")
@@ -631,7 +727,7 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
         zp = _ptr(_scratch(state.shape, e[0], lanes if state.lanes
                            is not None else None) if zs is None else zs)
     from ._build import entry
-    err = entry('emg3d_line_thomas', e[0].dtype)(
+    err = entry('emg3d_line_thomas', e[0].dtype, state.fstorage)(
         *(_ptr(t) for t in (*e, *r, fac)), zp, _ptr(state.lanes),
         *state.shape, g.cy, g.cz, *g.counts, g.lines_per_block,
         int(g.z_shared), g.planes, THOMAS_STAGES, g.blocks, g.lanes,
@@ -640,6 +736,7 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
         raise RuntimeError(f"line_thomas kernel launch failed: cudaError "
                            f"{err} (colour {color}, shape {state.shape})")
     LAUNCHES['line_thomas'] += 1
+    BF16_LAUNCHES['line_thomas'] += state.fstorage is not None
     return tuple(e)
 
 
@@ -668,9 +765,22 @@ def _scratch(shape, like, lanes=None):
 def _factors(state, plain=False):
     if state.factors is not None:
         return state.factors
-    return _stack(state.arrays, state.shape, state.st, state.w, state.ih,
-                  plain, None if state.lanes is None else
-                  state.st[0].shape[0])
+    st, w = state.st, state.w
+    if state.storage is not None:
+        # K5 eliminates from the unrounded sums and weights.
+        st, w, _ = _params(state.arrays)
+    return _stack(state.arrays, state.shape, st, w, state.ih, plain,
+                  None if state.lanes is None else state.st[0].shape[0],
+                  state.fstorage)
+
+
+def _plain_params(state):
+    """A bfloat16 state's (η sums, ζ weights, inverse widths) as its
+    kernels load them (float32), or None for a full-precision state."""
+    if state.storage is None:
+        return None
+    return (tuple(from_storage(t, True) for t in state.st),
+            tuple(from_storage(t) for t in state.w), state.ih)
 
 
 def line_relaxation_plain(e, s, state, nu, _seq=None):
@@ -681,18 +791,23 @@ def line_relaxation_plain(e, s, state, nu, _seq=None):
     by the plain elimination); writes the result into ``e`` in place,
     as the kernels do.  A lane state runs all lanes at once, each with
     its group's η and factor stack: the numbers of its :func:`lane_state`
-    lane by lane.
+    lane by lane.  A bfloat16 state rounds s, and runs on its stored η
+    sums, ζ weights and factors, upcast: the values its kernels load.
     """
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
     a = state.axis
     par, fac = state.arrays, _factors(state, plain=True)
+    fac = from_storage(fac, True)
+    sw = _plain_params(state)
+    if sw is not None:
+        s = tuple(round_to(t, state.storage) for t in s)
     if state.lanes is not None:
         # Every lane at once, with its group's η and stack.
         idx = state.lanes.long()
         par = tuple(t.index_select(0, idx) for t in par[:3]) + par[3:]
         fac = fac.index_select(0, idx)
     out = smoothers.line_color_steps(_rotated(e, a), _rotated(s, a), par,
-                                     fac, seq)
+                                     fac, seq, sw)
     return _write_back(e, out, a)
 
 
@@ -707,7 +822,8 @@ def line_relaxation(e, s, state, nu, _seq=None):
 
     CPU tensors run :func:`line_relaxation_plain`; for CUDA tensors each
     colour step is :func:`residual` (K3) then :func:`thomas` (K4), and
-    a stack the state does not cache is rebuilt by K5.  The residual
+    a stack the state does not cache is rebuilt by K5; a bfloat16 state
+    stores the rotated s in bfloat16 once per call.  The residual
     buffer is NaN outside the edges K3 has written.  Returns ``e``.
     """
     _check(e, s, state)
@@ -717,12 +833,15 @@ def line_relaxation(e, s, state, nu, _seq=None):
     _cuda(e[0])
     a = state.axis
     er = tuple(e) if a == 0 else _rotated(e, a)
-    sr = _rotated(s, a)
+    sr = tuple(to_storage(t, state.storage) for t in
+               (smoothers.rotate_fields(tuple(s), a) if state.storage
+                else _rotated(s, a)))
     fac = _factors(state)
     r = tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in er)
     lanes = lane_count(state)
     zs = None if launch_geometry(state.shape, 0, lanes=lanes,
-                                 dtype=er[0].dtype).z_shared \
+                                 dtype=er[0].dtype,
+                                 fstorage=state.fstorage).z_shared \
         else _scratch(state.shape, er[0],
                       None if state.lanes is None else lanes)
     for color in seq:

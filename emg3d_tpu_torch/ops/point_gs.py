@@ -25,6 +25,13 @@ by the times measured on the card, K1 only where its factor stack fits
 Both kernels come in complex128 and complex64 (the precision the Pallas
 kernels compute in): the state's dtype picks the instance.  The plans
 and rules are the same for both, every byte count at the element size.
+A complex64 state may store its s/params streams in bfloat16
+(``storage``, the JAX package's ``pack_params(pdtype=)`` and
+``pack_fields(sdtype=)``): the η sums, ζ weights and the source are then
+read as bfloat16 and upcast at the load by the kernels' ``_bf16``
+instances, the plain version rounds them where the kernels do, and
+everything else (e, the widths, K1's factors, K2's packed node data,
+built from the rounded sums and weights) stays float32.
 
 One thread per active node; the kernels update the field in place.
 :func:`gauss_seidel_point` runs the kernels for CUDA tensors and the
@@ -41,13 +48,15 @@ from collections import namedtuple
 import torch
 
 from . import smoothers, stencil
-from ..dtypes import REAL_OF, complex_size
+from ..dtypes import (REAL_OF, check_storage, complex_size, from_storage,
+                      round_to, to_storage)
 
 __all__ = ['PointState', 'point_state', 'gauss_seidel_point',
            'gauss_seidel_point_plain', 'launch_geometry', 'sweep_plan',
            'point_kernel', 'pack_factors', 'unpack_factors',
            'pack_node_data', 'unpack_node_data', 'node_planes',
-           'colour_offsets', 'LAUNCHES', 'STEPS', 'reset_launches',
+           'colour_offsets', 'LAUNCHES', 'STEPS', 'BF16_LAUNCHES',
+           'reset_launches',
            'factors_fit', 'packs_nodes', 'card_memory', 'grid_capacity',
            'PLANS', 'KERNELS']
 
@@ -79,9 +88,11 @@ FORCE_KERNEL = None
 FUSED_NODES = 18432
 
 # Launches of each kernel, and the colour steps they ran, since the
-# last reset_launches().
+# last reset_launches(); BF16_LAUNCHES counts those of the ``_bf16``
+# instances among them.
 LAUNCHES = {'factored': 0, 'fused': 0}
 STEPS = {'factored': 0, 'fused': 0}
+BF16_LAUNCHES = {'factored': 0, 'fused': 0}
 
 MAX_THREADS = 256
 # The launch plans (csrc/point_gs.cu).  The sweep plans take the whole
@@ -131,13 +142,15 @@ PointState = namedtuple('PointState', [
     'ih',         # inverse widths (ihx, ihy, ihz), real
     'factors',    # colour-major factors (pack_factors), or None
     'nodes',      # colour-major node data (pack_node_data), or None
-])
+    'storage',    # None, or BF16: st, w (and s at each call) in bfloat16
+], defaults=(None,))
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         STEPS[k] = 0
+        BF16_LAUNCHES[k] = 0
 
 
 def factor_bytes(shape, dtype=torch.complex128):
@@ -168,14 +181,15 @@ def factors_fit(shape, device, dtype=torch.complex128):
     return total is None or factor_bytes(shape, dtype) <= FACTOR_SHARE * total
 
 
-def packs_nodes(shape, device, dtype=torch.complex128):
+def packs_nodes(shape, device, dtype=torch.complex128, storage=None):
     """Whether a K2 level state packs node data: only on a card, only
     where the level's plans read it (a level that admits the ``shared``
     plan runs it, and that plan holds st and w in shared memory), and
     only where it fits FACTOR_SHARE of the card."""
     total = card_memory(device)
     return (total is not None
-            and _shared_bytes(tuple(shape), 'fused', dtype) > SMEM_MAX
+            and _shared_bytes(tuple(shape), 'fused', dtype,
+                              storage) > SMEM_MAX
             and node_bytes(shape, dtype) <= FACTOR_SHARE * total)
 
 
@@ -205,7 +219,7 @@ def point_kernel(shape, device, dtype=torch.complex128):
         else 'factored'
 
 
-def point_state(arrays, shape, factored=True):
+def point_state(arrays, shape, factored=True, storage=None):
     """Field-independent level state of the point smoother.
 
     Built once per level and solve, on the tensors' device, by torch
@@ -213,21 +227,29 @@ def point_state(arrays, shape, factored=True):
     package, without their (8,128) padding.  With ``factored`` it holds
     the node-block LDLᵀ factors of K1; without, K2's packed node data
     where :func:`packs_nodes` says so (else None, and K2 reads st and
-    w).
+    w).  ``storage`` :data:`~emg3d_tpu_torch.dtypes.BF16` (complex64
+    only) stores st and w in bfloat16; K1's factors come from the
+    float32 arrays and K2's node data from the rounded st and w, both
+    kept in float32, as the JAX package builds them.
     """
     eta_x, eta_y, eta_z, zeta, hx, hy, hz = arrays
     st = tuple(t.contiguous() for t in
                stencil.eta_edge_sums(eta_x, eta_y, eta_z))
     w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
     ih = tuple((1.0 / h).contiguous() for h in (hx, hy, hz))
+    check_storage(st[0].dtype, storage)
     factors = nodes = None
     if factored:
         L, dinv = smoothers.node_factors(arrays)
         factors = pack_factors([L[k] for k in LKEYS] + list(dinv), shape)
-    elif packs_nodes(shape, st[0].device, st[0].dtype):
-        nodes = pack_node_data(st, w, shape)
+    elif packs_nodes(shape, st[0].device, st[0].dtype, storage):
+        nodes = pack_node_data(tuple(round_to(t, storage) for t in st),
+                               tuple(round_to(t, storage) for t in w), shape)
+    st = tuple(to_storage(t, storage) for t in st)
+    w = tuple(to_storage(t, storage) for t in w)
     return PointState(tuple(shape), tuple(arrays), st, w, ih, factors,
-                      nodes)
+                      nodes, storage)
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -375,18 +397,22 @@ def launch_geometry(shape, color):
     return first, counts, -(-total // threads), threads
 
 
-def _rule(shape, max_nodes, kernel, dtype):
-    if _shared_bytes(shape, kernel, dtype) <= SMEM_MAX:
+def _rule(shape, max_nodes, kernel, dtype, storage):
+    if _shared_bytes(shape, kernel, dtype, storage) <= SMEM_MAX:
         return 'shared'
     if max_nodes <= CLUSTER_NODES:
         return 'cluster'
     return 'grid' if max_nodes <= STEP_NODES else 'step'
 
 
-def _shared_bytes(shape, kernel='factored', dtype=torch.complex128):
+def _shared_bytes(shape, kernel='factored', dtype=torch.complex128,
+                  storage=None):
     """The shared plan's dynamic shared memory: the whole level (e, s,
     η sums and, for K1, factors complex; ζ weights and inverse widths
-    real), at the element sizes of ``dtype``."""
+    real), at the element sizes of ``dtype``; with bfloat16 ``storage``
+    s, the η sums and the ζ weights at half those sizes.  The kernel
+    stacks the tensors by element size, largest first, so no tensor
+    needs padding to its alignment."""
     nx, ny, nz = shape
     edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
              + (nx + 1) * (ny + 1) * nz)
@@ -396,8 +422,11 @@ def _shared_bytes(shape, kernel='factored', dtype=torch.complex128):
     fac = NFACTORS * (nx - 1) * (ny - 1) * (nz - 1) \
         if kernel == 'factored' else 0
     size = complex_size(dtype)
-    return size * (2 * edges + sums + fac) + size // 2 * (faces + nx + ny
-                                                           + nz)
+    if storage is None:
+        return size * (2 * edges + sums + fac) + size // 2 * (faces + nx + ny
+                                                               + nz)
+    return (size * (edges + fac) + size // 2 * (edges + sums + nx + ny + nz)
+            + size // 4 * faces)
 
 
 def _spread(most, max_blocks):
@@ -416,10 +445,11 @@ def _kernel_name(kernel):
 
 
 def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored',
-               dtype=torch.complex128):
+               dtype=torch.complex128, storage=None):
     """The launch plan of one smoothing call of ``kernel`` on a level, in
     ``dtype`` (complex128 or complex64: the same rule, the ``shared``
-    plan's bytes at the element size).
+    plan's bytes at the element size) and ``storage`` (bfloat16 s/params
+    streams: the ``shared`` plan's bytes at their size).
 
     ``seq`` is the colour sequence (default ``color_sequence(nu)``, 8·nu
     steps; more than MAX_SEQ raise).  ``plan`` forces one of PLANS (else
@@ -434,18 +464,18 @@ def sweep_plan(shape, nu=None, seq=None, plan=None, kernel='factored',
     """
     seq = smoothers.color_sequence(nu) if seq is None else seq
     return _sweep_plan(tuple(shape), tuple(seq), plan or FORCE_PLAN,
-                       _kernel_name(kernel), dtype)
+                       _kernel_name(kernel), dtype, storage)
 
 
 @functools.lru_cache(maxsize=None)
-def _sweep_plan(shape, seq, plan, kernel, dtype):
+def _sweep_plan(shape, seq, plan, kernel, dtype, storage):
     if not 0 < len(seq) <= MAX_SEQ:
         raise ValueError(f"{len(seq)} colour steps: the sweep takes 1 to "
                          f"{MAX_SEQ} (nu ≤ {MAX_SEQ // 8})")
     nodes = [math.prod(launch_geometry(shape, c)[1]) for c in seq]
     steps = sum(1 for n in nodes if n)
     most = max(nodes)
-    plan = plan or _rule(shape, most, kernel, dtype)
+    plan = plan or _rule(shape, most, kernel, dtype, storage)
     if plan not in PLANS:
         raise ValueError(f"unknown sweep plan {plan!r}; one of {PLANS}")
     blocks, threads, smem = 0, MAX_THREADS, 0
@@ -454,7 +484,7 @@ def _sweep_plan(shape, seq, plan, kernel, dtype):
     elif plan == 'grid':
         blocks, threads = _spread(most, GRID_BLOCKS)
     elif plan == 'shared':
-        blocks, smem = 1, _shared_bytes(shape, kernel, dtype)
+        blocks, smem = 1, _shared_bytes(shape, kernel, dtype, storage)
         if smem > SMEM_MAX:
             raise ValueError(f"shared plan: level {shape} takes {smem} B, "
                              f"a block holds {SMEM_MAX}")
@@ -472,14 +502,14 @@ def plans_admitted(shape, kernel='factored'):
                  or _shared_bytes(shape, kernel) <= SMEM_MAX)
 
 
-def grid_capacity(kernel='factored', dtype=torch.complex128):
+def grid_capacity(kernel='factored', dtype=torch.complex128, storage=None):
     """Blocks of the grid plan the card holds co-resident, for
-    ``kernel`` ('factored', 'fused' or 'fused_packed') in ``dtype``
-    (needs the card)."""
+    ``kernel`` ('factored', 'fused' or 'fused_packed') in ``dtype`` and
+    ``storage`` (needs the card)."""
     from ._build import entry
     n = ctypes.c_int(0)
-    err = entry('emg3d_point_gs_grid_capacity', dtype)(_KERNEL_CODE[kernel],
-                                                       ctypes.byref(n))
+    err = entry('emg3d_point_gs_grid_capacity', dtype, storage)(
+        _KERNEL_CODE[kernel], ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"point_gs grid capacity query failed: "
                            f"cudaError {err}")
@@ -498,12 +528,20 @@ def gauss_seidel_point_plain(e, s, state, nu, _seq=None, _mode=None):
     Runs :func:`.smoothers.color_steps` and writes the result into ``e``
     in place, as the kernels do.  The fused mode re-factors the blocks
     every colour step, as its kernel does; the factored mode uses the
-    state's factors.
+    state's factors.  A bfloat16 state rounds s to bfloat16 and runs on
+    its stored η sums and ζ weights, upcast: the values its kernels
+    load.
     """
     mode = _resolve_mode(state, _mode)
     seq = smoothers.color_sequence(nu) if _seq is None else list(_seq)
     fact = _plain_fact(state) if mode == 'factored' else None
-    cur = smoothers.color_steps(tuple(e), s, state.arrays, seq, fact=fact)
+    sw = None
+    if state.storage is not None:
+        s = tuple(round_to(t, state.storage) for t in s)
+        sw = (tuple(from_storage(t, True) for t in state.st),
+              tuple(from_storage(t) for t in state.w), state.ih)
+    cur = smoothers.color_steps(tuple(e), s, state.arrays, seq, fact=fact,
+                                sw=sw)
     for dst, src in zip(e, cur):
         dst.copy_(src)
     return tuple(e)
@@ -540,6 +578,9 @@ def _state_shapes(shape):
 def _check(e, s, state):
     shapes = _state_shapes(state.shape)
     shapes['s'] = shapes['e']
+    if state.storage is not None:
+        # Complex bfloat16: a trailing (re, im) axis.
+        shapes['st'] = tuple(sh + (2,) for sh in shapes['st'])
     groups = {'e': e, 's': s, 'arrays': state.arrays, 'st': state.st,
               'w': state.w, 'ih': state.ih}
     for name in ('factors', 'nodes'):
@@ -556,22 +597,27 @@ def _check(e, s, state):
                                  f"expected {sh} for level {state.shape}")
             if t.device != dev:
                 raise ValueError(f"{name}: on {t.device}, e on {dev}")
-    _check_dtypes(groups, dev)
+    _check_dtypes(groups, dev, state.storage)
 
 
-def _check_dtypes(groups, dev):
+def _check_dtypes(groups, dev, storage=None):
     """One precision for the whole call: e, s, the η sums, the factors
     and node data (and η in ``arrays``) of one complex dtype, complex128
     or complex64, and the ζ weights and widths (ζ and h in ``arrays``)
-    of its real dtype; a mixed set raises, on every device.  The CUDA
-    kernels also take contiguous tensors only."""
+    of its real dtype; with bfloat16 ``storage`` the η sums and ζ
+    weights in bfloat16 (s is stored at each call); a mixed set raises,
+    on every device.  The CUDA kernels also take contiguous tensors
+    only."""
     cdt = groups['e'][0].dtype
     complex_size(cdt)
+    check_storage(cdt, storage)
     for name, trio in groups.items():
         for n, t in enumerate(trio):
             cplx = name in ('e', 's', 'st', 'factors', 'nodes') or (
                 name == 'arrays' and n < 3)
             want = cdt if cplx else REAL_OF[cdt]
+            if storage is not None and name in ('st', 'w'):
+                want = storage
             if t.dtype != want:
                 raise ValueError(f"{name}: {t.dtype} in a {cdt} state; "
                                  f"expected {want}")
@@ -601,7 +647,8 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
     the kernel under the level's :func:`sweep_plan`: K1 on the state's
     factors, K2 on its packed node data (on st and w where the state
     has none, and always in the ``shared`` plan, which holds st and w
-    in shared memory).  Returns ``e``.
+    in shared memory).  A bfloat16 state launches the kernels' ``_bf16``
+    instances, on s stored in bfloat16 for the call.  Returns ``e``.
     """
     _check(e, s, state)
     mode = _resolve_mode(state, _mode)
@@ -620,12 +667,14 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         return tuple(e)
 
     from ._build import entry
-    dtype = e[0].dtype
+    dtype, storage = e[0].dtype, state.storage
     shape = state.shape
+    s = tuple(to_storage(t, storage) for t in s)
     ptrs = [_ptr(t) for t in (*e, *s, *state.st, *state.w, *state.ih)]
     with torch.cuda.device(e[0].device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    plan = sweep_plan(shape, seq=seq, plan=_plan, kernel=mode, dtype=dtype)
+    plan = sweep_plan(shape, seq=seq, plan=_plan, kernel=mode, dtype=dtype,
+                      storage=storage)
     if mode == 'factored':
         code, buf, planes = 'factored', state.factors, NFACTORS
     elif state.nodes is not None and plan.plan != 'shared':
@@ -636,7 +685,7 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         if plan.launches == 0:
             return tuple(e)
         geom, offs = _colour_table(shape, planes)
-        err = entry('emg3d_point_gs_sweep', dtype)(
+        err = entry('emg3d_point_gs_sweep', dtype, storage)(
             _PLAN_CODE[plan.plan], _KERNEL_CODE[code], *ptrs, _ptr(buf),
             *shape, geom, offs, _seq_array(tuple(seq)), len(seq),
             plan.blocks, plan.threads, plan.smem_bytes, stream)
@@ -645,10 +694,11 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
                                f"plan) launch failed: cudaError {err} "
                                f"(shape {shape}, {plan})")
         LAUNCHES[mode] += 1
+        BF16_LAUNCHES[mode] += storage is not None
         STEPS[mode] += plan.steps
         return tuple(e)
     offs = colour_offsets(shape, planes)[0]
-    step = entry('emg3d_point_gs_step', dtype)
+    step = entry('emg3d_point_gs_step', dtype, storage)
     for color in seq:
         first, counts, blocks, threads = launch_geometry(shape, color)
         if blocks == 0:
@@ -663,6 +713,7 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
                                f"cudaError {err} (colour {color}, shape "
                                f"{shape})")
         LAUNCHES[mode] += 1
+        BF16_LAUNCHES[mode] += storage is not None
         STEPS[mode] += 1
     return tuple(e)
 

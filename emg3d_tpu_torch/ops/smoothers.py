@@ -47,11 +47,15 @@ def color_sequence(nu):
     return seq
 
 
-def _residual(e, s, par):
+def _residual(e, s, par, sw=None):
+    """s − A e from the model parameters ``par``, or, where ``sw`` is
+    given, from its (η edge sums, ζ face weights, inverse widths)."""
+    if sw is not None:
+        return stencil.residual_sw(*s, *e, *sw)
     return stencil.residual_parts(s[0], s[1], s[2], e[0], e[1], e[2], *par)
 
 
-def _point_color_update(e, s, par, fact, color):
+def _point_color_update(e, s, par, fact, color, sw=None):
     """One color of the 8-color node-block update (returns new tensors).
 
     ``color`` 0..7 encodes the parity triple (cx, cy, cz) = (color % 2,
@@ -62,7 +66,7 @@ def _point_color_update(e, s, par, fact, color):
     simultaneous update a true block-GS step.
     """
     ex, ey, ez = e
-    rx, ry, rz = _residual(e, s, par)
+    rx, ry, rz = _residual(e, s, par, sw)
 
     # Residual at the six block edges of every interior node.
     rb = [rx[:-1, 1:-1, 1:-1], rx[1:, 1:-1, 1:-1],
@@ -97,20 +101,26 @@ def _point_color_update(e, s, par, fact, color):
     return ex, ey, ez
 
 
-def node_factors(par):
-    """Sparse LDLᵀ factors (L, dinv) of every interior node block."""
-    return ldl_factor_sparse(6, node_block_entries(node_coefficients(*par)))
+def node_factors(par, sw=None):
+    """Sparse LDLᵀ factors (L, dinv) of every interior node block, from
+    the model parameters ``par`` or, where given, from ``sw`` (η edge
+    sums, ζ face weights, inverse widths: the fused kernel's inputs)."""
+    c = node_coefficients(*par) if sw is None else face_coefficients(*sw)
+    return ldl_factor_sparse(6, node_block_entries(c))
 
 
-def color_steps(e, s, par, seq, fact=None):
+def color_steps(e, s, par, seq, fact=None, sw=None):
     """Colour steps in the order of ``seq`` (returns new tensors).
 
     With ``fact=None`` the blocks are re-factored every step, as the
-    fused kernel does; otherwise ``fact`` is used throughout.
+    fused kernel does; otherwise ``fact`` is used throughout.  ``sw``
+    (η edge sums, ζ face weights, inverse widths) replaces the model
+    parameters in the residuals and the re-factored blocks: a
+    bfloat16-stored solve passes them rounded, as its kernels load them.
     """
     for color in seq:
-        f = node_factors(par) if fact is None else fact
-        e = _point_color_update(e, s, par, f, color)
+        f = node_factors(par, sw) if fact is None else fact
+        e = _point_color_update(e, s, par, f, color, sw)
     return e
 
 
@@ -272,7 +282,7 @@ def _parity_embed(d, cy, cz, nyn, nzn):
     return full.reshape(*d.shape[:-2], 2 * ny2, 2 * nz2)[..., :nyn, :nzn]
 
 
-def _line_color_update_x(e, s, par, fac, color):
+def _line_color_update_x(e, s, par, fac, color, sw=None):
     """One colour of the 4-colour x-line update (returns new tensors).
 
     ``color`` = cy + 2·cz selects the lines whose transverse parity is
@@ -281,7 +291,7 @@ def _line_color_update_x(e, s, par, fac, color):
     simultaneous update a true block-GS step.  Reference parity:
     ``emg3d_tpu/ops/smoothers.py:347-400``.
     """
-    return line_thomas_x(e, _residual(e, s, par), fac, color)
+    return line_thomas_x(e, _residual(e, s, par, sw), fac, color)
 
 
 def line_thomas_x(e, r, fac, color):
@@ -339,10 +349,11 @@ def line_color_sequence(nu):
     return seq
 
 
-def line_color_steps(e, s, par, fac, seq):
-    """x-line colour steps in the order of ``seq`` (new tensors)."""
+def line_color_steps(e, s, par, fac, seq, sw=None):
+    """x-line colour steps in the order of ``seq`` (new tensors); ``sw``
+    as in :func:`color_steps`."""
     for color in seq:
-        e = _line_color_update_x(e, s, par, fac, color)
+        e = _line_color_update_x(e, s, par, fac, color, sw)
     return e
 
 

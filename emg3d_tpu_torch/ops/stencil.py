@@ -17,8 +17,8 @@ Tensor layout (C-order, indexed [ix, iy, iz]):
 """
 import torch
 
-__all__ = ['curl_factors', 'amat', 'residual_parts', 'pec_mask_apply',
-           'zeta_face_weights', 'eta_edge_sums']
+__all__ = ['curl_factors', 'amat', 'residual_parts', 'residual_sw',
+           'pec_mask_apply', 'zeta_face_weights', 'eta_edge_sums']
 
 
 def _adjpair(a, axis):
@@ -66,8 +66,23 @@ def eta_edge_sums(eta_x, eta_y, eta_z):
 
 
 def _inverse_widths(hx, hy, hz):
-    return ((1.0 / hx)[:, None, None], (1.0 / hy)[None, :, None],
-            (1.0 / hz)[None, None, :])
+    return _bcast_widths(1.0 / hx, 1.0 / hy, 1.0 / hz)
+
+
+def _bcast_widths(ihx, ihy, ihz):
+    return ihx[:, None, None], ihy[None, :, None], ihz[None, None, :]
+
+
+def _curls(ex, ey, ez, w, ih):
+    """ζ-weighted curls on faces from the face weights ``w`` and the
+    broadcast inverse widths ``ih``."""
+    ihx, ihy, ihz = ih
+    v1 = torch.diff(ez, dim=-2) * ihy - torch.diff(ey, dim=-1) * ihz
+    v2 = torch.diff(ex, dim=-1) * ihz - torch.diff(ez, dim=-3) * ihx
+    v3 = torch.diff(ey, dim=-3) * ihx - torch.diff(ex, dim=-2) * ihy
+
+    wx, wy, wz = w
+    return v1 * wx, v2 * wy, v3 * wz
 
 
 def curl_factors(ex, ey, ez, zeta, hx, hy, hz):
@@ -79,25 +94,16 @@ def curl_factors(ex, ey, ez, zeta, hx, hy, hz):
     (The conventional factor ½ of the ζ-average is applied later, in
     :func:`amat`, as in the reference.)
     """
-    ihx, ihy, ihz = _inverse_widths(hx, hy, hz)
-
-    v1 = torch.diff(ez, dim=-2) * ihy - torch.diff(ey, dim=-1) * ihz
-    v2 = torch.diff(ex, dim=-1) * ihz - torch.diff(ez, dim=-3) * ihx
-    v3 = torch.diff(ey, dim=-3) * ihx - torch.diff(ex, dim=-2) * ihy
-
-    wx, wy, wz = zeta_face_weights(zeta)
-    return v1 * wx, v2 * wy, v3 * wz
+    return _curls(ex, ey, ez, zeta_face_weights(zeta),
+                  _inverse_widths(hx, hy, hz))
 
 
-def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
-    """Interior (non-PEC) rows of A e, unpadded.
+def _amat_parts(ex, ey, ez, st, w, ih):
+    """Interior rows of A e from the η edge sums, face weights and
+    broadcast inverse widths."""
+    ihx, ihy, ihz = ih
 
-    Shapes: ax (nx, ny-1, nz-1), ay (nx-1, ny, nz-1),
-    az (nx-1, ny-1, nz).
-    """
-    ihx, ihy, ihz = _inverse_widths(hx, hy, hz)
-
-    u1, u2, u3 = curl_factors(ex, ey, ez, zeta, hx, hy, hz)
+    u1, u2, u3 = _curls(ex, ey, ez, w, ih)
 
     # Second curl, interior edges only.
     rrx = (torch.diff(u3[..., 1:-1] * ihy, dim=-2)
@@ -108,7 +114,7 @@ def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
            - torch.diff(u1[..., 1:-1, :, :] * ihy, dim=-2))
 
     # η-terms (4-cell averages; /4 folded into the 0.25 factor).
-    stx, sty, stz = eta_edge_sums(eta_x, eta_y, eta_z)
+    stx, sty, stz = st
 
     ax = 0.5 * rrx - 0.25 * stx * ex[..., 1:-1, 1:-1]
     ay = 0.5 * rry - 0.25 * sty * ey[..., 1:-1, :, 1:-1]
@@ -116,19 +122,40 @@ def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     return ax, ay, az
 
 
+def amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
+    """Interior (non-PEC) rows of A e, unpadded.
+
+    Shapes: ax (nx, ny-1, nz-1), ay (nx-1, ny, nz-1),
+    az (nx-1, ny-1, nz).
+    """
+    return _amat_parts(ex, ey, ez, eta_edge_sums(eta_x, eta_y, eta_z),
+                       zeta_face_weights(zeta), _inverse_widths(hx, hy, hz))
+
+
+def _pad_rows(ax, ay, az):
+    pad = torch.nn.functional.pad
+    # F.pad lists the last dimension first: (z_lo, z_hi, y_lo, y_hi, ...).
+    return (pad(ax, (1, 1, 1, 1, 0, 0)), pad(ay, (1, 1, 0, 0, 1, 1)),
+            pad(az, (0, 0, 1, 1, 1, 1)))
+
+
 def amat(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     """Apply the operator: returns (A e)_x, (A e)_y, (A e)_z.
 
     PEC rows (tangential boundary edges) are zero.
     """
-    ax, ay, az = amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta,
-                               hx, hy, hz)
-    pad = torch.nn.functional.pad
-    # F.pad lists the last dimension first: (z_lo, z_hi, y_lo, y_hi, ...).
-    ax = pad(ax, (1, 1, 1, 1, 0, 0))
-    ay = pad(ay, (1, 1, 0, 0, 1, 1))
-    az = pad(az, (0, 0, 1, 1, 1, 1))
-    return ax, ay, az
+    return _pad_rows(*amat_interior(ex, ey, ez, eta_x, eta_y, eta_z, zeta,
+                                    hx, hy, hz))
+
+
+def residual_sw(sx, sy, sz, ex, ey, ez, st, w, ih):
+    """Residual r = s − A e from the η edge sums ``st``, ζ face weights
+    ``w`` and inverse widths ``ih`` (1-D) of a level, as the smoother
+    kernels read them: :func:`residual_parts` on given parameters (the
+    plain versions of a bfloat16-stored solve pass them rounded)."""
+    ax, ay, az = _pad_rows(*_amat_parts(ex, ey, ez, st, w,
+                                        _bcast_widths(*ih)))
+    return sx - ax, sy - ay, sz - az
 
 
 def residual_parts(sx, sy, sz, ex, ey, ez, eta_x, eta_y, eta_z, zeta,

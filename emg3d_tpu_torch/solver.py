@@ -39,6 +39,13 @@ together.
   and every Krylov solve under iterative refinement
   (:func:`_refine_krylov`).  The result is hi + lo in complex128 when the
   lo stream is live, as in the JAX package.
+- A complex64 solve on the card stores in bfloat16 where the JAX
+  package's Pallas path does (:data:`BF16_STORAGE`): the smoothers'
+  s/params streams in every correction-form smoothing call (standalone
+  multigrid, which then runs in correction form from its first cycle,
+  and every preconditioner application) and every line-factor stack
+  above :data:`FSTACK_BYTES`.  The outer residual stays float32, so
+  the fixed point is that of the float32 solve.
 """
 import itertools
 import math
@@ -48,10 +55,33 @@ import numpy as np
 import torch
 
 from . import fields, models, utils
-from .dtypes import COMPLEX, REAL_OF, precision
+from .dtypes import BF16, COMPLEX, REAL_OF, precision
 from .ops import dsres, line_gs, point_gs, stencil, transfers
 
 __all__ = ['solve', 'solve_batched', 'multigrid', 'krylov', 'MGParameters']
+
+# bfloat16 storage of a complex64 solve: the JAX package's
+# EMG3D_TPU_BF16_SMOOTH (``_smooth_spdt``, emg3d_tpu/solver.py:1548-1565)
+# and its bfloat16 line-factor stacks (``_level_fstacks``, :640-730).
+# None stores in bfloat16 on a card and not on the CPU, where the JAX
+# package's XLA fallbacks ignore it; True forces it on any device (CPU
+# tests), False keeps every stream in float32 (comparisons on the card).
+# complex128 and batched solves never store in bfloat16: the JAX
+# package's ``_smooth_spdt`` returns None for float64, and
+# ``_level_fstacks``/``_level_pparams`` return None for a batch.
+BF16_STORAGE = None
+# A line-factor stack whose float32 bytes exceed this is stored in
+# bfloat16, cached or rebuilt at every call (the JAX package's
+# _FSTACK_CACHE_BYTES, emg3d_tpu/solver.py:651).
+FSTACK_BYTES = 256_000_000
+
+
+def _storage(dtype, device):
+    """The reduced storage a single solve may use: BF16 or None."""
+    if dtype != torch.complex64:
+        return None
+    on = device.type == 'cuda' if BF16_STORAGE is None else BF16_STORAGE
+    return BF16 if on else None
 
 
 # ======================================================================
@@ -335,7 +365,8 @@ class _Level:
     """Per-level data: model parameters, widths, transfer weights."""
 
     __slots__ = ('shape', 'arrays', 'coarsen', 'rweights', 'pweights',
-                 'nodes', 'h_np', 'pstate', 'lstate', 'meter', 'lanes')
+                 'nodes', 'h_np', 'pstate', 'lstate', 'meter', 'lanes',
+                 'bf16')
 
     def __init__(self, shape, arrays, h_np, nodes, meter, lanes=None):
         self.shape = shape          # cell shape
@@ -345,10 +376,11 @@ class _Level:
         self.coarsen = None
         self.rweights = None
         self.pweights = None
-        self.pstate = None          # point-smoother state (built lazily)
-        self.lstate = {}            # axis -> line state (built lazily)
+        self.pstate = None          # storage -> point-smoother state (lazy)
+        self.lstate = {}            # (axis, storage) -> line state (lazy)
         self.meter = meter          # cached factor bytes, solve-wide
         self.lanes = lanes          # a batched solve's Lanes, or None
+        self.bf16 = False           # the solve may store in bfloat16
 
 
 class Lanes:
@@ -464,22 +496,27 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
 _MODES = (None, 'factored', 'fused', 'plain')
 
 
-def _level_state(lev, mode):
-    """The level's point-smoother state, built once per level and solve;
-    for the levels of a batched solve one per frequency group (a list)."""
+def _level_state(lev, mode, storage=None):
+    """The level's point-smoother state for s/params streams stored in
+    ``storage``, built once per level, storage and solve (the JAX package
+    keys its ``pparams`` by the stream dtype, solver.py:749-752); for the
+    levels of a batched solve one per frequency group (a list)."""
     if lev.pstate is None:
+        lev.pstate = {}
+    if storage not in lev.pstate:
         dev = lev.arrays[0].device
         factored = mode in ('factored', 'plain') or (
             mode is None and point_gs.point_kernel(
                 lev.shape, dev, lev.arrays[0].dtype) == 'factored')
         if lev.lanes is None:
-            lev.pstate = point_gs.point_state(lev.arrays, lev.shape,
-                                              factored=factored)
+            lev.pstate[storage] = point_gs.point_state(
+                lev.arrays, lev.shape, factored=factored, storage=storage)
         else:
-            lev.pstate = [point_gs.point_state(_lane_arrays(lev.arrays, b),
-                                               lev.shape, factored=factored)
-                          for b in lev.lanes.reps]
-    return lev.pstate
+            lev.pstate[storage] = [
+                point_gs.point_state(_lane_arrays(lev.arrays, b), lev.shape,
+                                     factored=factored)
+                for b in lev.lanes.reps]
+    return lev.pstate[storage]
 
 
 def _lane_arrays(arrays, b):
@@ -503,19 +540,39 @@ def _group_arrays(lev):
     return tuple(grp(a) for a in lev.arrays[:3]) + tuple(lev.arrays[3:])
 
 
-def _line_state(lev, axis, mode=None):
-    """The level's ``axis``-line state, built once per level and solve.
+def _line_state(lev, axis, mode=None, storage=None):
+    """The level's ``axis``-line state for s/params streams stored in
+    ``storage``, built once per level, axis, storage and solve (the JAX
+    package's key ``(ax, str(spdt))``, solver.py:682).
 
-    Memory rule: the factor stack is kept only while the solve's cached
-    stacks stay within :func:`.ops.line_gs.cache_budget`; otherwise the
-    state holds none and every smoothing call rebuilds it (the JAX
-    package's ``()`` sentinel, solver.py:697-719).  The numbers are the
-    same either way.  ``mode='plain'`` builds the stack with the plain
-    elimination (no kernel), as the plain smoothers run.
+    Its factor stack is stored in bfloat16 where the solve may store so
+    (``lev.bf16``) and the float32 stack's bytes exceed
+    :data:`FSTACK_BYTES` (the JAX package's rule, solver.py:697-719);
+    the states of one axis share one stack.  Memory rule: the stack is
+    kept only while the solve's cached stacks stay within
+    :func:`.ops.line_gs.cache_budget`; otherwise the state holds none and
+    every smoothing call rebuilds it (the JAX package's ``()`` sentinel).
+    The numbers are the same either way.  ``mode='plain'`` builds the
+    stack with the plain elimination (no kernel), as the plain smoothers
+    run.
     """
-    state = lev.lstate.get(axis)
+    state = lev.lstate.get((axis, storage))
     if state is None:
-        nbytes = line_gs.factor_bytes(lev.shape, axis, lev.arrays[0].dtype)
+        dtype = lev.arrays[0].dtype
+        plain = mode == 'plain'
+        other = next((st for (ax, _), st in lev.lstate.items()
+                      if ax == axis), None)
+        if other is not None:
+            # The stack does not depend on the streams' storage.
+            state = line_gs.line_state(
+                lev.arrays, lev.shape, axis, factors=False, plain=plain,
+                storage=storage, fstorage=other.fstorage,
+                stack=other.factors)
+            lev.lstate[(axis, storage)] = state
+            return state
+        fstorage = BF16 if lev.bf16 and line_gs.factor_bytes(
+            lev.shape, axis, dtype) > FSTACK_BYTES else None
+        nbytes = line_gs.factor_bytes(lev.shape, axis, dtype, fstorage)
         if lev.lanes is not None:
             # One stack per frequency group; K3 and K4 take every lane.
             nbytes *= len(lev.lanes.reps)
@@ -523,31 +580,34 @@ def _line_state(lev, axis, mode=None):
                 <= line_gs.cache_budget(lev.arrays[0].device))
         if lev.lanes is None:
             state = line_gs.line_state(lev.arrays, lev.shape, axis,
-                                       factors=keep, plain=mode == 'plain')
+                                       factors=keep, plain=plain,
+                                       storage=storage, fstorage=fstorage)
         else:
             state = line_gs.line_state(_group_arrays(lev), lev.shape, axis,
-                                       factors=keep, plain=mode == 'plain',
+                                       factors=keep, plain=plain,
                                        lanes=lev.lanes.index)
         if keep:
             lev.meter['bytes'] += nbytes
-        lev.lstate[axis] = state
+        lev.lstate[(axis, storage)] = state
     return state
 
 
-def _smooth(e, s, lev, nu, lr_dir, mode=None):
+def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
     """Smoothing dispatch (reference parity: solver.py:461-523).
 
     Point smoothing where the level's lr_dir is 0, else line relaxation
     along each of its axes in turn.  Updates ``e`` in place and returns
     it.  On a batched level the point smoother runs lane by lane (its
     kernel launched once per lane, with the lane's group state), line
-    relaxation all lanes at once.
+    relaxation all lanes at once.  ``storage`` stores the s/params
+    streams (the JAX package's ``spdt``); callers set it only where the
+    smoothed system is a correction system.
     """
     if nu <= 0:
         return e
     lr = _current_lr_dir(lr_dir, lev.shape)
     if lr == 0:
-        state = _level_state(lev, mode)
+        state = _level_state(lev, mode, storage)
         gs = point_gs.gauss_seidel_point_plain if mode == 'plain' \
             else point_gs.gauss_seidel_point
         if lev.lanes is None:
@@ -556,7 +616,7 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None):
             gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g], nu)
         return e
     for ax in _lr_axes(lr):
-        state = _line_state(lev, ax, mode)
+        state = _line_state(lev, ax, mode, storage)
         if mode == 'plain':
             e = line_gs.line_relaxation_plain(e, s, state, nu)
         else:
@@ -581,13 +641,13 @@ def _gs_info(it, level, cycmax, shape, norm):
 
 
 def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
-            dbg=None):
+            dbg=None, storage=None):
     """Recursive multigrid body (reference parity: solver.py:478-604).
 
     Includes the ``new_cycmax = cycmax - it`` F-cycle construction; the
     top level (``lvl == 0``) runs one cycle per call.  ``dbg`` is the
     MGParameters instance when verb>4: each smoothing step then logs
-    its residual norm.
+    its residual norm.  ``storage`` goes to every smoothing call.
     """
     (nu_pre, nu_coarse, nu_post, cycle, lr_dir) = conf
     lev = levels[lvl]
@@ -600,7 +660,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
     if lvl == len(levels) - 1:
         # Coarsest grid: nu_coarse smoothing steps act as direct solve.
-        e = _smooth(e, s, lev, nu_coarse, lr_dir, mode)
+        e = _smooth(e, s, lev, nu_coarse, lr_dir, mode, storage)
         report(0, 1, "coarsest level")
         return e
 
@@ -611,7 +671,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
     it = 0
     while it < cycmax_here:
-        e = _smooth(e, s, lev, nu_pre, lr_dir, mode)
+        e = _smooth(e, s, lev, nu_pre, lr_dir, mode, storage)
         if nu_pre > 0:
             report(it, cycmax_here, "pre-smoothing")
 
@@ -625,12 +685,12 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
         ec = _mg_rec(ec, rc, levels, lvl + 1,
                      2 if cycle in ['F', 'W'] else 1,
-                     cycmax_here - it, conf, mode, dbg)
+                     cycmax_here - it, conf, mode, dbg, storage)
 
         e = transfers.prolongate(*e, *ec, lev.pweights, lev.coarsen)
         e = stencil.pec_mask_apply(*e)
 
-        e = _smooth(e, s, lev, nu_post, lr_dir, mode)
+        e = _smooth(e, s, lev, nu_post, lr_dir, mode, storage)
         if nu_post > 0:
             report(it, cycmax_here, "post-smoothing")
 
@@ -640,16 +700,18 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
     return e
 
 
-def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None):
-    """One top-level MG cycle; returns the new field tensors."""
+def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None,
+                  storage=None):
+    """One top-level MG cycle; returns the new field tensors.  ``storage``
+    stores the smoothers' s/params streams (correction systems only)."""
     if nu_init > 0:
-        e = _smooth(e, s, levels[0], nu_init, conf[4], mode)
+        e = _smooth(e, s, levels[0], nu_init, conf[4], mode, storage)
         if dbg is not None:
             nrm = residual_norm(e, s, levels[0].arrays)
             dbg.cprint(_gs_info(0, 0, 1, levels[0].shape, nrm)
                        + "initial smoothing", 4)
     return _mg_rec(e, s, levels, 0, 2 if conf[3] in ['F', 'W'] else 1, 0,
-                   conf, mode, dbg)
+                   conf, mode, dbg, storage)
 
 
 def _norm(rx, ry, rz):
@@ -683,7 +745,9 @@ class _SolveContext:
     The precision follows the source (:func:`.dtypes.precision`): a
     complex64 source puts s, e and every level in complex64/float32.
     ``e_lo`` is the two-float lo stream of the solution once it is live
-    (complex64 solves), else None.
+    (complex64 solves), else None.  ``storage`` is the reduced storage
+    the solve may use (BF16 for a complex64 single solve where
+    :data:`BF16_STORAGE` allows it, else None).
     """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode):
@@ -704,6 +768,7 @@ class _SolveContext:
         self._ds_params = None
         self.meter = {'bytes': 0}
         self.lanes = None
+        self.storage = _storage(self.dtype, torch.device(device))
 
     @classmethod
     def batched(cls, grid, vmodel, s, var, device, mode, lanes):
@@ -719,6 +784,7 @@ class _SolveContext:
         ctx._levels = {}
         ctx._ds_params = None
         ctx.meter = {'bytes': 0}
+        ctx.storage = None          # batched solves store in their precision
         return ctx
 
     def residual_ds(self, ehi, elo, s):
@@ -739,6 +805,8 @@ class _SolveContext:
             levels = build_levels(self.grid, self.vmodel, int(sc_dir),
                                   clevel, self.device, self.meter,
                                   self.lanes, self.dtype)
+            for lev in levels:
+                lev.bf16 = self.storage is not None
             if self._levels:
                 # The finest level is the same in every hierarchy: share
                 # its parameters and line states (no number changes).
@@ -768,7 +836,13 @@ def multigrid(ctx, var, e=None, s=None, track=True):
 
     A standalone complex64 solve switches to two-float (hi, lo) storage
     once the error nears the float32 representation floor
-    (:class:`_TwoFloat`); the lo stream lands in ``ctx.e_lo``.
+    (:class:`_TwoFloat`); the lo stream lands in ``ctx.e_lo``.  Where the
+    solve stores in bfloat16 (``ctx.storage``) and ``nu_init`` is 0, a
+    standalone solve runs in correction form from its first cycle, as the
+    JAX package's ``corr`` mode (solver.py:1617-1621, 1737-1748): r = s −
+    A·e in float32, δ = MG(0, r) with the s/params streams stored in
+    bfloat16, e += δ; the same iteration, whose fixed point the bfloat16
+    rounding cannot move.  The two-float cycles store so too.
     """
     standalone = e is None
     if standalone:
@@ -791,6 +865,9 @@ def multigrid(ctx, var, e=None, s=None, track=True):
     it = 0
     first = True
     ds = _TwoFloat(ctx, var, s, lambda r: float(_norm(*r)))
+    spdt = ctx.storage if standalone else None
+    corr = spdt is not None and var.nu_init == 0
+    r = None        # the correction form's residual, once evaluated
     while True:
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
@@ -803,7 +880,16 @@ def multigrid(ctx, var, e=None, s=None, track=True):
         first = False
 
         if ds.lo is not None:
-            e, l2 = ds.cycle(e, levels, conf, dbg=dbg)
+            e, l2 = ds.cycle(e, levels, conf, dbg=dbg, storage=spdt)
+        elif corr:
+            if r is None:
+                r = _residual_e(e, s, levels[0].arrays)
+            zero = tuple(torch.zeros_like(c) for c in e)
+            delta = run_one_cycle(zero, r, levels, conf, mode=ctx.mode,
+                                  dbg=dbg, storage=spdt)
+            e = tuple(a + d for a, d in zip(e, delta))
+            r = _residual_e(e, s, levels[0].arrays)
+            l2 = float(_norm(*r))
         else:
             e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
                               mode=ctx.mode, dbg=dbg)
@@ -864,11 +950,12 @@ class _TwoFloat:
         self.lo = None    # the lo stream, once live
         self.r = None     # its double-single residual
 
-    def cycle(self, e, levels, conf, dbg=None):
-        """One correction cycle from hi ``e``: (new hi, residual norm)."""
+    def cycle(self, e, levels, conf, dbg=None, storage=None):
+        """One correction cycle from hi ``e``: (new hi, residual norm);
+        ``storage`` stores the smoothers' s/params streams."""
         zero = tuple(torch.zeros_like(c) for c in e)
         delta = run_one_cycle(zero, self.r, levels, conf,
-                              mode=self.ctx.mode, dbg=dbg)
+                              mode=self.ctx.mode, dbg=dbg, storage=storage)
         e, self.lo = dsres.ds_accumulate(e, self.lo, delta)
         self.r = self.ctx.residual_ds(e, self.lo, self.s)
         return e, self.norm(self.r)
@@ -1874,13 +1961,15 @@ def _precond_fixed_cycles(ctx, var, r, cycles=None):
     """Preconditioner: exactly ``cycles`` (default ``var.maxit``) MG
     cycles from a zero field, no norms, the sc/lr schedules advancing per
     cycle (reference parity: solver.py:3432-3472; ``var.maxit`` is the
-    schedule's length under a Krylov solver)."""
+    schedule's length under a Krylov solver).  A correction solve by
+    construction, so its smoothers store their s/params streams in
+    ``ctx.storage`` (the JAX package's ``_smooth_spdt(r)``, :3444)."""
     e = tuple(torch.zeros_like(c) for c in r)
     for _ in range(var.maxit if cycles is None else cycles):
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         e = run_one_cycle(e, r, ctx.levels(int(var.sc_dir)), conf,
-                          mode=ctx.mode)
+                          mode=ctx.mode, storage=ctx.storage)
         var.it += 1
         if var.sc_cycle:
             var.sc_dir = next(var.sc_cycle)

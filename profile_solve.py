@@ -5,7 +5,7 @@
                              [--ssl bicgstab|cgs] [--plan PLAN]
                              [--kernel factored|fused]
                              [--compare-plans] [--batched] [--complex64]
-                             [--out DIR]
+                             [--bf16] [--out DIR]
 
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
@@ -26,7 +26,13 @@ phase 10: its 4 sources × 2 frequencies on the same 64³ fullspace
 with semicoarsening, line relaxation and BiCGSTAB (the Simulation's
 default; ``--ssl cgs`` takes CGS).  ``--complex64`` casts the sources
 to complex64: the solve then runs in complex64/float32 with the two-float
-cycles and Krylov refinement (K6 ``residual_ds`` listed beside K1-K5).
+cycles and Krylov refinement (K6 ``residual_ds`` listed beside K1-K5),
+with float32 storage; ``--bf16`` does the same with the bfloat16 storage
+a complex64 solve takes on the card by default
+(``solver.BF16_STORAGE``: s/params streams in correction-form cycles,
+line-factor stacks above ``solver.FSTACK_BYTES``; the batched solve
+stores none).  The launches of the kernels' ``_bf16`` instances are
+printed beside all launches.
 Prints:
 
 - the warm wall time (host clock, ending in a synchronize), without
@@ -64,6 +70,7 @@ def main(argv=None):
     ap.add_argument('--compare-plans', action='store_true')
     ap.add_argument('--batched', action='store_true')
     ap.add_argument('--complex64', action='store_true')
+    ap.add_argument('--bf16', action='store_true')
     ap.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     args = ap.parse_args(argv)
 
@@ -75,9 +82,11 @@ def main(argv=None):
     from chip_smoke import (DSRES, KERNELS, _c64_source, bench_problem,
                             kernel_key, line_state_clock, nvidia_smi,
                             simulation_problem, trace_times)
-    from emg3d_tpu_torch import get_source_field, solve, solve_batched
+    from emg3d_tpu_torch import get_source_field, solve, solve_batched, solver
     from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
 
+    args.complex64 = args.complex64 or args.bf16
+    solver.BF16_STORAGE = None if args.bf16 else False
     point_gs.FORCE_PLAN = args.plan
     point_gs.FORCE_KERNEL = args.kernel
     kw = dict(cycle='F', tol=1e-6, verb=0, device='cuda', _mode=args.mode,
@@ -138,6 +147,7 @@ def main(argv=None):
     launches = {**point_gs.LAUNCHES, **line_gs.LAUNCHES, **dsres.LAUNCHES,
                 'factored steps': point_gs.STEPS['factored'],
                 'fused steps': point_gs.STEPS['fused']}
+    bf16_launches = {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES}
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -147,12 +157,14 @@ def main(argv=None):
     what = (f"batched {len(sfields)} lanes, sslsolver {kw['sslsolver']}"
             if args.batched else f"sclr {args.sclr}, sslsolver {args.ssl}")
     what += ', complex64' if args.complex64 else ''
+    what += ', bf16 storage' if args.bf16 else ''
     print(f"mode {args.mode or 'default'}, {what}: it_mg {info['it_mg']}, "
           f"it_ssl {info['it_ssl']}, warm wall {wall:.4f} s; profiled wall "
           f"{wall_prof:.4f} s")
     print(f"device busy {busy:.4f} s over {nev} device events; "
           f"idle share {1 - busy / wall_prof:.4f}")
-    print(f"smoother launches {launches}; line-state builds "
+    print(f"smoother launches {launches} (bf16 instances "
+          f"{bf16_launches}); line-state builds "
           f"{clock.seconds:.4f} s ({clock.calls} builds) of the "
           f"unprofiled warm wall")
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])

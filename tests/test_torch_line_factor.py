@@ -326,6 +326,7 @@ def test_solver_line_state_mode(monkeypatch, mode):
     lev.lstate = {}
     lev.meter = {'bytes': 0}
     lev.lanes = None
+    lev.bf16 = False
     st = solver._line_state(lev, 2, mode)
     assert st.factors is not None and seen == [mode == 'plain']
     assert solver._line_state(lev, 2, mode) is st        # built once
