@@ -136,10 +136,19 @@ Phases:
    version's distance from it, each at its worst over the shape's calls
    (:func:`_check_c64`; the readings per shape in ``checks_c64``); timed
    at 64³ and 256³ beside the complex128 times and the bounds at the
-   element size and the fp32 peak; K6 (``residual_ds``) at 64³ and 256³
-   on a near-converged level (s = fl32(A64·(hi + lo))):
-   within TOL_DS of its plain version, within TOL_DS_F64·‖r‖ of the
-   float64 residual of the same float32 operator, timed beside plain;
+   element size and the fp32 peak; K6 (``residual_ds``) at DSRES_CASES
+   (16³, 64³, 256³, stretched 37×23×19 and 37×23×45, two lanes with η
+   per lane at both and at 64³, and sim64's eight lanes of 64³) on a
+   near-converged level (s = fl32(A64·(hi +
+   lo))): its tiled plan (``dsres.tile_plan``, the solve path's) twice,
+   with and without the lo stream, and its flat plan (the first design),
+   each bitwise equal to the plain version (so within TOL_DS of it) and
+   within TOL_DS_F64·‖r‖ of the float64 residual of the same float32
+   operator; at 64³, 256³ and eight lanes of 64³ (DSRES_TIMED) the two
+   plans timed in turns (tiled, flat, flat, tiled), the tiled plan at
+   every chunk of DSRES_CHUNKS, the plain version, and (logged only) the
+   operations per edge of both designs (:func:`dsres_ops`) with their
+   floor at the fp32 add rate;
    (b) the main path in complex64 (counters reset before, read after:
    ``launches_c64``): bench64 cold and warm (CONVERGED, rel_error below
    1e-6, hi + lo returned in complex128 within TOL_C64_FIELD of phase 4's
@@ -188,7 +197,12 @@ the same line, beside the launches of their checks
 ``launches_c64`` of each kernel, with its complex64 times (``ms_c64``,
 ``bound_ms_c64`` at 64³, ``..._256`` at 256³) and ``max_abs_err_c64``;
 K6, on the complex64 path only, has an entry of its own
-(``residual_ds``, launches = its complex64 count).  Phase 16b's
+(``residual_ds``, launches = its complex64 count; ``launches_bf16`` its
+launches in phase 16b's bfloat16 runs; ``launches_per_solve_c64`` per
+complex64 solve of bench64, sclr64 BiCGSTAB, sclr256 and sim64;
+``checks``; the tiled plan's and the flat plan's times, ``ms_flat``,
+the plan, the tiled times by chunk, ``..._256`` at 256³, ``..._64x8``
+at eight lanes of 64³).  Phase 16b's
 bfloat16 runs count the launches of each kernel's ``_bf16`` instance
 (``launches_bf16``), beside its bfloat16 times (``ms_bf16``,
 ``bound_ms_bf16`` at 64³, ``..._256`` at 256³; ``ms_f32s`` the
@@ -231,6 +245,19 @@ TOL_C64_FIELD = 2e-5
 TOL_DS = 1e-12
 TOL_DS_F64 = 3e-7
 C64_SHAPES = ((16, 16, 16), (64, 64, 64), (256, 256, 256))
+# K6's checks in phase 15a, (shape, lanes): the C64_SHAPES, two
+# stretched odd levels (the second with a partial z tile after a full
+# one), two lanes with η per lane, and sim64's eight; the tiled plan
+# timed at every chunk (x planes per block) of DSRES_CHUNKS in the
+# DSRES_TIMED cases.
+DSRES_CASES = (((16, 16, 16), 1), ((64, 64, 64), 1), ((256, 256, 256), 1),
+               ((37, 23, 19), 1), ((37, 23, 19), 2), ((37, 23, 45), 1),
+               ((37, 23, 45), 2), ((64, 64, 64), 2), ((64, 64, 64), 8))
+DSRES_CHUNKS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# The cases timed, with the suffix of their keys: 64³ and 256³ at one
+# lane, and sim64's finest level (8 lanes of 64³, η per lane).
+DSRES_TIMED = {((64, 64, 64), 1): '', ((256, 256, 256), 1): '_256',
+               ((64, 64, 64), 8): '_64x8'}
 SHAPES = ((2, 2, 2), (4, 4, 4), (7, 5, 9), (8, 8, 8), (16, 16, 16),
           (32, 32, 32), (64, 48, 48), (64, 64, 64), (128, 128, 128))
 # K3's slab geometries timed at 64³ and 256³: (line rows, z-lines,
@@ -277,6 +304,10 @@ FACTOR_BLOCKS = (32, 64, 128, 256)
 PEAK_BYTES = 3.35e12
 PEAK_FP64 = 34e12
 PEAK_FP32 = 67e12
+# The H100's fp32 add rate, instructions per second (132 SMs × 128 lanes
+# × 1.98 GHz): the double-single arithmetic's two-sums are adds, which
+# the 67 TFLOP/s (an fma counted as two) overstates twofold.
+PEAK_FP32_ADDS = 132 * 128 * 1.98e9
 # Cycles per second of torch.cuda._sleep's spin (the H100's highest SM
 # clock; a lower clock only spins longer).
 SPIN_HZ = 1.98e9
@@ -578,6 +609,36 @@ def dsres_work(shape, lanes=1):
     used = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
     return (lanes * (4 * edges * 8 + inner * 8) + (faces + nx + ny + nz) * 4,
             lanes * (used * 150 + inner * 310))
+
+
+def dsres_inner(shape):
+    """Interior (non-PEC) edges of a level."""
+    nx, ny, nz = shape
+    return ((nx * (ny - 1) * (nz - 1)) + (nx - 1) * ny * (nz - 1)
+            + (nx - 1) * (ny - 1) * nz)
+
+
+def dsres_ops(shape, plan):
+    """Float32 operations per interior edge that K6 does under ``plan``
+    (counted as :func:`dsres_work` counts them: 150 a face curl, 22 a
+    coefficient product, 310 an edge's own with its four products):
+    ``flat`` recomputes the four face curls of every edge (910);
+    ``tiled`` computes each face of its tile once per plane times the
+    two widths its second curls take (194), its halo faces (u3 and u1 of
+    the row below, u1 and u2 of the column below, where they exist)
+    times the one they take there (172), one plane again in every chunk
+    but the first, and 222 per edge (its own, less the products)."""
+    if plan.kind == 'flat':
+        return 4 * 150 + 310
+    nx, ny, nz = shape
+    tj, tk = plan.tile
+    tiles_j, tiles_k = -(-ny // tj), -(-nz // tk)
+    jn, kn = min(ny + 1, tiles_j * tj), min(nz + 1, tiles_k * tk)
+    main = ny * nz + jn * nz + ny * kn
+    halo = (tiles_j - 1) * (kn + nz) + (tiles_k - 1) * (ny + jn)
+    planes = nx + -(-nx // plan.chunk) - 1
+    inner = dsres_inner(shape)
+    return ((main * 194 + halo * 172) * planes + inner * 222) / inner
 
 
 def factor_work_packed(shape):
@@ -2624,19 +2685,29 @@ def _amat_params64(e, params):
                 (0, 0, 1, 1, 1, 1)))
 
 
-def _c64_dsres(torch, results, shape, dev):
-    """K6 against its plain version on a near-converged complex64 level:
-    a random hi stream and a lo stream at its rounding level, s =
-    fl32(A64·(hi + lo)) (the residual is pure rounding): every component
-    within TOL_DS of the plain version and within TOL_DS_F64·‖r‖ of the
-    float64 residual of the same float32 operator; timed beside the
-    plain version."""
+def _dsres_inputs(torch, shape, lanes, dev):
+    """A near-converged complex64 level for K6: a random stretched level
+    (:func:`_level_fast`; with ``lanes`` > 1, η per lane, lane b's
+    resistivities scaled by random factors in [0.5, 1.5)), a random hi
+    stream per lane and a lo stream at its rounding level, s = fl32(A64·
+    (hi + lo)) (the residual is pure rounding).  Returns (arrays,
+    params, hi, lo, s, r64), r64 the float64 residual of the same
+    float32 operator."""
     from emg3d_tpu_torch.ops import dsres
     c64 = torch.complex64
     state, hi, _ = _level_fast(shape, seed=sum(shape) + 17, device=dev,
                                factored=False, dtype=c64)
-    params = dsres.ds_params(state.arrays)
-    g = torch.Generator(device=dev).manual_seed(17)
+    arrays = state.arrays
+    g = torch.Generator(device=dev).manual_seed(17 + lanes)
+    if lanes > 1:
+        arrays = tuple(torch.stack([a] + [a * (0.5 + torch.rand(
+            a.shape, generator=g, device=dev)) for _ in range(lanes - 1)])
+            for a in arrays[:3]) + arrays[3:]
+        hi = tuple(torch.stack([h] + [torch.randn(
+            h.shape, generator=g, device=dev, dtype=c64)
+            for _ in range(lanes - 1)]) for h in hi)
+    del state
+    params = dsres.ds_params(arrays)
     lo = tuple((1e-7 * torch.complex(
         torch.randn(t.shape, generator=g, device=dev, dtype=torch.float64),
         torch.randn(t.shape, generator=g, device=dev,
@@ -2646,42 +2717,102 @@ def _c64_dsres(torch, results, shape, dev):
     a64 = _amat_params64(e64, params)
     s = tuple(a.to(c64) for a in a64)
     r64 = tuple(x.to(torch.complex128) - a for x, a in zip(s, a64))
-    del a64, e64
+    return arrays, params, hi, lo, s, r64
+
+
+def _plan_dict(plan):
+    return {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in plan._asdict().items()}
+
+
+def _c64_dsres(torch, results, shape, lanes, dev):
+    """K6 against its plain version on a near-converged complex64 level
+    (:func:`_dsres_inputs`): the tiled plan twice (bitwise equal), with
+    and without the lo stream, and the flat plan, each bitwise equal to
+    the plain version (so within TOL_DS of it) and within TOL_DS_F64·‖r‖
+    of the float64 residual of the same float32 operator.  In the
+    DSRES_TIMED cases the tiled and flat plans timed in turns, the tiled
+    plan at every chunk of DSRES_CHUNKS, and the plain version."""
+    from emg3d_tpu_torch.ops import dsres
+    arrays, params, hi, lo, s, r64 = _dsres_inputs(torch, shape, lanes, dev)
+    plan = dsres.tile_plan(shape, lanes)
+    flat = dsres.flat_plan(shape, lanes)
     outs = [dsres.residual(hi, lo, s, params) for _ in range(2)]
-    ref = dsres.residual_ds_plain(hi, lo, s, state.arrays, params)
+    ref = dsres.residual_ds_plain(hi, lo, s, arrays, params)
+    out_flat = dsres.residual(hi, lo, s, params, plan=flat)
+    out_nolo = dsres.residual(hi, None, s, params)
+    ref_nolo = dsres.residual_ds_plain(hi, None, s, arrays, params)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*outs)):
-        raise AssertionError(f"residual_ds {shape}: two runs differ")
+    name = f"residual_ds {shape}, {lanes} lane{'s' * (lanes > 1)}"
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    checks = {'two runs': equal(*outs), 'plain': equal(outs[0], ref),
+              'flat': equal(out_flat, ref),
+              'no lo stream': equal(out_nolo, ref_nolo)}
     worst, dmax = _rel_max(outs[0], ref)
     f64 = max(float(torch.linalg.norm(o.to(torch.complex128) - r)) /
               float(torch.linalg.norm(r)) for o, r in zip(outs[0], r64))
-    log(f"residual_ds {shape}: max|Δ|/max|ref| against plain {worst:.3e}, "
-        f"max over components of ‖r − r64‖/‖r64‖ {f64:.3e}")
-    if not (worst <= TOL_DS and f64 <= TOL_DS_F64):
-        raise AssertionError(f"residual_ds {shape}: {worst:.3e} against "
+    log(f"{name}: tiled plan {_plan_dict(plan)}; bitwise equal: "
+        + ", ".join(f"{k} {v}" for k, v in checks.items())
+        + f"; max|Δ|/max|ref| against plain {worst:.3e}, max over "
+        f"components of ‖r − r64‖/‖r64‖ {f64:.3e}")
+    if not (all(checks.values()) and worst <= TOL_DS and f64 <= TOL_DS_F64):
+        raise AssertionError(f"{name}: {checks}, {worst:.3e} against "
                              f"plain, {f64:.3e} against float64")
     res = results.setdefault('residual_ds', {'max_abs_err': 0.0})
-    res['max_abs_err'] = max(res['max_abs_err'], dmax)
-    n = '' if shape[0] == 64 else '_256'
+    res['max_abs_err'] = max(res['max_abs_err'], dmax,
+                             _maxdiff(out_flat, ref))
+    res.setdefault('checks', []).append(
+        {'shape': list(shape), 'lanes': lanes, 'bitwise': checks,
+         'rel_plain': worst, 'rel_f64': f64})
+    del outs, ref, out_flat, out_nolo, ref_nolo, r64
+    if (shape, lanes) not in DSRES_TIMED:
+        return
+    n = DSRES_TIMED[shape, lanes]
     out = tuple(torch.empty_like(t) for t in s)
-    res['ms' + n] = _time_steps(torch, lambda: dsres.residual(
-        hi, lo, s, params, out), reps=20 if not n else 5, per=1)
+    reps = 5 if n == '_256' else 20
+
+    def timed(p):
+        return _time_steps(torch, lambda: dsres.residual(
+            hi, lo, s, params, out, plan=p), reps=reps, per=1)
+    turns = [(kind, timed(plan if kind == 'tiled' else flat))
+             for kind in ('tiled', 'flat', 'flat', 'tiled')]
+    res['ms' + n] = float(np.mean([t for k, t in turns if k == 'tiled']))
+    res['ms_flat' + n] = float(np.mean([t for k, t in turns if k == 'flat']))
+    res['turns' + n] = [[k, t] for k, t in turns]
+    res['plan' + n] = _plan_dict(plan)
+    res['chunk_ms' + n] = {c: timed(dsres.tile_plan(shape, lanes, chunk=c))
+                           for c in DSRES_CHUNKS if c <= shape[0]}
     res['plain_ms' + n] = _time_steps(torch, lambda: dsres.residual_ds_plain(
-        hi, lo, s, state.arrays, params), reps=5 if not n else 2, per=1,
+        hi, lo, s, arrays, params), reps=5 if not n else 2, per=1,
         warm=1)
-    b = bound(*dsres_work(shape), PEAK_FP32)
+    b = bound(*dsres_work(shape, lanes), PEAK_FP32)
     res['bound_ms' + n] = b['bound_ms']
     res['bound_by' + n] = b['bound_by']
-    log(f"residual_ds {shape}: {res['ms' + n]:.4f} ms per launch (plain "
-        f"torch {res['plain_ms' + n]:.4f} ms), bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}), {b['bound_ms'] / res['ms' + n]:.0%} of it")
-    del state, hi, lo, s, r64, outs, ref, out
+    res['ops_per_edge' + n] = {'tiled': dsres_ops(shape, plan),
+                               'flat': dsres_ops(shape, flat)}
+    res['add_floor_ms' + n] = {
+        k: v * dsres_inner(shape) / PEAK_FP32_ADDS * 1e3
+        for k, v in res['ops_per_edge' + n].items()}
+    log(f"{name}: in turns (ms per launch) "
+        + ", ".join(f"{k} {t:.4f}" for k, t in turns)
+        + f"; tiled {res['ms' + n]:.4f}, flat {res['ms_flat' + n]:.4f} "
+        f"({res['ms_flat' + n] / res['ms' + n]:.2f}×), plain torch "
+        f"{res['plain_ms' + n]:.4f}; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), {b['bound_ms'] / res['ms' + n]:.0%} of it "
+        f"(flat {b['bound_ms'] / res['ms_flat' + n]:.0%}); fp32 operations "
+        f"per interior edge {res['ops_per_edge' + n]}, their floor at the "
+        f"add rate (ms) {res['add_floor_ms' + n]}; tiled by chunk (ms) "
+        + ", ".join(f"{c}: {t:.4f}" for c, t in res['chunk_ms' + n].items()))
+    del out
     torch.cuda.empty_cache()
 
 
 def phase_c64_kernels(torch, results):
     """Phase 15a: every kernel's complex64 instance against its plain
-    version at C64_SHAPES, and K6 at 64³ and 256³, timed."""
+    version at C64_SHAPES, and K6 at DSRES_CASES, timed at 64³ and
+    256³."""
     from emg3d_tpu_torch.ops import point_gs
     dev = torch.device('cuda')
     for code in ('factored', 'fused', 'fused_packed'):
@@ -2694,8 +2825,9 @@ def phase_c64_kernels(torch, results):
     for shape in C64_SHAPES:
         _c64_point(torch, results, shape, dev)
         _c64_line(torch, results, shape, dev)
-    for shape in C64_SHAPES[1:]:
-        _c64_dsres(torch, results, shape, dev)
+    for shape, lanes in DSRES_CASES:
+        _c64_dsres(torch, results, shape, lanes, dev)
+        torch.cuda.empty_cache()
 
 
 def _launch_counts():
@@ -2762,11 +2894,13 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     launches counted (``launches_c64``): bench64 (against phase 4's
     field), sclr64 BiCGSTAB (against phase 7's), each timed in turns with
     its complex128 solve; sclr256 standalone (peak memory against phase
-    8's, returned beside the launches); sim64's 8 pairs as complex64 sources through one solve_batched,
+    8's, returned beside the launches); sim64's 8 pairs as complex64
+    sources through one solve_batched,
     timed in turns with the complex128 batched solve, every lane
     CONVERGED and its responses held to the complex128 solve at tol 1e-10
     (phase 10's, at tol 1e-6, are themselves only as accurate as their
-    residual: logged beside).  Returns the launches per kernel."""
+    residual: logged beside).  Returns the launches per kernel, the
+    sclr256 peak and K6's launches per solve of each configuration."""
     from emg3d_tpu_torch import fields, solve, solve_batched
     grid, model, sfield = bench_problem()
     src = _c64_source(sfield)
@@ -2788,22 +2922,28 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
                 raise AssertionError(f"{name} complex64: {info}")
         return check
 
-    _c64_pair(torch, 'bench64', counts,
-              lambda: solve(grid, model, sfield, **kw),
-              lambda: solve(grid, model, src, **kw),
-              check_solve('bench64', e4))
+    # K6's launches per complex64 solve of each configuration.
+    k6 = {}
+
+    def pair(name, *args):
+        n0 = counts['residual_ds']
+        _c64_pair(torch, name, counts, *args)
+        k6[name] = (counts['residual_ds'] - n0) / (1 + C64_PAIRS)
+    pair('bench64', lambda: solve(grid, model, sfield, **kw),
+         lambda: solve(grid, model, src, **kw), check_solve('bench64', e4))
     log(f"bench64 complex64 launches (cold + warm): {counts}")
-    _c64_pair(torch, 'sclr64 bicgstab', counts,
-              lambda: solve(grid, model, sfield, sslsolver=True, **SCLR,
-                            **kw),
-              lambda: solve(grid, model, src, sslsolver=True, **SCLR, **kw),
-              check_solve('sclr64 bicgstab', e_sclr))
+    pair('sclr64 bicgstab',
+         lambda: solve(grid, model, sfield, sslsolver=True, **SCLR, **kw),
+         lambda: solve(grid, model, src, sslsolver=True, **SCLR, **kw),
+         check_solve('sclr64 bicgstab', e_sclr))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     g256, m256, s256 = bench_problem((256,) * 3)
+    n0 = counts['residual_ds']
     with _Counted(counts):
         e256, i256, w256 = _solve(torch, g256, m256, _c64_source(s256),
                                   **SCLR)
+    k6['sclr256'] = counts['residual_ds'] - n0
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"sclr256 complex64: {i256['exit_message']}, it_mg {i256['it_mg']}, "
         f"rel_error {i256['rel_error']:.3e}, wall {w256:.3f} s; peak device "
@@ -2865,15 +3005,14 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
                 and worst10 <= err10 + TOL_C64_FIELD):
             raise AssertionError("sim64 complex64 batched solve")
 
-    _c64_pair(torch, 'sim64 solve_batched', counts,
-              lambda: solve_batched(grid10, model10, sf128, **opts),
-              lambda: solve_batched(grid10, model10, sf64, **opts),
-              check_sim)
-    log(f"complex64 main path launches: {counts}")
+    pair('sim64 solve_batched',
+         lambda: solve_batched(grid10, model10, sf128, **opts),
+         lambda: solve_batched(grid10, model10, sf64, **opts), check_sim)
+    log(f"complex64 main path launches: {counts}; K6 per solve: {k6}")
     if min(counts.values()) == 0:
         raise AssertionError(f"the complex64 path launched no "
                              f"{min(counts, key=counts.get)}")
-    return counts, peak
+    return counts, peak, k6
 
 
 def phase_c64_plain(torch):
@@ -3135,8 +3274,11 @@ def phase_bf16_kernels(torch, results):
 
 
 def _bf16_counts():
-    from emg3d_tpu_torch.ops import line_gs, point_gs
-    return {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES}
+    """The bfloat16 instances' launches of K1-K5, and K6's (complex64
+    only: its launches in the bfloat16 runs)."""
+    from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
+    return {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES,
+            **dsres.LAUNCHES}
 
 
 def phase_bf16_path(torch, e4, e_sclr, peak_c64):
@@ -3147,7 +3289,7 @@ def phase_bf16_path(torch, e4, e_sclr, peak_c64):
     it_ssl, walls, peak memory, the field against complex128); sclr256
     with bfloat16 stacks once, its peak beside phase 15's float32-storage
     one.  The bfloat16 runs' launches of each kernel's bfloat16 instance
-    are counted (``launches_bf16``); returns them."""
+    are counted (``launches_bf16``), K6's too; returns them."""
     from emg3d_tpu_torch import solve, solver
     grid, model, sfield = bench_problem()
     src = _c64_source(sfield)
@@ -3392,8 +3534,8 @@ def main():
         solver.BF16_STORAGE = False
         try:
             phase_c64_kernels(torch, results)
-            c64_launches, peak_c64 = phase_c64_path(torch, e4, e_sclr,
-                                                    peak8, sim10)
+            c64_launches, peak_c64, k6_per_solve = phase_c64_path(
+                torch, e4, e_sclr, peak8, sim10)
             phase_c64_plain(torch)
         finally:
             solver.BF16_STORAGE = None
@@ -3442,7 +3584,11 @@ def main():
         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': None,
         'launches_c64': c64_launches['residual_ds'],
-        **{k: v for k, v in r.items() if k.endswith('_256')}})
+        'launches_bf16': bf16_launches['residual_ds'],
+        'launches_per_solve_c64': k6_per_solve, 'checks': r['checks'],
+        **{k + n: r[k + n] for n in DSRES_TIMED.values() for k in (
+            'ms', 'ms_flat', 'turns', 'plan', 'chunk_ms', 'plain_ms',
+            'bound_ms', 'bound_by')}})
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s; sclr256 complex64 peak {peak_c64:.2f} GiB "
         f"with float32 storage, {peak_bf16:.2f} GiB with bfloat16")

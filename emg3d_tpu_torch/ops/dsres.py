@@ -19,9 +19,13 @@ plain torch version of the JAX package's arithmetic (Dekker's split for
 the two-product: torch ops never fuse), for CPU tensors.  Both produce
 the same exact error terms in the same order, so they agree bit for
 bit.  Fields may carry a leading lane axis (a batched solve), as may η
-(one frequency per lane).
+(one frequency per lane).  K6's launch plan is :func:`tile_plan` (a
+y-z tile marching along x over a chunk of planes, each face curl once);
+:func:`flat_plan` is the one-thread-per-edge design it replaced, which
+only ``chip_smoke.py`` runs, to time both in turns.
 """
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,12 +33,71 @@ from . import stencil
 
 __all__ = ['residual_ds', 'residual_ds_plain', 'residual', 'ds_params',
            'ds_accumulate', 'two_sum', 'LAUNCHES', 'reset_launches',
-           'THREADS']
+           'TilePlan', 'tile_plan', 'flat_plan', 'tile_smem']
 
 # Launches of K6 since the last reset_launches().
 LAUNCHES = {'residual_ds': 0}
-# K6's threads per block (one thread per edge).
-THREADS = 256
+# The tiled plan: tile rows (y, at most; blockDim.y) and columns (z, one
+# warp; csrc/dsres.cu kMaxTJ, kTK); x planes per block at most, and the
+# blocks, over all lanes, below which a level takes fewer planes per
+# block (two per SM of an H100, about): the fastest chunks of the card's
+# tables at 256³ (16), 64³ (4) and 8 lanes of 64³ (16; chip_smoke.py
+# phase 15a); the flat plan's threads per block.
+TILE_J = 8
+TILE_K = 32
+MAX_CHUNK = 16
+MIN_BLOCKS = 256
+FLAT_THREADS = 256
+
+
+class TilePlan(NamedTuple):
+    """K6's launch plan: ``kind`` 'tiled' or 'flat'; ``tile`` (tj, tk)
+    indices along y and z and ``chunk`` x planes per block (None for
+    'flat'); CUDA ``block`` and ``grid`` dimensions (grid y = lanes) and
+    the dynamic shared-memory bytes."""
+    kind: str
+    tile: tuple
+    chunk: int
+    block: tuple
+    grid: tuple
+    smem: int
+
+
+def tile_smem(tj):
+    """Shared bytes of a tile of ``tj`` rows (csrc/dsres.cu tile_smem):
+    a ring of three edge stages (ex, ey, ez, hi and lo, each (tj+2) ×
+    (TILE_K+2) complex64) and eight face planes of (tj+1) × (TILE_K+1)
+    complex double-single values (16 B)."""
+    return (3 * 6 * (tj + 2) * (TILE_K + 2) * 8
+            + 8 * (tj + 1) * (TILE_K + 1) * 16)
+
+
+def tile_plan(shape, lanes=1, chunk=None):
+    """K6's tiled plan for a level of ``shape`` cells and ``lanes`` lanes.
+
+    A block owns a (tj × 32) tile of y-z indices, tj = min(TILE_J, ny),
+    and marches along x over ``chunk`` planes; the last tile along y (z)
+    also owns index ny (nz) where the tiles end there.  Without a
+    ``chunk``, a block takes MAX_CHUNK planes, or fewer where the level
+    would otherwise launch under MIN_BLOCKS blocks.
+    """
+    nx, ny, nz = shape
+    tj = min(TILE_J, ny)
+    tiles = -(-ny // tj) * -(-nz // TILE_K)
+    if chunk is None:
+        chunk = max(1, min(MAX_CHUNK, nx * tiles * lanes // MIN_BLOCKS))
+    chunks = -(-nx // chunk)
+    return TilePlan('tiled', (tj, TILE_K), chunk, (TILE_K, tj, 1),
+                    (tiles * chunks, lanes, 1), tile_smem(tj))
+
+
+def flat_plan(shape, lanes=1):
+    """The flat plan: one thread per edge, FLAT_THREADS a block."""
+    nx, ny, nz = shape
+    edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
+             + (nx + 1) * (ny + 1) * nz)
+    return TilePlan('flat', None, None, (FLAT_THREADS, 1, 1),
+                    (-(-edges // FLAT_THREADS), lanes, 1), 0)
 
 
 def reset_launches():
@@ -216,11 +279,12 @@ def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def residual(ehi, elo, s, params, out=None):
+def residual(ehi, elo, s, params, out=None, plan=None):
     """``out`` ← s − A·(ehi + elo), folded, by K6 (complex64 CUDA
     tensors, optionally with a leading lane axis; ``elo`` may be None);
     returns ``out`` (new tensors like ``s`` if None).  ``params`` is the
-    level's :func:`ds_params` (η sums with or without the lane axis).
+    level's :func:`ds_params` (η sums with or without the lane axis);
+    ``plan`` the launch plan, :func:`tile_plan` of the level if None.
     The plain version is :func:`residual_ds_plain`; CPU tensors raise.
     """
     if s[0].device.type != 'cuda':
@@ -260,18 +324,25 @@ def residual(ehi, elo, s, params, out=None):
                     f"residual_ds: {name} must be contiguous {dtype} "
                     f"{pre + sh} on {dev}; got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
-    total = sum(a * b * c for a, b, c in edges)
-    blocks = -(-total // THREADS)
+    if plan is None:
+        plan = tile_plan((nx, ny, nz), lanes)
+    if plan.grid[1] != lanes:
+        raise ValueError(f"residual_ds: a plan for {plan.grid[1]} lanes "
+                         f"for fields of {lanes}")
+    tj, tk = plan.tile or (0, 0)
     lo = (None,) * 3 if elo is None else elo
     from ._build import library
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     err = library().emg3d_residual_ds_c64(
         *(_ptr(t) for t in (*out, *ehi, *lo, *s, *st, *w, *ih)),
-        nx, ny, nz, lanes, st_lanes, blocks, THREADS, stream)
+        nx, ny, nz, lanes, st_lanes, int(plan.kind == 'flat'), tj, tk,
+        plan.chunk or 0, plan.grid[0], plan.block[0] * plan.block[1],
+        plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"residual_ds kernel launch failed: cudaError "
-                           f"{err} (level {(nx, ny, nz)}, {lanes} lanes)")
+                           f"{err} (level {(nx, ny, nz)}, {lanes} lanes, "
+                           f"{plan})")
     LAUNCHES['residual_ds'] += 1
     return out
 
