@@ -174,7 +174,26 @@ Phases:
    within TOL_C64_FIELD), and sclr256 with bfloat16 stacks once (its
    peak beside phase 15's); (c) 16³ solves through the kernels and
    ``_mode='plain'``, point, sc+lr, and sc+lr with every stack in
-   bfloat16.
+   bfloat16;
+17. "sharded", ``solve(..., sharding=)`` (``emg3d_tpu_torch.parallel``):
+   (a) world size 1 on NCCL, in this process: bench64 with
+   ``sharding=shard_solve_options(make_mesh(1))`` against phase 4's
+   solve, the same exit and it_mg, fields within TOL_SHARD_WS1; (b)
+   bench64 on 2 ranks, ('z',), and (c) phase 6's tri-axial 64×48×40 on 4
+   ranks, ('y', 'z'), each rank a process (``torch.multiprocessing``,
+   spawn) on this one card, the ranks joined by gloo: gloo moves host
+   tensors, so every halo message is staged through the host (the
+   transport of the backend these cases ask for).  Each rank solves
+   twice (cold, warm) with its counters reset before each solve and read
+   after: K1/K2 launches and colour steps, halo messages; every solve
+   CONVERGED with the unsharded solve's it_mg, the gathered field within
+   TOL_SHARD of it, and each rank's point kernels launched.  The walls
+   of the sharded solves are logged beside a warm unsharded solve of the
+   same problem: ranks that share one card, no target.  Before its
+   solves each rank holds K1 and K2 against their plain versions on its
+   own slabs of the two finest levels (the solve's partition, random e
+   and s, each colour step alone), within TOL_KERNEL.  (NCCL refuses two
+   ranks on one card, so these cases take gloo.)
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -207,11 +226,16 @@ bfloat16 runs count the launches of each kernel's ``_bf16`` instance
 (``launches_bf16``), beside its bfloat16 times (``ms_bf16``,
 ``bound_ms_bf16`` at 64³, ``..._256`` at 256³; ``ms_f32s`` the
 float32-storage instance's in the same turns), ``max_abs_err_bf16`` and
-``checks_bf16``.  The two entries of scripts/hw_bisect_lr128.py
-(K3 and K4 alone at 128³, phase 3b) carry K3's and K4's ``launches``
-of the main path.  Each kernel's ``bound_ms`` is the least time the card could take for the
-timed call (its bytes over 3.35 TB/s or its fp64 operations over 34
-TFLOP/s, whichever is larger), counted from the call's shapes by the
+``checks_bf16``.  Phase 17's sharded solves count K1's and K2's
+launches per solve and rank (``launches_sharded``: the world-size-1
+solve, then per case and rank the cold and the warm solve) and their
+largest max|Δ| against the plain versions on the ranks' slabs
+(``max_abs_err_sharded``).  The two
+entries of scripts/hw_bisect_lr128.py (K3 and K4 alone at 128³, phase
+3b) carry K3's and K4's ``launches`` of the main path.  Each kernel's
+``bound_ms`` is the least time the card could take for the timed call
+(its bytes over 3.35 TB/s or its fp64 operations over 34 TFLOP/s,
+whichever is larger), counted from the call's shapes by the
 ``*_work`` functions below; the residual kernel's is that of the
 colour's own edges (:func:`colour_residual_work`), with the whole
 level's (:func:`residual_work`) beside it as ``bound_ms_full``.  Any
@@ -231,6 +255,14 @@ from pathlib import Path
 import numpy as np
 
 TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
+# Phase 17: a world-size-1 sharded solve against the unsharded one (the
+# same kernels on the same level, launched per colour step), and a solve
+# over several ranks against it (rank boundaries change the summation
+# order of the residual norms only).
+TOL_SHARD_WS1 = 1e-12
+TOL_SHARD = 1e-10
+# Phase 17's multi-rank cases: ranks and mesh axes.
+SHARD_CASES = {'bench64_z2': (2, ('z',)), 'tri64x48x40_yz4': (4, ('y', 'z'))}
 TOL_SOLVE = 1e-9       # relative field difference between two solves
 # Phase 15 (complex64): a kernel's float32 result against the float64
 # evaluation of the same float32 inputs and against its plain version
@@ -3387,6 +3419,208 @@ def phase_bf16_plain(torch):
                                  f"plain differ")
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(('127.0.0.1', 0))
+        return sk.getsockname()[1]
+
+
+def _shard_problem(case):
+    return heterogeneous_problem() if case.startswith('tri') \
+        else bench_problem()
+
+
+def _slab_checks(torch, problem, opts, rank):
+    """K1 and K2 against their plain versions on this rank's slabs of
+    the two finest levels, as the sharded solve cuts them: every colour
+    step alone on random e and s.  Returns one record per level and
+    kernel (max|Δ|, max|Δ|/max|e|)."""
+    from emg3d_tpu_torch import VolumeModel, solver
+    from emg3d_tpu_torch.ops import point_gs
+    grid, model, sfield = problem
+    var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
+                              linerelaxation=False, semicoarsening=False,
+                              shape_cells=tuple(grid.shape_cells))
+    ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
+                               sfield, sfield, var, 'cuda', None,
+                               solver._normalize_sharding(opts))
+    rng = np.random.default_rng(100 + rank)
+    out = []
+    for lvl, lev in enumerate(ctx.levels(int(var.sc_dir))[:2]):
+        if lev.slab is None:
+            continue
+        nx, ny, nz = lev.slab.shape
+        edges = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                 (nx + 1, ny + 1, nz))
+
+        def rand():
+            return lev.slab.cut_field(tuple(
+                torch.tensor(rng.standard_normal(sh)
+                             + 1j * rng.standard_normal(sh))
+                for sh in edges))
+        e0 = tuple(t.cuda() for t in rand())
+        s = tuple(t.cuda() for t in rand())
+        for mode in POINT_MODES:
+            state = point_gs.point_state(lev.arrays, lev.shape,
+                                         factored=mode == 'factored')
+            errs = []
+            for c in range(8):
+                ek = tuple(t.clone() for t in e0)
+                ep = tuple(t.clone() for t in e0)
+                point_gs.gauss_seidel_point(ek, s, state, 1, _mode=mode,
+                                            _seq=[c])
+                point_gs.gauss_seidel_point_plain(ep, s, state, 1,
+                                                  _mode=mode, _seq=[c])
+                errs.append((_maxdiff(ek, ep), _maxabs(ep)))
+            torch.cuda.synchronize()
+            out.append({'level': lvl, 'slab': list(lev.shape),
+                        'kernel': mode,
+                        'solve_kernel': point_gs.point_kernel(lev.shape,
+                                                              'cuda'),
+                        'max_abs_err': max(a for a, _ in errs),
+                        'rel': max(a / m for a, m in errs)})
+    return out
+
+
+def _shard_rank(rank, world, port, case, out_dir):
+    """One rank of a phase 17 case: a process on card 0, gloo between the
+    ranks; solves twice and writes its counts (and rank 0 the field)
+    into ``out_dir``."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from emg3d_tpu_torch import parallel
+    from emg3d_tpu_torch.ops import point_gs
+    from emg3d_tpu_torch.parallel import distributed, halo
+    torch.cuda.set_device(0)
+    distributed.init(f'127.0.0.1:{port}', world, rank, backend='gloo')
+    try:
+        problem = _shard_problem(case)
+        opts = parallel.shard_solve_options(
+            parallel.make_mesh(axes=SHARD_CASES[case][1]))
+        checks = _slab_checks(torch, problem, opts, rank)
+        runs = []
+        for _ in range(2):
+            point_gs.reset_launches()
+            halo.reset_sends()
+            e, info, wall = _solve(torch, *problem, sharding=opts)
+            runs.append({'wall': wall, 'it_mg': info['it_mg'],
+                         'exit': info['exit_message'],
+                         'launches': dict(point_gs.LAUNCHES),
+                         'steps': dict(point_gs.STEPS),
+                         'sends': dict(halo.SENDS)})
+        out = Path(out_dir)
+        if rank == 0:
+            np.savez(out / f'{case}.npz', fx=e.fx, fy=e.fy, fz=e.fz)
+        (out / f'{case}_rank{rank}.json').write_text(
+            json.dumps({'runs': runs, 'checks': checks}))
+    finally:
+        distributed.shutdown()
+
+
+def phase_sharded(torch, e4, info4, out_dir):
+    """Phase 17 (see the module docstring).  Returns K1's and K2's
+    ``launches_sharded`` and their largest max|Δ| on the ranks' slabs."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from emg3d_tpu_torch import Field, parallel
+    from emg3d_tpu_torch.ops import point_gs
+    from emg3d_tpu_torch.parallel import distributed, halo
+    counts = {k: {} for k in POINT_MODES}
+    errs = {k: 0.0 for k in POINT_MODES}
+    grid, model, sfield = bench_problem()
+
+    distributed.init(f'127.0.0.1:{_free_port()}', 1, 0)
+    try:
+        log(f"world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}")
+        opts = parallel.shard_solve_options(parallel.make_mesh(1))
+        walls = []
+        for run in ('cold', 'warm'):
+            point_gs.reset_launches()
+            halo.reset_sends()
+            e1, info1, wall1 = _solve(torch, grid, model, sfield,
+                                      sharding=opts)
+            walls.append(wall1)
+            rel = _rel(e1, e4)
+            log(f"bench64, world size 1, NCCL, {run}: it_mg "
+                f"{info1['it_mg']}, wall {wall1:.3f} s, |Δ|/|e| vs phase 4 "
+                f"{rel:.3e}, launches {dict(point_gs.LAUNCHES)}, colour "
+                f"steps {dict(point_gs.STEPS)}, halo messages "
+                f"{dict(halo.SENDS)}")
+            if info1['it_mg'] != info4['it_mg'] or not rel <= TOL_SHARD_WS1:
+                raise AssertionError("the world-size-1 sharded solve "
+                                     "differs from phase 4's")
+            if min(point_gs.LAUNCHES.values()) == 0:
+                raise AssertionError("the world-size-1 sharded solve did not "
+                                     f"launch both point kernels: "
+                                     f"{dict(point_gs.LAUNCHES)}")
+        for k in POINT_MODES:
+            counts[k]['bench64_ws1_nccl'] = point_gs.LAUNCHES[k]
+        del e1
+    finally:
+        distributed.shutdown()
+
+    # The unsharded solves of the same problems, warm, for the walls.
+    refs = {}
+    for case in SHARD_CASES:
+        _solve(torch, *_shard_problem(case))
+        refs[case] = _solve(torch, *_shard_problem(case))
+    log(f"unsharded, warm: bench64 {refs['bench64_z2'][2]:.3f} s, "
+        f"world size 1 sharded {walls[1]:.3f} s ({nvidia_smi()})")
+
+    for case, (n, axes) in SHARD_CASES.items():
+        t0 = time.perf_counter()
+        mp.start_processes(_shard_rank, args=(n, _free_port(), case,
+                                              str(out_dir)),
+                           nprocs=n, start_method='spawn')
+        job = time.perf_counter() - t0
+        ref, iref, wref = refs[case]
+        f = np.load(out_dir / f'{case}.npz')
+        rel = _rel(Field(f['fx'], f['fy'], f['fz']), ref)
+        recs = [json.loads((out_dir / f'{case}_rank{r}.json').read_text())
+                for r in range(n)]
+        ranks = [rec['runs'] for rec in recs]
+        for r, rec in enumerate(recs):
+            for chk in rec['checks']:
+                log(f"{case} rank {r}, level {chk['level']} slab "
+                    f"{'x'.join(map(str, chk['slab']))} (the solve runs "
+                    f"{KERNELS[chk['solve_kernel']]['name']}): "
+                    f"{KERNELS[chk['kernel']]['name']} vs plain, each "
+                    f"colour step alone, max|Δ| {chk['max_abs_err']:.3e}, "
+                    f"max|Δ|/max|e| {chk['rel']:.3e}")
+                if not chk['rel'] <= TOL_KERNEL:
+                    raise AssertionError(
+                        f"{case} rank {r}: {chk['kernel']} on the level "
+                        f"{chk['level']} slab differs from plain")
+                errs[chk['kernel']] = max(errs[chk['kernel']],
+                                          chk['max_abs_err'])
+        for r, runs in enumerate(ranks):
+            for run, rec in zip(('cold', 'warm'), runs):
+                log(f"{case} ({axes}, gloo), rank {r}, {run}: "
+                    f"{rec['exit']}, it_mg {rec['it_mg']}, wall "
+                    f"{rec['wall']:.3f} s, launches {rec['launches']}, "
+                    f"colour steps {rec['steps']}, halo messages "
+                    f"{rec['sends']}")
+                if rec['it_mg'] != iref['it_mg']:
+                    raise AssertionError(f"{case}: it_mg {rec['it_mg']}, "
+                                         f"unsharded {iref['it_mg']}")
+                if sum(rec['launches'].values()) == 0:
+                    raise AssertionError(f"{case}: rank {r} launched no "
+                                         "point kernel")
+        log(f"{case}: |Δ|/|e| vs the unsharded solve {rel:.3e}; warm walls "
+            f"per rank {[runs[1]['wall'] for runs in ranks]} s beside the "
+            f"unsharded {wref:.3f} s; the job (spawn, init, two solves) "
+            f"{job:.2f} s ({nvidia_smi()}; ranks sharing one card)")
+        if not rel <= TOL_SHARD:
+            raise AssertionError(f"{case}: the sharded field differs")
+        for k in POINT_MODES:
+            counts[k][case + '_gloo'] = [[runs[0]['launches'][k],
+                                          runs[1]['launches'][k]]
+                                         for runs in ranks]
+    return counts, errs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3546,6 +3780,10 @@ def main():
         bf16_launches, peak_bf16 = phase_bf16_path(torch, e4, e_sclr,
                                                    peak_c64)
         phase_bf16_plain(torch)
+    with Phase('17 sharded: world size 1 (NCCL), bench64 on 2 ranks, '
+               'tri64x48x40 on 2×2 (gloo)'):
+        sharded_launches, sharded_errs = phase_sharded(torch, e4, info4,
+                                                       out_dir)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -3564,6 +3802,8 @@ def main():
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
+            entry['launches_sharded'] = sharded_launches[key]
+            entry['max_abs_err_sharded'] = sharded_errs[key]
         entry['launches_c64'] = c64_launches[key]
         entry['max_abs_err_c64'] = r['max_abs_err_c64']
         entry['checks_c64'] = r['checks_c64']

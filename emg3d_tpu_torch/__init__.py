@@ -18,7 +18,12 @@ together, plain multigrid, BiCGSTAB or CGS); ``Simulation`` over a
 solve (:mod:`.diff`, a ``torch.autograd.Function``).  Every entry point
 runs on CUDA unless it is given ``device='cpu'`` (``Simulation``:
 ``solver_opts={'device': 'cpu'}``; the CLI: ``device = cpu`` in
-``[solver_opts]``).  Multi-GPU solves (``parallel``) are not ported.
+``[solver_opts]``).  Multi-GPU solves (:mod:`.parallel`) run SPMD over
+processes on ``torch.distributed``, one rank per GPU:
+``solve(..., sharding=parallel.shard_solve_options(mesh))`` with the
+point smoother, the levels split into y/z slabs with halo exchanges
+(line relaxation, semicoarsening, Krylov and complex64 with
+``sharding=`` are still to port).
 """
 __version__ = '0.1.0'
 
@@ -32,7 +37,7 @@ from .surveys import Survey, Dipole, PointDipole
 from .simulations import Simulation, expand_grid_model
 from .utils import EMArray, Report
 from .time import Fourier
-from . import diff, io, optimize, time
+from . import diff, io, optimize, parallel, time
 
 __all__ = [
     'TensorMesh', 'construct_mesh', 'good_mg_cell_nr', 'skin_depth',

@@ -131,7 +131,11 @@ class Field:
         fy[:, :, [0, -1]] = 0
         fz[[0, -1], :, :] = 0
         fz[:, [0, -1], :] = 0
-        return Field(fx, fy, fz, frequency=self._frequency)
+        # The field's own class, as the JAX package's apply_pec builds it
+        # (a SourceField stays a SourceField).
+        out = type(self).__new__(type(self))
+        Field.__init__(out, fx, fy, fz, frequency=self._frequency)
+        return out
 
     def astype(self, dtype):
         return Field(self.fx.astype(dtype), self.fy.astype(dtype),

@@ -135,6 +135,9 @@ def _serialize(value):
     if isinstance(value, dict):
         return {str(k): _serialize(v) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
+        # Raises for arrays of equal leading and unequal trailing shapes,
+        # as the JAX package does.
+        np.asarray(value, dtype=object)
         try:
             return np.asarray(value)
         except (ValueError, TypeError):

@@ -147,14 +147,11 @@ def _interleave_nodes(c, a, axis):
     return torch.cat([merged, c[_sl(nd, axis, slice(-1, None))]], dim=axis)
 
 
-def prolongate(ex, ey, ez, cex, cey, cez, pweights, coarsen):
-    """Add the interpolated coarse correction to the fine field.
+def interpolate(cex, cey, cez, pweights, coarsen):
+    """The coarse correction interpolated to the fine edges.
 
     pweights : per-direction odd-node weights (from prolong_weights_1d)
     coarsen : which directions were coarsened.
-
-    PEC is NOT re-applied here (caller's job, matching the reference's
-    efield.ensure_pec after prolongation).
     """
     def up(c, field_dir, axis):
         if not coarsen[axis]:
@@ -163,10 +160,19 @@ def prolongate(ex, ey, ez, cex, cey, cez, pweights, coarsen):
             return torch.repeat_interleave(c, 2, dim=axis + c.ndim - 3)
         return _interleave_nodes(c, pweights[axis], axis + c.ndim - 3)
 
-    ex = ex + up(up(up(cex, 0, 2), 0, 1), 0, 0)
-    ey = ey + up(up(up(cey, 1, 2), 1, 0), 1, 1)
-    ez = ez + up(up(up(cez, 2, 1), 2, 0), 2, 2)
-    return ex, ey, ez
+    return (up(up(up(cex, 0, 2), 0, 1), 0, 0),
+            up(up(up(cey, 1, 2), 1, 0), 1, 1),
+            up(up(up(cez, 2, 1), 2, 0), 2, 2))
+
+
+def prolongate(ex, ey, ez, cex, cey, cez, pweights, coarsen):
+    """Add the interpolated coarse correction to the fine field.
+
+    PEC is NOT re-applied here (caller's job, matching the reference's
+    efield.ensure_pec after prolongation).
+    """
+    ix, iy, iz = interpolate(cex, cey, cez, pweights, coarsen)
+    return ex + ix, ey + iy, ez + iz
 
 
 def restrict_model_parameter(param, coarsen):

@@ -57,6 +57,7 @@ import torch
 from . import fields, models, utils
 from .dtypes import BF16, COMPLEX, REAL_OF, precision
 from .ops import dsres, line_gs, point_gs, stencil, transfers
+from .parallel import halo
 
 __all__ = ['solve', 'solve_batched', 'multigrid', 'krylov', 'MGParameters']
 
@@ -366,7 +367,7 @@ class _Level:
 
     __slots__ = ('shape', 'arrays', 'coarsen', 'rweights', 'pweights',
                  'nodes', 'h_np', 'pstate', 'lstate', 'meter', 'lanes',
-                 'bf16')
+                 'bf16', 'slab')
 
     def __init__(self, shape, arrays, h_np, nodes, meter, lanes=None):
         self.shape = shape          # cell shape
@@ -381,6 +382,9 @@ class _Level:
         self.meter = meter          # cached factor bytes, solve-wide
         self.lanes = lanes          # a batched solve's Lanes, or None
         self.bf16 = False           # the solve may store in bfloat16
+        # A sharded level's parallel.halo.Slab (shape and arrays are then
+        # this rank's slab), or None.
+        self.slab = None
 
 
 class Lanes:
@@ -608,6 +612,9 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
     lr = _current_lr_dir(lr_dir, lev.shape)
     if lr == 0:
         state = _level_state(lev, mode, storage)
+        if lev.slab is not None:
+            return halo.gauss_seidel_point_sharded(
+                e, s, state, nu, lev.slab, plain=mode == 'plain')
         gs = point_gs.gauss_seidel_point_plain if mode == 'plain' \
             else point_gs.gauss_seidel_point
         if lev.lanes is None:
@@ -626,6 +633,37 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
 
 def _residual_e(e, s, arrays):
     return stencil.residual_parts(*s, *e, *arrays)
+
+
+def _restrict(r, lev, clev):
+    """The coarse level's source from the residual ``r`` of ``lev``:
+    restricted, PEC applied; on a sharded level across its ranks."""
+    if lev.slab is not None:
+        return halo.restrict(r, lev, clev)
+    rc = transfers.restrict(*r, lev.rweights, lev.coarsen)
+    return stencil.pec_mask_apply(*rc)
+
+
+def _prolongate(e, ec, lev, clev):
+    """``e`` plus the coarse correction ``ec``, PEC applied."""
+    if lev.slab is not None:
+        return halo.prolongate(e, ec, lev, clev)
+    e = transfers.prolongate(*e, *ec, lev.pweights, lev.coarsen)
+    return stencil.pec_mask_apply(*e)
+
+
+def _level_norm(e, s, lev):
+    """‖s − A e‖₂ on a level, summed across the ranks where it is
+    sharded."""
+    if lev.slab is not None:
+        return halo.residual_norm(e, s, lev)
+    return residual_norm(e, s, lev.arrays)
+
+
+def _level_shape(lev):
+    """A level's global cell shape (a sharded level's ``shape`` is its
+    slab's)."""
+    return lev.shape if lev.slab is None else lev.slab.shape
 
 
 def _edge_shapes(shape):
@@ -654,8 +692,8 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
     def report(it_, cycmax_, tag):
         if dbg is not None:
-            nrm = residual_norm(e, s, lev.arrays)
-            dbg.cprint(_gs_info(it_, lvl, cycmax_, lev.shape, nrm)
+            nrm = _level_norm(e, s, lev)
+            dbg.cprint(_gs_info(it_, lvl, cycmax_, _level_shape(lev), nrm)
                        + tag, 4)
 
     if lvl == len(levels) - 1:
@@ -675,9 +713,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
         if nu_pre > 0:
             report(it, cycmax_here, "pre-smoothing")
 
-        r = _residual_e(e, s, lev.arrays)
-        rc = transfers.restrict(*r, lev.rweights, lev.coarsen)
-        rc = stencil.pec_mask_apply(*rc)
+        rc = _restrict(_residual_e(e, s, lev.arrays), lev, levels[lvl + 1])
         lead = tuple(e[0].shape[:-3])        # the lanes of a batched solve
         ec = tuple(torch.zeros(lead + sh, dtype=e[0].dtype,
                                device=e[0].device)
@@ -687,8 +723,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
                      2 if cycle in ['F', 'W'] else 1,
                      cycmax_here - it, conf, mode, dbg, storage)
 
-        e = transfers.prolongate(*e, *ec, lev.pweights, lev.coarsen)
-        e = stencil.pec_mask_apply(*e)
+        e = _prolongate(e, ec, lev, levels[lvl + 1])
 
         e = _smooth(e, s, lev, nu_post, lr_dir, mode, storage)
         if nu_post > 0:
@@ -707,8 +742,8 @@ def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None,
     if nu_init > 0:
         e = _smooth(e, s, levels[0], nu_init, conf[4], mode, storage)
         if dbg is not None:
-            nrm = residual_norm(e, s, levels[0].arrays)
-            dbg.cprint(_gs_info(0, 0, 1, levels[0].shape, nrm)
+            nrm = _level_norm(e, s, levels[0])
+            dbg.cprint(_gs_info(0, 0, 1, _level_shape(levels[0]), nrm)
                        + "initial smoothing", 4)
     return _mg_rec(e, s, levels, 0, 2 if conf[3] in ['F', 'W'] else 1, 0,
                    conf, mode, dbg, storage)
@@ -747,28 +782,42 @@ class _SolveContext:
     ``e_lo`` is the two-float lo stream of the solution once it is live
     (complex64 solves), else None.  ``storage`` is the reduced storage
     the solve may use (BF16 for a complex64 single solve where
-    :data:`BF16_STORAGE` allows it, else None).
+    :data:`BF16_STORAGE` allows it, else None).  ``sharding`` (the
+    normalized option, or None) distributes the levels
+    (:func:`.parallel.halo.shard_levels`); ``s`` and ``e`` are then this
+    rank's slabs of the finest level.
     """
 
-    def __init__(self, grid, vmodel, sfield, efield, var, device, mode):
+    def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
+                 sharding=None):
         self.grid = grid
         self.vmodel = vmodel
         self.var = var
         self.device = device
         self.mode = mode
+        self.sharding = sharding
         self.dtype = precision(np.asarray(sfield.fx).dtype)[1]
-        self.s = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
-                                    device=device)
-                       for f in (sfield.fx, sfield.fy, sfield.fz))
-        self.e = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
-                                    device=device)
-                       for f in (efield.fx, efield.fy, efield.fz))
-        self.e_lo = None
         self._levels = {}
         self._ds_params = None
         self.meter = {'bytes': 0}
         self.lanes = None
+        self.e_lo = None
         self.storage = _storage(self.dtype, torch.device(device))
+
+        def put(fld):
+            comps = (fld.fx, fld.fy, fld.fz)
+            if sharding is None:
+                return tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
+                                          device=device) for f in comps)
+            # Each rank keeps its slab of the finest level.
+            comps = tuple(torch.tensor(np.asarray(f), dtype=self.dtype)
+                          for f in comps)
+            fine = self.levels(int(var.sc_dir))[0]
+            if fine.slab is not None:
+                comps = fine.slab.cut_field(comps)
+            return tuple(c.to(device) for c in comps)
+        self.s = put(sfield)
+        self.e = put(efield)
 
     @classmethod
     def batched(cls, grid, vmodel, s, var, device, mode, lanes):
@@ -777,6 +826,7 @@ class _SolveContext:
         ctx = cls.__new__(cls)
         ctx.grid, ctx.vmodel, ctx.var = grid, vmodel, var
         ctx.device, ctx.mode, ctx.lanes = device, mode, lanes
+        ctx.sharding = None
         ctx.dtype = s[0].dtype
         ctx.s = s
         ctx.e = tuple(torch.zeros_like(c) for c in s)
@@ -786,6 +836,14 @@ class _SolveContext:
         ctx.meter = {'bytes': 0}
         ctx.storage = None          # batched solves store in their precision
         return ctx
+
+    def field(self):
+        """The solution's tensors on this rank, whole (a sharded solve
+        gathers its finest slabs on every rank)."""
+        fine = self.levels(int(self.var.sc_dir))[0]
+        if fine.slab is None:
+            return self.e
+        return fine.slab.gather(self.e)
 
     def residual_ds(self, ehi, elo, s):
         """s − A·(ehi + elo) on the finest level in double-single
@@ -802,9 +860,18 @@ class _SolveContext:
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
             clevel = int(self.var.clevel[int(sc_dir)])
-            levels = build_levels(self.grid, self.vmodel, int(sc_dir),
-                                  clevel, self.device, self.meter,
-                                  self.lanes, self.dtype)
+            if self.sharding is None:
+                levels = build_levels(self.grid, self.vmodel, int(sc_dir),
+                                      clevel, self.device, self.meter,
+                                      self.lanes, self.dtype)
+            else:
+                # Built on the host, then each rank keeps its slabs of the
+                # sharded levels and the replicated levels whole.
+                levels = halo.shard_levels(
+                    build_levels(self.grid, self.vmodel, int(sc_dir),
+                                 clevel, 'cpu', self.meter, dtype=self.dtype),
+                    self.sharding['mesh'],
+                    self.sharding.get('min_local_planes', 4), self.device)
             for lev in levels:
                 lev.bf16 = self.storage is not None
             if self._levels:
@@ -848,7 +915,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
     if standalone:
         e, s = ctx.e, ctx.s
     fine = ctx.levels(int(var.sc_dir))[0]
-    l2_last = residual_norm(e, s, fine.arrays)
+    l2_last = _level_norm(e, s, fine)
     l2_prev = None
     l2_stag = np.ones(var._maxcycle) * l2_last
     # As a Krylov preconditioner the rhs is a Krylov vector, not the
@@ -859,7 +926,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
     if dbg is not None:
         var.cprint("     it cycmax               error", 4)
         var.cprint("      level [  dimension  ]            info\n", 4)
-        var.cprint(_gs_info(0, 0, var.cycmax, fine.shape, l2_last)
+        var.cprint(_gs_info(0, 0, var.cycmax, _level_shape(fine), l2_last)
                    + "initial error", 4)
 
     it = 0
@@ -893,7 +960,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
         else:
             e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
                               mode=ctx.mode, dbg=dbg)
-            l2 = residual_norm(e, s, levels[0].arrays)
+            l2 = _level_norm(e, s, levels[0])
 
         # Advance sc/lr schedules (per top-level cycle).
         if var.sc_cycle:
@@ -1562,7 +1629,15 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     kwargs : tol, maxit, nu_init, nu_pre, nu_coarse, nu_post, clevel,
         return_info, log; ``profile=dir`` traces the solve with
         ``torch.profiler`` into ``dir`` (a TensorBoard/Chrome trace);
-        ``sharding`` is refused (multi-GPU is a later slice).
+        ``sharding``: a ``DeviceMesh`` of the process group's ranks, or
+        :func:`.parallel.shard_solve_options` of one, runs the solve on
+        y/z slabs across the ranks (:mod:`.parallel.halo`).  Every rank
+        calls ``solve`` with the same arguments; each returns the whole
+        field.  A level is distributed while each rank keeps
+        ``min_local_planes`` cells along every sharded axis; the coarser
+        ones run whole on every rank.  Point smoothing, multigrid alone
+        and complex128 only for now (the rest raises
+        ``NotImplementedError``).
 
     Returns
     -------
@@ -1571,11 +1646,11 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     """
     device = _resolve_device(device)
     mode = _pop_mode(kwargs)
-    if kwargs.pop('sharding', None) is not None:
-        raise NotImplementedError(
-            "solve(..., sharding=) is not ported to emg3d_tpu_torch yet: "
-            "multi-GPU solves come with the parallel/ slice of the port "
-            "(ROADMAP queue 1, item 6).")
+    sharding = kwargs.pop('sharding', None)
+    if sharding is not None:
+        _check_sharding(semicoarsening, linerelaxation, sslsolver,
+                        np.asarray(sfield.fx).dtype)
+        sharding = _normalize_sharding(sharding)
     profile = kwargs.pop('profile', None)
     # Prebuilt volume parameters η/ζ (the differentiable solve passes
     # them; ``model`` is then unused and may be None).
@@ -1605,9 +1680,9 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         var.do_return = False
         # Warm start: if converged already, return immediately.
         ctx0 = _SolveContext(grid, vmodel, sfield, efield, var, device,
-                             mode)
+                             mode, sharding)
         fine = ctx0.levels(int(var.sc_dir))[0]
-        l2 = residual_norm(ctx0.e, ctx0.s, fine.arrays)
+        l2 = _level_norm(ctx0.e, ctx0.s, fine)
         if l2 < var.tol * var.l2_refe and not var.sslsolver:
             var.exit_message = "CONVERGED"
             var.cprint("   > NOTHING DONE (provided efield already "
@@ -1634,7 +1709,8 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
             return z, _info_dict(var)
         return z
 
-    ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode)
+    ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode,
+                        sharding)
     # krylov() catches _ConvergenceError itself, and standalone multigrid
     # never raises it.
     with _profiler(profile, device):
@@ -1652,7 +1728,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         var.cprint(f"\n:: emg3d_tpu_torch END   :: {var.time.now} :: "
                    f"runtime = {var.time.runtime}\n", 2)
 
-    comps = [t.cpu().numpy() for t in ctx.e]
+    comps = [t.cpu().numpy() for t in ctx.field()]
     if ctx.e_lo is not None:
         # Collapse the two-float solution on the host (exact in f64),
         # as the JAX package returns it: complex128.
@@ -1684,6 +1760,38 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     if var.return_info:
         return out, _info_dict(var)
     return out
+
+
+def _normalize_sharding(sharding):
+    """The ``sharding`` option as a dict (``emg3d_tpu/solver.py:1395``):
+    a mesh alone takes the default ``min_local_planes``."""
+    if not isinstance(sharding, dict):
+        sharding = {'mesh': sharding}
+    mesh = sharding.get('mesh')
+    import torch.distributed as dist
+    if mesh is None or not dist.is_initialized() or \
+            mesh.mesh.numel() != dist.get_world_size():
+        raise ValueError("sharding: a DeviceMesh over every rank of the "
+                         "initialized process group "
+                         "(emg3d_tpu_torch.parallel.make_mesh)")
+    return sharding
+
+
+def _check_sharding(semicoarsening, linerelaxation, sslsolver, dtype):
+    """Refuse what the sharded solve does not run yet, naming the
+    ROADMAP item that ports it."""
+    what = ('linerelaxation' if linerelaxation else
+            'semicoarsening' if semicoarsening else
+            'sslsolver' if sslsolver else
+            'a complex64 source' if precision(dtype)[1] != COMPLEX else
+            None)
+    if what is None:
+        return
+    item = '1c (the halo line smoother)' if what == 'linerelaxation' \
+        else '1d (the sharded solve\'s remaining options)'
+    raise NotImplementedError(
+        f"solve(..., sharding=) with {what} is not ported to "
+        f"emg3d_tpu_torch yet (ROADMAP queue 1, item {item}).")
 
 
 def _pop_mode(kwargs):
@@ -1761,6 +1869,11 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
         raise ValueError("Provide at least one source field.")
     device = _resolve_device(device)
     mode = _pop_mode(kwargs)
+    if kwargs.pop('sharding', None) is not None:
+        raise NotImplementedError(
+            "solve_batched(..., sharding=) is not ported to emg3d_tpu_torch "
+            "yet (ROADMAP queue 1, item 1d (the sharded solve's remaining "
+            "options)).")
     sslsolver = kwargs.pop('sslsolver', False)
     var = MGParameters(
         verb=verb, cycle=cycle, sslsolver=sslsolver,

@@ -155,6 +155,10 @@ def test_field_host_methods():
     np.testing.assert_array_equal(fp.field, fj.field)
     for a, b in zip(fp.ensure_pec().field, fj.ensure_pec().field):
         assert a == b
+    sj = jt.SourceField(*comps, frequency=2.0).ensure_pec()
+    sp = pt.SourceField(*comps, frequency=2.0).ensure_pec()
+    assert type(sp) is pt.SourceField and type(sj) is jt.SourceField
+    np.testing.assert_array_equal(sp.field, sj.field)
     assert fp.norm() == float(fj.norm())
     assert fp.smu0 == fj.smu0
     back = pt.Field.from_flat(grid_p, fj.field, frequency=2.0)

@@ -28,6 +28,7 @@ def test_import_without_jax():
         "import emg3d_tpu_torch.__main__\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
         "smoothers, probes, dsres\n"
+        "from emg3d_tpu_torch.parallel import distributed, halo, sharding\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
@@ -47,7 +48,9 @@ def test_no_module_imports_jax_or_emg3d_tpu():
     names = {f.relative_to(REPO).as_posix() for f in files}
     for mod in ('diff.py', 'io.py', 'time.py', '__main__.py',
                 'cli/__init__.py', 'cli/main.py', 'cli/parser.py',
-                'cli/run.py', 'ops/probes.py', 'ops/dsres.py'):
+                'cli/run.py', 'ops/probes.py', 'ops/dsres.py',
+                'parallel/__init__.py', 'parallel/distributed.py',
+                'parallel/sharding.py', 'parallel/halo.py'):
         assert f'emg3d_tpu_torch/{mod}' in names, mod
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -69,14 +72,36 @@ def test_default_device_raises_without_cuda(monkeypatch):
         pt.solve(grid, model, sfield, verb=0, device='cuda')
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """Options of modules still to port name their slice; sslsolver
     'gcrotmk' is ported and solves.  (Files, once refused here, are
-    ported: tests/test_torch_io.py.)"""
+    ported: tests/test_torch_io.py; ``sharding=`` with point smoothing
+    solves: tests/test_torch_parallel.py.)  A sharded solve with line
+    relaxation, semicoarsening, a Krylov solver, a complex64 source or a
+    batch names its ROADMAP item, here on a one-rank gloo group."""
+    import torch.distributed as dist
+    from emg3d_tpu_torch import parallel
     grid, model, sfield = _tiny_problem()
-    with pytest.raises(NotImplementedError, match='parallel/.*item 6'):
-        pt.solve(grid, model, sfield, verb=0, device='cpu',
-                 sharding={'mesh': None})
+    dist.init_process_group('gloo', init_method=f'file://{tmp_path}/pg',
+                            world_size=1, rank=0)
+    try:
+        opts = parallel.shard_solve_options(parallel.make_mesh(1))
+        for kw, item in (({'linerelaxation': True}, '1c'),
+                         ({'semicoarsening': True}, '1d'),
+                         ({'sslsolver': True}, '1d')):
+            with pytest.raises(NotImplementedError, match=f'item {item}'):
+                pt.solve(grid, model, sfield, verb=0, device='cpu',
+                         sharding=opts, **kw)
+        s64 = pt.SourceField(*(f.astype(np.complex64) for f in
+                               (sfield.fx, sfield.fy, sfield.fz)),
+                             frequency=1.0)
+        with pytest.raises(NotImplementedError, match='complex64.*item 1d'):
+            pt.solve(grid, model, s64, verb=0, device='cpu', sharding=opts)
+        with pytest.raises(NotImplementedError, match='item 1d'):
+            pt.solve_batched(grid, model, [sfield], verb=0, device='cpu',
+                             sharding=opts)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
     _, info = pt.solve(grid, model, sfield, verb=0, device='cpu',

@@ -146,3 +146,13 @@ def test_unknown_extension(tmp_path):
         assert io.load(fname + '.h5')['mesh'] == grid
     with pytest.raises(TypeError, match='Unexpected'):
         io.load(fname + '.h5', bogus=1)
+
+
+@pytest.mark.parametrize('ext', ['npz', 'json'])
+def test_ragged_list_raises(tmp_path, ext):
+    """A list of arrays with equal leading and unequal trailing shapes is
+    refused by both packages (neither writes it as ``#i`` groups)."""
+    value = {'a': [np.zeros((2, 3)), np.zeros((2, 4))]}
+    for pkg in (jt, pt):
+        with pytest.raises(ValueError):
+            pkg.io.save(str(tmp_path / f'ragged.{ext}'), data=value)
