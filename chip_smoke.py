@@ -178,22 +178,33 @@ Phases:
 17. "sharded", ``solve(..., sharding=)`` (``emg3d_tpu_torch.parallel``):
    (a) world size 1 on NCCL, in this process: bench64 with
    ``sharding=shard_solve_options(make_mesh(1))`` against phase 4's
-   solve, the same exit and it_mg, fields within TOL_SHARD_WS1; (b)
-   bench64 on 2 ranks, ('z',), and (c) phase 6's tri-axial 64×48×40 on 4
-   ranks, ('y', 'z'), each rank a process (``torch.multiprocessing``,
-   spawn) on this one card, the ranks joined by gloo: gloo moves host
-   tensors, so every halo message is staged through the host (the
-   transport of the backend these cases ask for).  Each rank solves
-   twice (cold, warm) with its counters reset before each solve and read
-   after: K1/K2 launches and colour steps, halo messages; every solve
-   CONVERGED with the unsharded solve's it_mg, the gathered field within
-   TOL_SHARD of it, and each rank's point kernels launched.  The walls
-   of the sharded solves are logged beside a warm unsharded solve of the
-   same problem: ranks that share one card, no target.  Before its
-   solves each rank holds K1 and K2 against their plain versions on its
-   own slabs of the two finest levels (the solve's partition, random e
-   and s, each colour step alone), within TOL_KERNEL.  (NCCL refuses two
-   ranks on one card, so these cases take gloo.)
+   solve, the same exit and it_mg, fields within TOL_SHARD_WS1, and
+   sclr64 standalone and BiCGSTAB against phase 7's, the same it_mg
+   and it_ssl, fields within TOL_SHARD_WS1_SCLR (every line within the
+   one rank: bitwise in practice; BiCGSTAB's norms and inner products
+   are all_reduces of CUDA tensors through NCCL); (b) a job of 2
+   ranks, ('z',), on bench64: the point solve, sclr64 standalone and
+   sclr64 BiCGSTAB (z-lines through the
+   Schur-complement smoother, ``parallel.lines``), and (c) a job of 4
+   ranks, ('y', 'z'), on phase 6's tri-axial 64×48×40: the point solve
+   and sc+lr (y- and z-lines Schur); each rank a process
+   (``torch.multiprocessing``, spawn) on this one card, the ranks joined
+   by gloo: gloo moves host tensors, so every message is staged through
+   the host (the transport of the backend these cases ask for).  Each
+   rank solves each case twice (cold, warm) with its counters reset
+   before each solve and read after: K1-K5 launches, colour steps,
+   messages, gathered levels; every solve CONVERGED with the unsharded
+   solve's it_mg and it_ssl, the gathered field within TOL_SHARD of it,
+   and each rank's point kernels (point cases) or K3, K4 and K5 (sc+lr)
+   launched.  The walls of the sharded solves are logged beside a warm
+   unsharded solve of the same problem: ranks that share one card, no
+   target.  Before its solves each rank holds K1 and K2 against their
+   plain versions on its own slabs of the two finest levels (the
+   solve's partition, random e and s, each colour step alone), and K3,
+   K4 and K5 on the same slabs for lines along each axis: within the
+   rank, or the Schur smoother's interior segment (K5 and K4 with
+   ``stations``), within TOL_KERNEL.  (NCCL refuses two ranks on one
+   card, so these cases take gloo.)
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -226,11 +237,12 @@ bfloat16 runs count the launches of each kernel's ``_bf16`` instance
 (``launches_bf16``), beside its bfloat16 times (``ms_bf16``,
 ``bound_ms_bf16`` at 64³, ``..._256`` at 256³; ``ms_f32s`` the
 float32-storage instance's in the same turns), ``max_abs_err_bf16`` and
-``checks_bf16``.  Phase 17's sharded solves count K1's and K2's
-launches per solve and rank (``launches_sharded``: the world-size-1
-solve, then per case and rank the cold and the warm solve) and their
-largest max|Δ| against the plain versions on the ranks' slabs
-(``max_abs_err_sharded``).  The two
+``checks_bf16``.  Phase 17's sharded solves count each kernel's
+launches per solve and rank (``launches_sharded``: K1/K2 in the
+world-size-1 bench64 solve and per point case, K3-K5 in the
+world-size-1 sclr64 solve and per sc+lr case, each case per rank the
+cold and the warm solve) and their largest max|Δ| against the plain
+versions on the ranks' slabs (``max_abs_err_sharded``).  The two
 entries of scripts/hw_bisect_lr128.py (K3 and K4 alone at 128³, phase
 3b) carry K3's and K4's ``launches`` of the main path.  Each kernel's
 ``bound_ms`` is the least time the card could take for the timed call
@@ -261,8 +273,10 @@ TOL_KERNEL = 1e-12     # max|Δ| / max|e|, kernel vs plain, one card
 # order of the residual norms only).
 TOL_SHARD_WS1 = 1e-12
 TOL_SHARD = 1e-10
-# Phase 17's multi-rank cases: ranks and mesh axes.
-SHARD_CASES = {'bench64_z2': (2, ('z',)), 'tri64x48x40_yz4': (4, ('y', 'z'))}
+# Phase 17's world-size-1 sclr64 (standalone and BiCGSTAB) against phase
+# 7's unsharded solves: lines within the rank run the same kernels on the
+# same level.
+TOL_SHARD_WS1_SCLR = 1e-15
 TOL_SOLVE = 1e-9       # relative field difference between two solves
 # Phase 15 (complex64): a kernel's float32 result against the float64
 # evaluation of the same float32 inputs and against its plain version
@@ -345,6 +359,16 @@ PEAK_FP32_ADDS = 132 * 128 * 1.98e9
 SPIN_HZ = 1.98e9
 SCLR = dict(semicoarsening=True, linerelaxation=True)
 POINT_MODES = ('factored', 'fused')
+LINE_KERNELS = ('line_residual', 'line_thomas', 'line_factor')
+# Phase 17's multi-rank sc+lr cases and their solve options (sclr64's
+# z-lines run the Schur-complement smoother on 2 ranks, tri64x48x40's
+# y- and z-lines on 2×2), and the jobs of ranks that run the point and
+# the sc+lr cases of one problem and mesh: ranks, mesh axes, cases.
+LINE_SHARD_CASES = {'sclr64_z2': SCLR, 'tri64x48x40_sclr_yz4': SCLR,
+                    'sclr64_bicgstab_z2': dict(SCLR, sslsolver=True)}
+SHARD_JOBS = {
+    'z2': (2, ('z',), ('bench64_z2', 'sclr64_z2', 'sclr64_bicgstab_z2')),
+    'yz4': (4, ('y', 'z'), ('tri64x48x40_yz4', 'tri64x48x40_sclr_yz4'))}
 # Fullspace shapes (100 m cells) for the main path's second solve, in
 # order of size; good multigrid numbers (p·2^k, p ≤ 3).
 LARGE_SHAPES = ((512, 384, 384), (512, 512, 384), (512, 512, 512))
@@ -1489,7 +1513,8 @@ def line_state_clock():
 
 def phase_sclr64(torch, grid, model, sfield):
     """The production path, cold (launches counted) then warm.  Returns
-    the launches and the cold BiCGSTAB solve's field."""
+    the launches, the cold BiCGSTAB solve's field and the cold standalone
+    and BiCGSTAB solves' (field, info)."""
     from emg3d_tpu_torch.ops import line_gs
     runs = (('standalone', False), ('bicgstab', True), ('cgs', 'cgs'))
     line_gs.reset_launches()
@@ -1513,7 +1538,8 @@ def phase_sclr64(torch, grid, model, sfield):
             f"{cclock.calls} line-state builds), warm wall {warm:.3f} s "
             f"({clock.seconds:.4f} s in {clock.calls} builds; it_mg "
             f"{winfo['it_mg']})")
-    return launches, cold['bicgstab'][0]
+    return launches, cold['bicgstab'][0], {
+        name: cold[name][:2] for name in ('standalone', 'bicgstab')}
 
 
 def kernel_key(name):
@@ -3483,51 +3509,172 @@ def _slab_checks(torch, problem, opts, rank):
     return out
 
 
-def _shard_rank(rank, world, port, case, out_dir):
-    """One rank of a phase 17 case: a process on card 0, gloo between the
-    ranks; solves twice and writes its counts (and rank 0 the field)
+def _nan_diff(a, b):
+    """max|a − b| where both are finite, and whether their NaNs agree."""
+    same = all(bool((x.isnan() == y.isnan()).all()) for x, y in zip(a, b))
+    diff = max(_finite_max(x - y) for x, y in zip(a, b))
+    return diff, same
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _finite_max(t):
+    """max|t| over its entries that are not NaN (0 if none)."""
+    v = t[~t.isnan()]
+    return float(v.abs().max()) if v.numel() else 0.0
+
+
+def _slab_line_checks(torch, problem, opts, rank, device='cuda'):
+    """K3, K4 and K5 against their plain versions on this rank's slabs of
+    the two finest levels of the sc+lr solve's first hierarchy, as the
+    sharded solve cuts them, for lines along each axis: within the rank
+    (the slab's K5 stack, K3 and K4 of every colour on random rotated e,
+    s), or along an axis split over ranks (the interior segment: K5 with
+    ``stations``, K4 of the segment with ``stations``; K3 on the slab).
+    Levels whose lines are gathered run the unflagged kernels on the
+    whole level and are skipped.  Returns one record per level and axis
+    (max|Δ| and max|Δ|/max|plain| of each kernel)."""
+    from emg3d_tpu_torch import VolumeModel, solver
+    from emg3d_tpu_torch.ops import line_gs
+    from emg3d_tpu_torch.parallel import lines
+    grid, model, sfield = problem
+    var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
+                              shape_cells=tuple(grid.shape_cells), **SCLR)
+    ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
+                               sfield, sfield, var, device, None,
+                               solver._normalize_sharding(opts))
+    g = torch.Generator(device=device).manual_seed(300 + rank)
+    nan = complex(math.nan, math.nan)
+
+    def rand(shape):
+        nx, ny, nz = shape
+        return tuple(torch.complex(
+            torch.randn(sh, generator=g, device=device, dtype=torch.float64),
+            torch.randn(sh, generator=g, device=device, dtype=torch.float64))
+            for sh in ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                       (nx + 1, ny + 1, nz)))
+    out = []
+    for lvl, lev in enumerate(ctx.levels(int(var.sc_dir))[:2]):
+        slab = lev.slab
+        if slab is None:
+            continue
+        for ax in range(3):
+            split = slab.split(ax)
+            if split and not slab.line_supported(ax):
+                continue
+            if split:
+                st = lines.schur_state(lev, ax)
+                stp = lines.schur_state(lev, ax, plain=True)
+                state, sub, ns = st.slab, st.sub, st.stations
+                fk, fp = st.fac, stp.fac
+            else:
+                state = line_gs.line_state(lev.arrays, lev.shape, ax)
+                fk = state.factors
+                fp = line_gs.line_state(lev.arrays, lev.shape, ax,
+                                        plain=True).factors
+                sub, ns = state, state.shape[0]
+            _sync(torch)
+            k5 = (_maxdiff((fk,), (fp,)), _maxabs((fp,)))
+            L = state.shape[0]
+            er, sr = rand(state.shape), rand(state.shape)
+            k3, k4 = [], []
+            for c in range(4):
+                rk = tuple(torch.full_like(t, nan) for t in er)
+                rp = tuple(torch.full_like(t, nan) for t in er)
+                line_gs.residual(er, sr, state, c, rk)
+                line_gs.residual_plain(er, sr, state, c, rp)
+                _sync(torch)
+                diff, same = _nan_diff(rk, rp)
+                if not same:
+                    raise AssertionError(f"K3 wrote other edges than its "
+                                         f"plain version (level {lvl}, "
+                                         f"axis {ax}, colour {c})")
+                k3.append((diff, max(_finite_max(t) for t in rp)))
+                rs = rp if not split else (rp[0][1:], rp[1][1:L + 1],
+                                           rp[2][1:L + 1])
+                e0 = er if not split else (er[0][1:], er[1][1:L + 1],
+                                           er[2][1:L + 1])
+                ek = tuple(t.clone() for t in e0)
+                ep = tuple(t.clone() for t in e0)
+                line_gs.thomas(ek, rs, fp, sub, c, stations=ns)
+                line_gs.thomas_plain(ep, rs, fp, c, stations=ns)
+                _sync(torch)
+                k4.append((_maxdiff(ek, ep), _maxabs(ep)))
+            rec = {'level': lvl, 'slab': list(lev.shape), 'axis': ax,
+                   'lines': 'schur' if split else 'within',
+                   'stations': ns, 'nx': sub.shape[0]}
+            for key, errs in (('line_factor', [k5]), ('line_residual', k3),
+                              ('line_thomas', k4)):
+                rec[key] = {'max_abs_err': max(a for a, _ in errs),
+                            'rel': max(a / m for a, m in errs)}
+            out.append(rec)
+    return out
+
+
+def _case_opts(case):
+    """The solve options of a phase 17 case."""
+    return LINE_SHARD_CASES.get(case, {})
+
+
+def _shard_rank(rank, world, port, job, out_dir):
+    """One rank of a phase 17 job: a process on card 0, gloo between the
+    ranks; holds the kernels to plain on its slabs, solves each case of
+    the job twice and writes the case's counts (and rank 0 the field)
     into ``out_dir``."""
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from emg3d_tpu_torch import parallel
-    from emg3d_tpu_torch.ops import point_gs
-    from emg3d_tpu_torch.parallel import distributed, halo
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    from emg3d_tpu_torch.parallel import distributed, halo, lines
     torch.cuda.set_device(0)
     distributed.init(f'127.0.0.1:{port}', world, rank, backend='gloo')
     try:
-        problem = _shard_problem(case)
-        opts = parallel.shard_solve_options(
-            parallel.make_mesh(axes=SHARD_CASES[case][1]))
-        checks = _slab_checks(torch, problem, opts, rank)
-        runs = []
-        for _ in range(2):
-            point_gs.reset_launches()
-            halo.reset_sends()
-            e, info, wall = _solve(torch, *problem, sharding=opts)
-            runs.append({'wall': wall, 'it_mg': info['it_mg'],
-                         'exit': info['exit_message'],
-                         'launches': dict(point_gs.LAUNCHES),
-                         'steps': dict(point_gs.STEPS),
-                         'sends': dict(halo.SENDS)})
+        _, axes, cases = SHARD_JOBS[job]
+        problem = _shard_problem(cases[0])
+        opts = parallel.shard_solve_options(parallel.make_mesh(axes=axes))
+        checks = {'point': _slab_checks(torch, problem, opts, rank),
+                  'line': _slab_line_checks(torch, problem, opts, rank)}
         out = Path(out_dir)
-        if rank == 0:
-            np.savez(out / f'{case}.npz', fx=e.fx, fy=e.fy, fz=e.fz)
-        (out / f'{case}_rank{rank}.json').write_text(
-            json.dumps({'runs': runs, 'checks': checks}))
+        for case in cases:
+            kw = _case_opts(case)
+            runs = []
+            for _ in range(2):
+                point_gs.reset_launches()
+                line_gs.reset_launches()
+                halo.reset_sends()
+                lines.reset_gathered()
+                e, info, wall = _solve(torch, *problem, sharding=opts, **kw)
+                runs.append({'wall': wall, 'it_mg': info['it_mg'],
+                             'it_ssl': info['it_ssl'],
+                             'exit': info['exit_message'],
+                             'launches': {**point_gs.LAUNCHES,
+                                          **line_gs.LAUNCHES},
+                             'steps': dict(point_gs.STEPS),
+                             'sends': dict(halo.SENDS),
+                             'gathered': [[list(k[0]), k[1], n] for k, n in
+                                          sorted(lines.GATHERED.items())]})
+            if rank == 0:
+                np.savez(out / f'{case}.npz', fx=e.fx, fy=e.fy, fz=e.fz)
+            (out / f'{case}_rank{rank}.json').write_text(json.dumps(
+                {'runs': runs, 'checks': checks[
+                    'line' if kw.get('linerelaxation') else 'point']}))
     finally:
         distributed.shutdown()
 
 
-def phase_sharded(torch, e4, info4, out_dir):
-    """Phase 17 (see the module docstring).  Returns K1's and K2's
+def phase_sharded(torch, e4, info4, sclr_refs, out_dir):
+    """Phase 17 (see the module docstring).  Returns K1-K5's
     ``launches_sharded`` and their largest max|Δ| on the ranks' slabs."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
-    from emg3d_tpu_torch import Field, parallel
-    from emg3d_tpu_torch.ops import point_gs
-    from emg3d_tpu_torch.parallel import distributed, halo
-    counts = {k: {} for k in POINT_MODES}
-    errs = {k: 0.0 for k in POINT_MODES}
+    from emg3d_tpu_torch import parallel
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    from emg3d_tpu_torch.parallel import distributed, halo, lines
+    counts = {k: {} for k in POINT_MODES + LINE_KERNELS}
+    errs = {k: 0.0 for k in POINT_MODES + LINE_KERNELS}
     grid, model, sfield = bench_problem()
 
     distributed.init(f'127.0.0.1:{_free_port()}', 1, 0)
@@ -3558,67 +3705,161 @@ def phase_sharded(torch, e4, info4, out_dir):
         for k in POINT_MODES:
             counts[k]['bench64_ws1_nccl'] = point_gs.LAUNCHES[k]
         del e1
+        # sclr64 standalone: every line within the one rank, the
+        # kernels of phase 7's solve on the same levels.
+        e7, info7 = sclr_refs['standalone']
+        for run in ('cold', 'warm'):
+            point_gs.reset_launches()
+            line_gs.reset_launches()
+            halo.reset_sends()
+            lines.reset_gathered()
+            e1, info1, wall1 = _solve(torch, grid, model, sfield,
+                                      sharding=opts, **SCLR)
+            rel = _rel(e1, e7)
+            log(f"sclr64, world size 1, NCCL, {run}: it_mg "
+                f"{info1['it_mg']} (phase 7 {info7['it_mg']}), wall "
+                f"{wall1:.3f} s, |Δ|/|e| vs phase 7 {rel:.3e}, launches "
+                f"{dict(line_gs.LAUNCHES)} and {dict(point_gs.LAUNCHES)}, "
+                f"messages {dict(halo.SENDS)}, gathered levels "
+                f"{dict(lines.GATHERED)}")
+            if info1['it_mg'] != info7['it_mg'] or \
+                    not rel <= TOL_SHARD_WS1_SCLR:
+                raise AssertionError("the world-size-1 sharded sclr64 solve "
+                                     "differs from phase 7's")
+            if min(line_gs.LAUNCHES.values()) == 0:
+                raise AssertionError("the world-size-1 sclr64 solve did not "
+                                     f"launch K3-K5: "
+                                     f"{dict(line_gs.LAUNCHES)}")
+        for k in LINE_KERNELS:
+            counts[k]['sclr64_ws1_nccl'] = line_gs.LAUNCHES[k]
+        del e1
+        # sclr64 BiCGSTAB: the Krylov norms and inner products of the
+        # slab, all_reduces of CUDA tensors through NCCL.
+        e7, info7 = sclr_refs['bicgstab']
+        halo.reset_sends()
+        e1, info1, wall1 = _solve(torch, grid, model, sfield, sharding=opts,
+                                  sslsolver=True, **SCLR)
+        rel = _rel(e1, e7)
+        log(f"sclr64 BiCGSTAB, world size 1, NCCL, cold: it_mg "
+            f"{info1['it_mg']}, it_ssl {info1['it_ssl']} (phase 7 "
+            f"{info7['it_mg']}, {info7['it_ssl']}), wall {wall1:.3f} s, "
+            f"|Δ|/|e| vs phase 7 {rel:.3e}, messages {dict(halo.SENDS)}")
+        if (info1['it_mg'], info1['it_ssl']) != (
+                info7['it_mg'], info7['it_ssl']) or \
+                not rel <= TOL_SHARD_WS1_SCLR:
+            raise AssertionError("the world-size-1 sharded sclr64 BiCGSTAB "
+                                 "solve differs from phase 7's")
+        if halo.SENDS['sums'] == 0:
+            raise AssertionError("the world-size-1 BiCGSTAB solve made no "
+                                 "all_reduce")
+        del e1
     finally:
         distributed.shutdown()
 
     # The unsharded solves of the same problems, warm, for the walls.
     refs = {}
-    for case in SHARD_CASES:
-        _solve(torch, *_shard_problem(case))
-        refs[case] = _solve(torch, *_shard_problem(case))
+    for _, _, cases in SHARD_JOBS.values():
+        for case in cases:
+            if case not in LINE_SHARD_CASES:
+                _solve(torch, *_shard_problem(case))
+            refs[case] = _solve(torch, *_shard_problem(case),
+                                **_case_opts(case))
     log(f"unsharded, warm: bench64 {refs['bench64_z2'][2]:.3f} s, "
-        f"world size 1 sharded {walls[1]:.3f} s ({nvidia_smi()})")
+        f"world size 1 sharded {walls[1]:.3f} s; sclr64 "
+        f"{refs['sclr64_z2'][2]:.3f} s, tri64x48x40 sc+lr "
+        f"{refs['tri64x48x40_sclr_yz4'][2]:.3f} s, sclr64 BiCGSTAB "
+        f"{refs['sclr64_bicgstab_z2'][2]:.3f} s ({nvidia_smi()})")
 
-    for case, (n, axes) in SHARD_CASES.items():
+    jobs = {}
+    for name, (n, axes, cases) in SHARD_JOBS.items():
         t0 = time.perf_counter()
-        mp.start_processes(_shard_rank, args=(n, _free_port(), case,
+        mp.start_processes(_shard_rank, args=(n, _free_port(), name,
                                               str(out_dir)),
                            nprocs=n, start_method='spawn')
-        job = time.perf_counter() - t0
-        ref, iref, wref = refs[case]
-        f = np.load(out_dir / f'{case}.npz')
-        rel = _rel(Field(f['fx'], f['fy'], f['fz']), ref)
-        recs = [json.loads((out_dir / f'{case}_rank{r}.json').read_text())
-                for r in range(n)]
-        ranks = [rec['runs'] for rec in recs]
-        for r, rec in enumerate(recs):
-            for chk in rec['checks']:
-                log(f"{case} rank {r}, level {chk['level']} slab "
-                    f"{'x'.join(map(str, chk['slab']))} (the solve runs "
-                    f"{KERNELS[chk['solve_kernel']]['name']}): "
-                    f"{KERNELS[chk['kernel']]['name']} vs plain, each "
-                    f"colour step alone, max|Δ| {chk['max_abs_err']:.3e}, "
-                    f"max|Δ|/max|e| {chk['rel']:.3e}")
-                if not chk['rel'] <= TOL_KERNEL:
-                    raise AssertionError(
-                        f"{case} rank {r}: {chk['kernel']} on the level "
-                        f"{chk['level']} slab differs from plain")
-                errs[chk['kernel']] = max(errs[chk['kernel']],
-                                          chk['max_abs_err'])
-        for r, runs in enumerate(ranks):
-            for run, rec in zip(('cold', 'warm'), runs):
-                log(f"{case} ({axes}, gloo), rank {r}, {run}: "
-                    f"{rec['exit']}, it_mg {rec['it_mg']}, wall "
-                    f"{rec['wall']:.3f} s, launches {rec['launches']}, "
-                    f"colour steps {rec['steps']}, halo messages "
-                    f"{rec['sends']}")
-                if rec['it_mg'] != iref['it_mg']:
-                    raise AssertionError(f"{case}: it_mg {rec['it_mg']}, "
-                                         f"unsharded {iref['it_mg']}")
-                if sum(rec['launches'].values()) == 0:
-                    raise AssertionError(f"{case}: rank {r} launched no "
-                                         "point kernel")
-        log(f"{case}: |Δ|/|e| vs the unsharded solve {rel:.3e}; warm walls "
-            f"per rank {[runs[1]['wall'] for runs in ranks]} s beside the "
-            f"unsharded {wref:.3f} s; the job (spawn, init, two solves) "
-            f"{job:.2f} s ({nvidia_smi()}; ranks sharing one card)")
-        if not rel <= TOL_SHARD:
-            raise AssertionError(f"{case}: the sharded field differs")
-        for k in POINT_MODES:
-            counts[k][case + '_gloo'] = [[runs[0]['launches'][k],
-                                          runs[1]['launches'][k]]
-                                         for runs in ranks]
+        jobs[name] = time.perf_counter() - t0
+        log(f"job {name} ({n} ranks, {axes}, gloo: {', '.join(cases)}): "
+            f"spawn, init, checks and two solves of each case "
+            f"{jobs[name]:.2f} s ({nvidia_smi()}; ranks sharing one card)")
+    for name, (n, axes, cases) in SHARD_JOBS.items():
+        for case in cases:
+            _check_sharded_case(case, n, axes, refs[case], out_dir,
+                                counts, errs)
     return counts, errs
+
+
+def _check_sharded_case(case, n, axes, ref_solve, out_dir, counts, errs):
+    """Read, log and check one phase 17 case's ranks (see
+    :func:`phase_sharded`); adds its launches and kernel errors to
+    ``counts`` and ``errs``."""
+    from emg3d_tpu_torch import Field
+    kw = _case_opts(case)
+    line = bool(kw.get('linerelaxation'))
+    kernels = LINE_KERNELS if line else POINT_MODES
+    ref, iref, wref = ref_solve
+    f = np.load(out_dir / f'{case}.npz')
+    rel = _rel(Field(f['fx'], f['fy'], f['fz']), ref)
+    recs = [json.loads((out_dir / f'{case}_rank{r}.json').read_text())
+            for r in range(n)]
+    ranks = [rec['runs'] for rec in recs]
+    for r, rec in enumerate(recs):
+        for chk in rec['checks']:
+            if line:
+                for k in LINE_KERNELS:
+                    log(f"{case} rank {r}, level {chk['level']} slab "
+                        f"{'x'.join(map(str, chk['slab']))}, "
+                        f"{'xyz'[chk['axis']]}-lines {chk['lines']} "
+                        f"({chk['stations']} of {chk['nx']} stations): "
+                        f"{KERNELS[k]['name']} vs plain, max|Δ| "
+                        f"{chk[k]['max_abs_err']:.3e}, max|Δ|/max|plain| "
+                        f"{chk[k]['rel']:.3e}")
+                    if not chk[k]['rel'] <= TOL_KERNEL:
+                        raise AssertionError(
+                            f"{case} rank {r}: {k} on the level "
+                            f"{chk['level']} slab differs from plain")
+                    errs[k] = max(errs[k], chk[k]['max_abs_err'])
+                continue
+            log(f"{case} rank {r}, level {chk['level']} slab "
+                f"{'x'.join(map(str, chk['slab']))} (the solve runs "
+                f"{KERNELS[chk['solve_kernel']]['name']}): "
+                f"{KERNELS[chk['kernel']]['name']} vs plain, each "
+                f"colour step alone, max|Δ| {chk['max_abs_err']:.3e}, "
+                f"max|Δ|/max|e| {chk['rel']:.3e}")
+            if not chk['rel'] <= TOL_KERNEL:
+                raise AssertionError(
+                    f"{case} rank {r}: {chk['kernel']} on the level "
+                    f"{chk['level']} slab differs from plain")
+            errs[chk['kernel']] = max(errs[chk['kernel']],
+                                      chk['max_abs_err'])
+    for r, runs in enumerate(ranks):
+        for run, rec in zip(('cold', 'warm'), runs):
+            log(f"{case} ({axes}, gloo), rank {r}, {run}: "
+                f"{rec['exit']}, it_mg {rec['it_mg']}, it_ssl "
+                f"{rec['it_ssl']}, wall {rec['wall']:.3f} s, launches "
+                f"{rec['launches']}, colour steps {rec['steps']}, "
+                f"messages {rec['sends']}, gathered levels "
+                f"{rec['gathered']}")
+            if (rec['it_mg'], rec['it_ssl']) != (iref['it_mg'],
+                                                 iref['it_ssl']):
+                raise AssertionError(
+                    f"{case}: it_mg/it_ssl {rec['it_mg']}/"
+                    f"{rec['it_ssl']}, unsharded {iref['it_mg']}/"
+                    f"{iref['it_ssl']}")
+            if line and min(rec['launches'][k]
+                            for k in LINE_KERNELS) == 0:
+                raise AssertionError(f"{case}: rank {r} did not launch "
+                                     f"K3-K5: {rec['launches']}")
+            if sum(rec['launches'][k] for k in kernels) == 0:
+                raise AssertionError(f"{case}: rank {r} launched no "
+                                     "point kernel")
+    log(f"{case}: |Δ|/|e| vs the unsharded solve {rel:.3e}; warm walls "
+        f"per rank {[runs[1]['wall'] for runs in ranks]} s beside the "
+        f"unsharded {wref:.3f} s")
+    if not rel <= TOL_SHARD:
+        raise AssertionError(f"{case}: the sharded field differs")
+    for k in kernels:
+        counts[k][case + '_gloo'] = [[runs[0]['launches'][k],
+                                      runs[1]['launches'][k]]
+                                     for runs in ranks]
 
 
 def main():
@@ -3723,7 +3964,8 @@ def main():
         if ik['it_mg'] != ip['it_mg'] or not rel <= TOL_SOLVE:
             raise AssertionError("kernel and plain solves differ")
     with Phase('7 main path: sclr64 (sc+lr), standalone, bicgstab, cgs'):
-        sclr_launches, e_sclr = phase_sclr64(torch, grid, model, sfield)
+        sclr_launches, e_sclr, sclr_refs = phase_sclr64(torch, grid, model,
+                                                        sfield)
         launches.update(sclr_launches)
     with Phase('8 sclr256: sc+lr standalone at 256³'):
         line_gs.reset_launches()
@@ -3780,10 +4022,11 @@ def main():
         bf16_launches, peak_bf16 = phase_bf16_path(torch, e4, e_sclr,
                                                    peak_c64)
         phase_bf16_plain(torch)
-    with Phase('17 sharded: world size 1 (NCCL), bench64 on 2 ranks, '
-               'tri64x48x40 on 2×2 (gloo)'):
-        sharded_launches, sharded_errs = phase_sharded(torch, e4, info4,
-                                                       out_dir)
+    with Phase('17 sharded: world size 1 (NCCL) bench64 and sclr64, '
+               'bench64 and sclr64 (standalone, BiCGSTAB) on 2 ranks, '
+               'tri64x48x40 point and sc+lr on 2×2 (gloo)'):
+        sharded_launches, sharded_errs = phase_sharded(
+            torch, e4, info4, sclr_refs, out_dir)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -3799,11 +4042,11 @@ def main():
         entry['simulation_launches'] = sim_launches[key]
         entry['tdem_launches'] = tdem_launches[key]
         entry['diff_launches'] = {c: n[key] for c, n in diff_launches.items()}
+        entry['launches_sharded'] = sharded_launches[key]
+        entry['max_abs_err_sharded'] = sharded_errs[key]
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
-            entry['launches_sharded'] = sharded_launches[key]
-            entry['max_abs_err_sharded'] = sharded_errs[key]
         entry['launches_c64'] = c64_launches[key]
         entry['max_abs_err_c64'] = r['max_abs_err_c64']
         entry['checks_c64'] = r['checks_c64']

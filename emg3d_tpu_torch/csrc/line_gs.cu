@@ -137,6 +137,16 @@
 // its residual, field and z planes at 8 B (slot_bytes; line_gs._slot_bytes
 // in Python): each cp.async is 4 or 8 bytes, aligned to its size.
 //
+// Segments.  K4 and K5 take ``stations`` ≤ nx: the first ``stations``
+// stations of every line.  A line cut after station S − 1 < nx − 1 has
+// no PEC end: its last station is a full one (its five unknowns, node
+// S's block), which the elimination and the substitution reach as any
+// other station, and nothing beyond it is read or written.  Together
+// with a level that starts where the segment starts (its first station
+// then has no coupling below), that is the interior segment of a line
+// split over ranks (parallel/lines.py: the Schur-complement smoother);
+// stations == nx is the whole line, as before.
+//
 // Races: K4 reads only r (K3's buffer), the factors and the e values of
 // its own lines.  Lines of one colour share transverse parity, so they
 // are two apart in y or z and touch disjoint edges: the in-place update
@@ -417,6 +427,7 @@ struct FactorArgs {
   const R* ihy;
   const R* ihz;
   int nx, ny, nz;
+  int stations;         // stations factored (≤ nx; < nx: a segment)
   int nz2;
   int64_t P;            // ny2·nz2: lines per parity
 };
@@ -474,7 +485,7 @@ line_factor(FactorArgs<R, F> a) {
   C L[5][5];      // factors of the previous station, then this one
   C dinv[5];
   C prev[5];      // node i's A(1,1), A(2..5,1): station i+1's needs
-  for (int i = 0; i < nx; ++i) {
+  for (int i = 0; i < a.stations; ++i) {
     // Station i's entries: D (lower triangle; the absent (2,1) and (4,3)
     // zero), B's row 0 (0, b0[1..4]) and diagonal bd[1..4].
     C Cm[5][5], b0[5], bd[5];
@@ -618,6 +629,7 @@ struct ThomasArgs {
   C* zs;          // global scratch (B, nx, 5, ny2·nz2) if !zshared
   const int* group;     // lane → frequency group (B entries), or null
   int nx, ny, nz;
+  int stations;         // stations solved (≤ nx; < nx: a segment)
   int cy, cz;           // the colour's transverse parity
   int cny, cnz;         // active lines per transverse axis
   int zshared;          // 1: z in shared memory after the ring
@@ -756,7 +768,7 @@ line_thomas(ThomasArgs<R, F> a) {
     a.ry += b * ey;
     a.ez += b * ez;
     a.rz += b * ez;
-    a.fac += grp * nx * kNent * 4 * P;
+    a.fac += grp * a.stations * kNent * 4 * P;
     if (!a.zshared) a.zs += b * nx * 5 * P;
   }
   const int64_t pstride = 4 * P;   // consecutive planes of one station
@@ -782,6 +794,7 @@ line_thomas(ThomasArgs<R, F> a) {
   const int p0 = lane / lpb;
   const bool active = valid && lane < lpb;
   const int nx = a.nx;
+  const int ns = a.stations;
 
   auto fslot = [&](int i) {
     return reinterpret_cast<FC*>(thomas_smem + (i % kStages) * sbytes);
@@ -792,7 +805,7 @@ line_thomas(ThomasArgs<R, F> a) {
   };
   Copies<kStep, C, FC> cp;
   auto fill = [&](int i) {
-    if (valid && i >= 0 && i < nx) {
+    if (valid && i >= 0 && i < ns) {
       FC* dstf = fslot(i) + l;
       C* dsto = oslot(i) + l;
       const FC* f = cp.f + static_cast<int64_t>(i) * kNent * pstride;
@@ -818,7 +831,7 @@ line_thomas(ThomasArgs<R, F> a) {
   C zp[5];
   cp = plan_copies<kStep>(a, true, p0, j, k, fline, zline, pstride, P);
   for (int i = 0; i < kAhead; ++i) fill(i);
-  for (int i = 0; i < nx; ++i) {
+  for (int i = 0; i < ns; ++i) {
     fill(i + kAhead);
     cp_async_wait_ahead();
     __syncwarp();
@@ -862,8 +875,8 @@ line_thomas(ThomasArgs<R, F> a) {
   C dn[5];
   cp = plan_copies<kStep>(a, false, p0, j, k, fline, zline, pstride,
                           P);
-  for (int n = 0; n < kAhead; ++n) fill(nx - 1 - n);
-  for (int i = nx - 1; i >= 0; --i) {
+  for (int n = 0; n < kAhead; ++n) fill(ns - 1 - n);
+  for (int i = ns - 1; i >= 0; --i) {
     fill(i - kAhead);
     cp_async_wait_ahead();
     __syncwarp();
@@ -871,7 +884,7 @@ line_thomas(ThomasArgs<R, F> a) {
       const FC* f = fslot(i) + lane;
       const C* o = oslot(i) + lane;
       C d[5];
-      if (i == nx - 1) {
+      if (i == ns - 1) {
 #pragma unroll
         for (int m = 0; m < 5; ++m) d[m] = zp[m];
       } else {
@@ -996,11 +1009,11 @@ int residual(void* rx, void* ry, void* rz, const void* ex, const void* ey,
 template <class R, class F>
 int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
            const void* rz, const void* fac, void* zs, const void* group,
-           int nx, int ny, int nz, int cy, int cz, int cny, int cnz, int lpb,
-           int zshared, int planes, int stages, int blocks, int lanes,
-           int threads, int smem, void* stream) {
+           int nx, int ny, int nz, int stations, int cy, int cz, int cny,
+           int cnz, int lpb, int zshared, int planes, int stages, int blocks,
+           int lanes, int threads, int smem, void* stream) {
   using C = cplx_t<R>;
-  if (stages != kStages || threads != kWarp ||
+  if (stations < 1 || stations > nx || stages != kStages || threads != kWarp ||
       lanes < 1 || lanes > 65535 || (lanes > 1 && group == nullptr) ||
       lpb < 1 || lpb > kWarp || (lpb & (lpb - 1)) != 0 ||
       (planes != kNent + 5 && planes != kNent + 10) ||
@@ -1020,6 +1033,7 @@ int thomas(void* ex, void* ey, void* ez, const void* rx, const void* ry,
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
+  a.stations = stations;
   a.cy = cy;
   a.cz = cz;
   a.cny = cny;
@@ -1042,10 +1056,10 @@ template <class R, class F>
 int factor(void* fac, const void* stx, const void* sty, const void* stz,
            const void* wx, const void* wy, const void* wz, const void* ihx,
            const void* ihy, const void* ihz, int nx, int ny, int nz,
-           int blocks, int threads, void* stream) {
+           int stations, int blocks, int threads, void* stream) {
   using C = cplx_t<R>;
   if (threads < 32 || threads % 32 != 0 || threads > kFactorThreads ||
-      nx < 2 || blocks < 1) {
+      nx < 2 || stations < 1 || stations > nx || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FactorArgs<R, F> a;
@@ -1062,6 +1076,7 @@ int factor(void* fac, const void* stx, const void* sty, const void* stz,
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
+  a.stations = stations;
   a.nz2 = nz / 2;
   a.P = static_cast<int64_t>(ny / 2) * (nz / 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1112,12 +1127,12 @@ extern "C" int emg3d_line_residual_bf16(EMG3D_RES_PARAMS) {
 #define EMG3D_THOMAS_PARAMS                                                  \
   void *ex, void *ey, void *ez, const void *rx, const void *ry,              \
       const void *rz, const void *fac, void *zs, const void *group, int nx,  \
-      int ny, int nz, int cy, int cz, int cny, int cnz, int lpb,             \
-      int zshared, int planes, int stages, int blocks, int lanes,            \
+      int ny, int nz, int stations, int cy, int cz, int cny, int cnz,        \
+      int lpb, int zshared, int planes, int stages, int blocks, int lanes,   \
       int threads, int smem, void *stream
 #define EMG3D_THOMAS_ARGS                                                    \
-  ex, ey, ez, rx, ry, rz, fac, zs, group, nx, ny, nz, cy, cz, cny, cnz, lpb, \
-      zshared, planes, stages, blocks, lanes, threads, smem, stream
+  ex, ey, ez, rx, ry, rz, fac, zs, group, nx, ny, nz, stations, cy, cz, cny, \
+      cnz, lpb, zshared, planes, stages, blocks, lanes, threads, smem, stream
 extern "C" int emg3d_line_thomas(EMG3D_THOMAS_PARAMS) {
   return thomas<double, double>(EMG3D_THOMAS_ARGS);
 }
@@ -1128,16 +1143,17 @@ extern "C" int emg3d_line_thomas_bf16(EMG3D_THOMAS_PARAMS) {
   return thomas<float, __nv_bfloat16>(EMG3D_THOMAS_ARGS);
 }
 
-// K5 on the rotated level (nx, ny, nz) into ``fac`` (its whole
-// (nx, 23, 2, 2, ny/2, nz/2) stack), one line per thread.
+// K5 on the rotated level (nx, ny, nz) into ``fac`` (its (stations, 23,
+// 2, 2, ny/2, nz/2) stack: the whole lines where stations == nx), one
+// line per thread.
 #define EMG3D_FACTOR_PARAMS                                                  \
   void *fac, const void *stx, const void *sty, const void *stz,              \
       const void *wx, const void *wy, const void *wz, const void *ihx,       \
-      const void *ihy, const void *ihz, int nx, int ny, int nz, int blocks,  \
-      int threads, void *stream
+      const void *ihy, const void *ihz, int nx, int ny, int nz,              \
+      int stations, int blocks, int threads, void *stream
 #define EMG3D_FACTOR_ARGS                                                    \
-  fac, stx, sty, stz, wx, wy, wz, ihx, ihy, ihz, nx, ny, nz, blocks,         \
-      threads, stream
+  fac, stx, sty, stz, wx, wy, wz, ihx, ihy, ihz, nx, ny, nz, stations,       \
+      blocks, threads, stream
 extern "C" int emg3d_line_factor(EMG3D_FACTOR_PARAMS) {
   return factor<double, double>(EMG3D_FACTOR_ARGS);
 }

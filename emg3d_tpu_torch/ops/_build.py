@@ -44,8 +44,8 @@ _SOLVE = {
                             + [_I] * 4 + [_P],
     'emg3d_point_gs_grid_capacity': [_I, _P],
     'emg3d_line_residual': [_P] * 19 + [_I] * 15 + [_P],
-    'emg3d_line_thomas': [_P] * 9 + [_I] * 15 + [_P],
-    'emg3d_line_factor': [_P] * 10 + [_I] * 5 + [_P],
+    'emg3d_line_thomas': [_P] * 9 + [_I] * 16 + [_P],
+    'emg3d_line_factor': [_P] * 10 + [_I] * 6 + [_P],
 }
 C64 = '_c64'
 BF16 = '_bf16'

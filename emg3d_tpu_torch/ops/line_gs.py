@@ -72,6 +72,7 @@ __all__ = ['LineState', 'line_state', 'line_factors', 'factor',
            'line_relaxation', 'line_relaxation_plain', 'residual', 'thomas',
            'launch_geometry', 'factor_geometry', 'residual_geometry',
            'colour_edges', 'colour_edge_masks', 'residual_plain',
+           'thomas_plain', 'segment_stack', 'Sweep', 'keep_stack',
            'factor_bytes', 'cache_budget', 'LAUNCHES', 'BF16_LAUNCHES',
            'reset_launches',
            'LINE_SHARE', 'SMEM_MAX', 'FactorGeometry', 'lane_state',
@@ -204,6 +205,16 @@ def cache_budget(device):
         return math.inf
     total = torch.cuda.get_device_properties(device).total_memory
     return LINE_SHARE * total
+
+
+def keep_stack(meter, nbytes, device):
+    """Whether a solve whose cached stacks take ``meter['bytes']`` may
+    keep ``nbytes`` more on ``device`` (:func:`cache_budget`); if so,
+    they are added to the meter."""
+    keep = meter['bytes'] + nbytes <= cache_budget(device)
+    if keep:
+        meter['bytes'] += nbytes
+    return keep
 
 
 def _stack(ar, rs, st, w, ih, plain, groups=None, fstorage=None):
@@ -345,7 +356,8 @@ def factor_geometry(shape, threads=FACTOR_WARP):
     return FactorGeometry(lines, -(-lines // threads), threads)
 
 
-def factor(st, w, ih, shape, geometry=None, out=None, storage=None):
+def factor(st, w, ih, shape, geometry=None, out=None, storage=None,
+           stations=None):
     """The factor stack of a rotated level, built on the card (K5).
 
     ``st``, ``w`` and ``ih`` are the rotated frame's η edge sums, ζ face
@@ -358,11 +370,18 @@ def factor(st, w, ih, shape, geometry=None, out=None, storage=None):
     in float32 and the kernel stores bfloat16, ``(..., nz2, 2)``.
     ``geometry`` forces a :func:`factor_geometry` (timings on the
     card).  ``out`` is a contiguous stack of that shape to write instead
-    (a group's slice of a lane state's stack).  The plain version is
-    :func:`.smoothers.line_factor_stack` (rounded once to ``storage``).
+    (a group's slice of a lane state's stack).  ``stations`` < nx
+    factors the segment of the first ``stations`` stations of every line
+    (no PEC end; a ``(stations, ...)`` stack): the interior segment of a
+    line split over ranks (:mod:`..parallel.lines`).  The plain version
+    is :func:`.smoothers.line_factor_stack` (rounded once to
+    ``storage``; its first ``stations`` stations for a segment).
     """
     _cuda(st[0])
     nx, ny, nz = shape
+    ns = nx if stations is None else int(stations)
+    if not 1 <= ns <= nx:
+        raise ValueError(f"factor: {ns} stations of a level of {nx}")
     cdt = st[0].dtype
     complex_size(cdt)
     check_storage(cdt, storage)
@@ -384,7 +403,7 @@ def factor(st, w, ih, shape, geometry=None, out=None, storage=None):
         raise ValueError(f"factor: a level of {nx} station(s); K5 takes 2 "
                          f"or more")
     g = factor_geometry(shape) if geometry is None else geometry
-    want = (nx, NLINE, 2, 2, *_line_dims(shape))
+    want = (ns, NLINE, 2, 2, *_line_dims(shape))
     odt = cdt
     if storage is not None:
         want, odt = want + (2,), storage
@@ -398,7 +417,7 @@ def factor(st, w, ih, shape, geometry=None, out=None, storage=None):
         return out
     from ._build import entry
     err = entry('emg3d_line_factor', cdt, storage)(
-        _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz,
+        _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz, ns,
         g.blocks, g.threads, _stream(out.device))
     if err != 0:
         raise RuntimeError(f"line_factor kernel launch failed: cudaError "
@@ -695,7 +714,7 @@ def residual_plain(e, s, state, color, out):
     return out
 
 
-def thomas(e, r, fac, state, color, zs=None, geometry=None):
+def thomas(e, r, fac, state, color, zs=None, geometry=None, stations=None):
     """Block-Thomas update of one colour's lines, in place (K4).
 
     ``e``/``r`` are rotated-frame edge tensors, ``fac`` the factor stack
@@ -706,9 +725,17 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     ``geometry`` is a forced :func:`launch_geometry` of the colour
     (default: the one it picks).  A bfloat16 ``fac`` (the state's
     ``fstorage``) launches K4's ``_bf16`` instance.  The plain version
-    is :func:`.smoothers.line_thomas_x`.  Returns ``e``.
+    is :func:`.smoothers.line_thomas_x`.  ``stations`` < nx solves the
+    segment of the first ``stations`` stations against a segment stack
+    (:func:`factor` with ``stations``).  Returns ``e``.
     """
     _cuda(e[0])
+    ns = state.shape[0] if stations is None else int(stations)
+    held = fac.shape[0 if state.lanes is None else 1]   # stack stations
+    if not 1 <= ns <= min(state.shape[0], held) or (
+            state.lanes is not None and ns != held):
+        raise ValueError(f"K4: {ns} stations of a level of "
+                         f"{state.shape[0]} and a stack of {held}")
     if storage_of(fac) != state.fstorage:
         raise ValueError(f"K4: a {fac.dtype} stack in a state of factor "
                          f"storage {state.fstorage}")
@@ -729,7 +756,7 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     from ._build import entry
     err = entry('emg3d_line_thomas', e[0].dtype, state.fstorage)(
         *(_ptr(t) for t in (*e, *r, fac)), zp, _ptr(state.lanes),
-        *state.shape, g.cy, g.cz, *g.counts, g.lines_per_block,
+        *state.shape, ns, g.cy, g.cz, *g.counts, g.lines_per_block,
         int(g.z_shared), g.planes, THOMAS_STAGES, g.blocks, g.lanes,
         g.threads, g.smem_bytes, _stream(e[0].device))
     if err != 0:
@@ -738,6 +765,30 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None):
     LAUNCHES['line_thomas'] += 1
     BF16_LAUNCHES['line_thomas'] += state.fstorage is not None
     return tuple(e)
+
+
+def thomas_plain(e, r, fac, color, stations=None):
+    """Plain version of :func:`thomas` (one-lane): the colour's lines
+    (of the first ``stations`` stations) solved by
+    :func:`.smoothers.line_thomas_x` and written into ``e`` in place.
+    Returns ``e``."""
+    out = smoothers.line_thomas_x(tuple(e), tuple(r), fac, color,
+                                  stations=stations)
+    for dst, src in zip(e, out):
+        dst.copy_(src)
+    return tuple(e)
+
+
+def segment_stack(state, stations, plain=False):
+    """The factor stack of the first ``stations`` stations of a rotated
+    level's lines (:func:`factor`'s segment: K5 for CUDA tensors, the
+    plain elimination's first stations for CPU tensors or ``plain``)."""
+    ar = state.arrays
+    if plain or ar[0].device.type == 'cpu':
+        return smoothers.line_factor_stack(ar, state.shape)[:stations] \
+            .contiguous()
+    return factor(state.st, state.w, state.ih, state.shape,
+                  stations=stations)
 
 
 def _rotated(f, axis):
@@ -783,6 +834,63 @@ def _plain_params(state):
             tuple(from_storage(t) for t in state.w), state.ih)
 
 
+class Sweep:
+    """One line-relaxation call in its state's rotated frame, whose
+    x-lines are the lines: the colour steps of :func:`line_relaxation`,
+    and of the slab smoothers of :mod:`..parallel.lines`, which exchange
+    planes (or solve lines across ranks) between them.
+
+    Holds the rotated ``e`` (``er``, the working copy; ``view`` shows
+    it in the level's frame) and ``s`` (stored in the state's
+    ``storage``), and K3's residual buffer ``r``, NaN outside the edges
+    K3 has written: an entry K4 read outside its colour's edges shows up
+    as NaN in the result.  CUDA tensors launch the kernels; CPU tensors,
+    or ``plain``, take the plain versions step by step (one-lane states
+    in the solve's precision).  The factor stack is the state's, or
+    rebuilt (K5) at the first :meth:`solve` of a state that caches none.
+    """
+
+    def __init__(self, e, s, state, plain=False):
+        _check(e, s, state)
+        self.e, self.state = e, state
+        self.kern = not plain and e[0].device.type != 'cpu'
+        if self.kern:
+            _cuda(e[0])
+        a = state.axis
+        self.er = tuple(e) if a == 0 else _rotated(e, a)
+        self.sr = tuple(to_storage(t, state.storage) for t in (
+            smoothers.rotate_fields(tuple(s), a) if state.storage
+            else _rotated(s, a)))
+        self.view = smoothers.unrotate_fields(self.er, a)
+        self.r = tuple(torch.full_like(t, complex(math.nan, math.nan))
+                       for t in self.er)
+        self._fac = self._zs = None
+
+    def residual(self, color):
+        """``r`` ← s − A e at the edges of ``color`` (K3)."""
+        fn = residual if self.kern else residual_plain
+        fn(self.er, self.sr, self.state, color, self.r)
+
+    def solve(self, color):
+        """The colour's lines against the state's stack (K4), in place."""
+        st = self.state
+        if self._fac is None:
+            self._fac = _factors(st, plain=not self.kern)
+        if not self.kern:
+            thomas_plain(self.er, self.r, self._fac, color)
+            return
+        if self._zs is None and not launch_geometry(
+                st.shape, 0, lanes=lane_count(st), dtype=self.er[0].dtype,
+                fstorage=st.fstorage).z_shared:
+            self._zs = _scratch(st.shape, self.er[0], None if st.lanes is None
+                                else lane_count(st))
+        thomas(self.er, self.r, self._fac, st, color, self._zs)
+
+    def finish(self):
+        """Write the result into ``e``; returns ``e``."""
+        return _write_back(self.e, self.er, self.state.axis)
+
+
 def line_relaxation_plain(e, s, state, nu, _seq=None):
     """Plain PyTorch version of the colour steps, on any device.
 
@@ -821,30 +929,15 @@ def line_relaxation(e, s, state, nu, _seq=None):
     _seq : explicit colour sequence (tests).
 
     CPU tensors run :func:`line_relaxation_plain`; for CUDA tensors each
-    colour step is :func:`residual` (K3) then :func:`thomas` (K4), and
-    a stack the state does not cache is rebuilt by K5; a bfloat16 state
-    stores the rotated s in bfloat16 once per call.  The residual
-    buffer is NaN outside the edges K3 has written.  Returns ``e``.
+    colour step is :meth:`Sweep.residual` (K3) then :meth:`Sweep.solve`
+    (K4).  Returns ``e``.
     """
     _check(e, s, state)
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
     if e[0].device.type == 'cpu':
         return line_relaxation_plain(e, s, state, nu, _seq=seq)
-    _cuda(e[0])
-    a = state.axis
-    er = tuple(e) if a == 0 else _rotated(e, a)
-    sr = tuple(to_storage(t, state.storage) for t in
-               (smoothers.rotate_fields(tuple(s), a) if state.storage
-                else _rotated(s, a)))
-    fac = _factors(state)
-    r = tuple(torch.full_like(t, complex(math.nan, math.nan)) for t in er)
-    lanes = lane_count(state)
-    zs = None if launch_geometry(state.shape, 0, lanes=lanes,
-                                 dtype=er[0].dtype,
-                                 fstorage=state.fstorage).z_shared \
-        else _scratch(state.shape, er[0],
-                      None if state.lanes is None else lanes)
+    sweep = Sweep(e, s, state)
     for color in seq:
-        residual(er, sr, state, color, r)
-        thomas(er, r, fac, state, color, zs)
-    return _write_back(e, er, a)
+        sweep.residual(color)
+        sweep.solve(color)
+    return sweep.finish()

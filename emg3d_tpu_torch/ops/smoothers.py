@@ -36,7 +36,7 @@ __all__ = ['gauss_seidel_point', 'color_sequence', 'color_steps',
            'line_color_steps', 'line_factor_stack', 'pack_line_entries',
            'line_station_entries', 'factor_line_stack_', 'rotate_arrays',
            'rotate_fields', 'unrotate_fields', 'rotate_shape',
-           'line_thomas_x', 'LINE_BKEYS', 'NLINE']
+           'line_thomas_x', 'dense_station_blocks', 'LINE_BKEYS', 'NLINE']
 
 
 def color_sequence(nu):
@@ -167,6 +167,24 @@ def _l_plane(a, b):
     return a * (a - 1) // 2 + b
 
 
+def dense_station_blocks(q):
+    """Dense 5×5 blocks ``(D, B)``, each ``(..., 5, 5)``, of the packed
+    entry planes ``q`` (NLINE, ...) of one station before the
+    elimination: D symmetric from its diagonal (planes 10-14) and lower
+    (:func:`_l_plane`) planes, B's entries (a, k) from plane 15 + p of
+    LINE_BKEYS, the others zero."""
+    rows = []
+    for a in range(5):
+        rows.append(torch.stack([q[10 + a] if a == b else
+                                 q[_l_plane(max(a, b), min(a, b))]
+                                 for b in range(5)], -1))
+    D = torch.stack(rows, -2)
+    B = torch.zeros(q.shape[1:] + (5, 5), dtype=q.dtype, device=q.device)
+    for p, (a, k) in enumerate(LINE_BKEYS):
+        B[..., a, k] = q[15 + p]
+    return D, B
+
+
 def pack_line_entries(arrays, shape):
     """Station entries of the x-lines, packed where their factors go.
 
@@ -294,11 +312,14 @@ def _line_color_update_x(e, s, par, fac, color, sw=None):
     return line_thomas_x(e, _residual(e, s, par, sw), fac, color)
 
 
-def line_thomas_x(e, r, fac, color):
+def line_thomas_x(e, r, fac, color, stations=None):
     """The block-Thomas half of a colour step, given the residual ``r``.
 
     Solves every line of the colour against the factor stack and adds
     δ into the line's ex and its adjacent ey/ez edges (new tensors).
+    ``stations`` < nx solves the segment of the first ``stations``
+    stations (one lane): its last station is a full one (no PEC end),
+    against the first ``stations`` of ``fac``.
     With a leading lane axis on ``e`` and ``r`` (B, ...), ``fac`` is
     (B, ...) too: lane b's stack.  The lanes ride along the lines (the
     station recurrence is elementwise in them), so each lane's numbers
@@ -311,33 +332,49 @@ def line_thomas_x(e, r, fac, color):
     nzn = rx.shape[-1] - 2
     cy, cz = color % 2, color // 2
     lanes = rx.ndim == 4
+    nx = rx.shape[-3]
+    ns = nx if stations is None else int(stations)
+    seg = ns < nx
+    if seg and lanes:
+        raise ValueError("line_thomas_x: a segment takes one lane")
 
-    def stations(t):               # (B, S, ...) -> (S, B, ...)
+    def first(t):                  # (B, S, ...) -> (S, B, ...)
         return t.movedim(0, 1) if lanes else t
 
     # Station residuals (5 component stacks), parity-picked; the last
-    # station has no transverse edges (zero-padded).
-    px = (0, 0, 0, 0, 0, 1)
-    pad = torch.nn.functional.pad
-    rq = [stations(_parity_pick(a, cy, cz, ny2, nz2)) for a in (
-        rx[..., 1:-1, 1:-1],
-        pad(ry[..., 1:-1, :-1, 1:-1], px), pad(ry[..., 1:-1, 1:, 1:-1], px),
-        pad(rz[..., 1:-1, 1:-1, :-1], px), pad(rz[..., 1:-1, 1:-1, 1:], px))]
+    # station of a whole line has no transverse edges (zero-padded).
+    if seg:
+        tr = (ry[..., 1:ns + 1, :-1, 1:-1], ry[..., 1:ns + 1, 1:, 1:-1],
+              rz[..., 1:ns + 1, 1:-1, :-1], rz[..., 1:ns + 1, 1:-1, 1:])
+        fac = fac[:ns]
+    else:
+        px = (0, 0, 0, 0, 0, 1)
+        pad = torch.nn.functional.pad
+        tr = (pad(ry[..., 1:-1, :-1, 1:-1], px),
+              pad(ry[..., 1:-1, 1:, 1:-1], px),
+              pad(rz[..., 1:-1, 1:-1, :-1], px),
+              pad(rz[..., 1:-1, 1:-1, 1:], px))
+    rq = [first(_parity_pick(a, cy, cz, ny2, nz2))
+          for a in (rx[..., :ns, 1:-1, 1:-1],) + tr]
 
     q = fac[..., cy, cz, :, :]
-    facts = ([stations(q[..., p, :, :]) for p in range(10)],
-             [stations(q[..., 10 + p, :, :]) for p in range(5)])
-    Bent = {k: stations(q[..., 15 + p, :, :])
+    facts = ([first(q[..., p, :, :]) for p in range(10)],
+             [first(q[..., 10 + p, :, :]) for p in range(5)])
+    Bent = {k: first(q[..., 15 + p, :, :])
             for p, k in enumerate(LINE_BKEYS)}
     delta = block_tridiag_solve_entries(5, facts, Bent, rq)
-    dm = [_parity_embed(stations(d), cy, cz, nyn, nzn) for d in delta]
+    dm = [_parity_embed(first(d), cy, cz, nyn, nzn) for d in delta]
 
     ex, ey, ez = ex.clone(), ey.clone(), ez.clone()
-    ex[..., 1:-1, 1:-1] += dm[0]
-    ey[..., 1:-1, :-1, 1:-1] += dm[1][..., :-1, :, :]
-    ey[..., 1:-1, 1:, 1:-1] += dm[2][..., :-1, :, :]
-    ez[..., 1:-1, 1:-1, :-1] += dm[3][..., :-1, :, :]
-    ez[..., 1:-1, 1:-1, 1:] += dm[4][..., :-1, :, :]
+    # Station i's transverse edges lie on node i + 1; a whole line's
+    # last station has none.
+    t = slice(1, ns + 1) if seg else slice(1, -1)
+    dt = [d if seg else d[..., :-1, :, :] for d in dm[1:]]
+    ex[..., :ns, 1:-1, 1:-1] += dm[0]
+    ey[..., t, :-1, 1:-1] += dt[0]
+    ey[..., t, 1:, 1:-1] += dt[1]
+    ez[..., t, 1:-1, :-1] += dt[2]
+    ez[..., t, 1:-1, 1:] += dt[3]
     return ex, ey, ez
 
 

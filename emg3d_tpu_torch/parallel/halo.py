@@ -1,4 +1,5 @@
-"""Slabs with halos: the point smoother and the level ops across ranks.
+"""Slabs with halos: the point smoother and the level ops across ranks
+(the line smoothers on slabs are in :mod:`.lines`).
 
 Counterpart of the point half of ``emg3d_tpu/parallel/shmap.py`` and of
 the GSPMD partitioning the JAX package leaves to its compiler.  Every
@@ -58,13 +59,26 @@ import torch.distributed as dist
 from ..ops import point_gs, smoothers, stencil, transfers
 from .sharding import VALID_AXES, mesh_sizes
 
-__all__ = ['Slab', 'partition', 'supported_mesh', 'level_sharded',
+__all__ = ['Space', 'WHOLE', 'Slab', 'partition', 'joint_partition',
+           'supported_mesh', 'level_sharded', 'sharded_count',
            'gauss_seidel_point_sharded', 'shard_levels', 'restrict',
-           'prolongate', 'residual_norm', 'SENDS', 'reset_sends']
+           'prolongate', 'SENDS', 'reset_sends', 'MIN_LINE_PLANES']
 
 # Messages this rank sent since the last reset_sends(): 'colour' in the
-# smoother's colour steps, 'halo' in the refreshes of the transfers.
-SENDS = {'colour': 0, 'halo': 0}
+# point and line smoothers' colour steps (across a line's transverse
+# axes), 'line' along a line axis split over ranks (after each colour
+# step of the Schur-complement smoother, .lines), 'reduced' the
+# all_gathers of its reduced systems (one per colour step, one per line
+# state), 'halo' in the refreshes of the transfers and of the Krylov
+# vectors, 'sums' the all_reduces of norms and inner products
+# (Slab.reduce).
+SENDS = {'colour': 0, 'halo': 0, 'line': 0, 'reduced': 0, 'sums': 0}
+
+# Node planes every rank keeps along a line axis split over ranks for
+# the Schur-complement smoother (the JAX package's supported_line,
+# shmap.py:102-119, on this partition): an interface station and an
+# interior of two or more.  Below it the level is gathered (.lines).
+MIN_LINE_PLANES = 4
 
 _GRID_AXIS = {'y': 1, 'z': 2}
 
@@ -100,7 +114,7 @@ def level_sharded(shape, mesh, min_local_planes):
         for name, p in mesh_sizes(mesh).items())
 
 
-def partition(mesh, shapes):
+def partition(mesh, shapes, finest=None):
     """Node-plane boundaries of the sharded levels ``shapes`` (finest
     first, each the next one's parent).
 
@@ -114,10 +128,33 @@ def partition(mesh, shapes):
     shares differing by at most 2^k planes plus the last node.  (Split
     nodes instead, and the spare node of the coarsest level doubles into
     2^k extra planes of one rank.)
+
+    ``finest`` (``{axis: boundaries}`` of the finest level, as
+    :func:`joint_partition` gives them) fixes the finest level instead:
+    each coarser level halves the boundaries along an axis it coarsens,
+    which must then be even.
     """
     out = [dict() for _ in shapes]
     for name, p in mesh_sizes(mesh).items():
         ax = _GRID_AXIS[name]
+        if finest is not None:
+            t = tuple(finest[ax])
+            if t[0] != 0 or t[-1] != shapes[0][ax] + 1:
+                raise ValueError(f"finest boundaries {t} along axis {ax} of "
+                                 f"the level {shapes[0]}")
+            out[0][ax] = t
+            for lvl in range(1, len(shapes)):
+                n, nc = shapes[lvl - 1][ax], shapes[lvl][ax]
+                if n == 2 * nc:
+                    if any(v % 2 for v in t[:-1]):
+                        raise ValueError(f"boundaries {t} do not nest into "
+                                         f"the level {shapes[lvl]}")
+                    t = tuple(v // 2 for v in t[:-1]) + (nc + 1,)
+                elif n != nc:
+                    raise ValueError(f"level {shapes[lvl - 1]} is not the "
+                                     f"parent of {shapes[lvl]}")
+                out[lvl][ax] = t
+            continue
         n = shapes[-1][ax]
         t = [(i * n + p // 2) // p for i in range(p)] + [n + 1]
         out[-1][ax] = tuple(t)
@@ -130,6 +167,26 @@ def partition(mesh, shapes):
                                  f"of {shapes[lvl + 1]}")
             out[lvl][ax] = tuple(t)
     return out
+
+
+def joint_partition(mesh, hierarchies):
+    """The finest level's boundaries shared by several hierarchies.
+
+    ``hierarchies`` lists, per semicoarsening direction of a solve, the
+    cell shapes of its sharded levels (finest first; every list starts
+    at the same finest level).  Along each sharded axis the hierarchy
+    that coarsens it most often sets the finest boundaries
+    (:func:`partition` of its levels): they are multiples of 2^k for its
+    k coarsenings, so every hierarchy, coarsening that axis k times or
+    fewer, nests into them.  Returns ``{axis: boundaries}``.
+    """
+    finest = {}
+    for name in mesh.mesh_dim_names:
+        ax = _GRID_AXIS[name]
+        deepest = max(hierarchies, key=lambda shapes: sum(
+            a[ax] != b[ax] for a, b in zip(shapes, shapes[1:])))
+        finest[ax] = partition(mesh, deepest)[0][ax]
+    return finest
 
 
 def _dim(t, ax):
@@ -158,7 +215,33 @@ def _wire(t):
     return r.contiguous()
 
 
-class Slab:
+class Space:
+    """Sums over a level's edges, each edge once: the residual norms and
+    the Krylov solvers' inner products.  This base is a whole level on
+    one process (:data:`WHOLE`): every edge is owned and the sum over
+    the ranks is the sum itself.  A :class:`Slab` sums its owned edges,
+    then over the ranks, so every rank gets the same numbers (and takes
+    the same branches)."""
+
+    def owned_view(self, f, c):
+        """The edges of component ``c`` of ``f`` that this process owns."""
+        return f
+
+    def reduce(self, t):
+        """The sum of ``t`` over the ranks."""
+        return t
+
+    def norm(self, r):
+        """‖r‖₂ over the whole level, as a float."""
+        acc = sum(torch.sum(v.real ** 2 + v.imag ** 2)
+                  for v in (self.owned_view(f, c) for c, f in enumerate(r)))
+        return float(torch.sqrt(self.reduce(acc)))
+
+
+WHOLE = Space()
+
+
+class Slab(Space):
     """One rank's part of a sharded level of global cell shape ``shape``.
 
     ``parts`` is the level's entry of :func:`partition`.  Per sharded
@@ -171,7 +254,12 @@ class Slab:
 
     def __init__(self, shape, mesh, parts):
         self.shape = tuple(shape)
+        self.mesh, self.parts = mesh, parts
         self.owned, self.lo, self.hi, self.nbr = {}, {}, {}, {}
+        self.coord, self.dim_name = {}, {}
+        # The whole level's (eta_x, ..., hz) on the host where a line
+        # smoother gathers this level (shard_levels), else None.
+        self.whole = None
         coord = mesh.get_coordinate()
         ranks = mesh.mesh
         # Every rank's owned node planes, by global rank (for gather).
@@ -186,6 +274,7 @@ class Slab:
             last = len(t) - 2
             a, b = t[i], t[i + 1]
             self.owned[ax] = (a, b)
+            self.coord[ax], self.dim_name[ax] = i, name
             self.lo[ax] = a - 1 if i > 0 else 0
             self.hi[ax] = b if i < last else self.shape[ax]
 
@@ -233,6 +322,15 @@ class Slab:
                        .contiguous() if ax in self.owned else h
                        for ax, h in enumerate(arrays[4:]))
         return cube + widths
+
+    def split(self, ax):
+        """Whether grid axis ``ax`` is divided between ranks here."""
+        return ax in self.owned and self.nbr[ax] != (None, None)
+
+    def line_supported(self, ax):
+        """Whether lines along ``ax`` run the Schur-complement smoother:
+        every rank keeps MIN_LINE_PLANES node planes along it."""
+        return min(np.diff(self.parts[ax])) >= MIN_LINE_PLANES
 
     def local_colour(self, colour):
         """The slab's colour of a global colour: the parity of an axis
@@ -303,10 +401,31 @@ class Slab:
         """Bring every copy of the edges that global ``colour``'s step
         changed up to date: at each boundary the side whose boundary
         node plane has the colour's parity sends its three planes."""
-        par = (colour % 2, (colour // 2) % 2, colour // 4)
+        self.exchange(e, dict(enumerate(
+            (colour % 2, (colour // 2) % 2, colour // 4))))
+
+    def exchange(self, e, par, line_axis=None):
+        """The messages after a colour step that updated the nodes of
+        parity ``par[ax]`` along each sharded axis ``ax`` (point and
+        line smoothers; a line's transverse axes), and every station
+        along ``line_axis``, a line axis split over ranks (the Schur
+        smoother, .lines: a rank updates its stations' ex, the shared
+        cell below its first owned node included, and their transverse
+        edges, its owned node planes).  Along the line axis a rank sends
+        its last owned node planes up and its first owned node plane
+        with the shared cell down, and receives their counterparts."""
         for ax in sorted(self.axes, reverse=True):      # z, then y
             (a, b), (lower, upper) = self.owned[ax], self.nbr[ax]
             msgs = []
+            if ax == line_axis:
+                if upper is not None:
+                    msgs += [(upper, True, False, True),
+                             (upper, False, True, False)]
+                if lower is not None:
+                    msgs += [(lower, True, False, False),
+                             (lower, False, True, True)]
+                self._stage(e, ax, msgs, 'line')
+                continue
             if upper is not None:
                 mine = (b - 1) % 2 == par[ax]
                 msgs.append((upper, mine, True, mine))
@@ -348,23 +467,40 @@ class Slab:
                     f.select(dim, -1).zero_()
         return fields
 
-    def _owned_view(self, f, c):
-        """The owned edges of this rank's slab of component ``c``."""
+    def owned_view(self, f, c):
+        """The owned edges of this rank's slab of component ``c`` (a
+        leading axis, a stack's slots, rides along)."""
         glob = self._globals(self.owned, c)
         return f[_index(f, {
             ax: slice(g.start - self.lo[ax], g.stop - self.lo[ax])
             for ax, g in glob.items()})]
 
-    def norm(self, r):
-        """‖r‖₂ over the whole level: each owned edge once, summed over
-        the ranks (every rank gets the same float)."""
-        acc = sum(torch.sum(v.real ** 2 + v.imag ** 2)
-                  for v in (self._owned_view(f, c)
-                            for c, f in enumerate(r)))
-        acc = acc.reshape(1)
-        wire = acc if _backend() == 'nccl' else acc.cpu()
+    def reduce(self, t):
+        """The sum of ``t`` over all ranks, on ``t``'s device (one
+        ``all_reduce``, which may overwrite ``t``)."""
+        wire = _wire(t.reshape(-1))
         dist.all_reduce(wire)
-        return float(torch.sqrt(wire[0]))
+        SENDS['sums'] += 1
+        out = wire.to(t.device)
+        if t.is_complex():
+            out = torch.view_as_complex(out)
+        return out.reshape(t.shape)
+
+    def line_gather(self, t, ax):
+        """``t`` of every rank along grid axis ``ax`` (this rank's line
+        group), in their order: one ``all_gather``, counted in
+        ``SENDS['reduced']``."""
+        group = self.mesh.get_group(self.dim_name[ax])
+        wire = _wire(t)
+        parts = [torch.empty_like(wire)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, wire, group=group)
+        SENDS['reduced'] += 1
+        out = []
+        for p in parts:
+            p = p.to(t.device)
+            out.append(torch.view_as_complex(p) if t.is_complex() else p)
+        return out
 
     def gather(self, fields):
         """The whole level's fields on every rank: one all_gather of each
@@ -382,7 +518,7 @@ class Slab:
                  for _, owned in sorted(self.owned_by_rank.items())]
         sizes = [sum(g[i].numel() for g, i in zip(full, idx))
                  for idx in index]
-        mine = torch.cat([self._owned_view(f, c).reshape(-1)
+        mine = torch.cat([self.owned_view(f, c).reshape(-1)
                           for c, f in enumerate(fields)])
         mine = torch.cat([mine, mine.new_zeros(max(sizes) - mine.numel())])
         wire = _wire(mine)
@@ -426,16 +562,28 @@ def gauss_seidel_point_sharded(e, s, state, nu, slab, plain=False):
     return e
 
 
-def shard_levels(levels, mesh, min_local_planes, device):
+def sharded_count(shapes, mesh, min_local_planes):
+    """How many leading levels of the cell shapes ``shapes`` are
+    sharded (:func:`level_sharded`)."""
+    m = 0
+    while m < len(shapes) and level_sharded(shapes[m], mesh,
+                                            min_local_planes):
+        m += 1
+    return m
+
+
+def shard_levels(levels, mesh, min_local_planes, device, finest=None):
     """Distribute a level hierarchy built on the host: the leading levels
     that :func:`level_sharded` admits become this rank's slabs
     (``lev.slab``; ``lev.shape`` the slab's cell shape), the rest stay
-    whole.  Every tensor moves to ``device``."""
-    m = 0
-    while m < len(levels) and level_sharded(levels[m].shape, mesh,
-                                            min_local_planes):
-        m += 1
-    parts = partition(mesh, [lev.shape for lev in levels[:m]]) if m else []
+    whole.  Every tensor moves to ``device``.  ``finest`` fixes the
+    finest level's boundaries (:func:`partition`).  A sharded level
+    whose lines along a divided axis are too short per rank for the
+    Schur smoother keeps its whole arrays on the host (``slab.whole``):
+    its line smoother gathers it."""
+    m = sharded_count([lev.shape for lev in levels], mesh, min_local_planes)
+    parts = partition(mesh, [lev.shape for lev in levels[:m]], finest) \
+        if m else []
 
     def move(w):
         if w is None:
@@ -447,6 +595,9 @@ def shard_levels(levels, mesh, min_local_planes, device):
     for lvl, lev in enumerate(levels):
         if lvl < m:
             lev.slab = Slab(lev.shape, mesh, parts[lvl])
+            if any(lev.slab.split(ax) and not lev.slab.line_supported(ax)
+                   for ax in lev.slab.axes):
+                lev.slab.whole = lev.arrays
             lev.arrays = lev.slab.cut_arrays(lev.arrays)
             lev.shape = lev.slab.local_shape
         lev.arrays = move(lev.arrays)
@@ -521,8 +672,3 @@ def prolongate(e, ec, lev, clev):
             c = c.narrow(_dim(c, ax), start, f.shape[_dim(f, ax)])
         out.append(f + c)
     return tuple(slab.pec(out))
-
-
-def residual_norm(e, s, lev):
-    """‖s − A e‖₂ of a sharded level, the same float on every rank."""
-    return lev.slab.norm(stencil.residual_parts(*s, *e, *lev.arrays))

@@ -47,6 +47,7 @@ together.
   above :data:`FSTACK_BYTES`.  The outer residual stays float32, so
   the fixed point is that of the float32 solve.
 """
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -57,7 +58,7 @@ import torch
 from . import fields, models, utils
 from .dtypes import BF16, COMPLEX, REAL_OF, precision
 from .ops import dsres, line_gs, point_gs, stencil, transfers
-from .parallel import halo
+from .parallel import halo, lines
 
 __all__ = ['solve', 'solve_batched', 'multigrid', 'krylov', 'MGParameters']
 
@@ -406,6 +407,18 @@ class Lanes:
                                   device=device)
 
 
+def level_shapes(shape, sc_dir, clevel):
+    """The cell shapes of the hierarchy for a top-level ``sc_dir`` from
+    a level of cell shape ``shape``, finest first: the one rule of
+    :func:`build_levels` and of the sharded solve's partitions."""
+    shapes = [tuple(shape)]
+    for _ in range(clevel):
+        coarsen = _coarsen_flags(_current_sc_dir(sc_dir, shapes[-1]))
+        shapes.append(tuple(n // 2 if c else n
+                            for n, c in zip(shapes[-1], coarsen)))
+    return shapes
+
+
 def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
                  dtype=COMPLEX):
     """Build the full level hierarchy for one top-level sc_dir.
@@ -450,16 +463,16 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
     arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, real) for h in h_np])
     levels = [_Level(shape, arrays, h_np, nodes, meter, lanes)]
 
-    for _ in range(clevel):
+    shapes = level_shapes(shape, sc_dir, clevel)
+    for cshape in shapes[1:]:
         cur = levels[-1]
-        coarsen = _coarsen_flags(_current_sc_dir(sc_dir, cur.shape))
+        coarsen = tuple(n != nc for n, nc in zip(cur.shape, cshape))
         cur.coarsen = coarsen
 
         # Coarse grid geometry.
         cnodes = [cur.nodes[ax][::2] if coarsen[ax] else cur.nodes[ax]
                   for ax in range(3)]
         ch_np = [np.diff(cn) for cn in cnodes]
-        cshape = tuple(len(h) for h in ch_np)
 
         # Restriction / prolongation weights (host, then device).
         rw, pw = [None]*3, [None]*3
@@ -580,8 +593,7 @@ def _line_state(lev, axis, mode=None, storage=None):
         if lev.lanes is not None:
             # One stack per frequency group; K3 and K4 take every lane.
             nbytes *= len(lev.lanes.reps)
-        keep = (lev.meter['bytes'] + nbytes
-                <= line_gs.cache_budget(lev.arrays[0].device))
+        keep = line_gs.keep_stack(lev.meter, nbytes, lev.arrays[0].device)
         if lev.lanes is None:
             state = line_gs.line_state(lev.arrays, lev.shape, axis,
                                        factors=keep, plain=plain,
@@ -590,8 +602,6 @@ def _line_state(lev, axis, mode=None, storage=None):
             state = line_gs.line_state(_group_arrays(lev), lev.shape, axis,
                                        factors=keep, plain=plain,
                                        lanes=lev.lanes.index)
-        if keep:
-            lev.meter['bytes'] += nbytes
         lev.lstate[(axis, storage)] = state
     return state
 
@@ -609,7 +619,7 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
     """
     if nu <= 0:
         return e
-    lr = _current_lr_dir(lr_dir, lev.shape)
+    lr = _current_lr_dir(lr_dir, _level_shape(lev))
     if lr == 0:
         state = _level_state(lev, mode, storage)
         if lev.slab is not None:
@@ -623,6 +633,13 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
             gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g], nu)
         return e
     for ax in _lr_axes(lr):
+        if lev.slab is not None:
+            # Lines on this rank's slab (within it, across ranks, or the
+            # level gathered: parallel.lines).
+            e = lines.relax(e, s, lev, ax, nu, plain=mode == 'plain',
+                            local_state=lambda ax=ax: _line_state(
+                                lev, ax, mode, storage))
+            continue
         state = _line_state(lev, ax, mode, storage)
         if mode == 'plain':
             e = line_gs.line_relaxation_plain(e, s, state, nu)
@@ -655,9 +672,8 @@ def _prolongate(e, ec, lev, clev):
 def _level_norm(e, s, lev):
     """‖s − A e‖₂ on a level, summed across the ranks where it is
     sharded."""
-    if lev.slab is not None:
-        return halo.residual_norm(e, s, lev)
-    return residual_norm(e, s, lev.arrays)
+    sp = halo.WHOLE if lev.slab is None else lev.slab
+    return sp.norm(_residual_e(e, s, lev.arrays))
 
 
 def _level_shape(lev):
@@ -752,11 +768,6 @@ def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None,
 def _norm(rx, ry, rz):
     return torch.sqrt(sum(torch.sum(r.real**2 + r.imag**2)
                           for r in (rx, ry, rz)))
-
-
-def residual_norm(e, s, arrays):
-    """‖s − A e‖₂ as a Python float (one device-to-host copy)."""
-    return float(_norm(*_residual_e(e, s, arrays)))
 
 
 def _norm_b(rx, ry, rz):
@@ -857,6 +868,27 @@ class _SolveContext:
             else dsres.residual_ds
         return fn(ehi, elo, s, arrays, self._ds_params)
 
+    def _min_planes(self):
+        return self.sharding.get('min_local_planes', 4)
+
+    def _finest_partition(self):
+        """The finest level's boundaries shared by the hierarchies of
+        every semicoarsening direction the solve's schedule visits
+        (:func:`.parallel.halo.joint_partition`), or None where no level
+        is sharded."""
+        if not hasattr(self, '_finest'):
+            mesh = self.sharding['mesh']
+            shape = tuple(self.grid.shape_cells)
+            hier = []
+            for sc in sorted({int(d) for d in self.var._raw_sc_cycle}):
+                shapes = level_shapes(shape, sc, int(self.var.clevel[sc]))
+                m = halo.sharded_count(shapes, mesh, self._min_planes())
+                if m:
+                    hier.append(shapes[:m])
+            self._finest = halo.joint_partition(mesh, hier) if hier \
+                else None
+        return self._finest
+
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
             clevel = int(self.var.clevel[int(sc_dir)])
@@ -866,12 +898,13 @@ class _SolveContext:
                                       self.lanes, self.dtype)
             else:
                 # Built on the host, then each rank keeps its slabs of the
-                # sharded levels and the replicated levels whole.
+                # sharded levels and the replicated levels whole; every
+                # hierarchy nests into one partition of the finest level.
                 levels = halo.shard_levels(
                     build_levels(self.grid, self.vmodel, int(sc_dir),
                                  clevel, 'cpu', self.meter, dtype=self.dtype),
-                    self.sharding['mesh'],
-                    self.sharding.get('min_local_planes', 4), self.device)
+                    self.sharding['mesh'], self._min_planes(), self.device,
+                    self._finest_partition())
             for lev in levels:
                 lev.bf16 = self.storage is not None
             if self._levels:
@@ -1149,12 +1182,15 @@ class _ConvergenceError(Exception):
 # Krylov (reference parity: solver.py:1948-2124, 2669-2750)
 # ======================================================================
 
-def _dot(a, b):
-    """Standard complex inner product <a, b> = sum(conj(a)*b)."""
-    tot = 0j
-    for x, y in zip(a, b):
-        tot = tot + complex(torch.vdot(x.reshape(-1), y.reshape(-1)))
-    return tot
+def _dot(a, b, sp):
+    """Standard complex inner product <a, b> = sum(conj(a)*b) over the
+    level's edges (``sp``, a :class:`.parallel.halo.Space`: the whole
+    level, or a rank's slab and then over the ranks), as a Python
+    complex (one host sync)."""
+    d = torch.stack([torch.vdot(sp.owned_view(x, c).reshape(-1),
+                                sp.owned_view(y, c).reshape(-1))
+                     for c, (x, y) in enumerate(zip(a, b))])
+    return sum(sp.reduce(d).tolist(), 0j)
 
 
 def _axpy(alpha, x, y):
@@ -1176,19 +1212,33 @@ def krylov(ctx, var):
     arrays = fine.arrays
     s = ctx.s
     x = ctx.e
+    # A sharded finest level: the vectors are this rank's slabs, their
+    # ghosts refreshed before the operator, the preconditioner and a
+    # residual read them; the norms and inner products sum each owned
+    # edge once, then over the ranks (they never read a ghost).
+    slab = fine.slab
+    sp = halo.WHOLE if slab is None else slab
+
+    def fresh(v):
+        if slab is not None:
+            slab.refresh(v)
+        return v
 
     def matvec(e):
-        return stencil.amat(*e, *arrays)
+        return stencil.amat(*fresh(e), *arrays)
 
     def precond(r):
         ez = tuple(torch.zeros_like(c) for c in r)
-        return multigrid(ctx, var, e=ez, s=r, track=False)
+        return multigrid(ctx, var, e=ez, s=fresh(r), track=False)
+
+    def true_norm(xk):
+        return _level_norm(fresh(xk), s, fine)
 
     def callback(xk, l2=None):
         var._ssl_it += 1
         var.runtime_at_cycle = np.r_[var.runtime_at_cycle,
                                      var.time.elapsed]
-        var.l2 = residual_norm(xk, s, arrays) if l2 is None else l2
+        var.l2 = true_norm(xk) if l2 is None else l2
         var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
         if var.verb > 3:
             log = f"   [{var.time.now}]   {var.l2/var.l2_refe:.3e} "
@@ -1197,10 +1247,10 @@ def krylov(ctx, var):
         elif var.verb < 0:
             var.one_liner(var.l2)
 
-    bnorm = float(_norm(*s))
+    bnorm = sp.norm(s)
     atol = max(float(var.tol) * bnorm, 1e-30)
-    solver = {'bicgstab': _bicgstab, 'cgs': _cgs,
-              'gcrotmk': _gcrotmk}[var.sslsolver]
+    solver = functools.partial({'bicgstab': _bicgstab, 'cgs': _cgs,
+                                'gcrotmk': _gcrotmk}[var.sslsolver], sp=sp)
     l2_final = None
     try:
         if s[0].dtype == torch.complex64:
@@ -1230,8 +1280,7 @@ def krylov(ctx, var):
     ctx.e = x
     # The refined path reports the double-single-evaluated true residual
     # (a float32 evaluation would report its own noise floor).
-    var.l2 = l2_final if l2_final is not None \
-        else residual_norm(x, s, arrays)
+    var.l2 = l2_final if l2_final is not None else true_norm(x)
     return x
 
 
@@ -1326,17 +1375,18 @@ def _krylov_refined(ctx, var, solver, matvec, callback, x, bnorm):
     return tuple(c * bnorm for c in xhi), rn_true * bnorm, info
 
 
-def _bicgstab(matvec, precond, b, x, atol, maxiter, callback):
-    """Right-preconditioned BiCGSTAB (scipy-compatible formulation)."""
+def _bicgstab(matvec, precond, b, x, atol, maxiter, callback, sp):
+    """Right-preconditioned BiCGSTAB (scipy-compatible formulation);
+    norms and inner products over the space ``sp`` (:func:`_dot`)."""
     r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
     rtilde = r
     rho_prev, alpha, omega = 1.0, 1.0, 1.0
     v = p = None
 
     for it in range(maxiter):
-        if float(_norm(*r)) <= atol:
+        if sp.norm(r) <= atol:
             return x, 0
-        rho = _dot(rtilde, r)
+        rho = _dot(rtilde, r, sp)
         if rho == 0:
             return x, -10
         if it == 0:
@@ -1347,21 +1397,21 @@ def _bicgstab(matvec, precond, b, x, atol, maxiter, callback):
                       for rr, pp, vv in zip(r, p, v))
         phat = precond(p)
         v = matvec(phat)
-        denom = _dot(rtilde, v)
+        denom = _dot(rtilde, v, sp)
         if denom == 0:
             return x, -11
         alpha = rho / denom
         sres = tuple(rr - alpha * vv for rr, vv in zip(r, v))
-        if float(_norm(*sres)) <= atol:
+        if sp.norm(sres) <= atol:
             x = _axpy(alpha, phat, x)
             callback(x)
             return x, 0
         shat = precond(sres)
         t = matvec(shat)
-        tt = _dot(t, t)
+        tt = _dot(t, t, sp)
         if tt == 0:
             return x, -12
-        omega = _dot(t, sres) / tt
+        omega = _dot(t, sres, sp) / tt
         x = _axpy(alpha, phat, x)
         x = _axpy(omega, shat, x)
         r = tuple(ss - omega * ttt for ss, ttt in zip(sres, t))
@@ -1385,13 +1435,16 @@ _GCROT_M = 20
 _GCROT_K = 10
 
 
-def _st_dots(stacks, w):
-    """<stack_i, w> summed over the field components: (S,) complex."""
+def _st_dots(stacks, w, sp):
+    """<stack_i, w> summed over the components and ranks: (S,) complex
+    on the device (``sp`` as in :func:`_dot`)."""
     tot = None
-    for B, x in zip(stacks, w):
-        d = B.reshape(B.shape[0], -1).conj() @ x.reshape(-1)
+    for c, (B, x) in enumerate(zip(stacks, w)):
+        Bo = sp.owned_view(B, c)
+        d = Bo.reshape(Bo.shape[0], -1).conj() @ \
+            sp.owned_view(x, c).reshape(-1)
         tot = d if tot is None else tot + d
-    return tot
+    return sp.reduce(tot)
 
 
 def _st_comb(stacks, coef):
@@ -1412,16 +1465,18 @@ def _gc_append(stack, idx, v, scale):
     return stack
 
 
-def _dot_d(a, b):
-    """<a, b> over the components as a device scalar (no host sync)."""
+def _dot_d(a, b, sp):
+    """<a, b> over the components and ranks as a device scalar (no host
+    sync; ``sp`` as in :func:`_dot`)."""
     tot = None
-    for x, y in zip(a, b):
-        d = torch.vdot(x.reshape(-1), y.reshape(-1))
+    for c, (x, y) in enumerate(zip(a, b)):
+        d = torch.vdot(sp.owned_view(x, c).reshape(-1),
+                       sp.owned_view(y, c).reshape(-1))
         tot = d if tot is None else tot + d
-    return tot
+    return sp.reduce(tot)
 
 
-def _gc_ortho(cstack, vstack, cmask, vmask, w):
+def _gc_ortho(cstack, vstack, cmask, vmask, w, sp):
     """Orthogonalize w against the active C and V slots (CGS2).
 
     Two classical Gram-Schmidt passes (as stable as modified GS);
@@ -1429,8 +1484,8 @@ def _gc_ortho(cstack, vstack, cmask, vmask, w):
     vector [cd.re, cd.im, vd.re, vd.im, ‖w‖] for a single host fetch.
     """
     def gs_pass(w_):
-        cd = _st_dots(cstack, w_) * cmask
-        vd = _st_dots(vstack, w_) * vmask
+        cd = _st_dots(cstack, w_, sp) * cmask
+        vd = _st_dots(vstack, w_, sp) * vmask
         w_ = tuple(ww - cc - vv for ww, cc, vv in
                    zip(w_, _st_comb(cstack, cd), _st_comb(vstack, vd)))
         return w_, cd, vd
@@ -1439,29 +1494,29 @@ def _gc_ortho(cstack, vstack, cmask, vmask, w):
     w, cd2, vd2 = gs_pass(w)
     cd = cd1 + cd2
     vd = vd1 + vd2
-    wn = torch.sqrt(_dot_d(w, w).real)
+    wn = torch.sqrt(_dot_d(w, w, sp).real)
     pk = torch.cat([cd.real, cd.imag, vd.real, vd.imag, wn[None]])
     return w, pk
 
 
-def _gc_update(x, r, cxr, uxr):
+def _gc_update(x, r, cxr, uxr, sp):
     """x/r update along the new direction, and the packed diagnostics.
 
     gamma = <c_new, r> with c_new = cxr/‖cxr‖; x += gamma·u_new,
     r −= gamma·c_new.  Returns the new pair, rsqrt(‖cxr‖²) (the slot
     scale of the new outer pair) and [‖r_new‖², ‖cxr‖²] for one fetch.
     """
-    n2 = _dot_d(cxr, cxr).real
-    g = _dot_d(cxr, r)
+    n2 = _dot_d(cxr, cxr, sp).real
+    g = _dot_d(cxr, r, sp)
     inv = torch.rsqrt(torch.clamp(n2, min=torch.finfo(n2.dtype).tiny))
     coef = torch.complex(g.real / n2, g.imag / n2)
     x_new = tuple(xx + coef * uu for xx, uu in zip(x, uxr))
     r_new = tuple(rr - coef * cc for rr, cc in zip(r, cxr))
-    rn2 = _dot_d(r_new, r_new).real
+    rn2 = _dot_d(r_new, r_new, sp).real
     return x_new, r_new, inv, torch.stack([rn2, n2])
 
 
-def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
+def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, sp, m=None,
              k=None):
     """GCROT(m, k) with a device-resident basis and recycled subspace.
 
@@ -1480,7 +1535,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
         return torch.tensor(c, dtype=b[0].dtype, device=dev)
 
     r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
-    rn = float(_norm(*r))
+    rn = sp.norm(r)
     if rn <= atol or maxiter == 0:
         return x, 0
 
@@ -1510,7 +1565,8 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
             w = matvec(z)
             _gc_append(zstack, j, z, 1.0)
             w, pk = _gc_ortho(cstack, vstack, cmask_d,
-                              torch.tensor(vmask, dtype=rdt, device=dev), w)
+                              torch.tensor(vmask, dtype=rdt, device=dev), w,
+                              sp)
             pk = pk.cpu().numpy()                     # ONE fetch
             cd = pk[:k] + 1j * pk[k:2 * k]
             vd = pk[2 * k:2 * k + m + 1] + 1j * pk[2 * k + m + 1:-1]
@@ -1539,7 +1595,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
         cxr = _st_comb(vstack, coef(hy))
         uxr = tuple(zz - uu for zz, uu in zip(_st_comb(zstack, coef(ypad)),
                                               _st_comb(ustack, coef(yb))))
-        x, r, inv_d, diag = _gc_update(x, r, cxr, uxr)
+        x, r, inv_d, diag = _gc_update(x, r, cxr, uxr, sp)
         _gc_append(cstack, cu_next, cxr, inv_d)
         _gc_append(ustack, cu_next, uxr, inv_d)
         cmask[cu_next] = 1.0
@@ -1555,17 +1611,17 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, m=None,
     return x, maxiter
 
 
-def _cgs(matvec, precond, b, x, atol, maxiter, callback):
-    """Preconditioned CGS."""
+def _cgs(matvec, precond, b, x, atol, maxiter, callback, sp):
+    """Preconditioned CGS; ``sp`` as in :func:`_bicgstab`."""
     r = tuple(bb - aa for bb, aa in zip(b, matvec(x)))
     rtilde = r
     rho_prev = 1.0
     u = p = q = None
 
     for it in range(maxiter):
-        if float(_norm(*r)) <= atol:
+        if sp.norm(r) <= atol:
             return x, 0
-        rho = _dot(rtilde, r)
+        rho = _dot(rtilde, r, sp)
         if rho == 0:
             return x, -10
         if it == 0:
@@ -1578,7 +1634,7 @@ def _cgs(matvec, precond, b, x, atol, maxiter, callback):
                       for uu, qq, pp in zip(u, q, p))
         phat = precond(p)
         vhat = matvec(phat)
-        denom = _dot(rtilde, vhat)
+        denom = _dot(rtilde, vhat, sp)
         if denom == 0:
             return x, -11
         alpha = rho / denom
@@ -1635,8 +1691,9 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         calls ``solve`` with the same arguments; each returns the whole
         field.  A level is distributed while each rank keeps
         ``min_local_planes`` cells along every sharded axis; the coarser
-        ones run whole on every rank.  Point smoothing, multigrid alone
-        and complex128 only for now (the rest raises
+        ones run whole on every rank.  Point smoothing, line relaxation
+        (:mod:`.parallel.lines`), semicoarsening and the Krylov solvers,
+        in complex128 (a complex64 source raises
         ``NotImplementedError``).
 
     Returns
@@ -1648,8 +1705,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     mode = _pop_mode(kwargs)
     sharding = kwargs.pop('sharding', None)
     if sharding is not None:
-        _check_sharding(semicoarsening, linerelaxation, sslsolver,
-                        np.asarray(sfield.fx).dtype)
+        _check_sharding(np.asarray(sfield.fx).dtype)
         sharding = _normalize_sharding(sharding)
     profile = kwargs.pop('profile', None)
     # Prebuilt volume parameters η/ζ (the differentiable solve passes
@@ -1777,21 +1833,15 @@ def _normalize_sharding(sharding):
     return sharding
 
 
-def _check_sharding(semicoarsening, linerelaxation, sslsolver, dtype):
+def _check_sharding(dtype):
     """Refuse what the sharded solve does not run yet, naming the
-    ROADMAP item that ports it."""
-    what = ('linerelaxation' if linerelaxation else
-            'semicoarsening' if semicoarsening else
-            'sslsolver' if sslsolver else
-            'a complex64 source' if precision(dtype)[1] != COMPLEX else
-            None)
-    if what is None:
-        return
-    item = '1c (the halo line smoother)' if what == 'linerelaxation' \
-        else '1d (the sharded solve\'s remaining options)'
-    raise NotImplementedError(
-        f"solve(..., sharding=) with {what} is not ported to "
-        f"emg3d_tpu_torch yet (ROADMAP queue 1, item {item}).")
+    ROADMAP item that ports it: a complex64 source (its two-float cycles
+    and K6 on slabs)."""
+    if precision(dtype)[1] != COMPLEX:
+        raise NotImplementedError(
+            "solve(..., sharding=) with a complex64 source is not ported "
+            "to emg3d_tpu_torch yet (ROADMAP queue 1, item 1d (the "
+            "sharded solve's remaining options)).")
 
 
 def _pop_mode(kwargs):

@@ -28,7 +28,8 @@ def test_import_without_jax():
         "import emg3d_tpu_torch.__main__\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
         "smoothers, probes, dsres\n"
-        "from emg3d_tpu_torch.parallel import distributed, halo, sharding\n"
+        "from emg3d_tpu_torch.parallel import distributed, halo, lines, "
+        "sharding\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
@@ -50,7 +51,8 @@ def test_no_module_imports_jax_or_emg3d_tpu():
                 'cli/__init__.py', 'cli/main.py', 'cli/parser.py',
                 'cli/run.py', 'ops/probes.py', 'ops/dsres.py',
                 'parallel/__init__.py', 'parallel/distributed.py',
-                'parallel/sharding.py', 'parallel/halo.py'):
+                'parallel/sharding.py', 'parallel/halo.py',
+                'parallel/lines.py'):
         assert f'emg3d_tpu_torch/{mod}' in names, mod
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -76,22 +78,29 @@ def test_unported_options_raise(tmp_path):
     """Options of modules still to port name their slice; sslsolver
     'gcrotmk' is ported and solves.  (Files, once refused here, are
     ported: tests/test_torch_io.py; ``sharding=`` with point smoothing
-    solves: tests/test_torch_parallel.py.)  A sharded solve with line
-    relaxation, semicoarsening, a Krylov solver, a complex64 source or a
-    batch names its ROADMAP item, here on a one-rank gloo group."""
+    solves: tests/test_torch_parallel.py, with line relaxation,
+    semicoarsening and the Krylov solvers:
+    tests/test_torch_parallel_lines.py.)  Here on a one-rank gloo group
+    those options solve as the unsharded solve does, and a sharded solve
+    of a complex64 source or a batch names its ROADMAP item (1d)."""
     import torch.distributed as dist
     from emg3d_tpu_torch import parallel
     grid, model, sfield = _tiny_problem()
     dist.init_process_group('gloo', init_method=f'file://{tmp_path}/pg',
                             world_size=1, rank=0)
     try:
-        opts = parallel.shard_solve_options(parallel.make_mesh(1))
-        for kw, item in (({'linerelaxation': True}, '1c'),
-                         ({'semicoarsening': True}, '1d'),
-                         ({'sslsolver': True}, '1d')):
-            with pytest.raises(NotImplementedError, match=f'item {item}'):
-                pt.solve(grid, model, sfield, verb=0, device='cpu',
-                         sharding=opts, **kw)
+        opts = parallel.shard_solve_options(parallel.make_mesh(1),
+                                            min_local_planes=2)
+        for kw in ({'linerelaxation': True}, {'semicoarsening': True},
+                   {'sslsolver': True}):
+            e0, i0 = pt.solve(grid, model, sfield, verb=0, device='cpu',
+                              return_info=True, **kw)
+            e1, i1 = pt.solve(grid, model, sfield, verb=0, device='cpu',
+                              return_info=True, sharding=opts, **kw)
+            assert i1['exit_message'] == i0['exit_message'] == 'CONVERGED'
+            assert (i1['it_mg'], i1['it_ssl']) == (i0['it_mg'], i0['it_ssl'])
+            assert np.linalg.norm(e1.field - e0.field) <= \
+                1e-12 * np.linalg.norm(e0.field), kw
         s64 = pt.SourceField(*(f.astype(np.complex64) for f in
                                (sfield.fx, sfield.fy, sfield.fz)),
                              frequency=1.0)

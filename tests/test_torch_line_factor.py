@@ -298,11 +298,12 @@ def test_launch_counters():
     names = {'emg3d_line_factor', 'emg3d_line_residual',
              'emg3d_line_thomas'}
     assert names <= set(_build.ARGTYPES)
-    # K4: 8 pointers and the lane table, 15 ints (shape, colour, plan,
-    # launch, lanes), the stream.
-    assert len(_build.ARGTYPES['emg3d_line_thomas']) == 25
-    # K5: the stack and 9 parameter pointers, shape, launch, the stream.
-    assert len(_build.ARGTYPES['emg3d_line_factor']) == 16
+    # K4: 8 pointers and the lane table, 16 ints (shape, stations,
+    # colour, plan, launch, lanes), the stream.
+    assert len(_build.ARGTYPES['emg3d_line_thomas']) == 26
+    # K5: the stack and 9 parameter pointers, shape, stations, launch,
+    # the stream.
+    assert len(_build.ARGTYPES['emg3d_line_factor']) == 17
 
 
 @pytest.mark.parametrize('mode', [None, 'plain'])
