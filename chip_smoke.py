@@ -204,7 +204,21 @@ Phases:
    K4 and K5 on the same slabs for lines along each axis: within the
    rank, or the Schur smoother's interior segment (K5 and K4 with
    ``stations``), within TOL_KERNEL.  (NCCL refuses two ranks on one
-   card, so these cases take gloo.)
+   card, so these cases take gloo.)  The complex64 solve over ranks
+   (float32 storage pinned): at world size 1 on NCCL bench64 and
+   sclr64 BiCGSTAB with complex64 sources against phase 15's (the same
+   exit, it_mg and it_ssl, the field logged against phase 15's) and
+   sclr256 standalone (peak memory and wall beside phase 15's), then
+   sclr64 with the card's default storage (every state of a level on a
+   slab in float32, bfloat16 only on replicated levels); in the job of
+   2 ranks the complex64 point solve and sclr64 BiCGSTAB, CONVERGED
+   with the unsharded complex64 it_mg and it_ssl ±1, the gathered hi +
+   lo within TOL_C64_FIELD of the unsharded complex64 field and of the
+   complex128 one, every rank launching K6 and the case's kernels; its
+   ranks hold K1-K5's complex64 instances (K4/K5 on Schur segments too)
+   against their plain versions on their two finest slabs by
+   :func:`_check_c64`, and K6 (``ctx.residual_ds`` on the finest slab)
+   against ``residual_ds_plain`` within TOL_DS.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -242,7 +256,9 @@ launches per solve and rank (``launches_sharded``: K1/K2 in the
 world-size-1 bench64 solve and per point case, K3-K5 in the
 world-size-1 sclr64 solve and per sc+lr case, each case per rank the
 cold and the warm solve) and their largest max|Δ| against the plain
-versions on the ranks' slabs (``max_abs_err_sharded``).  The two
+versions on the ranks' slabs (``max_abs_err_sharded``); its complex64
+solves the same (``launches_sharded_c64``, K6 included, and
+``max_abs_err_sharded_c64``).  The two
 entries of scripts/hw_bisect_lr128.py (K3 and K4 alone at 128³, phase
 3b) carry K3's and K4's ``launches`` of the main path.  Each kernel's
 ``bound_ms`` is the least time the card could take for the timed call
@@ -366,8 +382,16 @@ LINE_KERNELS = ('line_residual', 'line_thomas', 'line_factor')
 # the sc+lr cases of one problem and mesh: ranks, mesh axes, cases.
 LINE_SHARD_CASES = {'sclr64_z2': SCLR, 'tri64x48x40_sclr_yz4': SCLR,
                     'sclr64_bicgstab_z2': dict(SCLR, sslsolver=True)}
+# Phase 17's complex64 cases on 2 ranks (bench64's source in complex64,
+# float32 storage pinned): the point solve and sclr64 BiCGSTAB (z-lines
+# Schur), held to the unsharded complex64 solves with it_mg and it_ssl
+# ±1 (ROADMAP §3) and fields within TOL_C64_FIELD of them and of the
+# complex128 solves.
+C64_SHARD_CASES = {'bench64_c64_z2': {},
+                   'sclr64_bicgstab_c64_z2': dict(SCLR, sslsolver=True)}
 SHARD_JOBS = {
-    'z2': (2, ('z',), ('bench64_z2', 'sclr64_z2', 'sclr64_bicgstab_z2')),
+    'z2': (2, ('z',), ('bench64_z2', 'sclr64_z2', 'sclr64_bicgstab_z2',
+                       'bench64_c64_z2', 'sclr64_bicgstab_c64_z2')),
     'yz4': (4, ('y', 'z'), ('tri64x48x40_yz4', 'tri64x48x40_sclr_yz4'))}
 # Fullspace shapes (100 m cells) for the main path's second solve, in
 # order of size; good multigrid numbers (p·2^k, p ≤ 3).
@@ -2958,7 +2982,9 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     CONVERGED and its responses held to the complex128 solve at tol 1e-10
     (phase 10's, at tol 1e-6, are themselves only as accurate as their
     residual: logged beside).  Returns the launches per kernel, the
-    sclr256 peak and K6's launches per solve of each configuration."""
+    sclr256 peak, K6's launches per solve of each configuration and the
+    references of phase 17's complex64 cases: the cold (field, info) of
+    bench64 and sclr64 BiCGSTAB, and sclr256's wall and peak."""
     from emg3d_tpu_torch import fields, solve, solve_batched
     grid, model, sfield = bench_problem()
     src = _c64_source(sfield)
@@ -2982,10 +3008,11 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
 
     # K6's launches per complex64 solve of each configuration.
     k6 = {}
+    refs = {}
 
     def pair(name, *args):
         n0 = counts['residual_ds']
-        _c64_pair(torch, name, counts, *args)
+        refs[name] = _c64_pair(torch, name, counts, *args)
         k6[name] = (counts['residual_ds'] - n0) / (1 + C64_PAIRS)
     pair('bench64', lambda: solve(grid, model, sfield, **kw),
          lambda: solve(grid, model, src, **kw), check_solve('bench64', e4))
@@ -3008,6 +3035,7 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
         f"memory {peak:.2f} GiB (complex128, phase 8: {peak8:.2f} GiB)")
     if not i256['rel_error'] < 1e-6:
         raise AssertionError("sclr256 complex64 above tol")
+    refs['sclr256'] = {'wall': w256, 'peak': peak, 'it_mg': i256['it_mg']}
     del e256, g256, m256, s256
     torch.cuda.empty_cache()
 
@@ -3066,11 +3094,12 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     pair('sim64 solve_batched',
          lambda: solve_batched(grid10, model10, sf128, **opts),
          lambda: solve_batched(grid10, model10, sf64, **opts), check_sim)
+    del refs['sim64 solve_batched']
     log(f"complex64 main path launches: {counts}; K6 per solve: {k6}")
     if min(counts.values()) == 0:
         raise AssertionError(f"the complex64 path launched no "
                              f"{min(counts, key=counts.get)}")
-    return counts, peak, k6
+    return counts, peak, k6, refs
 
 
 def phase_c64_plain(torch):
@@ -3453,8 +3482,11 @@ def _free_port():
 
 
 def _shard_problem(case):
-    return heterogeneous_problem() if case.startswith('tri') \
-        else bench_problem()
+    grid, model, sfield = heterogeneous_problem() \
+        if case.startswith('tri') else bench_problem()
+    if case in C64_SHARD_CASES:
+        sfield = _c64_source(sfield)
+    return grid, model, sfield
 
 
 def _slab_checks(torch, problem, opts, rank):
@@ -3616,18 +3648,169 @@ def _slab_line_checks(torch, problem, opts, rank, device='cuda'):
 
 def _case_opts(case):
     """The solve options of a phase 17 case."""
-    return LINE_SHARD_CASES.get(case, {})
+    return {**LINE_SHARD_CASES, **C64_SHARD_CASES}.get(case, {})
+
+
+def _c64_field(torch, shape, rng, device='cuda'):
+    """Random complex64 edge fields of a level of cell shape ``shape``."""
+    nx, ny, nz = shape
+    return tuple(torch.tensor(rng.standard_normal(sh)
+                              + 1j * rng.standard_normal(sh),
+                              dtype=torch.complex64, device=device)
+                 for sh in ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                            (nx + 1, ny + 1, nz)))
+
+
+def _slab_checks_c64(torch, problem, opts, rank, device='cuda'):
+    """K1's and K2's complex64 instances against their plain versions on
+    this rank's slabs of the two finest levels of the complex64 point
+    solve (every colour step alone, :func:`_check_c64`: both within
+    max(TOL_C64, 2·ep) of the float64 evaluation of the same float32
+    inputs), and K6 on the finest slab (``ctx.residual_ds``: hi's and
+    lo's ghosts refreshed, the slab's ``ds_params``) against
+    ``residual_ds_plain`` on the same slab inputs, its owned edges within
+    TOL_DS.  Returns one record per level and kernel."""
+    from emg3d_tpu_torch import VolumeModel, solver
+    from emg3d_tpu_torch.ops import dsres, point_gs
+    grid, model, sfield = problem
+    var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
+                              linerelaxation=False, semicoarsening=False,
+                              shape_cells=tuple(grid.shape_cells))
+    ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
+                               sfield, sfield, var, device, None,
+                               solver._normalize_sharding(opts))
+    rng = np.random.default_rng(200 + rank)
+    out = []
+    for lvl, lev in enumerate(ctx.levels(int(var.sc_dir))[:2]):
+        if lev.slab is None:
+            continue
+        e0, s = _c64_field(torch, lev.shape, rng, device), \
+            _c64_field(torch, lev.shape, rng, device)
+        for mode in POINT_MODES:
+            state = point_gs.point_state(lev.arrays, lev.shape,
+                                         factored=mode == 'factored')
+            state64 = _upcast_state(state)
+            triples = []
+            for c in range(8):
+                ek, ep, ex = _clone(e0), _clone(e0), _up(e0)
+                point_gs.gauss_seidel_point(ek, s, state, 1, _mode=mode,
+                                            _seq=[c])
+                point_gs.gauss_seidel_point_plain(ep, s, state, 1,
+                                                  _mode=mode, _seq=[c])
+                point_gs.gauss_seidel_point_plain(ex, _up(s), state64, 1,
+                                                  _mode=mode, _seq=[c])
+                triples.append((ek, ep, ex))
+            _sync(torch)
+            dmax, worst = _check_c64(
+                f"{KERNELS[mode]['name']} rank {rank} level {lvl} slab",
+                lev.shape, triples)
+            out.append({'level': lvl, 'slab': list(lev.shape),
+                        'kernel': mode, 'max_abs_err': dmax, **worst})
+        if lvl == 0:
+            hi, s0 = _c64_field(torch, lev.shape, rng, device), \
+                _c64_field(torch, lev.shape, rng, device)
+            lo = tuple(1e-7 * t
+                       for t in _c64_field(torch, lev.shape, rng, device))
+            rk = ctx.residual_ds(hi, lo, s0)
+            rp = dsres.residual_ds_plain(hi, lo, s0, lev.arrays,
+                                         ctx._ds_params)
+            _sync(torch)
+            own = lev.slab.owned_view
+            d = max(float((own(a, c) - own(b, c)).abs().max())
+                    for c, (a, b) in enumerate(zip(rk, rp)))
+            m = max(float(own(b, c).abs().max()) for c, b in enumerate(rp))
+            out.append({'level': lvl, 'slab': list(lev.shape),
+                        'kernel': 'residual_ds', 'max_abs_err': d,
+                        'rel': d / m})
+    return out
+
+
+def _slab_line_checks_c64(torch, problem, opts, rank, device='cuda'):
+    """K3, K4 and K5's complex64 instances against their plain versions
+    on this rank's slabs of the two finest levels of the complex64 sc+lr
+    solve's first hierarchy, lines along each axis (within the rank, or
+    a Schur segment: K5 and K4 with ``stations``), by
+    :func:`_check_c64` against the float64 evaluation of the same float32
+    inputs: K5's stack, K3 of every colour (K3's own checks:
+    :func:`_residual_triple`), K4 of every colour on the kernel's stack.
+    Returns one record per level and axis."""
+    from emg3d_tpu_torch import VolumeModel, solver
+    from emg3d_tpu_torch.ops import line_gs, stencil
+    from emg3d_tpu_torch.parallel import lines
+    grid, model, sfield = problem
+    var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
+                              shape_cells=tuple(grid.shape_cells), **SCLR)
+    ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
+                               sfield, sfield, var, device, None,
+                               solver._normalize_sharding(opts))
+    rng = np.random.default_rng(400 + rank)
+    out = []
+    for lvl, lev in enumerate(ctx.levels(int(var.sc_dir))[:2]):
+        slab = lev.slab
+        if slab is None:
+            continue
+        for ax in range(3):
+            split = slab.split(ax)
+            if split and not slab.line_supported(ax):
+                continue
+            if split:
+                st = lines.schur_state(lev, ax)
+                state, sub, ns, fk = st.slab, st.sub, st.stations, st.fac
+            else:
+                state = line_gs.line_state(lev.arrays, lev.shape, ax)
+                sub, ns, fk = state, state.shape[0], state.factors
+            fp = line_gs.segment_stack(sub, ns, plain=True)
+            f64 = line_gs.segment_stack(_upcast_state(sub), ns, plain=True)
+            _sync(torch)
+            name = f"rank {rank} level {lvl} {'xyz'[ax]}-lines"
+            rec = {'level': lvl, 'slab': list(lev.shape), 'axis': ax,
+                   'lines': 'schur' if split else 'within',
+                   'stations': ns, 'nx': sub.shape[0]}
+            rec['line_factor'] = _check_c64(
+                f"line_factor {name}", lev.shape, [((fk,), (fp,), (f64,))])
+            del fp, f64
+            L = state.shape[0]
+            er, sr = _c64_field(torch, state.shape, rng, device), \
+                _c64_field(torch, state.shape, rng, device)
+            st64 = _upcast_state(state)
+            rec['line_residual'] = _check_c64(
+                f"line_residual {name}", lev.shape,
+                [_residual_triple(torch, state, st64, er, sr, c)
+                 for c in range(4)])
+            rp = stencil.residual_parts(*sr, *er, *state.arrays)
+            rs = rp if not split else (rp[0][1:], rp[1][1:L + 1],
+                                       rp[2][1:L + 1])
+            e0 = er if not split else (er[0][1:], er[1][1:L + 1],
+                                       er[2][1:L + 1])
+            triples = []
+            for c in range(4):
+                ek, ep, ex = _clone(e0), _clone(e0), _up(e0)
+                line_gs.thomas(ek, rs, fk, sub, c, stations=ns)
+                line_gs.thomas_plain(ep, rs, fk, c, stations=ns)
+                line_gs.thomas_plain(ex, _up(rs), _up(fk), c, stations=ns)
+                triples.append((ek, ep, ex))
+            _sync(torch)
+            rec['line_thomas'] = _check_c64(f"line_thomas {name}",
+                                            lev.shape, triples)
+            for k in LINE_KERNELS:
+                dmax, worst = rec[k]
+                rec[k] = {'max_abs_err': dmax, **worst}
+            out.append(rec)
+    return out
 
 
 def _shard_rank(rank, world, port, job, out_dir):
     """One rank of a phase 17 job: a process on card 0, gloo between the
-    ranks; holds the kernels to plain on its slabs, solves each case of
-    the job twice and writes the case's counts (and rank 0 the field)
-    into ``out_dir``."""
+    ranks (the transport of ranks sharing one card, not a fallback: NCCL
+    refuses two ranks on it); holds the kernels to plain on its slabs
+    (their complex64 instances and K6 too where the job has complex64
+    cases), solves each case of the job twice and writes the case's
+    counts (and rank 0 the field) into ``out_dir``.  A kernel that does
+    not build, launch or agree raises, and the job fails."""
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from emg3d_tpu_torch import parallel
-    from emg3d_tpu_torch.ops import line_gs, point_gs
+    from emg3d_tpu_torch import parallel, solver
+    from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
     from emg3d_tpu_torch.parallel import distributed, halo, lines
     torch.cuda.set_device(0)
     distributed.init(f'127.0.0.1:{port}', world, rank, backend='gloo')
@@ -3637,44 +3820,61 @@ def _shard_rank(rank, world, port, job, out_dir):
         opts = parallel.shard_solve_options(parallel.make_mesh(axes=axes))
         checks = {'point': _slab_checks(torch, problem, opts, rank),
                   'line': _slab_line_checks(torch, problem, opts, rank)}
+        c64 = [c for c in cases if c in C64_SHARD_CASES]
+        if c64:
+            p64 = _shard_problem(c64[0])
+            checks['point_c64'] = _slab_checks_c64(torch, p64, opts, rank)
+            checks['line_c64'] = _slab_line_checks_c64(torch, p64, opts,
+                                                       rank)
         out = Path(out_dir)
         for case in cases:
             kw = _case_opts(case)
             runs = []
+            # complex64: float32 storage, as the unsharded references.
+            solver.BF16_STORAGE = False if case in c64 else None
             for _ in range(2):
                 point_gs.reset_launches()
                 line_gs.reset_launches()
+                dsres.reset_launches()
                 halo.reset_sends()
                 lines.reset_gathered()
-                e, info, wall = _solve(torch, *problem, sharding=opts, **kw)
+                e, info, wall = _solve(torch, *_shard_problem(case),
+                                       sharding=opts, **kw)
                 runs.append({'wall': wall, 'it_mg': info['it_mg'],
                              'it_ssl': info['it_ssl'],
                              'exit': info['exit_message'],
-                             'launches': {**point_gs.LAUNCHES,
-                                          **line_gs.LAUNCHES},
+                             'rel_error': info['rel_error'],
+                             'launches': _launch_counts(),
                              'steps': dict(point_gs.STEPS),
                              'sends': dict(halo.SENDS),
                              'gathered': [[list(k[0]), k[1], n] for k, n in
                                           sorted(lines.GATHERED.items())]})
+            solver.BF16_STORAGE = None
             if rank == 0:
                 np.savez(out / f'{case}.npz', fx=e.fx, fy=e.fy, fz=e.fz)
+            key = ('line' if kw.get('linerelaxation') else 'point') + \
+                ('_c64' if case in c64 else '')
             (out / f'{case}_rank{rank}.json').write_text(json.dumps(
-                {'runs': runs, 'checks': checks[
-                    'line' if kw.get('linerelaxation') else 'point']}))
+                {'runs': runs, 'checks': checks[key]}))
     finally:
         distributed.shutdown()
 
 
-def phase_sharded(torch, e4, info4, sclr_refs, out_dir):
+def phase_sharded(torch, e4, info4, sclr_refs, c64_refs, out_dir):
     """Phase 17 (see the module docstring).  Returns K1-K5's
-    ``launches_sharded`` and their largest max|Δ| on the ranks' slabs."""
+    ``launches_sharded`` and their largest max|Δ| on the ranks' slabs,
+    and K1-K6's ``launches_sharded_c64`` and largest max|Δ| of their
+    complex64 instances on the slabs (``c64_refs``: phase 15's)."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
-    from emg3d_tpu_torch import parallel
+    from emg3d_tpu_torch import parallel, solver
     from emg3d_tpu_torch.ops import line_gs, point_gs
     from emg3d_tpu_torch.parallel import distributed, halo, lines
     counts = {k: {} for k in POINT_MODES + LINE_KERNELS}
     errs = {k: 0.0 for k in POINT_MODES + LINE_KERNELS}
+    k6 = ('residual_ds',)
+    c64_counts = {k: {} for k in POINT_MODES + LINE_KERNELS + k6}
+    c64_errs = {k: 0.0 for k in POINT_MODES + LINE_KERNELS + k6}
     grid, model, sfield = bench_problem()
 
     distributed.init(f'127.0.0.1:{_free_port()}', 1, 0)
@@ -3753,22 +3953,33 @@ def phase_sharded(torch, e4, info4, sclr_refs, out_dir):
             raise AssertionError("the world-size-1 BiCGSTAB solve made no "
                                  "all_reduce")
         del e1
+        _sharded_c64_ws1(torch, opts, c64_refs, c64_counts)
     finally:
         distributed.shutdown()
 
-    # The unsharded solves of the same problems, warm, for the walls.
+    # The unsharded solves of the same problems, warm, for the walls
+    # (complex64 with float32 storage).
     refs = {}
     for _, _, cases in SHARD_JOBS.values():
         for case in cases:
-            if case not in LINE_SHARD_CASES:
-                _solve(torch, *_shard_problem(case))
-            refs[case] = _solve(torch, *_shard_problem(case),
-                                **_case_opts(case))
+            solver.BF16_STORAGE = False if case in C64_SHARD_CASES \
+                else None
+            try:
+                if case not in LINE_SHARD_CASES:
+                    _solve(torch, *_shard_problem(case))
+                refs[case] = _solve(torch, *_shard_problem(case),
+                                    **_case_opts(case))
+            finally:
+                solver.BF16_STORAGE = None
     log(f"unsharded, warm: bench64 {refs['bench64_z2'][2]:.3f} s, "
         f"world size 1 sharded {walls[1]:.3f} s; sclr64 "
         f"{refs['sclr64_z2'][2]:.3f} s, tri64x48x40 sc+lr "
         f"{refs['tri64x48x40_sclr_yz4'][2]:.3f} s, sclr64 BiCGSTAB "
-        f"{refs['sclr64_bicgstab_z2'][2]:.3f} s ({nvidia_smi()})")
+        f"{refs['sclr64_bicgstab_z2'][2]:.3f} s; complex64 bench64 "
+        f"{refs['bench64_c64_z2'][2]:.3f} s, sclr64 BiCGSTAB "
+        f"{refs['sclr64_bicgstab_c64_z2'][2]:.3f} s ({nvidia_smi()})")
+    c128 = {'bench64_c64_z2': e4,
+            'sclr64_bicgstab_c64_z2': sclr_refs['bicgstab'][0]}
 
     jobs = {}
     for name, (n, axes, cases) in SHARD_JOBS.items():
@@ -3779,12 +3990,193 @@ def phase_sharded(torch, e4, info4, sclr_refs, out_dir):
         jobs[name] = time.perf_counter() - t0
         log(f"job {name} ({n} ranks, {axes}, gloo: {', '.join(cases)}): "
             f"spawn, init, checks and two solves of each case "
-            f"{jobs[name]:.2f} s ({nvidia_smi()}; ranks sharing one card)")
+            f"{jobs[name]:.2f} s ({nvidia_smi()}; ranks sharing one card, "
+            f"messages staged through the host by gloo)")
     for name, (n, axes, cases) in SHARD_JOBS.items():
         for case in cases:
-            _check_sharded_case(case, n, axes, refs[case], out_dir,
-                                counts, errs)
-    return counts, errs
+            if case in C64_SHARD_CASES:
+                _check_sharded_c64(case, n, axes, refs[case], c128[case],
+                                   out_dir, c64_counts, c64_errs)
+            else:
+                _check_sharded_case(case, n, axes, refs[case], out_dir,
+                                    counts, errs)
+    return counts, errs, c64_counts, c64_errs
+
+
+def _sharded_c64_ws1(torch, opts, c64_refs, counts):
+    """Phase 17's complex64 solves at world size 1 on NCCL: bench64 and
+    sclr64 BiCGSTAB with float32 storage against phase 15's (the same
+    exit, it_mg and it_ssl; the field logged against phase 15's, bitwise
+    predicted), sclr256 standalone (peak memory and wall beside phase
+    15's), then sclr64 standalone with the card's default storage: every
+    state of a level on a slab in float32, bfloat16 (and its launches)
+    only on the replicated levels.  Adds each kernel's launches to
+    ``counts``."""
+    from emg3d_tpu_torch import solver
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    grid, model, sfield = bench_problem()
+    src = _c64_source(sfield)
+    solver.BF16_STORAGE = False
+    try:
+        for name, kw in (('bench64', {}),
+                         ('sclr64 bicgstab', dict(SCLR, sslsolver=True))):
+            ec, ic = c64_refs[name]
+            n = {}
+            with _Counted(n):
+                e1, i1, w1 = _solve(torch, grid, model, src, sharding=opts,
+                                    **kw)
+            rel = _rel(e1, ec)
+            log(f"{name} complex64, world size 1, NCCL, float32 storage: "
+                f"{i1['exit_message']}, it_mg {i1['it_mg']}, it_ssl "
+                f"{i1['it_ssl']} (phase 15 {ic['it_mg']}, {ic['it_ssl']}), "
+                f"rel_error {i1['rel_error']:.3e}, returned "
+                f"{e1.field.dtype}, wall {w1:.3f} s, |Δ|/|e| against phase "
+                f"15 {rel:.3e}, launches {n}")
+            if (i1['exit_message'], i1['it_mg'], i1['it_ssl']) != (
+                    ic['exit_message'], ic['it_mg'], ic['it_ssl']) or \
+                    e1.field.dtype != np.complex128 or \
+                    not rel <= TOL_C64_FIELD:
+                raise AssertionError(f"{name} complex64 at world size 1 "
+                                     "differs from phase 15's")
+            if n['residual_ds'] == 0:
+                raise AssertionError(f"{name} complex64 at world size 1 "
+                                     "launched no K6")
+            for k, v in n.items():
+                counts[k][name.replace(' ', '_') + '_c64_ws1_nccl'] = v
+            del e1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g256, m256, s256 = bench_problem((256,) * 3)
+        n = {}
+        with _Counted(n):
+            e256, i256, w256 = _solve(torch, g256, m256,
+                                      _c64_source(s256), sharding=opts,
+                                      **SCLR)
+        del e256
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = c64_refs['sclr256']
+        log(f"sclr256 complex64, world size 1, NCCL, float32 storage: "
+            f"{i256['exit_message']}, it_mg {i256['it_mg']} (phase 15 "
+            f"{ref['it_mg']}), rel_error {i256['rel_error']:.3e}, wall "
+            f"{w256:.3f} s (phase 15 {ref['wall']:.3f} s), peak device "
+            f"memory {peak:.2f} GiB (phase 15 {ref['peak']:.2f} GiB), "
+            f"launches {n} ({nvidia_smi()})")
+        if not i256['rel_error'] < 1e-6 or i256['it_mg'] != ref['it_mg']:
+            raise AssertionError("sclr256 complex64 at world size 1")
+        for k, v in n.items():
+            counts[k]['sclr256_c64_ws1_nccl'] = v
+        del g256, m256, s256
+        torch.cuda.empty_cache()
+    finally:
+        solver.BF16_STORAGE = None
+    # The card's default storage: bfloat16 where a level has no slab.
+    seen = set()
+
+    def spy(fn):
+        def run(lev, *args, **kw):
+            state = fn(lev, *args, **kw)
+            seen.add((lev.slab is not None, str(state.storage),
+                      str(getattr(state, 'fstorage', None))))
+            return state
+        return run
+    real = solver._level_state, solver._line_state
+    solver._level_state, solver._line_state = map(spy, real)
+    point_gs.reset_launches()
+    line_gs.reset_launches()
+    try:
+        _, info, wall = _solve(torch, grid, model, src, sharding=opts,
+                               **SCLR)
+    finally:
+        solver._level_state, solver._line_state = real
+    bf16 = {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES}
+    log(f"sclr64 complex64, world size 1, default storage: it_mg "
+        f"{info['it_mg']}, wall {wall:.3f} s; states (on a slab, stream "
+        f"storage, stack storage): {sorted(seen)}; bfloat16 launches "
+        f"{bf16}")
+    if any(on and (st != 'None' or fs != 'None') for on, st, fs in seen):
+        raise AssertionError("a level on a slab stored in bfloat16")
+    if sum(bf16.values()) and not any(not on and st != 'None'
+                                      for on, st, _ in seen):
+        raise AssertionError("bfloat16 launches without a bfloat16 state "
+                             "of a replicated level")
+
+
+def _check_sharded_c64(case, n, axes, ref_solve, e128, out_dir, counts,
+                       errs):
+    """Read, log and check one complex64 phase 17 case's ranks: every
+    run CONVERGED with the unsharded complex64 solve's it_mg and it_ssl
+    ±1 and rel_error < 1e-6, the gathered hi + lo (complex128) within
+    TOL_C64_FIELD of the unsharded complex64 field and of the complex128
+    one, every rank launched K6 and the case's kernels, and each rank's
+    slab checks (K1-K5 by :func:`_check_c64`'s rule, K6 within TOL_DS).
+    Adds the launches and kernel errors to ``counts`` and ``errs``."""
+    from emg3d_tpu_torch import Field
+    line = bool(_case_opts(case).get('linerelaxation'))
+    kernels = LINE_KERNELS if line else POINT_MODES
+    ref, iref, wref = ref_solve
+    f = np.load(out_dir / f'{case}.npz')
+    got = Field(f['fx'], f['fy'], f['fz'])
+    rel, rel128 = _rel(got, ref), _rel(got, e128)
+    recs = [json.loads((out_dir / f'{case}_rank{r}.json').read_text())
+            for r in range(n)]
+    for r, rec in enumerate(recs):
+        for chk in rec['checks']:
+            where = (f"{case} rank {r}, level {chk['level']} slab "
+                     f"{'x'.join(map(str, chk['slab']))}")
+            if line:
+                where += f", {'xyz'[chk['axis']]}-lines {chk['lines']}"
+            found = [(k, chk[k]) for k in LINE_KERNELS] if line else \
+                [(chk['kernel'], chk)]
+            for k, c in found:
+                if k == 'residual_ds':
+                    log(f"{where}: {DSRES['name']} (ctx.residual_ds) vs "
+                        f"plain on the owned edges, max|Δ| "
+                        f"{c['max_abs_err']:.3e}, max|Δ|/max|r| "
+                        f"{c['rel']:.3e}")
+                    ok = c['rel'] <= TOL_DS
+                else:
+                    limit = max(TOL_C64, 2 * c['plain_f64'])
+                    log(f"{where}: {KERNELS[k]['name']} complex64 against "
+                        f"float64 {c['kernel_f64']:.3e}, plain against "
+                        f"float64 {c['plain_f64']:.3e}, kernel against plain "
+                        f"{c['kernel_plain']:.3e} (limit {limit:.3e})")
+                    ok = c['kernel_f64'] <= limit and \
+                        c['kernel_plain'] <= limit
+                if not ok:
+                    raise AssertionError(f"{where}: {k} complex64 differs "
+                                         f"from plain")
+                errs[k] = max(errs[k], c['max_abs_err'])
+    for r, rec in enumerate(recs):
+        for run, x in zip(('cold', 'warm'), rec['runs']):
+            log(f"{case} ({axes}, gloo), rank {r}, {run}: {x['exit']}, "
+                f"it_mg {x['it_mg']}, it_ssl {x['it_ssl']} (unsharded "
+                f"{iref['it_mg']}, {iref['it_ssl']}), rel_error "
+                f"{x['rel_error']:.3e}, wall {x['wall']:.3f} s, launches "
+                f"{x['launches']}, messages {x['sends']}, gathered levels "
+                f"{x['gathered']}")
+            if x['exit'] != 'CONVERGED' or not x['rel_error'] < 1e-6 or \
+                    abs(x['it_mg'] - iref['it_mg']) > 1 or \
+                    abs(x['it_ssl'] - iref['it_ssl']) > 1:
+                raise AssertionError(f"{case} rank {r}: {x['exit']}, "
+                                     f"it_mg/it_ssl {x['it_mg']}/"
+                                     f"{x['it_ssl']}")
+            if x['launches']['residual_ds'] == 0 or \
+                    (line and min(x['launches'][k] for k in kernels) == 0) \
+                    or sum(x['launches'][k] for k in kernels) == 0:
+                raise AssertionError(f"{case}: rank {r} did not launch K6 "
+                                     f"and its kernels: {x['launches']}")
+    log(f"{case}: returned {got.field.dtype}, |Δ|/|e| against the "
+        f"unsharded complex64 solve {rel:.3e}, against complex128 "
+        f"{rel128:.3e}; warm walls per rank "
+        f"{[rec['runs'][1]['wall'] for rec in recs]} s beside the "
+        f"unsharded {wref:.3f} s")
+    if got.field.dtype != np.complex128 or not (
+            rel <= TOL_C64_FIELD and rel128 <= TOL_C64_FIELD):
+        raise AssertionError(f"{case}: the sharded complex64 field differs")
+    for k in kernels + ('residual_ds',):
+        counts[k][case + '_gloo'] = [[rec['runs'][0]['launches'][k],
+                                      rec['runs'][1]['launches'][k]]
+                                     for rec in recs]
 
 
 def _check_sharded_case(case, n, axes, ref_solve, out_dir, counts, errs):
@@ -4010,8 +4402,8 @@ def main():
         solver.BF16_STORAGE = False
         try:
             phase_c64_kernels(torch, results)
-            c64_launches, peak_c64, k6_per_solve = phase_c64_path(
-                torch, e4, e_sclr, peak8, sim10)
+            c64_launches, peak_c64, k6_per_solve, c64_refs = \
+                phase_c64_path(torch, e4, e_sclr, peak8, sim10)
             phase_c64_plain(torch)
         finally:
             solver.BF16_STORAGE = None
@@ -4023,10 +4415,12 @@ def main():
                                                    peak_c64)
         phase_bf16_plain(torch)
     with Phase('17 sharded: world size 1 (NCCL) bench64 and sclr64, '
-               'bench64 and sclr64 (standalone, BiCGSTAB) on 2 ranks, '
-               'tri64x48x40 point and sc+lr on 2×2 (gloo)'):
-        sharded_launches, sharded_errs = phase_sharded(
-            torch, e4, info4, sclr_refs, out_dir)
+               'complex64 bench64, sclr64 BiCGSTAB and sclr256; bench64 '
+               'and sclr64 (standalone, BiCGSTAB; complex64 point and '
+               'BiCGSTAB) on 2 ranks, tri64x48x40 point and sc+lr on 2×2 '
+               '(gloo)'):
+        sharded_launches, sharded_errs, c64_sharded, c64_sharded_errs = \
+            phase_sharded(torch, e4, info4, sclr_refs, c64_refs, out_dir)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -4044,6 +4438,8 @@ def main():
         entry['diff_launches'] = {c: n[key] for c, n in diff_launches.items()}
         entry['launches_sharded'] = sharded_launches[key]
         entry['max_abs_err_sharded'] = sharded_errs[key]
+        entry['launches_sharded_c64'] = c64_sharded[key]
+        entry['max_abs_err_sharded_c64'] = c64_sharded_errs[key]
         if key in POINT_MODES:
             entry['plan'] = r['plan']
             entry['steps'] = steps[key]
@@ -4069,6 +4465,8 @@ def main():
         'launches_c64': c64_launches['residual_ds'],
         'launches_bf16': bf16_launches['residual_ds'],
         'launches_per_solve_c64': k6_per_solve, 'checks': r['checks'],
+        'launches_sharded_c64': c64_sharded['residual_ds'],
+        'max_abs_err_sharded_c64': c64_sharded_errs['residual_ds'],
         **{k + n: r[k + n] for n in DSRES_TIMED.values() for k in (
             'ms', 'ms_flat', 'turns', 'plan', 'chunk_ms', 'plain_ms',
             'bound_ms', 'bound_by')}})

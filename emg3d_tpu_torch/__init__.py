@@ -20,10 +20,9 @@ runs on CUDA unless it is given ``device='cpu'`` (``Simulation``:
 ``solver_opts={'device': 'cpu'}``; the CLI: ``device = cpu`` in
 ``[solver_opts]``).  Multi-GPU solves (:mod:`.parallel`) run SPMD over
 processes on ``torch.distributed``, one rank per GPU:
-``solve(..., sharding=parallel.shard_solve_options(mesh))`` with the
-point smoother, the levels split into y/z slabs with halo exchanges
-(line relaxation, semicoarsening, Krylov and complex64 with
-``sharding=`` are still to port).
+``solve(..., sharding=parallel.shard_solve_options(mesh))`` with any
+smoother, semicoarsening and Krylov solver, in complex128 or complex64,
+the levels split into y/z slabs with halo exchanges.
 """
 __version__ = '0.1.0'
 

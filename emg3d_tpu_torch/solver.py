@@ -619,6 +619,11 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
     """
     if nu <= 0:
         return e
+    if lev.slab is not None:
+        # A level on slabs smooths in float32: the JAX package's sharded
+        # smoothers take no stream dtype (shmap.py's point and line
+        # bodies); only the replicated levels store in ``storage``.
+        storage = None
     lr = _current_lr_dir(lr_dir, _level_shape(lev))
     if lr == 0:
         state = _level_state(lev, mode, storage)
@@ -669,11 +674,25 @@ def _prolongate(e, ec, lev, clev):
     return stencil.pec_mask_apply(*e)
 
 
+def _space(lev):
+    """The sums of a level (:class:`.parallel.halo.Space`): its rank's
+    slab, summed over the ranks, or the whole level."""
+    return halo.WHOLE if lev.slab is None else lev.slab
+
+
+def _fresh(v, lev):
+    """``v`` with its ghosts refreshed from their owners where ``lev``
+    is sharded (a residual is wrong on its slab's ghost edges, and the
+    smoothers and transfers read a source's ghosts); in place."""
+    if lev.slab is not None:
+        lev.slab.refresh(v)
+    return v
+
+
 def _level_norm(e, s, lev):
     """‖s − A e‖₂ on a level, summed across the ranks where it is
     sharded."""
-    sp = halo.WHOLE if lev.slab is None else lev.slab
-    return sp.norm(_residual_e(e, s, lev.arrays))
+    return _space(lev).norm(_residual_e(e, s, lev.arrays))
 
 
 def _level_shape(lev):
@@ -765,11 +784,6 @@ def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None,
                    conf, mode, dbg, storage)
 
 
-def _norm(rx, ry, rz):
-    return torch.sqrt(sum(torch.sum(r.real**2 + r.imag**2)
-                          for r in (rx, ry, rz)))
-
-
 def _norm_b(rx, ry, rz):
     """Per-lane norms of batched fields: (B,) real tensor."""
     return torch.sqrt(sum((r.real**2 + r.imag**2).reshape(r.shape[0], -1)
@@ -793,10 +807,11 @@ class _SolveContext:
     ``e_lo`` is the two-float lo stream of the solution once it is live
     (complex64 solves), else None.  ``storage`` is the reduced storage
     the solve may use (BF16 for a complex64 single solve where
-    :data:`BF16_STORAGE` allows it, else None).  ``sharding`` (the
-    normalized option, or None) distributes the levels
-    (:func:`.parallel.halo.shard_levels`); ``s`` and ``e`` are then this
-    rank's slabs of the finest level.
+    :data:`BF16_STORAGE` allows it, else None); the levels on slabs
+    store in float32 whatever it is.  ``sharding`` (the normalized
+    option, or None) distributes the levels
+    (:func:`.parallel.halo.shard_levels`); ``s`` and ``e`` (and
+    ``e_lo``) are then this rank's slabs of the finest level.
     """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
@@ -848,25 +863,32 @@ class _SolveContext:
         ctx.storage = None          # batched solves store in their precision
         return ctx
 
-    def field(self):
-        """The solution's tensors on this rank, whole (a sharded solve
-        gathers its finest slabs on every rank)."""
+    def field(self, e=None):
+        """A finest-level field (the solution ``e`` by default) on this
+        rank, whole (a sharded solve gathers its finest slabs on every
+        rank)."""
+        e = self.e if e is None else e
         fine = self.levels(int(self.var.sc_dir))[0]
         if fine.slab is None:
-            return self.e
-        return fine.slab.gather(self.e)
+            return e
+        return fine.slab.gather(e)
 
     def residual_ds(self, ehi, elo, s):
         """s − A·(ehi + elo) on the finest level in double-single
         arithmetic (:func:`.ops.dsres.residual_ds`; its plain version
         under ``_mode='plain'``), the float32 operator built once per
-        solve."""
-        arrays = self.levels(int(self.var.sc_dir))[0].arrays
+        solve.  On a slab (its own ``ds_params``, K6 on the card) the
+        ghosts of ``ehi`` and ``elo`` are refreshed first (``s`` keeps
+        valid ghosts: its slab is cut, or scaled, from the whole source),
+        and those of the result after: it is the next cycle's source."""
+        fine = self.levels(int(self.var.sc_dir))[0]
         if self._ds_params is None:
-            self._ds_params = dsres.ds_params(arrays)
+            self._ds_params = dsres.ds_params(fine.arrays)
         fn = dsres.residual_ds_plain if self.mode == 'plain' \
             else dsres.residual_ds
-        return fn(ehi, elo, s, arrays, self._ds_params)
+        r = fn(_fresh(ehi, fine), _fresh(elo, fine), s, fine.arrays,
+               self._ds_params)
+        return _fresh(r, fine)
 
     def _min_planes(self):
         return self.sharding.get('min_local_planes', 4)
@@ -906,7 +928,8 @@ class _SolveContext:
                     self.sharding['mesh'], self._min_planes(), self.device,
                     self._finest_partition())
             for lev in levels:
-                lev.bf16 = self.storage is not None
+                # Slabs store in float32 (see _smooth).
+                lev.bf16 = self.storage is not None and lev.slab is None
             if self._levels:
                 # The finest level is the same in every hierarchy: share
                 # its parameters and line states (no number changes).
@@ -964,7 +987,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
 
     it = 0
     first = True
-    ds = _TwoFloat(ctx, var, s, lambda r: float(_norm(*r)))
+    ds = _TwoFloat(ctx, var, s, _space(fine).norm)
     spdt = ctx.storage if standalone else None
     corr = spdt is not None and var.nu_init == 0
     r = None        # the correction form's residual, once evaluated
@@ -983,13 +1006,13 @@ def multigrid(ctx, var, e=None, s=None, track=True):
             e, l2 = ds.cycle(e, levels, conf, dbg=dbg, storage=spdt)
         elif corr:
             if r is None:
-                r = _residual_e(e, s, levels[0].arrays)
+                r = _fresh(_residual_e(e, s, levels[0].arrays), levels[0])
             zero = tuple(torch.zeros_like(c) for c in e)
             delta = run_one_cycle(zero, r, levels, conf, mode=ctx.mode,
                                   dbg=dbg, storage=spdt)
             e = tuple(a + d for a, d in zip(e, delta))
-            r = _residual_e(e, s, levels[0].arrays)
-            l2 = float(_norm(*r))
+            r = _fresh(_residual_e(e, s, levels[0].arrays), levels[0])
+            l2 = _space(levels[0]).norm(r)
         else:
             e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
                               mode=ctx.mode, dbg=dbg)
@@ -1216,13 +1239,10 @@ def krylov(ctx, var):
     # ghosts refreshed before the operator, the preconditioner and a
     # residual read them; the norms and inner products sum each owned
     # edge once, then over the ranks (they never read a ghost).
-    slab = fine.slab
-    sp = halo.WHOLE if slab is None else slab
+    sp = _space(fine)
 
     def fresh(v):
-        if slab is not None:
-            slab.refresh(v)
-        return v
+        return _fresh(v, fine)
 
     def matvec(e):
         return stencil.amat(*fresh(e), *arrays)
@@ -1255,7 +1275,8 @@ def krylov(ctx, var):
     try:
         if s[0].dtype == torch.complex64:
             x, l2_final, info = _krylov_refined(ctx, var, solver, matvec,
-                                                callback, x, bnorm)
+                                                callback, x, bnorm, sp,
+                                                fresh)
         else:
             x, info = solver(matvec, precond, s, x, atol, var.ssl_maxit,
                              callback)
@@ -1336,12 +1357,15 @@ def _refine_krylov(residual_fn, norm_fn, precond, inner, xhi, xlo, atol,
     return xhi, xlo, rn_true, info
 
 
-def _krylov_refined(ctx, var, solver, matvec, callback, x, bnorm):
+def _krylov_refined(ctx, var, solver, matvec, callback, x, bnorm, sp,
+                    fresh):
     """A complex64 Krylov solve under :func:`_refine_krylov` (the JAX
     package's accelerator path, solver.py:2005-2090): the unit-norm
     system s/‖s‖, ``solver`` (the port's BiCGSTAB, CGS or GCROT(m,k)) as
     the inner solve of each correction system, preconditioned by
     :func:`_precond_fixed_cycles`, and the shortcut by one MG cycle.
+    Norms over the space ``sp`` (:func:`_dot`); ``fresh`` refreshes a
+    vector's ghosts on a sharded level before a preconditioner reads it.
     Returns ``(x, l2, info)``: hi scaled back, its double-single true
     residual norm, the Krylov code; the lo stream goes to ``ctx.e_lo``.
     """
@@ -1356,19 +1380,19 @@ def _krylov_refined(ctx, var, solver, matvec, callback, x, bnorm):
         # The inner solvers report the correction system's residual
         # (recursive, or r0 − A·dx); scaled back to the source's norm.
         if l2 is None:
-            l2 = float(_norm(*(r - a for r, a in zip(rhs[0],
-                                                     matvec(xk)))))
+            l2 = sp.norm(tuple(r - a for r, a in zip(rhs[0], matvec(xk))))
         callback(xk, l2=l2 * bnorm)
 
     def inner(r0, x0):
         rhs[0] = r0
-        return solver(matvec, lambda r: _precond_fixed_cycles(ctx, var, r),
+        return solver(matvec,
+                      lambda r: _precond_fixed_cycles(ctx, var, fresh(r)),
                       r0, x0, atol_n, var.ssl_maxit, inner_callback)
 
     xhi, xlo, rn_true, info = _refine_krylov(
         lambda h, lo: ctx.residual_ds(h, lo, s_n),
-        lambda r: float(_norm(*r)),
-        lambda r: _precond_fixed_cycles(ctx, var, r,
+        sp.norm,
+        lambda r: _precond_fixed_cycles(ctx, var, fresh(r),
                                         cycles=_REFINE_SHORTCUT_CYCLES),
         inner, xhi, xlo, atol_n, var.ssl_maxit)
     ctx.e_lo = tuple(c * bnorm for c in xlo)
@@ -1693,8 +1717,10 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         ``min_local_planes`` cells along every sharded axis; the coarser
         ones run whole on every rank.  Point smoothing, line relaxation
         (:mod:`.parallel.lines`), semicoarsening and the Krylov solvers,
-        in complex128 (a complex64 source raises
-        ``NotImplementedError``).
+        in complex128 or complex64 (the two-float cycles and the
+        refined Krylov solves, K6 on the finest slab); a complex64
+        solve's levels on slabs store in float32, the replicated ones
+        as the unsharded solve does (:data:`BF16_STORAGE`).
 
     Returns
     -------
@@ -1705,7 +1731,6 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     mode = _pop_mode(kwargs)
     sharding = kwargs.pop('sharding', None)
     if sharding is not None:
-        _check_sharding(np.asarray(sfield.fx).dtype)
         sharding = _normalize_sharding(sharding)
     profile = kwargs.pop('profile', None)
     # Prebuilt volume parameters η/ζ (the differentiable solve passes
@@ -1789,7 +1814,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         # Collapse the two-float solution on the host (exact in f64),
         # as the JAX package returns it: complex128.
         comps = [hi.astype(np.complex128) + lo.cpu().numpy()
-                 for hi, lo in zip(comps, ctx.e_lo)]
+                 for hi, lo in zip(comps, ctx.field(ctx.e_lo))]
         out_dtype = np.result_type(out_dtype, np.float64)
     if not np.iscomplexobj(np.zeros(0, out_dtype)):
         # Laplace domain: the solve ran promoted to complex, with an
@@ -1831,17 +1856,6 @@ def _normalize_sharding(sharding):
                          "initialized process group "
                          "(emg3d_tpu_torch.parallel.make_mesh)")
     return sharding
-
-
-def _check_sharding(dtype):
-    """Refuse what the sharded solve does not run yet, naming the
-    ROADMAP item that ports it: a complex64 source (its two-float cycles
-    and K6 on slabs)."""
-    if precision(dtype)[1] != COMPLEX:
-        raise NotImplementedError(
-            "solve(..., sharding=) with a complex64 source is not ported "
-            "to emg3d_tpu_torch yet (ROADMAP queue 1, item 1d (the "
-            "sharded solve's remaining options)).")
 
 
 def _pop_mode(kwargs):
@@ -1919,11 +1933,6 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
         raise ValueError("Provide at least one source field.")
     device = _resolve_device(device)
     mode = _pop_mode(kwargs)
-    if kwargs.pop('sharding', None) is not None:
-        raise NotImplementedError(
-            "solve_batched(..., sharding=) is not ported to emg3d_tpu_torch "
-            "yet (ROADMAP queue 1, item 1d (the sharded solve's remaining "
-            "options)).")
     sslsolver = kwargs.pop('sslsolver', False)
     var = MGParameters(
         verb=verb, cycle=cycle, sslsolver=sslsolver,

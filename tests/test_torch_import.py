@@ -80,9 +80,11 @@ def test_unported_options_raise(tmp_path):
     ported: tests/test_torch_io.py; ``sharding=`` with point smoothing
     solves: tests/test_torch_parallel.py, with line relaxation,
     semicoarsening and the Krylov solvers:
-    tests/test_torch_parallel_lines.py.)  Here on a one-rank gloo group
-    those options solve as the unsharded solve does, and a sharded solve
-    of a complex64 source or a batch names its ROADMAP item (1d)."""
+    tests/test_torch_parallel_lines.py, with a complex64 source:
+    tests/test_torch_parallel_c64.py.)  Here on a one-rank gloo group
+    those options solve as the unsharded solve does, a complex64 source
+    too; ``solve_batched`` takes no ``sharding`` in either package
+    (``emg3d_tpu/solver.py:2988-2993``): both raise TypeError."""
     import torch.distributed as dist
     from emg3d_tpu_torch import parallel
     grid, model, sfield = _tiny_problem()
@@ -104,13 +106,27 @@ def test_unported_options_raise(tmp_path):
         s64 = pt.SourceField(*(f.astype(np.complex64) for f in
                                (sfield.fx, sfield.fy, sfield.fz)),
                              frequency=1.0)
-        with pytest.raises(NotImplementedError, match='complex64.*item 1d'):
-            pt.solve(grid, model, s64, verb=0, device='cpu', sharding=opts)
-        with pytest.raises(NotImplementedError, match='item 1d'):
+        e0, i0 = pt.solve(grid, model, s64, verb=0, device='cpu',
+                          return_info=True)
+        e1, i1 = pt.solve(grid, model, s64, verb=0, device='cpu',
+                          return_info=True, sharding=opts)
+        assert i1['exit_message'] == i0['exit_message'] == 'CONVERGED'
+        assert i1['it_mg'] == i0['it_mg']
+        assert e1.field.dtype == e0.field.dtype == np.complex128
+        assert np.linalg.norm(e1.field - e0.field) <= \
+            1e-12 * np.linalg.norm(e0.field)
+        with pytest.raises(TypeError, match='sharding'):
             pt.solve_batched(grid, model, [sfield], verb=0, device='cpu',
                              sharding=opts)
     finally:
         dist.destroy_process_group()
+    jt = pytest.importorskip('emg3d_tpu')
+    jgrid = jt.TensorMesh([np.full(4, 100.)] * 3, origin=(-200.,) * 3)
+    with pytest.raises(TypeError, match='sharding'):
+        jt.solve_batched(jgrid, jt.Model(jgrid, property_x=1.0),
+                         [jt.get_source_field(jgrid, (0, 0, 0, 0, 0), 1.0)],
+                         verb=0, sharding=jt.parallel.shard_solve_options(
+                             jt.parallel.make_mesh(1)))
     with pytest.raises(ValueError):
         pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
     _, info = pt.solve(grid, model, sfield, verb=0, device='cpu',
