@@ -219,6 +219,28 @@ Phases:
    against their plain versions on their two finest slabs by
    :func:`_check_c64`, and K6 (``ctx.residual_ds`` on the finest slab)
    against ``residual_ds_plain`` within TOL_DS.
+18. "x64 off", the port's switch off (``dtypes.x64(False)``), as the
+   JAX package runs with JAX's x64 flag off: (a) sim64 through the
+   public API, ``Simulation.compute()`` and ``gradient`` (the misfit on
+   the way), timed in turns with the complex128 Simulation of phase 10
+   (a complex128 run, the cold run with the switch off, three warm
+   pairs; walls and peak device memory per run); every forward and
+   adjoint lane CONVERGED, hi + lo returned; the smallest and largest
+   nonzero |rfield| of the adjoint sources, before and after the
+   unit-norm lane scaling, within float32's range; the forward fields
+   bitwise equal to ``solve_batched`` of the same sources with the
+   switch off, and within TOL_C64_FIELD of phase 15's solve of the
+   hand-cast complex64 sources (logged: bitwise or not); the responses,
+   misfit and gradient within phase 10's own distance from a complex128
+   Simulation at tol 1e-10 (what tol 1e-6 allows it) plus TOL_C64_FIELD
+   of phase 10's; (b) diff64's point gradient (tol 1e-10) with the
+   switch off: the field and λ complex64, the gradient float32, both
+   solves CONVERGED with K6 launched in each, the gradient within
+   TOL_C64_FIELD of phase 12's complex128 one.  Its launches of every
+   instance (``launches_x64_off``; the ``_bf16`` instances' apart,
+   ``launches_x64_off_bf16``; K6's per diff64 solve,
+   ``launches_per_solve_x64_off_diff``) must include K1, K3, K4, K5 and
+   K6.
 
 The launch counters are reset just before the two point-path solves of
 phase 4 and read just after them, and reset just before the three cold
@@ -304,6 +326,11 @@ TOL_SOLVE = 1e-9       # relative field difference between two solves
 # (tests/test_dsres.py:109).
 TOL_C64 = 1e-5
 TOL_C64_FIELD = 2e-5
+# Phase 18: the largest distance of phase 10's tol-1e-6 responses, misfit
+# and gradient from a tol-1e-10 Simulation of the same survey that still
+# shows them to be of that survey (read on an H100: 3.5e-06, 1.3e-05,
+# 4.3e-05).
+TOL_X64_REF = 1e-3
 TOL_DS = 1e-12
 TOL_DS_F64 = 3e-7
 C64_SHAPES = ((16, 16, 16), (64, 64, 64), (256, 256, 256))
@@ -2123,7 +2150,8 @@ def _diff_grad(torch, misfit, like, d_obs):
 
 def phase_diff(torch, out_dir):
     """Phase 12 (see the module docstring).  Returns the launches of the
-    two 64³ gradients."""
+    two 64³ gradients and the point one (phase 18's reference, on the
+    host)."""
     from emg3d_tpu_torch.ops import line_gs, point_gs
     configs = (('point', {}), ('sc+lr', SCLR))
     launches = {}
@@ -2135,6 +2163,8 @@ def phase_diff(torch, out_dir):
         line_gs.reset_launches()
         g, L, fwd, bwd, clock = _diff_grad(torch, misfit, sig, d_obs)
         launches[name] = {**point_gs.LAUNCHES, **line_gs.LAUNCHES}
+        if name == 'point':
+            g_point = g.detach().cpu()
         wall, busy, nev, ms = _profile(
             torch, lambda: _diff_grad(torch, misfit, sig, d_obs),
             out_dir / f"diff_{name.replace('+', '')}_trace.json")
@@ -2212,7 +2242,7 @@ def phase_diff(torch, out_dir):
             f"field λ max |Δ|/max|λ| {d:.3e}")
         if not (fin and d <= TOL_SOLVE):
             raise AssertionError("diff 16³: the source's gradient is not λ")
-    return launches
+    return launches, g_point
 
 
 CLI_CONFIG = """[files]
@@ -2984,7 +3014,8 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     residual: logged beside).  Returns the launches per kernel, the
     sclr256 peak, K6's launches per solve of each configuration and the
     references of phase 17's complex64 cases: the cold (field, info) of
-    bench64 and sclr64 BiCGSTAB, and sclr256's wall and peak."""
+    bench64 and sclr64 BiCGSTAB, and sclr256's wall and peak; and sim64's
+    complex64 fields (phase 18's reference)."""
     from emg3d_tpu_torch import fields, solve, solve_batched
     grid, model, sfield = bench_problem()
     src = _c64_source(sfield)
@@ -3094,12 +3125,12 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
     pair('sim64 solve_batched',
          lambda: solve_batched(grid10, model10, sf128, **opts),
          lambda: solve_batched(grid10, model10, sf64, **opts), check_sim)
-    del refs['sim64 solve_batched']
+    sim_fields = refs.pop('sim64 solve_batched')[0]
     log(f"complex64 main path launches: {counts}; K6 per solve: {k6}")
     if min(counts.values()) == 0:
         raise AssertionError(f"the complex64 path launched no "
                              f"{min(counts, key=counts.get)}")
-    return counts, peak, k6, refs
+    return counts, peak, k6, refs, sim_fields
 
 
 def phase_c64_plain(torch):
@@ -4254,6 +4285,249 @@ def _check_sharded_case(case, n, axes, ref_solve, out_dir, counts, errs):
                                      for runs in ranks]
 
 
+# ----------------------------------------------------------------------
+# Phase 18: the x64 switch off
+# ----------------------------------------------------------------------
+
+def _x64_run(torch, sim):
+    """``compute()`` and ``gradient`` of ``sim`` from scratch: (compute
+    wall, gradient wall, peak device GiB), host walls ending in a
+    synchronize."""
+    sim.clean('computed')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.compute()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.gradient
+    torch.cuda.synchronize()
+    return (t1 - t0, time.perf_counter() - t1,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _x64_values(sim):
+    """(responses, misfit, gradient) of a computed Simulation."""
+    return (np.array(sim.data.synthetic), float(sim.misfit),
+            np.array(sim.gradient))
+
+
+def _bf16_instances():
+    """The launches of K1-K5's ``_bf16`` instances."""
+    from emg3d_tpu_torch.ops import line_gs, point_gs
+    return {**point_gs.BF16_LAUNCHES, **line_gs.BF16_LAUNCHES}
+
+
+def _finite_rel(a, b):
+    """max|a − b| / max|b| over b's finite entries (a finite there)."""
+    fin = np.isfinite(b)
+    if not (fin.any() and np.array_equal(np.isfinite(a), fin)):
+        raise AssertionError("non-finite values differ")
+    return float(np.max(np.abs(a[fin] - b[fin])) / np.max(np.abs(b[fin])))
+
+
+def _x64_sim(torch, survey, ref10, fields15, counts, bf16, n=64,
+             device='cuda'):
+    """Phase 18a: sim64 through ``Simulation`` with the switch off (see
+    the module docstring; ``n`` cells a side on ``device``).  Adds its
+    launches to ``counts`` and ``bf16``."""
+    from emg3d_tpu_torch import dtypes, solve_batched
+    grid, model, _ = simulation_problem(n)
+    pairs = [(s, f) for s in survey.sources for f in SIM_FREQS]
+    sims = {k: _sim(torch, grid, model, survey.copy(), device=device)
+            for k in ('c128', 'c64')}
+
+    walls = {'c128': [], 'c64': []}
+    cold = None
+    runs = ['c128', 'c64'] + ['c64', 'c128'] * C64_PAIRS
+    for i, run in enumerate(runs):
+        if run == 'c64':
+            with _Counted(counts), _Counted(bf16, _bf16_instances), \
+                    dtypes.x64(False):
+                w = _x64_run(torch, sims[run])
+        else:
+            w = _x64_run(torch, sims[run])
+        if i == 1:
+            cold = w
+            sim = sims['c64']
+            efs = [sim.get_efield(*p) for p in pairs]
+            einfo = [sim.get_efield_info(*p) for p in pairs]
+            binfo = [sim._dict_bfield_info[s][f] for s, f in pairs]
+            got = _x64_values(sim)
+            with dtypes.x64(False):
+                rfs = [sim._get_rfield(*p) for p in pairs]
+        else:
+            walls[run].append(w)
+    med = {k: [float(np.median([w[j] for w in v])) for j in range(3)]
+           for k, v in walls.items()}
+    log(f"sim64 x64 off, cold compute() {cold[0]:.3f} s, gradient "
+        f"{cold[1]:.3f} s; in turns (compute, gradient, peak GiB): "
+        f"complex128 {[tuple(round(x, 3) for x in w) for w in walls['c128']]}"
+        f", x64 off {[tuple(round(x, 3) for x in w) for w in walls['c64']]}"
+        f"; medians complex128 compute {med['c128'][0]:.3f} s, gradient "
+        f"{med['c128'][1]:.3f} s, peak {med['c128'][2]:.2f} GiB; x64 off "
+        f"compute {med['c64'][0]:.3f} s ({med['c64'][0] / med['c128'][0]:.2f}"
+        f"×), gradient {med['c64'][1]:.3f} s "
+        f"({med['c64'][1] / med['c128'][1]:.2f}×), peak {med['c64'][2]:.2f} "
+        f"GiB")
+
+    # Every forward and adjoint lane CONVERGED, in the two-float dtype.
+    for what, infos in (('forward', einfo), ('adjoint', binfo)):
+        log(f"sim64 x64 off {what}: {infos[0]['exit_message']}, it_mg "
+            f"{infos[0]['it_mg']}, it_ssl {infos[0]['it_ssl']}, rel_error "
+            f"max {max(i['rel_error'] for i in infos):.3e}")
+        if not all(i['exit_message'] == 'CONVERGED' and i['rel_error']
+                   < SIM_TOL for i in infos):
+            raise AssertionError(f"sim64 x64 off: a {what} lane did not "
+                                 f"converge")
+    if not all(ef.field.dtype == np.complex128 for ef in efs):
+        raise AssertionError("sim64 x64 off: fields not hi + lo")
+    # The adjoint sources (conj(w·r)/sμ0): float32 ranges, before and
+    # after the unit-norm scaling of the batched Krylov lanes.
+    amin, amax, smin = np.inf, 0.0, np.inf
+    for rf in rfs:
+        a = np.abs(rf.field)
+        nz = a[a > 0]
+        amin, amax = min(amin, nz.min()), max(amax, nz.max())
+        smin = min(smin, nz.min() / float(rf.norm()))
+    log(f"sim64 x64 off adjoint sources: {rfs[0].field.dtype}, smallest "
+        f"nonzero |rfield| {amin:.3e}, largest {amax:.3e}; smallest "
+        f"nonzero after the unit-norm scaling {smin:.3e} (float32 "
+        f"smallest normal {np.finfo(np.float32).tiny:.3e})")
+    if not (np.isfinite(amax) and smin > np.finfo(np.float32).tiny):
+        raise AssertionError("sim64 x64 off: adjoint sources out of "
+                             "float32 range")
+
+    # The forward fields: the same solve called directly (bitwise), and
+    # phase 15's solve of the hand-cast complex64 sources.
+    opts = {k: v for k, v in sims['c64'].solver_opts.items()
+            if k not in ('sslsolver', 'return_info', 'log')}
+    opts['sslsolver'] = 'bicgstab'
+    sf128 = [sims['c64'].get_sfield(*p) for p in pairs]
+    with _Counted(counts), _Counted(bf16, _bf16_instances), \
+            dtypes.x64(False):
+        direct, _ = solve_batched(grid, model, sf128, **opts)
+    same = [all(np.array_equal(a.field, b.field) for a, b in zip(efs, o))
+            for o in (direct, fields15)]
+    rel_d = max(_rel(a, b) for a, b in zip(efs, direct))
+    rel15 = max(_rel(a, b) for a, b in zip(efs, fields15))
+    # The only input that differs from phase 15's: each lane's norm, here
+    # the complex128 source's, there the cast one's (it judges
+    # convergence, and its float32 inverse scales the Krylov lanes).
+    refe = max(abs(float(sf.norm()) - float(_c64_source(sf).norm()))
+               / float(sf.norm()) for sf in sf128)
+    log(f"sim64 x64 off fields: against solve_batched of the same "
+        f"complex128 sources with the switch off bitwise {same[0]} (max "
+        f"|Δ|/|e| {rel_d:.3e}); against phase 15's hand-cast complex64 "
+        f"sources bitwise {same[1]} (max |Δ|/|e| {rel15:.3e}; the lanes' "
+        f"norms differ by up to {refe:.3e} relative)")
+    if not (rel_d <= TOL_SOLVE and rel15 <= TOL_C64_FIELD):
+        raise AssertionError("sim64 x64 off: fields differ")
+
+    # Responses, misfit and gradient against phase 10's complex128 ones.
+    # Both solves stop at tol 1e-6; the bound is phase 10's own distance
+    # from a complex128 Simulation at tol 1e-10 (what tol 1e-6 allows
+    # it) plus TOL_C64_FIELD (complex64 against complex128).  That
+    # distance must itself be small (TOL_X64_REF): else phase 10's values
+    # do not belong to this survey's observed data.
+    sref = _sim(torch, grid, model, survey.copy(), tol=1e-10,
+                device=device)
+    _x64_run(torch, sref)
+    acc = _x64_values(sref)
+    for name, a, b, c in zip(('responses', 'misfit', 'gradient'), got,
+                             ref10, acc):
+        a, b, c = (np.atleast_1d(np.asarray(x)) for x in (a, b, c))
+        d, d10, d64 = _finite_rel(a, b), _finite_rel(b, c), \
+            _finite_rel(a, c)
+        log(f"sim64 x64 off {name}: against phase 10's complex128 "
+            f"{d:.3e} (bound {d10 + TOL_C64_FIELD:.3e}: phase 10's own "
+            f"distance from tol 1e-10, {d10:.3e}, + {TOL_C64_FIELD}); "
+            f"against tol 1e-10 {d64:.3e}"
+            + (f"; x64 off {float(a[0]):.9e}, complex128 {float(b[0]):.9e}"
+               if name == 'misfit' else ''))
+        if not d10 <= TOL_X64_REF:
+            raise AssertionError(f"sim64 x64 off: phase 10's {name} is "
+                                 f"not this survey's")
+        if not d <= d10 + TOL_C64_FIELD:
+            raise AssertionError(f"sim64 x64 off: {name} beyond its bound")
+    return {'compute': med, 'cold': cold}
+
+
+def _x64_diff(torch, grad12, counts, bf16, n=64, device='cuda'):
+    """Phase 18b: diff64's point gradient with the switch off (``n``
+    cells a side on ``device``)."""
+    from emg3d_tpu_torch import diff, dtypes, solver
+    from emg3d_tpu_torch.ops import dsres
+    grid, s, w, sig = diff_problem(torch, n, device)
+
+    with dtypes.x64(False):
+        s = tuple(c.to(torch.complex64) for c in s)
+        w = [(c, t.float()) for c, t in w]
+        sig = sig.float()
+        fsolve = diff.make_differentiable_solve(grid, 1.0, tol=1e-10,
+                                                device=device)
+
+        def field(sigma, src):
+            eta, zeta = diff.eta_zeta_from_sigma(grid, sigma, 1.0)
+            return fsolve((eta, eta, eta, zeta), src)
+        d_obs = diff.sample_edges(field(sig, s), w).detach()
+        x = torch.zeros_like(sig).requires_grad_(True)
+        src = tuple(t.clone().requires_grad_(True) for t in s)
+        k0 = dsres.LAUNCHES['residual_ds']
+        with _Counted(counts), _Counted(bf16, _bf16_instances), Clock(
+                solver, 'solve', record=lambda out: (
+                    out[1]['exit_message'], out[1]['it_mg'],
+                    out[1]['it_ssl'], dsres.LAUNCHES['residual_ds'])) \
+                as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = field(torch.exp(x), src)
+            loss = 0.5 * torch.sum((diff.sample_edges(e, w) - d_obs).abs()
+                                   ** 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gx, *lam = torch.autograd.grad(loss, (x, *src))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    k6 = np.diff([k0] + [r[3] for r in clock.records]).tolist()
+    rel = float((gx.double().cpu() - grad12).abs().max()
+                / grad12.abs().max())
+    log(f"diff64 x64 off (point, tol 1e-10): field {e[0].dtype}, λ "
+        f"{lam[0].dtype}, gradient {gx.dtype}; forward {t1 - t0:.3f} s, "
+        f"backward {t2 - t1:.3f} s; (exit, it_mg, it_ssl) per solve "
+        f"{[r[:3] for r in clock.records]}, K6 launches per solve {k6}; "
+        f"gradient against phase 12's complex128 max|Δ|/max|ref| {rel:.3e} "
+        f"(bound TOL_C64_FIELD {TOL_C64_FIELD})")
+    if not (all(c.dtype == torch.complex64 for c in (*e, *lam))
+            and gx.dtype == torch.float32):
+        raise AssertionError("diff64 x64 off: not complex64")
+    if not (all(r[0] == 'CONVERGED' for r in clock.records)
+            and len(k6) == 2 and min(k6) > 0):
+        raise AssertionError("diff64 x64 off: a solve did not converge or "
+                             "ran no K6")
+    if not rel <= TOL_C64_FIELD:
+        raise AssertionError("diff64 x64 off: gradient beyond its bound")
+    return k6
+
+
+def phase_x64_off(torch, ref10, fields15, grad12, n=64, device='cuda'):
+    """Phase 18 (see the module docstring; ``n`` cells a side on
+    ``device``).  Returns the launches of the runs with the switch off
+    (every instance; the ``_bf16`` ones apart) and the walls."""
+    counts = {k: 0 for k in _launch_counts()}
+    bf16 = {k: 0 for k in _bf16_instances()}
+    survey, *values = ref10
+    walls = _x64_sim(torch, survey, values, fields15, counts, bf16, n,
+                     device)
+    walls['diff_k6'] = _x64_diff(torch, grad12, counts, bf16, n, device)
+    log(f"x64 off launches: {counts}, of them bfloat16 instances {bf16}")
+    for k in ('factored', 'line_residual', 'line_thomas', 'line_factor',
+              'residual_ds'):
+        if counts[k] == 0:
+            raise AssertionError(f"x64 off: no {k} launch")
+    return counts, bf16, walls
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4387,10 +4661,15 @@ def main():
     with Phase('10 Simulation 64³, sc+lr BiCGSTAB, 8 lanes'):
         sim_launches, sim10, grad10 = phase_simulation(torch, results,
                                                        out_dir)
+        # Phase 18's complex128 references, before phase 13 computes new
+        # observed data into sim10's survey: the survey with the observed
+        # data of phase 10's misfit, its responses, misfit and gradient.
+        ref10 = (sim10.survey.copy(), np.array(sim10.data.synthetic),
+                 float(sim10.misfit), np.array(grad10))
     with Phase('11 tdem64: time domain, 19 frequencies, one batched solve'):
         tdem_launches = phase_tdem(torch, out_dir)
     with Phase('12 diff64: autograd gradients, point and sc+lr'):
-        diff_launches = phase_diff(torch, out_dir)
+        diff_launches, grad12 = phase_diff(torch, out_dir)
     with Phase('13 cli64: io and the command line'):
         phase_cli(torch, sim10, grad10, out_dir)
     probe_launches = dict(probes.LAUNCHES)
@@ -4402,7 +4681,7 @@ def main():
         solver.BF16_STORAGE = False
         try:
             phase_c64_kernels(torch, results)
-            c64_launches, peak_c64, k6_per_solve, c64_refs = \
+            c64_launches, peak_c64, k6_per_solve, c64_refs, sim_c64 = \
                 phase_c64_path(torch, e4, e_sclr, peak8, sim10)
             phase_c64_plain(torch)
         finally:
@@ -4421,6 +4700,10 @@ def main():
                '(gloo)'):
         sharded_launches, sharded_errs, c64_sharded, c64_sharded_errs = \
             phase_sharded(torch, e4, info4, sclr_refs, c64_refs, out_dir)
+    with Phase('18 x64 off: sim64 compute(), misfit and gradient, and '
+               'diff64, in complex64 through the public API'):
+        x64_launches, x64_bf16, x64_walls = phase_x64_off(torch, ref10,
+                                                          sim_c64, grad12)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -4447,6 +4730,8 @@ def main():
         entry['max_abs_err_c64'] = r['max_abs_err_c64']
         entry['checks_c64'] = r['checks_c64']
         entry['launches_bf16'] = bf16_launches[key]
+        entry['launches_x64_off'] = x64_launches[key]
+        entry['launches_x64_off_bf16'] = x64_bf16[key]
         entry['max_abs_err_bf16'] = r['max_abs_err_bf16']
         entry['checks_bf16'] = r['checks_bf16']
         entry.update({k: v for k, v in r.items()
@@ -4464,6 +4749,8 @@ def main():
         'bound_by': r['bound_by'], 'library_ms': None,
         'launches_c64': c64_launches['residual_ds'],
         'launches_bf16': bf16_launches['residual_ds'],
+        'launches_x64_off': x64_launches['residual_ds'],
+        'launches_per_solve_x64_off_diff': x64_walls['diff_k6'],
         'launches_per_solve_c64': k6_per_solve, 'checks': r['checks'],
         'launches_sharded_c64': c64_sharded['residual_ds'],
         'max_abs_err_sharded_c64': c64_sharded_errs['residual_ds'],

@@ -23,6 +23,13 @@ processes on ``torch.distributed``, one rank per GPU:
 ``solve(..., sharding=parallel.shard_solve_options(mesh))`` with any
 smoother, semicoarsening and Krylov solver, in complex128 or complex64,
 the levels split into y/z slabs with halo exchanges.
+
+Precision: complex128/float64 unless asked.  A complex64 source field
+asks for a complex64 solve; ``with dtypes.x64(False):`` (or
+``dtypes.set_x64(False)``) runs every solve, ``Simulation`` and
+:mod:`.diff` in complex64/float32, as the JAX package does with JAX's
+x64 flag off (which is its default; the port's switch is on by
+default).
 """
 __version__ = '0.1.0'
 
@@ -36,7 +43,7 @@ from .surveys import Survey, Dipole, PointDipole
 from .simulations import Simulation, expand_grid_model
 from .utils import EMArray, Report
 from .time import Fourier
-from . import diff, io, optimize, parallel, time
+from . import diff, dtypes, io, optimize, parallel, time
 
 __all__ = [
     'TensorMesh', 'construct_mesh', 'good_mg_cell_nr', 'skin_depth',

@@ -24,14 +24,19 @@ real and gets a real gradient.  The source's gradient is λ.
 Each solve runs on the device of the input tensors (CUDA unless the
 caller asks for the CPU), through ``solver.solve`` with host fields:
 tensor → ``SourceField`` → solve → ``Field`` → tensor copies each
-solve's source and field across the host once each way.
+solve's source and field across the host once each way.  The field
+comes back in the source's dtype, as the JAX package's ``_host_solve``
+casts it: a complex64 source gives a complex64 field, and its adjoint
+solve runs in complex64 too.  With the x64 switch off
+(:func:`.dtypes.set_x64`) the cell volumes and widths are float32, as
+the JAX package's ``jnp.asarray`` makes them with x64 off.
 """
 import numpy as np
 import torch
 from scipy.constants import mu_0
 
 from . import fields, solver
-from .dtypes import REAL
+from .dtypes import precision, real_dtype
 from .ops import stencil
 
 __all__ = ['make_differentiable_solve', 'eta_zeta_from_sigma',
@@ -53,14 +58,20 @@ def eta_zeta_from_sigma(grid, sigma, frequency, mu_r=None):
 
     Mirrors models.VolumeModel for the σ-only case:
     η = s·μ0·V·σ with s = −2πif, ζ = V/μ_r.  Returns η complex and ζ
-    real, on σ's device.
+    real, on σ's device; the volumes are float32 with x64 off.
     """
     vol = torch.tensor(np.asarray(grid.cell_volumes).reshape(
-        tuple(grid.shape_cells), order='F'), dtype=REAL, device=sigma.device)
+        tuple(grid.shape_cells), order='F'), dtype=_real(),
+        device=sigma.device)
     smu0_im = -2 * np.pi * frequency * mu_0
     eta = torch.complex(0.0 * vol * sigma, smu0_im * vol * sigma)
     zeta = vol if mu_r is None else vol / mu_r
     return eta, zeta
+
+
+def _real():
+    """The device real dtype under the x64 switch."""
+    return precision(real_dtype())[0]
 
 
 def sample_edges(e, weights):
@@ -125,7 +136,7 @@ def make_differentiable_solve(grid, frequency, device=None, **solver_opts):
     device = solver._resolve_device(device)
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
-    h = tuple(torch.tensor(np.asarray(hh, dtype=np.float64), dtype=REAL,
+    h = tuple(torch.tensor(np.asarray(hh, dtype=np.float64), dtype=_real(),
                            device=device) for hh in grid.h)
 
     def host(t):
@@ -146,7 +157,9 @@ def make_differentiable_solve(grid, frequency, device=None, **solver_opts):
                                **solver_opts)
         if info['exit_message'] == 'DIVERGED':
             raise RuntimeError(f"AD inner solve diverged: {info}")
-        return tuple(torch.tensor(c, device=device)
+        # In the source's dtype (JAX diff.py:116-121): a two-float
+        # solve's complex128 hi + lo comes back as complex64.
+        return tuple(torch.tensor(c, dtype=s[0].dtype, device=device)
                      for c in (e.fx, e.fy, e.fz))
 
     def fsolve(arrays4, s):

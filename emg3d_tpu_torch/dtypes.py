@@ -1,14 +1,26 @@
-"""Precision policy: the solve's precision follows its source field.
+"""Precision policy: the x64 switch, and the source field's dtype.
 
 Counterpart of ``emg3d_tpu/dtypes.py``, which follows JAX's global x64
-flag.  The port has no such flag: host arrays default to
-float64/complex128 numpy and device tensors to float64/complex128 torch
-(:data:`REAL`, :data:`COMPLEX`), the precision the JAX package's CPU
-tests pin; the H100 has fp64 in hardware.  A complex64 (or float32)
-source field asks for a solve in complex64/float32 on the device, the
-precision of the JAX package's production path and of its Pallas
-kernels, as its ``_SolveContext`` derives the precision from the
-source (``emg3d_tpu/solver.py:1349-1363``): :func:`precision`.
+flag.  The port has its own switch (:func:`set_x64`, :func:`x64`), a
+plain process-wide value as JAX's flag is:
+
+- **on** (the default): host arrays default to float64/complex128 numpy
+  and device tensors to float64/complex128 torch (:data:`REAL`,
+  :data:`COMPLEX`), the precision the JAX package's CPU tests pin; the
+  H100 has fp64 in hardware.  A complex64 (or float32) source field
+  still asks for a solve in complex64/float32 (:func:`precision`), as
+  the JAX package's ``_SolveContext`` keeps a complex64 source with x64
+  on (``emg3d_tpu/solver.py:1349-1366``).
+- **off**: :func:`real_dtype`/:func:`complex_dtype` are float32 and
+  complex64 (default fields, as ``Field.zeros``), and every solve runs
+  in complex64/float32 whatever its source's dtype: the JAX package's
+  ``jnp.asarray`` of the source then canonicalizes a complex128 source
+  to complex64.  Sources, data and gradients stay complex128/float64
+  where numpy promotes them so, as in the JAX package.
+
+This is the one difference between the packages: JAX's flag is off
+unless a program turns it on, the port's switch is on unless a program
+turns it off.  A solve reads the switch once, when it starts.
 
 A complex64 solve may also *store* some of its field-independent
 streams in bfloat16 (:data:`BF16`), as the JAX package's Pallas path
@@ -22,6 +34,8 @@ number in CUDA.  The rounding is round-to-nearest-even in torch
 (``Tensor.to``), in CUDA (``__float22bfloat162_rn``) and in JAX
 (``astype``), so the same float32 values give the same bfloat16 bits.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -33,13 +47,40 @@ REAL_OF = {torch.complex128: torch.float64, torch.complex64: torch.float32}
 BF16 = torch.bfloat16
 
 
+_X64 = True
+
+
+def set_x64(enabled):
+    """Turns the x64 switch on or off (process-wide)."""
+    global _X64
+    _X64 = bool(enabled)
+
+
+def x64_enabled():
+    """Whether the x64 switch is on."""
+    return _X64
+
+
+@contextlib.contextmanager
+def x64(enabled):
+    """The x64 switch set to ``enabled`` inside the block, and restored
+    to its old value on exit (also on an exception)."""
+    old = _X64
+    set_x64(enabled)
+    try:
+        yield
+    finally:
+        set_x64(old)
+
+
 def real_dtype():
-    """Host (numpy) real dtype."""
-    return np.dtype(np.float64)
+    """Host (numpy) real dtype: float64, or float32 with x64 off."""
+    return np.dtype(np.float64 if _X64 else np.float32)
 
 
 def complex_dtype(real=None):
-    """Complex numpy dtype matching ``real`` (default float64)."""
+    """Complex numpy dtype matching ``real`` (default
+    :func:`real_dtype`)."""
     if real is None:
         real = real_dtype()
     return np.result_type(real, np.complex64)
@@ -47,9 +88,10 @@ def complex_dtype(real=None):
 
 def precision(dtype):
     """The device (real, complex) torch dtypes of a solve whose source
-    field has the numpy ``dtype``: (float32, complex64) for complex64
-    and float32 sources, else (float64, complex128)."""
-    if np.dtype(dtype) in (np.dtype(np.complex64), np.dtype(np.float32)):
+    field has the numpy ``dtype``: (float32, complex64) with x64 off or
+    for complex64 and float32 sources, else (float64, complex128)."""
+    if not _X64 or np.dtype(dtype) in (np.dtype(np.complex64),
+                                       np.dtype(np.float32)):
         return torch.float32, torch.complex64
     return REAL, COMPLEX
 

@@ -29,8 +29,10 @@ together.
   once for all lanes (K5 once per frequency group), and point smoothing
   launches K1/K2 once per lane.  Its Krylov solvers keep per-lane
   scalars on the device.
-- A complex64 source runs the whole solve in complex64/float32
-  (:func:`.dtypes.precision`): the levels' arrays in float32, every
+- A complex64 source, or any source with the x64 switch off
+  (:func:`.dtypes.set_x64`), runs the whole solve in complex64/float32
+  (:func:`.dtypes.precision`, read once when a solve starts): the
+  levels' arrays in float32, every
   kernel's complex64 instance, and the JAX package's two-float scheme
   to reach tol 1e-6 from float32 storage: the solution as a (hi, lo)
   pair (:func:`.ops.dsres.ds_accumulate`), its residual in double-single
@@ -38,7 +40,8 @@ together.
   multigrid switching to correction-form cycles near the float32 floor
   and every Krylov solve under iterative refinement
   (:func:`_refine_krylov`).  The result is hi + lo in complex128 when the
-  lo stream is live, as in the JAX package.
+  lo stream is live (a Laplace-domain field too), else the dtype the
+  device computed in, as the JAX package returns it (:func:`_result`).
 - A complex64 solve on the card stores in bfloat16 where the JAX
   package's Pallas path does (:data:`BF16_STORAGE`): the smoothers'
   s/params streams in every correction-form smoothing call (standalone
@@ -802,8 +805,9 @@ def residual_norms(e, s, arrays):
 class _SolveContext:
     """Per-solve state: device fields and level hierarchies per sc_dir.
 
-    The precision follows the source (:func:`.dtypes.precision`): a
-    complex64 source puts s, e and every level in complex64/float32.
+    The precision is ``dtype``, by default the source's
+    (:func:`.dtypes.precision`): complex64 puts s, e and every level in
+    complex64/float32.
     ``e_lo`` is the two-float lo stream of the solution once it is live
     (complex64 solves), else None.  ``storage`` is the reduced storage
     the solve may use (BF16 for a complex64 single solve where
@@ -815,14 +819,15 @@ class _SolveContext:
     """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
-                 sharding=None):
+                 sharding=None, dtype=None):
         self.grid = grid
         self.vmodel = vmodel
         self.var = var
         self.device = device
         self.mode = mode
         self.sharding = sharding
-        self.dtype = precision(np.asarray(sfield.fx).dtype)[1]
+        self.dtype = dtype if dtype is not None \
+            else precision(np.asarray(sfield.fx).dtype)[1]
         self._levels = {}
         self._ds_params = None
         self.meter = {'bytes': 0}
@@ -1751,17 +1756,19 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
 
     vmodel = vmodel_inp if vmodel_inp is not None \
         else models.VolumeModel(grid, model, sfield)
-    out_dtype = np.asarray(sfield.fx).dtype
+    src_dtype = np.asarray(sfield.fx).dtype
+    # The x64 switch is read here, once: the solve keeps this precision.
+    dtype = precision(src_dtype)[1]
 
     if efield is None:
         efield = fields.Field.zeros(grid, frequency=sfield._frequency,
-                                    dtype=out_dtype)
+                                    dtype=src_dtype)
     else:
         do_return = False
         var.do_return = False
         # Warm start: if converged already, return immediately.
         ctx0 = _SolveContext(grid, vmodel, sfield, efield, var, device,
-                             mode, sharding)
+                             mode, sharding, dtype)
         fine = ctx0.levels(int(var.sc_dir))[0]
         l2 = _level_norm(ctx0.e, ctx0.s, fine)
         if l2 < var.tol * var.l2_refe and not var.sslsolver:
@@ -1778,7 +1785,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         var.cprint("   > RETURN ZERO E-FIELD (provided sfield is zero)\n",
                    2)
         z = fields.Field.zeros(grid, frequency=sfield._frequency,
-                               dtype=out_dtype)
+                               dtype=src_dtype)
         if not do_return:
             for a, b in zip((efield.fx, efield.fy, efield.fz),
                             (z.fx, z.fy, z.fz)):
@@ -1791,7 +1798,7 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         return z
 
     ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode,
-                        sharding)
+                        sharding, dtype)
     # krylov() catches _ConvergenceError itself, and standalone multigrid
     # never raises it.
     with _profiler(profile, device):
@@ -1809,18 +1816,8 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
         var.cprint(f"\n:: emg3d_tpu_torch END   :: {var.time.now} :: "
                    f"runtime = {var.time.runtime}\n", 2)
 
-    comps = [t.cpu().numpy() for t in ctx.field()]
-    if ctx.e_lo is not None:
-        # Collapse the two-float solution on the host (exact in f64),
-        # as the JAX package returns it: complex128.
-        comps = [hi.astype(np.complex128) + lo.cpu().numpy()
-                 for hi, lo in zip(comps, ctx.field(ctx.e_lo))]
-        out_dtype = np.result_type(out_dtype, np.float64)
-    if not np.iscomplexobj(np.zeros(0, out_dtype)):
-        # Laplace domain: the solve ran promoted to complex, with an
-        # imaginary part that stays exactly zero.
-        comps = [c.real for c in comps]
-    comps = [np.ascontiguousarray(c, dtype=out_dtype) for c in comps]
+    comps = _result(ctx.field(), None if ctx.e_lo is None
+                    else ctx.field(ctx.e_lo), src_dtype)
     out = fields.Field(comps[0], comps[1], comps[2],
                        frequency=sfield._frequency)
 
@@ -1841,6 +1838,23 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     if var.return_info:
         return out, _info_dict(var)
     return out
+
+
+def _result(comps, lows, src_dtype):
+    """The solution's host components as the JAX package returns them
+    (``emg3d_tpu/solver.py:2879-2885``): hi + lo collapsed on the host
+    in complex128 (exact) where the two-float ``lows`` are live, a
+    Laplace-domain field too; else in the dtype the device computed in
+    (complex64 for a complex128 source with x64 off), the real part for
+    a real ``src_dtype`` (a Laplace-domain solve runs promoted to
+    complex, with an imaginary part that stays exactly zero)."""
+    comps = [t.cpu().numpy() for t in comps]
+    if lows is not None:
+        return [hi.astype(np.complex128) + lo.cpu().numpy()
+                for hi, lo in zip(comps, lows)]
+    if not np.iscomplexobj(np.zeros(0, src_dtype)):
+        comps = [c.real for c in comps]
+    return [np.ascontiguousarray(c) for c in comps]
 
 
 def _normalize_sharding(sharding):
@@ -1952,8 +1966,11 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
         else [by_freq[f] for f in lane_freqs]
     lanes = Lanes(lane_freqs, device)
 
-    out_dtype = np.asarray(sfields[0].fx).dtype
-    cdtype = precision(out_dtype)[1]
+    # The lanes stack in one dtype (numpy promotes them, as the JAX
+    # package's np.stack does); the x64 switch is read here, once.
+    src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
+                                 for sf in sfields))
+    cdtype = precision(src_dtype)[1]
     s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
                                      for sf in sfields]), dtype=cdtype,
                            device=device)
@@ -1969,16 +1986,9 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
     else:
         e, l2_last = _multigrid_batched(ctx, var, refe)
 
-    comps = [t.cpu().numpy() for t in e]
-    if ctx.e_lo is not None:
-        # The two-float solution collapsed on the host (see solve).
-        comps = [hi.astype(np.complex128) + lo.cpu().numpy()
-                 for hi, lo in zip(comps, ctx.e_lo)]
-        out_dtype = np.result_type(out_dtype, np.float64)
-    if not np.iscomplexobj(np.zeros(0, out_dtype)):
-        comps = [c.real for c in comps]     # Laplace domain (see solve)
-    out = [fields.Field(*(np.ascontiguousarray(c[b], dtype=out_dtype)
-                          for c in comps), frequency=sf._frequency)
+    comps = _result(e, ctx.e_lo, src_dtype)
+    out = [fields.Field(*(np.ascontiguousarray(c[b]) for c in comps),
+                        frequency=sf._frequency)
            for b, sf in enumerate(sfields)]
     info = {
         'exit': 0 if var.exit_message == 'CONVERGED' else 1,

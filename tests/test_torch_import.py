@@ -19,11 +19,18 @@ PKG = REPO / 'emg3d_tpu_torch'
 
 
 def test_import_without_jax():
+    # Every module of the port, by name (dtypes with its x64 switch too).
+    mods = sorted('.'.join(('emg3d_tpu_torch',) + f.relative_to(
+        PKG).with_suffix('').parts) for f in PKG.rglob('*.py')
+        if f.name != '__init__.py')
+    assert 'emg3d_tpu_torch.dtypes' in mods and len(mods) > 20
     code = (
-        "import sys\n"
+        "import sys, importlib\n"
         "import emg3d_tpu_torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
         "from emg3d_tpu_torch import solve, convert, surveys, simulations, "
-        "optimize, diff, io, time\n"
+        "optimize, diff, io, time, dtypes\n"
         "from emg3d_tpu_torch.cli import main, parser, run\n"
         "import emg3d_tpu_torch.__main__\n"
         "from emg3d_tpu_torch.ops import point_gs, line_gs, _build, "
@@ -34,7 +41,7 @@ def test_import_without_jax():
         "       if m == 'jax' or m.startswith('jax.') or m == 'emg3d_tpu'\n"
         "       or m.startswith('emg3d_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert callable(solve)\n")
+        "assert callable(solve) and dtypes.x64_enabled()\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                    check=True, timeout=300)
@@ -47,7 +54,7 @@ def test_no_module_imports_jax_or_emg3d_tpu():
                                           REPO / 'profile_solve.py']
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
-    for mod in ('diff.py', 'io.py', 'time.py', '__main__.py',
+    for mod in ('diff.py', 'dtypes.py', 'io.py', 'time.py', '__main__.py',
                 'cli/__init__.py', 'cli/main.py', 'cli/parser.py',
                 'cli/run.py', 'ops/probes.py', 'ops/dsres.py',
                 'parallel/__init__.py', 'parallel/distributed.py',
