@@ -120,11 +120,15 @@ Phases:
 14. the probes (``ops/probes.py``, ``csrc/probes.cu``), the counterparts
    of the Mosaic probes in scripts/: ``tile_copy`` (TMA with an mbarrier)
    over every grid step of ``probe``/``probe3``/``probe23``/``probe12``
-   (:func:`probe_boxes`), the card's opt-in shared memory and launches
-   with N bytes of it up to and beyond that limit, ``smem_sum``,
-   ``tile_roll``, ``dyn_slice`` and ``station_solve`` at ty=8, Zp=256,
+   (:func:`probe_boxes`) and at COPY_LARGE's sub-boxes, the card's
+   opt-in shared memory and launches with N bytes of it up to and
+   beyond that limit, ``smem_sum``, ``tile_roll`` (also at ROLL_LARGE
+   and ROLL_ODD), ``dyn_slice`` and ``station_solve`` at ty=8, Zp=256,
    each bitwise equal to its plain version (``station_solve`` within
-   1e-6 of ``torch.linalg.solve``), then timed;
+   1e-6 of ``torch.linalg.solve``), then timed: ``tile_roll`` and
+   ``tile_copy`` in turns with their library calls at the probe's shape
+   and where bytes decide (:func:`probe_turns`), ``tile_copy`` under
+   each plan of COPY_PLANS (:func:`copy_plans`);
 15. "complex64", the solve in the precision of the JAX package's
    production path (a complex64 source): (a) each kernel's complex64
    instance against its complex64 plain version at 16³, 64³ and 256³
@@ -140,15 +144,13 @@ Phases:
    (16³, 64³, 256³, stretched 37×23×19 and 37×23×45, two lanes with η
    per lane at both and at 64³, and sim64's eight lanes of 64³) on a
    near-converged level (s = fl32(A64·(hi +
-   lo))): its tiled plan (``dsres.tile_plan``, the solve path's) twice,
-   with and without the lo stream, and its flat plan (the first design),
-   each bitwise equal to the plain version (so within TOL_DS of it) and
-   within TOL_DS_F64·‖r‖ of the float64 residual of the same float32
-   operator; at 64³, 256³ and eight lanes of 64³ (DSRES_TIMED) the two
-   plans timed in turns (tiled, flat, flat, tiled), the tiled plan at
-   every chunk of DSRES_CHUNKS, the plain version, and (logged only) the
-   operations per edge of both designs (:func:`dsres_ops`) with their
-   floor at the fp32 add rate;
+   lo))): its plan (``dsres.tile_plan``) twice and without the lo
+   stream, each bitwise equal to the plain version (so within TOL_DS of
+   it) and within TOL_DS_F64·‖r‖ of the float64 residual of the same
+   float32 operator; at 64³, 256³ and eight lanes of 64³ (DSRES_TIMED)
+   the plan timed, the plan at every chunk of DSRES_CHUNKS, the plain
+   version, and (logged only) the operations per edge
+   (:func:`dsres_ops`) with their floor at the fp32 add rate;
    (b) the main path in complex64 (counters reset before, read after:
    ``launches_c64``): bench64 cold and warm (CONVERGED, rel_error below
    1e-6, hi + lo returned in complex128 within TOL_C64_FIELD of phase 4's
@@ -266,9 +268,8 @@ K6, on the complex64 path only, has an entry of its own
 (``residual_ds``, launches = its complex64 count; ``launches_bf16`` its
 launches in phase 16b's bfloat16 runs; ``launches_per_solve_c64`` per
 complex64 solve of bench64, sclr64 BiCGSTAB, sclr256 and sim64;
-``checks``; the tiled plan's and the flat plan's times, ``ms_flat``,
-the plan, the tiled times by chunk, ``..._256`` at 256³, ``..._64x8``
-at eight lanes of 64³).  Phase 16b's
+``checks``; its time, the plan, the times by chunk, ``..._256`` at
+256³, ``..._64x8`` at eight lanes of 64³).  Phase 16b's
 bfloat16 runs count the launches of each kernel's ``_bf16`` instance
 (``launches_bf16``), beside its bfloat16 times (``ms_bf16``,
 ``bound_ms_bf16`` at 64³, ``..._256`` at 256³; ``ms_f32s`` the
@@ -436,6 +437,17 @@ TDEM_TIME = np.logspace(-1, 1, 21)
 DIFF_EDGES = ((10, 8, 8), (5, 9, 7), (11, 11, 9))
 DIFF_FD_CELLS = ((8, 8, 8), (10, 8, 8), (6, 9, 7))
 PROBE_SRC = 'emg3d_tpu_torch/csrc/probes.cu'
+# Phase 14's shapes where bytes decide: tile_roll's tile, and tile_copy's
+# array with its sub-boxes (the whole of it, timed, and one at a z
+# offset of 13 floats); tile_roll's other checked tile (a width the
+# shuffle plans refused); tile_copy's plans (box bytes, blocks per SM)
+# timed at probe12's box and the whole array.
+ROLL_LARGE = (256, 65536)
+ROLL_ODD = (5, 1000)
+COPY_LARGE = ((32, 46, 64, 384), [((0, 0, 0, 0), (32, 46, 64, 384)),
+                                  ((1, 1, 3, 13), (30, 44, 60, 360))])
+COPY_PLANS = ((8192, 2), (8192, 4), (8192, 8), (16384, 2), (16384, 4),
+              (32768, 2))
 # The trace's names of the point kernels' instances (demangled or not):
 # the last template argument is the kernel, 0 for K1, 1-2 for K2.
 # Each instance also names its real type (double, float) last.
@@ -728,15 +740,12 @@ def dsres_inner(shape):
 def dsres_ops(shape, plan):
     """Float32 operations per interior edge that K6 does under ``plan``
     (counted as :func:`dsres_work` counts them: 150 a face curl, 22 a
-    coefficient product, 310 an edge's own with its four products):
-    ``flat`` recomputes the four face curls of every edge (910);
-    ``tiled`` computes each face of its tile once per plane times the
-    two widths its second curls take (194), its halo faces (u3 and u1 of
-    the row below, u1 and u2 of the column below, where they exist)
-    times the one they take there (172), one plane again in every chunk
-    but the first, and 222 per edge (its own, less the products)."""
-    if plan.kind == 'flat':
-        return 4 * 150 + 310
+    coefficient product, 310 an edge's own with its four products): it
+    computes each face of its tile once per plane times the two widths
+    its second curls take (194), its halo faces (u3 and u1 of the row
+    below, u1 and u2 of the column below, where they exist) times the
+    one they take there (172), one plane again in every chunk but the
+    first, and 222 per edge (its own, less the products)."""
     nx, ny, nz = shape
     tj, tk = plan.tile
     tiles_j, tiles_k = -(-ny // tj), -(-nz // tk)
@@ -2358,6 +2367,89 @@ def probe_boxes():
     return cases
 
 
+def _turns(torch, kernel, library, reps=20):
+    """A kernel and its library call timed in turns (kernel, library,
+    library, kernel), each a :func:`_time_steps` median of one call:
+    (kernel ms, library ms, the turns), each ms the mean of its two."""
+    turns = [(k, _time_steps(torch, kernel if k == 'kernel' else library,
+                             reps=reps, per=1))
+             for k in ('kernel', 'library', 'library', 'kernel')]
+    return (float(np.mean([t for k, t in turns if k == 'kernel'])),
+            float(np.mean([t for k, t in turns if k == 'library'])),
+            [[k, t] for k, t in turns])
+
+
+def probe_turns(torch, probes, large=('tile_roll', 'tile_copy')):
+    """tile_roll and tile_copy of ``probes`` (an ``ops/probes.py``)
+    timed in turns with their library calls at the probes' shapes
+    (tile_roll (8, 256) along axis 1, shift 1; tile_copy probe12's
+    6×6×64×384 box) and, for the kernels named in ``large``, where bytes
+    decide (ROLL_LARGE; the whole of COPY_LARGE's array), each with its
+    bound and share.  Returns {kernel: {suffix: readings}}, suffix ''
+    or '_large'."""
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(15)
+    out = {'tile_roll': {}, 'tile_copy': {}}
+    for n, shape in (('', (8, 256)),) + (
+            (('_large', ROLL_LARGE),) if 'tile_roll' in large else ()):
+        x = torch.randn(shape, device=dev, generator=g)
+        ms, lib, turns = _turns(torch, lambda: probes.tile_roll(x, 1, 1),
+                                lambda: torch.roll(x, 1, 1))
+        b = bound(2 * 4 * x.numel(), 0)
+        out['tile_roll'][n] = {'shape': list(shape), 'ms': ms,
+                               'library_ms': lib, 'turns': turns, **b,
+                               'share': b['bound_ms'] / ms}
+        del x
+    shape12, boxes12 = probe_boxes()['probe12']
+    cases = [('', shape12, *boxes12[5])]
+    if 'tile_copy' in large:
+        cases.append(('_large', COPY_LARGE[0], *COPY_LARGE[1][0]))
+    for n, shape, off, ln in cases:
+        x = torch.zeros(shape, device=dev)
+        box = tuple(slice(o, o + k) for o, k in zip(off, ln))
+        ms, lib, turns = _turns(torch, lambda: probes.tile_copy(x, off, ln),
+                                lambda: x[box].add_(1.0))
+        b = bound(2 * 4 * int(np.prod(ln)), 0)
+        out['tile_copy'][n] = {'shape': list(shape), 'box': list(ln),
+                               'ms': ms, 'library_ms': lib, 'turns': turns,
+                               **b, 'share': b['bound_ms'] / ms}
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def copy_plans(torch, probes):
+    """tile_copy under each plan of COPY_PLANS whose blocks fit an SM
+    (box bytes, blocks per SM) at probe12's box and the whole of
+    COPY_LARGE's array, each bitwise equal to the plain copy: the table
+    behind ``probes.TILE_BYTES`` and ``TILE_BLOCKS_PER_SM``.  Returns
+    {'bytes×per_sm': [ms at probe12's box, ms at the whole array]}."""
+    dev = torch.device('cuda')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape12, boxes12 = probe_boxes()['probe12']
+    cases = ((shape12, *boxes12[5]), (COPY_LARGE[0], *COPY_LARGE[1][0]))
+    table = {}
+    for nbytes, per_sm in COPY_PLANS:
+        row = []
+        for shape, off, ln in cases:
+            plan = probes.tile_plan(shape[3], off, ln, sms, nbytes, per_sm)
+            if per_sm * (plan.smem + 1024) > 228 * 1024:
+                break
+            x = torch.randn(shape, device=dev)
+            ref = probes.tile_copy_plain(x.clone(), off, ln)
+            probes.tile_copy(x, off, ln, _plan=plan)
+            if not torch.equal(x, ref):
+                raise AssertionError(f"tile_copy plan {plan}: differs "
+                                     f"from plain")
+            row.append(_time_steps(torch, lambda: probes.tile_copy(
+                x, off, ln, _plan=plan), per=1))
+            del x, ref
+        if row:
+            table[f'{nbytes}×{per_sm}'] = row
+    torch.cuda.empty_cache()
+    return table
+
+
 def phase_probes(torch, launches):
     """Phase 14 (see the module docstring): every probe checked against its
     plain version (launches counted), then timed.  Returns the probes'
@@ -2367,8 +2459,12 @@ def phase_probes(torch, launches):
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(14)
     probes.reset_launches()
-    # tile_copy: every probe's boxes in order, against the plain copy.
-    for case, (shape, boxes) in probe_boxes().items():
+    # tile_copy: every probe's boxes in order, then the large sub-boxes
+    # one by one, against the plain copy.
+    cases = list(probe_boxes().items()) + [
+        (f'large {off} + {ln}', (COPY_LARGE[0], [(off, ln)]))
+        for off, ln in COPY_LARGE[1]]
+    for case, (shape, boxes) in cases:
         x = torch.randn(shape, device=dev, generator=g)
         ref = x.clone()
         for off, ln in boxes:
@@ -2377,8 +2473,11 @@ def phase_probes(torch, launches):
         torch.cuda.synchronize()
         if not torch.equal(x, ref):
             raise AssertionError(f"tile_copy {case}: differs from plain")
-        log(f"tile_copy {case} {shape}: {len(boxes)} boxes (TMA box "
-            f"{probes.tile_box(boxes[0][1])}) bitwise equal to plain")
+        plan = probes.tile_plan(shape[3], *boxes[0], torch.cuda.
+                                get_device_properties(dev)
+                                .multi_processor_count)
+        log(f"tile_copy {case} {shape}: {len(boxes)} sub-boxes (first: "
+            f"{plan}) bitwise equal to plain")
         del x, ref
     # smem_limit: the card's opt-in limit, and launches around it.
     optin = probes.smem_optin()
@@ -2398,17 +2497,20 @@ def phase_probes(torch, launches):
             table[-1][1] == 0:
         raise AssertionError(f"smem_limit: {table}")
     # fbuf5d, rolllane/rollsub, dynslice(_al, _al12), station at ty=8,
-    # Zp=256.
+    # Zp=256; tile_roll also at ROLL_LARGE and ROLL_ODD.
     f = torch.randn((64, 46, 8, 256), device=dev, generator=g)
     if not torch.equal(probes.smem_sum(f, 8, 3),
                        probes.smem_sum_plain(f, 8, 3)):
         raise AssertionError("smem_sum differs from plain")
+    for shape in ((8, 256), ROLL_LARGE, ROLL_ODD):
+        xr = torch.randn(shape, device=dev, generator=g)
+        for axis in (0, 1):
+            for shift in (1, 3, -5):
+                if not torch.equal(probes.tile_roll(xr, shift, axis),
+                                   torch.roll(xr, shift, axis)):
+                    raise AssertionError(f"tile_roll {shape} axis {axis} "
+                                         f"shift {shift}")
     xr = torch.randn((8, 256), device=dev, generator=g)
-    for axis in (0, 1):
-        for shift in (1, 3, -5):
-            if not torch.equal(probes.tile_roll(xr, shift, axis),
-                               torch.roll(xr, shift, axis)):
-                raise AssertionError(f"tile_roll axis {axis} shift {shift}")
     for ny, ty, starts in ((72, 8, [min(t * 6, 64) for t in range(4)]),
                            (48, 16, [t * 8 for t in range(4)]),
                            (48, 12, [t * 8 for t in range(4)])):
@@ -2421,14 +2523,22 @@ def phase_probes(torch, launches):
     zp = probes.station_solve_plain(xst)
     st_err = float((probes.station_solve(xst) - zp).abs().max())
     st_rel = st_err / float(zp.abs().max())
-    log(f"smem_sum, tile_roll (axes 0 and 1, shifts 1, 3, -5), dyn_slice (ty"
-        f" 8, 16, 12) bitwise equal to plain; station_solve (8, 256) max "
-        f"|Δ|/max|ref| {st_rel:.3e} against torch.linalg.solve (complex128)")
+    log(f"smem_sum, tile_roll ((8, 256), {ROLL_LARGE}, {ROLL_ODD}; axes "
+        f"0 and 1, shifts 1, 3, -5), dyn_slice (ty 8, 16, 12) bitwise "
+        f"equal to plain; station_solve (8, 256) max |Δ|/max|ref| "
+        f"{st_rel:.3e} against torch.linalg.solve (complex128)")
     if not st_rel <= 1e-6:
         raise AssertionError(f"station_solve: {st_rel:.3e} > 1e-6")
+    plans = copy_plans(torch, probes)
     n = dict(probes.LAUNCHES)
+    log("tile_copy by plan (box bytes × blocks per SM: ms at probe12's "
+        "box, at the whole probe3 array): " + ", ".join(
+            f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+            for k, v in plans.items()))
 
-    # Timings (device ms per launch), beside the plain versions.
+    # Timings (device ms per launch), beside the plain versions;
+    # tile_roll and tile_copy in turns with their library calls.
+    turns = probe_turns(torch, probes)
     shape, boxes = probe_boxes()['probe12']
     x = torch.zeros(shape, device=dev)
     off, ln = boxes[5]
@@ -2436,23 +2546,29 @@ def phase_probes(torch, launches):
     for _ in range(1000):
         probes.smem_checksum(optin)
     check_ms = (time.perf_counter() - t0)
-    box = tuple(slice(o, o + k) for o, k in zip(off, ln))
     rows = (y0.clamp(0, xs.shape[2] - 12)[:, None]
             + torch.arange(12, device=dev)).reshape(-1)
-    # (name, replaces, key, kernel, plain, (library call, what it is) or
-    # (None, why there is none), (bytes, flops), max|Δ|, extra keys); the
-    # library call, one PyTorch call that computes the function, is timed
-    # and used nowhere in the port.
+
+    def in_turns(key, **extra):
+        """The turns' readings but the entry's own (ms, library_ms and
+        the bound at the probe's shape), keyed with their suffix."""
+        return {**extra, **{k + sfx: v for sfx, d in turns[key].items()
+                            for k, v in d.items()
+                            if sfx or k not in ('ms', 'library_ms',
+                                                'bound_ms', 'bound_by')}}
+    # (name, replaces, key, kernel (None: timed in turns above), plain,
+    # (library call, what it is) or (None, why there is none or what was
+    # timed in turns), (bytes, flops), max|Δ|, extra keys); the library
+    # call, one PyTorch call that computes the function, is timed and
+    # used nowhere in the port.
     timed = (
         ('probe_tile_copy', 'scripts/hw_probe_ztile.py:46', 'tile_copy',
-         lambda: probes.tile_copy(x, off, ln),
-         lambda: probes.tile_copy_plain(x, off, ln),
-         (lambda: x[box].add_(1.0), 'x[box].add_(1.0)'),
+         None, lambda: probes.tile_copy_plain(x, off, ln),
+         (None, 'x[box].add_(1.0)'),
          (2 * 4 * int(np.prod(ln)), 0), 0.0,
-         {'box': list(ln), 'shape': list(shape),
-          'also_replaces': ['scripts/hw_probe_ztile.py:95',
-                            'scripts/hw_probe_ztile.py:134',
-                            'scripts/hw_probe_ztile.py:174']}),
+         in_turns('tile_copy', plan_ms=plans, also_replaces=[
+             'scripts/hw_probe_ztile.py:95', 'scripts/hw_probe_ztile.py:134',
+             'scripts/hw_probe_ztile.py:174'])),
         ('probe_smem_limit', 'scripts/hw_probe_ztile.py:209', 'smem_limit',
          lambda: probes.smem_limit(optin), None,
          (None, 'none: no tensor input; the function is the card\'s '
@@ -2468,10 +2584,10 @@ def phase_probes(torch, launches):
          (4 * 8 * 8 * 256 + 4 * 8 * 256, 0), 0.0,
          {}),
         ('probe_tile_roll', 'scripts/hw_bisect_zp256.py:65', 'tile_roll',
-         lambda: probes.tile_roll(xr, 1, 1), lambda: torch.roll(xr, 1, 1),
-         (lambda: torch.roll(xr, 1, 1), 'torch.roll(x, 1, 1)'),
+         None, lambda: torch.roll(xr, 1, 1),
+         (None, 'torch.roll(x, 1, 1)'),
          (2 * 4 * 8 * 256, 0), 0.0,
-         {'plain_is': 'torch.roll'}),
+         in_turns('tile_roll', plain_is='torch.roll')),
         ('probe_dyn_slice', 'scripts/hw_bisect_zp256.py:84', 'dyn_slice',
          lambda: probes.dyn_slice(xs, y0, 12),
          lambda: probes.dyn_slice_plain(xs, y0, 12),
@@ -2490,16 +2606,20 @@ def phase_probes(torch, launches):
     )
     entries = []
     for name, replaces, key, fn, plain, lib, work, err, extra in timed:
-        ms = _time_steps(torch, fn, per=1)
         pms = check_ms if plain is None else _time_steps(torch, plain,
                                                           per=1)
+        if fn is None:
+            ms, lib_ms = (turns[key][''][k] for k in ('ms', 'library_ms'))
+        else:
+            ms = _time_steps(torch, fn, per=1)
+            lib_ms = None if lib[0] is None else _time_steps(
+                torch, lib[0], per=1)
         entries.append({'name': name, 'route': 'cuda', 'source': PROBE_SRC,
                         'replaces': replaces, 'launches': launches[key],
                         'probe_launches': n[key], 'max_abs_err': err,
                         'ms': ms, 'plain_ms': pms, **bound(*work),
-                        'library_ms': None if lib[0] is None else
-                        _time_steps(torch, lib[0], per=1),
-                        'library_call': lib[1], **extra})
+                        'library_ms': lib_ms, 'library_call': lib[1],
+                        **extra})
     for e in entries:
         lib = f"library {e['library_call']}" if e['library_ms'] is None \
             else f"library {e['library_ms']:.4f} ({e['library_call']})"
@@ -2507,6 +2627,14 @@ def phase_probes(torch, launches):
             f"{e['probe_launches']} in the checks, {e['ms']:.4f} ms per "
             f"launch (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.6f}, "
             f"{e['bound_by']}; {lib})")
+    for key, r in turns.items():
+        for sfx, d in r.items():
+            log(f"{key}{sfx} {d['shape']}: in turns (ms) " + ", ".join(
+                f"{k} {t:.4f}" for k, t in d['turns'])
+                + f"; kernel {d['ms']:.4f}, library {d['library_ms']:.4f} "
+                f"({d['ms'] / d['library_ms']:.2f}×); bound "
+                f"{d['bound_ms']:.6f} ({d['bound_by']}), "
+                f"{d['share']:.1%} of it")
     return entries
 
 
@@ -2839,19 +2967,17 @@ def _plan_dict(plan):
 
 def _c64_dsres(torch, results, shape, lanes, dev):
     """K6 against its plain version on a near-converged complex64 level
-    (:func:`_dsres_inputs`): the tiled plan twice (bitwise equal), with
-    and without the lo stream, and the flat plan, each bitwise equal to
-    the plain version (so within TOL_DS of it) and within TOL_DS_F64·‖r‖
-    of the float64 residual of the same float32 operator.  In the
-    DSRES_TIMED cases the tiled and flat plans timed in turns, the tiled
-    plan at every chunk of DSRES_CHUNKS, and the plain version."""
+    (:func:`_dsres_inputs`): its plan twice (bitwise equal), with and
+    without the lo stream, each bitwise equal to the plain version (so
+    within TOL_DS of it) and within TOL_DS_F64·‖r‖ of the float64
+    residual of the same float32 operator.  In the DSRES_TIMED cases
+    the plan timed, the plan at every chunk of DSRES_CHUNKS, and the
+    plain version."""
     from emg3d_tpu_torch.ops import dsres
     arrays, params, hi, lo, s, r64 = _dsres_inputs(torch, shape, lanes, dev)
     plan = dsres.tile_plan(shape, lanes)
-    flat = dsres.flat_plan(shape, lanes)
     outs = [dsres.residual(hi, lo, s, params) for _ in range(2)]
     ref = dsres.residual_ds_plain(hi, lo, s, arrays, params)
-    out_flat = dsres.residual(hi, lo, s, params, plan=flat)
     out_nolo = dsres.residual(hi, None, s, params)
     ref_nolo = dsres.residual_ds_plain(hi, None, s, arrays, params)
     torch.cuda.synchronize()
@@ -2860,12 +2986,11 @@ def _c64_dsres(torch, results, shape, lanes, dev):
     def equal(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
     checks = {'two runs': equal(*outs), 'plain': equal(outs[0], ref),
-              'flat': equal(out_flat, ref),
               'no lo stream': equal(out_nolo, ref_nolo)}
     worst, dmax = _rel_max(outs[0], ref)
     f64 = max(float(torch.linalg.norm(o.to(torch.complex128) - r)) /
               float(torch.linalg.norm(r)) for o, r in zip(outs[0], r64))
-    log(f"{name}: tiled plan {_plan_dict(plan)}; bitwise equal: "
+    log(f"{name}: plan {_plan_dict(plan)}; bitwise equal: "
         + ", ".join(f"{k} {v}" for k, v in checks.items())
         + f"; max|Δ|/max|ref| against plain {worst:.3e}, max over "
         f"components of ‖r − r64‖/‖r64‖ {f64:.3e}")
@@ -2873,12 +2998,11 @@ def _c64_dsres(torch, results, shape, lanes, dev):
         raise AssertionError(f"{name}: {checks}, {worst:.3e} against "
                              f"plain, {f64:.3e} against float64")
     res = results.setdefault('residual_ds', {'max_abs_err': 0.0})
-    res['max_abs_err'] = max(res['max_abs_err'], dmax,
-                             _maxdiff(out_flat, ref))
+    res['max_abs_err'] = max(res['max_abs_err'], dmax)
     res.setdefault('checks', []).append(
         {'shape': list(shape), 'lanes': lanes, 'bitwise': checks,
          'rel_plain': worst, 'rel_f64': f64})
-    del outs, ref, out_flat, out_nolo, ref_nolo, r64
+    del outs, ref, out_nolo, ref_nolo, r64
     if (shape, lanes) not in DSRES_TIMED:
         return
     n = DSRES_TIMED[shape, lanes]
@@ -2887,12 +3011,8 @@ def _c64_dsres(torch, results, shape, lanes, dev):
 
     def timed(p):
         return _time_steps(torch, lambda: dsres.residual(
-            hi, lo, s, params, out, plan=p), reps=reps, per=1)
-    turns = [(kind, timed(plan if kind == 'tiled' else flat))
-             for kind in ('tiled', 'flat', 'flat', 'tiled')]
-    res['ms' + n] = float(np.mean([t for k, t in turns if k == 'tiled']))
-    res['ms_flat' + n] = float(np.mean([t for k, t in turns if k == 'flat']))
-    res['turns' + n] = [[k, t] for k, t in turns]
+            hi, lo, s, params, out, _plan=p), reps=reps, per=1)
+    res['ms' + n] = timed(plan)
     res['plan' + n] = _plan_dict(plan)
     res['chunk_ms' + n] = {c: timed(dsres.tile_plan(shape, lanes, chunk=c))
                            for c in DSRES_CHUNKS if c <= shape[0]}
@@ -2902,20 +3022,13 @@ def _c64_dsres(torch, results, shape, lanes, dev):
     b = bound(*dsres_work(shape, lanes), PEAK_FP32)
     res['bound_ms' + n] = b['bound_ms']
     res['bound_by' + n] = b['bound_by']
-    res['ops_per_edge' + n] = {'tiled': dsres_ops(shape, plan),
-                               'flat': dsres_ops(shape, flat)}
-    res['add_floor_ms' + n] = {
-        k: v * dsres_inner(shape) / PEAK_FP32_ADDS * 1e3
-        for k, v in res['ops_per_edge' + n].items()}
-    log(f"{name}: in turns (ms per launch) "
-        + ", ".join(f"{k} {t:.4f}" for k, t in turns)
-        + f"; tiled {res['ms' + n]:.4f}, flat {res['ms_flat' + n]:.4f} "
-        f"({res['ms_flat' + n] / res['ms' + n]:.2f}×), plain torch "
+    ops = dsres_ops(shape, plan)
+    floor = ops * dsres_inner(shape) / PEAK_FP32_ADDS * 1e3
+    log(f"{name}: {res['ms' + n]:.4f} ms per launch, plain torch "
         f"{res['plain_ms' + n]:.4f}; bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}), {b['bound_ms'] / res['ms' + n]:.0%} of it "
-        f"(flat {b['bound_ms'] / res['ms_flat' + n]:.0%}); fp32 operations "
-        f"per interior edge {res['ops_per_edge' + n]}, their floor at the "
-        f"add rate (ms) {res['add_floor_ms' + n]}; tiled by chunk (ms) "
+        f"({b['bound_by']}), {b['bound_ms'] / res['ms' + n]:.0%} of it; "
+        f"fp32 operations per interior edge {ops:.1f}, their floor at the "
+        f"add rate {floor:.4f} ms; by chunk (ms) "
         + ", ".join(f"{c}: {t:.4f}" for c, t in res['chunk_ms' + n].items()))
     del out
     torch.cuda.empty_cache()
@@ -4755,8 +4868,8 @@ def main():
         'launches_sharded_c64': c64_sharded['residual_ds'],
         'max_abs_err_sharded_c64': c64_sharded_errs['residual_ds'],
         **{k + n: r[k + n] for n in DSRES_TIMED.values() for k in (
-            'ms', 'ms_flat', 'turns', 'plan', 'chunk_ms', 'plain_ms',
-            'bound_ms', 'bound_by')}})
+            'ms', 'plan', 'chunk_ms', 'plain_ms', 'bound_ms',
+            'bound_by')}})
     log(f"solve 64³ F-cycle: it_mg {info4['it_mg']}, warm wall "
         f"{wall_warm:.3f} s; sclr256 complex64 peak {peak_c64:.2f} GiB "
         f"with float32 storage, {peak_bf16:.2f} GiB with bfloat16")

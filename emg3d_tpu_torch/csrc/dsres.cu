@@ -38,32 +38,28 @@
 // ≈ 0.69 ms at 256³, level with the bytes.  chip_smoke's bound keeps
 // the 67 TFLOP/s peak (0.34 ms), so its share stays comparable.
 //
-// Two designs, one source:
-//
-// * ``tiled`` (the solve path's, every level): a block owns a (tj × 32)
-//   tile of y-z indices, z fastest (one warp a row), and marches along x
-//   over a chunk of planes.  For each plane it stages ex of the cell
-//   plane and ey, ez of the next node plane, hi and lo, with a one-cell
-//   halo, in shared memory by cp.async (8 B per element at any offset,
-//   zero-filled outside the arrays) one plane ahead, in a ring of three
-//   stages.  From those it computes every ζ-weighted face curl of the
-//   plane once (u1 at node i, u2 and u3 of cell plane i), times each of
-//   the two inverse widths its second curls take, into shared memory,
-//   keeping u2·ihx and u3·ihx of plane i−1 for the ey/ez rows at node i
-//   (the plain version, too, scales each face once and differences);
-//   then each thread forms the second curl, the η term and the fold of
-//   the ex, ey and ez edges at its (j, k).  With the tile's halo faces
-//   and one plane of faces again per chunk that is ~450 operations per
-//   edge at 256³ (chip_smoke.dsres_ops), 0.67 ms at the add rate.  Index
-//   arithmetic is 32-bit inside a lane's slice; no div/mod per edge.
-//   The s, η-sum and ζ-weight loads of a plane are issued before its
-//   barrier.  The grid is (tiles × chunks, lanes); ops/dsres.py's
-//   ``tile_plan`` chooses it (its chunk from the card's table) and the
-//   entry point refuses a plan that does not cover the level.
-// * ``flat`` (the first design, kept for chip_smoke's timing in turns):
-//   one thread per edge (ex edges first, then ey, then ez, C order),
-//   each interior edge recomputing the four face curls its row takes,
-//   ~910 operations per edge, with 64-bit div/mod to find (i, j, k).
+// Design: a block owns a (tj × 32) tile of y-z indices, z fastest (one
+// warp a row), and marches along x over a chunk of planes.  For each
+// plane it stages ex of the cell plane and ey, ez of the next node
+// plane, hi and lo, with a one-cell halo, in shared memory by cp.async
+// (8 B per element at any offset, zero-filled outside the arrays) one
+// plane ahead, in a ring of three stages.  From those it computes every
+// ζ-weighted face curl of the plane once (u1 at node i, u2 and u3 of
+// cell plane i), times each of the two inverse widths its second curls
+// take, into shared memory, keeping u2·ihx and u3·ihx of plane i−1 for
+// the ey/ez rows at node i (the plain version, too, scales each face
+// once and differences); then each thread forms the second curl, the η
+// term and the fold of the ex, ey and ez edges at its (j, k).  With the
+// tile's halo faces and one plane of faces again per chunk that is ~450
+// operations per edge at 256³ (chip_smoke.dsres_ops), 0.67 ms at the
+// add rate; the first design, one thread per edge recomputing the four
+// face curls its row takes (~910 operations per edge, 64-bit div/mod to
+// find its indices), took about twice as long.  Index arithmetic is
+// 32-bit inside a lane's slice; no div/mod per edge.  The s, η-sum and
+// ζ-weight loads of a plane are issued before its barrier.  The grid is
+// (tiles × chunks, lanes); ops/dsres.py's ``tile_plan`` chooses it (its
+// chunk from the card's table) and the entry point refuses a plan that
+// does not cover the level.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -116,10 +112,6 @@ __device__ __forceinline__ CDS cpow2(CDS a, float c) {
 __device__ __forceinline__ CDS cmul_plain(CDS a, float2 w) {
   return {dsub(dscale(a.re, w.x), dscale(a.im, w.y)),
           dadd(dscale(a.re, w.y), dscale(a.im, w.x))};
-}
-
-__device__ __forceinline__ int64_t at(int i, int j, int k, int n1, int n2) {
-  return (static_cast<int64_t>(i) * n1 + j) * n2 + k;
 }
 
 struct DsArgs {
@@ -520,108 +512,6 @@ residual_ds_tiled(DsArgs a, Tile t, int st_lanes) {
   }
 }
 
-// ---------------------------------------------------------------------
-// flat
-// ---------------------------------------------------------------------
-
-// The field's DS value at an edge (hi, and lo or 0).
-__device__ __forceinline__ CDS load(const float2* h, const float2* l,
-                                    int64_t n) {
-  const float2 v = h[n];
-  const float2 w = l ? l[n] : make_float2(0.f, 0.f);
-  return {{v.x, w.x}, {v.y, w.y}};
-}
-
-#define EX(i, j, k) load(a.hx, a.lx, at(i, j, k, a.ny + 1, a.nz + 1))
-#define EY(i, j, k) load(a.hy, a.ly, at(i, j, k, a.ny, a.nz + 1))
-#define EZ(i, j, k) load(a.hz, a.lz, at(i, j, k, a.ny + 1, a.nz))
-
-// ζ-weighted curls on faces, recomputed per edge.
-// u1: x-face at x-node i of cell (j, k).
-__device__ __forceinline__ CDS u1(const DsArgs& a, int i, int j, int k) {
-  const CDS v = csub(cscale(csub(EZ(i, j + 1, k), EZ(i, j, k)), a.ihy[j]),
-                     cscale(csub(EY(i, j, k + 1), EY(i, j, k)), a.ihz[k]));
-  return cscale(v, a.wx[at(i, j, k, a.ny, a.nz)]);
-}
-// u2: y-face at y-node j of cell (i, k).
-__device__ __forceinline__ CDS u2(const DsArgs& a, int i, int j, int k) {
-  const CDS v = csub(cscale(csub(EX(i, j, k + 1), EX(i, j, k)), a.ihz[k]),
-                     cscale(csub(EZ(i + 1, j, k), EZ(i, j, k)), a.ihx[i]));
-  return cscale(v, a.wy[at(i, j, k, a.ny + 1, a.nz)]);
-}
-// u3: z-face at z-node k of cell (i, j).
-__device__ __forceinline__ CDS u3(const DsArgs& a, int i, int j, int k) {
-  const CDS v = csub(cscale(csub(EY(i + 1, j, k), EY(i, j, k)), a.ihx[i]),
-                     cscale(csub(EX(i, j + 1, k), EX(i, j, k)), a.ihy[j]));
-  return cscale(v, a.wz[at(i, j, k, a.ny, a.nz + 1)]);
-}
-
-__global__ void __launch_bounds__(256)
-residual_ds_flat(DsArgs a, int st_lanes) {
-  lane_slices(a, st_lanes);
-  const int nx = a.nx, ny = a.ny, nz = a.nz;
-  const int64_t nex = static_cast<int64_t>(nx) * (ny + 1) * (nz + 1);
-  const int64_t ney = static_cast<int64_t>(nx + 1) * ny * (nz + 1);
-  const int64_t nez = static_cast<int64_t>(nx + 1) * (ny + 1) * nz;
-  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t < nex) {
-    const int k = static_cast<int>(t % (nz + 1));
-    const int64_t q = t / (nz + 1);
-    const int j = static_cast<int>(q % (ny + 1));
-    const int i = static_cast<int>(q / (ny + 1));
-    if (j == 0 || j == ny || k == 0 || k == nz) {
-      a.rx[t] = a.sx[t];
-      return;
-    }
-    const CDS rr = csub(csub(cscale(u3(a, i, j, k), a.ihy[j]),
-                             cscale(u3(a, i, j - 1, k), a.ihy[j - 1])),
-                        csub(cscale(u2(a, i, j, k), a.ihz[k]),
-                             cscale(u2(a, i, j, k - 1), a.ihz[k - 1])));
-    a.rx[t] = fold(a.sx[t], rr, a.stx[at(i, j - 1, k - 1, ny - 1, nz - 1)],
-                   EX(i, j, k));
-    return;
-  }
-  t -= nex;
-  if (t < ney) {
-    const int k = static_cast<int>(t % (nz + 1));
-    const int64_t q = t / (nz + 1);
-    const int j = static_cast<int>(q % ny);
-    const int i = static_cast<int>(q / ny);
-    if (i == 0 || i == nx || k == 0 || k == nz) {
-      a.ry[t] = a.sy[t];
-      return;
-    }
-    const CDS rr = csub(csub(cscale(u1(a, i, j, k), a.ihz[k]),
-                             cscale(u1(a, i, j, k - 1), a.ihz[k - 1])),
-                        csub(cscale(u3(a, i, j, k), a.ihx[i]),
-                             cscale(u3(a, i - 1, j, k), a.ihx[i - 1])));
-    a.ry[t] = fold(a.sy[t], rr, a.sty[at(i - 1, j, k - 1, ny, nz - 1)],
-                   EY(i, j, k));
-    return;
-  }
-  t -= ney;
-  if (t < nez) {
-    const int k = static_cast<int>(t % nz);
-    const int64_t q = t / nz;
-    const int j = static_cast<int>(q % (ny + 1));
-    const int i = static_cast<int>(q / (ny + 1));
-    if (i == 0 || i == nx || j == 0 || j == ny) {
-      a.rz[t] = a.sz[t];
-      return;
-    }
-    const CDS rr = csub(csub(cscale(u2(a, i, j, k), a.ihx[i]),
-                             cscale(u2(a, i - 1, j, k), a.ihx[i - 1])),
-                        csub(cscale(u1(a, i, j, k), a.ihy[j]),
-                             cscale(u1(a, i, j - 1, k), a.ihy[j - 1])));
-    a.rz[t] = fold(a.sz[t], rr, a.stz[at(i - 1, j - 1, k, ny - 1, nz)],
-                   EZ(i, j, k));
-  }
-}
-
-#undef EX
-#undef EY
-#undef EZ
-
 template <bool kLo>
 int launch_tiled(const DsArgs& a, Tile t, int st_lanes, int tj, int blocks,
                  int lanes, int smem, cudaStream_t s) {
@@ -639,45 +529,32 @@ int launch_tiled(const DsArgs& a, Tile t, int st_lanes, int tj, int blocks,
 // C interface, bound with ctypes by emg3d_tpu_torch/ops/dsres.py: K6 on
 // complex64 tensors (float32 weights and widths) over ``lanes`` lanes.
 // ``lx``, ``ly``, ``lz`` may be null (a zero lo stream).  The plan is
-// ops/dsres.py's: ``kind`` 0 (tiled) with tile (tj × tk) cells, ``chunk``
-// x planes per block, ``blocks`` = tiles × chunks, ``threads`` = tj·tk and
-// ``smem`` bytes, or ``kind`` 1 (flat) with ``blocks`` of ``threads`` (a
-// multiple of 32, ≤ 256) covering every edge once (tj, tk, chunk and
-// smem 0).  A plan that does not cover the level as the kernel needs
-// returns cudaErrorInvalidValue and launches nothing; otherwise returns
-// cudaGetLastError() after the launch (0 on success).
+// ops/dsres.py's ``tile_plan``: tile (tj × tk) cells, ``chunk`` x planes
+// per block, ``blocks`` = tiles × chunks, ``threads`` = tj·tk and
+// ``smem`` bytes.  A plan that does not cover the level as the kernel
+// needs returns cudaErrorInvalidValue and launches nothing; otherwise
+// returns cudaGetLastError() after the launch (0 on success).
 extern "C" int emg3d_residual_ds_c64(
     void* rx, void* ry, void* rz, const void* hx, const void* hy,
     const void* hz, const void* lx, const void* ly, const void* lz,
     const void* sx, const void* sy, const void* sz, const void* stx,
     const void* sty, const void* stz, const void* wx, const void* wy,
     const void* wz, const void* ihx, const void* ihy, const void* ihz,
-    int nx, int ny, int nz, int lanes, int st_lanes, int kind, int tj,
-    int tk, int chunk, int blocks, int threads, int smem, void* stream) {
+    int nx, int ny, int nz, int lanes, int st_lanes, int tj, int tk,
+    int chunk, int blocks, int threads, int smem, void* stream) {
   const int64_t node = static_cast<int64_t>(nx + 1) * (ny + 1) * (nz + 1);
-  const int64_t edges =
-      static_cast<int64_t>(nx) * (ny + 1) * (nz + 1) +
-      static_cast<int64_t>(nx + 1) * ny * (nz + 1) +
-      static_cast<int64_t>(nx + 1) * (ny + 1) * nz;
   if (nx < 1 || ny < 1 || nz < 1 || lanes < 1 || lanes > 65535 ||
       (lx == nullptr) != (ly == nullptr) ||
       (lx == nullptr) != (lz == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Tile t{chunk, (ny + tj - 1) / (tj > 0 ? tj : 1), (nz + kTK - 1) / kTK};
-  if (kind == 0) {
-    // 32-bit indices inside a lane's slice; the plan's tiles and chunks.
-    if (node >= (int64_t{1} << 31) || tk != kTK || tj < 1 ||
-        tj > kMaxTJ || threads != tj * tk || chunk < 1 ||
-        static_cast<int64_t>(t.tiles_j) * t.tiles_k *
-                ((nx + chunk - 1) / chunk) != blocks ||
-        smem != tile_smem(tj)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else if (kind != 1 || tj != 0 || tk != 0 || chunk != 0 || smem != 0 ||
-             threads < 32 || threads > 256 || threads % 32 != 0 ||
-             static_cast<int64_t>(blocks) * threads < edges ||
-             (static_cast<int64_t>(blocks) - 1) * threads >= edges) {
+  // 32-bit indices inside a lane's slice; the plan's tiles and chunks.
+  if (node >= (int64_t{1} << 31) || tk != kTK || tj < 1 || tj > kMaxTJ ||
+      threads != tj * tk || chunk < 1 ||
+      static_cast<int64_t>(t.tiles_j) * t.tiles_k *
+              ((nx + chunk - 1) / chunk) != blocks ||
+      smem != tile_smem(tj)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DsArgs a;
@@ -706,10 +583,6 @@ extern "C" int emg3d_residual_ds_c64(
   a.ny = ny;
   a.nz = nz;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 1) {
-    residual_ds_flat<<<dim3(blocks, lanes), threads, 0, s>>>(a, st_lanes);
-    return static_cast<int>(cudaGetLastError());
-  }
   return lx ? launch_tiled<true>(a, t, st_lanes, tj, blocks, lanes, smem, s)
             : launch_tiled<false>(a, t, st_lanes, tj, blocks, lanes, smem,
                                   s);

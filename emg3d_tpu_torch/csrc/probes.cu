@@ -10,20 +10,24 @@
 //       (134), probe12 (174).  Copy +1 of a sub-box of a 4-D fp32
 //       array, in place, at dynamic offsets along any of its dims, in
 //       and out of shared memory.  pltpu.make_async_copy with a DMA
-//       semaphore becomes the Tensor Memory Accelerator with an
-//       mbarrier: one thread issues cp.async.bulk.tensor for a box of
-//       the array (a CUtensorMap built on the host), the block waits on
-//       the barrier for its bytes, adds 1, fences the shared writes to
-//       the async proxy and stores the box back with one more bulk
-//       tensor copy.  The map's extents end at the sub-box's end, so
-//       the hardware drops the part of a box beyond it.  Along z (the
-//       contiguous dim) a box starts and the map ends on 16 bytes: boxes
-//       at z offsets of 13 floats (the map ending off 16 bytes too)
-//       raised an illegal instruction on the card, so the boxes span the
-//       sub-box rounded out to 16 bytes and only the sub-box's own
-//       elements get +1 (the others go back as they came; boxes of one
-//       launch never overlap).  Offsets along the other dims need no
-//       alignment.
+//       semaphore becomes the Tensor Memory Accelerator with mbarriers:
+//       the sub-box is cut into TMA boxes (a CUtensorMap built on the
+//       host), and each of a grid of persistent blocks, sized to the
+//       SMs, streams its run of boxes through a ring of 2-3 box buffers:
+//       one thread keeps the loads of the next stages in flight while
+//       the block adds 1 to the current box (float4 over its 16-byte
+//       rows), fences the shared writes to the async proxy and stores
+//       it back with one more bulk tensor copy; a stage is refilled
+//       once its store has read it.  The map's extents end at the
+//       sub-box's end, so the hardware drops the part of a box beyond
+//       it along x and y.  Along z (the contiguous dim) a box starts
+//       and the map ends on 16 bytes: boxes at z offsets of 13 floats
+//       (the map ending off 16 bytes too) raised an illegal instruction
+//       on the card, so the boxes span the sub-box rounded out to 16
+//       bytes, in equal z boxes that end at the map's end, and only the
+//       sub-box's own elements get +1 (the others go back as they came;
+//       boxes of one launch never overlap).  Offsets along the other
+//       dims need no alignment.
 //   smem_limit   <- hw_probe_ztile.py: probe_vmem (209).  Mosaic's
 //       question was the scoped-VMEM limit; the card's is the dynamic
 //       shared memory a block may opt in to (232 448 bytes on an H100).
@@ -35,7 +39,10 @@
 //       shared buffer (2, chx, NF, ty, 4): chx stations of NF planes
 //       of a (ty, 4) z-slab, copied in with cp.async.
 //   tile_roll    <- hw_bisect_zp256.py rolllane/rollsub (65): roll a
-//       (ty, Zp) tile along either axis with warp shuffles.
+//       (ty, Zp) tile along either axis.  pltpu.roll is a lane rotation
+//       of the TPU's vregs; here it is a gather through L1 (the rolled
+//       read of a warp's 32 consecutive outputs touches at most two
+//       128-byte segments of the row), one kernel for both axes.
 //   dyn_slice    <- hw_bisect_zp256.py dynslice, dynslice_al, _al12
 //       (84, 108): a dim-2 slice of a 4-D array at offsets read on the
 //       card (Pallas' scalar prefetch), through shared memory.
@@ -59,73 +66,160 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------
-// tile_copy: TMA box in, +1, TMA box out.
+// tile_copy: a persistent block streams its run of TMA boxes through a
+// ring of stages: box in, +1, box out.
 // ---------------------------------------------------------------------
 
 constexpr int kTileThreads = 256;
+constexpr int kMaxStages = 4;
 
-__global__ void __launch_bounds__(kTileThreads)
-tile_copy(const __grid_constant__ CUtensorMap map, int o0, int o1, int o2,
-          int a3, int lo3, int hi3, int n1, int n2, int n3, int b0, int b1,
-          int b2, int b3) {
-  extern __shared__ unsigned char raw[];
-  __shared__ __align__(8) uint64_t bar;
-  // TMA writes boxes to 128-byte aligned shared addresses.
-  float* tile = reinterpret_cast<float*>(
-      raw + ((128 - (smem_u32(raw) & 127)) & 127));
-  int t = blockIdx.x;
-  const int t3 = t % n3;
-  t /= n3;
-  const int t2 = t % n2;
-  t /= n2;
-  const int t1 = t % n1;
-  const int t0 = t / n1;
-  const int c0 = o0 + t0 * b0, c1 = o1 + t1 * b1, c2 = o2 + t2 * b2,
-            c3 = a3 + t3 * b3;
-  const int count = b0 * b1 * b2 * b3;
-  const uint32_t mb = smem_u32(&bar);
-  const uint32_t dst = smem_u32(tile);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mb));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
-        "r"(static_cast<uint32_t>(count * 4))
-        : "memory");
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(&map)), "r"(c3), "r"(c2), "r"(c1),
-        "r"(c0), "r"(mb)
-        : "memory");
-  }
+// The box plan (ops/probes.py ``tile_plan``): the first box's corner,
+// the sub-box's own z range, boxes along each dim (z fastest), the box
+// extents, the box count and the ring's stages.
+struct TileBoxes {
+  int o0, o1, o2, a3;
+  int lo3, hi3;
+  int n1, n2, n3;
+  int b0, b1, b2, b3;
+  int boxes, stages;
+};
+
+// Box t's corner (x, y, z rows and z) in the map's coordinates.
+__device__ __forceinline__ void box_corner(const TileBoxes& p, int t,
+                                           int c[4]) {
+  const int t3 = t % p.n3;
+  t /= p.n3;
+  const int t2 = t % p.n2;
+  t /= p.n2;
+  const int t1 = t % p.n1;
+  const int t0 = t / p.n1;
+  c[0] = p.o0 + t0 * p.b0;
+  c[1] = p.o1 + t1 * p.b1;
+  c[2] = p.o2 + t2 * p.b2;
+  c[3] = p.a3 + t3 * p.b3;
+}
+
+// Thread 0: the bulk tensor load of the box at ``c`` into ``dst``,
+// completing ``bytes`` on the stage's mbarrier.
+__device__ __forceinline__ void box_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t mb, const int c[4],
+                                         uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[3]), "r"(c[2]), "r"(c[1]),
+      "r"(c[0]), "r"(mb)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t mb, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(mb)
+        : "r"(mb), "r"(parity)
         : "memory");
   }
-  for (int i = threadIdx.x; i < count; i += kTileThreads) {
-    const int z = c3 + i % b3;
-    if (z >= lo3 && z < hi3) tile[i] += 1.0f;
-  }
-  // The generic-proxy writes above, visible to the bulk copy below.
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
+}
+
+// Block b moves boxes b, b + G, b + 2G, ... (G = gridDim.x).  Thread 0
+// keeps the loads of the next stages in flight; every thread adds 1 to
+// the current box as float4 (16-byte rows), masking z only in a box
+// that reaches outside the sub-box's z range; thread 0 then stores it
+// and refills the stage of the box before, once that box's store has
+// read it (wait_group.read 1: only the newest store may still read).
+__global__ void __launch_bounds__(kTileThreads, 2)
+tile_copy(const __grid_constant__ CUtensorMap map, const TileBoxes p,
+          int stage_floats) {
+  extern __shared__ unsigned char raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  // TMA writes boxes to 128-byte aligned shared addresses.
+  float* ring = reinterpret_cast<float*>(
+      raw + ((128 - (smem_u32(raw) & 127)) & 127));
+  const int quads = p.b0 * p.b1 * p.b2 * p.b3 / 4;
+  const uint32_t bytes = static_cast<uint32_t>(quads) * 16;
+  const int first = blockIdx.x, step = gridDim.x;
+  const int mine = first < p.boxes ? (p.boxes - first + step - 1) / step : 0;
   if (threadIdx.x == 0) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-        "[%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<uint64_t>(&map)),
-        "r"(c3), "r"(c2), "r"(c1), "r"(c0), "r"(dst)
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    for (int s = 0; s < p.stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+          smem_u32(&full[s])));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int c[4];
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < p.stages && k < mine; ++k) {
+      box_corner(p, first + k * step, c);
+      box_load(&map, smem_u32(ring + k * stage_floats), smem_u32(&full[k]),
+               c, bytes);
+    }
+  }
+  // A thread's quads sit kTileThreads apart: its z quad within the row
+  // advances by dq (mod the row's Q quads) with no division.
+  const int Q = p.b3 / 4, dq = kTileThreads % Q;
+  const int q0 = threadIdx.x % Q;
+  for (int k = 0; k < mine; ++k) {
+    const int s = k % p.stages;
+    box_corner(p, first + k * step, c);
+    mbar_wait(smem_u32(&full[s]), (k / p.stages) & 1);
+    float4* box = reinterpret_cast<float4*>(ring + s * stage_floats);
+    if (c[3] >= p.lo3 && c[3] + p.b3 <= p.hi3) {
+      for (int i = threadIdx.x; i < quads; i += kTileThreads) {
+        float4 v = box[i];
+        v.x += 1.0f;
+        v.y += 1.0f;
+        v.z += 1.0f;
+        v.w += 1.0f;
+        box[i] = v;
+      }
+    } else {
+      // Only the sub-box's own elements; the others go back as they
+      // came (no +0: it would turn -0 into +0).
+      int q = q0;
+      for (int i = threadIdx.x; i < quads; i += kTileThreads) {
+        const int z = c[3] + 4 * q;
+        float4 v = box[i];
+        if (z >= p.lo3 && z < p.hi3) v.x += 1.0f;
+        if (z + 1 >= p.lo3 && z + 1 < p.hi3) v.y += 1.0f;
+        if (z + 2 >= p.lo3 && z + 2 < p.hi3) v.z += 1.0f;
+        if (z + 3 >= p.lo3 && z + 3 < p.hi3) v.w += 1.0f;
+        box[i] = v;
+        q += dq;
+        if (q >= Q) q -= Q;
+      }
+    }
+    // The generic-proxy writes above, visible to the bulk copy below.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+          "[%0, {%1, %2, %3, %4}], [%5];" ::"l"(
+              reinterpret_cast<uint64_t>(&map)),
+          "r"(c[3]), "r"(c[2]), "r"(c[1]), "r"(c[0]),
+          "r"(smem_u32(box))
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      const int next = k - 1 + p.stages;   // into the stage of box k − 1
+      if (k >= 1 && next < mine) {
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        const int sp = (k - 1) % p.stages;
+        box_corner(p, first + next * step, c);
+        box_load(&map, smem_u32(ring + sp * stage_floats),
+                 smem_u32(&full[sp]), c, bytes);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   }
 }
@@ -200,51 +294,40 @@ smem_sum(float* out, const float* f, int chx, int nf, int ty, int zp,
 }
 
 // ---------------------------------------------------------------------
-// tile_roll: torch.roll of a (rows, cols) tile with warp shuffles.
+// tile_roll: torch.roll of a (rows, cols) tile as a rolled gather.
 // ---------------------------------------------------------------------
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRollChunks = 16;   // cols ≤ 512 along the lane axis
+constexpr int kRollThreads = 256;   // each thread writes 4 outputs
 
-// Axis 1: one warp per row; lane l holds column k·32 + l of chunk k.
-__global__ void __launch_bounds__(32)
-roll_cols(float* out, const float* x, int cols, int shift) {
-  const int row = blockIdx.x, lane = threadIdx.x, K = cols / 32;
-  float v[kRollChunks];
+// out[r, c] = x[(r − sr) mod rows, (c − sc) mod cols], shifts in
+// [0, rows) and [0, cols); n = rows·cols < 2³¹ − 3.  Thread t writes the
+// four consecutive outputs 4t .. 4t + 3 of the flat tile with one
+// 16-byte store (a warp: 512 contiguous bytes) from four loads that
+// are consecutive but at a row's one wrap point.
+__global__ void __launch_bounds__(kRollThreads)
+tile_roll(float* __restrict__ out, const float* __restrict__ x, int rows,
+          int cols, int n, int sr, int sc) {
+  const int i = (blockIdx.x * kRollThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+  int r = i / cols, c = i - r * cols;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int k = 0; k < kRollChunks; ++k) {
-    if (k < K) v[k] = x[static_cast<size_t>(row) * cols + k * 32 + lane];
-  }
-  const int s = ((shift % cols) + cols) % cols, q = s / 32, r = s % 32;
-  const int from = (lane - r) & 31;
-  for (int k = 0; k < K; ++k) {
-    const int ka = ((k - q) % K + K) % K, kb = ((k - q - 1) % K + K) % K;
-    float a = 0.0f, b = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kRollChunks; ++j) {   // registers, not local memory
-      if (j == ka) a = v[j];
-      if (j == kb) b = v[j];
+  for (int k = 0; k < 4; ++k) {
+    if (i + k < n) {
+      const int rs = r >= sr ? r - sr : r - sr + rows;
+      const int cs = c >= sc ? c - sc : c - sc + cols;
+      v[k] = x[rs * cols + cs];
     }
-    a = __shfl_sync(kFull, a, from);
-    b = __shfl_sync(kFull, b, from);
-    out[static_cast<size_t>(row) * cols + k * 32 + lane] =
-        lane >= r ? a : b;
+    if (++c == cols) {
+      c = 0;
+      ++r;
+    }
   }
-}
-
-// Axis 0 (rows dividing 32): a warp holds 32/rows columns of every row,
-// lane = row·(32/rows) + column; the rolled value is one shuffle away.
-__global__ void __launch_bounds__(256)
-roll_rows(float* out, const float* x, int rows, int cols, int shift) {
-  const int lane = threadIdx.x & 31, g = 32 / rows;
-  const int group = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int row = lane / g, col = group * g + lane % g;
-  const bool live = col < cols;
-  const float v = live ? x[static_cast<size_t>(row) * cols + col] : 0.0f;
-  const int s = ((shift % rows) + rows) % rows;
-  const float w = __shfl_sync(kFull, v, ((row - s + rows) % rows) * g +
-                                           lane % g);
-  if (live) out[static_cast<size_t>(row) * cols + col] = w;
+  if (i + 4 <= n) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int k = 0; i + k < n; ++k) out[i + k] = v[k];
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -325,22 +408,35 @@ station_solve(float* z, const float* x, int points) {
 
 // x is a contiguous (d0, d1, d2, d3) fp32 array (d3 a multiple of 4); the
 // sub-box starts at (o0..o3) with lengths (l0..l3) and moves in boxes of
-// (b0..b3) elements (b3 a multiple of 4, each ≤ 256), along z over
-// [o3, o3 + l3) rounded out to multiples of 4.  Returns a cudaError_t,
-// or 1000 + a CUresult when the tensor map cannot be encoded.
+// (b0..b3) elements (each ≤ 256), along z over [o3, o3 + l3) rounded out
+// to multiples of 4, a span that b3 (a multiple of 4) divides: no box
+// reaches past the map's z end.  ``blocks`` persistent blocks take the
+// boxes in turn through a ring of ``stages`` box buffers (at least 2
+// where a block takes more than one box).  Returns a cudaError_t, or
+// 1000 + a CUresult when the tensor map cannot be encoded.
 extern "C" int emg3d_probe_tile_copy(void* x, int d0, int d1, int d2,
                                      int d3, int o0, int o1, int o2, int o3,
                                      int l0, int l1, int l2, int l3, int b0,
-                                     int b1, int b2, int b3, void* stream) {
+                                     int b1, int b2, int b3, int stages,
+                                     int blocks, void* stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (d3 % 4 != 0 || b3 % 4 != 0 || b0 > 256 || b1 > 256 || b2 > 256 ||
-      b3 > 256 || o0 < 0 || o1 < 0 || o2 < 0 || o3 < 0 || l0 < 1 ||
-      l1 < 1 || l2 < 1 || l3 < 1 || o0 + l0 > d0 || o1 + l1 > d1 ||
-      o2 + l2 > d2 || o3 + l3 > d3) {
+  const int a3 = o3 & ~3, e3 = min(d3, (o3 + l3 + 3) & ~3);
+  if (d3 % 4 != 0 || b3 % 4 != 0 || b0 < 1 || b1 < 1 || b2 < 1 || b3 < 4 ||
+      b0 > 256 || b1 > 256 || b2 > 256 || b3 > 256 || o0 < 0 || o1 < 0 ||
+      o2 < 0 || o3 < 0 || l0 < 1 || l1 < 1 || l2 < 1 || l3 < 1 ||
+      o0 + l0 > d0 || o1 + l1 > d1 || o2 + l2 > d2 || o3 + l3 > d3 ||
+      (e3 - a3) % b3 != 0 || stages < 1 || stages > kMaxStages ||
+      blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int a3 = o3 & ~3, e3 = min(d3, (o3 + l3 + 3) & ~3);
+  const int64_t n0 = (l0 + b0 - 1) / b0, n1 = (l1 + b1 - 1) / b1,
+                n2 = (l2 + b2 - 1) / b2, n3 = (e3 - a3) / b3;
+  const int64_t boxes = n0 * n1 * n2 * n3;
+  if (boxes > (int64_t{1} << 31) - 1 || blocks > boxes ||
+      (stages < 2 && boxes > blocks)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap map;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(e3),
                               static_cast<cuuint64_t>(o2 + l2),
@@ -360,17 +456,18 @@ extern "C" int emg3d_probe_tile_copy(void* x, int d0, int d1, int d2,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
-  const int n0 = (l0 + b0 - 1) / b0, n1 = (l1 + b1 - 1) / b1,
-            n2 = (l2 + b2 - 1) / b2, n3 = (e3 - a3 + b3 - 1) / b3;
-  const int smem = b0 * b1 * b2 * b3 * 4 + 128;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tile_copy, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  tile_copy<<<n0 * n1 * n2 * n3, kTileThreads, smem,
-              static_cast<cudaStream_t>(stream)>>>(
-      map, o0, o1, o2, a3, o3, o3 + l3, n1, n2, n3, b0, b1, b2, b3);
+  // Stages 128-byte aligned (ops/probes.py ``tile_plan`` mirrors it).
+  const int stage_floats = (b0 * b1 * b2 * b3 + 31) / 32 * 32;
+  const int smem = stages * stage_floats * 4 + 128;
+  const cudaError_t e = cudaFuncSetAttribute(
+      tile_copy, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const TileBoxes p{o0, o1, o2, a3, o3, o3 + l3,
+                    static_cast<int>(n1), static_cast<int>(n2),
+                    static_cast<int>(n3), b0, b1, b2, b3,
+                    static_cast<int>(boxes), stages};
+  tile_copy<<<blocks, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, p, stage_floats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,27 +515,24 @@ extern "C" int emg3d_probe_smem_sum(void* out, const void* f, int chx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = torch.roll(x, shift, axis) of a contiguous (rows, cols) tile:
-// axis 1 needs cols a multiple of 32 (≤ 512), axis 0 rows dividing 32.
+// out = torch.roll(x, shift, axis) of a contiguous (rows, cols) tile of
+// any shape with rows·cols < 2³¹ − 3: ``shift`` reduced on the host into
+// [0, rows) (axis 0) or [0, cols) (axis 1); ``out`` 16-byte aligned.
 extern "C" int emg3d_probe_tile_roll(void* out, const void* x, int rows,
                                      int cols, int shift, int axis,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (axis == 1) {
-    if (cols % 32 != 0 || cols > 32 * kRollChunks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    roll_cols<<<rows, 32, 0, s>>>(static_cast<float*>(out),
-                                  static_cast<const float*>(x), cols, shift);
-  } else {
-    if (rows < 1 || 32 % rows != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int groups = (cols + 32 / rows - 1) / (32 / rows);
-    roll_rows<<<(groups + 7) / 8, 256, 0, s>>>(
-        static_cast<float*>(out), static_cast<const float*>(x), rows, cols,
-        shift);
+  const int64_t n = static_cast<int64_t>(rows) * cols;
+  const int len = axis == 0 ? rows : cols;
+  if (rows < 1 || cols < 1 || (axis != 0 && axis != 1) ||
+      n > (int64_t{1} << 31) - 4 || shift < 0 || shift >= len ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int per_block = 4 * kRollThreads;
+  tile_roll<<<static_cast<int>((n + per_block - 1) / per_block),
+              kRollThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), static_cast<const float*>(x), rows, cols,
+      static_cast<int>(n), axis == 0 ? shift : 0, axis == 1 ? shift : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,8 +36,8 @@ _I = ctypes.c_int
 # ``_c64`` twins (C64) the same in complex64, and their ``_bf16`` twins
 # (BF16) complex64 with a bfloat16-stored stream: K1-K3 read s, the η
 # sums and the ζ weights in bfloat16, K4 reads a bfloat16 factor stack
-# and K5 writes one.  K6 is complex64 only; its last seven ints are
-# the launch plan (ops/dsres.py's ``tile_plan`` or ``flat_plan``).
+# and K5 writes one.  K6 is complex64 only; its last six ints are
+# the launch plan (ops/dsres.py's ``tile_plan``).
 _SOLVE = {
     'emg3d_point_gs_step': [_I] + [_P] * 16 + [_I] * 11 + [_P],
     'emg3d_point_gs_sweep': [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P] * 3
@@ -51,10 +51,10 @@ C64 = '_c64'
 BF16 = '_bf16'
 ARGTYPES = {**_SOLVE, **{k + C64: v for k, v in _SOLVE.items()},
             **{k + BF16: v for k, v in _SOLVE.items()},
-            'emg3d_residual_ds_c64': [_P] * 21 + [_I] * 12 + [_P]}
+            'emg3d_residual_ds_c64': [_P] * 21 + [_I] * 11 + [_P]}
 # The same for the probe library (csrc/probes.cu).
 PROBE_ARGTYPES = {
-    'emg3d_probe_tile_copy': [_P] + [_I] * 16 + [_P],
+    'emg3d_probe_tile_copy': [_P] + [_I] * 18 + [_P],
     'emg3d_probe_smem_limit': [_P, _I, _P, _P],
     'emg3d_probe_smem_optin': [_P],
     'emg3d_probe_smem_sum': [_P] * 2 + [_I] * 5 + [_P],

@@ -20,9 +20,7 @@ the two-product: torch ops never fuse), for CPU tensors.  Both produce
 the same exact error terms in the same order, so they agree bit for
 bit.  Fields may carry a leading lane axis (a batched solve), as may η
 (one frequency per lane).  K6's launch plan is :func:`tile_plan` (a
-y-z tile marching along x over a chunk of planes, each face curl once);
-:func:`flat_plan` is the one-thread-per-edge design it replaced, which
-only ``chip_smoke.py`` runs, to time both in turns.
+y-z tile marching along x over a chunk of planes, each face curl once).
 """
 import ctypes
 from typing import NamedTuple
@@ -33,7 +31,7 @@ from . import stencil
 
 __all__ = ['residual_ds', 'residual_ds_plain', 'residual', 'ds_params',
            'ds_accumulate', 'two_sum', 'LAUNCHES', 'reset_launches',
-           'TilePlan', 'tile_plan', 'flat_plan', 'tile_smem']
+           'TilePlan', 'tile_plan', 'tile_smem']
 
 # Launches of K6 since the last reset_launches().
 LAUNCHES = {'residual_ds': 0}
@@ -42,20 +40,17 @@ LAUNCHES = {'residual_ds': 0}
 # blocks, over all lanes, below which a level takes fewer planes per
 # block (two per SM of an H100, about): the fastest chunks of the card's
 # tables at 256³ (16), 64³ (4) and 8 lanes of 64³ (16; chip_smoke.py
-# phase 15a); the flat plan's threads per block.
+# phase 15a).
 TILE_J = 8
 TILE_K = 32
 MAX_CHUNK = 16
 MIN_BLOCKS = 256
-FLAT_THREADS = 256
 
 
 class TilePlan(NamedTuple):
-    """K6's launch plan: ``kind`` 'tiled' or 'flat'; ``tile`` (tj, tk)
-    indices along y and z and ``chunk`` x planes per block (None for
-    'flat'); CUDA ``block`` and ``grid`` dimensions (grid y = lanes) and
-    the dynamic shared-memory bytes."""
-    kind: str
+    """K6's launch plan: ``tile`` (tj, tk) indices along y and z and
+    ``chunk`` x planes per block; CUDA ``block`` and ``grid`` dimensions
+    (grid y = lanes) and the dynamic shared-memory bytes."""
     tile: tuple
     chunk: int
     block: tuple
@@ -87,17 +82,8 @@ def tile_plan(shape, lanes=1, chunk=None):
     if chunk is None:
         chunk = max(1, min(MAX_CHUNK, nx * tiles * lanes // MIN_BLOCKS))
     chunks = -(-nx // chunk)
-    return TilePlan('tiled', (tj, TILE_K), chunk, (TILE_K, tj, 1),
+    return TilePlan((tj, TILE_K), chunk, (TILE_K, tj, 1),
                     (tiles * chunks, lanes, 1), tile_smem(tj))
-
-
-def flat_plan(shape, lanes=1):
-    """The flat plan: one thread per edge, FLAT_THREADS a block."""
-    nx, ny, nz = shape
-    edges = (nx * (ny + 1) * (nz + 1) + (nx + 1) * ny * (nz + 1)
-             + (nx + 1) * (ny + 1) * nz)
-    return TilePlan('flat', None, None, (FLAT_THREADS, 1, 1),
-                    (-(-edges // FLAT_THREADS), lanes, 1), 0)
 
 
 def reset_launches():
@@ -279,13 +265,14 @@ def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def residual(ehi, elo, s, params, out=None, plan=None):
+def residual(ehi, elo, s, params, out=None, _plan=None):
     """``out`` ← s − A·(ehi + elo), folded, by K6 (complex64 CUDA
     tensors, optionally with a leading lane axis; ``elo`` may be None);
     returns ``out`` (new tensors like ``s`` if None).  ``params`` is the
-    level's :func:`ds_params` (η sums with or without the lane axis);
-    ``plan`` the launch plan, :func:`tile_plan` of the level if None.
-    The plain version is :func:`residual_ds_plain`; CPU tensors raise.
+    level's :func:`ds_params` (η sums with or without the lane axis).
+    The launch plan is :func:`tile_plan` of the level; ``_plan`` forces
+    another chunk (chip_smoke.py's chunk table).  The plain version is
+    :func:`residual_ds_plain`; CPU tensors raise.
     """
     if s[0].device.type != 'cuda':
         raise ValueError(f"no residual_ds kernel for {s[0].device}")
@@ -324,21 +311,19 @@ def residual(ehi, elo, s, params, out=None, plan=None):
                     f"residual_ds: {name} must be contiguous {dtype} "
                     f"{pre + sh} on {dev}; got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
-    if plan is None:
-        plan = tile_plan((nx, ny, nz), lanes)
+    plan = _plan or tile_plan((nx, ny, nz), lanes)
     if plan.grid[1] != lanes:
         raise ValueError(f"residual_ds: a plan for {plan.grid[1]} lanes "
                          f"for fields of {lanes}")
-    tj, tk = plan.tile or (0, 0)
+    tj, tk = plan.tile
     lo = (None,) * 3 if elo is None else elo
     from ._build import library
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     err = library().emg3d_residual_ds_c64(
         *(_ptr(t) for t in (*out, *ehi, *lo, *s, *st, *w, *ih)),
-        nx, ny, nz, lanes, st_lanes, int(plan.kind == 'flat'), tj, tk,
-        plan.chunk or 0, plan.grid[0], plan.block[0] * plan.block[1],
-        plan.smem, stream)
+        nx, ny, nz, lanes, st_lanes, tj, tk, plan.chunk, plan.grid[0],
+        plan.block[0] * plan.block[1], plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"residual_ds kernel launch failed: cudaError "
                            f"{err} (level {(nx, ny, nz)}, {lanes} lanes, "

@@ -4,7 +4,7 @@ The JAX package's scripts/hw_probe_ztile.py and hw_bisect_zp256.py are
 Pallas kernels that probed which on-chip copies, layouts and scratch
 sizes Mosaic lowers.  ``csrc/probes.cu`` does the same work with the
 card's own means (the TMA and an mbarrier for ``make_async_copy``,
-dynamic shared memory past 48 KB, warp shuffles for ``pltpu.roll``,
+dynamic shared memory past 48 KB, a rolled gather for ``pltpu.roll``,
 cp.async for dynamic slices); no solve path runs them.  Each wrapper
 takes its plain version for a CPU tensor and launches its kernel (or
 raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
@@ -12,19 +12,26 @@ raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
 version at the shapes of the Pallas probes.
 """
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 __all__ = ['tile_copy', 'tile_copy_plain', 'tile_box', 'tile_span',
-           'smem_limit',
+           'tile_plan', 'TilePlan', 'smem_limit',
            'smem_checksum', 'smem_optin', 'smem_sum', 'smem_sum_plain',
            'tile_roll', 'dyn_slice', 'dyn_slice_plain', 'station_solve',
            'station_solve_plain', 'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'tile_copy': 0, 'smem_limit': 0, 'smem_sum': 0,
             'tile_roll': 0, 'dyn_slice': 0, 'station_solve': 0}
-# Bytes of one tile_copy box in shared memory (TMA boxes are ≤ 256 a dim).
-TILE_BYTES = 32 * 1024
+# tile_copy's plan: the bytes of one box in shared memory at most (TMA
+# boxes are ≤ 256 a dim), the stages of a block's ring, and the blocks
+# per SM: the fastest of the card's table at probe12's box and at the
+# whole probe3 array (16 KB × 2; 8-32 KB and 2-8 blocks per SM within
+# 4 %: chip_smoke.py phase 14, ``copy_plans``).
+TILE_BYTES = 16 * 1024
+TILE_STAGES = 3
+TILE_BLOCKS_PER_SM = 2
 
 
 def reset_launches():
@@ -61,15 +68,27 @@ def _raise(err, name, what):
     LAUNCHES[name] += 1
 
 
-def tile_box(lengths):
+def _even(n, most):
+    """The part of n in the fewest parts of at most ``most``, as even as
+    whole parts allow (the last one may be shorter)."""
+    return -(-n // -(-n // most))
+
+
+def tile_box(lengths, box_bytes=TILE_BYTES):
     """The TMA box (b0..b3) of a sub-box of ``lengths`` (its z length
-    rounded out to 16 bytes, :func:`tile_span`): whole z runs up to 256
-    (a multiple of 4: 16-byte rows), then y rows, then x planes, within
-    TILE_BYTES."""
-    b3 = min(256, -(-lengths[3] // 4) * 4)
-    b2 = max(1, min(lengths[2], 256, TILE_BYTES // (4 * b3)))
-    b1 = max(1, min(lengths[1], 256, TILE_BYTES // (4 * b3 * b2)))
-    b0 = max(1, min(lengths[0], 256, TILE_BYTES // (4 * b3 * b2 * b1)))
+    rounded out to 16 bytes, :func:`tile_span`): z in equal boxes, each
+    a multiple of 4 (16-byte rows) and at most 256, that divide the span
+    (no box reaches past the map's z end; a span of 4p floats, p a prime
+    above 64, takes boxes of 4), then y rows, then x planes, each split
+    evenly within ``box_bytes``."""
+    span = -(-lengths[3] // 4) * 4
+    q = span // 4
+    b3 = span // next(p for p in range(-(-span // 256), q + 1)
+                      if q % p == 0)
+    b2 = _even(lengths[2], max(1, min(256, box_bytes // (4 * b3))))
+    b1 = _even(lengths[1], max(1, min(256, box_bytes // (4 * b3 * b2))))
+    b0 = _even(lengths[0],
+               max(1, min(256, box_bytes // (4 * b3 * b2 * b1))))
     return b0, b1, b2, b3
 
 
@@ -80,10 +99,40 @@ def tile_span(offset, length, size):
     return min(size, -(-(offset + length) // 4) * 4) - offset // 4 * 4
 
 
-def tile_copy(x, offsets, lengths):
+class TilePlan(NamedTuple):
+    """tile_copy's launch: the TMA ``box``, the boxes along each dim
+    (``counts``, z fastest in a box's index), the ``stages`` of a
+    block's ring, the persistent ``blocks`` (block b moves boxes b, b +
+    blocks, ...) and the dynamic shared-memory bytes."""
+    box: tuple
+    counts: tuple
+    stages: int
+    blocks: int
+    smem: int
+
+
+def tile_plan(size, offsets, lengths, sms=132, box_bytes=TILE_BYTES,
+              per_sm=TILE_BLOCKS_PER_SM):
+    """The plan of a sub-box (``offsets``, ``lengths``) of an array whose
+    last dim is ``size``, on a card of ``sms`` SMs: boxes of
+    :func:`tile_box` within ``box_bytes``, min(boxes, per_sm · sms)
+    blocks, a ring of min(TILE_STAGES, the most boxes a block takes)
+    stages, each stage 128-byte aligned (csrc/probes.cu)."""
+    span = tile_span(offsets[3], lengths[3], size)
+    box = tile_box((*lengths[:3], span), box_bytes)
+    counts = tuple(-(-n // b) for n, b in zip((*lengths[:3], span), box))
+    boxes = counts[0] * counts[1] * counts[2] * counts[3]
+    blocks = min(boxes, per_sm * sms)
+    stages = min(TILE_STAGES, -(-boxes // blocks))
+    stage = -(-(box[0] * box[1] * box[2] * box[3]) // 32) * 32 * 4
+    return TilePlan(box, counts, stages, blocks, stages * stage + 128)
+
+
+def tile_copy(x, offsets, lengths, _plan=None):
     """x[o0:o0+l0, …, o3:o3+l3] += 1 in place (``hw_probe_ztile``'s copy
     +1 through on-chip memory); returns x.  ``x`` a contiguous 4-D
-    float32 tensor whose last dim is a multiple of 4."""
+    float32 tensor whose last dim is a multiple of 4.  ``_plan`` (a
+    :func:`tile_plan` of the sub-box) forces another launch plan."""
     _check(x, 4, 'tile_copy')
     for o, n, d in zip(offsets, lengths, x.shape):
         if o < 0 or n < 1 or o + n > d:
@@ -94,11 +143,13 @@ def tile_copy(x, offsets, lengths):
     if x.shape[3] % 4:
         raise ValueError("tile_copy: the last dim must be a multiple of 4 "
                          "(16-byte strides)")
-    box = tile_box((*lengths[:3], tile_span(offsets[3], lengths[3],
-                                            x.shape[3])))
+    plan = _plan or tile_plan(x.shape[3], offsets, lengths, torch.cuda.
+                              get_device_properties(x.device)
+                              .multi_processor_count)
     err = _lib().emg3d_probe_tile_copy(
-        _ptr(x), *x.shape, *offsets, *lengths, *box, _stream(x))
-    _raise(err, 'tile_copy', f"box {offsets} + {lengths}")
+        _ptr(x), *x.shape, *offsets, *lengths, *plan.box, plan.stages,
+        plan.blocks, _stream(x))
+    _raise(err, 'tile_copy', f"box {offsets} + {lengths}, {plan}")
     return x
 
 
@@ -172,22 +223,23 @@ def smem_sum_plain(f, chx, plane):
 
 
 def tile_roll(x, shift, axis):
-    """``torch.roll(x, shift, axis)`` of a (ty, Zp) tile with warp
-    shuffles (``hw_bisect_zp256``'s rolllane/rollsub); its plain version
-    is ``torch.roll``."""
+    """``torch.roll(x, shift, axis)`` of a (ty, Zp) tile, any contiguous
+    2-D float32 one (``hw_bisect_zp256``'s rolllane/rollsub): a rolled
+    gather, the shift reduced here; its plain version is
+    ``torch.roll``."""
     _check(x, 2, 'tile_roll')
     if axis not in (0, 1):
         raise ValueError(f"tile_roll: axis {axis}")
     if x.device.type == 'cpu':
         return torch.roll(x, shift, axis)
     rows, cols = x.shape
-    if (axis == 1 and (cols % 32 or cols > 512)) or \
-            (axis == 0 and 32 % rows):
-        raise ValueError(f"tile_roll: no kernel plan for {tuple(x.shape)} "
-                         f"along {axis}")
+    if not 0 < rows * cols < 2**31 - 3:
+        raise ValueError(f"tile_roll: no kernel for {rows * cols} "
+                         f"elements (32-bit indices, at least one)")
     out = torch.empty_like(x)
     err = _lib().emg3d_probe_tile_roll(_ptr(out), _ptr(x), rows, cols,
-                                       int(shift), axis, _stream(x))
+                                       int(shift) % x.shape[axis], axis,
+                                       _stream(x))
     _raise(err, 'tile_roll', f"shape {tuple(x.shape)}, axis {axis}")
     return out
 

@@ -503,7 +503,7 @@ def test_kernel_entry_points_refuse_cpu():
         dsres.residual(e, None, e, dsres.ds_params(par32))
     with pytest.raises(ValueError, match='no residual_ds kernel'):
         dsres.residual(e, None, e, dsres.ds_params(par32),
-                       plan=dsres.flat_plan(shape))
+                       _plan=dsres.tile_plan(shape, chunk=1))
     # Every kernel has its complex64 entry point (K6 only that one).
     for name in ('emg3d_point_gs_step', 'emg3d_point_gs_sweep',
                  'emg3d_point_gs_grid_capacity', 'emg3d_line_residual',

@@ -110,7 +110,7 @@ def _boxes(plan, shape, block):
 @pytest.mark.parametrize('shape', COVER_SHAPES)
 def test_tile_plan_covers_every_edge_once(shape, lanes):
     plan = dsres.tile_plan(shape, lanes)
-    assert plan.kind == 'tiled' and plan.grid[1] == lanes
+    assert plan.grid[1] == lanes
     count = [np.zeros(sh, np.uint8) for sh in tp.edge_shapes(shape)]
     for block in _blocks(plan, shape):
         for c, _, pl, jr, kr in _boxes(plan, shape, block):
@@ -138,12 +138,13 @@ def test_tile_plan_fits_the_card(shape, lanes):
     assert 1 <= plan.chunk <= nx
     if shape == (64, 64, 64):
         assert plan.grid[0] * plan.grid[1] >= SMS
-    # The flat plan (one thread per edge) covers every edge once.
-    flat = dsres.flat_plan(shape, lanes)
-    edges = sum(int(np.prod(sh)) for sh in tp.edge_shapes(shape))
-    n = flat.block[0]
-    assert flat.grid[0] * n >= edges > (flat.grid[0] - 1) * n
-    assert flat.grid[1] == lanes and flat.smem == 0
+    # Every forced chunk (chip_smoke.py's chunk table) fills the
+    # entry's plan ints as the chosen one does.
+    for chunk in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        forced = dsres.tile_plan(shape, lanes, chunk=chunk)
+        assert forced.grid == (tiles * -(-nx // chunk), lanes, 1)
+        assert (forced.tile, forced.block, forced.smem, forced.chunk) == \
+            (plan.tile, plan.block, plan.smem, chunk)
 
 
 # ----------------------------------------------------------------------
@@ -349,7 +350,7 @@ def test_entry_point_signature():
     kinds = [_build.ctypes.c_void_p if '*' in p else _build.ctypes.c_int
              for p in sig.split(',')]
     assert kinds == _build.ARGTYPES['emg3d_residual_ds_c64']
-    assert len(kinds) == 21 + 12 + 1
+    assert len(kinds) == 21 + 11 + 1
     names = [p.split()[-1].lstrip('*') for p in sig.split(',')][21:-1]
-    assert names == ['nx', 'ny', 'nz', 'lanes', 'st_lanes', 'kind', 'tj',
-                     'tk', 'chunk', 'blocks', 'threads', 'smem']
+    assert names == ['nx', 'ny', 'nz', 'lanes', 'st_lanes', 'tj', 'tk',
+                     'chunk', 'blocks', 'threads', 'smem']

@@ -6,15 +6,25 @@ take their plain versions for CPU tensors, and the plain versions are
 held to what the Pallas probes compute: a copy +1 of a sub-box, a sum
 over stations, ``torch.roll``, a clamped dynamic slice and the 5×5
 complex-symmetric LDLᵀ substitution of the JAX package's
-``blocksolve.ldl_solve_factored``.
+``blocksolve.ldl_solve_factored``.  The kernels' plans are held here
+too: ``tile_copy``'s boxes walked as its persistent blocks take them
+(every element of the sub-box gets +1 once, nothing else, no box past
+the map's z end, the ring within the card's shared memory), and
+``tile_roll``'s index map, evaluated in torch, against ``torch.roll``.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from emg3d_tpu_torch.ops import probes
+import chip_smoke
+from emg3d_tpu_torch.ops import _build, probes
 
 torch.set_num_threads(1)
+
+SMEM_OPTIN = 232448      # the H100's opt-in shared memory per block
+SMEM_SM = 228 * 1024     # and per SM (1 KB of it reserved per block)
 
 
 def test_tile_copy_boxes():
@@ -45,7 +55,7 @@ def test_tile_box(lengths):
     assert box[3] % 4 == 0 and max(box) <= 256
     assert 4 * int(np.prod(box)) <= probes.TILE_BYTES
     assert all(b <= n for b, n in zip(box[:3], lengths[:3]))
-    assert box[3] < lengths[3] + 4
+    assert (-(-lengths[3] // 4) * 4) % box[3] == 0
 
 
 @pytest.mark.parametrize('offset, length', [(0, 128), (13, 128), (3, 1),
@@ -57,6 +67,105 @@ def test_tile_span(offset, length):
     start = offset // 4 * 4
     assert span % 4 == 0 and start % 4 == 0
     assert start <= offset and offset + length <= start + span <= size
+
+
+def _tile_cases():
+    """(name, array shape, sub-boxes): probe12's timed box, every
+    probe_boxes() case, the whole probe3 array and a sub-box of it at z
+    offset 13 (chip_smoke.py phase 14's cases)."""
+    cases = chip_smoke.probe_boxes()
+    shape12, boxes12 = cases['probe12']
+    yield 'probe12 box', shape12, [boxes12[5]]
+    yield from ((k, sh, b) for k, (sh, b) in cases.items())
+    full = (32, 46, 64, 384)
+    yield 'probe3 whole', full, [((0, 0, 0, 0), full)]
+    yield 'offset 13', full, [((1, 1, 3, 13), (30, 44, 60, 360))]
+
+
+def _tile_walk(shape, off, ln, plan):
+    """The kernel's walk of ``plan`` in torch: per block its run of
+    boxes, each moved once (``moved``, over the tensor map's region from
+    the first corner) and +1 where the kernel adds it (``added``)."""
+    a3 = off[3] // 4 * 4
+    e3 = min(shape[3], -(-(off[3] + ln[3]) // 4) * 4)
+    start = (*off[:3], a3)
+    end = tuple(o + n for o, n in zip(off[:3], ln[:3])) + (e3,)
+    region = tuple(e - s for s, e in zip(start, end))
+    moved = torch.zeros(region, dtype=torch.uint8)
+    added = torch.zeros(region, dtype=torch.uint8)
+    n0, n1, n2, n3 = plan.counts
+    boxes = n0 * n1 * n2 * n3
+    lo3, hi3 = off[3], off[3] + ln[3]
+    for b in range(plan.blocks):
+        run = range(b, boxes, plan.blocks)
+        assert plan.stages >= 2 or len(run) <= 1
+        for t in run:
+            t, t3 = divmod(t, n3)
+            t, t2 = divmod(t, n2)
+            t0, t1 = divmod(t, n1)
+            c = [s + i * bx for s, i, bx in zip(start, (t0, t1, t2, t3),
+                                                 plan.box)]
+            assert c[3] + plan.box[3] <= e3          # never past z's end
+            sl = [slice(ci - s, min(ci + bx, e) - s) for ci, bx, s, e in
+                  zip(c, plan.box, start, end)]
+            moved[tuple(sl)] += 1
+            if not (c[3] >= lo3 and c[3] + plan.box[3] <= hi3):
+                sl[3] = slice(max(c[3], lo3) - a3,
+                              min(c[3] + plan.box[3], hi3) - a3)
+            added[tuple(sl)] += 1
+    return moved, added, a3
+
+
+@pytest.mark.parametrize('case', [c[0] for c in _tile_cases()])
+def test_tile_plan_walk(case):
+    """tile_copy's plan walked as its blocks take the boxes: every
+    element of the sub-box gets +1 exactly once, nothing outside it
+    does, every box moves a part of the map no other box moves, no z box
+    reaches past the map's end, and the ring fits the card (the stages
+    within one block's opt-in, two blocks on an SM)."""
+    _, shape, subs = next(c for c in _tile_cases() if c[0] == case)
+    for off, ln in subs:
+        plan = probes.tile_plan(shape[3], off, ln, sms=132)
+        box = plan.box
+        assert box[3] % 4 == 0 and max(box) <= 256
+        assert 4 * int(np.prod(box)) <= probes.TILE_BYTES
+        assert 1 <= plan.stages <= probes.TILE_STAGES
+        assert plan.blocks == min(int(np.prod(plan.counts)),
+                                  probes.TILE_BLOCKS_PER_SM * 132)
+        assert plan.smem <= SMEM_OPTIN
+        assert probes.TILE_BLOCKS_PER_SM * (plan.smem + 1024) <= SMEM_SM
+        moved, added, a3 = _tile_walk(shape, off, ln, plan)
+        assert moved.min() == 1 and moved.max() == 1
+        own = tuple(slice(0, n) for n in ln[:3]) + (
+            slice(off[3] - a3, off[3] - a3 + ln[3]),)
+        assert bool((added[own] == 1).all())
+        added[own] = 0
+        assert int(added.max()) == 0
+
+
+def test_tile_box_probe12():
+    """probe12's 384-float z span goes in two boxes of 192, none
+    half-empty; its 6×6×64×384 box and the whole probe3 array fill
+    every block of the grid (two per SM)."""
+    plan = probes.tile_plan(384, (0, 3, 56, 0), (6, 6, 64, 384), sms=132)
+    assert plan.box == (1, 1, 16, 192) and plan.counts == (6, 6, 4, 2)
+    assert plan.blocks == 264 and plan.stages == 2
+    large = probes.tile_plan(384, (0,) * 4, (32, 46, 64, 384), sms=132)
+    assert large.blocks == 264 and large.stages == 3
+
+
+def test_tile_copy_entry_signature():
+    """The C entry's parameters are those ctypes passes: the tensor, its
+    dims, offsets, lengths, the box, the ring's stages and the blocks,
+    then the stream."""
+    text = _build._sources('probes')[0].read_text()
+    sig = re.search(r'extern "C" int emg3d_probe_tile_copy\((.*?)\)',
+                    text, re.S).group(1)
+    kinds = [_build.ctypes.c_void_p if '*' in p else _build.ctypes.c_int
+             for p in sig.split(',')]
+    assert kinds == _build.PROBE_ARGTYPES['emg3d_probe_tile_copy']
+    names = [p.split()[-1].lstrip('*') for p in sig.split(',')]
+    assert names[-3:] == ['stages', 'blocks', 'stream']
 
 
 def test_smem_checksum():
@@ -81,6 +190,44 @@ def test_tile_roll(axis):
     x = torch.arange(8 * 64, dtype=torch.float32).reshape(8, 64)
     for shift in (1, 3, -5):
         assert torch.equal(probes.tile_roll(x, shift, axis),
+                           torch.roll(x, shift, axis))
+
+
+def _roll_gather(x, shift, axis):
+    """csrc/probes.cu tile_roll's index map in torch: thread t writes
+    flat outputs 4t .. 4t + 3, stepping its column and wrapping to the
+    next row, each from x[(r − sr) mod rows, (c − sc) mod cols] with the
+    shift reduced as the wrapper reduces it."""
+    rows, cols = x.shape
+    n = rows * cols
+    s = int(shift) % x.shape[axis]
+    sr, sc = (s, 0) if axis == 0 else (0, s)
+    i = torch.arange(0, n, 4)
+    r, c = i // cols, i % cols
+    flat = x.reshape(-1)
+    out = torch.empty(n, dtype=x.dtype)
+    for k in range(4):
+        live = i + k < n
+        rs = torch.where(r >= sr, r - sr, r - sr + rows)
+        cs = torch.where(c >= sc, c - sc, c - sc + cols)
+        out[(i + k)[live]] = flat[(rs * cols + cs)[live]]
+        c = c + 1
+        wrap = c == cols
+        c = torch.where(wrap, 0, c)
+        r = torch.where(wrap, r + 1, r)
+    return out.reshape(rows, cols)
+
+
+@pytest.mark.parametrize('axis', [0, 1])
+@pytest.mark.parametrize('shape', [(8, 256), (5, 1000), (46, 384), (3, 7)])
+def test_roll_index_map(shape, axis):
+    """The kernel's gather equals torch.roll bit for bit, at shapes the
+    shuffle plans refused too."""
+    x = torch.tensor(np.random.default_rng(15).standard_normal(shape),
+                     dtype=torch.float32)
+    rows, cols = shape
+    for shift in (0, 1, -5, cols + 3, -(rows + 1)):
+        assert torch.equal(_roll_gather(x, shift, axis),
                            torch.roll(x, shift, axis))
 
 
