@@ -122,13 +122,18 @@ Phases:
    over every grid step of ``probe``/``probe3``/``probe23``/``probe12``
    (:func:`probe_boxes`) and at COPY_LARGE's sub-boxes, the card's
    opt-in shared memory and launches with N bytes of it up to and
-   beyond that limit, ``smem_sum``, ``tile_roll`` (also at ROLL_LARGE
-   and ROLL_ODD), ``dyn_slice`` and ``station_solve`` at ty=8, Zp=256,
-   each bitwise equal to its plain version (``station_solve`` within
-   1e-6 of ``torch.linalg.solve``), then timed: ``tile_roll`` and
-   ``tile_copy`` in turns with their library calls at the probe's shape
-   and where bytes decide (:func:`probe_turns`), ``tile_copy`` under
-   each plan of COPY_PLANS (:func:`copy_plans`);
+   beyond that limit, ``smem_sum`` (also at SUM_LARGE and SUM_ODD),
+   ``tile_roll`` (also at ROLL_LARGE and ROLL_ODD), ``dyn_slice`` and
+   ``station_solve`` (also at STATION_LARGE and STATION_ODD) at ty=8,
+   Zp=256, each bitwise equal to its plain version (``station_solve``
+   within 1e-6 of ``torch.linalg.solve``), then timed: ``tile_roll``,
+   ``tile_copy``, ``smem_sum`` and ``station_solve`` in turns with their
+   library calls at the probe's shape and where bytes decide, beside
+   the launch floor (:func:`probe_turns`), ``tile_copy`` under each plan
+   of COPY_PLANS (:func:`copy_plans`), ``smem_sum`` and
+   ``station_solve`` under SUM_PLANS and STATION_PLANS
+   (:func:`probe_plans`), ``smem_limit`` against one SM's shared-memory
+   rate (:func:`smem_bound`);
 15. "complex64", the solve in the precision of the JAX package's
    production path (a complex64 source): (a) each kernel's complex64
    instance against its complex64 plain version at 16³, 64³ and 256³
@@ -448,6 +453,28 @@ COPY_LARGE = ((32, 46, 64, 384), [((0, 0, 0, 0), (32, 46, 64, 384)),
                                   ((1, 1, 3, 13), (30, 44, 60, 360))])
 COPY_PLANS = ((8192, 2), (8192, 4), (8192, 8), (16384, 2), (16384, 4),
               (32768, 2))
+# smem_sum's and station_solve's cases, each (f shape, chx, plane) or a
+# tile: the probe's shape (fbuf5d's f at ty 8, Zp 256; station's (ty,
+# Zp)), where bytes decide (3.09 GB f of which the sum reads 67 MB; 4.2M
+# points at 200 B), and checked only: more than 256 stations (TMA's box
+# limit) with ragged y and z boxes, and a point count that 4 does not
+# divide.  Their plans timed: smem_sum's box bytes × blocks per SM ×
+# stages at the large shape (32 blocks an SM: one box a block),
+# station_solve's blocks per SM × points a thread at both (None: one
+# group a thread, no grid-stride sweeps).
+SUM_PROBE = ((64, 46, 8, 256), 8, 3)
+SUM_LARGE = ((8, 46, 256, 8192), 8, 3)
+SUM_ODD = ((300, 3, 5, 36), 300, 1)
+STATION_PROBE = (8, 256)
+STATION_LARGE = (64, 65536)
+STATION_ODD = (5, 1001)
+SUM_PLANS = ((4096, 2, 3), (8192, 2, 3), (16384, 1, 3), (16384, 2, 2),
+             (16384, 2, 3), (16384, 2, 4), (16384, 4, 3), (16384, 32, 3))
+STATION_PLANS = ((None, 4), (2, 4), (3, 4), (None, 1), (3, 1), (8, 1))
+# The probes probe_turns times, and one SM's shared-memory rate (bytes a
+# clock: 32 banks of 4 bytes), smem_limit's bound at the SM clock.
+PROBES_TIMED = ('tile_roll', 'tile_copy', 'smem_sum', 'station_solve')
+SMEM_BYTES_PER_CLOCK = 128
 # The trace's names of the point kernels' instances (demangled or not):
 # the last template argument is the kernel, 0 for K1, 1-2 for K2.
 # Each instance also names its real type (double, float) last.
@@ -479,11 +506,11 @@ class Phase:
         return False
 
 
-def nvidia_smi():
+def nvidia_smi(query='name,power.limit', units=True):
     out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True)
+        ['nvidia-smi', f'--query-gpu={query}',
+         '--format=csv,noheader' + ('' if units else ',nounits')],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -610,6 +637,30 @@ def bound(nbytes, flops, peak=PEAK_FP64):
 # η sums and the ζ weights) and ``fsize`` (K4, K5: the factor stack) are
 # the bytes of a stored complex value where it is not ``size`` (4: a
 # complex64 solve's bfloat16 storage).
+
+def sum_work(shape, chx):
+    """(bytes, flops) of smem_sum over ``chx`` stations of f ``shape``:
+    the plane's chx·ty·Zp floats read, ty·Zp written; its adds are not
+    counted (a fraction of an operation a byte)."""
+    ty, zp = shape[2:]
+    return 4 * (chx + 1) * ty * zp, 0
+
+
+def station_work(tile):
+    """(bytes, flops) of station_solve on a ``tile`` of points: 40
+    floats read and 10 written a point; 20 complex products with a
+    complex difference (8 each) and 5 products (6 each) a point, in
+    fp32 (PEAK_FP32)."""
+    points = int(np.prod(tile))
+    return 50 * 4 * points, (20 * 8 + 5 * 6) * points
+
+
+def smem_bound(nbytes, mhz):
+    """smem_limit's bound: ``nbytes`` written to and read back from one
+    SM's shared memory at SMEM_BYTES_PER_CLOCK and ``mhz``."""
+    return {'bound_ms': 2 * nbytes / (SMEM_BYTES_PER_CLOCK * mhz * 1e6)
+            * 1e3, 'bound_by': 'smem'}
+
 
 def point_work(shape, mode, size=16, stream=None):
     """(bytes, flops) of one point colour step, the mean of 8 colours.
@@ -2369,53 +2420,126 @@ def probe_boxes():
 
 def _turns(torch, kernel, library, reps=20):
     """A kernel and its library call timed in turns (kernel, library,
-    library, kernel), each a :func:`_time_steps` median of one call:
-    (kernel ms, library ms, the turns), each ms the mean of its two."""
+    library, kernel; the kernel twice where ``library`` is None), each a
+    :func:`_time_steps` median of one call: (kernel ms, library ms or
+    None, the turns), each ms the mean of its two."""
+    order = ('kernel', 'library', 'library', 'kernel') if library else \
+        ('kernel', 'kernel')
     turns = [(k, _time_steps(torch, kernel if k == 'kernel' else library,
-                             reps=reps, per=1))
-             for k in ('kernel', 'library', 'library', 'kernel')]
+                             reps=reps, per=1)) for k in order]
+    lib = [t for k, t in turns if k == 'library']
     return (float(np.mean([t for k, t in turns if k == 'kernel'])),
-            float(np.mean([t for k, t in turns if k == 'library'])),
+            float(np.mean(lib)) if lib else None,
             [[k, t] for k, t in turns])
 
 
-def probe_turns(torch, probes, large=('tile_roll', 'tile_copy')):
-    """tile_roll and tile_copy of ``probes`` (an ``ops/probes.py``)
+def launch_floor(torch):
+    """Device ms of a one-element ``x.add_(1.0)`` under
+    :func:`_time_steps`: what any launch reads there."""
+    x = torch.zeros(1, device='cuda')
+    return _time_steps(torch, lambda: x.add_(1.0), per=1)
+
+
+def probe_turns(torch, probes, large=PROBES_TIMED):
+    """The probes of PROBES_TIMED in ``probes`` (an ``ops/probes.py``)
     timed in turns with their library calls at the probes' shapes
     (tile_roll (8, 256) along axis 1, shift 1; tile_copy probe12's
-    6×6×64×384 box) and, for the kernels named in ``large``, where bytes
-    decide (ROLL_LARGE; the whole of COPY_LARGE's array), each with its
-    bound and share.  Returns {kernel: {suffix: readings}}, suffix ''
-    or '_large'."""
+    6×6×64×384 box; smem_sum SUM_PROBE; station_solve STATION_PROBE,
+    which has no library call) and, for the kernels named in ``large``,
+    where bytes decide (ROLL_LARGE; the whole of COPY_LARGE's array;
+    SUM_LARGE; STATION_LARGE), each with its bound, its share and the
+    launch floor (:func:`launch_floor`, read once first).  Returns
+    {kernel: {suffix: readings}}, suffix '' or '_large'."""
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(15)
-    out = {'tile_roll': {}, 'tile_copy': {}}
-    for n, shape in (('', (8, 256)),) + (
-            (('_large', ROLL_LARGE),) if 'tile_roll' in large else ()):
+    floor = launch_floor(torch)
+    out = {k: {} for k in PROBES_TIMED}
+
+    def record(key, sfx, shape, kernel, library, work, peak=PEAK_FP64,
+               **extra):
+        ms, lib, turns = _turns(torch, kernel, library)
+        b = bound(*work, peak)
+        out[key][sfx] = {'shape': list(shape), **extra, 'ms': ms,
+                         'library_ms': lib, 'turns': turns, **b,
+                         'share': b['bound_ms'] / ms,
+                         'launch_floor_ms': floor}
+
+    def cases(key, probe, big):
+        return (('', probe),) + ((('_large', big),) if key in large else ())
+
+    for sfx, shape in cases('tile_roll', (8, 256), ROLL_LARGE):
         x = torch.randn(shape, device=dev, generator=g)
-        ms, lib, turns = _turns(torch, lambda: probes.tile_roll(x, 1, 1),
-                                lambda: torch.roll(x, 1, 1))
-        b = bound(2 * 4 * x.numel(), 0)
-        out['tile_roll'][n] = {'shape': list(shape), 'ms': ms,
-                               'library_ms': lib, 'turns': turns, **b,
-                               'share': b['bound_ms'] / ms}
+        record('tile_roll', sfx, shape, lambda: probes.tile_roll(x, 1, 1),
+               lambda: torch.roll(x, 1, 1), (2 * 4 * x.numel(), 0))
         del x
     shape12, boxes12 = probe_boxes()['probe12']
-    cases = [('', shape12, *boxes12[5])]
-    if 'tile_copy' in large:
-        cases.append(('_large', COPY_LARGE[0], *COPY_LARGE[1][0]))
-    for n, shape, off, ln in cases:
+    for sfx, (shape, off, ln) in cases(
+            'tile_copy', (shape12, *boxes12[5]),
+            (COPY_LARGE[0], *COPY_LARGE[1][0])):
         x = torch.zeros(shape, device=dev)
         box = tuple(slice(o, o + k) for o, k in zip(off, ln))
-        ms, lib, turns = _turns(torch, lambda: probes.tile_copy(x, off, ln),
-                                lambda: x[box].add_(1.0))
-        b = bound(2 * 4 * int(np.prod(ln)), 0)
-        out['tile_copy'][n] = {'shape': list(shape), 'box': list(ln),
-                               'ms': ms, 'library_ms': lib, 'turns': turns,
-                               **b, 'share': b['bound_ms'] / ms}
+        record('tile_copy', sfx, shape, lambda: probes.tile_copy(x, off, ln),
+               lambda: x[box].add_(1.0), (2 * 4 * int(np.prod(ln)), 0),
+               box=list(ln))
+        del x
+    for sfx, (shape, chx, plane) in cases('smem_sum', SUM_PROBE, SUM_LARGE):
+        f = torch.randn(shape, device=dev, generator=g)
+        record('smem_sum', sfx, shape,
+               lambda: probes.smem_sum(f, chx, plane),
+               lambda: f[:chx, plane].sum(0), sum_work(shape, chx),
+               chx=chx, plane=plane)
+        del f
+    for sfx, tile in cases('station_solve', STATION_PROBE, STATION_LARGE):
+        x = station_inputs(torch, tile, dev, g)
+        record('station_solve', sfx, tile, lambda: probes.station_solve(x),
+               None, station_work(tile), PEAK_FP32)
         del x
     torch.cuda.empty_cache()
     return out
+
+
+def probe_plans(torch, probes):
+    """smem_sum under each plan of SUM_PLANS (box bytes × blocks per SM ×
+    the ring's stages at most) at SUM_LARGE, each bitwise equal to the
+    plain sum, and station_solve
+    under each of STATION_PLANS (blocks per SM × points a thread) at
+    STATION_PROBE and STATION_LARGE, each within 1e-6 of max|z| of the
+    default plan's z: the tables behind ``probes.SUM_BYTES``,
+    ``SUM_STAGES``, ``TILE_BLOCKS_PER_SM`` and ``station_plan``'s grid
+    and points a thread.  Returns {'smem_sum':
+    {'bytes×per_sm×stages': ms}, 'station_solve': {'per_sm×vec': [ms at
+    STATION_PROBE, at STATION_LARGE]}}."""
+    dev = torch.device('cuda')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(16)
+    shape, chx, plane = SUM_LARGE
+    f = torch.randn(shape, device=dev, generator=g)
+    ref = probes.smem_sum_plain(f, chx, plane)
+    sums = {}
+    for nbytes, per_sm, stages in SUM_PLANS:
+        plan = probes.sum_plan(chx, *shape[2:], sms, nbytes, per_sm, stages)
+        if not torch.equal(probes.smem_sum(f, chx, plane, _plan=plan), ref):
+            raise AssertionError(f"smem_sum plan {plan}: differs from plain")
+        sums[f'{nbytes}×{per_sm}×{stages}'] = _time_steps(
+            torch, lambda: probes.smem_sum(f, chx, plane, _plan=plan), per=1)
+    del f, ref
+    stations = {f'{p}×{v}': [] for p, v in STATION_PLANS}
+    for tile in (STATION_PROBE, STATION_LARGE):
+        x = station_inputs(torch, tile, dev, g)
+        ref = probes.station_solve(x)
+        scale = float(ref.abs().max())
+        for per_sm, vec in STATION_PLANS:
+            plan = probes.station_plan(x[0].numel(), sms, per_sm, vec)
+            err = float((probes.station_solve(x, _plan=plan) - ref)
+                        .abs().max())
+            if not err <= 1e-6 * scale:
+                raise AssertionError(f"station_solve plan {plan}: "
+                                     f"{err:.3e}")
+            stations[f'{per_sm}×{vec}'].append(_time_steps(
+                torch, lambda: probes.station_solve(x, _plan=plan), per=1))
+        del x, ref
+    torch.cuda.empty_cache()
+    return {'smem_sum': sums, 'station_solve': stations}
 
 
 def copy_plans(torch, probes):
@@ -2497,11 +2621,20 @@ def phase_probes(torch, launches):
             table[-1][1] == 0:
         raise AssertionError(f"smem_limit: {table}")
     # fbuf5d, rolllane/rollsub, dynslice(_al, _al12), station at ty=8,
-    # Zp=256; tile_roll also at ROLL_LARGE and ROLL_ODD.
-    f = torch.randn((64, 46, 8, 256), device=dev, generator=g)
-    if not torch.equal(probes.smem_sum(f, 8, 3),
-                       probes.smem_sum_plain(f, 8, 3)):
-        raise AssertionError("smem_sum differs from plain")
+    # Zp=256; smem_sum also at SUM_LARGE and SUM_ODD, tile_roll at
+    # ROLL_LARGE and ROLL_ODD, station_solve at STATION_LARGE and
+    # STATION_ODD.
+    for shape, chx, plane in (SUM_LARGE, SUM_ODD, SUM_PROBE):
+        f = torch.randn(shape, device=dev, generator=g)
+        if not torch.equal(probes.smem_sum(f, chx, plane),
+                           probes.smem_sum_plain(f, chx, plane)):
+            raise AssertionError(f"smem_sum {shape} chx {chx}: differs "
+                                 f"from plain")
+        plan = probes.sum_plan(chx, *shape[2:], torch.cuda.
+                               get_device_properties(dev)
+                               .multi_processor_count)
+        log(f"smem_sum {shape} chx {chx} plane {plane} ({plan}): bitwise "
+            f"equal to plain")
     for shape in ((8, 256), ROLL_LARGE, ROLL_ODD):
         xr = torch.randn(shape, device=dev, generator=g)
         for axis in (0, 1):
@@ -2519,26 +2652,41 @@ def phase_probes(torch, launches):
         if not torch.equal(probes.dyn_slice(xs, y0, ty),
                            probes.dyn_slice_plain(xs, y0, ty)):
             raise AssertionError(f"dyn_slice ty {ty}: differs from plain")
-    xst = station_inputs(torch, (8, 256), dev, g)
-    zp = probes.station_solve_plain(xst)
-    st_err = float((probes.station_solve(xst) - zp).abs().max())
-    st_rel = st_err / float(zp.abs().max())
-    log(f"smem_sum, tile_roll ((8, 256), {ROLL_LARGE}, {ROLL_ODD}; axes "
-        f"0 and 1, shifts 1, 3, -5), dyn_slice (ty 8, 16, 12) bitwise "
-        f"equal to plain; station_solve (8, 256) max |Δ|/max|ref| "
-        f"{st_rel:.3e} against torch.linalg.solve (complex128)")
-    if not st_rel <= 1e-6:
-        raise AssertionError(f"station_solve: {st_rel:.3e} > 1e-6")
+    log(f"tile_roll ((8, 256), {ROLL_LARGE}, {ROLL_ODD}; axes 0 and 1, "
+        f"shifts 1, 3, -5), dyn_slice (ty 8, 16, 12) bitwise equal to "
+        f"plain")
+    for tile in (STATION_LARGE, STATION_ODD, STATION_PROBE):
+        xst = station_inputs(torch, tile, dev, g)
+        zp = probes.station_solve_plain(xst)
+        st_err = float((probes.station_solve(xst) - zp).abs().max())
+        st_rel = st_err / float(zp.abs().max())
+        log(f"station_solve {tile} ({probes.station_plan(xst[0].numel())}"
+            f"): max |Δ|/max|ref| {st_rel:.3e} against torch.linalg.solve "
+            f"(complex128)")
+        if not st_rel <= 1e-6:
+            raise AssertionError(f"station_solve {tile}: {st_rel:.3e} > "
+                                 f"1e-6")
+        del zp
     plans = copy_plans(torch, probes)
+    sum_station_plans = probe_plans(torch, probes)
     n = dict(probes.LAUNCHES)
     log("tile_copy by plan (box bytes × blocks per SM: ms at probe12's "
         "box, at the whole probe3 array): " + ", ".join(
             f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
             for k, v in plans.items()))
+    log(f"smem_sum at {SUM_LARGE[0]} by plan (box bytes × blocks per SM "
+        f"× stages, ms): " + ", ".join(f"{k} {t:.4f}" for k, t in
+                             sum_station_plans['smem_sum'].items()))
+    log(f"station_solve by plan (blocks per SM × points a thread: ms at "
+        f"{STATION_PROBE}, at {STATION_LARGE}): " + ", ".join(
+            f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in
+            sum_station_plans['station_solve'].items()))
 
     # Timings (device ms per launch), beside the plain versions;
-    # tile_roll and tile_copy in turns with their library calls.
+    # PROBES_TIMED in turns with their library calls; smem_limit against
+    # one SM's shared-memory rate at the card's highest SM clock.
     turns = probe_turns(torch, probes)
+    sm_mhz = float(nvidia_smi('clocks.max.sm', units=False))
     shape, boxes = probe_boxes()['probe12']
     x = torch.zeros(shape, device=dev)
     off, ln = boxes[5]
@@ -2558,7 +2706,8 @@ def phase_probes(torch, launches):
                                                 'bound_ms', 'bound_by')}}
     # (name, replaces, key, kernel (None: timed in turns above), plain,
     # (library call, what it is) or (None, why there is none or what was
-    # timed in turns), (bytes, flops), max|Δ|, extra keys); the library
+    # timed in turns), (bytes, flops) or a bound, max|Δ|, extra keys); the
+    # library
     # call, one PyTorch call that computes the function, is timed and
     # used nowhere in the port.
     timed = (
@@ -2572,17 +2721,16 @@ def phase_probes(torch, launches):
         ('probe_smem_limit', 'scripts/hw_probe_ztile.py:209', 'smem_limit',
          lambda: probes.smem_limit(optin), None,
          (None, 'none: no tensor input; the function is the card\'s '
-                'shared-memory opt-in'), (4, 0), 0.0,
-         {'optin_bytes': optin,
+                'shared-memory opt-in'), smem_bound(optin, sm_mhz), 0.0,
+         {'optin_bytes': optin, 'sm_clock_mhz': sm_mhz,
           'largest_launched': max(b for b, _, ok in table if ok),
           'refused': {str(b): e for b, e, _ in table if e},
           'plain_is': 'smem_checksum on the host'}),
         ('probe_smem_sum', 'scripts/hw_bisect_zp256.py:49', 'smem_sum',
-         lambda: probes.smem_sum(f, 8, 3),
-         lambda: probes.smem_sum_plain(f, 8, 3),
-         (lambda: f[:8, 3].sum(0), 'f[:8, 3].sum(0)'),
-         (4 * 8 * 8 * 256 + 4 * 8 * 256, 0), 0.0,
-         {}),
+         None, lambda: probes.smem_sum_plain(f, chx, plane),
+         (None, f'f[:{chx}, {plane}].sum(0)'),
+         sum_work(f.shape, chx), 0.0,
+         in_turns('smem_sum', plan_ms=sum_station_plans['smem_sum'])),
         ('probe_tile_roll', 'scripts/hw_bisect_zp256.py:65', 'tile_roll',
          None, lambda: torch.roll(xr, 1, 1),
          (None, 'torch.roll(x, 1, 1)'),
@@ -2597,12 +2745,13 @@ def phase_probes(torch, launches):
          (2 * 4 * 4 * 6 * 66 * 12 * 256, 0), 0.0,
          {'also_replaces': ['scripts/hw_bisect_zp256.py:108']}),
         ('probe_station_solve', 'scripts/hw_bisect_zp256.py:136',
-         'station_solve', lambda: probes.station_solve(xst),
-         lambda: probes.station_solve_plain(xst),
+         'station_solve', None, lambda: probes.station_solve_plain(xst),
          (None, 'none: no call takes packed LDLᵀ factors; '
                 'torch.linalg.solve needs the matrices assembled (the '
                 'plain version)'),
-         (4 * 50 * 8 * 256, 0), st_err, {}),
+         bound(*station_work(STATION_PROBE), PEAK_FP32), st_err,
+         in_turns('station_solve',
+                  plan_ms=sum_station_plans['station_solve'])),
     )
     entries = []
     for name, replaces, key, fn, plain, lib, work, err, extra in timed:
@@ -2614,10 +2763,12 @@ def phase_probes(torch, launches):
             ms = _time_steps(torch, fn, per=1)
             lib_ms = None if lib[0] is None else _time_steps(
                 torch, lib[0], per=1)
+        b = work if isinstance(work, dict) else bound(*work)
         entries.append({'name': name, 'route': 'cuda', 'source': PROBE_SRC,
                         'replaces': replaces, 'launches': launches[key],
                         'probe_launches': n[key], 'max_abs_err': err,
-                        'ms': ms, 'plain_ms': pms, **bound(*work),
+                        'ms': ms, 'plain_ms': pms, **b,
+                        'share': b['bound_ms'] / ms,
                         'library_ms': lib_ms, 'library_call': lib[1],
                         **extra})
     for e in entries:
@@ -2626,16 +2777,24 @@ def phase_probes(torch, launches):
         log(f"probe {e['name']}: {e['launches']} launches in phases 4-13, "
             f"{e['probe_launches']} in the checks, {e['ms']:.4f} ms per "
             f"launch (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.6f}, "
-            f"{e['bound_by']}; {lib})")
+            f"{e['bound_by']}, {e['share']:.1%} of it; {lib})")
+    log_turns(turns)
+    return entries
+
+
+def log_turns(turns, who=''):
+    """One line per reading of :func:`probe_turns`."""
     for key, r in turns.items():
         for sfx, d in r.items():
-            log(f"{key}{sfx} {d['shape']}: in turns (ms) " + ", ".join(
+            lib = 'no library call' if d['library_ms'] is None else (
+                f"library {d['library_ms']:.4f} "
+                f"({d['ms'] / d['library_ms']:.2f}×)")
+            log(f"{who}{key}{sfx} {d['shape']}: in turns (ms) " + ", ".join(
                 f"{k} {t:.4f}" for k, t in d['turns'])
-                + f"; kernel {d['ms']:.4f}, library {d['library_ms']:.4f} "
-                f"({d['ms'] / d['library_ms']:.2f}×); bound "
+                + f"; kernel {d['ms']:.4f}, {lib}; bound "
                 f"{d['bound_ms']:.6f} ({d['bound_by']}), "
-                f"{d['share']:.1%} of it")
-    return entries
+                f"{d['share']:.1%} of it; launch floor "
+                f"{d['launch_floor_ms']:.4f}")
 
 
 def station_inputs(torch, tile, dev, g):

@@ -35,9 +35,18 @@
 //       cudaFuncAttributeMaxDynamicSharedMemorySize to N first and
 //       returns the launch's cudaGetLastError, so a size beyond the
 //       limit reads as the card's refusal.
-//   smem_sum     <- hw_bisect_zp256.py fbuf5d (49): a sum over a 5-D
-//       shared buffer (2, chx, NF, ty, 4): chx stations of NF planes
-//       of a (ty, 4) z-slab, copied in with cp.async.
+//   smem_sum     <- hw_bisect_zp256.py fbuf5d (49): the sum over
+//       chx stations of one plane of a (nx, NF, ty, Zp) array, which the
+//       Pallas probe copied whole into a 5-D VMEM buffer.  Here only the
+//       plane moves: a 3-D CUtensorMap over f[:chx, plane] (z, y,
+//       stations) cuts it into TMA boxes of (bz, by, bc) floats, and
+//       persistent blocks, at most two an SM, stream their run of boxes
+//       through a ring of 2-3 stages (an mbarrier each).  Each thread
+//       sums one float4 of a box over its stations in station order
+//       (bitwise the plain version's order) and stores it straight to
+//       the output; more than 256 stations (TMA's box limit) go in
+//       chunks, in order, into the same sums.  Boxes past the map's end
+//       in y or z are zero-filled by the TMA and their stores masked.
 //   tile_roll    <- hw_bisect_zp256.py rolllane/rollsub (65): roll a
 //       (ty, Zp) tile along either axis.  pltpu.roll is a lane rotation
 //       of the TPU's vregs; here it is a gather through L1 (the rolled
@@ -48,11 +57,20 @@
 //       card (Pallas' scalar prefetch), through shared memory.
 //   station_solve <- hw_bisect_zp256.py station (136): the 5×5 complex
 //       LDLᵀ substitution of blocksolve.ldl_solve_factored on (ty, Zp)
-//       tiles, one thread per point.
+//       tiles.  No byte is used twice, so nothing is staged: four
+//       points a thread with 16-byte streaming loads and stores where
+//       the point count allows (one otherwise), every load issued
+//       before the arithmetic, so each thread keeps 640 bytes in
+//       flight.  The kernel walks the points grid-stride; the default
+//       plan (ops/probes.py ``station_plan``) gives each thread one
+//       group, so the card starts the blocks in order as others end,
+//       which read faster than a grid sized to the SMs sweeping them.
 //
 // Bounds: each probe moves each input byte once and writes each output
 // once (tile_copy 8 B per element of the box, dyn_slice 8 B per element
-// of the slice); none does enough arithmetic to be bound by it.  The
+// of the slice, smem_sum the plane's chx·ty·Zp floats in and ty·Zp out,
+// station_solve 200 B a point); none does enough arithmetic to be bound
+// by it.  smem_limit moves its N bytes within one SM's shared memory.  The
 // 128³ bisection (hw_bisect_lr128.py) needs no probe here: K3 and K4
 // run at 128³ in chip_smoke.py's phase 3b, each alone.
 #include <cuda.h>
@@ -259,37 +277,114 @@ __global__ void __launch_bounds__(256) smem_fill(unsigned* out, int n) {
 }
 
 // ---------------------------------------------------------------------
-// smem_sum: a 5-D shared buffer (2, chx, nf, ty, 4) per block.
+// smem_sum: persistent blocks stream TMA boxes of f[:chx, plane] and sum
+// each over its stations.
 // ---------------------------------------------------------------------
 
-constexpr int kSumZ = 4;          // z values per block (one 16-byte copy)
+constexpr int kSumThreads = 128;   // a box holds ≤ 4 · kSumThreads outputs
 
-__global__ void __launch_bounds__(256)
-smem_sum(float* out, const float* f, int chx, int nf, int ty, int zp,
-         int plane) {
-  extern __shared__ __align__(16) float buf[];   // [2][chx][nf][ty][kSumZ]
-  const int slot = blockIdx.x & 1;
-  const int z0 = blockIdx.x * kSumZ;
-  const int rows = chx * nf * ty;                 // (i, p, y) rows
-  float* base = buf + static_cast<size_t>(slot) * rows * kSumZ;
-  for (int r = threadIdx.x; r < rows; r += 256) {
-    const float* src = f + static_cast<size_t>(r) * zp + z0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                     smem_u32(base + r * kSumZ)),
-                 "l"(src)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
-                   : "memory");
-  __syncthreads();
-  for (int q = threadIdx.x; q < ty * kSumZ; q += 256) {
-    const int y = q / kSumZ, c = q % kSumZ;
-    float acc = 0.0f;
-    for (int i = 0; i < chx; ++i) {
-      acc += buf[((((static_cast<size_t>(slot) * chx + i) * nf + plane) *
-                   ty + y) * kSumZ) + c];
+// The box plan (ops/probes.py ``sum_plan``): box extents (z, y,
+// stations), boxes along z, station chunks, output tiles (nz · ny), the
+// ring's stages and the sum's extents.
+struct SumBoxes {
+  int bz, by, bc;
+  int nz, nc, tiles, stages;
+  int chx, ty, zp;
+};
+
+// Thread 0: the bulk tensor load of the 3-D box at (z, y, c) into
+// ``dst``, completing ``bytes`` on the stage's mbarrier.
+__device__ __forceinline__ void box_load3(const CUtensorMap* map,
+                                          uint32_t dst, uint32_t mb, int z,
+                                          int y, int c, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(z), "r"(y), "r"(c), "r"(mb)
+      : "memory");
+}
+
+// Load k of a block: output tile first + (k / nc)·G (z fastest), station
+// chunk k % nc; its corner in the map's coordinates.
+__device__ __forceinline__ void sum_corner(const SumBoxes& p, int first,
+                                           int step, int k, int& z, int& y,
+                                           int& c) {
+  const int t = first + (k / p.nc) * step;
+  z = (t % p.nz) * p.bz;
+  y = (t / p.nz) * p.by;
+  c = (k % p.nc) * p.bc;
+}
+
+// Block b sums tiles b, b + G, ... (G = gridDim.x), each from its nc
+// chunk boxes in station order.  Thread 0 keeps the next stages' loads
+// in flight; thread i owns the float4 i of every box (row i / (bz/4)),
+// adds it over the box's stations into its registers and, after the
+// tile's last chunk, stores it.  A stage is refilled once every thread
+// has read it (__syncthreads).
+__global__ void __launch_bounds__(kSumThreads, 2)
+smem_sum(float* __restrict__ out, const __grid_constant__ CUtensorMap map,
+         const SumBoxes p, int stage_floats) {
+  extern __shared__ unsigned char raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  float* ring = reinterpret_cast<float*>(
+      raw + ((128 - (smem_u32(raw) & 127)) & 127));
+  const uint32_t bytes = static_cast<uint32_t>(p.bz * p.by * p.bc) * 4;
+  const int first = blockIdx.x, step = gridDim.x;
+  const int mine =
+      (first < p.tiles ? (p.tiles - first + step - 1) / step : 0) * p.nc;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+          smem_u32(&full[s])));
     }
-    out[static_cast<size_t>(y) * zp + z0 + c] = acc;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int z, y, c;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < p.stages && k < mine; ++k) {
+      sum_corner(p, first, step, k, z, y, c);
+      box_load3(&map, smem_u32(ring + k * stage_floats), smem_u32(&full[k]),
+                z, y, c, bytes);
+    }
+  }
+  const int Q = p.bz / 4, plane = p.by * Q;   // float4s: a row, a station
+  const bool owner = threadIdx.x < plane;
+  const int row = threadIdx.x / Q, q = threadIdx.x % Q;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < mine; ++k) {
+    const int s = k % p.stages;
+    sum_corner(p, first, step, k, z, y, c);
+    mbar_wait(smem_u32(&full[s]), (k / p.stages) & 1);
+    if (owner) {
+      if (c == 0) acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4* box =
+          reinterpret_cast<const float4*>(ring + s * stage_floats) +
+          threadIdx.x;
+      const int n = min(p.bc, p.chx - c);
+      for (int i = 0; i < n; ++i) {
+        const float4 v = box[i * plane];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      const int yy = y + row, zz = z + 4 * q;
+      if (c + p.bc >= p.chx && yy < p.ty && zz < p.zp) {
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(yy) * p.zp +
+                                   zz) = acc;
+      }
+    }
+    __syncthreads();   // stage s read by every thread: refill it
+    if (threadIdx.x == 0 && k + p.stages < mine) {
+      sum_corner(p, first, step, k + p.stages, z, y, c);
+      box_load3(&map, smem_u32(ring + s * stage_floats), smem_u32(&full[s]),
+                z, y, c, bytes);
+    }
   }
 }
 
@@ -365,42 +460,102 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-__global__ void __launch_bounds__(256)
-station_solve(float* z, const float* x, int points) {
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= points) return;
-  auto load = [&](int i) {
-    return make_float2(x[static_cast<size_t>(2 * i) * points + n],
-                       x[static_cast<size_t>(2 * i + 1) * points + n]);
-  };
-  float2 L[10], y[5];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) L[i] = load(i);   // (1,0) (2,0) (2,1) (3,0) ...
-#pragma unroll
-  for (int i = 0; i < 5; ++i) y[i] = load(15 + i);
-  // Forward: y_i -= L_ik y_k; diagonal; backward: y_i -= L_ki y_k.
-#pragma unroll
-  for (int i = 1; i < 5; ++i) {
-#pragma unroll
-    for (int k = 0; k < i; ++k) {
-      const float2 p = cmul(L[i * (i - 1) / 2 + k], y[k]);
-      y[i] = make_float2(y[i].x - p.x, y[i].y - p.y);
-    }
+constexpr int kStationThreads = 128;
+
+// V consecutive points of one plane: one 16-byte (V = 4) or 4-byte
+// streaming load or store (read once, written once: evict first).
+template <int V>
+struct Points;
+
+template <>
+struct Points<4> {
+  static __device__ __forceinline__ void load(float (&d)[4],
+                                              const float* p) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    d[0] = t.x;
+    d[1] = t.y;
+    d[2] = t.z;
+    d[3] = t.w;
   }
-#pragma unroll
-  for (int i = 0; i < 5; ++i) y[i] = cmul(y[i], load(10 + i));
-#pragma unroll
-  for (int i = 3; i >= 0; --i) {
-#pragma unroll
-    for (int k = i + 1; k < 5; ++k) {
-      const float2 p = cmul(L[k * (k - 1) / 2 + i], y[k]);
-      y[i] = make_float2(y[i].x - p.x, y[i].y - p.y);
-    }
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&d)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(d[0], d[1], d[2], d[3]));
   }
+};
+
+template <>
+struct Points<1> {
+  static __device__ __forceinline__ void load(float (&d)[1],
+                                              const float* p) {
+    d[0] = __ldcs(p);
+  }
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&d)[1]) {
+    __stcs(p, d[0]);
+  }
+};
+
+// Thread g of the grid takes the groups g, g + G, ... of V points (G the
+// grid's threads; V divides points): its 40 planes' loads first, then
+// the substitution per point, then its 10 planes' stores.
+template <int V>
+__global__ void __launch_bounds__(kStationThreads)
+station_solve(float* __restrict__ z, const float* __restrict__ x,
+              int points) {
+  const int64_t groups = points / V;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kStationThreads;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kStationThreads +
+                   threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t n = g * V;
+    float a[40][V];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    z[static_cast<size_t>(2 * i) * points + n] = y[i].x;
-    z[static_cast<size_t>(2 * i + 1) * points + n] = y[i].y;
+    for (int p = 0; p < 40; ++p) {
+      Points<V>::load(a[p], x + static_cast<int64_t>(p) * points + n);
+    }
+    float o[10][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float2 L[10], y[5];
+#pragma unroll
+      for (int i = 0; i < 10; ++i) {   // (1,0) (2,0) (2,1) (3,0) ...
+        L[i] = make_float2(a[2 * i][v], a[2 * i + 1][v]);
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        y[i] = make_float2(a[30 + 2 * i][v], a[31 + 2 * i][v]);
+      }
+      // Forward: y_i -= L_ik y_k; diagonal; backward: y_i -= L_ki y_k.
+#pragma unroll
+      for (int i = 1; i < 5; ++i) {
+#pragma unroll
+        for (int k = 0; k < i; ++k) {
+          const float2 t = cmul(L[i * (i - 1) / 2 + k], y[k]);
+          y[i] = make_float2(y[i].x - t.x, y[i].y - t.y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        y[i] = cmul(y[i], make_float2(a[20 + 2 * i][v], a[21 + 2 * i][v]));
+      }
+#pragma unroll
+      for (int i = 3; i >= 0; --i) {
+#pragma unroll
+        for (int k = i + 1; k < 5; ++k) {
+          const float2 t = cmul(L[k * (k - 1) / 2 + i], y[k]);
+          y[i] = make_float2(y[i].x - t.x, y[i].y - t.y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        o[2 * i][v] = y[i].x;
+        o[2 * i + 1][v] = y[i].y;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 10; ++p) {
+      Points<V>::store(z + static_cast<int64_t>(p) * points + n, o[p]);
+    }
   }
 }
 
@@ -496,22 +651,64 @@ extern "C" int emg3d_probe_smem_optin(void* bytes) {
 }
 
 // out (ty, zp) = Σ_{i<chx} f[i, plane] of a contiguous (≥chx, nf, ty, zp)
-// array, zp a multiple of 4.
+// array, zp a multiple of 4 and f 16-byte aligned, in boxes of (bz, by,
+// bc) floats (bz a multiple of 4, each ≤ 256, by·bz ≤ 4·kSumThreads):
+// ``blocks`` persistent blocks take the output tiles in turn, each tile's
+// ceil(chx / bc) chunk boxes through a ring of ``stages`` box buffers (at
+// least 2 where a block takes more than one box).  Returns a
+// cudaError_t, or 1000 + a CUresult when the tensor map cannot be
+// encoded.
 extern "C" int emg3d_probe_smem_sum(void* out, const void* f, int chx,
                                     int nf, int ty, int zp, int plane,
-                                    void* stream) {
-  if (zp % kSumZ != 0 || plane < 0 || plane >= nf || chx < 1) {
+                                    int bz, int by, int bc, int stages,
+                                    int blocks, void* stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (zp % 4 != 0 || zp < 4 || ty < 1 || chx < 1 || plane < 0 ||
+      plane >= nf || bz % 4 != 0 || bz < 4 || bz > 256 || by < 1 ||
+      by > 256 || bc < 1 || bc > 256 || by * bz > 4 * kSumThreads ||
+      stages < 1 || stages > kMaxStages || blocks < 1 ||
+      reinterpret_cast<uintptr_t>(f) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = 2 * chx * nf * ty * kSumZ * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        smem_sum, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t nz = (zp + bz - 1) / bz, ny = (ty + by - 1) / by,
+                nc = (chx + bc - 1) / bc;
+  const int64_t tiles = nz * ny;
+  // The most loads a block takes.
+  const int64_t most = (tiles + blocks - 1) / blocks * nc;
+  if (tiles * nc > (int64_t{1} << 31) - 1 || blocks > tiles ||
+      (stages < 2 && most > 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  smem_sum<<<zp / kSumZ, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), static_cast<const float*>(f), chx, nf, ty,
-      zp, plane);
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(zp),
+                              static_cast<cuuint64_t>(ty),
+                              static_cast<cuuint64_t>(chx)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(zp) * 4,
+      static_cast<cuuint64_t>(zp) * ty * nf * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(bz),
+                             static_cast<cuuint32_t>(by),
+                             static_cast<cuuint32_t>(bc)};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const float* base = static_cast<const float*>(f) +
+                      static_cast<int64_t>(plane) * ty * zp;
+  const CUresult r = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  // Stages 128-byte aligned (ops/probes.py ``sum_plan`` mirrors it).
+  const int stage_floats = (bz * by * bc + 31) / 32 * 32;
+  const int smem = stages * stage_floats * 4 + 128;
+  const cudaError_t e = cudaFuncSetAttribute(
+      smem_sum, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const SumBoxes p{bz, by, bc, static_cast<int>(nz), static_cast<int>(nc),
+                   static_cast<int>(tiles), stages, chx, ty, zp};
+  smem_sum<<<blocks, kSumThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), map, p, stage_floats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,12 +756,25 @@ extern "C" int emg3d_probe_dyn_slice(void* out, const void* x, const void* y0,
 }
 
 // z (10, points) from x (40, points): planes 2i/2i+1 the real and
-// imaginary parts of L (i < 10), dinv (10..14) and y (15..19).
+// imaginary parts of L (i < 10), dinv (10..14) and y (15..19), by
+// ``blocks`` blocks of kStationThreads threads, ``vec`` (4 or 1) points
+// a thread at a time; vec 4 needs points % 4 == 0 and both tensors
+// 16-byte aligned.
 extern "C" int emg3d_probe_station_solve(void* z, const void* x, int points,
-                                         void* stream) {
-  if (points < 1) return static_cast<int>(cudaErrorInvalidValue);
-  station_solve<<<(points + 255) / 256, 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(z), static_cast<const float*>(x), points);
+                                         int vec, int blocks, void* stream) {
+  if (points < 1 || blocks < 1 || (vec != 1 && vec != 4) ||
+      points % vec != 0 ||
+      (vec == 4 && (reinterpret_cast<uintptr_t>(z) % 16 != 0 ||
+                    reinterpret_cast<uintptr_t>(x) % 16 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    station_solve<4><<<blocks, kStationThreads, 0, s>>>(
+        static_cast<float*>(z), static_cast<const float*>(x), points);
+  } else {
+    station_solve<1><<<blocks, kStationThreads, 0, s>>>(
+        static_cast<float*>(z), static_cast<const float*>(x), points);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,10 +57,10 @@ PROBE_ARGTYPES = {
     'emg3d_probe_tile_copy': [_P] + [_I] * 18 + [_P],
     'emg3d_probe_smem_limit': [_P, _I, _P, _P],
     'emg3d_probe_smem_optin': [_P],
-    'emg3d_probe_smem_sum': [_P] * 2 + [_I] * 5 + [_P],
+    'emg3d_probe_smem_sum': [_P] * 2 + [_I] * 10 + [_P],
     'emg3d_probe_tile_roll': [_P] * 2 + [_I] * 4 + [_P],
     'emg3d_probe_dyn_slice': [_P] * 3 + [_I] * 5 + [_P],
-    'emg3d_probe_station_solve': [_P] * 2 + [_I, _P],
+    'emg3d_probe_station_solve': [_P] * 2 + [_I] * 3 + [_P],
 }
 # name: (file name, sources in csrc/, entry points).
 LIBRARIES = {

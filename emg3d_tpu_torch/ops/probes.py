@@ -3,9 +3,12 @@
 The JAX package's scripts/hw_probe_ztile.py and hw_bisect_zp256.py are
 Pallas kernels that probed which on-chip copies, layouts and scratch
 sizes Mosaic lowers.  ``csrc/probes.cu`` does the same work with the
-card's own means (the TMA and an mbarrier for ``make_async_copy``,
-dynamic shared memory past 48 KB, a rolled gather for ``pltpu.roll``,
-cp.async for dynamic slices); no solve path runs them.  Each wrapper
+card's own means (the TMA and mbarriers for ``make_async_copy``, in
+``tile_copy`` and ``smem_sum``, dynamic shared memory past 48 KB, a
+rolled gather for ``pltpu.roll``, cp.async for dynamic slices, 16-byte
+streaming loads of four points a thread for the station solve); no
+solve path runs them.  The launch plans (``tile_plan``, ``sum_plan``, ``station_plan``)
+are plain Python, so the CPU tests walk them.  Each wrapper
 takes its plain version for a CPU tensor and launches its kernel (or
 raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
 ``chip_smoke.py``'s probe phase holds each kernel against its plain
@@ -19,8 +22,9 @@ import torch
 __all__ = ['tile_copy', 'tile_copy_plain', 'tile_box', 'tile_span',
            'tile_plan', 'TilePlan', 'smem_limit',
            'smem_checksum', 'smem_optin', 'smem_sum', 'smem_sum_plain',
-           'tile_roll', 'dyn_slice', 'dyn_slice_plain', 'station_solve',
-           'station_solve_plain', 'LAUNCHES', 'reset_launches']
+           'sum_plan', 'SumPlan', 'tile_roll', 'dyn_slice',
+           'dyn_slice_plain', 'station_solve', 'station_solve_plain',
+           'station_plan', 'StationPlan', 'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'tile_copy': 0, 'smem_limit': 0, 'smem_sum': 0,
             'tile_roll': 0, 'dyn_slice': 0, 'station_solve': 0}
@@ -32,6 +36,15 @@ LAUNCHES = {'tile_copy': 0, 'smem_limit': 0, 'smem_sum': 0,
 TILE_BYTES = 16 * 1024
 TILE_STAGES = 3
 TILE_BLOCKS_PER_SM = 2
+# smem_sum's plan: the bytes of one box at most, the stages of a block's
+# ring, and its threads (csrc/probes.cu kSumThreads: one float4 of a
+# box's outputs each).  TMA takes at most 256 stations in one box.
+SUM_BYTES = 16 * 1024
+SUM_STAGES = 3
+SUM_THREADS = 128
+SUM_CHUNK = 256
+# station_solve's threads a block (csrc/probes.cu kStationThreads).
+STATION_THREADS = 128
 
 
 def reset_launches():
@@ -198,20 +211,66 @@ def smem_optin(device='cuda'):
     return val.value
 
 
-def smem_sum(f, chx, plane):
+class SumPlan(NamedTuple):
+    """smem_sum's launch: the TMA ``box`` (z, y, stations), the boxes
+    along each (``counts``), the ``stages`` of a block's ring, the
+    persistent ``blocks`` (block b sums output tiles b, b + blocks, ...,
+    z fastest, each from its station chunks in order) and the dynamic
+    shared-memory bytes."""
+    box: tuple
+    counts: tuple
+    stages: int
+    blocks: int
+    smem: int
+
+
+def sum_plan(chx, ty, zp, sms=132, box_bytes=SUM_BYTES,
+             per_sm=TILE_BLOCKS_PER_SM, most_stages=SUM_STAGES):
+    """The plan of a sum of ``chx`` stations of a (ty, zp) plane on a
+    card of ``sms`` SMs: stations in the fewest chunks of at most
+    SUM_CHUNK, as even as whole chunks allow; then within ``box_bytes``
+    (and at most 4 · SUM_THREADS outputs, one float4 a thread) the
+    longest z extent, a multiple of 4 up to 256 that splits zp evenly,
+    then y rows; min(tiles, per_sm · sms) blocks and a ring of
+    min(``most_stages``, the most boxes a block takes) stages, each
+    stage 128-byte aligned (csrc/probes.cu)."""
+    bc = _even(chx, SUM_CHUNK)
+    outs = max(4, min(4 * SUM_THREADS, box_bytes // (4 * bc)))
+    bz = 4 * _even(-(-zp // 4), min(64, outs // 4))
+    by = _even(ty, max(1, min(256, outs // bz)))
+    counts = (-(-zp // bz), -(-ty // by), -(-chx // bc))
+    tiles = counts[0] * counts[1]
+    blocks = min(tiles, per_sm * sms)
+    stages = min(most_stages, -(-tiles // blocks) * counts[2])
+    stage = -(-(bz * by * bc) // 32) * 32 * 4
+    return SumPlan((bz, by, bc), counts, stages, blocks,
+                   stages * stage + 128)
+
+
+def smem_sum(f, chx, plane, _plan=None):
     """``hw_bisect_zp256``'s fbuf5d: out (ty, Zp) = Σ_{i<chx} f[i,
-    plane] of f (nx, NF, ty, Zp), through a 5-D shared buffer."""
+    plane] of f (nx, NF, ty, Zp), Zp a positive multiple of 4 (16-byte
+    rows), the stations added in order (bitwise
+    :func:`smem_sum_plain`).  On the card only the plane moves, in TMA
+    boxes (:func:`sum_plan`; ``_plan`` forces another)."""
     _check(f, 4, 'smem_sum')
     nx, nf, ty, zp = f.shape
     if not (1 <= chx <= nx and 0 <= plane < nf):
         raise ValueError(f"smem_sum: chx {chx}, plane {plane} for "
                          f"{tuple(f.shape)}")
+    if zp % 4 or zp < 4 or ty < 1 or f.data_ptr() % 16:
+        raise ValueError(f"smem_sum: no kernel for {tuple(f.shape)} (Zp a "
+                         f"positive multiple of 4, ty ≥ 1, f 16-byte "
+                         f"aligned)")
     if f.device.type == 'cpu':
         return smem_sum_plain(f, chx, plane)
+    plan = _plan or sum_plan(chx, ty, zp, torch.cuda.get_device_properties(
+        f.device).multi_processor_count)
     out = torch.empty((ty, zp), dtype=f.dtype, device=f.device)
     err = _lib().emg3d_probe_smem_sum(_ptr(out), _ptr(f), chx, nf, ty, zp,
-                                      plane, _stream(f))
-    _raise(err, 'smem_sum', f"shape {tuple(f.shape)}")
+                                      plane, *plan.box, plan.stages,
+                                      plan.blocks, _stream(f))
+    _raise(err, 'smem_sum', f"shape {tuple(f.shape)}, {plan}")
     return out
 
 
@@ -273,23 +332,62 @@ def dyn_slice_plain(x, y0, ty):
                         (min(max(int(v), 0), ny - ty) for v in y0.tolist())])
 
 
-def station_solve(x):
+class StationPlan(NamedTuple):
+    """station_solve's launch: ``vec`` points a thread at a time (4:
+    16-byte loads and stores), ``blocks`` of ``threads``; thread g of
+    the grid takes the groups g, g + blocks · threads, ... of ``vec``
+    points."""
+    vec: int
+    threads: int
+    blocks: int
+
+
+def station_plan(points, sms=132, per_sm=None, vec=None):
+    """The plan for ``points`` points on a card of ``sms`` SMs: ``vec``
+    points a thread, by default four where 4 divides ``points`` (every
+    plane then starts on 16 bytes) and they give every SM a block of
+    four-point threads, one otherwise (fewer points a thread, more
+    threads: the shortest chain of arithmetic where latency decides).
+    By default one group of ``vec`` points a thread: the card starts
+    the blocks in order as others end, which read faster at
+    STATION_LARGE than grid-stride sweeps (chip_smoke.py phase 14's
+    table, ``probe_plans``); with ``per_sm`` the groups split evenly
+    over a grid of at most ``per_sm`` blocks an SM (every thread takes
+    as many, but for the last sweep's ragged end)."""
+    if vec is None:
+        vec = 4 if points % 4 == 0 and \
+            points >= 4 * STATION_THREADS * sms else 1
+    blocks = -(-(points // vec) // STATION_THREADS)
+    if per_sm is not None:
+        blocks = _even(blocks, per_sm * sms)
+    return StationPlan(vec, STATION_THREADS, blocks)
+
+
+def station_solve(x, _plan=None):
     """``hw_bisect_zp256``'s station: z (10, ty, Zp) from x (40, ty, Zp),
     the 5×5 complex-symmetric LDLᵀ substitution of
     ``blocksolve.ldl_solve_factored`` per point (planes 2i, 2i+1 of x
     the real and imaginary parts of complex entry i: L (0-9, strict
     lower, row-major), dinv (10-14), y (15-19); of z those of the
-    solution)."""
+    solution).  On the card :func:`station_plan`'s launch (``_plan``
+    forces another)."""
     _check(x, 3, 'station_solve')
     if x.shape[0] != 40:
         raise ValueError(f"station_solve: 40 planes, got {x.shape[0]}")
     if x.device.type == 'cpu':
         return station_solve_plain(x)
+    points = x[0].numel()
+    if not 0 < points < 2**31:
+        raise ValueError(f"station_solve: no kernel for {points} points")
+    plan = _plan or station_plan(points, torch.cuda.get_device_properties(
+        x.device).multi_processor_count, vec=1 if x.data_ptr() % 16 else
+        None)
     z = torch.empty((10,) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
-    err = _lib().emg3d_probe_station_solve(_ptr(z), _ptr(x),
-                                           x[0].numel(), _stream(x))
-    _raise(err, 'station_solve', f"shape {tuple(x.shape)}")
+    err = _lib().emg3d_probe_station_solve(_ptr(z), _ptr(x), points,
+                                           plan.vec, plan.blocks,
+                                           _stream(x))
+    _raise(err, 'station_solve', f"shape {tuple(x.shape)}, {plan}")
     return z
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""tile_roll and tile_copy timed in turns with their library calls, for
-this checkout's kernels and, beside them, another checkout's.
+"""The probes tile_roll, tile_copy, smem_sum and station_solve timed in
+turns with their library calls, for this checkout's kernels and, beside
+them, another checkout's.
 
     python3 probe_turns.py [--against DIR]
 
@@ -9,9 +10,11 @@ library, kernel, at the probes' shapes and where bytes decide) on this
 checkout's ``emg3d_tpu_torch/ops/probes.py`` and, with ``--against``, on
 DIR's: another checkout unpacked there (``git archive REV | tar -x -C
 build/REV``), whose probe kernels build from DIR's sources into
-DIR/build.  A large shape that DIR's wrapper refuses is recorded as
-refused.  Both in one process on one card, DIR's first.  Prints the
-card's name and power limit, then one JSON line ``{"against": ...,
+DIR/build.  A large shape that DIR's wrapper or kernel refuses (a
+ValueError, or the RuntimeError of a refused launch) is recorded as
+refused, with its message.  Both in one process on one card, DIR's
+first.  Each reading carries the launch floor read in its call.  Prints
+the card's name and power limit, then one JSON line ``{"against": ...,
 "this": ...}``.  Needs one card and no network.
 """
 import argparse
@@ -47,27 +50,34 @@ def main(argv=None):
     if args.against:
         other = load_probes(args.against)
         large = []
-        for key, arg in (('tile_roll', lambda dev: (torch.zeros(
-                chip_smoke.ROLL_LARGE, device=dev), 1, 1)),
-                         ('tile_copy', lambda dev: (torch.zeros(
-                             chip_smoke.COPY_LARGE[0], device=dev),
-                             *chip_smoke.COPY_LARGE[1][0]))):
+        dev = torch.device('cuda')
+        calls = {
+            'tile_roll': lambda: other.tile_roll(torch.zeros(
+                chip_smoke.ROLL_LARGE, device=dev), 1, 1),
+            'tile_copy': lambda: other.tile_copy(torch.zeros(
+                chip_smoke.COPY_LARGE[0], device=dev),
+                *chip_smoke.COPY_LARGE[1][0]),
+            'smem_sum': lambda: other.smem_sum(torch.zeros(
+                chip_smoke.SUM_LARGE[0], device=dev),
+                *chip_smoke.SUM_LARGE[1:]),
+            'station_solve': lambda: other.station_solve(torch.zeros(
+                (40,) + chip_smoke.STATION_LARGE, device=dev))}
+        for key, call in calls.items():
             try:
-                getattr(other, key)(*arg(torch.device('cuda')))
+                call()
                 large.append(key)
-            except ValueError as err:
+            except (ValueError, RuntimeError) as err:
                 out.setdefault('refused', {})[key + '_large'] = str(err)
-        torch.cuda.synchronize()
+                # A refused cudaFuncSetAttribute stays the library's last
+                # error (its own static cudart): clear it with a call
+                # that reads it (smem_limit) before DIR's next launch.
+                other.smem_limit(1024)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         out['against'] = chip_smoke.probe_turns(torch, other, large)
     out['this'] = chip_smoke.probe_turns(torch, probes)
     for who in ('against', 'this'):
-        for key, r in out.get(who, {}).items():
-            for sfx, d in r.items():
-                chip_smoke.log(
-                    f"{who} {key}{sfx} {d['shape']}: kernel {d['ms']:.4f} "
-                    f"ms, library {d['library_ms']:.4f} "
-                    f"({d['ms'] / d['library_ms']:.2f}×), bound "
-                    f"{d['bound_ms']:.6f}, {d['share']:.1%} of it")
+        chip_smoke.log_turns(out.get(who, {}), who + ' ')
     print(chip_smoke.nvidia_smi())
     print(json.dumps(out))
     return 0

@@ -9,8 +9,11 @@ complex-symmetric LDLᵀ substitution of the JAX package's
 ``blocksolve.ldl_solve_factored``.  The kernels' plans are held here
 too: ``tile_copy``'s boxes walked as its persistent blocks take them
 (every element of the sub-box gets +1 once, nothing else, no box past
-the map's z end, the ring within the card's shared memory), and
-``tile_roll``'s index map, evaluated in torch, against ``torch.roll``.
+the map's z end, the ring within the card's shared memory),
+``tile_roll``'s index map, evaluated in torch, against ``torch.roll``,
+``smem_sum``'s boxes walked the same way (every output stored once, the
+stations summed in order: bitwise the plain sum) and
+``station_solve``'s thread→points map (every point once).
 """
 import re
 
@@ -183,6 +186,93 @@ def test_smem_sum():
     out = probes.smem_sum(f, 8, 3)
     assert torch.equal(out, probes.smem_sum_plain(f, 8, 3))
     assert torch.allclose(out, f[:8, 3].sum(0), rtol=1e-6, atol=1e-6)
+    # Zp must be a positive multiple of 4 (the map's 16-byte rows).
+    for shape in ((10, 46, 8, 18), (10, 46, 8, 0)):
+        with pytest.raises(ValueError, match='no kernel'):
+            probes.smem_sum(torch.zeros(shape), 8, 3)
+    with pytest.raises(ValueError, match='chx'):
+        probes.smem_sum(f, 11, 3)
+
+
+def _sum_walk(plan, chx, ty, zp, f=None, plane=0):
+    """csrc/probes.cu smem_sum's walk of ``plan`` in torch: per block
+    its run of output tiles (z fastest), each from its station chunks in
+    order (a box past the map's end zero-filled), every output stored
+    where the kernel stores it.  Returns (stores per output, the sums
+    from ``f`` (nx, nf, ty, zp) or None)."""
+    bz, by, bc = plan.box
+    nz, ny, nc = plan.counts
+    tiles = nz * ny
+    stores = torch.zeros((ty, zp), dtype=torch.int32)
+    out = None if f is None else torch.full((ty, zp), float('nan'))
+    if f is not None:      # the map's view, zero past its ends
+        pad = torch.zeros((nc * bc, ny * by, nz * bz))
+        pad[:chx, :ty, :zp] = f[:chx, plane]
+    for b in range(plan.blocks):
+        run = range(b, tiles, plan.blocks)
+        assert plan.stages >= 2 or len(run) * nc <= 1
+        for t in run:
+            z, y = t % nz * bz, t // nz * by
+            acc = torch.zeros((by, bz))
+            for c in range(0, nc * bc, bc):
+                for i in range(min(bc, chx - c)):
+                    if f is not None:
+                        acc = acc + pad[c + i, y:y + by, z:z + bz]
+            h, w = min(by, ty - y), min(bz, zp - z)
+            stores[y:y + h, z:z + w] += 1
+            if f is not None:
+                out[y:y + h, z:z + w] = acc[:h, :w]
+    return stores, out
+
+
+SUM_CASES = {'probe': chip_smoke.SUM_PROBE, 'large': chip_smoke.SUM_LARGE,
+             'odd': chip_smoke.SUM_ODD, 'one station': ((2, 1, 3, 4), 1, 0),
+             'three chunks': ((600, 2, 3, 12), 513, 1)}
+
+
+@pytest.mark.parametrize('case', list(SUM_CASES))
+def test_sum_plan_walk(case):
+    """smem_sum's plan walked as its blocks take the boxes: every output
+    stored exactly once; TMA boxes (≤ 256 a dim, 16-byte rows) of at
+    most one float4 a thread, within SUM_BYTES where the stations allow;
+    the ring within one block's opt-in and two blocks an SM; stations
+    in chunks of at most 256, summed in order: the walk's sums equal the
+    plain version's bit for bit (all but the 3 GB large case)."""
+    shape, chx, plane = SUM_CASES[case]
+    ty, zp = shape[2:]
+    plan = probes.sum_plan(chx, ty, zp, sms=132)
+    bz, by, bc = plan.box
+    assert bz % 4 == 0 and max(plan.box) <= 256 and bc <= probes.SUM_CHUNK
+    assert by * bz <= 4 * probes.SUM_THREADS
+    assert 4 * bz * by * bc <= max(probes.SUM_BYTES, 16 * bc)
+    assert by <= ty and bz <= zp and bc <= chx
+    assert plan.counts[2] == -(-chx // probes.SUM_CHUNK)
+    assert plan.blocks == min(plan.counts[0] * plan.counts[1],
+                              probes.TILE_BLOCKS_PER_SM * 132)
+    assert 1 <= plan.stages <= probes.SUM_STAGES
+    assert plan.smem <= SMEM_OPTIN
+    assert probes.TILE_BLOCKS_PER_SM * (plan.smem + 1024) <= SMEM_SM
+    f = None
+    if case != 'large':
+        f = torch.tensor(np.random.default_rng(16).standard_normal(shape),
+                         dtype=torch.float32)
+    stores, out = _sum_walk(plan, chx, ty, zp, f, plane)
+    assert stores.min() == 1 and stores.max() == 1
+    if f is not None:
+        assert torch.equal(out, probes.smem_sum_plain(f, chx, plane))
+
+
+def test_sum_plan_shapes():
+    """The probe's sum goes in four 16 KB boxes of (256, 2, 8), one a
+    block; SUM_LARGE's in 4096, 264 blocks (two an SM) with a 3-stage
+    ring; 300 stations in two chunks of 150."""
+    plan = probes.sum_plan(8, 8, 256, sms=132)
+    assert plan.box == (256, 2, 8) and plan.counts == (1, 4, 1)
+    assert plan.blocks == 4 and plan.stages == 1
+    large = probes.sum_plan(8, 256, 8192, sms=132)
+    assert large.box == (256, 2, 8) and large.counts == (32, 128, 1)
+    assert large.blocks == 264 and large.stages == 3
+    assert probes.sum_plan(300, 5, 36).box[2] == 150
 
 
 @pytest.mark.parametrize('axis', [0, 1])
@@ -278,6 +368,70 @@ def test_station_solve():
     assert np.max(np.abs(z.numpy() - ref)) <= 1e-6 * np.max(np.abs(ref))
     with pytest.raises(ValueError, match='40 planes'):
         probes.station_solve(torch.zeros((38,) + tile))
+
+
+def _station_walk(plan, points):
+    """csrc/probes.cu station_solve's grid-stride walk: thread g of the
+    grid takes groups g, g + G, ... of ``plan.vec`` points (G the grid's
+    threads).  Returns the visits per point."""
+    groups = points // plan.vec
+    grid = plan.blocks * plan.threads
+    visits = np.zeros(points, dtype=np.int64)
+    for start in range(0, groups, grid):
+        g = np.arange(start, min(start + grid, groups))
+        for v in range(plan.vec):
+            np.add.at(visits, g * plan.vec + v, 1)
+    return visits
+
+
+@pytest.mark.parametrize('per_sm', [None, 3])
+@pytest.mark.parametrize('points', [2048, 64 * 65536, 5 * 1001, 1, 4, 7,
+                                    4 * 128 * 132, 4 * 128 * 132 - 4,
+                                    132 * 3 * 128 * 4 * 5 + 4])
+def test_station_plan_walk(points, per_sm):
+    """station_solve's thread→points map covers every point once: four
+    points a thread where 4 divides the count and they fill a block an
+    SM, one otherwise (and always where forced, as for an input off 16
+    bytes).  By default one group a thread; with ``per_sm`` a grid of
+    at most that many blocks an SM whose sweeps split the groups evenly:
+    the last sweep leaves fewer threads idle than a block for each
+    sweep."""
+    sms = 132
+    plan = probes.station_plan(points, sms=sms, per_sm=per_sm)
+    assert plan.vec == (4 if points % 4 == 0 and
+                        points >= 4 * probes.STATION_THREADS * sms else 1)
+    assert plan.threads == probes.STATION_THREADS
+    groups = points // plan.vec
+    assert plan.vec * groups == points
+    need = -(-groups // plan.threads)
+    if per_sm is None:
+        assert plan.blocks == need
+    else:
+        assert plan.blocks <= min(need, per_sm * sms)
+    sweeps = -(-groups // (plan.blocks * plan.threads))
+    assert sweeps * plan.blocks * plan.threads - groups < \
+        sweeps * plan.threads
+    visits = _station_walk(plan, points)
+    assert visits.min() == 1 and visits.max() == 1
+    odd = probes.station_plan(points, sms=sms, per_sm=per_sm, vec=1)
+    assert odd.vec == 1 and (_station_walk(odd, points) == 1).all()
+
+
+@pytest.mark.parametrize('entry, tail', [
+    ('emg3d_probe_smem_sum', ['bz', 'by', 'bc', 'stages', 'blocks',
+                              'stream']),
+    ('emg3d_probe_station_solve', ['points', 'vec', 'blocks', 'stream'])])
+def test_probe_entry_signatures(entry, tail):
+    """smem_sum's and station_solve's C entries keep their arguments and
+    add the plan's: the parameters ctypes passes, in order."""
+    text = _build._sources('probes')[0].read_text()
+    sig = re.search(rf'extern "C" int {entry}\((.*?)\)', text,
+                    re.S).group(1)
+    kinds = [_build.ctypes.c_void_p if '*' in p else _build.ctypes.c_int
+             for p in sig.split(',')]
+    assert kinds == _build.PROBE_ARGTYPES[entry]
+    names = [p.split()[-1].lstrip('*') for p in sig.split(',')]
+    assert names[-len(tail):] == tail
 
 
 def test_probe_library_apart():
