@@ -121,19 +121,22 @@ Phases:
    of the Mosaic probes in scripts/: ``tile_copy`` (TMA with an mbarrier)
    over every grid step of ``probe``/``probe3``/``probe23``/``probe12``
    (:func:`probe_boxes`) and at COPY_LARGE's sub-boxes, the card's
-   opt-in shared memory and launches with N bytes of it up to and
-   beyond that limit, ``smem_sum`` (also at SUM_LARGE and SUM_ODD),
+   opt-in shared memory and ``smem_limit`` (probe_vmem's x[0] += 1
+   through N bytes of it) at SMEM_SIZES, the opt-in and 16 bytes past
+   it under each plan of SMEM_PLANS (bitwise, or refused with x
+   unchanged), ``smem_sum`` (also at SUM_LARGE and SUM_ODD),
    ``tile_roll`` (also at ROLL_LARGE and ROLL_ODD), ``dyn_slice`` and
    ``station_solve`` (also at STATION_LARGE and STATION_ODD) at ty=8,
    Zp=256, each bitwise equal to its plain version (``station_solve``
    within 1e-6 of ``torch.linalg.solve``), then timed: ``tile_roll``,
-   ``tile_copy``, ``smem_sum`` and ``station_solve`` in turns with their
-   library calls at the probe's shape and where bytes decide, beside
-   the launch floor (:func:`probe_turns`), ``tile_copy`` under each plan
-   of COPY_PLANS (:func:`copy_plans`), ``smem_sum`` and
-   ``station_solve`` under SUM_PLANS and STATION_PLANS
-   (:func:`probe_plans`), ``smem_limit`` against one SM's shared-memory
-   rate (:func:`smem_bound`);
+   ``tile_copy``, ``smem_sum``, ``station_solve`` and ``smem_limit`` in
+   turns with their library calls at the probe's shape and (but
+   smem_limit) where bytes decide, beside the launch floor
+   (:func:`probe_turns`), ``tile_copy`` under each plan of COPY_PLANS
+   (:func:`copy_plans`), ``smem_sum``, ``station_solve`` and
+   ``smem_limit`` under SUM_PLANS, STATION_PLANS and SMEM_PLANS
+   (:func:`probe_plans`); ``smem_limit``'s bound is one SM's
+   shared-memory rate (:func:`smem_bound`);
 15. "complex64", the solve in the precision of the JAX package's
    production path (a complex64 source): (a) each kernel's complex64
    instance against its complex64 plain version at 16³, 64³ and 256³
@@ -442,6 +445,8 @@ TDEM_TIME = np.logspace(-1, 1, 21)
 DIFF_EDGES = ((10, 8, 8), (5, 9, 7), (11, 11, 9))
 DIFF_FD_CELLS = ((8, 8, 8), (10, 8, 8), (6, 9, 7))
 PROBE_SRC = 'emg3d_tpu_torch/csrc/probes.cu'
+# The probes' kernels in PROBE_SRC where not named as their wrapper.
+PROBE_KERNELS = {'smem_limit': 'smem_stage'}
 # Phase 14's shapes where bytes decide: tile_roll's tile, and tile_copy's
 # array with its sub-boxes (the whole of it, timed, and one at a z
 # offset of 13 floats); tile_roll's other checked tile (a width the
@@ -473,8 +478,13 @@ SUM_PLANS = ((4096, 2, 3), (8192, 2, 3), (16384, 1, 3), (16384, 2, 2),
 STATION_PLANS = ((None, 4), (2, 4), (3, 4), (None, 1), (3, 1), (8, 1))
 # The probes probe_turns times, and one SM's shared-memory rate (bytes a
 # clock: 32 banks of 4 bytes), smem_limit's bound at the SM clock.
-PROBES_TIMED = ('tile_roll', 'tile_copy', 'smem_sum', 'station_solve')
+PROBES_TIMED = ('tile_roll', 'tile_copy', 'smem_sum', 'station_solve',
+                'smem_limit')
 SMEM_BYTES_PER_CLOCK = 128
+# smem_limit's sizes: 48, 96 and 160 KB, then the card's opt-in and 16
+# bytes past it (refused); its plans (bulk copies each way).
+SMEM_SIZES = (48 * 1024, 96 * 1024, 160 * 1024)
+SMEM_PLANS = (1, 8)
 # The trace's names of the point kernels' instances (demangled or not):
 # the last template argument is the kernel, 0 for K1, 1-2 for K2.
 # Each instance also names its real type (double, float) last.
@@ -655,11 +665,29 @@ def station_work(tile):
     return 50 * 4 * points, (20 * 8 + 5 * 6) * points
 
 
-def smem_bound(nbytes, mhz):
-    """smem_limit's bound: ``nbytes`` written to and read back from one
-    SM's shared memory at SMEM_BYTES_PER_CLOCK and ``mhz``."""
-    return {'bound_ms': 2 * nbytes / (SMEM_BYTES_PER_CLOCK * mhz * 1e6)
-            * 1e3, 'bound_by': 'smem'}
+def smem_rows(nbytes):
+    """probe_vmem's x for ``nbytes`` of scratch: (rows, 512) float32,
+    the rows of its (rows, 512) scratch, at least the 8 it stages."""
+    return max(8, nbytes // 2048), 512
+
+
+def smem_work():
+    """(device bytes, shared-memory bytes) of smem_limit: its 8 staged
+    rows (16 KB) read from x and written back; in one SM's shared
+    memory the staged rows written by the copy in and read by the copy
+    out, and row 0 (2 KB) read and written by the add."""
+    staged, row = 8 * 2048, 2048
+    return 2 * staged, 2 * staged + 2 * row
+
+
+def smem_bound(smem_bytes, mhz, nbytes=0):
+    """smem_limit's bound: the larger of ``smem_bytes`` through one SM's
+    shared memory at SMEM_BYTES_PER_CLOCK and ``mhz`` and ``nbytes`` of
+    device memory at PEAK_BYTES."""
+    ts = smem_bytes / (SMEM_BYTES_PER_CLOCK * mhz * 1e6)
+    tb = nbytes / PEAK_BYTES
+    return {'bound_ms': max(ts, tb) * 1e3,
+            'bound_by': 'smem' if ts >= tb else 'bytes'}
 
 
 def point_work(shape, mode, size=16, stream=None):
@@ -2445,11 +2473,17 @@ def probe_turns(torch, probes, large=PROBES_TIMED):
     timed in turns with their library calls at the probes' shapes
     (tile_roll (8, 256) along axis 1, shift 1; tile_copy probe12's
     6×6×64×384 box; smem_sum SUM_PROBE; station_solve STATION_PROBE,
-    which has no library call) and, for the kernels named in ``large``,
-    where bytes decide (ROLL_LARGE; the whole of COPY_LARGE's array;
-    SUM_LARGE; STATION_LARGE), each with its bound, its share and the
-    launch floor (:func:`launch_floor`, read once first).  Returns
-    {kernel: {suffix: readings}}, suffix '' or '_large'."""
+    which has no library call; smem_limit at the card's opt-in on x of
+    :func:`smem_rows`, against ``x[0].add_(1.0)``) and, for the kernels
+    named in ``large``, where bytes decide (ROLL_LARGE; the whole of
+    COPY_LARGE's array; SUM_LARGE; STATION_LARGE; smem_limit has no
+    such shape: it moves 16 KB whatever its size), each with its bound,
+    its share and the launch floor (:func:`launch_floor`, read once
+    first).  An ``ops/probes.py`` from before smem_limit computed
+    probe_vmem's function (no ``smem_limit_plain``) has its
+    ``smem_limit(optin)`` timed alone, with its own bound (2·N bytes of
+    shared memory).  Returns {kernel: {suffix: readings}}, suffix '' or
+    '_large'."""
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(15)
     floor = launch_floor(torch)
@@ -2458,7 +2492,7 @@ def probe_turns(torch, probes, large=PROBES_TIMED):
     def record(key, sfx, shape, kernel, library, work, peak=PEAK_FP64,
                **extra):
         ms, lib, turns = _turns(torch, kernel, library)
-        b = bound(*work, peak)
+        b = work if isinstance(work, dict) else bound(*work, peak)
         out[key][sfx] = {'shape': list(shape), **extra, 'ms': ms,
                          'library_ms': lib, 'turns': turns, **b,
                          'share': b['bound_ms'] / ms,
@@ -2494,6 +2528,24 @@ def probe_turns(torch, probes, large=PROBES_TIMED):
         record('station_solve', sfx, tile, lambda: probes.station_solve(x),
                None, station_work(tile), PEAK_FP32)
         del x
+    optin = probes.smem_optin()
+    mhz = float(nvidia_smi('clocks.max.sm', units=False))
+    if hasattr(probes, 'smem_limit_plain'):
+        x = torch.randn(smem_rows(optin), device=dev, generator=g)
+        if probes.smem_limit(x, optin)[0]:
+            raise AssertionError(f"smem_limit: {optin} B refused")
+        nbytes, smem = smem_work()
+        record('smem_limit', '', x.shape,
+               lambda: probes.smem_limit(x, optin),
+               lambda: x[0].add_(1.0), smem_bound(smem, mhz, nbytes),
+               nbytes=optin, plan=list(probes.smem_plan(optin)),
+               sm_clock_mhz=mhz)
+        del x
+    else:
+        record('smem_limit', '', (optin,), lambda: probes.smem_limit(optin),
+               None, smem_bound(2 * optin, mhz), nbytes=optin,
+               sm_clock_mhz=mhz, before='a different function (fill and '
+               'sum of N bytes, plus a torch.zeros)')
     torch.cuda.empty_cache()
     return out
 
@@ -2504,11 +2556,14 @@ def probe_plans(torch, probes):
     plain sum, and station_solve
     under each of STATION_PLANS (blocks per SM × points a thread) at
     STATION_PROBE and STATION_LARGE, each within 1e-6 of max|z| of the
-    default plan's z: the tables behind ``probes.SUM_BYTES``,
-    ``SUM_STAGES``, ``TILE_BLOCKS_PER_SM`` and ``station_plan``'s grid
-    and points a thread.  Returns {'smem_sum':
-    {'bytes×per_sm×stages': ms}, 'station_solve': {'per_sm×vec': [ms at
-    STATION_PROBE, at STATION_LARGE]}}."""
+    default plan's z, and smem_limit at the card's opt-in under each
+    plan of SMEM_PLANS (bulk copies each way) in turns (first, second,
+    second, first), each bitwise equal to the plain version: the tables
+    behind ``probes.SUM_BYTES``, ``SUM_STAGES``, ``TILE_BLOCKS_PER_SM``,
+    ``station_plan``'s grid and points a thread and ``SMEM_PIECES``.
+    Returns {'smem_sum': {'bytes×per_sm×stages': ms}, 'station_solve':
+    {'per_sm×vec': [ms at STATION_PROBE, at STATION_LARGE]},
+    'smem_limit': {'pieces': ms, 'turns': [[pieces, ms], ...]}}."""
     dev = torch.device('cuda')
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(16)
@@ -2538,8 +2593,29 @@ def probe_plans(torch, probes):
             stations[f'{per_sm}×{vec}'].append(_time_steps(
                 torch, lambda: probes.station_solve(x, _plan=plan), per=1))
         del x, ref
+    optin = probes.smem_optin()
+    x = torch.randn(smem_rows(optin), device=dev, generator=g)
+    runs = {}
+    for pieces in SMEM_PLANS:
+        plan = probes.smem_plan(optin, pieces)
+        xk = x.clone()
+        err = probes.smem_limit(xk, optin, _plan=plan)[0]
+        if err or not torch.equal(xk, probes.smem_limit_plain(x.clone())):
+            raise AssertionError(f"smem_limit plan {plan}: error {err} or "
+                                 f"differs from plain")
+        runs[pieces] = lambda xk=xk, plan=plan: probes.smem_limit(
+            xk, optin, _plan=plan)
+    first, second = SMEM_PLANS
+    _, _, turns = _turns(torch, runs[first], runs[second])
+    pieces = {str(p): float(np.mean([t for k, t in turns
+                                     if (k == 'kernel') == (p == first)]))
+              for p in SMEM_PLANS}
+    pieces['turns'] = [[first if k == 'kernel' else second, t]
+                       for k, t in turns]
+    del x
     torch.cuda.empty_cache()
-    return {'smem_sum': sums, 'station_solve': stations}
+    return {'smem_sum': sums, 'station_solve': stations,
+            'smem_limit': pieces}
 
 
 def copy_plans(torch, probes):
@@ -2603,22 +2679,31 @@ def phase_probes(torch, launches):
         log(f"tile_copy {case} {shape}: {len(boxes)} sub-boxes (first: "
             f"{plan}) bitwise equal to plain")
         del x, ref
-    # smem_limit: the card's opt-in limit, and launches around it.
+    # smem_limit: the card's opt-in limit, and launches around it, each
+    # on its own x of the probe's rows for that scratch, under each plan.
     optin = probes.smem_optin()
     table = []
-    for nbytes in (48 * 1024, 96 * 1024, 160 * 1024, optin, optin + 16):
-        err, attr, out = probes.smem_limit(nbytes)
-        ok = err == 0 and (int(out.item()) & 0xffffffff) == \
-            probes.smem_checksum(nbytes)
-        table.append((nbytes, err, ok))
-        log(f"smem_limit {nbytes} B: cudaFuncSetAttribute error {attr}, "
-            f"launch error {err}: " + ('refused' if err else
-                                       'sum equal to plain' if ok else
-                                       'WRONG SUM'))
+    for nbytes in SMEM_SIZES + (optin, optin + 16):
+        x0 = torch.randn(smem_rows(nbytes), device=dev, generator=g)
+        ref = probes.smem_limit_plain(x0.clone())
+        for pieces in SMEM_PLANS:
+            x = x0.clone()
+            err, attr, _ = probes.smem_limit(
+                x, nbytes, _plan=probes.smem_plan(nbytes, pieces))
+            torch.cuda.synchronize()
+            ok = torch.equal(x, x0 if err else ref)
+            table.append((nbytes, pieces, err, attr, ok))
+            log(f"smem_limit {nbytes} B, {pieces} piece(s), x "
+                f"{tuple(x.shape)}: cudaFuncSetAttribute error {attr}, "
+                f"launch error {err}: " + (
+                    ('refused, x unchanged' if ok else 'refused, X CHANGED')
+                    if err else 'bitwise equal to plain' if ok else
+                    'DIFFERS FROM PLAIN'))
     if optin != 232448:
         raise AssertionError(f"opt-in shared memory {optin}, not 232448")
-    if not all(ok for nbytes, _, ok in table if nbytes <= optin) or \
-            table[-1][1] == 0:
+    if not all(ok and (err == 0) == (nbytes <= optin) and
+               (attr == 0) == (nbytes <= optin)
+               for nbytes, _, err, attr, ok in table):
         raise AssertionError(f"smem_limit: {table}")
     # fbuf5d, rolllane/rollsub, dynslice(_al, _al12), station at ty=8,
     # Zp=256; smem_sum also at SUM_LARGE and SUM_ODD, tile_roll at
@@ -2681,19 +2766,18 @@ def phase_probes(torch, launches):
         f"{STATION_PROBE}, at {STATION_LARGE}): " + ", ".join(
             f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in
             sum_station_plans['station_solve'].items()))
+    log(f"smem_limit at {optin} B by plan (bulk copies each way, ms in "
+        f"turns): " + ", ".join(f"{k} {t:.4f}" for k, t in
+                               sum_station_plans['smem_limit']['turns']))
 
     # Timings (device ms per launch), beside the plain versions;
-    # PROBES_TIMED in turns with their library calls; smem_limit against
-    # one SM's shared-memory rate at the card's highest SM clock.
+    # PROBES_TIMED in turns with their library calls (smem_limit's bound
+    # one SM's shared-memory rate at the card's highest SM clock).
     turns = probe_turns(torch, probes)
-    sm_mhz = float(nvidia_smi('clocks.max.sm', units=False))
     shape, boxes = probe_boxes()['probe12']
     x = torch.zeros(shape, device=dev)
     off, ln = boxes[5]
-    t0 = time.perf_counter()
-    for _ in range(1000):
-        probes.smem_checksum(optin)
-    check_ms = (time.perf_counter() - t0)
+    xv = torch.randn(smem_rows(optin), device=dev, generator=g)
     rows = (y0.clamp(0, xs.shape[2] - 12)[:, None]
             + torch.arange(12, device=dev)).reshape(-1)
 
@@ -2719,13 +2803,15 @@ def phase_probes(torch, launches):
              'scripts/hw_probe_ztile.py:95', 'scripts/hw_probe_ztile.py:134',
              'scripts/hw_probe_ztile.py:174'])),
         ('probe_smem_limit', 'scripts/hw_probe_ztile.py:209', 'smem_limit',
-         lambda: probes.smem_limit(optin), None,
-         (None, 'none: no tensor input; the function is the card\'s '
-                'shared-memory opt-in'), smem_bound(optin, sm_mhz), 0.0,
-         {'optin_bytes': optin, 'sm_clock_mhz': sm_mhz,
-          'largest_launched': max(b for b, _, ok in table if ok),
-          'refused': {str(b): e for b, e, _ in table if e},
-          'plain_is': 'smem_checksum on the host'}),
+         None, lambda: probes.smem_limit_plain(xv),
+         (None, 'x[0].add_(1.0)'),
+         {k: turns['smem_limit'][''][k] for k in ('bound_ms', 'bound_by')},
+         0.0, in_turns('smem_limit', optin_bytes=optin,
+                       largest_launched=max(b for b, _, e, _, ok in table
+                                            if ok and not e),
+                       refused={str(b): e for b, _, e, _, _ in table if e},
+                       plain_is='smem_limit_plain',
+                       plan_ms=sum_station_plans['smem_limit'])),
         ('probe_smem_sum', 'scripts/hw_bisect_zp256.py:49', 'smem_sum',
          None, lambda: probes.smem_sum_plain(f, chx, plane),
          (None, f'f[:{chx}, {plane}].sum(0)'),
@@ -2755,8 +2841,7 @@ def phase_probes(torch, launches):
     )
     entries = []
     for name, replaces, key, fn, plain, lib, work, err, extra in timed:
-        pms = check_ms if plain is None else _time_steps(torch, plain,
-                                                          per=1)
+        pms = _time_steps(torch, plain, per=1)
         if fn is None:
             ms, lib_ms = (turns[key][''][k] for k in ('ms', 'library_ms'))
         else:
@@ -2765,6 +2850,7 @@ def phase_probes(torch, launches):
                 torch, lib[0], per=1)
         b = work if isinstance(work, dict) else bound(*work)
         entries.append({'name': name, 'route': 'cuda', 'source': PROBE_SRC,
+                        'cuda_kernel': PROBE_KERNELS.get(key, key),
                         'replaces': replaces, 'launches': launches[key],
                         'probe_launches': n[key], 'max_abs_err': err,
                         'ms': ms, 'plain_ms': pms, **b,

@@ -28,13 +28,24 @@
 //       sub-box's own elements get +1 (the others go back as they came;
 //       boxes of one launch never overlap).  Offsets along the other
 //       dims need no alignment.
-//   smem_limit   <- hw_probe_ztile.py: probe_vmem (209).  Mosaic's
-//       question was the scoped-VMEM limit; the card's is the dynamic
-//       shared memory a block may opt in to (232 448 bytes on an H100).
-//       A kernel fills N bytes of it and sums it back; the host sets
+//   smem_limit   <- hw_probe_ztile.py: probe_vmem (209).  The probe
+//       declares a (rows, 512) fp32 VMEM scratch of a given size, copies
+//       x's first 8 rows into it with make_async_copy and a DMA
+//       semaphore, adds 1 to its row 0 and copies the 8 rows back onto
+//       x (in place): x[0] += 1 through on-chip scratch of that size.
+//       Mosaic's question was the scoped-VMEM limit; the card's is the
+//       dynamic shared memory a block may opt in to (232 448 bytes on an
+//       H100).  ``smem_stage`` declares N bytes of it and stages the 8
+//       rows (16 KB) through the buffer's top with 1-D bulk async copies
+//       (cp.async.bulk) that complete on mbarriers at the buffer's
+//       start, so a size the card admitted but did not back faults; the
+//       block's 128 threads add 1 to row 0 (a float4 each), fence the
+//       writes to the async proxy, and the rows go back by bulk copies
+//       (one of 16 KB, or one a row issued by eight threads).  No static
+//       shared memory: it would count toward the opt-in.  The host sets
 //       cudaFuncAttributeMaxDynamicSharedMemorySize to N first and
 //       returns the launch's cudaGetLastError, so a size beyond the
-//       limit reads as the card's refusal.
+//       limit reads as the card's refusal, with x untouched.
 //   smem_sum     <- hw_bisect_zp256.py fbuf5d (49): the sum over
 //       chx stations of one plane of a (nx, NF, ty, Zp) array, which the
 //       Pallas probe copied whole into a 5-D VMEM buffer.  Here only the
@@ -70,7 +81,9 @@
 // once (tile_copy 8 B per element of the box, dyn_slice 8 B per element
 // of the slice, smem_sum the plane's chx·ty·Zp floats in and ty·Zp out,
 // station_solve 200 B a point); none does enough arithmetic to be bound
-// by it.  smem_limit moves its N bytes within one SM's shared memory.  The
+// by it.  smem_limit moves 2 × 16 KB of device memory whatever N is, so
+// one SM's shared-memory traffic bounds it (the staged rows written and
+// read, row 0 read and written).  The
 // 128³ bisection (hw_bisect_lr128.py) needs no probe here: K3 and K4
 // run at 128³ in chip_smoke.py's phase 3b, each alone.
 #include <cuda.h>
@@ -264,16 +277,85 @@ EncodeTiled encode_tiled() {
 }
 
 // ---------------------------------------------------------------------
-// smem_limit: fill and sum N bytes of dynamic shared memory.
+// smem_limit: x[0] += 1 through staged rows at the top of N bytes of
+// dynamic shared memory.
 // ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256) smem_fill(unsigned* out, int n) {
-  extern __shared__ unsigned words[];
-  for (int i = threadIdx.x; i < n; i += 256) words[i] = i * 2654435761u;
+constexpr int kStageThreads = 128;   // a warpgroup: one float4 of row 0 each
+constexpr int kStageRows = 8;        // the probe's staged rows of x
+constexpr int kStageBytes = kStageRows * 512 * 4;
+// Returned by the C entry when the kernel was built with static shared
+// memory (it would count toward the opt-in the probe measures).
+constexpr int kStaticSmem = 2000;
+
+// Thread 0: a 1-D bulk copy of ``bytes`` (16-byte aligned, a multiple of
+// 16) from global ``src`` to shared ``dst``, completing on mbarrier
+// ``mb``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t mb) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mb),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes),
+      "r"(mb)
+      : "memory");
+}
+
+// Thread 0: the bulk copy back, shared ``src`` to global ``dst``, in the
+// open bulk group.
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          static_cast<uint64_t>(__cvta_generic_to_global(dst))),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// The buffer holds ``pieces`` mbarriers at its start and the 8 staged
+// rows at byte ``offset`` (128-aligned, the buffer's top 16 KB).  Piece
+// p (1: all 16 KB; 8: row p) is thread p's: it inits mbarrier p, issues
+// the piece's bulk load onto it and, after the add, its bulk store, so
+// the pieces travel in parallel.  Every thread waits for piece 0 (it
+// holds row 0), adds 1 to its float4 of row 0, fences the generic-proxy
+// writes to the async proxy and meets the others; thread p then waits
+// for its piece (rows 1-7 were written and are read by the async proxy
+// alone: their mbarrier orders them), stores it and waits for the store
+// before the block ends.
+__global__ void __launch_bounds__(kStageThreads)
+smem_stage(float* x, int offset, int pieces) {
+  extern __shared__ __align__(16) unsigned char buf[];
+  const int p = threadIdx.x;
+  const uint32_t bars = smem_u32(buf);
+  const uint32_t bytes = kStageBytes / pieces;
+  const uint32_t bar = bars + 8 * p, rows = bars + offset + p * bytes;
+  float* const piece = x + p * (bytes / 4);
+  if (p < pieces) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  unsigned s = 0;
-  for (int i = threadIdx.x; i < n; i += 256) s += words[n - 1 - i];
-  atomicAdd(out, s);
+  if (p < pieces) bulk_load(rows, piece, bytes, bar);
+  mbar_wait(bars, 0);
+  float4* row0 = reinterpret_cast<float4*>(buf + offset);
+  float4 v = row0[threadIdx.x];
+  v.x += 1.0f;
+  v.y += 1.0f;
+  v.z += 1.0f;
+  v.w += 1.0f;
+  row0[threadIdx.x] = v;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (p < pieces) {
+    if (p > 0) mbar_wait(bar, 0);
+    bulk_store(piece, rows, bytes);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -626,17 +708,37 @@ extern "C" int emg3d_probe_tile_copy(void* x, int d0, int d1, int d2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sets the fill kernel's dynamic shared memory limit to ``nbytes``
-// (cudaFuncSetAttribute's error into *attr_err) and launches it with
-// ``nbytes``, whatever the attribute said: returns the launch's
-// cudaGetLastError, cudaSuccess where the card admits the size.
-extern "C" int emg3d_probe_smem_limit(void* out, int nbytes, void* attr_err,
+// x[0] += 1 of a contiguous (rows, 512) fp32 array (rows >= 8, 16-byte
+// aligned), in place, by smem_stage with ``nbytes`` of dynamic shared
+// memory in ``pieces`` (1 or 8) bulk copies each way (ops/probes.py
+// ``smem_plan`` mirrors the layout).  Sets the kernel's dynamic shared
+// memory limit to ``nbytes`` (cudaFuncSetAttribute's error into
+// *attr_err), clears the last error and launches with ``nbytes``
+// whatever the attribute said: returns the launch's cudaGetLastError,
+// cudaSuccess where the card admits the size (a refused launch leaves x
+// as it was).  kStaticSmem if the kernel holds static shared memory.
+extern "C" int emg3d_probe_smem_limit(void* x, int rows, int nbytes,
+                                      int pieces, void* attr_err,
                                       void* stream) {
+  static int static_bytes = -1;
+  if (static_bytes < 0) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, smem_stage);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    static_bytes = static_cast<int>(a.sharedSizeBytes);
+  }
+  if (static_bytes != 0) return kStaticSmem;
+  const int offset = (nbytes - kStageBytes) & ~127;
+  if (rows < kStageRows || (pieces != 1 && pieces != kStageRows) ||
+      nbytes < kStageBytes || offset < 8 * pieces ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   *static_cast<int*>(attr_err) = static_cast<int>(cudaFuncSetAttribute(
-      smem_fill, cudaFuncAttributeMaxDynamicSharedMemorySize, nbytes));
+      smem_stage, cudaFuncAttributeMaxDynamicSharedMemorySize, nbytes));
   cudaGetLastError();
-  smem_fill<<<1, 256, nbytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(out), nbytes / 4);
+  smem_stage<<<1, kStageThreads, nbytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(x), offset, pieces);
   return static_cast<int>(cudaGetLastError());
 }
 

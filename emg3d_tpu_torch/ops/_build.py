@@ -55,7 +55,7 @@ ARGTYPES = {**_SOLVE, **{k + C64: v for k, v in _SOLVE.items()},
 # The same for the probe library (csrc/probes.cu).
 PROBE_ARGTYPES = {
     'emg3d_probe_tile_copy': [_P] + [_I] * 18 + [_P],
-    'emg3d_probe_smem_limit': [_P, _I, _P, _P],
+    'emg3d_probe_smem_limit': [_P] + [_I] * 3 + [_P] * 2,
     'emg3d_probe_smem_optin': [_P],
     'emg3d_probe_smem_sum': [_P] * 2 + [_I] * 10 + [_P],
     'emg3d_probe_tile_roll': [_P] * 2 + [_I] * 4 + [_P],

@@ -4,13 +4,15 @@ The JAX package's scripts/hw_probe_ztile.py and hw_bisect_zp256.py are
 Pallas kernels that probed which on-chip copies, layouts and scratch
 sizes Mosaic lowers.  ``csrc/probes.cu`` does the same work with the
 card's own means (the TMA and mbarriers for ``make_async_copy``, in
-``tile_copy`` and ``smem_sum``, dynamic shared memory past 48 KB, a
+``tile_copy`` and ``smem_sum``, bulk async copies on mbarriers through
+dynamic shared memory up to the card's opt-in in ``smem_limit``, a
 rolled gather for ``pltpu.roll``, cp.async for dynamic slices, 16-byte
 streaming loads of four points a thread for the station solve); no
-solve path runs them.  The launch plans (``tile_plan``, ``sum_plan``, ``station_plan``)
-are plain Python, so the CPU tests walk them.  Each wrapper
-takes its plain version for a CPU tensor and launches its kernel (or
-raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
+solve path runs them.  The launch plans (``tile_plan``, ``smem_plan``,
+``sum_plan``, ``station_plan``) are plain Python, so the CPU tests walk
+them.  Each wrapper takes its plain version for a CPU tensor (but
+``smem_limit``, which asks the card a question) and launches its kernel
+(or raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
 ``chip_smoke.py``'s probe phase holds each kernel against its plain
 version at the shapes of the Pallas probes.
 """
@@ -20,9 +22,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ['tile_copy', 'tile_copy_plain', 'tile_box', 'tile_span',
-           'tile_plan', 'TilePlan', 'smem_limit',
-           'smem_checksum', 'smem_optin', 'smem_sum', 'smem_sum_plain',
-           'sum_plan', 'SumPlan', 'tile_roll', 'dyn_slice',
+           'tile_plan', 'TilePlan', 'smem_limit', 'smem_limit_plain',
+           'smem_plan', 'SmemPlan', 'smem_optin', 'smem_sum',
+           'smem_sum_plain', 'sum_plan', 'SumPlan', 'tile_roll', 'dyn_slice',
            'dyn_slice_plain', 'station_solve', 'station_solve_plain',
            'station_plan', 'StationPlan', 'LAUNCHES', 'reset_launches']
 
@@ -36,6 +38,17 @@ LAUNCHES = {'tile_copy': 0, 'smem_limit': 0, 'smem_sum': 0,
 TILE_BYTES = 16 * 1024
 TILE_STAGES = 3
 TILE_BLOCKS_PER_SM = 2
+# smem_limit's staged rows of x (each 512 floats, 2048 B) and its
+# threads (csrc/probes.cu kStageRows, kStageThreads: one float4 of row
+# 0 each); the bulk copies each way by default: the faster of 1 and 8 in
+# the card's table (chip_smoke.py phase 14, ``probe_plans``).
+SMEM_ROWS = 8
+SMEM_WIDTH = 512
+SMEM_STAGED = SMEM_ROWS * SMEM_WIDTH * 4
+SMEM_PIECES = 1
+# smem_limit's C entry's answer when its kernel holds static shared
+# memory (csrc/probes.cu kStaticSmem).
+SMEM_STATIC_ERR = 2000
 # smem_sum's plan: the bytes of one box at most, the stages of a block's
 # ring, and its threads (csrc/probes.cu kSumThreads: one float4 of a
 # box's outputs each).  TMA takes at most 256 stations in one box.
@@ -171,32 +184,66 @@ def tile_copy_plain(x, offsets, lengths):
     return x
 
 
-def smem_limit(nbytes, device='cuda'):
-    """Launch a kernel that fills and sums ``nbytes`` of dynamic shared
-    memory, after cudaFuncSetAttribute to ``nbytes``.  Returns
-    ``(launch_error, attribute_error, out)``: errors as cudaError_t (0
-    where the card took the size) and the kernel's int32 sum (None where
-    the launch was refused), whose low 32 bits are held against
-    :func:`smem_checksum`.  Card only: the question is the card's."""
-    dev = torch.device(device)
-    if dev.type != 'cuda':
-        raise ValueError("smem_limit probes a CUDA card's shared memory")
-    out = torch.zeros(1, dtype=torch.int32, device=dev)
+class SmemPlan(NamedTuple):
+    """smem_limit's launch: the bulk copies each way (1: all 16 KB; 8:
+    a row each, each on its own mbarrier), the staged rows' byte offset
+    in the dynamic buffer and the mbarriers' bytes at its start."""
+    pieces: int
+    offset: int
+    bars: int
+
+
+def smem_plan(nbytes, pieces=SMEM_PIECES):
+    """The plan for ``nbytes`` of dynamic shared memory: the staged rows
+    at the buffer's top 16 KB, 128-byte aligned (csrc/probes.cu
+    ``smem_stage``), ``pieces`` mbarriers of 8 bytes below them."""
+    if pieces not in (1, SMEM_ROWS):
+        raise ValueError(f"smem_plan: pieces 1 or {SMEM_ROWS}, got {pieces}")
+    offset = (nbytes - SMEM_STAGED) & ~127
+    if nbytes < SMEM_STAGED or offset < 8 * pieces:
+        raise ValueError(f"smem_plan: {nbytes} B cannot hold the "
+                         f"{SMEM_STAGED} B of staged rows above {pieces} "
+                         f"mbarrier(s)")
+    return SmemPlan(pieces, offset, 8 * pieces)
+
+
+def smem_limit(x, nbytes, _plan=None):
+    """``hw_probe_ztile``'s probe_vmem: x[0] += 1 in place through a
+    block of ``nbytes`` of dynamic shared memory (the probe's declared
+    VMEM scratch), after cudaFuncSetAttribute to ``nbytes``.  ``x`` a
+    contiguous (rows, 512) float32 tensor on the card, rows >= 8,
+    16-byte aligned; its first 8 rows are staged in and out by bulk
+    async copies (:func:`smem_plan`; ``_plan`` forces another's
+    pieces).
+    Returns ``(launch_error, attribute_error, x)``, errors as
+    cudaError_t (0 where the card took the size; a refused launch
+    leaves x as it was).  Card only: the question is the card's; its
+    plain version is :func:`smem_limit_plain`."""
+    _check(x, 2, 'smem_limit')
+    if x.shape[0] < SMEM_ROWS or x.shape[1] != SMEM_WIDTH or \
+            x.data_ptr() % 16:
+        raise ValueError(f"smem_limit: no kernel for {tuple(x.shape)} "
+                         f"(rows >= {SMEM_ROWS}, {SMEM_WIDTH} wide, "
+                         f"16-byte aligned)")
+    plan = smem_plan(nbytes, _plan.pieces if _plan else SMEM_PIECES)
+    if x.device.type != 'cuda':
+        raise ValueError("smem_limit probes a CUDA card's shared memory: "
+                         "x on the card")
     attr = ctypes.c_int(-1)
     err = _lib().emg3d_probe_smem_limit(
-        _ptr(out), int(nbytes), ctypes.c_void_p(ctypes.addressof(attr)),
-        _stream(out))
-    if err != 0:
-        return err, attr.value, None
-    LAUNCHES['smem_limit'] += 1
-    return 0, attr.value, out
+        _ptr(x), x.shape[0], int(nbytes), plan.pieces,
+        ctypes.c_void_p(ctypes.addressof(attr)), _stream(x))
+    if err == SMEM_STATIC_ERR:
+        raise RuntimeError("smem_limit: smem_stage was built with static "
+                           "shared memory")
+    if err == 0:
+        LAUNCHES['smem_limit'] += 1
+    return err, attr.value, x
 
 
-def smem_checksum(nbytes):
-    """The plain version of :func:`smem_limit`'s sum: word i holds
-    i·2654435761 mod 2³², summed mod 2³²."""
-    n = nbytes // 4
-    return (2654435761 * (n * (n - 1) // 2)) & 0xffffffff
+def smem_limit_plain(x):
+    x[0] += 1.0
+    return x
 
 
 def smem_optin(device='cuda'):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The probes tile_roll, tile_copy, smem_sum and station_solve timed in
-turns with their library calls, for this checkout's kernels and, beside
-them, another checkout's.
+"""The probes tile_roll, tile_copy, smem_sum, station_solve and
+smem_limit timed in turns with their library calls, for this checkout's
+kernels and, beside them, another checkout's.
 
     python3 probe_turns.py [--against DIR]
 
@@ -12,10 +12,13 @@ DIR's: another checkout unpacked there (``git archive REV | tar -x -C
 build/REV``), whose probe kernels build from DIR's sources into
 DIR/build.  A large shape that DIR's wrapper or kernel refuses (a
 ValueError, or the RuntimeError of a refused launch) is recorded as
-refused, with its message.  Both in one process on one card, DIR's
-first.  Each reading carries the launch floor read in its call.  Prints
-the card's name and power limit, then one JSON line ``{"against": ...,
-"this": ...}``.  Needs one card and no network.
+refused, with its message.  DIR's ``smem_limit`` may be the one from
+before it computed probe_vmem's function (``smem_limit(nbytes)``, a fill
+and sum of N bytes): it is then timed alone, as a different function.
+Both in one process on one card, DIR's first.  Each reading carries the
+launch floor read in its call.  Prints the card's name and power limit,
+then one JSON line ``{"against": ..., "this": ...}``.  Needs one card
+and no network.
 """
 import argparse
 import importlib
@@ -70,8 +73,13 @@ def main(argv=None):
                 out.setdefault('refused', {})[key + '_large'] = str(err)
                 # A refused cudaFuncSetAttribute stays the library's last
                 # error (its own static cudart): clear it with a call
-                # that reads it (smem_limit) before DIR's next launch.
-                other.smem_limit(1024)
+                # that reads it (smem_limit's C entry, in either
+                # signature) before DIR's next launch.
+                if hasattr(other, 'smem_limit_plain'):
+                    other.smem_limit(torch.zeros(chip_smoke.smem_rows(0),
+                                                 device=dev), 48 * 1024)
+                else:
+                    other.smem_limit(1024)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
         out['against'] = chip_smoke.probe_turns(torch, other, large)

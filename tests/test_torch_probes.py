@@ -3,13 +3,16 @@
 The kernels of ``csrc/probes.cu`` run on the card only (chip_smoke.py,
 phase 14, holds each against these plain versions); here the wrappers
 take their plain versions for CPU tensors, and the plain versions are
-held to what the Pallas probes compute: a copy +1 of a sub-box, a sum
-over stations, ``torch.roll``, a clamped dynamic slice and the 5×5
+held to what the Pallas probes compute: a copy +1 of a sub-box, x[0]
++= 1 (``smem_limit``'s plain version; its wrapper refuses a CPU tensor:
+whether the card admits a size only the card says), a sum over
+stations, ``torch.roll``, a clamped dynamic slice and the 5×5
 complex-symmetric LDLᵀ substitution of the JAX package's
 ``blocksolve.ldl_solve_factored``.  The kernels' plans are held here
 too: ``tile_copy``'s boxes walked as its persistent blocks take them
 (every element of the sub-box gets +1 once, nothing else, no box past
 the map's z end, the ring within the card's shared memory),
+``smem_limit``'s layout of its shared-memory buffer (``smem_plan``),
 ``tile_roll``'s index map, evaluated in torch, against ``torch.roll``,
 ``smem_sum``'s boxes walked the same way (every output stored once, the
 stations summed in order: bitwise the plain sum) and
@@ -28,6 +31,7 @@ torch.set_num_threads(1)
 
 SMEM_OPTIN = 232448      # the H100's opt-in shared memory per block
 SMEM_SM = 228 * 1024     # and per SM (1 KB of it reserved per block)
+SMEM_STAGED = 8 * 512 * 4    # probe_vmem's 8 staged rows of 512 floats
 
 
 def test_tile_copy_boxes():
@@ -171,13 +175,70 @@ def test_tile_copy_entry_signature():
     assert names[-3:] == ['stages', 'blocks', 'stream']
 
 
-def test_smem_checksum():
-    for nbytes in (4, 1024, 232448):
-        n = nbytes // 4
-        words = (np.arange(n, dtype=np.uint64) * 2654435761) % 2**32
-        assert probes.smem_checksum(nbytes) == int(words.sum() % 2**32)
-    with pytest.raises(ValueError, match='CUDA'):
-        probes.smem_limit(1024, device='cpu')
+def test_smem_limit_plain():
+    """probe_vmem's function: x[0] += 1 in place, the other rows as
+    they came."""
+    x = torch.randn((16, 512), generator=torch.Generator().manual_seed(3))
+    x0 = x.clone()
+    assert probes.smem_limit_plain(x) is x
+    assert torch.equal(x[0], x0[0] + 1.0) and torch.equal(x[1:], x0[1:])
+
+
+def _misaligned():
+    return torch.zeros(8 * 512 + 1)[1:].view(8, 512)
+
+
+@pytest.mark.parametrize('x, nbytes, match', [
+    (lambda: torch.zeros((8, 512)), 48 * 1024, 'CUDA'),
+    (lambda: torch.zeros((7, 512)), 48 * 1024, 'no kernel'),
+    (lambda: torch.zeros((8, 256)), 48 * 1024, 'no kernel'),
+    (_misaligned, 48 * 1024, 'no kernel'),
+    (lambda: torch.zeros((512, 8)).T, 48 * 1024, 'contiguous'),
+    (lambda: torch.zeros((8, 512), dtype=torch.float64), 48 * 1024,
+     'float32'),
+    (lambda: torch.zeros((8, 512)), SMEM_STAGED + 127, 'cannot hold')],
+    ids=['cpu', 'rows', 'width', 'aligned', 'strided', 'dtype', 'nbytes'])
+def test_smem_limit_refusals(x, nbytes, match):
+    """The wrapper raises for what its kernel does not take, never
+    handing it to the card as a launch error; a CPU tensor too (only
+    the card can say whether it admits ``nbytes``)."""
+    with pytest.raises(ValueError, match=match):
+        probes.smem_limit(x(), nbytes)
+
+
+@pytest.mark.parametrize('nbytes', [SMEM_STAGED + 128, 48 * 1024, 50001,
+                                    160 * 1024, SMEM_OPTIN, SMEM_OPTIN + 16])
+@pytest.mark.parametrize('pieces', [1, 8])
+def test_smem_plan(nbytes, pieces):
+    """csrc/probes.cu smem_stage's layout of ``nbytes``: the staged rows
+    128-byte aligned at the buffer's top, the mbarriers below them, and
+    the pieces' bulk copies covering x's first 16 384 bytes once, each
+    16-byte aligned and a multiple of 16 bytes long."""
+    plan = probes.smem_plan(nbytes, pieces)
+    assert plan.pieces == pieces and plan.bars == 8 * pieces
+    assert plan.offset % 128 == 0 and plan.bars <= plan.offset
+    assert plan.offset + SMEM_STAGED <= nbytes < plan.offset + \
+        SMEM_STAGED + 128
+    use = np.zeros(nbytes, dtype=int)
+    use[:plan.bars] += 1
+    src = np.zeros(SMEM_STAGED, dtype=int)
+    size = SMEM_STAGED // pieces
+    for k in range(pieces):
+        assert size % 16 == 0 and (plan.offset + k * size) % 16 == 0
+        use[plan.offset + k * size:plan.offset + (k + 1) * size] += 1
+        src[k * size:(k + 1) * size] += 1
+    assert use.max() == 1 and use[plan.offset:].sum() == SMEM_STAGED
+    assert (src == 1).all()
+
+
+def test_smem_plan_refusals():
+    assert probes.smem_plan(SMEM_STAGED + 128).offset == 128
+    for nbytes in (0, SMEM_STAGED, SMEM_STAGED + 127):
+        with pytest.raises(ValueError, match='cannot hold'):
+            probes.smem_plan(nbytes)
+    with pytest.raises(ValueError, match='pieces'):
+        probes.smem_plan(48 * 1024, 2)
+    assert probes.SMEM_PIECES in (1, 8)
 
 
 def test_smem_sum():
@@ -418,12 +479,15 @@ def test_station_plan_walk(points, per_sm):
 
 
 @pytest.mark.parametrize('entry, tail', [
+    ('emg3d_probe_smem_limit', ['x', 'rows', 'nbytes', 'pieces',
+                                'attr_err', 'stream']),
     ('emg3d_probe_smem_sum', ['bz', 'by', 'bc', 'stages', 'blocks',
                               'stream']),
     ('emg3d_probe_station_solve', ['points', 'vec', 'blocks', 'stream'])])
 def test_probe_entry_signatures(entry, tail):
-    """smem_sum's and station_solve's C entries keep their arguments and
-    add the plan's: the parameters ctypes passes, in order."""
+    """smem_limit's, smem_sum's and station_solve's C entries take their
+    tensors, extents and plan: the parameters ctypes passes, in
+    order."""
     text = _build._sources('probes')[0].read_text()
     sig = re.search(rf'extern "C" int {entry}\((.*?)\)', text,
                     re.S).group(1)
