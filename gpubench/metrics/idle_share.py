@@ -1,0 +1,10 @@
+"""Share of the traced window in which no kernel, copy or fill ran on
+the device: 1 − busy / window, in %, the window from the start of the
+first traced job to the end of the last."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t['window_s'] <= 0:
+        return None
+    return 100.0 * (1.0 - t['busy_s'] / t['window_s'])
