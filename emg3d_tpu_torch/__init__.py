@@ -43,7 +43,7 @@ from .surveys import Survey, Dipole, PointDipole
 from .simulations import Simulation, expand_grid_model
 from .utils import EMArray, Report
 from .time import Fourier
-from . import diff, dtypes, io, optimize, parallel, time
+from . import diff, dtypes, io, optimize, parallel, time, trace
 
 __all__ = [
     'TensorMesh', 'construct_mesh', 'good_mg_cell_nr', 'skin_depth',

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..ops import point_gs, smoothers, stencil, transfers
 from .sharding import VALID_AXES, mesh_sizes
 
@@ -235,7 +236,8 @@ class Space:
         """‖r‖₂ over the whole level, as a float."""
         acc = sum(torch.sum(v.real ** 2 + v.imag ** 2)
                   for v in (self.owned_view(f, c) for c, f in enumerate(r)))
-        return float(torch.sqrt(self.reduce(acc)))
+        with trace.span('sync'):
+            return float(torch.sqrt(self.reduce(acc)))
 
 
 WHOLE = Space()

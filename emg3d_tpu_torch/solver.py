@@ -58,7 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import fields, models, utils
+from . import fields, models, trace, utils
 from .dtypes import BF16, COMPLEX, REAL_OF, precision
 from .ops import dsres, line_gs, point_gs, stencil, transfers
 from .parallel import halo, lines
@@ -441,7 +441,9 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
     the levels of a batched solve.
     """
     def tens(a, dt):
-        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+        t = torch.tensor(np.asarray(a), dtype=dt, device=device)
+        trace.count('copy.h2d_bytes', trace.nbytes((t,)))
+        return t
 
     cplx, real = dtype, REAL_OF[dtype]
 
@@ -524,18 +526,20 @@ def _level_state(lev, mode, storage=None):
     if lev.pstate is None:
         lev.pstate = {}
     if storage not in lev.pstate:
-        dev = lev.arrays[0].device
-        factored = mode in ('factored', 'plain') or (
-            mode is None and point_gs.point_kernel(
-                lev.shape, dev, lev.arrays[0].dtype) == 'factored')
-        if lev.lanes is None:
-            lev.pstate[storage] = point_gs.point_state(
-                lev.arrays, lev.shape, factored=factored, storage=storage)
-        else:
-            lev.pstate[storage] = [
-                point_gs.point_state(_lane_arrays(lev.arrays, b), lev.shape,
-                                     factored=factored)
-                for b in lev.lanes.reps]
+        with trace.span('levels.state'):
+            dev = lev.arrays[0].device
+            factored = mode in ('factored', 'plain') or (
+                mode is None and point_gs.point_kernel(
+                    lev.shape, dev, lev.arrays[0].dtype) == 'factored')
+            if lev.lanes is None:
+                lev.pstate[storage] = point_gs.point_state(
+                    lev.arrays, lev.shape, factored=factored,
+                    storage=storage)
+            else:
+                lev.pstate[storage] = [
+                    point_gs.point_state(_lane_arrays(lev.arrays, b),
+                                         lev.shape, factored=factored)
+                    for b in lev.lanes.reps]
     return lev.pstate[storage]
 
 
@@ -578,35 +582,37 @@ def _line_state(lev, axis, mode=None, storage=None):
     """
     state = lev.lstate.get((axis, storage))
     if state is None:
-        dtype = lev.arrays[0].dtype
-        plain = mode == 'plain'
-        other = next((st for (ax, _), st in lev.lstate.items()
-                      if ax == axis), None)
-        if other is not None:
-            # The stack does not depend on the streams' storage.
-            state = line_gs.line_state(
-                lev.arrays, lev.shape, axis, factors=False, plain=plain,
-                storage=storage, fstorage=other.fstorage,
-                stack=other.factors)
-            lev.lstate[(axis, storage)] = state
-            return state
-        fstorage = BF16 if lev.bf16 and line_gs.factor_bytes(
-            lev.shape, axis, dtype) > FSTACK_BYTES else None
-        nbytes = line_gs.factor_bytes(lev.shape, axis, dtype, fstorage)
-        if lev.lanes is not None:
-            # One stack per frequency group; K3 and K4 take every lane.
-            nbytes *= len(lev.lanes.reps)
-        keep = line_gs.keep_stack(lev.meter, nbytes, lev.arrays[0].device)
-        if lev.lanes is None:
-            state = line_gs.line_state(lev.arrays, lev.shape, axis,
-                                       factors=keep, plain=plain,
-                                       storage=storage, fstorage=fstorage)
-        else:
-            state = line_gs.line_state(_group_arrays(lev), lev.shape, axis,
-                                       factors=keep, plain=plain,
-                                       lanes=lev.lanes.index)
+        with trace.span('levels.state'):
+            state = _new_line_state(lev, axis, mode, storage)
         lev.lstate[(axis, storage)] = state
     return state
+
+
+def _new_line_state(lev, axis, mode, storage):
+    """A new state of :func:`_line_state`."""
+    dtype = lev.arrays[0].dtype
+    plain = mode == 'plain'
+    other = next((st for (ax, _), st in lev.lstate.items()
+                  if ax == axis), None)
+    if other is not None:
+        # The stack does not depend on the streams' storage.
+        return line_gs.line_state(
+            lev.arrays, lev.shape, axis, factors=False, plain=plain,
+            storage=storage, fstorage=other.fstorage, stack=other.factors)
+    fstorage = BF16 if lev.bf16 and line_gs.factor_bytes(
+        lev.shape, axis, dtype) > FSTACK_BYTES else None
+    nbytes = line_gs.factor_bytes(lev.shape, axis, dtype, fstorage)
+    if lev.lanes is not None:
+        # One stack per frequency group; K3 and K4 take every lane.
+        nbytes *= len(lev.lanes.reps)
+    keep = line_gs.keep_stack(lev.meter, nbytes, lev.arrays[0].device)
+    if lev.lanes is None:
+        return line_gs.line_state(lev.arrays, lev.shape, axis, factors=keep,
+                                  plain=plain, storage=storage,
+                                  fstorage=fstorage)
+    return line_gs.line_state(_group_arrays(lev), lev.shape, axis,
+                              factors=keep, plain=plain,
+                              lanes=lev.lanes.index)
 
 
 def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
@@ -631,28 +637,33 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
     if lr == 0:
         state = _level_state(lev, mode, storage)
         if lev.slab is not None:
-            return halo.gauss_seidel_point_sharded(
-                e, s, state, nu, lev.slab, plain=mode == 'plain')
+            with trace.span('smooth.point'):
+                return halo.gauss_seidel_point_sharded(
+                    e, s, state, nu, lev.slab, plain=mode == 'plain')
         gs = point_gs.gauss_seidel_point_plain if mode == 'plain' \
             else point_gs.gauss_seidel_point
         if lev.lanes is None:
-            return gs(e, s, state, nu)
+            with trace.span('smooth.point'):
+                return gs(e, s, state, nu)
         for b, g in enumerate(lev.lanes.group):
-            gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g], nu)
+            with trace.span('smooth.point'):
+                gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g],
+                   nu)
         return e
     for ax in _lr_axes(lr):
         if lev.slab is not None:
             # Lines on this rank's slab (within it, across ranks, or the
             # level gathered: parallel.lines).
-            e = lines.relax(e, s, lev, ax, nu, plain=mode == 'plain',
-                            local_state=lambda ax=ax: _line_state(
-                                lev, ax, mode, storage))
+            with trace.span('smooth.line'):
+                e = lines.relax(e, s, lev, ax, nu, plain=mode == 'plain',
+                                local_state=lambda ax=ax: _line_state(
+                                    lev, ax, mode, storage))
             continue
         state = _line_state(lev, ax, mode, storage)
-        if mode == 'plain':
-            e = line_gs.line_relaxation_plain(e, s, state, nu)
-        else:
-            e = line_gs.line_relaxation(e, s, state, nu)
+        relax = line_gs.line_relaxation_plain if mode == 'plain' \
+            else line_gs.line_relaxation
+        with trace.span('smooth.line'):
+            e = relax(e, s, state, nu)
     return e
 
 
@@ -795,7 +806,13 @@ def _norm_b(rx, ry, rz):
 
 def residual_norms(e, s, arrays):
     """Per-lane ‖s − A e‖₂ of batched fields, as a numpy array."""
-    return _norm_b(*_residual_e(e, s, arrays)).cpu().numpy()
+    return _fetch(_norm_b(*_residual_e(e, s, arrays)))
+
+
+def _fetch(t):
+    """``t`` as a numpy array on the host (one blocking fetch)."""
+    with trace.span('sync'):
+        return t.cpu().numpy()
 
 
 # ======================================================================
@@ -836,17 +853,22 @@ class _SolveContext:
         self.storage = _storage(self.dtype, torch.device(device))
 
         def put(fld):
-            comps = (fld.fx, fld.fy, fld.fz)
-            if sharding is None:
-                return tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
-                                          device=device) for f in comps)
-            # Each rank keeps its slab of the finest level.
-            comps = tuple(torch.tensor(np.asarray(f), dtype=self.dtype)
-                          for f in comps)
-            fine = self.levels(int(var.sc_dir))[0]
-            if fine.slab is not None:
-                comps = fine.slab.cut_field(comps)
-            return tuple(c.to(device) for c in comps)
+            with trace.span('setup.upload'):
+                comps = (fld.fx, fld.fy, fld.fz)
+                if sharding is None:
+                    out = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
+                                             device=device) for f in comps)
+                else:
+                    # Each rank keeps its slab of the finest level.
+                    comps = tuple(torch.tensor(np.asarray(f),
+                                               dtype=self.dtype)
+                                  for f in comps)
+                    fine = self.levels(int(var.sc_dir))[0]
+                    if fine.slab is not None:
+                        comps = fine.slab.cut_field(comps)
+                    out = tuple(c.to(device) for c in comps)
+                trace.count('copy.h2d_bytes', trace.nbytes(out))
+            return out
         self.s = put(sfield)
         self.e = put(efield)
 
@@ -918,31 +940,36 @@ class _SolveContext:
 
     def levels(self, sc_dir):
         if sc_dir not in self._levels:
-            clevel = int(self.var.clevel[int(sc_dir)])
-            if self.sharding is None:
-                levels = build_levels(self.grid, self.vmodel, int(sc_dir),
-                                      clevel, self.device, self.meter,
-                                      self.lanes, self.dtype)
-            else:
-                # Built on the host, then each rank keeps its slabs of the
-                # sharded levels and the replicated levels whole; every
-                # hierarchy nests into one partition of the finest level.
-                levels = halo.shard_levels(
-                    build_levels(self.grid, self.vmodel, int(sc_dir),
-                                 clevel, 'cpu', self.meter, dtype=self.dtype),
-                    self.sharding['mesh'], self._min_planes(), self.device,
-                    self._finest_partition())
-            for lev in levels:
-                # Slabs store in float32 (see _smooth).
-                lev.bf16 = self.storage is not None and lev.slab is None
-            if self._levels:
-                # The finest level is the same in every hierarchy: share
-                # its parameters and line states (no number changes).
-                fine = next(iter(self._levels.values()))[0]
-                levels[0].arrays = fine.arrays
-                levels[0].lstate = fine.lstate
-            self._levels[sc_dir] = levels
+            with trace.span('setup.levels'):
+                self._levels[sc_dir] = self._hierarchy(sc_dir)
         return self._levels[sc_dir]
+
+    def _hierarchy(self, sc_dir):
+        """The level hierarchy of ``sc_dir``, on the solve's device."""
+        clevel = int(self.var.clevel[int(sc_dir)])
+        if self.sharding is None:
+            levels = build_levels(self.grid, self.vmodel, int(sc_dir),
+                                  clevel, self.device, self.meter,
+                                  self.lanes, self.dtype)
+        else:
+            # Built on the host, then each rank keeps its slabs of the
+            # sharded levels and the replicated levels whole; every
+            # hierarchy nests into one partition of the finest level.
+            levels = halo.shard_levels(
+                build_levels(self.grid, self.vmodel, int(sc_dir),
+                             clevel, 'cpu', self.meter, dtype=self.dtype),
+                self.sharding['mesh'], self._min_planes(), self.device,
+                self._finest_partition())
+        for lev in levels:
+            # Slabs store in float32 (see _smooth).
+            lev.bf16 = self.storage is not None and lev.slab is None
+        if self._levels:
+            # The finest level is the same in every hierarchy: share
+            # its parameters and line states (no number changes).
+            fine = next(iter(self._levels.values()))[0]
+            levels[0].arrays = fine.arrays
+            levels[0].lstate = fine.lstate
+        return levels
 
 
 def _ds_wanted(e, var):
@@ -996,7 +1023,7 @@ def multigrid(ctx, var, e=None, s=None, track=True):
     spdt = ctx.storage if standalone else None
     corr = spdt is not None and var.nu_init == 0
     r = None        # the correction form's residual, once evaluated
-    while True:
+    for _ in trace.each('mg.cycle'):
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         levels = ctx.levels(int(var.sc_dir))
@@ -1218,7 +1245,8 @@ def _dot(a, b, sp):
     d = torch.stack([torch.vdot(sp.owned_view(x, c).reshape(-1),
                                 sp.owned_view(y, c).reshape(-1))
                      for c, (x, y) in enumerate(zip(a, b))])
-    return sum(sp.reduce(d).tolist(), 0j)
+    with trace.span('sync'):
+        return sum(sp.reduce(d).tolist(), 0j)
 
 
 def _axpy(alpha, x, y):
@@ -1412,7 +1440,7 @@ def _bicgstab(matvec, precond, b, x, atol, maxiter, callback, sp):
     rho_prev, alpha, omega = 1.0, 1.0, 1.0
     v = p = None
 
-    for it in range(maxiter):
+    for it in trace.each('krylov.iter', range(maxiter)):
         if sp.norm(r) <= atol:
             return x, 0
         rho = _dot(rtilde, r, sp)
@@ -1575,7 +1603,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, sp, m=None,
     cmask = np.zeros(k)
     cu_next = 0
 
-    for _cycle in range(maxiter):
+    for _cycle in trace.each('krylov.iter', range(maxiter)):
         beta = rn
         _gc_append(vstack, 0, r, 1.0 / beta)
         v_cur = tuple(c * (1.0 / beta) for c in r)
@@ -1596,7 +1624,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, sp, m=None,
             w, pk = _gc_ortho(cstack, vstack, cmask_d,
                               torch.tensor(vmask, dtype=rdt, device=dev), w,
                               sp)
-            pk = pk.cpu().numpy()                     # ONE fetch
+            pk = _fetch(pk)                           # ONE fetch
             cd = pk[:k] + 1j * pk[k:2 * k]
             vd = pk[2 * k:2 * k + m + 1] + 1j * pk[2 * k + m + 1:-1]
             wn = float(pk[-1])
@@ -1630,7 +1658,7 @@ def _gcrotmk(matvec, precond, b, x, atol, maxiter, callback, sp, m=None,
         cmask[cu_next] = 1.0
         cu_next = (cu_next + 1) % k
 
-        rn2, n2 = diag.cpu().numpy()                 # one fetch per cycle
+        rn2, n2 = _fetch(diag)                       # one fetch per cycle
         rn = float(np.sqrt(max(rn2, 0.0)))
         callback(x, l2=rn)
         if not np.isfinite(rn) or n2 <= 0:
@@ -1647,7 +1675,7 @@ def _cgs(matvec, precond, b, x, atol, maxiter, callback, sp):
     rho_prev = 1.0
     u = p = q = None
 
-    for it in range(maxiter):
+    for it in trace.each('krylov.iter', range(maxiter)):
         if sp.norm(r) <= atol:
             return x, 0
         rho = _dot(rtilde, r, sp)
@@ -1733,38 +1761,71 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
     info_dict : dict (if return_info=True)
     """
     device = _resolve_device(device)
+    with _profiler(kwargs.pop('profile', None), device), \
+            trace.span('solve', new_solve=True):
+        with trace.span('solve.setup'):
+            var, ctx, done = _solve_setup(
+                grid, model, sfield, efield, device, kwargs, verb=verb,
+                cycle=cycle, sslsolver=sslsolver,
+                linerelaxation=linerelaxation, semicoarsening=semicoarsening)
+        if ctx is None:
+            return done
+        # krylov() catches _ConvergenceError itself, and standalone
+        # multigrid never raises it.
+        if var.sslsolver:
+            krylov(ctx, var)
+        else:
+            multigrid(ctx, var)
+
+        var.runtime_at_cycle = np.r_[var.runtime_at_cycle, var.time.elapsed]
+        var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
+
+        if var.verb < 0:
+            var.one_liner(var.l2, True)
+        elif var.verb > 1:
+            var.cprint(f"\n:: emg3d_tpu_torch END   :: {var.time.now} :: "
+                       f"runtime = {var.time.runtime}\n", 2)
+
+        with trace.span('solve.result'):
+            return _hand_back(ctx, var, sfield, efield)
+
+
+def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
+    """Everything :func:`solve` does before its first cycle: ``(var,
+    ctx, None)``, or ``(var, None, what solve returns)`` where nothing
+    is left to solve (a converged warm start, a zero source).  The
+    context holds the source and start fields on the device and the
+    first level hierarchy."""
     mode = _pop_mode(kwargs)
     sharding = kwargs.pop('sharding', None)
     if sharding is not None:
         sharding = _normalize_sharding(sharding)
-    profile = kwargs.pop('profile', None)
     # Prebuilt volume parameters η/ζ (the differentiable solve passes
     # them; ``model`` is then unused and may be None).
     vmodel_inp = kwargs.pop('_vmodel', None)
-    var = MGParameters(
-        verb=verb, cycle=cycle, sslsolver=sslsolver,
-        linerelaxation=linerelaxation, semicoarsening=semicoarsening,
-        shape_cells=tuple(grid.shape_cells), **kwargs)
+    var = MGParameters(shape_cells=tuple(grid.shape_cells), **opts, **kwargs)
 
-    do_return = True
+    do_return = efield is None
 
     # Compute reference error for tolerance.
-    var.l2_refe = float(sfield.norm())
+    with trace.span('setup.norm'):
+        var.l2_refe = float(sfield.norm())
     var.cprint(f"\n:: emg3d_tpu_torch START :: {var.time.now} :: "
                f"v{__import__('emg3d_tpu_torch').__version__}\n", 2)
     var.cprint(var, 2)
 
-    vmodel = vmodel_inp if vmodel_inp is not None \
-        else models.VolumeModel(grid, model, sfield)
+    with trace.span('setup.volume_model'):
+        vmodel = vmodel_inp if vmodel_inp is not None \
+            else models.VolumeModel(grid, model, sfield)
     src_dtype = np.asarray(sfield.fx).dtype
     # The x64 switch is read here, once: the solve keeps this precision.
     dtype = precision(src_dtype)[1]
 
     if efield is None:
-        efield = fields.Field.zeros(grid, frequency=sfield._frequency,
-                                    dtype=src_dtype)
+        with trace.span('setup.zero_field'):
+            efield = fields.Field.zeros(grid, frequency=sfield._frequency,
+                                        dtype=src_dtype)
     else:
-        do_return = False
         var.do_return = False
         # Warm start: if converged already, return immediately.
         ctx0 = _SolveContext(grid, vmodel, sfield, efield, var, device,
@@ -1775,53 +1836,40 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
             var.exit_message = "CONVERGED"
             var.cprint("   > NOTHING DONE (provided efield already "
                        "converged)\n", 2)
-            if var.return_info:
-                return _info_dict(var)
-            return None
+            return var, None, _info_dict(var) if var.return_info else None
 
     # Zero source field => zero efield.
     if var.l2_refe == 0:
         var.exit_message = "CONVERGED"
         var.cprint("   > RETURN ZERO E-FIELD (provided sfield is zero)\n",
                    2)
-        z = fields.Field.zeros(grid, frequency=sfield._frequency,
-                               dtype=src_dtype)
+        with trace.span('setup.zero_field'):
+            z = fields.Field.zeros(grid, frequency=sfield._frequency,
+                                   dtype=src_dtype)
         if not do_return:
             for a, b in zip((efield.fx, efield.fy, efield.fz),
                             (z.fx, z.fy, z.fz)):
                 np.asarray(a)[...] = b
-            if var.return_info:
-                return _info_dict(var)
-            return None
-        if var.return_info:
-            return z, _info_dict(var)
-        return z
+            return var, None, _info_dict(var) if var.return_info else None
+        return var, None, (z, _info_dict(var)) if var.return_info else z
 
     ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode,
                         sharding, dtype)
-    # krylov() catches _ConvergenceError itself, and standalone multigrid
-    # never raises it.
-    with _profiler(profile, device):
-        if var.sslsolver:
-            krylov(ctx, var)
-        else:
-            multigrid(ctx, var)
+    # The first hierarchy, which the cycles would build first.
+    ctx.levels(int(var.sc_dir))
+    return var, ctx, None
 
-    var.runtime_at_cycle = np.r_[var.runtime_at_cycle, var.time.elapsed]
-    var.error_at_cycle = np.r_[var.error_at_cycle, var.l2]
 
-    if var.verb < 0:
-        var.one_liner(var.l2, True)
-    elif var.verb > 1:
-        var.cprint(f"\n:: emg3d_tpu_torch END   :: {var.time.now} :: "
-                   f"runtime = {var.time.runtime}\n", 2)
-
+def _hand_back(ctx, var, sfield, efield):
+    """What :func:`solve` returns once its cycles are done: the solution
+    fetched from the device, as a new Field or into ``efield`` (the warm
+    start, updated in place), with the info dict if asked for."""
     comps = _result(ctx.field(), None if ctx.e_lo is None
-                    else ctx.field(ctx.e_lo), src_dtype)
+                    else ctx.field(ctx.e_lo), np.asarray(sfield.fx).dtype)
     out = fields.Field(comps[0], comps[1], comps[2],
                        frequency=sfield._frequency)
 
-    if not do_return:
+    if efield is not None:
         # In-place update of the provided field (reference semantics);
         # if its buffers are read-only, rebind.
         for name in ('fx', 'fy', 'fz'):
@@ -1848,9 +1896,11 @@ def _result(comps, lows, src_dtype):
     (complex64 for a complex128 source with x64 off), the real part for
     a real ``src_dtype`` (a Laplace-domain solve runs promoted to
     complex, with an imaginary part that stays exactly zero)."""
-    comps = [t.cpu().numpy() for t in comps]
+    trace.count('copy.d2h_bytes', trace.nbytes(comps))
+    comps = [_fetch(t) for t in comps]
     if lows is not None:
-        return [hi.astype(np.complex128) + lo.cpu().numpy()
+        trace.count('copy.d2h_bytes', trace.nbytes(lows))
+        return [hi.astype(np.complex128) + _fetch(lo)
                 for hi, lo in zip(comps, lows)]
     if not np.iscomplexobj(np.zeros(0, src_dtype)):
         comps = [c.real for c in comps]
@@ -1946,50 +1996,24 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
     if not sfields:
         raise ValueError("Provide at least one source field.")
     device = _resolve_device(device)
-    mode = _pop_mode(kwargs)
-    sslsolver = kwargs.pop('sslsolver', False)
-    var = MGParameters(
-        verb=verb, cycle=cycle, sslsolver=sslsolver,
-        linerelaxation=linerelaxation, semicoarsening=semicoarsening,
-        shape_cells=tuple(grid.shape_cells), **kwargs)
-    if var.sslsolver and var.sslsolver not in ('bicgstab', 'cgs'):
-        raise NotImplementedError(
-            "Batched Krylov implements bicgstab and cgs only.")
+    with trace.span('solve', new_solve=True):
+        with trace.span('solve.setup'):
+            var, ctx, refe = _batched_setup(
+                grid, model, sfields, device, kwargs, verb=verb, cycle=cycle,
+                linerelaxation=linerelaxation, semicoarsening=semicoarsening)
 
-    # One VolumeModel per frequency; a per-lane list stacks η.
-    lane_freqs = [float(sf._frequency) for sf in sfields]
-    by_freq = {}
-    for sf, f in zip(sfields, lane_freqs):
-        if f not in by_freq:
-            by_freq[f] = models.VolumeModel(grid, model, sf)
-    vmodel = by_freq[lane_freqs[0]] if len(by_freq) == 1 \
-        else [by_freq[f] for f in lane_freqs]
-    lanes = Lanes(lane_freqs, device)
+        if var.sslsolver:
+            e, l2_last = _krylov_batched(ctx, var, refe)
+        else:
+            e, l2_last = _multigrid_batched(ctx, var, refe)
 
-    # The lanes stack in one dtype (numpy promotes them, as the JAX
-    # package's np.stack does); the x64 switch is read here, once.
-    src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
-                                 for sf in sfields))
-    cdtype = precision(src_dtype)[1]
-    s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
-                                     for sf in sfields]), dtype=cdtype,
-                           device=device)
-              for name in ('fx', 'fy', 'fz'))
-    ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
-
-    refe = np.array([float(sf.norm()) for sf in sfields])
-    var.l2_refe = float(refe.max())
-    refe = np.where(refe == 0, 1.0, refe)
-
-    if var.sslsolver:
-        e, l2_last = _krylov_batched(ctx, var, refe)
-    else:
-        e, l2_last = _multigrid_batched(ctx, var, refe)
-
-    comps = _result(e, ctx.e_lo, src_dtype)
-    out = [fields.Field(*(np.ascontiguousarray(c[b]) for c in comps),
-                        frequency=sf._frequency)
-           for b, sf in enumerate(sfields)]
+        with trace.span('solve.result'):
+            src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
+                                         for sf in sfields))
+            comps = _result(e, ctx.e_lo, src_dtype)
+            out = [fields.Field(*(np.ascontiguousarray(c[b]) for c in comps),
+                                frequency=sf._frequency)
+                   for b, sf in enumerate(sfields)]
     info = {
         'exit': 0 if var.exit_message == 'CONVERGED' else 1,
         'exit_message': var.exit_message,
@@ -2007,6 +2031,52 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
     return out, info
 
 
+def _batched_setup(grid, model, sfields, device, kwargs, **opts):
+    """Everything :func:`solve_batched` does before its first cycle:
+    ``(var, ctx, refe)``, the context holding the stacked sources on the
+    device and the first level hierarchy, ``refe`` the lanes' source
+    norms (1 where a source is zero)."""
+    mode = _pop_mode(kwargs)
+    sslsolver = kwargs.pop('sslsolver', False)
+    var = MGParameters(sslsolver=sslsolver,
+                       shape_cells=tuple(grid.shape_cells), **opts, **kwargs)
+    if var.sslsolver and var.sslsolver not in ('bicgstab', 'cgs'):
+        raise NotImplementedError(
+            "Batched Krylov implements bicgstab and cgs only.")
+
+    # One VolumeModel per frequency; a per-lane list stacks η.
+    lane_freqs = [float(sf._frequency) for sf in sfields]
+    by_freq = {}
+    with trace.span('setup.volume_model'):
+        for sf, f in zip(sfields, lane_freqs):
+            if f not in by_freq:
+                by_freq[f] = models.VolumeModel(grid, model, sf)
+    vmodel = by_freq[lane_freqs[0]] if len(by_freq) == 1 \
+        else [by_freq[f] for f in lane_freqs]
+    lanes = Lanes(lane_freqs, device)
+
+    # The lanes stack in one dtype (numpy promotes them, as the JAX
+    # package's np.stack does); the x64 switch is read here, once.
+    src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
+                                 for sf in sfields))
+    cdtype = precision(src_dtype)[1]
+    with trace.span('setup.upload'):
+        s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
+                                         for sf in sfields]), dtype=cdtype,
+                               device=device)
+                  for name in ('fx', 'fy', 'fz'))
+        trace.count('copy.h2d_bytes', trace.nbytes(s))
+    ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
+
+    with trace.span('setup.norm'):
+        refe = np.array([float(sf.norm()) for sf in sfields])
+    var.l2_refe = float(refe.max())
+    refe = np.where(refe == 0, 1.0, refe)
+    # The first hierarchy, which the cycles would build first.
+    ctx.levels(int(var.sc_dir))
+    return var, ctx, refe
+
+
 def _multigrid_batched(ctx, var, refe):
     """MG cycles on every lane, with the batched termination rules
     (reference parity: solver.py:3127-3211).  A complex64 batch switches
@@ -2017,8 +2087,8 @@ def _multigrid_batched(ctx, var, refe):
     l2_stag = np.tile(l2_last, (var._maxcycle, 1))
     it = 0
     first = True
-    ds = _TwoFloat(ctx, var, s, lambda r: _norm_b(*r).cpu().numpy())
-    while True:
+    ds = _TwoFloat(ctx, var, s, lambda r: _fetch(_norm_b(*r)))
+    for _ in trace.each('mg.cycle'):
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         levels = ctx.levels(int(var.sc_dir))
@@ -2124,7 +2194,7 @@ def _krylov_batched_refined(ctx, var, refe, kernel, matvec, prec, on_iter):
     xlo = tuple(torch.zeros_like(c) for c in xhi)
     xhi, xlo, rn_true, info = _refine_krylov(
         lambda h, lo: ctx.residual_ds(h, lo, s_n),
-        lambda r: _norm_b(*r).cpu().numpy(),
+        lambda r: _fetch(_norm_b(*r)),
         prec, inner, xhi, xlo, atol, var.ssl_maxit)
     if info == 0:
         var.exit_message = 'CONVERGED'
@@ -2189,8 +2259,8 @@ def _freeze(mask, new, old):
 def _lanes_done(r, active, atol):
     """Host check of the lanes: (all settled, all converged, new active
     mask) from one fetch of the per-lane residual norms."""
-    rn = torch.sqrt(_dot_b(r, r).real).cpu().numpy()
-    act = active.cpu().numpy()
+    rn = _fetch(torch.sqrt(_dot_b(r, r).real))
+    act = _fetch(active)
     done = rn <= atol
     return (bool(np.all(done | ~act)), bool(np.all(done)),
             torch.tensor(act & ~done, device=active.device))
@@ -2211,7 +2281,7 @@ def _bicgstab_batched(matvec, precond, b, x, atol, maxiter, on_iter):
     p = tuple(torch.zeros_like(c) for c in r)
     active = torch.ones(len(one), dtype=torch.bool, device=one.device)
 
-    for _ in range(maxiter):
+    for _ in trace.each('krylov.iter', range(maxiter)):
         settled, converged, active = _lanes_done(r, active, atol)
         if settled:
             return x, 0 if converged else -1
@@ -2259,7 +2329,7 @@ def _cgs_batched(matvec, precond, b, x, atol, maxiter, on_iter):
     active = torch.ones(len(rho_prev), dtype=torch.bool,
                         device=rho_prev.device)
 
-    for _ in range(maxiter):
+    for _ in trace.each('krylov.iter', range(maxiter)):
         settled, converged, active = _lanes_done(r, active, atol)
         if settled:
             return x, 0 if converged else -1

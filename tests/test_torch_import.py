@@ -142,13 +142,19 @@ def test_unported_options_raise(tmp_path):
 
 
 def test_profile_writes_trace(tmp_path):
-    """``profile=dir`` traces the solve with torch.profiler into dir."""
+    """``profile=dir`` traces the whole solve with torch.profiler into
+    dir: its set-up and result spans too."""
     grid, model, sfield = _tiny_problem()
     e0 = pt.solve(grid, model, sfield, verb=0, device='cpu')
     e1 = pt.solve(grid, model, sfield, verb=0, device='cpu',
                   profile=tmp_path)
     assert np.array_equal(e0.field, e1.field)
-    assert list(tmp_path.glob('*.json'))
+    written = list(tmp_path.glob('*.json'))
+    assert written
+    text = written[0].read_text()
+    for name in ('emg3d.solve.setup', 'emg3d.solve.result'):
+        assert f'"{name}"' in text
+    pt.trace.reset()
 
 
 def test_prebuilt_vmodel():
