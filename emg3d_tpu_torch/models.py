@@ -3,19 +3,23 @@
 Copy of ``emg3d_tpu/models.py`` (numpy/scipy only), the counterpart
 of the reference's model layer (emg3d/models.py).  ``Model`` is
 host-side (numpy): validation, mapping, regridding.  ``VolumeModel``
-produces the volume-scaled solver parameters η and ζ, which are handed
-to the device solver as plain arrays.
+produces the volume-scaled solver parameters η and ζ on the host;
+``DeviceVolumeModel`` computes the same η and ζ on a torch device from
+one copy of the model's properties (the single solve's set-up).
 
 Anisotropy cases (reference parity, models.py:115-128):
 0 = isotropic, 1 = HTI (x ≠ y = z ... property_x/property_y),
 2 = VTI (property_x/property_z), 3 = tri-axial.
 """
 import numpy as np
+import torch
 from scipy.constants import epsilon_0
 
 from . import maps as _maps
+from . import trace
+from .dtypes import REAL_OF
 
-__all__ = ['Model', 'VolumeModel']
+__all__ = ['Model', 'VolumeModel', 'DeviceVolumeModel']
 
 
 class Model:
@@ -321,3 +325,69 @@ class VolumeModel:
             return field.smu0 * vol * cond
         eps_term = field.sval * epsilon_0 * model.epsilon_r
         return field.smu0 * vol * (cond - eps_term)
+
+
+# Each map's ``backward`` in torch: the same expressions as maps.py.
+_BACKWARD = {
+    'Conductivity': lambda x: x,
+    'Resistivity': lambda x: 1.0 / x,
+    'LgConductivity': lambda x: torch.pow(10.0, x),
+    'LgResistivity': lambda x: torch.pow(10.0, -x),
+    'LnConductivity': torch.exp,
+    'LnResistivity': lambda x: torch.exp(-x),
+}
+
+
+class DeviceVolumeModel:
+    """:class:`VolumeModel`'s η and ζ, computed on a torch ``device``.
+
+    The model's property arrays, and μr and εr where given, are copied
+    to ``device`` once as float64; the map's ``backward``, the cell
+    volumes (from the widths, in :attr:`.TensorMesh.cell_volumes`'
+    order) and η, ζ are computed there by VolumeModel's expressions in
+    float64/complex128, then rounded once to the complex ``dtype`` (ζ
+    to its real dtype); a Laplace-domain η is promoted to complex with
+    an imaginary part of exact zeros.  ``eta_y``/``eta_z`` are
+    ``eta_x`` where the model has no own property for them.  Nothing
+    else stays on the device.
+    """
+
+    def __init__(self, grid, model, sfield, device,
+                 dtype=torch.complex128):
+        self.case = model.case
+
+        def put(a):
+            t = torch.tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                             device=device)
+            trace.count('copy.h2d_bytes', trace.nbytes((t,)))
+            return t
+
+        hx, hy, hz = (put(np.asarray(h, dtype=np.float64)) for h in grid.h)
+        vol = (hx[:, None, None] * hy[None, :, None]) * hz[None, None, :]
+        backward = _BACKWARD[model.map.name]
+        # Python scalars: a numpy scalar would take the tensor as an array.
+        smu0 = sfield.smu0
+        smu0 = complex(smu0) if np.iscomplexobj(smu0) else float(smu0)
+        svol = smu0 * vol
+        eps_term = None
+        if model.epsilon_r is not None:
+            seps = sfield.sval * epsilon_0
+            seps = complex(seps) if np.iscomplexobj(seps) else float(seps)
+            eps_term = seps * put(model.epsilon_r)
+
+        def eta(name):
+            cond = backward(put(getattr(model, name)))
+            if eps_term is not None:
+                cond = cond - eps_term
+            return (svol * cond).to(dtype).contiguous()
+
+        self._eta_x = eta('property_x')
+        self._eta_y = eta('property_y') if model.case in [1, 3] else None
+        self._eta_z = eta('property_z') if model.case in [2, 3] else None
+        zeta = vol if model.mu_r is None else vol / put(model.mu_r)
+        self._zeta = zeta.to(REAL_OF[dtype]).contiguous()
+
+    eta_x = VolumeModel.eta_x
+    eta_y = VolumeModel.eta_y
+    eta_z = VolumeModel.eta_z
+    zeta = VolumeModel.zeta

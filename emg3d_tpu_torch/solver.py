@@ -8,12 +8,16 @@ rotating schedules), standalone or as the preconditioner of
 ``solve_batched``, many (source, frequency) pairs on one grid advanced
 together.
 
-- The level hierarchy (coarse η/ζ, cell widths, transfer weights) is
+- A single solve copies its source and the model's properties to the
+  device once and derives the rest there: the source's norm, η and ζ
+  (:class:`.models.DeviceVolumeModel`) and the zero start field.  The
+  level hierarchy (coarse η/ζ, cell widths, transfer weights) is
   built at solve start, on the device, once per semicoarsening
-  direction.  The smoothers' field-independent state (point: η edge
-  sums, ζ face weights, node-block LDLᵀ factors; line: rotated
-  parameters and block-Thomas factor stacks) is built lazily, once per
-  level (and axis) and solve; the finest level's line state is shared
+  direction, every hierarchy on the one finest level.  The smoothers'
+  field-independent state (point: η edge sums, ζ face weights,
+  node-block LDLᵀ factors; line: rotated parameters and block-Thomas
+  factor stacks) is built lazily, once per level (and axis) and
+  solve; the finest level's line state is shared
   by all hierarchies, and factor stacks are cached only up to a share
   of the card (:data:`.ops.line_gs.LINE_SHARE`).
 - The V/W/F recursion (including the ``cycmax − it`` F-cycle trick) runs
@@ -423,7 +427,7 @@ def level_shapes(shape, sc_dir, clevel):
 
 
 def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
-                 dtype=COMPLEX):
+                 dtype=COMPLEX, fine=None):
     """Build the full level hierarchy for one top-level sc_dir.
 
     η is of the complex ``dtype`` on ``device`` (complex128 or complex64;
@@ -434,38 +438,33 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
     coarse level is then computed from these arrays in their precision.
     ``meter`` is the solve's ``{'bytes': n}`` of cached line factors.
 
-    ``vmodel`` may be a list of VolumeModels, one per lane of a batched
-    solve (reference parity: emg3d_tpu/solver.py:371-390): η is then
-    stacked per lane (B, nx, ny, nz) and ζ taken from the first (it does
-    not depend on the frequency).  ``lanes`` (a :class:`Lanes`) marks
-    the levels of a batched solve.
+    ``vmodel``'s η and ζ are host arrays (a :class:`.models.VolumeModel`)
+    or tensors (a :class:`.models.DeviceVolumeModel`), which are taken as
+    they are where they already lie on ``device`` in ``dtype``.  It may
+    be a list of VolumeModels, one per lane of a batched solve
+    (reference parity: emg3d_tpu/solver.py:371-390): η is then stacked
+    per lane (B, nx, ny, nz) and ζ taken from the first (it does not
+    depend on the frequency).  ``lanes`` (a :class:`Lanes`) marks the
+    levels of a batched solve.  ``fine``, the finest level's arrays of
+    another hierarchy of the same solve, is taken as this one's finest
+    level (``vmodel`` is then not read).
     """
     def tens(a, dt):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=dt)
         t = torch.tensor(np.asarray(a), dtype=dt, device=device)
         trace.count('copy.h2d_bytes', trace.nbytes((t,)))
         return t
 
     cplx, real = dtype, REAL_OF[dtype]
 
-    per_lane = isinstance(vmodel, (list, tuple))
-    vms = list(vmodel) if per_lane else [vmodel]
-
-    def eta(name):
-        vals = [np.asarray(getattr(vm, name)) for vm in vms]
-        return tens(np.stack(vals) if per_lane else vals[0], cplx)
-
-    eta_x = eta('eta_x')
-    eta_y = eta_x if all(vm.eta_y is vm.eta_x for vm in vms) \
-        else eta('eta_y')
-    eta_z = eta_x if all(vm.eta_z is vm.eta_x for vm in vms) \
-        else eta('eta_z')
-    zeta = tens(vms[0].zeta, real)
-
     h_np = [np.asarray(h, dtype=np.float64) for h in grid.h]
     nodes = [np.r_[0., np.cumsum(h)] + o
              for h, o in zip(h_np, grid.origin)]
     shape = tuple(grid.shape_cells)
-    arrays = (eta_x, eta_y, eta_z, zeta, *[tens(h, real) for h in h_np])
+    arrays = fine if fine is not None else \
+        (*_finest_params(vmodel, tens, cplx, real),
+         *[tens(h, real) for h in h_np])
     levels = [_Level(shape, arrays, h_np, nodes, meter, lanes)]
 
     shapes = level_shapes(shape, sc_dir, clevel)
@@ -505,6 +504,30 @@ def build_levels(grid, vmodel, sc_dir, clevel, device, meter, lanes=None,
         carrays = (cex, cey, cez, czeta, *[tens(h, real) for h in ch_np])
         levels.append(_Level(cshape, carrays, ch_np, cnodes, meter, lanes))
     return levels
+
+
+def _finest_params(vmodel, tens, cplx, real):
+    """(η_x, η_y, η_z, ζ) of the finest level from ``vmodel`` (one
+    volume model, or a batched solve's list of them), through ``tens``;
+    η_y and η_z are η_x where every model shares it."""
+    if not isinstance(vmodel, (list, tuple)):
+        eta_x = tens(vmodel.eta_x, cplx)
+        eta_y = eta_x if vmodel.eta_y is vmodel.eta_x \
+            else tens(vmodel.eta_y, cplx)
+        eta_z = eta_x if vmodel.eta_z is vmodel.eta_x \
+            else tens(vmodel.eta_z, cplx)
+        return eta_x, eta_y, eta_z, tens(vmodel.zeta, real)
+
+    def eta(name):
+        return tens(np.stack([np.asarray(getattr(vm, name))
+                              for vm in vmodel]), cplx)
+
+    eta_x = eta('eta_x')
+    eta_y = eta_x if all(vm.eta_y is vm.eta_x for vm in vmodel) \
+        else eta('eta_y')
+    eta_z = eta_x if all(vm.eta_z is vm.eta_x for vm in vmodel) \
+        else eta('eta_z')
+    return eta_x, eta_y, eta_z, tens(vmodel[0].zeta, real)
 
 
 # ======================================================================
@@ -819,6 +842,15 @@ def _fetch(t):
 # Host loop
 # ======================================================================
 
+def _upload(fld, dtype, device):
+    """A host Field's components as tensors on ``device`` in ``dtype``."""
+    with trace.span('setup.upload'):
+        out = tuple(torch.tensor(np.asarray(f), dtype=dtype, device=device)
+                    for f in (fld.fx, fld.fy, fld.fz))
+        trace.count('copy.h2d_bytes', trace.nbytes(out))
+    return out
+
+
 class _SolveContext:
     """Per-solve state: device fields and level hierarchies per sc_dir.
 
@@ -833,6 +865,11 @@ class _SolveContext:
     option, or None) distributes the levels
     (:func:`.parallel.halo.shard_levels`); ``s`` and ``e`` (and
     ``e_lo``) are then this rank's slabs of the finest level.
+
+    ``sfield`` and ``efield`` are host Fields, or an unsharded solve's
+    component tensors already on ``device`` in ``dtype`` (taken as they
+    are); ``efield`` None starts an unsharded solve from zeros made on
+    the device.
     """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
@@ -851,26 +888,32 @@ class _SolveContext:
         self.lanes = None
         self.e_lo = None
         self.storage = _storage(self.dtype, torch.device(device))
+        self.s = self.put(sfield)
+        if efield is None and sharding is None:
+            with trace.span('setup.zero_field'):
+                self.e = tuple(torch.zeros(sh, dtype=self.dtype,
+                                           device=device)
+                               for sh in _edge_shapes(grid.shape_cells))
+        else:
+            self.e = self.put(efield)
 
-        def put(fld):
-            with trace.span('setup.upload'):
-                comps = (fld.fx, fld.fy, fld.fz)
-                if sharding is None:
-                    out = tuple(torch.tensor(np.asarray(f), dtype=self.dtype,
-                                             device=device) for f in comps)
-                else:
-                    # Each rank keeps its slab of the finest level.
-                    comps = tuple(torch.tensor(np.asarray(f),
-                                               dtype=self.dtype)
-                                  for f in comps)
-                    fine = self.levels(int(var.sc_dir))[0]
-                    if fine.slab is not None:
-                        comps = fine.slab.cut_field(comps)
-                    out = tuple(c.to(device) for c in comps)
-                trace.count('copy.h2d_bytes', trace.nbytes(out))
-            return out
-        self.s = put(sfield)
-        self.e = put(efield)
+    def put(self, fld):
+        """A host Field's components on the solve's device, in its dtype
+        (this rank's slabs where the finest level is sharded)."""
+        if isinstance(fld, tuple):
+            return fld
+        if self.sharding is None:
+            return _upload(fld, self.dtype, self.device)
+        with trace.span('setup.upload'):
+            # Each rank keeps its slab of the finest level.
+            comps = tuple(torch.tensor(np.asarray(f), dtype=self.dtype)
+                          for f in (fld.fx, fld.fy, fld.fz))
+            fine = self.levels(int(self.var.sc_dir))[0]
+            if fine.slab is not None:
+                comps = fine.slab.cut_field(comps)
+            out = tuple(c.to(self.device) for c in comps)
+            trace.count('copy.h2d_bytes', trace.nbytes(out))
+        return out
 
     @classmethod
     def batched(cls, grid, vmodel, s, var, device, mode, lanes):
@@ -945,12 +988,20 @@ class _SolveContext:
         return self._levels[sc_dir]
 
     def _hierarchy(self, sc_dir):
-        """The level hierarchy of ``sc_dir``, on the solve's device."""
+        """The level hierarchy of ``sc_dir``, on the solve's device.  The
+        finest level is the same in every hierarchy: a later one shares
+        the first one's parameters and line states (no number
+        changes)."""
         clevel = int(self.var.clevel[int(sc_dir)])
+        first = next(iter(self._levels.values()))[0] if self._levels \
+            else None
         if self.sharding is None:
-            levels = build_levels(self.grid, self.vmodel, int(sc_dir),
-                                  clevel, self.device, self.meter,
-                                  self.lanes, self.dtype)
+            levels = build_levels(
+                self.grid, self.vmodel, int(sc_dir), clevel, self.device,
+                self.meter, self.lanes, self.dtype,
+                fine=None if first is None else first.arrays)
+            if first is not None:
+                trace.count('levels.fine_shared', 1)
         else:
             # Built on the host, then each rank keeps its slabs of the
             # sharded levels and the replicated levels whole; every
@@ -960,15 +1011,13 @@ class _SolveContext:
                              clevel, 'cpu', self.meter, dtype=self.dtype),
                 self.sharding['mesh'], self._min_planes(), self.device,
                 self._finest_partition())
+            if first is not None:
+                levels[0].arrays = first.arrays
         for lev in levels:
             # Slabs store in float32 (see _smooth).
             lev.bf16 = self.storage is not None and lev.slab is None
-        if self._levels:
-            # The finest level is the same in every hierarchy: share
-            # its parameters and line states (no number changes).
-            fine = next(iter(self._levels.values()))[0]
-            levels[0].arrays = fine.arrays
-            levels[0].lstate = fine.lstate
+        if first is not None:
+            levels[0].lstate = first.lstate
         return levels
 
 
@@ -1793,50 +1842,45 @@ def solve(grid, model, sfield, efield=None, cycle='F', sslsolver=False,
 def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
     """Everything :func:`solve` does before its first cycle: ``(var,
     ctx, None)``, or ``(var, None, what solve returns)`` where nothing
-    is left to solve (a converged warm start, a zero source).  The
+    is left to solve (a zero source, a converged warm start).  The
     context holds the source and start fields on the device and the
-    first level hierarchy."""
+    first level hierarchy.
+
+    An unsharded solve copies the source and the model's properties to
+    its device once and makes the rest there: the source's norm (one
+    fetch), η and ζ (:class:`.models.DeviceVolumeModel`) and the zero
+    start field.  A sharded solve takes them on the host, as it builds
+    its levels there before cutting them into slabs; prebuilt η/ζ
+    (``_vmodel``, the differentiable solve's) are taken as given."""
     mode = _pop_mode(kwargs)
     sharding = kwargs.pop('sharding', None)
     if sharding is not None:
         sharding = _normalize_sharding(sharding)
     # Prebuilt volume parameters η/ζ (the differentiable solve passes
     # them; ``model`` is then unused and may be None).
-    vmodel_inp = kwargs.pop('_vmodel', None)
+    vmodel = kwargs.pop('_vmodel', None)
     var = MGParameters(shape_cells=tuple(grid.shape_cells), **opts, **kwargs)
 
     do_return = efield is None
-
-    # Compute reference error for tolerance.
-    with trace.span('setup.norm'):
-        var.l2_refe = float(sfield.norm())
+    if not do_return:
+        var.do_return = False
     var.cprint(f"\n:: emg3d_tpu_torch START :: {var.time.now} :: "
                f"v{__import__('emg3d_tpu_torch').__version__}\n", 2)
     var.cprint(var, 2)
 
-    with trace.span('setup.volume_model'):
-        vmodel = vmodel_inp if vmodel_inp is not None \
-            else models.VolumeModel(grid, model, sfield)
     src_dtype = np.asarray(sfield.fx).dtype
     # The x64 switch is read here, once: the solve keeps this precision.
     dtype = precision(src_dtype)[1]
 
-    if efield is None:
-        with trace.span('setup.zero_field'):
-            efield = fields.Field.zeros(grid, frequency=sfield._frequency,
-                                        dtype=src_dtype)
+    # Compute reference error for tolerance.
+    if sharding is None:
+        s = _upload(sfield, dtype, device)
+        with trace.span('setup.norm'):
+            var.l2_refe = halo.WHOLE.norm(s)
     else:
-        var.do_return = False
-        # Warm start: if converged already, return immediately.
-        ctx0 = _SolveContext(grid, vmodel, sfield, efield, var, device,
-                             mode, sharding, dtype)
-        fine = ctx0.levels(int(var.sc_dir))[0]
-        l2 = _level_norm(ctx0.e, ctx0.s, fine)
-        if l2 < var.tol * var.l2_refe and not var.sslsolver:
-            var.exit_message = "CONVERGED"
-            var.cprint("   > NOTHING DONE (provided efield already "
-                       "converged)\n", 2)
-            return var, None, _info_dict(var) if var.return_info else None
+        s = sfield
+        with trace.span('setup.norm'):
+            var.l2_refe = float(sfield.norm())
 
     # Zero source field => zero efield.
     if var.l2_refe == 0:
@@ -1853,10 +1897,30 @@ def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
             return var, None, _info_dict(var) if var.return_info else None
         return var, None, (z, _info_dict(var)) if var.return_info else z
 
-    ctx = _SolveContext(grid, vmodel, sfield, efield, var, device, mode,
+    with trace.span('setup.volume_model'):
+        if vmodel is None and sharding is None:
+            vmodel = models.DeviceVolumeModel(grid, model, sfield, device,
+                                              dtype)
+            trace.count('setup.device_params', 1)
+        elif vmodel is None:
+            vmodel = models.VolumeModel(grid, model, sfield)
+
+    if do_return and sharding is not None:
+        with trace.span('setup.zero_field'):
+            efield = fields.Field.zeros(grid, frequency=sfield._frequency,
+                                        dtype=src_dtype)
+    ctx = _SolveContext(grid, vmodel, s, efield, var, device, mode,
                         sharding, dtype)
     # The first hierarchy, which the cycles would build first.
-    ctx.levels(int(var.sc_dir))
+    fine = ctx.levels(int(var.sc_dir))[0]
+    if not do_return:
+        # Warm start: if converged already, return immediately.
+        l2 = _level_norm(ctx.e, ctx.s, fine)
+        if l2 < var.tol * var.l2_refe and not var.sslsolver:
+            var.exit_message = "CONVERGED"
+            var.cprint("   > NOTHING DONE (provided efield already "
+                       "converged)\n", 2)
+            return var, None, _info_dict(var) if var.return_info else None
     return var, ctx, None
 
 

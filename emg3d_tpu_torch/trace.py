@@ -21,13 +21,17 @@ The spans of a solve (:mod:`.solver`, :mod:`.parallel.halo`):
 
 - ``solve``: one ``solve`` or ``solve_batched`` call; opens a solve id.
 - ``solve.setup``: from the entry to the first cycle, with its children
-  ``setup.norm`` (the source's norm on the host), ``setup.volume_model``
-  (η and ζ on the host), ``setup.zero_field`` (the zero start field on
-  the host), ``setup.upload`` (the source and start fields copied to
-  the device) and ``setup.levels`` (a level hierarchy: η, ζ, widths and
-  transfer weights copied to the device, the coarse levels computed; a
-  semicoarsening schedule builds one per direction, the later ones
-  inside the cycles).
+  ``setup.upload`` (the source, and a warm start's field, copied to the
+  device), ``setup.norm`` (the source's norm: on the device with one
+  fetch; on the host in a sharded solve), ``setup.volume_model`` (η and
+  ζ: derived on the device from the model's properties, which are
+  copied there; on the host in a sharded or batched solve),
+  ``setup.zero_field`` (the zero start field: ``torch.zeros`` on the
+  device; on the host in a sharded solve) and ``setup.levels`` (a level
+  hierarchy: widths and transfer weights copied to the device, the
+  coarse levels computed; a semicoarsening schedule builds one per
+  direction, the later ones inside the cycles, sharing the first one's
+  finest level).
 - ``mg.cycle``: one top-level multigrid cycle; ``krylov.iter``: one
   step of a Krylov loop (of GCROT(m,k), an outer cycle).
 - ``levels.state``: a smoother state built (lazily, in the first
@@ -37,10 +41,13 @@ The spans of a solve (:mod:`.solver`, :mod:`.parallel.halo`):
   a fetch of per-lane or packed scalars, a returned field component).
 - ``solve.result``: the solution fetched and handed back.
 
-Counters: ``copy.h2d_bytes``, the bytes of the fields and level arrays
-the solve copies from host arrays to its device; ``copy.d2h_bytes``,
-the bytes of the whole fields it fetches back (scalar fetches are
-``sync`` spans, not bytes).
+Counters: ``copy.h2d_bytes``, the bytes of the fields, model
+properties and level arrays the solve copies from host arrays to its
+device; ``copy.d2h_bytes``, the bytes of the whole fields it fetches
+back (scalar fetches are ``sync`` spans, not bytes);
+``setup.device_params``, the solves whose η and ζ were derived on their
+device; ``levels.fine_shared``, the hierarchies that took the solve's
+finest level from its first hierarchy without a copy.
 """
 import contextlib
 import itertools

@@ -41,6 +41,20 @@ def _triaxial():
     return grid, model, (-30., 30., 0., 0., 0., 0.)
 
 
+def _mapped(n=8):
+    """HTI in log10 conductivity, with μr and εr: η and ζ through every
+    term of the volume model."""
+    rng = np.random.default_rng(4)
+    grid = jt.TensorMesh([np.full(n, 100.)] * 3, origin=(-n * 50.,) * 3)
+    shape = (n,) * 3
+    model = jt.Model(grid, rng.uniform(-1, 0, shape),
+                     property_y=rng.uniform(-1.5, -0.5, shape),
+                     mu_r=rng.uniform(1, 2, shape),
+                     epsilon_r=rng.uniform(1, 20, shape),
+                     mapping='LgConductivity')
+    return grid, model, (0., 0., 0., 0., 0.)
+
+
 def _both(grid_j, model_j, src, freq=1.0):
     grid_p = convert.mesh_to_torch(grid_j)
     model_p = convert.model_to_torch(model_j)
@@ -59,7 +73,8 @@ def _check(ej, ij, ep, ip):
 
 # (problem, frequency, solve options): the F/V/W cycles at 16³, a
 # stretched tri-axial model, a rotating semicoarsening schedule (y, z
-# alternately kept fine) and the Laplace domain (real fields, f < 0).
+# alternately kept fine), the Laplace domain (real fields, f < 0) and a
+# log-mapped HTI model with μr and εr.
 CASES = {
     'fullspace-F': (lambda: _fullspace(), 1.0, {'cycle': 'F'}),
     'fullspace-V': (lambda: _fullspace(), 1.0, {'cycle': 'V'}),
@@ -68,6 +83,7 @@ CASES = {
     'semicoarsening-F': (lambda: _fullspace(8), 1.0,
                          {'cycle': 'F', 'semicoarsening': 23}),
     'laplace-F': (lambda: _fullspace(8), -1.0, {'cycle': 'F'}),
+    'mapped-F': (_mapped, 1.0, {'cycle': 'F'}),
 }
 
 

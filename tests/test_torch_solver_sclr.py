@@ -42,6 +42,18 @@ def _triaxial(shape=(16, 8, 12), seed=11):
     return grid, model, (-30., 30., 0., 0., 0., 0.)
 
 
+def _mapped(n=8):
+    """VTI in ln resistivity, with μr: η and ζ through the log map and
+    the permeability term."""
+    rng = np.random.default_rng(6)
+    grid = jt.TensorMesh([np.full(n, 100.)] * 3, origin=(-n * 50.,) * 3)
+    shape = (n,) * 3
+    model = jt.Model(grid, rng.uniform(0, 1, shape),
+                     property_z=rng.uniform(0.5, 1.5, shape),
+                     mu_r=rng.uniform(1, 2, shape), mapping='LnResistivity')
+    return grid, model, (0., 0., 0., 0., 0.)
+
+
 def _both(grid_j, model_j, src, freq=1.0):
     grid_p = convert.mesh_to_torch(grid_j)
     model_p = convert.model_to_torch(model_j)
@@ -69,7 +81,7 @@ def check(ej, ij, ep, ip, exit_message='CONVERGED'):
 # x/y/z lines together on a stretched tri-axial model, and the mirror of
 # tests/test_solver.py:239-246 (sc 123, lr 456 rotating, nu_init 2) on a
 # seeded tri-axial 8³ model, held against the JAX package instead of
-# the golden file.
+# the golden file; a fixed sc/lr pair on a log-mapped VTI model with μr.
 CASES = {
     'sc3-lr1': (_fullspace, {'semicoarsening': 3, 'linerelaxation': 1}),
     'lr7-triaxial': (_triaxial, {'linerelaxation': 7}),
@@ -77,6 +89,7 @@ CASES = {
         lambda: _triaxial((8, 8, 8), seed=2),
         {'semicoarsening': 123, 'linerelaxation': 456, 'tol': 1e-4,
          'maxit': 4, 'nu_init': 2, 'clevel': 10}),
+    'sc2-lr3-mapped': (_mapped, {'semicoarsening': 2, 'linerelaxation': 3}),
 }
 
 

@@ -77,7 +77,8 @@ def runs():
                 _counting(fetches[c], mp)
                 on[c] = _solve(c, grid, model, sources)
             counts[c] = {k: v - before.get(k, 0)
-                         for k, v in trace.counts().items()}
+                         for k, v in trace.counts().items()
+                         if v != before.get(k, 0)}
     record = trace.spans()
     events = _nest([e for e in prof.profiler.kineto_results.events()
                     if e.name().startswith(trace.PREFIX)])
@@ -149,30 +150,38 @@ def test_spans_nest_in_one_solve(runs, case):
 
 @pytest.mark.parametrize('case', CASES)
 def test_host_syncs(runs, case):
-    """A multigrid solve fetches once before its cycles, once a cycle
-    and three field components; a Krylov solve once a norm and an inner
-    product, and the three components."""
+    """A single multigrid solve fetches its source's norm, once before
+    its cycles, once a cycle and three field components (a batched one
+    takes its sources' norms on the host); a Krylov solve once a norm
+    (the source's too) and an inner product, and the three
+    components."""
     syncs = sum(s['name'] == 'sync' for s in runs['per_case'][case])
     if case == 'bicgstab':
         calls = runs['fetches'][case]
         assert syncs == calls['norm'] + calls['_dot'] + 3
-    else:
+    elif case == 'batched':
         assert syncs == runs['on'][case][1]['it_mg'] + 4
+    else:
+        assert syncs == runs['on'][case][1]['it_mg'] + 5
 
 
 def _field_bytes(sf):
     return sum(np.asarray(c).nbytes for c in (sf.fx, sf.fy, sf.fz))
 
 
-def _hierarchy_bytes(grid, vmodel, sc_dir, clevel):
-    """The bytes of a hierarchy's host-made arrays: the finest level's
-    η and ζ, and every level's widths and transfer weights."""
+def _hierarchy_bytes(grid, vmodel, sc_dir, clevel, finest):
+    """The bytes of a hierarchy's host-made arrays: every level's
+    transfer weights, the coarse levels' widths, and of the finest level
+    η, ζ and the widths (``finest`` 'all'), the widths alone ('widths':
+    η and ζ were made on the device) or nothing ('none': shared with the
+    solve's first hierarchy)."""
     levels = solver.build_levels(grid, vmodel, sc_dir, clevel, 'cpu',
                                  {'bytes': 0})
     made = {}
     for i, lev in enumerate(levels):
         for j, a in enumerate(lev.arrays):
-            if i == 0 or j >= 4:
+            if i > 0 and j >= 4 or i == 0 and (
+                    finest == 'all' or finest == 'widths' and j >= 4):
                 made[id(a)] = a
         for w in (lev.rweights or ()) + (lev.pweights or ()):
             for t in (w if isinstance(w, tuple) else (w,)):
@@ -181,30 +190,73 @@ def _hierarchy_bytes(grid, vmodel, sc_dir, clevel):
     return trace.nbytes(made.values())
 
 
-@pytest.mark.parametrize('case', CASES)
-def test_copy_bytes(runs, case):
-    """Uploads: the source (and a single solve's zero start field) and
-    one hierarchy per semicoarsening direction the cycles visit; the
-    fetch: the returned fields."""
-    grid, model, sources = runs['grid'], runs['model'], runs['sources']
-    info = runs['on'][case][1]
-    lanes = 2 if case == 'batched' else 1
+def _model_bytes(grid, model):
+    """The bytes a single solve copies to derive η and ζ on its device:
+    the model's own property arrays (μr and εr too, where given) and the
+    widths."""
+    props = (model._property_x, model._property_y, model._property_z,
+             model.mu_r, model.epsilon_r)
+    return (sum(np.asarray(p).nbytes for p in props if p is not None)
+            + sum(np.asarray(h, dtype=np.float64).nbytes for h in grid.h))
+
+
+def _visits(case, info, grid):
+    """(var, the semicoarsening directions the cycles visit)."""
     var = solver.MGParameters(
         verb=0, cycle='F', sslsolver=OPTS[case].get('sslsolver', False),
         linerelaxation=OPTS[case].get('linerelaxation', False),
         semicoarsening=OPTS[case].get('semicoarsening', False),
         shape_cells=tuple(grid.shape_cells))
     digits = [int(d) for d in var._raw_sc_cycle]
-    visited = {digits[i % len(digits)] for i in range(info['it_mg'])}
+    return var, {digits[i % len(digits)] for i in range(info['it_mg'])}
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_copy_bytes(runs, case):
+    """Uploads: a single solve's source and the model's properties and
+    widths (no start field: it is made on the device), then one
+    hierarchy per semicoarsening direction the cycles visit, its finest
+    level's η and ζ made on the device and shared by the later ones; a
+    batched solve's sources and its host-made η and ζ.  The fetch: the
+    returned fields.  A single solve counts one device-made η/ζ and the
+    hierarchies that shared the first one's finest level."""
+    grid, model, sources = runs['grid'], runs['model'], runs['sources']
+    info = runs['on'][case][1]
+    var, visited = _visits(case, info, grid)
     vmodel = pt.VolumeModel(grid, model, sources[0])
     fields = _field_bytes(sources[0])
-    h2d = (2 * fields) + sum(_hierarchy_bytes(grid, vmodel, sc,
-                                              int(var.clevel[sc]))
-                             for sc in visited)
     assert len(visited) == (3 if case == 'sclr' else 1)
-    assert runs['counts'][case] == {'copy.h2d_bytes': h2d,
-                                    'copy.d2h_bytes': lanes * fields}
+    if case == 'batched':
+        h2d = 2 * fields + _hierarchy_bytes(
+            grid, vmodel, var.sc_dir, int(var.clevel[var.sc_dir]), 'all')
+        want = {'copy.h2d_bytes': h2d, 'copy.d2h_bytes': 2 * fields}
+    else:
+        first = int(var.sc_dir)
+        h2d = fields + _model_bytes(grid, model) + sum(
+            _hierarchy_bytes(grid, vmodel, sc, int(var.clevel[sc]),
+                             'widths' if sc == first else 'none')
+            for sc in visited)
+        want = {'copy.h2d_bytes': h2d, 'copy.d2h_bytes': fields,
+                'setup.device_params': 1}
+        if len(visited) > 1:
+            want['levels.fine_shared'] = len(visited) - 1
+    assert runs['counts'][case] == want
     assert not trace.counts()
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_device_setup(runs, case):
+    """A single solve derives η and ζ once on its device and shares the
+    first hierarchy's finest level: 2 later hierarchies in the sc+lr
+    case, none in the point cases; a batched solve does neither."""
+    counts = runs['counts'][case]
+    single = case != 'batched'
+    assert counts.get('setup.device_params', 0) == int(single)
+    assert counts.get('levels.fine_shared', 0) == \
+        (2 if case == 'sclr' else 0)
+    hiers = sum(s['name'] == 'setup.levels'
+                for s in runs['per_case'][case])
+    assert hiers == 1 + counts.get('levels.fine_shared', 0)
 
 
 def _nest(events):
