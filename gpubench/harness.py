@@ -5,7 +5,12 @@ Everything a cell needs is found by name: the cell in ``BENCHMARK.json``
 and ``workloads/<cell>.json``, its configuration in
 ``configs/<config>.json``, its job kind in ``jobs/<kind>.py`` and every
 metric's reader in ``metrics/<metric>.py``.  Adding a configuration, a
-cell, a job kind or a metric adds files and edits none.
+cell, a job kind or a metric adds files and edits none.  A job kind that
+keeps the contract in ``jobs/__init__.py`` (the solver reached only
+through ``solver.solve`` or ``solver.solve_batched``; ``residual`` and
+``residual_gap`` over every pair it keeps) is held by the fault and
+control tests of ``tests/`` as it is added, whichever of the two entries
+its jobs reach.
 """
 import importlib
 import json

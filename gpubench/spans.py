@@ -12,20 +12,33 @@ The smoothing calls are not synchronized: their annotation (numbered)
 marks which launches they made, and :func:`reduce_trace` adds the
 device time of every kernel, copy and fill the profiler correlates with
 those launches, whatever kernels the program uses.  The shapes of each
-smoothing call are recorded at its entry point.
+smoothing call are recorded at its entry point.  The device's idle gaps
+are named by the innermost span open in them, of the annotations and
+the program's own ``emg3d.`` spans (:func:`name_gaps`).
 """
 import bisect
 import contextlib
 import time
-from collections import Counter, defaultdict
+from collections import Counter, defaultdict, namedtuple
 
-__all__ = ['NullRecorder', 'Recorder', 'reduce_trace']
+__all__ = ['NullRecorder', 'Recorder', 'Event', 'reduce_trace',
+           'reduce_events', 'name_gaps']
 
 PREFIX = 'gpubench.'
+# The program's own spans (``emg3d_tpu_torch.trace``): function-scope
+# host events, read only to name the device's idle gaps.
+PROGRAM_PREFIX = 'emg3d.'
 # CUDA runtime and driver calls (cudaLaunchKernel, cuLaunchKernel,
 # cudaMemcpyAsync, ...): the launches, copies and fills whose correlation
 # ids the device events carry.
 LAUNCH_PREFIX = 'cu'
+
+# One event of a trace: on the device's rows or the host's, its start
+# and end in ns, its correlation id and its thread.
+Event = namedtuple('Event', 'name device start end corr thread')
+# Any other host event (an operator, a runtime call that launches
+# nothing): counted, not read.
+_HOST = Event('', False, 0, 0, 0, 0)
 
 
 class NullRecorder:
@@ -166,7 +179,29 @@ def _clock(event):
 
 
 def reduce_trace(prof, ncalls):
-    """Readings of a ``torch.profiler`` run (in memory, no file):
+    """:func:`reduce_events` of a ``torch.profiler`` run (in memory, no
+    file)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    if not events:
+        return None
+    start, length = _clock(events[0])
+    read = (PREFIX, PROGRAM_PREFIX, LAUNCH_PREFIX)
+    plain = []
+    for e in events:
+        name = e.name()
+        device = e.device_type() == DeviceType.CUDA
+        if not device and not name.startswith(read):
+            plain.append(_HOST)
+            continue
+        t0 = start(e)
+        plain.append(Event(name, device, t0, t0 + length(e),
+                           e.correlation_id(), e.start_thread_id()))
+    return reduce_events(plain, ncalls)
+
+
+def reduce_events(events, ncalls):
+    """Readings of a trace's events (:class:`Event`, times in ns):
 
     - ``window_s``: from the start of the first ``gpubench.job``
       annotation to the end of the last;
@@ -176,63 +211,64 @@ def reduce_trace(prof, ncalls):
       inside its annotation, on its thread;
     - ``device_ops``: the 10 device operations that took most time;
     - ``idle_gaps``: the 10 longest idle stretches of the device in the
-      window, each named by the innermost annotation the host was in;
+      window, each named by :func:`name_gaps` from the ``gpubench.``
+      annotations and the program's ``emg3d.`` spans;
     - ``events``: counts of the events by kind (diagnostics).
+
+    The program's spans only name gaps: they are no device work, do not
+    bound the window and belong to no smoothing call.
     """
-    from torch.autograd import DeviceType
-    ann, launches, dev = [], [], []
+    ann, program, launches, dev = [], [], [], []
     kinds = Counter()
-    events = prof.profiler.kineto_results.events()
-    if not events:
-        return None
-    start, length = _clock(events[0])
     for e in events:
-        name = e.name()
-        if e.device_type() == DeviceType.CUDA:
+        if e.name.startswith(PROGRAM_PREFIX):
+            if not e.device:
+                kinds['program'] += 1
+                program.append((e.start, e.end, e.name))
+            continue
+        if e.device:
             # Kernels, copies and fills; the device-side images of the
             # annotations are no work.
-            if not name.startswith(PREFIX):
+            if not e.name.startswith(PREFIX):
                 kinds['device'] += 1
-                t0 = start(e)
-                dev.append((t0, t0 + length(e), name, e.correlation_id()))
+                dev.append(e)
             continue
-        if name.startswith(PREFIX):
+        if e.name.startswith(PREFIX):
             kinds['annotation'] += 1
-            t0 = start(e)
-            ann.append((t0, t0 + length(e), name, e.start_thread_id()))
-        elif name.startswith(LAUNCH_PREFIX):
+            ann.append(e)
+        elif e.name.startswith(LAUNCH_PREFIX):
             kinds['runtime'] += 1
-            launches.append((start(e), e.correlation_id(),
-                             e.start_thread_id()))
+            launches.append((e.start, e.corr, e.thread))
         else:
             kinds['host'] += 1
-    jobs = [(a, b) for a, b, n, _ in ann if n == PREFIX + 'job']
+    jobs = [(e.start, e.end) for e in ann if e.name == PREFIX + 'job']
     if not jobs or not dev:
         return None
     w0, w1 = min(a for a, _ in jobs), max(b for _, b in jobs)
-    busy_iv = _union((max(a, w0), min(b, w1)) for a, b, _, _ in dev
-                     if b > w0 and a < w1)
+    busy_iv = _union((max(e.start, w0), min(e.end, w1)) for e in dev
+                     if e.end > w0 and e.start < w1)
     busy = sum(b - a for a, b in busy_iv)
     by_corr = defaultdict(int)
     per_name = defaultdict(int)
-    for a, b, name, corr in dev:
-        by_corr[corr] += b - a
-        if b > w0 and a < w1:
-            per_name[name] += b - a
+    for e in dev:
+        by_corr[e.corr] += e.end - e.start
+        if e.end > w0 and e.start < w1:
+            per_name[e.name] += e.end - e.start
     launches.sort()
     starts = [t for t, _, _ in launches]
     call_ns = [0] * ncalls
     matched = set()
-    for a, b, name, tid in ann:
-        if '#' not in name:
+    for e in ann:
+        if '#' not in e.name:
             continue
-        i = int(name.rsplit('#', 1)[1])
-        lo, hi = bisect.bisect_left(starts, a), bisect.bisect_right(starts, b)
+        i = int(e.name.rsplit('#', 1)[1])
+        lo = bisect.bisect_left(starts, e.start)
+        hi = bisect.bisect_right(starts, e.end)
         for _, corr, t in launches[lo:hi]:
-            if t == tid and corr in by_corr:
+            if t == e.thread and corr in by_corr:
                 call_ns[i] += by_corr[corr]
                 matched.add(corr)
-    # Idle stretches of the window and the host span each fell in.
+    # Idle stretches of the window, the ten longest named.
     gaps, t = [], w0
     for a, b in busy_iv:
         if a > t:
@@ -241,18 +277,35 @@ def reduce_trace(prof, ncalls):
     if w1 > t:
         gaps.append((w1 - t, t, w1))
     gaps.sort(reverse=True)
-    named = []
-    for gap, a, b in gaps[:10]:
-        mid = (a + b) // 2
-        inner = [x for x in ann if x[0] <= mid <= x[1]]
-        where = max(inner)[2].split('#')[0][len(PREFIX):] if inner \
-            else 'outside the jobs'
-        named.append([where, gap / 1e9])
+    spans = [(e.start, e.end, e.name) for e in ann] + program
     ops = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return {'window_s': (w1 - w0) / 1e9, 'busy_s': busy / 1e9,
             'call_device_s': [n / 1e9 for n in call_ns],
             'device_ops': [[name[:160], ns / 1e9] for name, ns in ops],
-            'idle_gaps': named,
+            'idle_gaps': name_gaps([(a, b) for _, a, b in gaps[:10]],
+                                   spans),
             'events': dict(kinds),
             'device_events': len(dev),
             'correlated': len(matched)}
+
+
+def name_gaps(gaps, spans):
+    """``[name, seconds]`` of each gap ``(start, end)``, in ns: the
+    innermost of the ``spans`` ``(start, end, name)`` open at the gap's
+    midpoint, which is the last of them to open (the shorter at a tie).
+    A ``gpubench.`` annotation gives its kind (``job``, ``solve``,
+    ``line``, ...), a span of the program its whole name
+    (``emg3d.mg.cycle``); with no span open the gap lies between the
+    jobs (``outside the jobs``)."""
+    out = []
+    for a, b in gaps:
+        mid = (a + b) // 2
+        inner = [(s, -e, name) for s, e, name in spans if s <= mid <= e]
+        if not inner:
+            where = 'outside the jobs'
+        else:
+            where = max(inner)[2]
+            if where.startswith(PREFIX):
+                where = where.split('#')[0][len(PREFIX):]
+        out.append([where, (b - a) / 1e9])
+    return out

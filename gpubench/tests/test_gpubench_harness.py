@@ -1,6 +1,7 @@
 """The harness: every name resolves to a file, names and units keep to
 the contract, the result line's keys, the modules a run loads, and a
-rehearsal of each cell on the CPU, also with the timed path broken."""
+rehearsal of each cell on the CPU, also with the timed path broken; the
+same for a batched cell that exists only in these tests."""
 import importlib
 import json
 import re
@@ -122,10 +123,58 @@ def _rehearse(cell, trace=False, seed=3_000_000_001):
     return harness.run(cell, seed, 0.0, trace=trace, rehearse=True)
 
 
-@pytest.mark.parametrize('cell', CELLS)
-def test_rehearsal_is_correct(cell):
+# A batched cell that exists only here: ``Simulation.compute()`` of 2
+# sources x 2 frequencies at 8³, sc+lr BiCGSTAB, through a job kind of
+# the tests' own (``batched_kind.py``), which the harness finds by name
+# as it finds the kinds of gpubench/jobs/.  Every test of a rehearsed
+# cell below takes it beside the cells of BENCHMARK.json.
+
+BATCHED = 'batched8.compute'
+BATCHED_WORKLOAD = {
+    'name': BATCHED, 'config': 'batched8', 'kind': 'batched_test',
+    'chips': 1,
+    'why': "2 sources x 2 frequencies at 8^3 in one Simulation.compute(): "
+           "one batched sc+lr BiCGSTAB solve",
+    'traffic': {'source_offset': {'low': -40.0, 'high': 40.0, 'size': 3}},
+    'solver': {'sslsolver': True, 'semicoarsening': True,
+               'linerelaxation': True},
+    'check': {'jobs': 1, 'residual_gap': 1e-9}}
+BATCHED_CONFIG = {
+    'name': 'batched8',
+    'grid': {ax: {'core': [-400.0, 8, 100.0]} for ax in 'xyz'},
+    'model': {'background': [1.0, 2.0, 3.0]},
+    'sources': [[-60.0, 10.0, 5.0, 0.0, 0.0], [70.0, -20.0, -5.0, 90.0, 0.0]],
+    'receivers': [[-250.0, 0.0, 0.0, 0.0, 0.0], [250.0, 50.0, 0.0, 0.0, 0.0]],
+    'frequencies': [0.5, 2.0],
+    'solver': {'tol': 1e-6, 'cycle': 'F'}}
+
+
+@pytest.fixture(params=CELLS + [BATCHED])
+def cell(request, monkeypatch):
+    """A cell to rehearse; for the batched one, ``load_cell`` gives it
+    and its kind is the module ``gpubench.jobs.batched_test``."""
+    if request.param == BATCHED:
+        from gpubench.tests import batched_kind
+        entry = dict(BATCHED_WORKLOAD, traffic='batched8')
+        del entry['kind'], entry['solver'], entry['check']
+        bench = dict(BENCH, workloads=BENCH['workloads'] + [entry])
+        real = harness.load_cell
+
+        def load_cell(name):
+            if name == BATCHED:
+                return bench, BATCHED_WORKLOAD, BATCHED_CONFIG
+            return real(name)
+        monkeypatch.setattr(harness, 'load_cell', load_cell)
+        monkeypatch.setitem(sys.modules, 'gpubench.jobs.batched_test',
+                            batched_kind)
+    return request.param
+
+
+def test_rehearsal_is_correct(cell, monkeypatch):
+    calls = _broken_solver(monkeypatch)
     out = _rehearse(cell)
-    assert out['correct'] is True
+    _reached(cell, calls)
+    assert out['correct'] is True and out['failed'] == 0
     assert 'metrics' not in out and 'device' not in out
     assert harness.banned_modules() == []
 
@@ -150,79 +199,112 @@ def test_run_in_a_fresh_process_loads_no_jax():
 
 
 # The timed path broken underneath: each fault a cell can have makes
-# ``correct`` false.  A job is one pair, so no batch can lose half of
-# its lanes, and one card has no exchange to leave out.
+# ``correct`` false.  A job kind reaches the solver only through
+# ``solver.solve`` or ``solver.solve_batched`` (gpubench/jobs/__init__.py),
+# so the faults are planted in both entries, in every Field they return:
+# every lane of a batch.  A batch answers for all its pairs at once, so
+# no fault leaves half of its lanes out; one card has no exchange to
+# leave out.
 
-def _broken_solve(monkeypatch, alter):
-    """``solver.solve`` with its returned field passed through
-    ``alter``; what it reports is left as it was."""
-    from emg3d_tpu_torch import solver
-    real = solver.solve
-
-    def solve(grid, model, sfield, **kw):
-        e, info = real(grid, model, sfield, **kw)
-        return alter(e), info
-    monkeypatch.setattr(solver, 'solve', solve)
+def _zero(f):
+    return type(f)(*(np.zeros_like(np.asarray(c)) for c in (f.fx, f.fy, f.fz)),
+                   frequency=f._frequency)
 
 
-@pytest.mark.parametrize('cell', CELLS)
-def test_fault_state_returned_unchanged(cell, monkeypatch):
-    """A solve that returns its starting field (zero) as converged."""
-    _broken_solve(monkeypatch, lambda f: type(f)(
-        *(np.zeros_like(np.asarray(c)) for c in (f.fx, f.fy, f.fz)),
-        frequency=f._frequency))
-    assert _rehearse(cell)['correct'] is False
+def _altered(f):
+    fx = np.array(f.fx)
+    i = np.unravel_index(np.argmax(np.abs(fx)), fx.shape)
+    fx[tuple(min(n - 2, max(1, j + 1)) for n, j in zip(fx.shape, i))] \
+        += 1e-3 * np.abs(fx).max()
+    return type(f)(fx, f.fy, f.fz, frequency=f._frequency)
 
 
-@pytest.mark.parametrize('cell', CELLS)
-def test_fault_answer_altered(cell, monkeypatch):
-    """One edge of each returned field altered by a part in a thousand
-    of the field's largest value."""
-    def alter(f):
-        fx = np.array(f.fx)
-        i = np.unravel_index(np.argmax(np.abs(fx)), fx.shape)
-        fx[tuple(min(n - 2, max(1, j + 1)) for n, j in zip(fx.shape, i))] \
-            += 1e-3 * np.abs(fx).max()
-        return type(f)(fx, f.fy, f.fz, frequency=f._frequency)
-    _broken_solve(monkeypatch, alter)
-    assert _rehearse(cell)['correct'] is False
-
-
-@pytest.mark.parametrize('cell', CELLS)
-def test_fault_field_returned_in_complex64(cell, monkeypatch):
-    """The solved field handed back rounded to complex64 (half the bytes
-    to copy), its reported residual that of the complex128 field: the
-    residual's gap fails it."""
-    _broken_solve(monkeypatch, lambda f: type(f)(
+def _complex64(f):
+    return type(f)(
         *(np.asarray(c).astype(np.complex64) for c in (f.fx, f.fy, f.fz)),
-        frequency=f._frequency))
+        frequency=f._frequency)
+
+
+# What a broken solve hands back in place of each Field it solved:
+# - ``state_returned_unchanged``: its starting field (zero), as converged;
+# - ``answer_altered``: one edge altered by a part in a thousand of the
+#   field's largest value;
+# - ``field_returned_in_complex64``: the field rounded to complex64 (half
+#   the bytes to copy), its reported residual that of the complex128
+#   field, so the residual's gap fails it.
+FAULTS = {'state_returned_unchanged': _zero, 'answer_altered': _altered,
+          'field_returned_in_complex64': _complex64}
+
+
+def _broken_solver(monkeypatch, alter=None, report=None):
+    """``solver.solve`` and ``solver.solve_batched``, replaced through
+    their module attributes as the program calls them, each returned
+    Field passed through ``alter`` and the ``info`` through ``report``;
+    what is not altered is left as the solve gave it.  Returns the calls
+    each entry took."""
+    from emg3d_tpu_torch import solver
+    calls = {'solve': 0, 'solve_batched': 0}
+
+    def broken(entry, real):
+        def call(*a, **k):
+            calls[entry] += 1
+            out = real(*a, **k)
+            field, info = out if isinstance(out, tuple) else (out, None)
+            if alter is not None:
+                field = ([alter(f) for f in field] if isinstance(field, list)
+                         else alter(field))
+            if info is None:
+                return field
+            return field, (report(info) if report is not None else info)
+        return call
+
+    for entry in calls:
+        monkeypatch.setattr(solver, entry, broken(entry,
+                                                  getattr(solver, entry)))
+    return calls
+
+
+def _reached(cell, calls):
+    """The cell's jobs reached a solver entry; the batched cell's only
+    ``solve_batched``."""
+    assert sum(calls.values()) > 0, "the cell's jobs reached no solver entry"
+    if cell == BATCHED:
+        assert calls['solve'] == 0 and calls['solve_batched'] > 0
+
+
+@pytest.mark.parametrize('fault', FAULTS)
+def test_fault_makes_correct_false(cell, fault, monkeypatch):
+    calls = _broken_solver(monkeypatch, FAULTS[fault])
     out = _rehearse(cell)
-    assert out['checks']['residual_gap']['value'] > \
-        out['checks']['residual_gap']['limit']
+    _reached(cell, calls)
+    if fault == 'field_returned_in_complex64':
+        assert out['checks']['residual_gap']['value'] > \
+            out['checks']['residual_gap']['limit']
     assert out['correct'] is False
 
 
-@pytest.mark.parametrize('cell', CELLS)
-def test_lower_precision_control_is_not_correct(cell):
+def test_lower_precision_control_is_not_correct(cell, monkeypatch):
     """The control, the program's complex64 path without its two-float
     accumulation, run through the harness: ``correct`` false."""
     from gpubench import control
+    calls = _broken_solver(monkeypatch)
     with control.single_precision():
         out = _rehearse(cell)
+    _reached(cell, calls)
     assert out['correct'] is False
 
 
-def test_not_converged_counts_as_failed(monkeypatch):
-    from emg3d_tpu_torch import solver
-    real = solver.solve
+def _stalled(info):
+    """A solve's report with its exit message that of no convergence
+    (for a batch: the message all its lanes share)."""
+    return dict(info, exit_message='MAX. ITERATION REACHED, NOT CONVERGED')
 
-    def stalled(grid, model, sfield, **kw):
-        e, info = real(grid, model, sfield, **kw)
-        return e, dict(info, exit_message='MAX. ITERATION REACHED, NOT '
-                       'CONVERGED')
-    monkeypatch.setattr(solver, 'solve', stalled)
-    out = _rehearse('fullspace256.sclr')
-    assert out['failed'] == out['attempted'] == 1
+
+def test_not_converged_counts_as_failed(cell, monkeypatch):
+    calls = _broken_solver(monkeypatch, report=_stalled)
+    out = _rehearse(cell)
+    _reached(cell, calls)
+    assert out['failed'] == out['attempted'] >= 1
     assert out['correct'] is False
 
 
