@@ -18,7 +18,7 @@ from copy import deepcopy
 
 import numpy as np
 
-from . import fields, meshes, models, optimize, solver
+from . import fields, meshes, models, optimize, solver, trace
 
 __all__ = ['Simulation', 'expand_grid_model', 'estimate_gridding_opts']
 
@@ -179,7 +179,8 @@ class Simulation:
         if self._dict_grid[source][freq] is None:
             key = ('grid', *self._share_key(source, freq))
             if key not in self._shared:
-                self._shared[key] = self._build_grid(source, freq)
+                with trace.span('survey.grid'):
+                    self._shared[key] = self._build_grid(source, freq)
             self._dict_grid[source][freq] = self._shared[key]
         return self._dict_grid[source][freq]
 
@@ -190,9 +191,10 @@ class Simulation:
             key = ('model', *self._share_key(source, freq))
             if key not in self._shared:
                 cgrid = self.get_grid(source, freq)
-                self._shared[key] = self.model \
-                    if self.gridding == 'same' else \
-                    self.model.interpolate2grid(self.grid, cgrid)
+                with trace.span('survey.grid'):
+                    self._shared[key] = self.model \
+                        if self.gridding == 'same' else \
+                        self.model.interpolate2grid(self.grid, cgrid)
             self._dict_model[source][freq] = self._shared[key]
         return self._dict_model[source][freq]
 
@@ -202,12 +204,14 @@ class Simulation:
         if self._dict_sfield[source][freq] is None:
             src = self.survey.sources[source]
             strength = getattr(src, 'strength', 0)
-            sfield = fields.get_source_field(
-                grid=self.get_grid(source, frequency),
-                src=src.coordinates,
-                freq=frequency,
-                strength=strength,
-                electric=src.electric)
+            grid = self.get_grid(source, frequency)
+            with trace.span('survey.sfield'):
+                sfield = fields.get_source_field(
+                    grid=grid,
+                    src=src.coordinates,
+                    freq=frequency,
+                    strength=strength,
+                    electric=src.electric)
             self._dict_sfield[source][freq] = sfield
         return self._dict_sfield[source][freq]
 
@@ -225,6 +229,8 @@ class Simulation:
                 'model': self.get_model(source, freq),
                 'sfield': self.get_sfield(source, freq),
             }
+            trace.count('survey.pairs', 1)
+            trace.count('survey.unbatched', 1)
             efield, info = solver.solve(**solver_input)
             self._dict_efield[source][freq] = efield
             self._dict_efield_info[source][freq] = info
@@ -267,19 +273,21 @@ class Simulation:
 
         if rec_types.count(True):
             erec = np.nonzero(rec_types)[0]
-            resp = fields.get_receiver_response(
-                grid=self.get_grid(source, freq),
-                field=self.get_efield(source, freq),
-                rec=tuple(np.array(rec_coords)[:, erec]))
-            self.data.synthetic[isrc, erec, ifreq] = resp
+            efield = self.get_efield(source, freq)
+            with trace.span('survey.responses'):
+                resp = fields.get_receiver_response(
+                    grid=self.get_grid(source, freq), field=efield,
+                    rec=tuple(np.array(rec_coords)[:, erec]))
+                self.data.synthetic[isrc, erec, ifreq] = resp
 
         if rec_types.count(False):
             mrec = np.nonzero(np.logical_not(rec_types))[0]
-            resp = fields.get_receiver_response(
-                grid=self.get_grid(source, freq),
-                field=self.get_hfield(source, freq),
-                rec=tuple(np.array(rec_coords)[:, mrec]))
-            self.data.synthetic[isrc, mrec, ifreq] = resp
+            hfield = self.get_hfield(source, freq)
+            with trace.span('survey.responses'):
+                resp = fields.get_receiver_response(
+                    grid=self.get_grid(source, freq), field=hfield,
+                    rec=tuple(np.array(rec_coords)[:, mrec]))
+                self.data.synthetic[isrc, mrec, ifreq] = resp
 
     # -- computation ----------------------------------------------------
 
@@ -296,47 +304,48 @@ class Simulation:
         solve (:func:`.solver.solve_batched`), the on-device replacement
         of the reference's process pool.
         """
-        self._compute_batched()
-        # Pairs the batched path could not group (gcrotmk, singleton
-        # groups, mismatched grids) are independent solves: dispatch
-        # them from `max_workers` host threads so one solve's blocking
-        # norm fetches overlap another's device work — the analog of
-        # the reference's process-pool fan-out (reference
-        # simulations.py:862-867).
-        pending = [(s, f) for s, f in self._srcfreq
-                   if self._dict_efield[s][float(f)] is None]
-        if len(pending) > 1 and int(self.max_workers) > 1:
-            from concurrent.futures import ThreadPoolExecutor
-            nw = min(int(self.max_workers), len(pending))
-            with ThreadPoolExecutor(nw) as pool:
-                list(pool.map(lambda sf: self.get_efield(*sf), pending))
-        for src, freq in self._srcfreq:
-            self.get_efield(src, freq)
+        with trace.span('survey.compute'):
+            self._compute_batched()
+            # Pairs the batched path could not group (gcrotmk, singleton
+            # groups, mismatched grids) are independent solves: dispatch
+            # them from `max_workers` host threads so one solve's blocking
+            # norm fetches overlap another's device work — the analog of
+            # the reference's process-pool fan-out (reference
+            # simulations.py:862-867).
+            pending = [(s, f) for s, f in self._srcfreq
+                       if self._dict_efield[s][float(f)] is None]
+            if len(pending) > 1 and int(self.max_workers) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                nw = min(int(self.max_workers), len(pending))
+                with ThreadPoolExecutor(nw) as pool:
+                    list(pool.map(lambda sf: self.get_efield(*sf), pending))
+            for src, freq in self._srcfreq:
+                self.get_efield(src, freq)
 
-        self.print_solver_info('efield', verb=self.verb)
+            self.print_solver_info('efield', verb=self.verb)
 
-        if observed:
-            self.data['observed'] = self.data['synthetic'].copy()
+            if observed:
+                self.data['observed'] = self.data['synthetic'].copy()
 
-            if self.survey.standard_deviation is not None:
-                std = np.asarray(self.survey.standard_deviation)
-                random = np.random.randn(
-                    int(np.prod(self.survey.shape)) * 2)
-                noise_re = std * random[::2].reshape(self.survey.shape)
-                noise_im = std * random[1::2].reshape(self.survey.shape)
-                self.data['observed'] += noise_re + 1j * noise_im
+                if self.survey.standard_deviation is not None:
+                    std = np.asarray(self.survey.standard_deviation)
+                    random = np.random.randn(
+                        int(np.prod(self.survey.shape)) * 2)
+                    noise_re = std * random[::2].reshape(self.survey.shape)
+                    noise_im = std * random[1::2].reshape(self.survey.shape)
+                    self.data['observed'] += noise_re + 1j * noise_im
 
-            if self.survey.noise_floor is not None:
-                min_amp = (np.abs(self.data.synthetic) <
-                           self.survey.noise_floor)
-                self.data['observed'][min_amp] = np.nan + 1j * np.nan
+                if self.survey.noise_floor is not None:
+                    min_amp = (np.abs(self.data.synthetic) <
+                               self.survey.noise_floor)
+                    self.data['observed'][min_amp] = np.nan + 1j * np.nan
 
-            offsets = np.linalg.norm(
-                np.array(self.survey.rec_coords[:3])[:, None, :] -
-                np.array(self.survey.src_coords[:3])[:, :, None],
-                axis=0)
-            min_off = offsets < kwargs.get('min_offset', 0.0)
-            self.data['observed'][min_off] = np.nan + 1j * np.nan
+                offsets = np.linalg.norm(
+                    np.array(self.survey.rec_coords[:3])[:, None, :] -
+                    np.array(self.survey.src_coords[:3])[:, :, None],
+                    axis=0)
+                min_off = offsets < kwargs.get('min_offset', 0.0)
+                self.data['observed'][min_off] = np.nan + 1j * np.nan
 
     def _compute_batched(self):
         """Batched multi-(source, frequency) solves sharing a grid.
@@ -371,6 +380,8 @@ class Simulation:
             sfields = [self.get_sfield(src, freq) for src, freq in pairs]
             opts = {k: v for k, v in self.solver_opts.items()
                     if k not in ['sslsolver', 'return_info', 'log']}
+            trace.count('survey.pairs', len(pairs))
+            trace.count('survey.batches', 1)
             efields, info = solver.solve_batched(grid, model, sfields,
                                                  sslsolver=ssl, **opts)
             for i, (src, freq) in enumerate(pairs):

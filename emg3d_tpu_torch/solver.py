@@ -2322,11 +2322,18 @@ def _freeze(mask, new, old):
 
 def _lanes_done(r, active, atol):
     """Host check of the lanes: (all settled, all converged, new active
-    mask) from one fetch of the per-lane residual norms."""
+    mask) from one fetch of the per-lane residual norms.  Where the loop
+    goes on, counts the lanes its step computes (``krylov.lane_iters``)
+    and those of them already settled, whose results the step's
+    :func:`_freeze` discards (``krylov.settled_lane_iters``)."""
     rn = _fetch(torch.sqrt(_dot_b(r, r).real))
     act = _fetch(active)
     done = rn <= atol
-    return (bool(np.all(done | ~act)), bool(np.all(done)),
+    settled = done | ~act
+    if not np.all(settled):
+        trace.count('krylov.lane_iters', settled.size)
+        trace.count('krylov.settled_lane_iters', np.count_nonzero(settled))
+    return (bool(np.all(settled)), bool(np.all(done)),
             torch.tensor(act & ~done, device=active.device))
 
 

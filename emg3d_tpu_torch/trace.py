@@ -41,13 +41,30 @@ The spans of a solve (:mod:`.solver`, :mod:`.parallel.halo`):
   a fetch of per-lane or packed scalars, a returned field component).
 - ``solve.result``: the solution fetched and handed back.
 
+The spans of a survey (:mod:`.simulations`), around and beside its
+solves:
+
+- ``survey.compute``: one ``Simulation.compute()``;
+- ``survey.grid``: a grid or a model built for a share key of the
+  gridding (the model's ``interpolate2grid`` included);
+- ``survey.sfield``: a source field built for one (source, frequency)
+  pair;
+- ``survey.responses``: the receivers' responses of one pair's field
+  computed and stored in ``data.synthetic``.
+
 Counters: ``copy.h2d_bytes``, the bytes of the fields, model
 properties and level arrays the solve copies from host arrays to its
 device; ``copy.d2h_bytes``, the bytes of the whole fields it fetches
 back (scalar fetches are ``sync`` spans, not bytes);
 ``setup.device_params``, the solves whose η and ζ were derived on their
 device; ``levels.fine_shared``, the hierarchies that took the solve's
-finest level from its first hierarchy without a copy.
+finest level from its first hierarchy without a copy;
+``krylov.lane_iters``, the lanes a batched Krylov step computes, summed
+over its steps, and ``krylov.settled_lane_iters``, those of them that
+had already converged or broken down, whose results the step discards;
+``survey.pairs``, the (source, frequency) pairs a survey computed,
+``survey.batches``, its ``solve_batched`` calls, and
+``survey.unbatched``, the pairs it sent to single solves.
 """
 import contextlib
 import itertools
