@@ -9,6 +9,12 @@ component arrays ``fx (nx, ny+1, nz+1)``, ``fy (nx+1, ny, nz+1)``,
 tensors (:mod:`emg3d_tpu_torch.convert`) and back.  They are not JAX
 pytrees.  Receivers and the H-field are host-side numpy, interpolated
 by the port's own :func:`.maps.interp3d`.
+
+A source from :func:`get_source_field` keeps only its nonzero edges
+(:attr:`SourceField.record`: per component the flat edge indices and
+their values): it builds its dense host arrays on first access, and the
+solver places it on the device from those edges, so the few values are
+all that cross.
 """
 import warnings
 
@@ -49,10 +55,7 @@ class Field:
     def zeros(cls, grid, frequency=None, dtype=None):
         """Zero field on ``grid`` (electric edge layout)."""
         if dtype is None:
-            if frequency is None or frequency > 0:
-                dtype = complex_dtype()
-            else:
-                dtype = real_dtype()
+            dtype = _default_dtype(frequency)
         return cls(np.zeros(grid.shape_edges_x, dtype),
                    np.zeros(grid.shape_edges_y, dtype),
                    np.zeros(grid.shape_edges_z, dtype),
@@ -99,11 +102,7 @@ class Field:
     @property
     def sval(self):
         """Laplace parameter s: -2iπf (f-domain) or f (Laplace domain)."""
-        if self._frequency is None:
-            return None
-        if self._frequency < 0:
-            return np.float64(self._frequency)
-        return np.complex128(-2j * np.pi * self._frequency)
+        return _sval(self._frequency)
 
     @property
     def smu0(self):
@@ -114,7 +113,7 @@ class Field:
     @property
     def is_electric(self):
         """Electric fields have fx.shape[0] < fy.shape[0]."""
-        return self.fx.shape[0] < self.fy.shape[0]
+        return self.shape[0][0] < self.shape[1][0]
 
     # -- copies ----------------------------------------------------------
 
@@ -143,8 +142,7 @@ class Field:
 
     def norm(self):
         """l2-norm over all components."""
-        return np.sqrt(sum(np.sum(np.abs(np.asarray(f))**2)
-                           for f in (self.fx, self.fy, self.fz)))
+        return _norm((self.fx, self.fy, self.fz))
 
     # -- arithmetic ------------------------------------------------------
 
@@ -213,15 +211,58 @@ class Field:
         return cls(fx, fy, fz, frequency=freq)
 
     def __repr__(self):
-        return (f"{self.__class__.__name__}: {self.fx.shape} "
-                f"{self.fy.shape} {self.fz.shape}; freq={self._frequency}")
+        return (f"{self.__class__.__name__}: {self.shape[0]} "
+                f"{self.shape[1]} {self.shape[2]}; freq={self._frequency}")
+
+
+def _sval(frequency):
+    """The Laplace parameter of a signed ``frequency`` (None for None)."""
+    if frequency is None:
+        return None
+    if frequency < 0:
+        return np.float64(frequency)
+    return np.complex128(-2j * np.pi * frequency)
+
+
+def _default_dtype(frequency):
+    """A zero field's dtype: complex, but real in the Laplace domain."""
+    if frequency is None or frequency > 0:
+        return complex_dtype()
+    return real_dtype()
+
+
+def _norm(comps):
+    """l2-norm over the component arrays ``comps`` (an iterable)."""
+    return np.sqrt(sum(np.sum(np.abs(np.asarray(f))**2) for f in comps))
+
+
+def _component(i):
+    """Property of a :class:`SourceField`'s component ``i``: its dense
+    array, built from the record on first access."""
+    def get(self):
+        return self._dense()[i]
+
+    def put(self, value):
+        self._dense()[i] = value
+    return property(get, put)
 
 
 class SourceField(Field):
     """Source field s·μ0·Js; frequency is mandatory.
 
+    A source from :func:`get_source_field` holds its :attr:`record`, the
+    few edges it touches, and no dense arrays: ``fx``, ``fy`` and ``fz``
+    (and all that reads them) build those on first access, by writing
+    the record's values into an array of its zero, and drop the record,
+    since the caller may write into them.  ``shape``, ``dtype``,
+    ``frequency``, ``sval``, ``smu0`` and :meth:`norm` build nothing to
+    keep.  A source made from arrays has no record.
+
     Reference parity: emg3d/fields.py:368-443.
     """
+
+    _record = None
+    fx, fy, fz = _component(0), _component(1), _component(2)
 
     def __init__(self, fx, fy, fz, frequency=None, src=None, strength=None,
                  moment=None):
@@ -231,6 +272,58 @@ class SourceField(Field):
         self.src = src
         self.strength = strength
         self.moment = moment
+
+    @classmethod
+    def _recorded(cls, shapes, record, frequency, src, strength, moment):
+        """A source of edge ``shapes`` held as its ``record``."""
+        if frequency is None:
+            raise ValueError("SourceField requires a frequency.")
+        out = cls.__new__(cls)
+        out._shapes = tuple(tuple(sh) for sh in shapes)
+        out._record = record
+        out._frequency = frequency
+        out.src, out.strength, out.moment = src, strength, moment
+        return out
+
+    @property
+    def record(self):
+        """The nonzero edges, or None once the dense arrays exist: per
+        component ``(idx, vals, zero)``, the ascending flat (C-order)
+        indices of the edges the source touches, their values, and the
+        one-element array of the value everywhere else (a zero, whose
+        sign is that of ``0 · s·μ0·moment``)."""
+        return self._record
+
+    def _dense(self):
+        if self._record is not None:
+            self._comps = list(_record_arrays(self._shapes, self._record))
+            self._record = None
+        return self.__dict__.setdefault('_comps', [None, None, None])
+
+    @property
+    def shape(self):
+        if self._record is not None:
+            return self._shapes
+        return super().shape
+
+    @property
+    def dtype(self):
+        if self._record is not None:
+            return self._record[0][1].dtype
+        return super().dtype
+
+    def norm(self):
+        """l2-norm over all components (of the dense arrays, built for
+        it and not kept where the source holds its record)."""
+        if self._record is not None:
+            return _norm(_record_arrays(self._shapes, self._record))
+        return super().norm()
+
+    def _record_norm(self):
+        """The l2-norm from the record's values alone (within 1e-15 of
+        :meth:`norm`, which sums the dense arrays in another order)."""
+        return float(np.sqrt(sum(np.sum(np.abs(v)**2)
+                                 for _, v, _ in self._record)))
 
     @classmethod
     def zeros(cls, grid, frequency=None, dtype=None):
@@ -271,7 +364,10 @@ def get_source_field(grid, src, freq, strength=0, electric=True, length=1.0,
     - Polyline ``[[x...], [y...], [z...]]`` (recursion over segments)
 
     The source is distributed to cell edges with the adjoint of trilinear
-    interpolation of each in-cell segment's center of gravity.
+    interpolation of each in-cell segment's center of gravity.  The
+    result holds the edges it touches (:attr:`SourceField.record`); its
+    dense arrays, built on access, are those of the reference's dense
+    construction to the bit.
     """
     if not np.allclose(np.size(src[0]), [np.size(c) for c in src]):
         raise ValueError("All source coordinates must have the same "
@@ -279,6 +375,7 @@ def get_source_field(grid, src, freq, strength=0, electric=True, length=1.0,
 
     src = np.asarray(src, dtype=np.float64)
     strength = np.asarray(strength)
+    shapes = (grid.shape_edges_x, grid.shape_edges_y, grid.shape_edges_z)
 
     if src.shape == (5,):  # Point dipole.
         if not electric:   # Magnetic -> square loop perpendicular to it.
@@ -294,22 +391,22 @@ def get_source_field(grid, src, freq, strength=0, electric=True, length=1.0,
         else:
             seg_len = seg_len * strength
 
-        sfield = SourceField.zeros(grid, frequency=freq)
-        sfield.src = src
-        sfield.strength = strength
-        sfield.moment = np.zeros(3, dtype=seg_len.dtype)
+        # The segments' records summed as the dense fields would be,
+        # from the zero field SourceField.zeros makes.
+        dtype = _default_dtype(freq)
+        record = ((np.zeros(0, np.int64), np.zeros(0, dtype),
+                   np.zeros(1, dtype)),) * 3
+        moment = np.zeros(3, dtype=seg_len.dtype)
         for i in range(sx.size - 1):
             seg = (sx[i], sx[i+1], sy[i], sy[i+1], sz[i], sz[i+1])
             segf = get_source_field(grid, seg, freq, seg_len[i])
-            sfield = SourceField(
-                sfield.fx + segf.fx, sfield.fy + segf.fy,
-                sfield.fz + segf.fz, frequency=freq, src=src,
-                strength=strength, moment=sfield.moment + segf.moment)
+            record = tuple(_record_add(r, q)
+                           for r, q in zip(record, segf.record))
+            moment = moment + segf.moment
         if not electric:
-            sfield = SourceField(
-                -sfield.fx, -sfield.fy, -sfield.fz, frequency=freq,
-                src=src, strength=strength, moment=sfield.moment)
-        return sfield
+            record = tuple((i, -v, -z) for i, v, z in record)
+        return SourceField._recorded(shapes, record, freq, src, strength,
+                                     moment)
 
     if src.shape != (6,):
         raise ValueError(
@@ -328,25 +425,50 @@ def get_source_field(grid, src, freq, strength=0, electric=True, length=1.0,
     else:
         moment = strength * dvec
 
-    sfield = SourceField.zeros(grid, frequency=freq)
-    comps = []
-    for xyz, shape in enumerate([grid.shape_edges_x, grid.shape_edges_y,
-                                 grid.shape_edges_z]):
-        s = np.zeros(shape, dtype=np.float64)
-        _finite_source_xyz(grid, src, s, xyz, decimals)
-        comps.append(s * (moment[xyz] * sfield.smu0))
+    if freq is None:
+        raise ValueError("SourceField requires a frequency.")
+    smu0 = _sval(freq) * mu_0
+    record = []
+    for xyz, shape in enumerate(shapes):
+        idx, s = _finite_source_xyz(grid, src, shape, xyz, decimals)
+        scale = moment[xyz] * smu0
+        record.append((idx, s * scale, np.zeros(1) * scale))
 
-    return SourceField(comps[0], comps[1], comps[2], frequency=freq,
-                       src=src, strength=strength, moment=moment)
+    return SourceField._recorded(shapes, tuple(record), freq, src, strength,
+                                 moment)
 
 
-def _finite_source_xyz(grid, src, s, xyz, decimals):
-    """Distribute a finite dipole's xyz-component onto edge array ``s``.
+def _record_arrays(shapes, record):
+    """The dense component arrays a record defines (one at a time)."""
+    for shape, (idx, vals, zero) in zip(shapes, record):
+        out = np.full(shape, zero[0], dtype=vals.dtype)
+        out.reshape(-1)[idx] = vals
+        yield out
+
+
+def _record_add(a, b):
+    """The record of the sum of two components' dense arrays: at every
+    edge either touches, the two values (a zero where one has none)
+    added as the dense arrays' elements are."""
+    def at(idx, own):
+        i, vals, zero = own
+        out = np.full(idx.size, zero[0], dtype=vals.dtype)
+        out[np.searchsorted(idx, i)] = vals
+        return out
+    idx = np.union1d(a[0], b[0])
+    return idx, at(idx, a) + at(idx, b), a[2] + b[2]
+
+
+def _finite_source_xyz(grid, src, shape, xyz, decimals):
+    """A finite dipole's xyz-component on the edges of ``shape``: the
+    ascending flat indices of the edges it touches and their float64
+    weights.
 
     Vectorized: the segment is split at every node-plane crossing into
     sub-segments (each inside exactly one cell); all sub-segment
-    midpoints are then scattered with trilinear-adjoint weights in four
-    ``np.add.at`` calls.  Behavior matches the reference's per-cell
+    midpoints are then scattered with trilinear-adjoint weights, summed
+    per edge in the order four ``np.add.at`` calls into a dense array
+    would sum them.  Behavior matches the reference's per-cell
     center-of-gravity distribution (emg3d/fields.py:914-1010) by
     construction — same sub-segments, same weights — without its
     triple loop over the bounding box of cells.
@@ -388,25 +510,35 @@ def _finite_source_xyz(grid, src, s, xyz, decimals):
     # Trilinear-adjoint scatter in the plane transverse to the edge
     # direction; the along-edge index takes the full weight.
     if xyz == 0:
-        ja, jb, ra, rb = iy, iz, ry, rz
+        ra, rb = ry, rz
         at = lambda da, db: (ix, iy + da, iz + db)
     elif xyz == 1:
-        ja, jb, ra, rb = ix, iz, rx, rz
+        ra, rb = rx, rz
         at = lambda da, db: (ix + da, iy, iz + db)
     else:
-        ja, jb, ra, rb = ix, iy, rx, ry
+        ra, rb = rx, ry
         at = lambda da, db: (ix + da, iy + db, iz)
-    np.add.at(s, at(0, 0), (1 - ra) * (1 - rb) * dt)
-    np.add.at(s, at(1, 0), ra * (1 - rb) * dt)
-    np.add.at(s, at(0, 1), (1 - ra) * rb * dt)
-    np.add.at(s, at(1, 1), ra * rb * dt)
+    flat = np.concatenate([np.ravel_multi_index(at(da, db), shape)
+                           for da, db in ((0, 0), (1, 0), (0, 1), (1, 1))])
+    w = np.concatenate([(1 - ra) * (1 - rb) * dt, ra * (1 - rb) * dt,
+                        (1 - ra) * rb * dt, ra * rb * dt])
+    edges, inv = np.unique(flat, return_inverse=True)
+    s = np.zeros(edges.size)
+    np.add.at(s, inv, w)
 
-    sum_s = abs(s.sum())
-    if abs(sum_s - 1) > 1e-6:
-        msg = f"Normalizing Source: {sum_s:.10f}."
-        print(f"* WARNING :: {msg}")
-        warnings.warn(msg, UserWarning)
-        s /= sum_s
+    # Near the renormalizing threshold, or past it, the dense array's
+    # own (pairwise) sum decides, as it always has.
+    if abs(abs(s.sum()) - 1) > 1e-6 - 1e-12:
+        dense = np.zeros(shape)
+        np.add.at(dense.reshape(-1), flat, w)
+        sum_s = abs(dense.sum())
+        if abs(sum_s - 1) > 1e-6:
+            msg = f"Normalizing Source: {sum_s:.10f}."
+            print(f"* WARNING :: {msg}")
+            warnings.warn(msg, UserWarning)
+            dense /= sum_s
+        s = dense.reshape(-1)[edges]
+    return edges, s
 
 
 def _rotation(azm, dip):

@@ -851,6 +851,61 @@ def _upload(fld, dtype, device):
     return out
 
 
+def _records(sfields, grid):
+    """The sources' records (:attr:`.fields.SourceField.record`), or None
+    unless every source still holds one on ``grid``'s edges."""
+    shapes = _edge_shapes(grid.shape_cells)
+    recs = [getattr(sf, 'record', None) for sf in sfields]
+    if any(r is None for r in recs) or any(
+            sf.shape != shapes for sf in sfields):
+        return None
+    return recs
+
+
+def _place(records, shapes, dtype, device):
+    """Recorded sources on ``device`` in ``dtype``: per component a
+    (B, ...) stack of the lanes' zeros with every lane's values written
+    in one indexed write.  Only the records' indices and values cross
+    (two copies), and the stacks equal those of the lanes' dense arrays
+    uploaded, to the bit."""
+    with trace.span('setup.upload'):
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        idx, vals = [], []
+        for c, n in enumerate(sizes):
+            for b, rec in enumerate(records):
+                idx.append(rec[c][0] + b * n)
+                vals.append(rec[c][1])
+        counts = [sum(r[c][0].size for r in records) for c in range(3)]
+        idx, vals = np.concatenate(idx), np.concatenate(vals)
+        trace.count('copy.h2d_bytes', idx.nbytes + vals.nbytes)
+        idx = torch.from_numpy(idx).to(device).split(counts)
+        vals = torch.from_numpy(vals).to(device=device,
+                                         dtype=dtype).split(counts)
+        out = []
+        for c, shape in enumerate(shapes):
+            t = torch.zeros((len(records),) + tuple(shape), dtype=dtype,
+                            device=device)
+            for b, rec in enumerate(records):
+                zero = rec[c][2]
+                if zero.view(np.uint8).any():      # a negative zero
+                    t[b].fill_(zero[0].item())
+            t.view(-1)[idx[c]] = vals[c]
+            out.append(t)
+    return tuple(out)
+
+
+def _source_on_device(sfield, grid, dtype, device):
+    """A single solve's source on ``device``: placed from its record, or
+    its dense arrays uploaded."""
+    records = _records([sfield], grid)
+    if records is None:
+        trace.count('source.dense', 1)
+        return _upload(sfield, dtype, device)
+    trace.count('source.compact', 1)
+    return tuple(t[0] for t in _place(records, sfield.shape, dtype,
+                                      device))
+
+
 class _SolveContext:
     """Per-solve state: device fields and level hierarchies per sc_dir.
 
@@ -869,7 +924,10 @@ class _SolveContext:
     ``sfield`` and ``efield`` are host Fields, or an unsharded solve's
     component tensors already on ``device`` in ``dtype`` (taken as they
     are); ``efield`` None starts an unsharded solve from zeros made on
-    the device.
+    the device.  A source from :func:`.fields.get_source_field` keeps
+    its nonzero edges and builds its dense host arrays only on access:
+    an unsharded or batched solve places it on the device from those
+    edges (:func:`_place`), a sharded one reads its dense arrays.
     """
 
     def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
@@ -881,7 +939,7 @@ class _SolveContext:
         self.mode = mode
         self.sharding = sharding
         self.dtype = dtype if dtype is not None \
-            else precision(np.asarray(sfield.fx).dtype)[1]
+            else precision(sfield.dtype)[1]
         self._levels = {}
         self._ds_params = None
         self.meter = {'bytes': 0}
@@ -1868,16 +1926,17 @@ def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
                f"v{__import__('emg3d_tpu_torch').__version__}\n", 2)
     var.cprint(var, 2)
 
-    src_dtype = np.asarray(sfield.fx).dtype
+    src_dtype = sfield.dtype
     # The x64 switch is read here, once: the solve keeps this precision.
     dtype = precision(src_dtype)[1]
 
     # Compute reference error for tolerance.
     if sharding is None:
-        s = _upload(sfield, dtype, device)
+        s = _source_on_device(sfield, grid, dtype, device)
         with trace.span('setup.norm'):
             var.l2_refe = halo.WHOLE.norm(s)
     else:
+        trace.count('source.dense', 1)
         s = sfield
         with trace.span('setup.norm'):
             var.l2_refe = float(sfield.norm())
@@ -1929,7 +1988,7 @@ def _hand_back(ctx, var, sfield, efield):
     fetched from the device, as a new Field or into ``efield`` (the warm
     start, updated in place), with the info dict if asked for."""
     comps = _result(ctx.field(), None if ctx.e_lo is None
-                    else ctx.field(ctx.e_lo), np.asarray(sfield.fx).dtype)
+                    else ctx.field(ctx.e_lo), sfield.dtype)
     out = fields.Field(comps[0], comps[1], comps[2],
                        frequency=sfield._frequency)
 
@@ -2072,8 +2131,7 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
             e, l2_last = _multigrid_batched(ctx, var, refe)
 
         with trace.span('solve.result'):
-            src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
-                                         for sf in sfields))
+            src_dtype = np.result_type(*(sf.dtype for sf in sfields))
             comps = _result(e, ctx.e_lo, src_dtype)
             out = [fields.Field(*(np.ascontiguousarray(c[b]) for c in comps),
                                 frequency=sf._frequency)
@@ -2121,19 +2179,25 @@ def _batched_setup(grid, model, sfields, device, kwargs, **opts):
 
     # The lanes stack in one dtype (numpy promotes them, as the JAX
     # package's np.stack does); the x64 switch is read here, once.
-    src_dtype = np.result_type(*(np.asarray(sf.fx).dtype
-                                 for sf in sfields))
+    src_dtype = np.result_type(*(sf.dtype for sf in sfields))
     cdtype = precision(src_dtype)[1]
-    with trace.span('setup.upload'):
-        s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
-                                         for sf in sfields]), dtype=cdtype,
-                               device=device)
-                  for name in ('fx', 'fy', 'fz'))
-        trace.count('copy.h2d_bytes', trace.nbytes(s))
+    records = _records(sfields, grid)
+    if records is None:
+        trace.count('source.dense', len(sfields))
+        with trace.span('setup.upload'):
+            s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
+                                             for sf in sfields]),
+                                   dtype=cdtype, device=device)
+                      for name in ('fx', 'fy', 'fz'))
+            trace.count('copy.h2d_bytes', trace.nbytes(s))
+    else:
+        trace.count('source.compact', len(sfields))
+        s = _place(records, sfields[0].shape, cdtype, device)
     ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
 
     with trace.span('setup.norm'):
-        refe = np.array([float(sf.norm()) for sf in sfields])
+        refe = np.array([float(sf.norm()) if records is None
+                         else sf._record_norm() for sf in sfields])
     var.l2_refe = float(refe.max())
     refe = np.where(refe == 0, 1.0, refe)
     # The first hierarchy, which the cycles would build first.

@@ -21,8 +21,8 @@ The spans of a solve (:mod:`.solver`, :mod:`.parallel.halo`):
 
 - ``solve``: one ``solve`` or ``solve_batched`` call; opens a solve id.
 - ``solve.setup``: from the entry to the first cycle, with its children
-  ``setup.upload`` (the source, and a warm start's field, copied to the
-  device), ``setup.norm`` (the source's norm: on the device with one
+  ``setup.upload`` (the source placed on the device from its nonzero
+  edges or copied there whole, and a warm start's field copied), ``setup.norm`` (the source's norm: on the device with one
   fetch; on the host in a sharded solve), ``setup.volume_model`` (η and
   ζ: derived on the device from the model's properties, which are
   copied there; on the host in a sharded or batched solve),
@@ -56,6 +56,8 @@ Counters: ``copy.h2d_bytes``, the bytes of the fields, model
 properties and level arrays the solve copies from host arrays to its
 device; ``copy.d2h_bytes``, the bytes of the whole fields it fetches
 back (scalar fetches are ``sync`` spans, not bytes);
+``source.compact``, the sources (lanes) placed on the device from the
+edges they touch, and ``source.dense``, those uploaded whole;
 ``setup.device_params``, the solves whose η and ζ were derived on their
 device; ``levels.fine_shared``, the hierarchies that took the solve's
 finest level from its first hierarchy without a copy;

@@ -166,7 +166,14 @@ def test_host_syncs(runs, case):
 
 
 def _field_bytes(sf):
-    return sum(np.asarray(c).nbytes for c in (sf.fx, sf.fy, sf.fz))
+    """The bytes of a field's dense arrays (a recorded source builds
+    none for it)."""
+    return sum(int(np.prod(sh)) for sh in sf.shape) * sf.dtype.itemsize
+
+
+def _record_bytes(sf):
+    """The bytes of a recorded source's edge indices and values."""
+    return sum(i.nbytes + v.nbytes for i, v, _ in sf.record)
 
 
 def _hierarchy_bytes(grid, vmodel, sc_dir, clevel, finest):
@@ -213,13 +220,16 @@ def _visits(case, info, grid):
 
 @pytest.mark.parametrize('case', CASES)
 def test_copy_bytes(runs, case):
-    """Uploads: a single solve's source and the model's properties and
-    widths (no start field: it is made on the device), then one
-    hierarchy per semicoarsening direction the cycles visit, its finest
-    level's η and ζ made on the device and shared by the later ones; a
-    batched solve's sources and its host-made η and ζ.  The fetch: the
-    returned fields.  A single solve counts one device-made η/ζ and the
-    hierarchies that shared the first one's finest level."""
+    """Uploads: a single solve's source record (the indices and values
+    of the edges it touches: the source is placed on the device from
+    them) and the model's properties and widths (no start field: it is
+    made on the device), then one hierarchy per semicoarsening direction
+    the cycles visit, its finest level's η and ζ made on the device and
+    shared by the later ones; a batched solve's source records and its
+    host-made η and ζ.  The fetch: the returned fields.  A single solve
+    counts one device-made η/ζ and the hierarchies that shared the first
+    one's finest level; every solve counts its sources placed from
+    their records."""
     grid, model, sources = runs['grid'], runs['model'], runs['sources']
     info = runs['on'][case][1]
     var, visited = _visits(case, info, grid)
@@ -227,17 +237,18 @@ def test_copy_bytes(runs, case):
     fields = _field_bytes(sources[0])
     assert len(visited) == (3 if case == 'sclr' else 1)
     if case == 'batched':
-        h2d = 2 * fields + _hierarchy_bytes(
+        h2d = sum(_record_bytes(sf) for sf in sources) + _hierarchy_bytes(
             grid, vmodel, var.sc_dir, int(var.clevel[var.sc_dir]), 'all')
-        want = {'copy.h2d_bytes': h2d, 'copy.d2h_bytes': 2 * fields}
+        want = {'copy.h2d_bytes': h2d, 'copy.d2h_bytes': 2 * fields,
+                'source.compact': 2}
     else:
         first = int(var.sc_dir)
-        h2d = fields + _model_bytes(grid, model) + sum(
+        h2d = _record_bytes(sources[0]) + _model_bytes(grid, model) + sum(
             _hierarchy_bytes(grid, vmodel, sc, int(var.clevel[sc]),
                              'widths' if sc == first else 'none')
             for sc in visited)
         want = {'copy.h2d_bytes': h2d, 'copy.d2h_bytes': fields,
-                'setup.device_params': 1}
+                'setup.device_params': 1, 'source.compact': 1}
         if len(visited) > 1:
             want['levels.fine_shared'] = len(visited) - 1
     assert runs['counts'][case] == want
