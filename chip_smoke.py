@@ -89,7 +89,7 @@ Phases:
    wall beside 8 sequential ``solve`` calls of the same pairs (each
    lane's field within rel 10·tol of its own solve), ``misfit`` and
    ``gradient`` against data of a 2 Ω·m fullspace, and the same
-   Simulation at 16³ through the kernels and through ``_mode='plain'``
+   Simulation at 16³ through the kernels and under ``_build.PLAIN``
    (responses within rel 1e-9);
 11. "tdem64", the time domain (:func:`tdem_problem`): one x-directed
    dipole at the origin of the same fullspace, the 16 receivers, and the
@@ -100,7 +100,7 @@ Phases:
    line state = groups), cold and warm ``compute()``; three lanes
    (lowest, middle, highest frequency) against their own ``solve``
    (rel 10·tol); ``Fourier.freq2time`` of every receiver, finite; the
-   same survey at 16³ through the kernels and ``_mode='plain'``,
+   same survey at 16³ through the kernels and under ``_build.PLAIN``,
    frequency and time responses within rel 1e-9;
 12. "diff64", autograd (:func:`diff_problem`, tests/test_diff.py's setup
    on bench64's grid): the gradient of ½‖d − d_obs‖² in log σ through
@@ -108,7 +108,7 @@ Phases:
    point smoother (K1/K2) and with sc+lr (K3/K4/K5): forward and
    backward walls, the seconds inside ``solver.solve`` and outside it,
    launches and device ms per kernel; at 16³ the gradients through the
-   kernels against ``_mode='plain'`` (rel 1e-9, each solve's exit
+   kernels against ``_build.PLAIN`` (rel 1e-9, each solve's exit
    message, it_mg and it_ssl equal), central
    differences on three cells (1 %) and the source's gradient against
    the adjoint field λ;
@@ -168,7 +168,7 @@ Phases:
    CONVERGED, responses within TOL_C64_FIELD of a complex128 solve at
    tol 1e-10); bench64, sclr64 and sim64 each timed in turns with their
    complex128 solves (a cold complex64 run, then three warm pairs); (c)
-   16³ complex64 solves through the kernels and ``_mode='plain'``, point
+   16³ complex64 solves through the kernels and ``_build.PLAIN``, point
    and sc+lr: the same exit, it_mg ±1, fields within TOL_C64_FIELD.
    Phase 15 pins float32 storage (``solver.BF16_STORAGE = False``), so
    its readings are those of the complex64 path without bfloat16.
@@ -183,7 +183,7 @@ Phases:
    (exit, it_mg, it_ssl, walls, peak memory, fields against complex128
    within TOL_C64_FIELD), and sclr256 with bfloat16 stacks once (its
    peak beside phase 15's); (c) 16³ solves through the kernels and
-   ``_mode='plain'``, point, sc+lr, and sc+lr with every stack in
+   ``_build.PLAIN``, point, sc+lr, and sc+lr with every stack in
    bfloat16;
 17. "sharded", ``solve(..., sharding=)`` (``emg3d_tpu_torch.parallel``):
    (a) world size 1 on NCCL, in this process: bench64 with
@@ -303,6 +303,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds ``nvidia-smi``'s name and power limit, and before that one JSON
 line with the kernels' readings.  Needs one card and no network.
 """
+import contextlib
 import json
 import math
 import re
@@ -1581,6 +1582,24 @@ def _rel(a, b):
                  np.linalg.norm(b.field))
 
 
+@contextlib.contextmanager
+def _switch(module, name, value):
+    """``module.name`` set to ``value`` for the block, restored after."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _plain(on=True):
+    """The block runs every op's plain version, on the card too
+    (``ops._build.PLAIN``)."""
+    from emg3d_tpu_torch.ops import _build
+    return _switch(_build, 'PLAIN', on)
+
+
 def _solve(torch, grid, model, sfield, **kw):
     from emg3d_tpu_torch import solve
     torch.cuda.synchronize()
@@ -2023,14 +2042,15 @@ def phase_simulation(torch, results, out_dir):
     # 16³: the kernels against the plain path on the card.
     g16, m16, s16 = simulation_problem(16)
     resp, walls = [], []
-    for mode in (None, 'plain'):
-        sm = _sim(torch, g16, m16, s16, _mode=mode)
-        walls.append(_compute(torch, sm))
+    for plain in (False, True):
+        with _plain(plain):
+            sm = _sim(torch, g16, m16, s16)
+            walls.append(_compute(torch, sm))
         resp.append(np.array(sm.data.synthetic))
     fin = np.isfinite(resp[1])
     diff = float(np.max(np.abs(resp[0][fin] - resp[1][fin])) /
                  np.max(np.abs(resp[1][fin])))
-    log(f"Simulation 16³ kernels vs _mode='plain' ({walls[0]:.2f} / "
+    log(f"Simulation 16³ kernels vs plain ({walls[0]:.2f} / "
         f"{walls[1]:.2f} s): {int(fin.sum())} finite responses, max "
         f"|Δ|/max|ref| {diff:.3e}")
     if not (np.array_equal(np.isfinite(resp[0]), fin) and fin.any()
@@ -2158,16 +2178,17 @@ def phase_tdem(torch, out_dir):
     # 16³: kernels against the plain path, frequency and time responses.
     g16, m16, s16, f16 = tdem_problem(16)
     out, walls = [], []
-    for mode in (None, 'plain'):
-        sm = _tdem_sim(g16, m16, s16, _mode=mode)
-        walls.append(_compute(torch, sm))
+    for plain in (False, True):
+        with _plain(plain):
+            sm = _tdem_sim(g16, m16, s16)
+            walls.append(_compute(torch, sm))
         d = np.array(sm.data.synthetic)[0]
         out.append((d, time_responses(f16, d)))
     (dk, tk), (dp, tp) = out
     fin, tfin = np.isfinite(dp), np.isfinite(tp)
     dd = float(np.max(np.abs(dk[fin] - dp[fin])) / np.max(np.abs(dp[fin])))
     td = float(np.max(np.abs(tk[tfin] - tp[tfin])) / np.max(np.abs(tp[tfin])))
-    log(f"tdem 16³ kernels vs _mode='plain' ({walls[0]:.2f} / {walls[1]:.2f}"
+    log(f"tdem 16³ kernels vs plain ({walls[0]:.2f} / {walls[1]:.2f}"
         f" s): {int(fin.all(1).sum())} receivers finite, frequency "
         f"responses max |Δ|/max|ref| {dd:.3e}, time responses {td:.3e}")
     if not (np.array_equal(np.isfinite(dk), fin) and fin.any()
@@ -2283,12 +2304,12 @@ def phase_diff(torch, out_dir):
         t0 = time.perf_counter()
         gk, _, _, _, ck = _diff_grad(torch, misfit, sig, d_obs)
         t1 = time.perf_counter()
-        gp, _, _, _, cp = _diff_grad(
-            torch, diff_misfit(torch, grid, s, w, _mode='plain', **opts)[2],
-            sig, d_obs)
+        with _plain():
+            gp, _, _, _, cp = _diff_grad(
+                torch, diff_misfit(torch, grid, s, w, **opts)[2], sig, d_obs)
         t2 = time.perf_counter()
         rel = float((gk - gp).abs().max() / gp.abs().max())
-        log(f"diff 16³ {name}: kernels vs _mode='plain' gradients (tol "
+        log(f"diff 16³ {name}: kernels vs plain gradients (tol "
             f"1e-10; {t1 - t0:.2f} / {t2 - t1:.2f} s) max |Δ|/max|ref| "
             f"{rel:.3e}; (exit, it_mg, it_ssl) per solve {ck.records} / "
             f"{cp.records}")
@@ -3493,13 +3514,14 @@ def phase_c64_path(torch, e4, e_sclr, peak8, sim):
 
 def phase_c64_plain(torch):
     """Phase 15c: complex64 solves at 16³ through the kernels and through
-    ``_mode='plain'`` (plain smoothers, plain K6): the same exit, it_mg
+    ``_build.PLAIN`` (plain smoothers, plain K6): the same exit, it_mg
     ±1, fields within TOL_C64_FIELD; point and sc+lr."""
     grid, model, sfield = bench_problem((16,) * 3)
     src = _c64_source(sfield)
     for name, kw in (('point', {}), ('sc+lr', SCLR)):
         ek, ik, wk = _solve(torch, grid, model, src, **kw)
-        ep, ip, wp = _solve(torch, grid, model, src, _mode='plain', **kw)
+        with _plain():
+            ep, ip, wp = _solve(torch, grid, model, src, **kw)
         rel = _rel(ek, ep)
         log(f"16³ complex64 {name}: kernels it_mg {ik['it_mg']} "
             f"({wk:.3f} s), plain it_mg {ip['it_mg']} ({wp:.3f} s), "
@@ -3837,7 +3859,7 @@ def phase_bf16_path(torch, e4, e_sclr, peak_c64):
 
 def phase_bf16_plain(torch):
     """Phase 16c: complex64 solves at 16³ with bfloat16 storage through
-    the kernels and through ``_mode='plain'`` (which rounds where the
+    the kernels and under ``_build.PLAIN`` (which rounds where the
     kernels do): the same exit, it_mg ±1, fields within TOL_C64_FIELD;
     point, sc+lr, and sc+lr with every stack in bfloat16
     (``FSTACK_BYTES`` 0: K4 and K5 in bfloat16 too)."""
@@ -3851,7 +3873,8 @@ def phase_bf16_plain(torch):
         solver.FSTACK_BYTES = fbytes
         try:
             ek, ik, wk = _solve(torch, grid, model, src, **kw)
-            ep, ip, wp = _solve(torch, grid, model, src, _mode='plain', **kw)
+            with _plain():
+                ep, ip, wp = _solve(torch, grid, model, src, **kw)
         finally:
             solver.FSTACK_BYTES = threshold
         rel = _rel(ek, ep)
@@ -3890,7 +3913,7 @@ def _slab_checks(torch, problem, opts, rank):
                               linerelaxation=False, semicoarsening=False,
                               shape_cells=tuple(grid.shape_cells))
     ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
-                               sfield, sfield, var, 'cuda', None,
+                               sfield, sfield, var, 'cuda',
                                solver._normalize_sharding(opts))
     rng = np.random.default_rng(100 + rank)
     out = []
@@ -3965,7 +3988,7 @@ def _slab_line_checks(torch, problem, opts, rank, device='cuda'):
     var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
                               shape_cells=tuple(grid.shape_cells), **SCLR)
     ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
-                               sfield, sfield, var, device, None,
+                               sfield, sfield, var, device,
                                solver._normalize_sharding(opts))
     g = torch.Generator(device=device).manual_seed(300 + rank)
     nan = complex(math.nan, math.nan)
@@ -3988,14 +4011,16 @@ def _slab_line_checks(torch, problem, opts, rank, device='cuda'):
                 continue
             if split:
                 st = lines.schur_state(lev, ax)
-                stp = lines.schur_state(lev, ax, plain=True)
+                with _plain():
+                    stp = lines.schur_state(lev, ax)
                 state, sub, ns = st.slab, st.sub, st.stations
                 fk, fp = st.fac, stp.fac
             else:
                 state = line_gs.line_state(lev.arrays, lev.shape, ax)
                 fk = state.factors
-                fp = line_gs.line_state(lev.arrays, lev.shape, ax,
-                                        plain=True).factors
+                with _plain():
+                    fp = line_gs.line_state(lev.arrays, lev.shape,
+                                            ax).factors
                 sub, ns = state, state.shape[0]
             _sync(torch)
             k5 = (_maxdiff((fk,), (fp,)), _maxabs((fp,)))
@@ -4066,7 +4091,7 @@ def _slab_checks_c64(torch, problem, opts, rank, device='cuda'):
                               linerelaxation=False, semicoarsening=False,
                               shape_cells=tuple(grid.shape_cells))
     ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
-                               sfield, sfield, var, device, None,
+                               sfield, sfield, var, device,
                                solver._normalize_sharding(opts))
     rng = np.random.default_rng(200 + rank)
     out = []
@@ -4130,7 +4155,7 @@ def _slab_line_checks_c64(torch, problem, opts, rank, device='cuda'):
     var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
                               shape_cells=tuple(grid.shape_cells), **SCLR)
     ctx = solver._SolveContext(grid, VolumeModel(grid, model, sfield),
-                               sfield, sfield, var, device, None,
+                               sfield, sfield, var, device,
                                solver._normalize_sharding(opts))
     rng = np.random.default_rng(400 + rank)
     out = []
@@ -4148,8 +4173,9 @@ def _slab_line_checks_c64(torch, problem, opts, rank, device='cuda'):
             else:
                 state = line_gs.line_state(lev.arrays, lev.shape, ax)
                 sub, ns, fk = state, state.shape[0], state.factors
-            fp = line_gs.segment_stack(sub, ns, plain=True)
-            f64 = line_gs.segment_stack(_upcast_state(sub), ns, plain=True)
+            with _plain():
+                fp = line_gs.segment_stack(sub, ns)
+                f64 = line_gs.segment_stack(_upcast_state(sub), ns)
             _sync(torch)
             name = f"rank {rank} level {lvl} {'xyz'[ax]}-lines"
             rec = {'level': lvl, 'slab': list(lev.shape), 'axis': ax,
@@ -4961,7 +4987,8 @@ def main():
     with Phase('5 solve 64³ with each point kernel pinned on every level'):
         for mode in POINT_MODES:
             point_gs.reset_launches()
-            e5, info5, wall5 = _solve(torch, grid, model, sfield, _mode=mode)
+            with _switch(point_gs, 'FORCE_KERNEL', mode):
+                e5, info5, wall5 = _solve(torch, grid, model, sfield)
             pinned[mode] = point_gs.LAUNCHES[mode]
             rel = _rel(e5, e4)
             log(f"{mode}: it_mg {info5['it_mg']}, rel_error "
@@ -4980,7 +5007,8 @@ def main():
     with Phase('6 heterogeneous tri-axial 64x48x40: kernels vs plain'):
         hg, hm, hs = heterogeneous_problem()
         ek, ik, wk = _solve(torch, hg, hm, hs)
-        ep, ip, wp = _solve(torch, hg, hm, hs, _mode='plain')
+        with _plain():
+            ep, ip, wp = _solve(torch, hg, hm, hs)
         rel = _rel(ek, ep)
         log(f"kernels: it_mg {ik['it_mg']}, rel_error "
             f"{ik['rel_error']:.3e}, wall {wk:.3f} s; plain: it_mg "
@@ -5007,7 +5035,8 @@ def main():
     with Phase('9 heterogeneous tri-axial 64x48x40, sc+lr: kernels vs '
                'plain'):
         ek, ik, wk = _solve(torch, hg, hm, hs, **SCLR)
-        ep, ip, wp = _solve(torch, hg, hm, hs, _mode='plain', **SCLR)
+        with _plain():
+            ep, ip, wp = _solve(torch, hg, hm, hs, **SCLR)
         rel = _rel(ek, ep)
         log(f"kernels: it_mg {ik['it_mg']}, rel_error "
             f"{ik['rel_error']:.3e}, wall {wk:.3f} s; plain: it_mg "

@@ -10,6 +10,9 @@ beside the package, in a folder keyed by a hash of its sources, the
 headers and the flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing is compiled at import: the first kernel launch
 builds.
+
+One rule decides whether an op launches its kernel or runs its plain
+PyTorch version: :func:`kernels`.  Every op that has both asks it.
 """
 import ctypes
 import hashlib
@@ -19,8 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'build', 'entry', 'ARGTYPES', 'PROBE_ARGTYPES',
-           'LIBRARIES', 'C64', 'BF16']
+__all__ = ['library', 'build', 'entry', 'kernels', 'PLAIN', 'ARGTYPES',
+           'PROBE_ARGTYPES', 'LIBRARIES', 'C64', 'BF16']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'emg3d_tpu_torch'
@@ -28,6 +31,19 @@ FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LIBS = {}   # the loaded libraries by name, once built
+
+# True runs every op's plain PyTorch version, on the card too
+# (comparisons on the card: chip_smoke.py, profile_solve.py --plain).
+PLAIN = False
+
+
+def kernels(x):
+    """Whether an op on ``x`` (a tensor, or a device) launches its
+    kernel: ``x`` is on a CUDA device and :data:`PLAIN` is off.  Where
+    it is not, the op runs its plain PyTorch version."""
+    import torch
+    return not PLAIN and torch.device(getattr(x, 'device', x)).type == 'cuda'
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

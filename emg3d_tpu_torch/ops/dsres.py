@@ -14,20 +14,21 @@ every coefficient product an error-free two-product, the result folded
 to complex64 (hi + lo per channel).
 
 :func:`residual_ds` runs the CUDA kernel K6 (``csrc/dsres.cu``, through
-:func:`residual`) for CUDA tensors and :func:`residual_ds_plain`, the
-plain torch version of the JAX package's arithmetic (Dekker's split for
-the two-product: torch ops never fuse), for CPU tensors.  Both produce
-the same exact error terms in the same order, so they agree bit for
-bit.  Fields may carry a leading lane axis (a batched solve), as may η
-(one frequency per lane).  K6's launch plan is :func:`tile_plan` (a
-y-z tile marching along x over a chunk of planes, each face curl once).
+:func:`residual`) where :func:`._build.kernels` says so, else
+:func:`residual_ds_plain`, the plain torch version of the JAX package's
+arithmetic (Dekker's split for the two-product: torch ops never fuse).
+Both produce the same exact error terms in the same order, so they agree
+bit for bit.  Fields may carry a leading lane axis (a batched solve), as
+may η (one frequency per lane).  K6's launch plan is :func:`tile_plan`
+(a y-z tile marching along x over a chunk of planes, each face curl
+once).
 """
 import ctypes
 from typing import NamedTuple
 
 import torch
 
-from . import stencil
+from . import _build, stencil
 
 __all__ = ['residual_ds', 'residual_ds_plain', 'residual', 'ds_params',
            'ds_accumulate', 'two_sum', 'LAUNCHES', 'reset_launches',
@@ -317,10 +318,9 @@ def residual(ehi, elo, s, params, out=None, _plan=None):
                          f"for fields of {lanes}")
     tj, tk = plan.tile
     lo = (None,) * 3 if elo is None else elo
-    from ._build import library
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = library().emg3d_residual_ds_c64(
+    err = _build.library().emg3d_residual_ds_c64(
         *(_ptr(t) for t in (*out, *ehi, *lo, *s, *st, *w, *ih)),
         nx, ny, nz, lanes, st_lanes, tj, tk, plan.chunk, plan.grid[0],
         plan.block[0] * plan.block[1], plan.smem, stream)
@@ -336,16 +336,16 @@ def residual_ds(ehi, elo, s, arrays, params=None):
     """r = s − A·(ehi + elo) of a complex64 level in double-single
     arithmetic, folded to complex64 (the JAX package's ``residual_ds``).
 
-    CUDA tensors run K6 (:func:`residual`), CPU tensors
+    K6 (:func:`residual`) where :func:`._build.kernels` says so, else
     :func:`residual_ds_plain`.  ``params`` are the level's
     :func:`ds_params` (computed from ``arrays`` when None).  A leading
     lane axis on the fields (and on η) is the batched form.
     """
     if params is None:
         params = ds_params(arrays)
-    if s[0].device.type == 'cpu':
-        return residual_ds_plain(ehi, elo, s, arrays, params)
-    return residual(ehi, elo, s, params)
+    if _build.kernels(s[0]):
+        return residual(ehi, elo, s, params)
+    return residual_ds_plain(ehi, elo, s, arrays, params)
 
 
 def ds_accumulate(ehi, elo, delta):

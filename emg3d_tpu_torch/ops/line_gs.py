@@ -42,10 +42,10 @@ a cyclically rotated frame: the fields are transposed on the way in and
 out, and the rotated model parameters, the residual kernel's η edge
 sums and ζ face weights and the factor stack are field-independent and
 live in a :class:`LineState` per (level, axis).
-:func:`line_relaxation` runs the kernels for CUDA tensors and
-:func:`line_relaxation_plain`, the plain version of the whole smoothing
-call (``smoothers.line_color_steps``), for CPU tensors; for a CUDA
-tensor it launches or raises, it never falls back.
+:func:`line_relaxation` runs the kernels where :func:`._build.kernels`
+says so, else :func:`line_relaxation_plain`, the plain version of the
+whole smoothing call (``smoothers.line_color_steps``); where it runs
+the kernels it launches or raises, it never falls back.
 
 Lanes.  A batched solve relaxes B lanes (its (source, frequency)
 pairs) of one level at once: e and s are (B, ...) tensors, and the
@@ -63,7 +63,7 @@ from collections import namedtuple
 
 import torch
 
-from . import smoothers, stencil
+from . import _build, smoothers, stencil
 from ..dtypes import (REAL_OF, check_storage, complex_size, from_storage,
                       round_to, storage_of, to_storage)
 from .smoothers import NLINE
@@ -217,26 +217,28 @@ def keep_stack(meter, nbytes, device):
     return keep
 
 
-def _stack(ar, rs, st, w, ih, plain, groups=None, fstorage=None):
-    """Factor stack of the rotated frame: K5 on the card, else plain;
-    stored in ``fstorage`` (the plain elimination's float32 stack
-    rounded once, as K5 rounds on write).  ``st``/``w`` are the unrounded
-    η sums and ζ weights.
+def _stack(ar, rs, st, w, ih, groups=None, fstorage=None, plain=False):
+    """Factor stack of the rotated frame: K5 where :func:`._build.kernels`
+    says so and not ``plain``, else the plain elimination; stored in
+    ``fstorage`` (the plain elimination's float32 stack rounded once, as
+    K5 rounds on write).  ``st``/``w`` are the unrounded η sums and ζ
+    weights.
 
     With ``groups`` (a lane state's G) one stack per group, K5 once per
     group into the group's slice of a (G, ...) stack.
     """
+    kern = not plain and _build.kernels(ar[0])
     if groups is None:
-        if plain or ar[0].device.type == 'cpu':
+        if not kern:
             return to_storage(smoothers.line_factor_stack(ar, rs), fstorage)
         return factor(st, w, ih, rs, storage=fstorage)
     out = torch.empty((groups, rs[0], NLINE, 2, 2, *_line_dims(rs)),
                       dtype=st[0].dtype, device=ar[0].device)
     for g in range(groups):
-        if plain or ar[0].device.type == 'cpu':
-            out[g] = smoothers.line_factor_stack(_group_arrays(ar, g), rs)
-        else:
+        if kern:
             factor(tuple(t[g] for t in st), w, ih, rs, out=out[g])
+        else:
+            out[g] = smoothers.line_factor_stack(_group_arrays(ar, g), rs)
     return out
 
 
@@ -259,25 +261,23 @@ def _params(ar):
 def line_factors(arrays, shape, axis):
     """Factor stack of ``axis``-lines of a level (rotated frame).
 
-    CPU tensors take the plain elimination
-    (:func:`.smoothers.line_factor_stack`), CUDA tensors K5.
+    K5 where :func:`._build.kernels` says so, else the plain elimination
+    (:func:`.smoothers.line_factor_stack`).
     """
     ar = smoothers.rotate_arrays(arrays, axis)
-    return _stack(ar, smoothers.rotate_shape(shape, axis), *_params(ar),
-                  False)
+    return _stack(ar, smoothers.rotate_shape(shape, axis), *_params(ar))
 
 
-def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None,
-               storage=None, fstorage=None, stack=None):
+def line_state(arrays, shape, axis, factors=True, lanes=None, storage=None,
+               fstorage=None, stack=None):
     """Field-independent state of ``axis``-line relaxation on a level.
 
     The counterpart of the JAX package's per-(level, axis) cache
     (``_level_fstacks``: ``rotate_arrays``, ``line_params`` and
     ``line_factors``), unpadded.  Without ``factors`` the stack is not
     kept: each smoothing call rebuilds it (the memory rule of the
-    solver).  ``plain`` builds the stack with the plain elimination on
-    any device (comparisons on the card); otherwise CPU tensors take
-    the plain elimination and CUDA tensors K5.  ``stack`` is a stack
+    solver).  The stack is K5's where :func:`._build.kernels` says so,
+    else the plain elimination's.  ``stack`` is a stack
     built before (another state's of the same level and axis, in
     ``fstorage``) to keep instead of building one.
 
@@ -316,7 +316,7 @@ def line_state(arrays, shape, axis, factors=True, plain=False, lanes=None,
     if stack is not None:
         fac = stack
     else:
-        fac = _stack(ar, rs, st, w, ih, plain, groups, fstorage) \
+        fac = _stack(ar, rs, st, w, ih, groups, fstorage) \
             if factors else None
     return LineState(int(axis), rs, ar, tuple(to_storage(t, storage)
                                               for t in st),
@@ -415,8 +415,7 @@ def factor(st, w, ih, shape, geometry=None, out=None, storage=None,
                          f"{want} on {st[0].device}")
     if g.blocks == 0:
         return out
-    from ._build import entry
-    err = entry('emg3d_line_factor', cdt, storage)(
+    err = _build.entry('emg3d_line_factor', cdt, storage)(
         _ptr(out), *(_ptr(t) for t in (*st, *w, *ih)), nx, ny, nz, ns,
         g.blocks, g.threads, _stream(out.device))
     if err != 0:
@@ -587,8 +586,10 @@ def _level_shape(state):
 
 
 def _check(e, s, state):
-    """Shapes, devices and (for the kernels) dtypes and contiguity of a
-    smoothing call; a lane state takes (B, ...) fields, its B lanes."""
+    """Shapes, dtypes and devices of a smoothing call, and for the
+    kernels its contiguity and lane table; a lane state takes (B, ...)
+    fields, its B lanes.  Returns whether the call runs the kernels
+    (:func:`._build.kernels`)."""
     nx, ny, nz = _level_shape(state)
     lead = () if state.lanes is None else (len(state.lanes),)
     edges = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
@@ -630,18 +631,20 @@ def _check(e, s, state):
                 raise ValueError(f"{name}: {t.dtype} in a {cdt} call of "
                                  f"storage {state.storage}/"
                                  f"{state.fstorage}; expected {want}")
-    if dev.type == 'cpu':
-        return
+            if t.device != dev:
+                raise ValueError(f"{name}: on {t.device}, e on {dev}")
+    if not _build.kernels(e[0]):
+        return False
     if state.lanes is not None and (state.lanes.device != dev
                                     or state.lanes.dtype != torch.int32):
         raise ValueError(f"lanes: the CUDA kernels take int32 on {dev}; "
                          f"got {state.lanes.dtype} on {state.lanes.device}")
     for name, trio in groups.items():
         for t in trio:
-            if t.device != dev or not t.is_contiguous():
-                raise ValueError(
-                    f"{name}: the CUDA kernels take contiguous tensors on "
-                    f"{dev}; got {t.device}, contiguous={t.is_contiguous()}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: the CUDA kernels take contiguous "
+                                 f"tensors")
+    return True
 
 
 def _ptr(t):
@@ -682,8 +685,7 @@ def residual(e, s, state, color, out, geometry=None):
                          f"of {lanes}")
     if g.blocks == 0:
         return out
-    from ._build import entry
-    err = entry('emg3d_line_residual', e[0].dtype, state.storage)(
+    err = _build.entry('emg3d_line_residual', e[0].dtype, state.storage)(
         *(_ptr(t) for t in (*out, *e, *s, *state.st, *state.w, *state.ih,
                             state.lanes)),
         *state.shape, g.cy, g.cz, *g.counts, g.rows, g.lines, g.xplanes,
@@ -753,8 +755,7 @@ def thomas(e, r, fac, state, color, zs=None, geometry=None, stations=None):
     else:
         zp = _ptr(_scratch(state.shape, e[0], lanes if state.lanes
                            is not None else None) if zs is None else zs)
-    from ._build import entry
-    err = entry('emg3d_line_thomas', e[0].dtype, state.fstorage)(
+    err = _build.entry('emg3d_line_thomas', e[0].dtype, state.fstorage)(
         *(_ptr(t) for t in (*e, *r, fac)), zp, _ptr(state.lanes),
         *state.shape, ns, g.cy, g.cz, *g.counts, g.lines_per_block,
         int(g.z_shared), g.planes, THOMAS_STAGES, g.blocks, g.lanes,
@@ -779,12 +780,13 @@ def thomas_plain(e, r, fac, color, stations=None):
     return tuple(e)
 
 
-def segment_stack(state, stations, plain=False):
+def segment_stack(state, stations):
     """The factor stack of the first ``stations`` stations of a rotated
-    level's lines (:func:`factor`'s segment: K5 for CUDA tensors, the
-    plain elimination's first stations for CPU tensors or ``plain``)."""
+    level's lines (:func:`factor`'s segment: K5 where
+    :func:`._build.kernels` says so, else the plain elimination's first
+    stations)."""
     ar = state.arrays
-    if plain or ar[0].device.type == 'cpu':
+    if not _build.kernels(ar[0]):
         return smoothers.line_factor_stack(ar, state.shape)[:stations] \
             .contiguous()
     return factor(state.st, state.w, state.ih, state.shape,
@@ -820,9 +822,9 @@ def _factors(state, plain=False):
     if state.storage is not None:
         # K5 eliminates from the unrounded sums and weights.
         st, w, _ = _params(state.arrays)
-    return _stack(state.arrays, state.shape, st, w, state.ih, plain,
+    return _stack(state.arrays, state.shape, st, w, state.ih,
                   None if state.lanes is None else state.st[0].shape[0],
-                  state.fstorage)
+                  state.fstorage, plain)
 
 
 def _plain_params(state):
@@ -844,16 +846,16 @@ class Sweep:
     it in the level's frame) and ``s`` (stored in the state's
     ``storage``), and K3's residual buffer ``r``, NaN outside the edges
     K3 has written: an entry K4 read outside its colour's edges shows up
-    as NaN in the result.  CUDA tensors launch the kernels; CPU tensors,
-    or ``plain``, take the plain versions step by step (one-lane states
-    in the solve's precision).  The factor stack is the state's, or
-    rebuilt (K5) at the first :meth:`solve` of a state that caches none.
+    as NaN in the result.  Where :func:`._build.kernels` says so it
+    launches the kernels (``kern``), else it takes the plain versions
+    step by step (one-lane states in the solve's precision).  The factor
+    stack is the state's, or rebuilt (K5) at the first :meth:`solve` of
+    a state that caches none.
     """
 
-    def __init__(self, e, s, state, plain=False):
-        _check(e, s, state)
+    def __init__(self, e, s, state):
+        self.kern = _check(e, s, state)
         self.e, self.state = e, state
-        self.kern = not plain and e[0].device.type != 'cpu'
         if self.kern:
             _cuda(e[0])
         a = state.axis
@@ -928,13 +930,12 @@ def line_relaxation(e, s, state, nu, _seq=None):
     state : :func:`line_state` of the level and axis.
     _seq : explicit colour sequence (tests).
 
-    CPU tensors run :func:`line_relaxation_plain`; for CUDA tensors each
-    colour step is :meth:`Sweep.residual` (K3) then :meth:`Sweep.solve`
-    (K4).  Returns ``e``.
+    Where :func:`._build.kernels` says so each colour step is
+    :meth:`Sweep.residual` (K3) then :meth:`Sweep.solve` (K4), else
+    :func:`line_relaxation_plain` runs.  Returns ``e``.
     """
-    _check(e, s, state)
     seq = smoothers.line_color_sequence(nu) if _seq is None else list(_seq)
-    if e[0].device.type == 'cpu':
+    if not _check(e, s, state):
         return line_relaxation_plain(e, s, state, nu, _seq=seq)
     sweep = Sweep(e, s, state)
     for color in seq:

@@ -34,11 +34,12 @@ everything else (e, the widths, K1's factors, K2's packed node data,
 built from the rounded sums and weights) stays float32.
 
 One thread per active node; the kernels update the field in place.
-:func:`gauss_seidel_point` runs the kernels for CUDA tensors and the
-plain PyTorch version (:func:`gauss_seidel_point_plain`, the math of
-:func:`.smoothers.gauss_seidel_point`) for CPU tensors.  For a CUDA
-tensor it launches or raises: it never falls back, neither to the plain
-version nor to another plan or kernel.
+:func:`gauss_seidel_point` runs the kernels where
+:func:`._build.kernels` says so, else the plain PyTorch version
+(:func:`gauss_seidel_point_plain`, the math of
+:func:`.smoothers.gauss_seidel_point`).  Where it runs the kernels it
+launches or raises: it never falls back, neither to the plain version
+nor to another plan or kernel.
 """
 import ctypes
 import functools
@@ -47,7 +48,7 @@ from collections import namedtuple
 
 import torch
 
-from . import smoothers, stencil
+from . import _build, smoothers, stencil
 from ..dtypes import (REAL_OF, check_storage, complex_size, from_storage,
                       round_to, to_storage)
 
@@ -204,22 +205,25 @@ def point_kernel(shape, device, dtype=torch.complex128):
     plan table: K2 where a colour has at least FUSED_NODES nodes.  K1
     only where its factor stack fits FACTOR_SHARE of the card
     (:func:`factors_fit`, in the solve's ``dtype``), whatever the rule or
-    FORCE_KERNEL say.  A device that is not a card takes K1 (the plain
-    version on factors computed once, as the JAX package's default).
+    FORCE_KERNEL say.  Off the card K1 unless forced, and under
+    :data:`._build.PLAIN` K1 whatever FORCE_KERNEL says: the plain
+    version on factors computed once, as the JAX package's default.
     """
     if FORCE_KERNEL not in (None,) + KERNELS:
         raise ValueError(f"FORCE_KERNEL {FORCE_KERNEL!r}: one of {KERNELS}")
+    if _build.PLAIN:
+        return 'factored'
     if not factors_fit(shape, device, dtype):
         return 'fused'
     if FORCE_KERNEL is not None:
         return FORCE_KERNEL
-    if card_memory(device) is None:
+    if not _build.kernels(device):
         return 'factored'
     return 'fused' if _most_nodes(tuple(shape)) >= FUSED_NODES \
         else 'factored'
 
 
-def point_state(arrays, shape, factored=True, storage=None):
+def point_state(arrays, shape, factored=None, storage=None):
     """Field-independent level state of the point smoother.
 
     Built once per level and solve, on the tensors' device, by torch
@@ -227,12 +231,16 @@ def point_state(arrays, shape, factored=True, storage=None):
     package, without their (8,128) padding.  With ``factored`` it holds
     the node-block LDLᵀ factors of K1; without, K2's packed node data
     where :func:`packs_nodes` says so (else None, and K2 reads st and
-    w).  ``storage`` :data:`~emg3d_tpu_torch.dtypes.BF16` (complex64
-    only) stores st and w in bfloat16; K1's factors come from the
-    float32 arrays and K2's node data from the rounded st and w, both
+    w).  ``factored`` None takes the kernel :func:`point_kernel` names
+    for the level.  ``storage`` :data:`~emg3d_tpu_torch.dtypes.BF16`
+    (complex64 only) stores st and w in bfloat16; K1's factors come from
+    the float32 arrays and K2's node data from the rounded st and w, both
     kept in float32, as the JAX package builds them.
     """
     eta_x, eta_y, eta_z, zeta, hx, hy, hz = arrays
+    if factored is None:
+        factored = point_kernel(shape, eta_x.device,
+                                eta_x.dtype) == 'factored'
     st = tuple(t.contiguous() for t in
                stencil.eta_edge_sums(eta_x, eta_y, eta_z))
     w = tuple(t.contiguous() for t in stencil.zeta_face_weights(zeta))
@@ -506,9 +514,8 @@ def grid_capacity(kernel='factored', dtype=torch.complex128, storage=None):
     """Blocks of the grid plan the card holds co-resident, for
     ``kernel`` ('factored', 'fused' or 'fused_packed') in ``dtype`` and
     ``storage`` (needs the card)."""
-    from ._build import entry
     n = ctypes.c_int(0)
-    err = entry('emg3d_point_gs_grid_capacity', dtype, storage)(
+    err = _build.entry('emg3d_point_gs_grid_capacity', dtype, storage)(
         _KERNEL_CODE[kernel], ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"point_gs grid capacity query failed: "
@@ -576,6 +583,8 @@ def _state_shapes(shape):
 
 
 def _check(e, s, state):
+    """Shapes, devices and dtypes of a smoothing call; returns whether it
+    runs the kernels (:func:`._build.kernels`)."""
     shapes = _state_shapes(state.shape)
     shapes['s'] = shapes['e']
     if state.storage is not None:
@@ -587,6 +596,7 @@ def _check(e, s, state):
         if getattr(state, name) is not None:
             groups[name] = (getattr(state, name),)
     dev = e[0].device
+    kern = _build.kernels(e[0])
     for name, trio in groups.items():
         if len(trio) != len(shapes[name]):
             raise ValueError(f"{name}: {len(trio)} tensors, expected "
@@ -597,17 +607,18 @@ def _check(e, s, state):
                                  f"expected {sh} for level {state.shape}")
             if t.device != dev:
                 raise ValueError(f"{name}: on {t.device}, e on {dev}")
-    _check_dtypes(groups, dev, state.storage)
+    _check_dtypes(groups, dev, kern, state.storage)
+    return kern
 
 
-def _check_dtypes(groups, dev, storage=None):
+def _check_dtypes(groups, dev, kern, storage=None):
     """One precision for the whole call: e, s, the η sums, the factors
     and node data (and η in ``arrays``) of one complex dtype, complex128
     or complex64, and the ζ weights and widths (ζ and h in ``arrays``)
     of its real dtype; with bfloat16 ``storage`` the η sums and ζ
     weights in bfloat16 (s is stored at each call); a mixed set raises,
-    on every device.  The CUDA kernels also take contiguous tensors
-    only."""
+    on every device.  The kernels (``kern``) also take contiguous
+    tensors only."""
     cdt = groups['e'][0].dtype
     complex_size(cdt)
     check_storage(cdt, storage)
@@ -621,8 +632,7 @@ def _check_dtypes(groups, dev, storage=None):
             if t.dtype != want:
                 raise ValueError(f"{name}: {t.dtype} in a {cdt} state; "
                                  f"expected {want}")
-            if dev.type != 'cpu' and name != 'arrays' and \
-                    not t.is_contiguous():
+            if kern and name != 'arrays' and not t.is_contiguous():
                 raise ValueError(f"{name}: the CUDA kernels take "
                                  f"contiguous tensors on {dev}")
 
@@ -643,21 +653,20 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
     _seq : explicit colour sequence (tests).
     _plan : forces the launch plan (:func:`sweep_plan`).
 
-    CPU tensors run :func:`gauss_seidel_point_plain`; CUDA tensors run
-    the kernel under the level's :func:`sweep_plan`: K1 on the state's
-    factors, K2 on its packed node data (on st and w where the state
-    has none, and always in the ``shared`` plan, which holds st and w
-    in shared memory).  A bfloat16 state launches the kernels' ``_bf16``
-    instances, on s stored in bfloat16 for the call.  Returns ``e``.
+    Where :func:`._build.kernels` says so, the kernel runs under the
+    level's :func:`sweep_plan`: K1 on the state's factors, K2 on its
+    packed node data (on st and w where the state has none, and always
+    in the ``shared`` plan, which holds st and w in shared memory); else
+    :func:`gauss_seidel_point_plain`.  A bfloat16 state launches the
+    kernels' ``_bf16`` instances, on s stored in bfloat16 for the call.
+    Returns ``e``.
     """
-    _check(e, s, state)
+    kern = _check(e, s, state)
     mode = _resolve_mode(state, _mode)
     seq = smoothers.color_sequence(nu) if _seq is None else list(_seq)
-    if e[0].device.type == 'cpu':
+    if not kern:
         return gauss_seidel_point_plain(e, s, state, nu, _seq=seq,
                                         _mode=mode)
-    if e[0].device.type != 'cuda':
-        raise ValueError(f"no point-smoother kernel for {e[0].device}")
 
     if len(seq) > MAX_SEQ:
         # Longer calls (nu > 8) run as consecutive sweeps.
@@ -666,7 +675,6 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
                                _seq=seq[i:i + MAX_SEQ], _plan=_plan)
         return tuple(e)
 
-    from ._build import entry
     dtype, storage = e[0].dtype, state.storage
     shape = state.shape
     s = tuple(to_storage(t, storage) for t in s)
@@ -685,7 +693,7 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         if plan.launches == 0:
             return tuple(e)
         geom, offs = _colour_table(shape, planes)
-        err = entry('emg3d_point_gs_sweep', dtype, storage)(
+        err = _build.entry('emg3d_point_gs_sweep', dtype, storage)(
             _PLAN_CODE[plan.plan], _KERNEL_CODE[code], *ptrs, _ptr(buf),
             *shape, geom, offs, _seq_array(tuple(seq)), len(seq),
             plan.blocks, plan.threads, plan.smem_bytes, stream)
@@ -698,7 +706,7 @@ def gauss_seidel_point(e, s, state, nu, _mode=None, _seq=None,
         STEPS[mode] += plan.steps
         return tuple(e)
     offs = colour_offsets(shape, planes)[0]
-    step = entry('emg3d_point_gs_step', dtype, storage)
+    step = _build.entry('emg3d_point_gs_step', dtype, storage)
     for color in seq:
         first, counts, blocks, threads = launch_geometry(shape, color)
         if blocks == 0:

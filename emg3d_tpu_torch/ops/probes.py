@@ -10,9 +10,10 @@ rolled gather for ``pltpu.roll``, cp.async for dynamic slices, 16-byte
 streaming loads of four points a thread for the station solve); no
 solve path runs them.  The launch plans (``tile_plan``, ``smem_plan``,
 ``sum_plan``, ``station_plan``) are plain Python, so the CPU tests walk
-them.  Each wrapper takes its plain version for a CPU tensor (but
-``smem_limit``, which asks the card a question) and launches its kernel
-(or raises) for a CUDA one, and counts its launches in ``LAUNCHES``.
+them.  Each wrapper launches its kernel (or raises) where
+:func:`._build.kernels` says so, else takes its plain version (but
+``smem_limit``, which asks the card a question), and counts its
+launches in ``LAUNCHES``.
 ``chip_smoke.py``'s probe phase holds each kernel against its plain
 version at the shapes of the Pallas probes.
 """
@@ -20,6 +21,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from . import _build
 
 __all__ = ['tile_copy', 'tile_copy_plain', 'tile_box', 'tile_span',
            'tile_plan', 'TilePlan', 'smem_limit', 'smem_limit_plain',
@@ -66,8 +69,7 @@ def reset_launches():
 
 
 def _lib():
-    from ._build import library
-    return library('probes')
+    return _build.library('probes')
 
 
 def _stream(t):
@@ -83,8 +85,6 @@ def _check(t, ndim, name):
     if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name}: a contiguous {ndim}-D float32 tensor, "
                          f"got {t.dtype} {tuple(t.shape)}")
-    if t.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f"{name}: no version for {t.device}")
 
 
 def _raise(err, name, what):
@@ -164,7 +164,7 @@ def tile_copy(x, offsets, lengths, _plan=None):
         if o < 0 or n < 1 or o + n > d:
             raise ValueError(f"tile_copy: box {offsets} + {lengths} "
                              f"outside {tuple(x.shape)}")
-    if x.device.type == 'cpu':
+    if not _build.kernels(x):
         return tile_copy_plain(x, offsets, lengths)
     if x.shape[3] % 4:
         raise ValueError("tile_copy: the last dim must be a multiple of 4 "
@@ -309,7 +309,7 @@ def smem_sum(f, chx, plane, _plan=None):
         raise ValueError(f"smem_sum: no kernel for {tuple(f.shape)} (Zp a "
                          f"positive multiple of 4, ty ≥ 1, f 16-byte "
                          f"aligned)")
-    if f.device.type == 'cpu':
+    if not _build.kernels(f):
         return smem_sum_plain(f, chx, plane)
     plan = _plan or sum_plan(chx, ty, zp, torch.cuda.get_device_properties(
         f.device).multi_processor_count)
@@ -336,7 +336,7 @@ def tile_roll(x, shift, axis):
     _check(x, 2, 'tile_roll')
     if axis not in (0, 1):
         raise ValueError(f"tile_roll: axis {axis}")
-    if x.device.type == 'cpu':
+    if not _build.kernels(x):
         return torch.roll(x, shift, axis)
     rows, cols = x.shape
     if not 0 < rows * cols < 2**31 - 3:
@@ -360,7 +360,7 @@ def dyn_slice(x, y0, ty):
     a, b, ny, zp = x.shape
     if not 1 <= ty <= ny:
         raise ValueError(f"dyn_slice: ty {ty} for {ny} rows")
-    if x.device.type == 'cpu':
+    if not _build.kernels(x):
         return dyn_slice_plain(x, y0, ty)
     if zp % 4:
         raise ValueError("dyn_slice: the last dim must be a multiple of 4")
@@ -421,7 +421,7 @@ def station_solve(x, _plan=None):
     _check(x, 3, 'station_solve')
     if x.shape[0] != 40:
         raise ValueError(f"station_solve: 40 planes, got {x.shape[0]}")
-    if x.device.type == 'cpu':
+    if not _build.kernels(x):
         return station_solve_plain(x)
     points = x[0].numel()
     if not 0 < points < 2**31:

@@ -545,21 +545,21 @@ class Slab(Space):
         return self.lo[ax] // 2, (self.hi[ax] + 1) // 2
 
 
-def gauss_seidel_point_sharded(e, s, state, nu, slab, plain=False):
+def gauss_seidel_point_sharded(e, s, state, nu, slab):
     """nu sweeps of 8-colour point Gauss-Seidel on a rank's slab; updates
     ``e`` in place (counterpart of ``gauss_seidel_point_shmap``,
     shmap.py:558-692).
 
     ``state`` is the slab's :func:`.ops.point_gs.point_state`.  Each
     colour step of ``smoothers.color_sequence(nu)`` runs through the
-    port's kernel wrapper (K1 or K2 by the state) with the slab's colour,
-    then :meth:`Slab.colour_exchange`; ``plain`` runs the plain version.
-    ``e`` and ``s`` must hold valid ghosts; ``e``'s are valid after.
+    port's kernel wrapper (K1 or K2 by the state; the plain version
+    where :func:`..ops._build.kernels` says no) with the slab's colour,
+    then :meth:`Slab.colour_exchange`.  ``e`` and ``s`` must hold valid
+    ghosts; ``e``'s are valid after.
     """
-    gs = point_gs.gauss_seidel_point_plain if plain \
-        else point_gs.gauss_seidel_point
     for colour in smoothers.color_sequence(nu):
-        gs(e, s, state, 1, _seq=[slab.local_colour(colour)])
+        point_gs.gauss_seidel_point(e, s, state, 1,
+                                    _seq=[slab.local_colour(colour)])
         slab.colour_exchange(e, colour)
     return e
 

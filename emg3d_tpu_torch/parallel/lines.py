@@ -50,8 +50,8 @@ cases, by the line axis:
   kernels, and cuts the slab back; :data:`GATHERED` counts these calls
   per level and axis.
 
-``plain`` (and CPU tensors) runs the plain versions of K3/K4/K5 in
-every case; on the card the kernels run or raise.
+Where :func:`..ops._build.kernels` says no, the plain versions of
+K3/K4/K5 run in every case; where it says yes, the kernels run or raise.
 """
 from collections import namedtuple
 
@@ -108,7 +108,7 @@ def _parity(axis, colour):
             for i, g in enumerate(_transverse(axis))}
 
 
-def relax(e, s, lev, axis, nu, plain=False, local_state=None):
+def relax(e, s, lev, axis, nu, local_state=None):
     """nu sweeps of 4-colour line relaxation along grid ``axis`` on the
     sharded level ``lev`` (its slab); updates ``e`` in place.
 
@@ -122,12 +122,12 @@ def relax(e, s, lev, axis, nu, plain=False, local_state=None):
     """
     slab = lev.slab
     if not slab.split(axis):
-        return _steps(e, s, slab, local_state(), nu, plain)
+        return _steps(e, s, slab, local_state(), nu)
     if not slab.line_supported(axis):
-        return _gathered(e, s, lev, axis, nu, plain)
+        return _gathered(e, s, lev, axis, nu)
     st = lev.lstate.get(('schur', axis))
     if st is None:
-        st = schur_state(lev, axis, plain)
+        st = schur_state(lev, axis)
         # The reduced systems stay (rebuilding them takes a collective
         # along the line); they count against the budget of the stacks.
         lev.meter['bytes'] += _nbytes(st.B1, st.Bn, st.lu, st.piv)
@@ -135,25 +135,20 @@ def relax(e, s, lev, axis, nu, plain=False, local_state=None):
                                   st.fac.device)
         lev.lstate[('schur', axis)] = st if keep else st._replace(fac=None)
     elif st.fac is None:
-        st = st._replace(fac=line_gs.segment_stack(
-            st.sub, st.stations, plain=not _kernels(e[0], plain)))
-    return _steps(e, s, slab, st.slab, nu, plain, st)
+        st = st._replace(fac=line_gs.segment_stack(st.sub, st.stations))
+    return _steps(e, s, slab, st.slab, nu, st)
 
 
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _kernels(t, plain):
-    return not plain and t.device.type != 'cpu'
-
-
-def _steps(e, s, slab, state, nu, plain, schur=None):
+def _steps(e, s, slab, state, nu, schur=None):
     """The colour steps in the rotated frame (:class:`.ops.line_gs.Sweep`),
     each followed by its messages (sent from the sweep's view of the
     rotated tensors in the slab's frame)."""
     a = state.axis
-    sweep = line_gs.Sweep(e, s, state, plain)
+    sweep = line_gs.Sweep(e, s, state)
     for colour in smoothers.line_color_sequence(nu):
         lc = local_colour(slab, a, colour)
         sweep.residual(lc)
@@ -206,7 +201,7 @@ def _spike(fac, station, block):
             torch.stack([v[-1] for v in d], -2))
 
 
-def schur_state(lev, axis, plain=False):
+def schur_state(lev, axis):
     """The field-independent state of the Schur-complement smoother of
     ``axis``-lines on the sharded level ``lev`` (see the module
     docstring): the slab's line state, the interior's segment stack (K5
@@ -221,8 +216,7 @@ def schur_state(lev, axis, plain=False):
     sub_ar = tuple(t.narrow(0, 1, L - 1) for t in ar[:5]) + ar[5:]
     sub = line_gs.line_state(sub_ar, (L - 1,) + tuple(rs[1:]), 0,
                              factors=False)
-    kern = _kernels(ar[0], plain)
-    fac = line_gs.segment_stack(sub, ns, plain=not kern)
+    fac = line_gs.segment_stack(sub, ns)
 
     head = _entries(ar, rs, [0, 1, 2])
     D0 = smoothers.dense_station_blocks(head[0])[0]
@@ -332,7 +326,7 @@ def _schur_step(sweep, st, lc, slab):
 # Gathered levels
 # ----------------------------------------------------------------------
 
-def _gathered(e, s, lev, axis, nu, plain):
+def _gathered(e, s, lev, axis, nu):
     """The whole level's line relaxation on every rank, the slab cut
     back (lines along an axis split into shares too short for the
     Schur smoother)."""
@@ -345,12 +339,9 @@ def _gathered(e, s, lev, axis, nu, plain):
         keep = line_gs.keep_stack(lev.meter, line_gs.factor_bytes(
             slab.shape, axis, whole[0].dtype), e[0].device)
         st = lev.lstate[('whole', axis)] = line_gs.line_state(
-            whole, slab.shape, axis, factors=keep, plain=plain)
+            whole, slab.shape, axis, factors=keep)
     ew, sw = slab.gather(e), slab.gather(s)
-    if _kernels(e[0], plain):
-        line_gs.line_relaxation(ew, sw, st, nu)
-    else:
-        line_gs.line_relaxation_plain(ew, sw, st, nu)
+    line_gs.line_relaxation(ew, sw, st, nu)
     for dst, src in zip(e, slab.cut_field(ew)):
         dst.copy_(src)
     return e

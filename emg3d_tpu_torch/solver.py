@@ -534,34 +534,24 @@ def _finest_params(vmodel, tens, cplx, real):
 # The MG cycle
 # ======================================================================
 
-# Point-smoother modes: None takes the kernel point_gs.point_kernel
-# names for the level (the faster one on the card, K1 only where its
-# factor stack fits); 'factored'/'fused' pin a kernel; 'plain' runs the
-# plain torch version on any device (comparisons on the card).
-_MODES = (None, 'factored', 'fused', 'plain')
-
-
-def _level_state(lev, mode, storage=None):
+def _level_state(lev, storage=None):
     """The level's point-smoother state for s/params streams stored in
     ``storage``, built once per level, storage and solve (the JAX package
     keys its ``pparams`` by the stream dtype, solver.py:749-752); for the
-    levels of a batched solve one per frequency group (a list)."""
+    levels of a batched solve one per frequency group (a list).  Each
+    holds what the kernel :func:`.ops.point_gs.point_kernel` names for
+    the level needs."""
     if lev.pstate is None:
         lev.pstate = {}
     if storage not in lev.pstate:
         with trace.span('levels.state'):
-            dev = lev.arrays[0].device
-            factored = mode in ('factored', 'plain') or (
-                mode is None and point_gs.point_kernel(
-                    lev.shape, dev, lev.arrays[0].dtype) == 'factored')
             if lev.lanes is None:
                 lev.pstate[storage] = point_gs.point_state(
-                    lev.arrays, lev.shape, factored=factored,
-                    storage=storage)
+                    lev.arrays, lev.shape, storage=storage)
             else:
                 lev.pstate[storage] = [
                     point_gs.point_state(_lane_arrays(lev.arrays, b),
-                                         lev.shape, factored=factored)
+                                         lev.shape)
                     for b in lev.lanes.reps]
     return lev.pstate[storage]
 
@@ -587,7 +577,7 @@ def _group_arrays(lev):
     return tuple(grp(a) for a in lev.arrays[:3]) + tuple(lev.arrays[3:])
 
 
-def _line_state(lev, axis, mode=None, storage=None):
+def _line_state(lev, axis, storage=None):
     """The level's ``axis``-line state for s/params streams stored in
     ``storage``, built once per level, axis, storage and solve (the JAX
     package's key ``(ax, str(spdt))``, solver.py:682).
@@ -599,29 +589,26 @@ def _line_state(lev, axis, mode=None, storage=None):
     kept only while the solve's cached stacks stay within
     :func:`.ops.line_gs.cache_budget`; otherwise the state holds none and
     every smoothing call rebuilds it (the JAX package's ``()`` sentinel).
-    The numbers are the same either way.  ``mode='plain'`` builds the
-    stack with the plain elimination (no kernel), as the plain smoothers
-    run.
+    The numbers are the same either way.
     """
     state = lev.lstate.get((axis, storage))
     if state is None:
         with trace.span('levels.state'):
-            state = _new_line_state(lev, axis, mode, storage)
+            state = _new_line_state(lev, axis, storage)
         lev.lstate[(axis, storage)] = state
     return state
 
 
-def _new_line_state(lev, axis, mode, storage):
+def _new_line_state(lev, axis, storage):
     """A new state of :func:`_line_state`."""
     dtype = lev.arrays[0].dtype
-    plain = mode == 'plain'
     other = next((st for (ax, _), st in lev.lstate.items()
                   if ax == axis), None)
     if other is not None:
         # The stack does not depend on the streams' storage.
         return line_gs.line_state(
-            lev.arrays, lev.shape, axis, factors=False, plain=plain,
-            storage=storage, fstorage=other.fstorage, stack=other.factors)
+            lev.arrays, lev.shape, axis, factors=False, storage=storage,
+            fstorage=other.fstorage, stack=other.factors)
     fstorage = BF16 if lev.bf16 and line_gs.factor_bytes(
         lev.shape, axis, dtype) > FSTACK_BYTES else None
     nbytes = line_gs.factor_bytes(lev.shape, axis, dtype, fstorage)
@@ -631,14 +618,12 @@ def _new_line_state(lev, axis, mode, storage):
     keep = line_gs.keep_stack(lev.meter, nbytes, lev.arrays[0].device)
     if lev.lanes is None:
         return line_gs.line_state(lev.arrays, lev.shape, axis, factors=keep,
-                                  plain=plain, storage=storage,
-                                  fstorage=fstorage)
+                                  storage=storage, fstorage=fstorage)
     return line_gs.line_state(_group_arrays(lev), lev.shape, axis,
-                              factors=keep, plain=plain,
-                              lanes=lev.lanes.index)
+                              factors=keep, lanes=lev.lanes.index)
 
 
-def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
+def _smooth(e, s, lev, nu, lr_dir, storage=None):
     """Smoothing dispatch (reference parity: solver.py:461-523).
 
     Point smoothing where the level's lr_dir is 0, else line relaxation
@@ -658,35 +643,32 @@ def _smooth(e, s, lev, nu, lr_dir, mode=None, storage=None):
         storage = None
     lr = _current_lr_dir(lr_dir, _level_shape(lev))
     if lr == 0:
-        state = _level_state(lev, mode, storage)
+        state = _level_state(lev, storage)
         if lev.slab is not None:
             with trace.span('smooth.point'):
-                return halo.gauss_seidel_point_sharded(
-                    e, s, state, nu, lev.slab, plain=mode == 'plain')
-        gs = point_gs.gauss_seidel_point_plain if mode == 'plain' \
-            else point_gs.gauss_seidel_point
+                return halo.gauss_seidel_point_sharded(e, s, state, nu,
+                                                       lev.slab)
         if lev.lanes is None:
             with trace.span('smooth.point'):
-                return gs(e, s, state, nu)
+                return point_gs.gauss_seidel_point(e, s, state, nu)
         for b, g in enumerate(lev.lanes.group):
             with trace.span('smooth.point'):
-                gs(tuple(t[b] for t in e), tuple(t[b] for t in s), state[g],
-                   nu)
+                point_gs.gauss_seidel_point(tuple(t[b] for t in e),
+                                            tuple(t[b] for t in s),
+                                            state[g], nu)
         return e
     for ax in _lr_axes(lr):
         if lev.slab is not None:
             # Lines on this rank's slab (within it, across ranks, or the
             # level gathered: parallel.lines).
             with trace.span('smooth.line'):
-                e = lines.relax(e, s, lev, ax, nu, plain=mode == 'plain',
+                e = lines.relax(e, s, lev, ax, nu,
                                 local_state=lambda ax=ax: _line_state(
-                                    lev, ax, mode, storage))
+                                    lev, ax, storage))
             continue
-        state = _line_state(lev, ax, mode, storage)
-        relax = line_gs.line_relaxation_plain if mode == 'plain' \
-            else line_gs.line_relaxation
+        state = _line_state(lev, ax, storage)
         with trace.span('smooth.line'):
-            e = relax(e, s, state, nu)
+            e = line_gs.line_relaxation(e, s, state, nu)
     return e
 
 
@@ -750,8 +732,8 @@ def _gs_info(it, level, cycmax, shape, norm):
             f"{nz:3}]: {norm:.3e} ")
 
 
-def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
-            dbg=None, storage=None):
+def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, dbg=None,
+            storage=None):
     """Recursive multigrid body (reference parity: solver.py:478-604).
 
     Includes the ``new_cycmax = cycmax - it`` F-cycle construction; the
@@ -770,7 +752,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
     if lvl == len(levels) - 1:
         # Coarsest grid: nu_coarse smoothing steps act as direct solve.
-        e = _smooth(e, s, lev, nu_coarse, lr_dir, mode, storage)
+        e = _smooth(e, s, lev, nu_coarse, lr_dir, storage)
         report(0, 1, "coarsest level")
         return e
 
@@ -781,7 +763,7 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
     it = 0
     while it < cycmax_here:
-        e = _smooth(e, s, lev, nu_pre, lr_dir, mode, storage)
+        e = _smooth(e, s, lev, nu_pre, lr_dir, storage)
         if nu_pre > 0:
             report(it, cycmax_here, "pre-smoothing")
 
@@ -793,11 +775,11 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
 
         ec = _mg_rec(ec, rc, levels, lvl + 1,
                      2 if cycle in ['F', 'W'] else 1,
-                     cycmax_here - it, conf, mode, dbg, storage)
+                     cycmax_here - it, conf, dbg, storage)
 
         e = _prolongate(e, ec, lev, levels[lvl + 1])
 
-        e = _smooth(e, s, lev, nu_post, lr_dir, mode, storage)
+        e = _smooth(e, s, lev, nu_post, lr_dir, storage)
         if nu_post > 0:
             report(it, cycmax_here, "post-smoothing")
 
@@ -807,18 +789,17 @@ def _mg_rec(e, s, levels, lvl, cycmax, new_cycmax, conf, mode=None,
     return e
 
 
-def run_one_cycle(e, s, levels, conf, nu_init=0, mode=None, dbg=None,
-                  storage=None):
+def run_one_cycle(e, s, levels, conf, nu_init=0, dbg=None, storage=None):
     """One top-level MG cycle; returns the new field tensors.  ``storage``
     stores the smoothers' s/params streams (correction systems only)."""
     if nu_init > 0:
-        e = _smooth(e, s, levels[0], nu_init, conf[4], mode, storage)
+        e = _smooth(e, s, levels[0], nu_init, conf[4], storage)
         if dbg is not None:
             nrm = _level_norm(e, s, levels[0])
             dbg.cprint(_gs_info(0, 0, 1, _level_shape(levels[0]), nrm)
                        + "initial smoothing", 4)
     return _mg_rec(e, s, levels, 0, 2 if conf[3] in ['F', 'W'] else 1, 0,
-                   conf, mode, dbg, storage)
+                   conf, dbg, storage)
 
 
 def _norm_b(rx, ry, rz):
@@ -842,13 +823,17 @@ def _fetch(t):
 # Host loop
 # ======================================================================
 
-def _upload(fld, dtype, device):
-    """A host Field's components as tensors on ``device`` in ``dtype``."""
+def _upload(flds, dtype, device):
+    """Host Fields' components on ``device`` in ``dtype``, per component
+    a (B, ...) stack of the B fields (stacked on the host where B > 1)."""
     with trace.span('setup.upload'):
-        out = tuple(torch.tensor(np.asarray(f), dtype=dtype, device=device)
-                    for f in (fld.fx, fld.fy, fld.fz))
+        out = []
+        for name in ('fx', 'fy', 'fz'):
+            a = [np.asarray(getattr(f, name)) for f in flds]
+            out.append(torch.tensor(np.stack(a) if len(a) > 1 else a[0][None],
+                                    dtype=dtype, device=device))
         trace.count('copy.h2d_bytes', trace.nbytes(out))
-    return out
+    return tuple(out)
 
 
 def _records(sfields, grid):
@@ -894,16 +879,17 @@ def _place(records, shapes, dtype, device):
     return tuple(out)
 
 
-def _source_on_device(sfield, grid, dtype, device):
-    """A single solve's source on ``device``: placed from its record, or
-    its dense arrays uploaded."""
-    records = _records([sfield], grid)
-    if records is None:
-        trace.count('source.dense', 1)
-        return _upload(sfield, dtype, device)
-    trace.count('source.compact', 1)
-    return tuple(t[0] for t in _place(records, sfield.shape, dtype,
-                                      device))
+def _sources(sfields, grid, dtype, device):
+    """The sources ``sfields`` on ``device`` in ``dtype``, per component
+    a (B, ...) stack of the B lanes, placed from their records
+    (:func:`_place`) or their dense arrays uploaded (:func:`_upload`);
+    and the records, or None."""
+    records = _records(sfields, grid)
+    if records is not None:
+        trace.count('source.compact', len(sfields))
+        return _place(records, sfields[0].shape, dtype, device), records
+    trace.count('source.dense', len(sfields))
+    return _upload(sfields, dtype, device), None
 
 
 class _SolveContext:
@@ -930,13 +916,12 @@ class _SolveContext:
     edges (:func:`_place`), a sharded one reads its dense arrays.
     """
 
-    def __init__(self, grid, vmodel, sfield, efield, var, device, mode,
+    def __init__(self, grid, vmodel, sfield, efield, var, device,
                  sharding=None, dtype=None):
         self.grid = grid
         self.vmodel = vmodel
         self.var = var
         self.device = device
-        self.mode = mode
         self.sharding = sharding
         self.dtype = dtype if dtype is not None \
             else precision(sfield.dtype)[1]
@@ -961,7 +946,8 @@ class _SolveContext:
         if isinstance(fld, tuple):
             return fld
         if self.sharding is None:
-            return _upload(fld, self.dtype, self.device)
+            return tuple(t[0] for t in _upload([fld], self.dtype,
+                                               self.device))
         with trace.span('setup.upload'):
             # Each rank keeps its slab of the finest level.
             comps = tuple(torch.tensor(np.asarray(f), dtype=self.dtype)
@@ -974,12 +960,12 @@ class _SolveContext:
         return out
 
     @classmethod
-    def batched(cls, grid, vmodel, s, var, device, mode, lanes):
+    def batched(cls, grid, vmodel, s, var, device, lanes):
         """The context of a batched solve: ``s`` the (B, ...) source
         tensors, ``lanes`` their :class:`Lanes`; the field starts at 0."""
         ctx = cls.__new__(cls)
         ctx.grid, ctx.vmodel, ctx.var = grid, vmodel, var
-        ctx.device, ctx.mode, ctx.lanes = device, mode, lanes
+        ctx.device, ctx.lanes = device, lanes
         ctx.sharding = None
         ctx.dtype = s[0].dtype
         ctx.s = s
@@ -1003,19 +989,17 @@ class _SolveContext:
 
     def residual_ds(self, ehi, elo, s):
         """s − A·(ehi + elo) on the finest level in double-single
-        arithmetic (:func:`.ops.dsres.residual_ds`; its plain version
-        under ``_mode='plain'``), the float32 operator built once per
-        solve.  On a slab (its own ``ds_params``, K6 on the card) the
-        ghosts of ``ehi`` and ``elo`` are refreshed first (``s`` keeps
-        valid ghosts: its slab is cut, or scaled, from the whole source),
-        and those of the result after: it is the next cycle's source."""
+        arithmetic (:func:`.ops.dsres.residual_ds`), the float32 operator
+        built once per solve.  On a slab (its own ``ds_params``, K6 on the
+        card) the ghosts of ``ehi`` and ``elo`` are refreshed first (``s``
+        keeps valid ghosts: its slab is cut, or scaled, from the whole
+        source), and those of the result after: it is the next cycle's
+        source."""
         fine = self.levels(int(self.var.sc_dir))[0]
         if self._ds_params is None:
             self._ds_params = dsres.ds_params(fine.arrays)
-        fn = dsres.residual_ds_plain if self.mode == 'plain' \
-            else dsres.residual_ds
-        r = fn(_fresh(ehi, fine), _fresh(elo, fine), s, fine.arrays,
-               self._ds_params)
+        r = dsres.residual_ds(_fresh(ehi, fine), _fresh(elo, fine), s,
+                              fine.arrays, self._ds_params)
         return _fresh(r, fine)
 
     def _min_planes(self):
@@ -1147,14 +1131,13 @@ def multigrid(ctx, var, e=None, s=None, track=True):
             if r is None:
                 r = _fresh(_residual_e(e, s, levels[0].arrays), levels[0])
             zero = tuple(torch.zeros_like(c) for c in e)
-            delta = run_one_cycle(zero, r, levels, conf, mode=ctx.mode,
-                                  dbg=dbg, storage=spdt)
+            delta = run_one_cycle(zero, r, levels, conf, dbg=dbg,
+                                  storage=spdt)
             e = tuple(a + d for a, d in zip(e, delta))
             r = _fresh(_residual_e(e, s, levels[0].arrays), levels[0])
             l2 = _space(levels[0]).norm(r)
         else:
-            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
-                              mode=ctx.mode, dbg=dbg)
+            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init, dbg=dbg)
             l2 = _level_norm(e, s, levels[0])
 
         # Advance sc/lr schedules (per top-level cycle).
@@ -1216,8 +1199,8 @@ class _TwoFloat:
         """One correction cycle from hi ``e``: (new hi, residual norm);
         ``storage`` stores the smoothers' s/params streams."""
         zero = tuple(torch.zeros_like(c) for c in e)
-        delta = run_one_cycle(zero, self.r, levels, conf,
-                              mode=self.ctx.mode, dbg=dbg, storage=storage)
+        delta = run_one_cycle(zero, self.r, levels, conf, dbg=dbg,
+                              storage=storage)
         e, self.lo = dsres.ds_accumulate(e, self.lo, delta)
         self.r = self.ctx.residual_ds(e, self.lo, self.s)
         return e, self.norm(self.r)
@@ -1910,7 +1893,6 @@ def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
     start field.  A sharded solve takes them on the host, as it builds
     its levels there before cutting them into slabs; prebuilt η/ζ
     (``_vmodel``, the differentiable solve's) are taken as given."""
-    mode = _pop_mode(kwargs)
     sharding = kwargs.pop('sharding', None)
     if sharding is not None:
         sharding = _normalize_sharding(sharding)
@@ -1932,7 +1914,7 @@ def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
 
     # Compute reference error for tolerance.
     if sharding is None:
-        s = _source_on_device(sfield, grid, dtype, device)
+        s = tuple(t[0] for t in _sources([sfield], grid, dtype, device)[0])
         with trace.span('setup.norm'):
             var.l2_refe = halo.WHOLE.norm(s)
     else:
@@ -1968,8 +1950,8 @@ def _solve_setup(grid, model, sfield, efield, device, kwargs, **opts):
         with trace.span('setup.zero_field'):
             efield = fields.Field.zeros(grid, frequency=sfield._frequency,
                                         dtype=src_dtype)
-    ctx = _SolveContext(grid, vmodel, s, efield, var, device, mode,
-                        sharding, dtype)
+    ctx = _SolveContext(grid, vmodel, s, efield, var, device, sharding,
+                        dtype)
     # The first hierarchy, which the cycles would build first.
     fine = ctx.levels(int(var.sc_dir))[0]
     if not do_return:
@@ -2045,15 +2027,6 @@ def _normalize_sharding(sharding):
     return sharding
 
 
-def _pop_mode(kwargs):
-    """Private ``_mode``: pin the point-smoother kernel ('factored',
-    'fused') or run the plain torch version ('plain'); see _MODES."""
-    mode = kwargs.pop('_mode', None)
-    if mode not in _MODES:
-        raise ValueError(f"_mode must be one of {_MODES}; got {mode!r}")
-    return mode
-
-
 def _profiler(trace_dir, device):
     """``torch.profiler`` around a solve, writing its trace into
     ``trace_dir`` (the JAX package's ``profile=dir``); a null context
@@ -2070,13 +2043,20 @@ def _profiler(trace_dir, device):
             str(trace_dir)))
 
 
-def _info_dict(var):
+def _info_dict(var, l2=None, refe=None):
+    """The info dict of a solve; a batched solve's gives its lanes' final
+    residual norms ``l2`` and source norms ``refe`` (arrays)."""
+    if l2 is None:
+        l2, refe = var.l2, var.l2_refe
+        rel = l2 / refe if refe else 0.0
+    else:
+        rel = l2 / refe
     return {
         'exit': 0 if var.exit_message == 'CONVERGED' else 1,
         'exit_message': var.exit_message,
-        'abs_error': var.l2,
-        'rel_error': var.l2 / var.l2_refe if var.l2_refe else 0.0,
-        'ref_error': var.l2_refe,
+        'abs_error': l2,
+        'rel_error': rel,
+        'ref_error': refe,
         'tol': var.tol,
         'it_mg': var.it,
         'it_ssl': var._ssl_it,
@@ -2136,21 +2116,7 @@ def solve_batched(grid, model, sfields, cycle='F', semicoarsening=False,
             out = [fields.Field(*(np.ascontiguousarray(c[b]) for c in comps),
                                 frequency=sf._frequency)
                    for b, sf in enumerate(sfields)]
-    info = {
-        'exit': 0 if var.exit_message == 'CONVERGED' else 1,
-        'exit_message': var.exit_message,
-        'abs_error': l2_last,
-        'rel_error': l2_last / refe,
-        'ref_error': refe,
-        'tol': var.tol,
-        'it_mg': var.it,
-        'it_ssl': var._ssl_it,
-        'time': var.time.elapsed,
-        'runtime_at_cycle': var.runtime_at_cycle,
-        'error_at_cycle': var.error_at_cycle,
-        'log': var.log_message,
-    }
-    return out, info
+    return out, _info_dict(var, l2_last, refe)
 
 
 def _batched_setup(grid, model, sfields, device, kwargs, **opts):
@@ -2158,7 +2124,6 @@ def _batched_setup(grid, model, sfields, device, kwargs, **opts):
     ``(var, ctx, refe)``, the context holding the stacked sources on the
     device and the first level hierarchy, ``refe`` the lanes' source
     norms (1 where a source is zero)."""
-    mode = _pop_mode(kwargs)
     sslsolver = kwargs.pop('sslsolver', False)
     var = MGParameters(sslsolver=sslsolver,
                        shape_cells=tuple(grid.shape_cells), **opts, **kwargs)
@@ -2181,19 +2146,8 @@ def _batched_setup(grid, model, sfields, device, kwargs, **opts):
     # package's np.stack does); the x64 switch is read here, once.
     src_dtype = np.result_type(*(sf.dtype for sf in sfields))
     cdtype = precision(src_dtype)[1]
-    records = _records(sfields, grid)
-    if records is None:
-        trace.count('source.dense', len(sfields))
-        with trace.span('setup.upload'):
-            s = tuple(torch.tensor(np.stack([np.asarray(getattr(sf, name))
-                                             for sf in sfields]),
-                                   dtype=cdtype, device=device)
-                      for name in ('fx', 'fy', 'fz'))
-            trace.count('copy.h2d_bytes', trace.nbytes(s))
-    else:
-        trace.count('source.compact', len(sfields))
-        s = _place(records, sfields[0].shape, cdtype, device)
-    ctx = _SolveContext.batched(grid, vmodel, s, var, device, mode, lanes)
+    s, records = _sources(sfields, grid, cdtype, device)
+    ctx = _SolveContext.batched(grid, vmodel, s, var, device, lanes)
 
     with trace.span('setup.norm'):
         refe = np.array([float(sf.norm()) if records is None
@@ -2225,8 +2179,7 @@ def _multigrid_batched(ctx, var, refe):
         if ds.lo is not None:
             e, l2 = ds.cycle(e, levels, conf)
         else:
-            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init,
-                              mode=ctx.mode)
+            e = run_one_cycle(e, s, levels, conf, nu_init=nu_init)
             l2 = residual_norms(e, s, levels[0].arrays)
         if var.sc_cycle:
             var.sc_dir = next(var.sc_cycle)
@@ -2290,6 +2243,14 @@ def _krylov_batched(ctx, var, refe):
                                        on_iter)
     x, info = kernel(matvec, prec, ctx.s, ctx.e, var.tol * refe,
                      var.ssl_maxit, on_iter)
+    _batched_exit(var, info)
+    return x, residual_norms(x, ctx.s, fine.arrays)
+
+
+def _batched_exit(var, info):
+    """The batched Krylov solve's exit message from its solver's
+    ``info`` (0 converged, > 0 the iteration limit, < 0 a breakdown),
+    printed."""
     if info == 0:
         var.exit_message = 'CONVERGED'
     elif info > 0:
@@ -2297,7 +2258,6 @@ def _krylov_batched(ctx, var, refe):
     else:
         var.exit_message = f'Error in {var.sslsolver} ({info})'
     var.cprint("\n   > " + var.exit_message, 2)
-    return x, residual_norms(x, ctx.s, fine.arrays)
 
 
 def _krylov_batched_refined(ctx, var, refe, kernel, matvec, prec, on_iter):
@@ -2324,13 +2284,7 @@ def _krylov_batched_refined(ctx, var, refe, kernel, matvec, prec, on_iter):
         lambda h, lo: ctx.residual_ds(h, lo, s_n),
         lambda r: _fetch(_norm_b(*r)),
         prec, inner, xhi, xlo, atol, var.ssl_maxit)
-    if info == 0:
-        var.exit_message = 'CONVERGED'
-    elif info > 0:
-        var.exit_message = 'MAX. ITERATION REACHED, NOT CONVERGED'
-    else:
-        var.exit_message = f'Error in {var.sslsolver} ({info})'
-    var.cprint("\n   > " + var.exit_message, 2)
+    _batched_exit(var, info)
     us = _bcast(torch.tensor(refe, dtype=torch.float32,
                              device=ctx.s[0].device))
     ctx.e_lo = tuple(c * us for c in xlo)
@@ -2349,7 +2303,7 @@ def _precond_fixed_cycles(ctx, var, r, cycles=None):
         conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,
                 int(var.lr_dir))
         e = run_one_cycle(e, r, ctx.levels(int(var.sc_dir)), conf,
-                          mode=ctx.mode, storage=ctx.storage)
+                          storage=ctx.storage)
         var.it += 1
         if var.sc_cycle:
             var.sc_dir = next(var.sc_cycle)

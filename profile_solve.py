@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device profile of one warm solve of emg3d_tpu_torch on a CUDA card.
 
-    python3 profile_solve.py [--mode factored|fused|plain] [--sclr]
+    python3 profile_solve.py [--plain] [--sclr]
                              [--ssl bicgstab|cgs] [--plan PLAN]
                              [--kernel factored|fused]
                              [--compare-plans] [--batched] [--complex64]
@@ -10,13 +10,13 @@
 Solves the 64³ configuration of ``bench.py`` (64³ cells of 100 m,
 1 Ω·m, 1 Hz x-source at the centre, F-cycles to tol 1e-6) twice to
 warm up, once more on the host clock alone, and once under
-``torch.profiler`` with CPU and CUDA activities.  ``--mode`` pins the
-point-smoother kernel, or runs the plain torch smoothers; by default
-the solver picks.  ``--sclr`` solves with semicoarsening and line
-relaxation (the production configuration), ``--ssl`` wraps the
-multigrid in BiCGSTAB or CGS.  ``--plan`` forces one launch plan of
-the point kernels on every level (``point_gs.FORCE_PLAN``), ``--kernel``
-one point kernel on every level that admits it
+``torch.profiler`` with CPU and CUDA activities.  ``--plain`` runs every
+op's plain torch version (``ops._build.PLAIN``).  ``--sclr`` solves
+with semicoarsening and line relaxation (the production configuration),
+``--ssl`` wraps the multigrid in BiCGSTAB or CGS.  ``--plan`` forces
+one launch plan of the point kernels on every level
+(``point_gs.FORCE_PLAN``), ``--kernel`` one point kernel on every level
+that admits it
 (``point_gs.FORCE_KERNEL``); ``--compare-plans`` then also times warm
 solves with ``point_kernel``'s choice and with K1 forced, in turns,
 three each (host walls move between processes; compare within one).
@@ -62,7 +62,7 @@ ROOT = Path(__file__).resolve().parent
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--mode', choices=('factored', 'fused', 'plain'))
+    ap.add_argument('--plain', action='store_true')
     ap.add_argument('--sclr', action='store_true')
     ap.add_argument('--ssl', choices=('bicgstab', 'cgs'), default=False)
     ap.add_argument('--plan', choices=('step', 'cluster', 'grid', 'shared'))
@@ -83,15 +83,15 @@ def main(argv=None):
                             kernel_key, line_state_clock, nvidia_smi,
                             simulation_problem, trace_times)
     from emg3d_tpu_torch import get_source_field, solve, solve_batched, solver
-    from emg3d_tpu_torch.ops import dsres, line_gs, point_gs
+    from emg3d_tpu_torch.ops import _build, dsres, line_gs, point_gs
 
     args.complex64 = args.complex64 or args.bf16
     solver.BF16_STORAGE = None if args.bf16 else False
     point_gs.FORCE_PLAN = args.plan
     point_gs.FORCE_KERNEL = args.kernel
-    kw = dict(cycle='F', tol=1e-6, verb=0, device='cuda', _mode=args.mode,
-              sslsolver=args.ssl, semicoarsening=args.sclr,
-              linerelaxation=args.sclr)
+    _build.PLAIN = args.plain
+    kw = dict(cycle='F', tol=1e-6, verb=0, device='cuda', sslsolver=args.ssl,
+              semicoarsening=args.sclr, linerelaxation=args.sclr)
     if args.batched:
         grid, model, survey = simulation_problem()
         sfields = [get_source_field(grid, src.coordinates, f)

@@ -121,8 +121,6 @@ def test_batched_validation():
         pt.solve_batched(gp, mp, sp, sslsolver='gcrotmk', device='cpu')
     with pytest.raises(ValueError, match='at least one'):
         pt.solve_batched(gp, mp, [], device='cpu')
-    with pytest.raises(ValueError, match='_mode'):
-        pt.solve_batched(gp, mp, sp, device='cpu', _mode='fast')
 
 
 # ----------------------------------------------------------------------

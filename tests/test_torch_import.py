@@ -134,8 +134,6 @@ def test_unported_options_raise(tmp_path):
                          [jt.get_source_field(jgrid, (0, 0, 0, 0, 0), 1.0)],
                          verb=0, sharding=jt.parallel.shard_solve_options(
                              jt.parallel.make_mesh(1)))
-    with pytest.raises(ValueError):
-        pt.solve(grid, model, sfield, verb=0, device='cpu', _mode='fast')
     _, info = pt.solve(grid, model, sfield, verb=0, device='cpu',
                        sslsolver='gcrotmk', return_info=True)
     assert info['exit_message'] == 'CONVERGED' and info['it_ssl'] > 0

@@ -271,7 +271,8 @@ def test_cpu_plain_path_never_builds(monkeypatch):
     arrays = convert.params_to_torch(par)
     st = line_gs.line_state(arrays, shape, 1)
     assert torch.equal(st.factors, psm.line_factor_stack(ar, rs))
-    plain = line_gs.line_state(arrays, shape, 1, plain=True)
+    monkeypatch.setattr(_build, 'PLAIN', True)
+    plain = line_gs.line_state(arrays, shape, 1)
     assert torch.equal(plain.factors, st.factors)
     assert line_gs.line_state(arrays, shape, 1, factors=False).factors is None
     assert all(v == 0 for v in line_gs.LAUNCHES.values())
@@ -306,28 +307,33 @@ def test_launch_counters():
     assert len(_build.ARGTYPES['emg3d_line_factor']) == 17
 
 
-@pytest.mark.parametrize('mode', [None, 'plain'])
-def test_solver_line_state_mode(monkeypatch, mode):
-    """``_mode='plain'`` builds the solver's stacks with the plain
-    elimination; every other mode with the kernel on the card."""
+@pytest.mark.parametrize('plain', [False, True])
+def test_solver_line_state_mode(monkeypatch, plain):
+    """Under the override (``_build.PLAIN``) the solver's stacks are built
+    with the plain elimination; without it, with K5 where the tensors
+    run kernels (here every tensor, as on the card)."""
+    _, par = tp.level(jt, (4, 4, 4), seed=9)
+    arrays = convert.params_to_torch(par)
+    want = line_gs.line_state(arrays, (4, 4, 4), 2).factors
     seen = []
-    real = line_gs.line_state
 
-    def spy(*a, **k):
-        seen.append(k.get('plain'))
-        return real(*a, **k)
-    monkeypatch.setattr(line_gs, 'line_state', spy)
+    def k5(st, w, ih, rs, storage=None, out=None, stations=None):
+        seen.append(tuple(rs))
+        return want.clone()
+    monkeypatch.setattr(line_gs, 'factor', k5)
+    monkeypatch.setattr(_build, 'kernels', lambda x: not _build.PLAIN)
+    monkeypatch.setattr(_build, 'PLAIN', plain)
 
     class Lev:
         pass
     lev = Lev()
-    _, par = tp.level(jt, (4, 4, 4), seed=9)
-    lev.arrays = convert.params_to_torch(par)
+    lev.arrays = arrays
     lev.shape = (4, 4, 4)
     lev.lstate = {}
     lev.meter = {'bytes': 0}
     lev.lanes = None
     lev.bf16 = False
-    st = solver._line_state(lev, 2, mode)
-    assert st.factors is not None and seen == [mode == 'plain']
-    assert solver._line_state(lev, 2, mode) is st        # built once
+    st = solver._line_state(lev, 2)
+    assert torch.equal(st.factors, want)
+    assert seen == ([] if plain else [(4, 4, 4)])
+    assert solver._line_state(lev, 2) is st              # built once

@@ -293,7 +293,7 @@ def test_line_state_budget_and_sharing(monkeypatch):
                               shape_cells=grid.shape_cells)
     vm = pt.VolumeModel(grid, model, sfield)
     ctx = solver._SolveContext(grid, vm, sfield, pt.Field.zeros(grid),
-                               var, torch.device('cpu'), None)
+                               var, torch.device('cpu'))
     one = line_gs.factor_bytes(grid.shape_cells, 0)
     monkeypatch.setattr(line_gs, 'cache_budget', lambda dev: one)
     fine1, fine2 = ctx.levels(1)[0], ctx.levels(2)[0]

@@ -176,7 +176,7 @@ def _k6_on_slab(pt, solver, opts):
     var = solver.MGParameters(verb=0, cycle='F', sslsolver=False,
                               linerelaxation=False, semicoarsening=False,
                               shape_cells=tuple(grid.shape_cells))
-    ctx = solver._SolveContext(grid, vm, sfield, sfield, var, 'cpu', None,
+    ctx = solver._SolveContext(grid, vm, sfield, sfield, var, 'cpu',
                                solver._normalize_sharding(opts))
     fine = ctx.levels(0)[0]
     slab = fine.slab
@@ -260,7 +260,7 @@ def _two_float_cycle(pt, solver, halo, opts):
                               linerelaxation=False, semicoarsening=False,
                               shape_cells=tuple(grid.shape_cells))
     ctx = solver._SolveContext(grid, pt.VolumeModel(grid, model, sfield),
-                               sfield, sfield, var, 'cpu', None,
+                               sfield, sfield, var, 'cpu',
                                solver._normalize_sharding(opts))
     levels = ctx.levels(0)
     conf = (var.nu_pre, var.nu_coarse, var.nu_post, var.cycle,

@@ -392,15 +392,17 @@ def test_node_data_only_where_it_fits(monkeypatch):
     assert not point_gs.packs_nodes(shape, 'cpu')
 
 
-@pytest.mark.parametrize('mode,force', [(None, 'fused'), (None, None),
-                                        ('factored', 'fused'),
-                                        ('plain', 'fused')])
-def test_level_state_builds_one_kernel(monkeypatch, mode, force):
+@pytest.mark.parametrize('force,plain', [('fused', False), (None, False),
+                                         ('factored', False),
+                                         ('fused', True)])
+def test_level_state_builds_one_kernel(monkeypatch, force, plain):
     """The solver builds K1's factors only for a level that runs K1, and
     K2's node data only for one that runs K2 (a level beyond the shared
-    plan, with the CPU standing in for an H100's memory)."""
+    plan, with the CPU standing in for an H100's memory); under the
+    override (``_build.PLAIN``) K1's, whatever FORCE_KERNEL says."""
     monkeypatch.setattr(point_gs, 'card_memory', lambda d: CARD)
     monkeypatch.setattr(point_gs, 'FORCE_KERNEL', force)
+    monkeypatch.setattr(_build, 'PLAIN', plain)
 
     class Lev:
         pass
@@ -411,8 +413,8 @@ def test_level_state_builds_one_kernel(monkeypatch, mode, force):
     lev.shape = shape
     lev.pstate = None
     lev.lanes = None
-    st = solver._level_state(lev, mode)
-    fused = mode is None and force == 'fused'
+    st = solver._level_state(lev)
+    fused = force == 'fused' and not plain
     assert (st.factors is None) == fused
     assert (st.nodes is not None) == fused
-    assert solver._level_state(lev, mode) is st           # built once
+    assert solver._level_state(lev) is st                 # built once
